@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. device: require CUDA, print the card's name and power limit, turn TF32 off;
+2. build the port's CUDA kernels from ``kvcache_factory_tpu_torch/csrc``;
+3. K1 (flash prefill + window scores) against its plain version, timed
+   beside its plain version, SDPA and its bound;
+4. K2 (decode attention + in-place append) the same, then both kernels on
+   small edge shapes against their plain versions;
+5. the main path end to end at Mistral-7B-Instruct-v0.2 widths with random
+   weights: ``InferenceEngine.generate_batch`` on two requests, kernel
+   launch counts, cache lengths, and logits held against the fp32
+   reference forward; then timings and a profile of prefill and decode;
+6. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+   and last ``{"ok": true, "device": {...}}``.
+
+Imports only torch, numpy and the port.  The full profiler tables go to
+``build/chip_smoke.log`` (git-ignored) beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
+
+from kvcache_factory_tpu_torch import CompressionConfig, EngineConfig, ModelConfig
+from kvcache_factory_tpu_torch.models.reference import forward_logits
+from kvcache_factory_tpu_torch.models.weights import init_params
+from kvcache_factory_tpu_torch.ops.kernels import _build, decode_attn, flash_prefill
+from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
+
+LOG_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke.log"
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+
+# The fields the forward reads from the published config.json of
+# mistralai/Mistral-7B-Instruct-v0.2 (bf16 weights).
+MISTRAL_7B_HF_CONFIG = {
+    "model_type": "mistral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-05, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+MISTRAL_7B = ModelConfig.from_hf_config(MISTRAL_7B_HF_CONFIG)
+# The JAX bench's compression (bench.py:68-73), one entry set per query head.
+SNAPKV = CompressionConfig(method="snapkv", max_capacity_prompt=2048,
+                           window_size=8, kernel_size=7, pooling="maxpool",
+                           group_reduce="none")
+
+# Tolerances, each with its reason.
+# K1/K2 against their plain versions, measured as the worst relative L2
+# distance ||kernel - plain|| / ||plain|| over each valid output row (K1) or
+# each head's [G, D] output (K2).  Both sides compute fp32 logits from the
+# same bf16 inputs, keep an fp32 softmax and round the output to bf16 (up to
+# 2^-9 relative per element); K1 and its plain version also round the
+# unnormalized probabilities to bf16 before the PV product.  Those roundings
+# set the floor, and each limit sits above it and far below what a kernel
+# that reads one key or one key tile too many or too few would show: the
+# script measures that too and fails if such an error would pass.
+# K1: the worst row on the card is 4.5e-3 (PERF.md); a skipped key tile
+# shows 0.56.
+K1_OUT_TOL = 1.5e-2
+# K2: the fp32 results differ by ~1e-7, so the outputs differ only where one
+# side rounds to the next bf16 value; one such flip on an element three
+# times the head's rms moves that head by ~3 * 2^-7.5 / sqrt(128) = 1.5e-3.
+# The worst head on the card is 2.8e-5; a key range off by one shows 9.4e-2.
+K2_OUT_TOL = 3e-3
+# Window scores are fp32 end to end from bf16-exact products; only the
+# summation order differs (~1e-6 relative), on values in [0, window].
+K1_SCORE_TOL = 1e-4
+# The bf16 model against the fp32 reference: every activation is rounded to
+# bf16 (2^-9 relative) at ~10 points per layer over 32 layers; independent
+# roundings on the residual stream accumulate to ~2^-9 * sqrt(320) = 3.5%
+# relative, so a logits row may differ by up to 10% in relative L2 norm.
+E2E_REL_L2_TOL = 0.10
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def event_ms(fn, iters=10, warmup=2):
+    """Mean time per call with CUDA events around back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(calls, reps=10):
+    """Device time per call: ``calls`` captured into one CUDA graph and
+    replayed, so host launch overhead is not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
+    sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
+def rel_l2(got, ref):
+    """Worst relative L2 distance over rows (the last axis), and the max
+    abs difference."""
+    got, ref = got.float(), ref.float()
+    rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    return rel, (got - ref).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: K1
+# ---------------------------------------------------------------------------
+
+
+def bf16_normal(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", torch.bfloat16)
+
+
+def k1_case(rng, B, Hq, Hkv, S, W, tls):
+    """K1 against its plain version on random inputs: ``out`` over each
+    example's valid rows, ``scores`` over its scored columns."""
+    D = 128
+    q, k, v = (bf16_normal(rng, (B, h, S, D)) for h in (Hq, Hkv, Hkv))
+    tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
+    out, sc = flash_prefill.flash_prefill_attention(q, k, v, tl, W)
+    sync()
+    out_ref, sc_ref = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W)
+    sync()
+    err_out = abs_out = err_sc = 0.0
+    for b, t in enumerate(tls):
+        e, a = rel_l2(out[b, :, :t], out_ref[b, :, :t])
+        err_out, abs_out = max(err_out, e), max(abs_out, a)
+        if t - W > 0:
+            err_sc = max(err_sc, (sc[b, :, :t - W] - sc_ref[b, :, :t - W]).abs().max().item())
+    finite = all(torch.isfinite(x.float()).all() for x in (out, sc))
+    log(f"K1 B={B} Hq={Hq} Hkv={Hkv} S={S} w={W} true_len={tls}: out worst row rel L2 "
+        f"{err_out:.3e} (max abs {abs_out:.3e}) tol {K1_OUT_TOL}; scores max abs err "
+        f"{err_sc:.3e} tol {K1_SCORE_TOL}; finite {finite}")
+    if err_out > K1_OUT_TOL or err_sc > K1_SCORE_TOL or not finite:
+        raise SystemExit("K1 disagrees with its plain version")
+    return q, k, v, tl, sc, out_ref, err_out, abs_out, err_sc
+
+
+def k1_skipped_tile_error(q, k, v, tls, out_ref, r0=2048):
+    """What K1's check sees from a kernel that skips the key tile [64, 128)
+    for the rows past ``r0``: the worst row rel L2 between such an output
+    (plain fp32 math, example 0, head 0) and the plain version's."""
+    t, D = tls[0], q.shape[-1]
+    s = q[0, 0, r0:t].float() @ k[0, 0].float().T * D ** -0.5
+    rows = torch.arange(r0, t, device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None]
+    keep = (cols <= rows) & (cols < t) & ((cols < 64) | (cols >= 128))
+    skipped = torch.softmax(torch.where(keep, s, float("-inf")), dim=-1) @ v[0, 0].float()
+    return rel_l2(skipped, out_ref[0, 0, r0:t])[0]
+
+
+def phase_k1(rng):
+    B, Hq, Hkv, S, D, W = 2, 32, 8, 4096, 128, 8
+    tls = [4096, 3000]
+    q, k, v, tl, sc, out_ref, err_out, abs_out, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls)
+    skip_err = k1_skipped_tile_error(q, k, v, tls, out_ref)
+    log(f"K1 a kernel that skipped key tile [64, 128) for rows >= 2048 would show row rel "
+        f"L2 up to {skip_err:.3e} ({skip_err / K1_OUT_TOL:.1f} x tol)")
+    if skip_err <= K1_OUT_TOL:
+        raise SystemExit("K1's tolerance would let a skipped key tile pass")
+    del out_ref
+
+    ms = event_ms(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W))
+    plain_ms = event_ms(lambda: flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W),
+                        iters=3, warmup=1)
+    lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    # Work this call's data needs: valid row r attends r+1 columns, a QK and
+    # a PV product of D multiply-adds each (2 FLOP per multiply-add).  The
+    # window scores reuse those probabilities, so they add no product.
+    pairs = sum(t * (t + 1) // 2 for t in tls) * Hq
+    flops = 4 * D * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * sc.numel()
+    bound_ms, bound_by = max((flops / PEAK_BF16_FLOPS * 1e3, "operations"),
+                             (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"K1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"name": "flash_prefill", "route": "cuda",
+            "source": flash_prefill.SOURCE, "replaces": flash_prefill.REPLACES,
+            "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
+            "max_abs_err": abs_out, "rel_l2": err_out, "tol": K1_OUT_TOL,
+            "skipped_tile_rel_l2": skip_err,
+            "scores_max_abs_err": err_sc, "scores_tol": K1_SCORE_TOL,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: K2
+# ---------------------------------------------------------------------------
+
+
+def k2_case(rng, H, G, C, lengths, lower):
+    """K2 against its plain version: ``out``, and the whole cache after the
+    in-place append, which must be identical."""
+    D = 128
+    q, kc, vc, kn, vn = (bf16_normal(rng, s) for s in ((H, G, D), (H, C, D), (H, C, D),
+                                                       (H, D), (H, D)))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    lo = torch.tensor(lower, dtype=torch.int32, device="cuda")
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out = decode_attn.decode_attention_append(q, k1, v1, lens, kn, vn, lo)
+    ref = decode_attn.decode_attention_append_reference(q, k2, v2, lens, kn, vn, lo)
+    sync()
+    err, abs_err = rel_l2(out.reshape(H, -1), ref.reshape(H, -1))
+    slot_ok = torch.equal(k1, k2) and torch.equal(v1, v2)
+    log(f"K2 H={H} G={G} C={C}: out worst head rel L2 {err:.3e} (max abs {abs_err:.3e}) "
+        f"tol {K2_OUT_TOL}; cache after append identical: {slot_ok}")
+    if err > K2_OUT_TOL or not slot_ok or not torch.isfinite(out.float()).all():
+        raise SystemExit("K2 disagrees with its plain version")
+    return q, kc, vc, kn, vn, lens, lo, ref, err, abs_err
+
+
+def k2_one_key_off_error(q, kc, vc, kn, vn, lens, ref):
+    """What K2's check sees from a kernel whose key range is off by one:
+    one that drops slot L-1 (the plain version at lengths - 1) and one that
+    also reads the stale slot L (at lengths + 1).  The smaller of the two
+    worst head rel L2 distances from the plain version's output."""
+    H = q.shape[0]
+    worst = []
+    for shift in (-1, 1):
+        off = decode_attn.decode_attention_append_reference(
+            q, kc.clone(), vc.clone(), lens + shift, kn, vn)
+        worst.append(rel_l2(off.reshape(H, -1), ref.reshape(H, -1))[0])
+    return min(worst)
+
+
+def time_k2(q, kc, vc, kn, vn, lens):
+    """Kernel, plain and SDPA times for one decode layer, and its bound.
+    Four copies of the layer (each above 30 MB; together above the 50 MB
+    L2) rotate so that each call reads its cache from HBM, as the decode
+    step does.  Device times come from CUDA-graph replay, so host launch
+    overhead is not in them; ``wrapper_ms`` is the eager call with it."""
+    H, C, D = kc.shape
+    copies = [(kc.clone(), vc.clone()) for _ in range(4)]
+
+    def kern(i):
+        return lambda: decode_attn.decode_attention_append(q, copies[i][0], copies[i][1],
+                                                           lens, kn, vn)
+
+    def plain(i):
+        return lambda: decode_attn.decode_attention_append_reference(
+            q, copies[i][0], copies[i][1], lens, kn, vn)
+
+    mask = (torch.arange(C, device="cuda")[None] <= lens[:, None].long())[None, :, None]
+
+    def lib(i):
+        return lambda: F.scaled_dot_product_attention(
+            q[None], copies[i][0][None], copies[i][1][None], attn_mask=mask)
+
+    ms = graph_ms([kern(i) for i in range(4)] * 5)
+    wrapper_ms = event_ms(kern(0), iters=50, warmup=5)
+    plain_ms = graph_ms([plain(i) for i in range(4)] * 2)
+    lib_ms = graph_ms([lib(i) for i in range(4)] * 5)
+    # Bytes this call must move: the valid K/V rows read once; q, k_new,
+    # v_new read and out plus the appended K/V row written; lengths read.
+    n_keys = int(lens.sum().item())
+    nbytes = 2 * D * 2 * n_keys + 2 * D * H * (q.shape[1] * 2 + 2 + 2) + 4 * H
+    flops = 4 * D * q.shape[1] * (n_keys + H)
+    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (flops / PEAK_BF16_FLOPS * 1e3, "operations"))
+    log(f"K2 H={H} timed: kernel {ms * 1e3:.2f} us (device, graph replay), wrapper "
+        f"{wrapper_ms * 1e3:.2f} us (events, host launch included), plain "
+        f"{plain_ms * 1e3:.2f} us, SDPA {lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}); {nbytes / ms / 1e6:.1f} GB/s")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_k2(rng):
+    C, D = 2113, 128  # the engine's capacity: 2048 + 64 new tokens + 1
+    # One request's 32 cache heads: ragged, one lower-bounded, empty, full.
+    H = 32
+    lengths = rng.integers(1, C, size=H)
+    lengths[0], lengths[1], lengths[2] = 0, C, C - 1  # empty, full (clamp), last slot
+    lower = np.zeros(H, np.int64)
+    lower[3] = lengths[3] // 2                          # one lower-bounded head
+    q, kc, vc, kn, vn, lens, _, _, err, abs_err = k2_case(rng, H, 1, C, lengths, lower)
+    err4 = k2_case(rng, 8, 4, C, lengths[:8], lower[:8])[8]
+    # The bound at one request, every head holding the compressed prompt
+    # plus 32 decoded tokens.
+    b1 = time_k2(q, kc, vc, kn, vn, torch.full((H,), 2048 + 32, dtype=torch.int32,
+                                               device="cuda"))
+
+    # The main path's shape: B=2 requests x 32 cache heads, half-way through
+    # decode (2048 + 31 and 1500 + 31 valid entries).
+    Hm = 64
+    mid = [2048 + 31] * 32 + [1500 + 31] * 32
+    q, kc, vc, kn, vn, lens, _, ref, err_m, abs_m = k2_case(rng, Hm, 1, C, mid,
+                                                             np.zeros(Hm, np.int64))
+    off_err = k2_one_key_off_error(q, kc, vc, kn, vn, lens, ref)
+    log(f"K2 a kernel whose key range is off by one would show head rel L2 up to "
+        f"{off_err:.3e} ({off_err / K2_OUT_TOL:.1f} x tol)")
+    if off_err <= K2_OUT_TOL:
+        raise SystemExit("K2's tolerance would let an off-by-one key range pass")
+    main = time_k2(q, kc, vc, kn, vn, lens)
+    return {"name": "decode_attn_append", "route": "cuda",
+            "source": decode_attn.SOURCE, "replaces": decode_attn.REPLACES,
+            "shape": f"H={Hm} (B=2 x 32) G=1 C={C} D={D}, lengths 2079 and 1531",
+            "max_abs_err": max(abs_err, abs_m), "rel_l2": max(err, err_m),
+            "tol": K2_OUT_TOL, "g4_rel_l2": err4, "off_by_one_rel_l2": off_err, **main,
+            "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1}}
+
+
+def phase_edges(rng):
+    """Small shapes that the main path does not reach but the wrappers
+    accept, each against the plain version.  K1: a length that is no
+    multiple of the 64-row tile, a window longer than a prompt, no window,
+    the largest window, one query head per KV head.  K2: a one-slot cache,
+    a lower bound past the length, a capacity that is no multiple of 16,
+    and the group sizes 2 and 8."""
+    for B, Hq, Hkv, S, W, tls in ((2, 4, 4, 200, 8, [200, 5]),
+                                  (1, 8, 2, 130, 0, [97]),
+                                  (1, 4, 1, 192, 64, [150])):
+        k1_case(rng, B, Hq, Hkv, S, W, tls)
+    for H, G, C, lengths, lower in ((2, 1, 1, [0, 1], [0, 0]),
+                                    (3, 2, 17, [17, 3, 9], [0, 5, 12]),
+                                    (2, 8, 300, [299, 150], [10, 0])):
+        k2_case(rng, H, G, C, lengths, lower)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: end to end
+# ---------------------------------------------------------------------------
+
+
+def phase_e2e(rng, log_file):
+    cfg, comp, dev = MISTRAL_7B, SNAPKV, "cuda"
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    sync()
+    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"], params["lm_head"]]
+                   + list(params["layers"].values()))
+    log(f"init_params: {n_params / 1e9:.3f} B parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp), device=dev)
+    max_new = 64
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
+
+    flash_prefill.flash_prefill_attention.launches = 0
+    decode_attn.decode_attention_append.launches = 0
+    ids, res = engine.generate_batch(prompts, max_new, return_result=True)
+    sync()
+    k1_launches = flash_prefill.flash_prefill_attention.launches
+    k2_launches = decode_attn.decode_attention_append.launches
+    steps = max_new - 1  # the last token is emitted, never fed back
+    log(f"launches on the main path: K1 {k1_launches} (expect {L}), "
+        f"K2 {k2_launches} (expect {L} x {steps} = {L * steps})")
+    if k1_launches != L or k2_launches != L * steps:
+        raise SystemExit("the main path did not run each kernel the expected number of times")
+    lens = res.cache.lengths
+    want = [comp.max_capacity_prompt + steps, len(prompts[1]) + steps]
+    got = [sorted(set(lens[:, b].flatten().tolist())) for b in range(2)]
+    log(f"cache lengths per request: {got} (expect {want})")
+    if got != [[w] for w in want] or [len(x) for x in ids] != [max_new, max_new]:
+        raise SystemExit("cache lengths or token counts are wrong")
+    if not torch.isfinite(res.logits).all():
+        raise SystemExit("non-finite logits")
+
+    # Hold the bf16 path to the fp32 reference forward.
+    with torch.no_grad():
+        ref_a = forward_logits(params, cfg, torch.tensor([prompts[0]], device=dev))[0, -1]
+        seq_b = prompts[1] + ids[1][:steps]
+        ref_b = forward_logits(params, cfg, torch.tensor([seq_b], device=dev))[0, len(prompts[1]) - 1:]
+    rel_a, abs_a = rel_l2(res.logits[0, :1], ref_a[None])
+    rel_b0, abs_b0 = rel_l2(res.logits[1, :1], ref_b[:1])
+    rel_bd, abs_bd = rel_l2(res.logits[1, 1:], ref_b[1:])
+    top1 = (res.logits[1].argmax(-1) == ref_b.argmax(-1)).float().mean().item()
+    log(f"prefill logits vs fp32 reference: (a) rel L2 {rel_a:.4f} max abs {abs_a:.4f}; "
+        f"(b) rel L2 {rel_b0:.4f} max abs {abs_b0:.4f}; tol rel L2 {E2E_REL_L2_TOL}")
+    log(f"(b) decode logits vs fp32 reference, {steps} teacher-forced steps: worst rel L2 "
+        f"{rel_bd:.4f}, max abs {abs_bd:.4f}; greedy top-1 agreement {top1:.3f}")
+    if max(rel_a, rel_b0, rel_bd) > E2E_REL_L2_TOL:
+        raise SystemExit("logits disagree with the fp32 reference")
+    del ref_a, ref_b
+
+    # Timings: prefill alone (max_new_tokens=1), then the full request.
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, 1)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, max_new)
+    sync()
+    total_s = time.perf_counter() - t0
+    step_ms = (total_s - prefill_s) / steps * 1e3
+    weight_bytes = 2 * (n_params - params["embed"].numel())
+    cache_bytes = 2 * 2 * cfg.head_dim * int(lens.sum().item())
+    bound_step_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"prefill {prefill_s:.3f} s for B=2 (4096 + 1500 tokens, bucket 4096); decode "
+        f"{step_ms:.3f} ms/step, {2e3 / step_ms:.1f} tok/s at B=2; bandwidth bound "
+        f"{bound_step_ms:.3f} ms/step ({weight_bytes / 1e9:.2f} GB weights + "
+        f"{cache_bytes / 1e9:.2f} GB cache)")
+
+    # Where the time goes: one profiled prefill, then 8 profiled decode
+    # steps on the finished cache (they overwrite its last slots, which
+    # nothing reads again).
+    from kvcache_factory_tpu_torch.models import llama
+    pre_busy = profile_device(lambda: engine.generate_batch(prompts, 1), 1,
+                              prefill_s * 1e3, "prefill", log_file)
+    cur = torch.tensor([x[-1] for x in ids], device=dev)
+    with torch.no_grad():
+        for _ in range(2):
+            llama.decode_step(params, cfg, cur, res.cache)
+        busy_ms = profile_device(lambda: llama.decode_step(params, cfg, cur, res.cache), 8,
+                                 step_ms, "decode step", log_file)
+    return {"model": "Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
+            "compression": "snapkv 2048/8/7 maxpool, group_reduce none",
+            "requests": "B=2: 4096 and 1500 prompt tokens, 64 new tokens, bucket 4096",
+            "k1_launches": k1_launches, "k2_launches": k2_launches,
+            "prefill_s": prefill_s, "prefill_device_busy_ms": pre_busy,
+            "decode_ms_per_step": step_ms,
+            "tok_s": 2e3 / step_ms, "bound_ms_per_step": bound_step_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms,
+            "prefill_rel_l2": [rel_a, rel_b0], "decode_rel_l2": rel_bd,
+            "rel_l2_tol": E2E_REL_L2_TOL, "decode_top1_agreement": top1}
+
+
+def profile_device(fn, reps, wall_ms, what, log_file):
+    """Device time per call of ``fn`` from ``torch.profiler`` (device-side
+    kernel and copy events only), printed with the top kernels beside the
+    unprofiled wall time ``wall_ms``; None when the profiler sees no device
+    time."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    rows = sorted(((evt.self_device_time_total / reps / 1e3, evt.count / reps, evt.key)
+                   for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        log(f"profile ({what}): the profiler reported no device time (not measured)")
+        return None
+    log(f"profile ({what}): device busy {busy_ms:.3f} ms against {wall_ms:.3f} ms "
+        f"unprofiled: idle share {1 - busy_ms / wall_ms:.3f}")
+    for ms, n, key in rows[:8]:
+        log(f"  {ms:8.4f} ms  {ms / busy_ms:6.1%}  {n:6.1f} launches  {key[:80]}")
+    log_file.write(f"== {what}: {reps} call(s) profiled\n")
+    log_file.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    return busy_ms
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; name and power limit from nvidia-smi:")
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off for matmul and cuDNN: fp32 products run in full fp32")
+
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    rng = np.random.default_rng(0)
+    k1 = phase_k1(rng)
+    k2 = phase_k2(rng)
+    phase_edges(rng)
+    LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
+    with open(LOG_PATH, "w") as log_file:
+        e2e = phase_e2e(rng, log_file)
+    k1["launches"] = e2e["k1_launches"]
+    k2["launches"] = e2e["k2_launches"]
+    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"e2e": e2e, "card": smi}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

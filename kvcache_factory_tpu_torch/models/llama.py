@@ -1,0 +1,309 @@
+"""Llama / Mistral decoder in PyTorch (port of ``kvcache_factory_tpu/models/llama.py``).
+
+One forward whose compression policy is a config argument.  Prefill runs
+the K1 flash kernel (``ops/kernels/flash_prefill.py``), which also emits
+the SnapKV observation-window scores; decode runs the K2 kernel
+(``ops/kernels/decode_attn.py``), which attends over one layer of the cache
+and appends the new token in place.  Everything else is plain torch, with
+the fp32 islands where the JAX package has them: norm, RoPE and softmax.
+
+The port carries the dense ``KVCache`` path.  Quantized, ThinK, evicting,
+offloaded, MoE and sliding-window configurations raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..cache.kv_cache import KVCache, init_cache
+from ..config import CompressionConfig, ModelConfig, QuantConfig, dtype_of
+from ..ops.attention import NEG_INF
+from ..ops.kernels.decode_attn import decode_attention_append
+from ..ops.kernels.flash_prefill import flash_prefill_attention
+from ..policies.methods import LayerContext, compress_prefill
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def wdot(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for floating-point weights."""
+    if isinstance(w, dict):
+        raise NotImplementedError("W8A16 weights are not ported yet "
+                                  "(ROADMAP.md queue 1 item 9)")
+    return x @ w
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def rope_inv_freq(cfg: ModelConfig, device="cpu") -> torch.Tensor:
+    """Base inverse frequencies with optional HF rope_scaling ("linear" and
+    "llama3" frequency-dependent scaling per HF modeling_rope_utils)."""
+    d = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+    rs = cfg.rope_scaling
+    if rs is None:
+        return inv_freq
+    rope_type, factor, low_f, high_f, orig_max = rs
+    if rope_type == "linear":
+        return inv_freq / factor
+    if rope_type == "llama3":
+        low_wavelen = orig_max / low_f
+        high_wavelen = orig_max / high_f
+        wavelen = 2 * math.pi / inv_freq
+        scaled = inv_freq / factor
+        smooth = (orig_max / wavelen - low_f) / (high_f - low_f)
+        smoothed = (1 - smooth) / factor * inv_freq + smooth * inv_freq
+        out = torch.where(wavelen > low_wavelen, scaled, inv_freq)
+        is_medium = (wavelen <= low_wavelen) & (wavelen >= high_wavelen)
+        return torch.where(is_medium, smoothed, out)
+    raise ValueError(f"unsupported rope_scaling type {rope_type!r}")
+
+
+def rope_tables(cfg: ModelConfig, max_len: int,
+                device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [max_len, head_dim] (HF half-rotation convention)."""
+    inv_freq = rope_inv_freq(cfg, device)
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, H, T, D]; cos/sin: [B, T, D] or [T, D]."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, None], sin[:, None]
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    B, T, _ = x.shape
+    return x.reshape(B, T, n_heads, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    B, H, T, D = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * D)
+
+
+def grouped_attention(
+    q: torch.Tensor,     # [B, Hq, Tq, D]
+    k: torch.Tensor,     # [B, Hk, Tk, D]  (Hk divides Hq)
+    v: torch.Tensor,     # [B, Hk, Tk, D]
+    mask: torch.Tensor,  # broadcastable to [B, Hq, Tq, Tk] boolean (True=keep)
+    return_probs: bool = False,
+):
+    """GQA attention without materializing repeated K/V.  Products take the
+    input dtype with fp32 accumulation; the softmax is fp32; probabilities
+    are cast to the value dtype for the PV product, as in the JAX package.
+    ``return_probs`` also returns the fp32 probabilities [B, Hk, G, Tq, Tk]."""
+    B, Hq, Tq, D = q.shape
+    Hk = k.shape[1]
+    G = Hq // Hk
+    qg = q.reshape(B, Hk, G, Tq, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float())
+    logits = logits / math.sqrt(D)
+    maskg = mask.reshape(B, Hk, G, *mask.shape[2:]) if mask.shape[1] == Hq \
+        else mask[:, :, None]
+    logits = torch.where(maskg, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).float(), v.float())
+    out = out.reshape(B, Hq, Tq, D).to(q.dtype)
+    if return_probs:
+        return out, probs
+    return out
+
+
+def swiglu_fused(x: torch.Tensor, gate_up_w: torch.Tensor, down_w: torch.Tensor,
+                 gate_up_b=None, down_b=None) -> torch.Tensor:
+    gu = wdot(x, gate_up_w)
+    if gate_up_b is not None:
+        gu = gu + gate_up_b
+    ffn = gate_up_w.shape[-1] // 2
+    out = wdot(F.silu(gu[..., :ffn]) * gu[..., ffn:], down_w)
+    return out if down_b is None else out + down_b
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+
+class PrefillResult(NamedTuple):
+    logits_last: torch.Tensor  # [B, V] fp32 logits at each sequence's last token
+    cache: KVCache
+
+
+def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
+                     quant: Optional[QuantConfig]) -> None:
+    if quant is not None:
+        raise NotImplementedError("quantized KV caches are not ported yet "
+                                  "(ROADMAP.md queue 1 item 8)")
+    if cfg.is_moe:
+        raise NotImplementedError("MoE is not ported yet (ROADMAP.md queue 1 item 10)")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError("sliding-window attention is not ported yet "
+                                  "(ROADMAP.md queue 2: K1 sliding_window variant)")
+    if comp.decode_evict:
+        raise NotImplementedError("the evicting cache is not ported yet "
+                                  "(ROADMAP.md queue 1 item 11)")
+    if comp.method == "think" or comp.sparse_prefill is not None:
+        raise NotImplementedError(f"{comp.method} is not ported yet "
+                                  "(ROADMAP.md queue 1 items 7 and 17)")
+
+
+def _layer(params: dict, li: int) -> dict:
+    return {name: w[li] for name, w in params["layers"].items()}
+
+
+def _qkv(x, lp, cfg, cos, sin):
+    """Pre-norm fused QKV projection with RoPE on q and k."""
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    qkv = wdot(h, lp["qkv_proj"])
+    if "qkv_bias" in lp:
+        qkv = qkv + lp["qkv_bias"]
+    q = _split_heads(qkv[..., :Hq * D], Hq, D)
+    k = _split_heads(qkv[..., Hq * D:(Hq + Hkv) * D], Hkv, D)
+    v = _split_heads(qkv[..., (Hq + Hkv) * D:], Hkv, D)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _finish_layer(x, attn, lp, cfg):
+    """o_proj + residual, then the pre-norm FFN + residual."""
+    h = wdot(_merge_heads(attn), lp["o_proj"])
+    if "o_bias" in lp:
+        h = h + lp["o_bias"]
+    x = x + h
+    h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+    return x + swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"],
+                            lp.get("gate_up_bias"), lp.get("down_bias"))
+
+
+def prefill(
+    params: dict,
+    cfg: ModelConfig,
+    comp: CompressionConfig,
+    tokens: torch.Tensor,    # [B, S] int, right-padded
+    true_len: torch.Tensor,  # [B] int32
+    cache_capacity: int,     # policy capacity + decode headroom
+    *,
+    quant: Optional[QuantConfig] = None,
+) -> PrefillResult:
+    """Full prefill: attention over the uncompressed prompt, then the
+    compression hook between the QKV computation and the cache write.
+    The cache is allocated once and filled layer by layer."""
+    _check_supported(cfg, comp, quant)
+    B, S = tokens.shape
+    L = cfg.num_hidden_layers
+    dtype = dtype_of(cfg)
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    dev = tokens.device
+    true_len = true_len.to(device=dev, dtype=torch.int32)
+
+    x = params["embed"][tokens].to(dtype)  # [B, S, hidden]
+    cos, sin = rope_tables(cfg, S, dev)
+    cache_heads = comp.cache_heads(Hq, Hkv)
+    policy_capacity = comp.layer_capacity(L, S)
+    assert cache_capacity >= policy_capacity, (
+        f"cache capacity {cache_capacity} < policy capacity {policy_capacity}")
+    cache = init_cache(L, B, cache_heads, cache_capacity, D, dtype, dev)
+    # Score emission only when the policy reuses it; window=0 skips it.
+    emit = comp.method == "snapkv"
+    win = comp.window_size if emit else 0
+    cols = torch.arange(S, device=dev)
+
+    for li in range(L):
+        lp = _layer(params, li)
+        q, k, v = _qkv(x, lp, cfg, cos, sin)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        attn, win_sc = flash_prefill_attention(q, k, v, true_len, win)
+        window_scores = None
+        if emit:
+            window_scores = torch.where(
+                cols >= (true_len[:, None, None] - comp.window_size),
+                NEG_INF, win_sc)
+        x = _finish_layer(x, attn, lp, cfg)
+        packed = compress_prefill(comp, L, policy_capacity, k, v, q, true_len,
+                                  LayerContext(li, window_scores=window_scores))
+        cache.k[li, :, :, :policy_capacity] = packed.k
+        cache.v[li, :, :, :policy_capacity] = packed.v
+        cache.lengths[li] = packed.lengths
+    cache.positions.copy_(true_len)
+
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = (true_len.to(torch.int64) - 1).clamp(min=0)
+    x_last = x[torch.arange(B, device=dev), last]
+    logits_last = wdot(x_last, params["lm_head"]).float()
+    return PrefillResult(logits_last, cache)
+
+
+def decode_step(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B] int, current input token
+    cache: KVCache,
+    quant: Optional[QuantConfig] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step over a dense ``KVCache``: append at each head's
+    length and attend over the compressed cache.  **Updates ``cache`` in
+    place** (its K/V slots, ``lengths`` and ``positions``) and returns it
+    with the logits [B, V] fp32; the JAX version returns a new cache."""
+    if quant is not None or not isinstance(cache, KVCache):
+        raise NotImplementedError("only the dense KVCache decodes in the port; "
+                                  "quantized, ThinK, evicting and offloaded caches "
+                                  "are ROADMAP.md queue 1 items 8 and 11")
+    if cfg.is_moe or cfg.sliding_window is not None:
+        raise NotImplementedError("MoE and sliding-window decode are not ported "
+                                  "yet (ROADMAP.md queue 1 item 10, queue 2)")
+    B = tokens.shape[0]
+    L = cfg.num_hidden_layers
+    dtype = dtype_of(cfg)
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    C = cache.capacity
+    H = cache.k.shape[2]
+    Gq = Hq // H
+
+    x = params["embed"][tokens].to(dtype)[:, None]  # [B, 1, hidden]
+    # RoPE position = uncompressed token count (reference _seen_tokens sync),
+    # not the compressed cache length.
+    freqs = cache.positions[:, None].float() * rope_inv_freq(cfg, x.device)[None]
+    emb = torch.cat([freqs, freqs], dim=-1)[:, None]  # [B, 1, D]
+    cos, sin = emb.cos(), emb.sin()
+
+    for li in range(L):
+        lp = _layer(params, li)
+        q, k, v = _qkv(x, lp, cfg, cos, sin)
+        if H == Hq and Hq != Hkv:  # per-query-head cache
+            k = k.repeat_interleave(Hq // Hkv, dim=1)
+            v = v.repeat_interleave(Hq // Hkv, dim=1)
+        lens = cache.lengths[li]
+        out = decode_attention_append(
+            q.reshape(B * H, Gq, D).to(dtype).contiguous(),
+            cache.k[li].view(B * H, C, D), cache.v[li].view(B * H, C, D),
+            lens.view(B * H),
+            k.reshape(B * H, D).to(dtype).contiguous(),
+            v.reshape(B * H, D).to(dtype).contiguous())
+        torch.clamp(lens + 1, max=C, out=lens)
+        x = _finish_layer(x, out.reshape(B, Hq, 1, D), lp, cfg)
+
+    cache.positions.add_(1)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = wdot(x[:, 0], params["lm_head"]).float()
+    return logits, cache

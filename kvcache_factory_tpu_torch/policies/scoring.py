@@ -1,0 +1,97 @@
+"""Observation-window scoring primitives for prefill-time KV compression.
+
+Port of ``kvcache_factory_tpu/policies/scoring.py``: softmax(QK^T/sqrt(d))
+in fp32 with a causal mask on the trailing window block, column-reduced over
+the observation window, then 1-D pooled.  Shapes are static: the prompt may
+be right-padded to a bucket length ``S``; ``true_len`` carries the real
+length and every mask derives from it.
+
+Pooling calls ``torch.nn.functional.{avg,max}_pool1d`` themselves, which are
+the semantics the reference uses (pyramidkv_utils.py:328-333): avg-pool pads
+with zeros that are counted (``count_include_pad=True``), max-pool pads with
+-inf.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import NEG_INF
+
+
+def pool1d(scores: torch.Tensor, kernel_size: int, pooling: str) -> torch.Tensor:
+    """1-D pooling over the last axis, stride 1, padding ``kernel_size // 2``
+    (the reference uses odd kernels, 5 and 7, which keep the length)."""
+    if kernel_size == 1:
+        return scores
+    pad = kernel_size // 2
+    flat = scores.reshape(-1, 1, scores.shape[-1])
+    if pooling == "avgpool":
+        out = F.avg_pool1d(flat, kernel_size, stride=1, padding=pad)
+    elif pooling == "maxpool":
+        out = F.max_pool1d(flat, kernel_size, stride=1, padding=pad)
+    else:
+        raise ValueError(f"Pooling method not supported: {pooling}")
+    return out.reshape(scores.shape[:-1] + (out.shape[-1],))
+
+
+def window_attention_probs(
+    k: torch.Tensor,         # [H, S, D] post-RoPE keys
+    q: torch.Tensor,         # [H, S, D]
+    true_len: torch.Tensor,  # 0-d int tensor, actual prompt length (<= S)
+    window_size: int,
+) -> torch.Tensor:
+    """fp32 softmax attention of the last ``window_size`` queries over all
+    keys, causal only inside the trailing window block, padded columns
+    masked (pyramidkv_utils.py:317-326).  Returns ``[H, w, S]``."""
+    H, S, D = q.shape
+    w = window_size
+    win_start = true_len.to(torch.int64) - w
+    # The window queries start at win_start clamped into [0, S - w], as a
+    # dynamic slice does; the masks below use the unclamped start.
+    start = win_start.clamp(0, S - w)
+    q_win = q.index_select(1, start + torch.arange(w, device=q.device))
+    scale = 1.0 / float(D) ** 0.5
+    logits = torch.einsum("hwd,hsd->hws", q_win.float(), k.float()) * scale
+    cols = torch.arange(S, device=q.device)[None]
+    rows = torch.arange(w, device=q.device)[:, None]
+    in_window_col = cols >= win_start
+    causal_bad = in_window_col & (cols - win_start > rows)
+    padding_col = cols >= true_len
+    logits = torch.where((causal_bad | padding_col)[None], NEG_INF, logits)
+    return torch.softmax(logits, dim=-1)
+
+
+def window_attention_scores(
+    k: torch.Tensor,
+    q: torch.Tensor,
+    true_len: torch.Tensor,
+    window_size: int,
+    *,
+    reduce: str = "sum",  # "sum" (SnapKV/PyramidKV) | "mean" (AdaKV/HeadKV)
+) -> torch.Tensor:
+    """Observation-window column scores ``[H, S]`` fp32; positions
+    ``>= true_len - window_size`` are NEG_INF."""
+    H, S, _ = q.shape
+    probs = window_attention_probs(k, q, true_len, window_size)
+    if reduce == "sum":
+        scores = probs.sum(dim=1)
+    elif reduce == "mean":
+        scores = probs.mean(dim=1)
+    else:
+        raise ValueError(reduce)
+    col_ids = torch.arange(S, device=q.device)[None]
+    return torch.where(col_ids >= true_len - window_size, NEG_INF, scores)
+
+
+def masked_pool(scores: torch.Tensor, valid_upto: torch.Tensor,
+                kernel_size: int, pooling: str) -> torch.Tensor:
+    """Pool scores whose valid region is ``[0, valid_upto)``: invalid
+    positions are pre-filled with the pool's edge padding value (0 for avg,
+    -inf for max) so boundary windows match the reference, then re-masked to
+    NEG_INF so top-k never selects them."""
+    invalid = torch.arange(scores.shape[-1], device=scores.device) >= valid_upto
+    fill = 0.0 if pooling == "avgpool" else float("-inf")
+    pooled = pool1d(torch.where(invalid, fill, scores), kernel_size, pooling)
+    return torch.where(invalid, NEG_INF, pooled)

@@ -1,0 +1,95 @@
+"""High-level inference engine: prompt buckets and cache sizing (port of
+``kvcache_factory_tpu/runtime/engine.py``, single-device path).
+
+Prompts are right-padded to the nearest bucket and masked via ``true_len``,
+so each bucket gives results identical to an exact-length run.
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+from typing import List, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import CompressionConfig, EngineConfig, GenerationConfig
+from .generate import GenerateResult, generate
+
+
+class InferenceEngine:
+    def __init__(self, params, cfg: EngineConfig, device="cuda"):
+        if cfg.quant is not None:
+            raise NotImplementedError("quantized KV caches are not ported yet "
+                                      "(ROADMAP.md queue 1 item 8)")
+        self.device = torch.device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params are on {params['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.buckets = sorted(cfg.prefill_buckets)
+
+    def _bucket(self, n: int) -> int:
+        i = bisect.bisect_left(self.buckets, n)
+        if i == len(self.buckets):
+            raise ValueError(f"prompt length {n} exceeds largest bucket "
+                             f"{self.buckets[-1]}")
+        return self.buckets[i]
+
+    def _comp_for_bucket(self, S: int) -> CompressionConfig:
+        """Resolve the ratio budget against the bucket (reference formula
+        cap = round(len * ratio), run_longbench.py:215-216)."""
+        comp = self.cfg.compression
+        r = self.cfg.capacity_ratio
+        if r is None:
+            return comp
+        cap = int(round(S * r))
+        kw = {"max_capacity_prompt": cap}
+        if comp.method == "streamingllm":
+            kw["window_size"] = cap - 4  # run_longbench.py:222-223
+        return dataclasses.replace(comp, **kw)
+
+    def _cache_capacity(self, S: int, max_new_tokens: int) -> int:
+        comp = self._comp_for_bucket(S)
+        return comp.layer_capacity(self.cfg.model.num_hidden_layers, S) \
+            + max_new_tokens + 1
+
+    def _generate(self, toks: np.ndarray, lens: np.ndarray, max_new_tokens: int,
+                  eos_token_ids: Tuple[int, ...],
+                  return_logits: bool = False) -> GenerateResult:
+        S = toks.shape[1]
+        gen_cfg = GenerationConfig(max_new_tokens=max_new_tokens,
+                                   eos_token_ids=eos_token_ids)
+        return generate(self.params, self.cfg.model, self._comp_for_bucket(S),
+                        gen_cfg, toks, lens,
+                        self._cache_capacity(S, max_new_tokens),
+                        device=self.device, return_logits=return_logits)
+
+    def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int,
+                     eos_token_ids: Sequence[int] = ()) -> List[int]:
+        """Single-prompt greedy generation; returns generated ids (EOS-trimmed)."""
+        return self.generate_batch([prompt_ids], max_new_tokens, eos_token_ids)[0]
+
+    def generate_batch(self, prompts: Sequence[Sequence[int]], max_new_tokens: int,
+                       eos_token_ids: Sequence[int] = (),
+                       return_result: bool = False,
+                       ) -> Union[List[List[int]], Tuple[List[List[int]], GenerateResult]]:
+        """Batched greedy generation over prompts padded to the largest
+        member's bucket.  Returns one EOS-trimmed id list per prompt; with
+        ``return_result`` also the ``GenerateResult`` (final cache, and the
+        fp32 logits each token was chosen from)."""
+        n = len(prompts)
+        S = self._bucket(max(len(p) for p in prompts))
+        toks = np.zeros((n, S), np.int64)
+        lens = np.zeros((n,), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+            lens[i] = len(p)
+        res = self._generate(toks, lens, max_new_tokens, tuple(eos_token_ids),
+                             return_logits=return_result)
+        nums = res.num_tokens.cpu().numpy()
+        all_toks = res.tokens.cpu().numpy()
+        ids = [all_toks[i, :int(nums[i])].tolist() for i in range(n)]
+        return (ids, res) if return_result else ids

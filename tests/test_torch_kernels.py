@@ -1,0 +1,238 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain version; the JAX kernels run in
+interpret mode, as ``tests/test_flash_prefill.py`` and
+``tests/test_kernels.py`` run them.  Inputs are fp32 numpy arrays from
+``np.random.default_rng``; fp32 against fp32 with another summation order
+agrees to ~1e-6, so the tolerance is 2e-5 (the JAX kernel tests' own).
+The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+"""
+
+import os
+import stat
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kvcache_factory_tpu.ops.kernels import decode_attn as jdecode
+from kvcache_factory_tpu.ops.kernels import flash_prefill as jflash
+from kvcache_factory_tpu_torch.ops.kernels import _build
+from kvcache_factory_tpu_torch.ops.kernels import decode_attn as tdecode
+from kvcache_factory_tpu_torch.ops.kernels import flash_prefill as tflash
+
+D = 128
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("S,true_len,G", [(256, 256, 1), (384, 300, 2)])
+def test_flash_prefill_plain_matches_pallas(S, true_len, G):
+    Hq, W = 4, 8
+    rng = np.random.default_rng(0)
+    q, k, v = normal(rng, Hq, S, D), normal(rng, Hq // G, S, D), normal(rng, Hq // G, S, D)
+    out, scores = tflash.flash_prefill_attention(
+        t(q)[None], t(k)[None], t(v)[None], torch.tensor([true_len], dtype=torch.int32), W)
+    j_out, j_scores = jflash.flash_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(true_len), window=W,
+        q_block=128, kv_block=128, interpret=True)
+    np.testing.assert_allclose(out[0, :, :true_len].numpy(),
+                               np.asarray(j_out)[:, :true_len], **TOL)
+    np.testing.assert_allclose(scores[0, :, :true_len - W].numpy(),
+                               np.asarray(j_scores)[:, :true_len - W], **TOL)
+
+
+def test_flash_prefill_plain_matches_pallas_batched_ragged():
+    B, Hq, G, S, W = 2, 4, 2, 256, 8
+    rng = np.random.default_rng(1)
+    q, k, v = normal(rng, B, Hq, S, D), normal(rng, B, Hq // G, S, D), normal(rng, B, Hq // G, S, D)
+    tls = np.asarray([256, 131], np.int32)
+    out, scores = tflash.flash_prefill_attention(t(q), t(k), t(v), t(tls), W)
+    j_out, j_scores = jflash.flash_prefill_attention_batched(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tls), W,
+        q_block=128, kv_block=128, interpret=True)
+    for b, tl in enumerate(tls):
+        np.testing.assert_allclose(out[b, :, :tl].numpy(), np.asarray(j_out)[b, :, :tl], **TOL)
+        np.testing.assert_allclose(scores[b, :, :tl - W].numpy(),
+                                   np.asarray(j_scores)[b, :, :tl - W], **TOL)
+
+
+@pytest.mark.parametrize("C,G,lengths,lower", [
+    (96, 1, [0, 1, 50, 95], None),             # ragged, C a multiple of 16
+    (96, 4, [3, 40, 77, 12], [0, 0, 20, 5]),   # grouped queries, lower bounds
+    (64, 1, [64, 10, 63, 64], None),           # full heads: the clamp to C-1
+    (50, 2, [0, 10, 49, 30], None),            # any capacity
+])
+def test_decode_plain_matches_pallas(C, G, lengths, lower):
+    H = 4
+    rng = np.random.default_rng(2)
+    q, kc, vc = normal(rng, H, G, D), normal(rng, H, C, D), normal(rng, H, C, D)
+    kn, vn = normal(rng, H, D), normal(rng, H, D)
+    lens = np.asarray(lengths, np.int32)
+    lo = None if lower is None else np.asarray(lower, np.int32)
+    k_port, v_port = t(kc), t(vc)
+    out = tdecode.decode_attention_append(t(q), k_port, v_port, t(lens), t(kn), t(vn),
+                                          None if lo is None else t(lo))
+    j_out, j_k, j_v, j_lens = jdecode.decode_attention_append(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+        jnp.asarray(kn), jnp.asarray(vn), interpret=True,
+        lower=None if lo is None else jnp.asarray(lo))
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **TOL)
+    # The in-place append wrote the new token where the TPU kernel does,
+    # and nothing else.
+    np.testing.assert_array_equal(k_port.numpy(), np.asarray(j_k))
+    np.testing.assert_array_equal(v_port.numpy(), np.asarray(j_v))
+    np.testing.assert_array_equal(np.minimum(lens + 1, C), np.asarray(j_lens))
+
+
+def test_cpu_tensors_never_count_a_launch():
+    rng = np.random.default_rng(3)
+    before = (tflash.flash_prefill_attention.launches,
+              tdecode.decode_attention_append.launches)
+    q = t(normal(rng, 1, 2, 64, D))
+    tflash.flash_prefill_attention(q, q, q, torch.tensor([64], dtype=torch.int32), 8)
+    tdecode.decode_attention_append(t(normal(rng, 2, 1, D)), t(normal(rng, 2, 16, D)),
+                                    t(normal(rng, 2, 16, D)),
+                                    torch.tensor([3, 5], dtype=torch.int32),
+                                    t(normal(rng, 2, D)), t(normal(rng, 2, D)))
+    assert (tflash.flash_prefill_attention.launches,
+            tdecode.decode_attention_append.launches) == before
+
+
+def _meta_args(which):
+    m = dict(device="meta")
+    if which == "flash":
+        q = torch.empty(1, 2, 64, D, dtype=torch.bfloat16, **m)
+        return (q, q, q, torch.empty(1, dtype=torch.int32, **m), 8)
+    return (torch.empty(2, 1, D, dtype=torch.bfloat16, **m),
+            torch.empty(2, 16, D, dtype=torch.bfloat16, **m),
+            torch.empty(2, 16, D, dtype=torch.bfloat16, **m),
+            torch.empty(2, dtype=torch.int32, **m),
+            torch.empty(2, D, dtype=torch.bfloat16, **m),
+            torch.empty(2, D, dtype=torch.bfloat16, **m))
+
+
+WRAPPERS = {
+    "flash": (tflash, "flash_prefill_attention", "flash_prefill_attention_reference"),
+    "decode": (tdecode, "decode_attention_append", "decode_attention_append_reference"),
+}
+
+
+@pytest.mark.parametrize("which", sorted(WRAPPERS))
+def test_failed_build_raises_and_never_falls_back(which, monkeypatch):
+    """A tensor off the CPU must reach the kernel: when its library fails to
+    build, the wrapper raises instead of running the plain version."""
+    mod, wrapper_name, plain_name = WRAPPERS[which]
+
+    def failing_load(name):
+        raise _build.KernelBuildError(f"stubbed build failure for {name}")
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("the wrapper fell back to its plain version")
+
+    monkeypatch.setattr(_build, "load", failing_load)
+    monkeypatch.setattr(mod, plain_name, plain_must_not_run)
+    wrapper = getattr(mod, wrapper_name)
+    before = wrapper.launches
+    with pytest.raises(_build.KernelBuildError, match="stubbed"):
+        wrapper(*_meta_args(which))
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("which", sorted(WRAPPERS))
+def test_non_cuda_device_is_refused(which, monkeypatch):
+    mod, wrapper_name, _ = WRAPPERS[which]
+    monkeypatch.setattr(_build, "load", lambda name: object())
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(mod, wrapper_name)(*_meta_args(which))
+
+
+def _offset_view(shape, dtype, elements):
+    """A contiguous tensor of ``shape`` that starts ``elements`` in."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elements, dtype=dtype)[elements:].view(shape)
+
+
+def _cpu_check_args(which):
+    bf = torch.bfloat16
+    if which == "flash":
+        q = torch.zeros(1, 2, 64, D, dtype=bf)
+        return [q, q, q, torch.zeros(1, dtype=torch.int32), 8]
+    return [torch.zeros(2, 1, D, dtype=bf), torch.zeros(2, 16, D, dtype=bf),
+            torch.zeros(2, 16, D, dtype=bf), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, D, dtype=bf), torch.zeros(2, D, dtype=bf), None]
+
+
+# Argument index of an int32 vector, and of an input read with 16-byte loads.
+INT32_ARG = {"flash": 3, "decode": 3}
+VECTOR_LOADED_ARG = {"flash": 1, "decode": 1}
+
+
+@pytest.mark.parametrize("which", sorted(WRAPPERS))
+def test_int32_vectors_need_only_4_byte_alignment(which):
+    """``decode_step`` passes ``cache.lengths[li]``, which starts li*B*H*4
+    bytes in: 8 bytes at B=1 and 2 cache heads.  The checks accept it and
+    stop only at the device."""
+    mod = WRAPPERS[which][0]
+    args = _cpu_check_args(which)
+    args[INT32_ARG[which]] = _offset_view(args[INT32_ARG[which]].shape, torch.int32, 2)
+    assert args[INT32_ARG[which]].data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="unsupported device"):
+        mod._check(*args)
+
+
+@pytest.mark.parametrize("which", sorted(WRAPPERS))
+def test_vector_loaded_inputs_need_16_byte_alignment(which):
+    mod = WRAPPERS[which][0]
+    args = _cpu_check_args(which)
+    args[VECTOR_LOADED_ARG[which]] = _offset_view(args[VECTOR_LOADED_ARG[which]].shape,
+                                                  torch.bfloat16, 4)
+    with pytest.raises(ValueError, match="must be 16-byte aligned"):
+        mod._check(*args)
+
+
+def _fake_nvcc(tmp_path, body):
+    path = tmp_path / "nvcc"
+    path.write_text("#!/bin/sh\n" + body)
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return str(path)
+
+
+def test_build_names_library_by_source_hash_and_replaces_atomically(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "flash_prefill.cu").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    # A stand-in compiler that writes its -o target.
+    nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n')
+    monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
+    first = _build._lib_path("flash_prefill")
+    _build.build_all(["flash_prefill"])
+    assert first.exists() and sorted(os.listdir(tmp_path / "build")) == [first.name]
+    (src / "flash_prefill.cu").write_text("// v2\n")
+    second = _build._lib_path("flash_prefill")
+    assert second != first
+    _build.build_all(["flash_prefill"])
+    assert second.exists()
+
+
+def test_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "decode_attn.cu").write_text("broken\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path",
+                        lambda: _fake_nvcc(tmp_path, "echo 'error: broken'; exit 2\n"))
+    with pytest.raises(_build.KernelBuildError, match="broken"):
+        _build.build_all(["decode_attn"])
+    assert not _build._lib_path("decode_attn").exists()
