@@ -9,12 +9,17 @@ Phases, in order; any failure exits non-zero:
 2. build the port's CUDA kernels from ``kvcache_factory_tpu_torch/csrc``;
 3. K1 (flash prefill + window scores) against its plain version, timed
    beside its plain version, SDPA and its bound;
-4. K2 (decode attention + in-place append) the same, then both kernels on
-   small edge shapes against their plain versions;
+4. K2 (decode attention + in-place append) the same, K3 and K4 (the same
+   over the per-token int8 and int4 caches, with a bit-for-bit check of
+   the quantized append) the same, then all four kernels on small edge
+   shapes against their plain versions;
 5. the main path end to end at Mistral-7B-Instruct-v0.2 widths with random
-   weights: ``InferenceEngine.generate_batch`` on two requests, kernel
-   launch counts, cache lengths, and logits held against the fp32
-   reference forward; then timings and a profile of prefill and decode;
+   weights, three times: with the bf16 cache, with ``QuantConfig(nbits=8)``
+   and with ``QuantConfig(nbits=4)``.  Each is one
+   ``InferenceEngine.generate_batch`` on two requests, with every kernel's
+   launch count set to 0 just before it and read just after, cache
+   lengths, and logits held against the fp32 reference forward; then
+   timings and a profile of prefill and decode;
 6. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -34,14 +39,18 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from kvcache_factory_tpu_torch import CompressionConfig, EngineConfig, ModelConfig
+from kvcache_factory_tpu_torch import CompressionConfig, EngineConfig, ModelConfig, QuantConfig
+from kvcache_factory_tpu_torch.cache import quant_cache
+from kvcache_factory_tpu_torch.models import llama
 from kvcache_factory_tpu_torch.models.reference import forward_logits
 from kvcache_factory_tpu_torch.models.weights import init_params
-from kvcache_factory_tpu_torch.ops.kernels import _build, decode_attn, flash_prefill
+from kvcache_factory_tpu_torch.ops.kernels import (_build, decode_attn, decode_attn_quant,
+                                                   flash_prefill)
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
 
 LOG_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke.log"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 # The fields the forward reads from the published config.json of
@@ -85,6 +94,24 @@ K1_SCORE_TOL = 1e-4
 # roundings on the residual stream accumulate to ~2^-9 * sqrt(320) = 3.5%
 # relative, so a logits row may differ by up to 10% in relative L2 norm.
 E2E_REL_L2_TOL = 0.10
+# K3/K4 against their plain versions, worst head rel L2 as for K2: both
+# compute fp32 logits from the same codes and bf16 scalars (the kernel
+# applies the scale and zero to the reduced dot, the plain version to each
+# element first: ~1e-7 apart), keep an fp32 softmax and round the output to
+# bf16, so K2's reasoning and limit hold: one bf16 flip on an element three
+# times the head's rms is 1.5e-3.
+KQ_OUT_TOL = 3e-3
+# The quantized paths' decode logits against the fp32 reference, which
+# keeps an unquantized cache.  Measured on the CPU, where the plain path is
+# fp32 so only the quantization shows (tests/test_torch_quant_decode.py::
+# test_quantized_decode_logits_near_fp32_reference: 2 layers, hidden 1024,
+# a 600-token prompt, 16 steps): worst row 0.0215 (int8) and 0.2307 (int4).
+# Per-token int4 keeps 16 levels over a token's whole range, so its logits
+# move by a fifth.  The card adds the bf16 path's own 0.0166 (PERF.md).  The
+# limits leave room for the wider, deeper model: int8 keeps the bf16 path's
+# 0.10; int4 0.40.  A kernel that reads the wrong keys or values shows far
+# more (its worst-head check against the plain version is 3e-3 above).
+E2E_QUANT_REL_L2_TOL = {8: 0.10, 4: 0.40}
 
 
 def log(*parts):
@@ -341,21 +368,176 @@ def phase_k2(rng):
             "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 4b: K3 and K4
+# ---------------------------------------------------------------------------
+
+# nbits -> (id, wrapper, plain version, the engine's capacity at the main shape)
+QUANT = {8: ("K3", decode_attn_quant.quant_decode_attention_append,
+             decode_attn_quant.quant_decode_attention_append_reference, 2176),
+         4: ("K4", decode_attn_quant.quant4_decode_attention_append,
+             decode_attn_quant.quant4_decode_attention_append_reference, 2304)}
+
+
+def kq_inputs(rng, nbits, H, G, C):
+    """bf16 q, k_new, v_new and a layer quantized from random bf16 K/V:
+    codes [H, C, D or D/2] and scales [H, C, 4]."""
+    D = 128
+    q, k, v, kn, vn = (bf16_normal(rng, s) for s in ((H, G, D), (H, C, D), (H, C, D),
+                                                      (H, D), (H, D)))
+    kc, ks, kz = quant_cache.encode(k, nbits)
+    vc, vs, vz = quant_cache.encode(v, nbits)
+    return q, kc, vc, torch.stack([ks, kz, vs, vz], dim=-1).contiguous(), kn, vn
+
+
+def kq_case(rng, nbits, H, G, C, lengths, lower):
+    """K3 or K4 against its plain version: ``out``, and the whole cache after
+    the in-place quantized append, which must be identical byte for byte
+    (both sides quantize the new token with the same IEEE operations)."""
+    kid, kernel, plain, _ = QUANT[nbits]
+    q, kc, vc, sc, kn, vn = kq_inputs(rng, nbits, H, G, C)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    lo = torch.tensor(lower, dtype=torch.int32, device="cuda")
+    mine = [kc.clone(), vc.clone(), sc.clone()]
+    theirs = [kc.clone(), vc.clone(), sc.clone()]
+    out = kernel(q, *mine, lens, kn, vn, lo)
+    ref = plain(q, *theirs, lens, kn, vn, lo)
+    sync()
+    err, abs_err = rel_l2(out.reshape(H, -1), ref.reshape(H, -1))
+    apart = [int((a != b).sum().item()) for a, b in zip(mine, theirs)]
+    log(f"{kid} H={H} G={G} C={C}: out worst head rel L2 {err:.3e} (max abs {abs_err:.3e}) "
+        f"tol {KQ_OUT_TOL}; bytes apart after the append (k codes, v codes, scalars): "
+        f"{apart}")
+    if any(apart):
+        for name, a, b in zip(("k codes", "v codes", "scalars"), mine, theirs):
+            where = (a != b).nonzero()[:4].tolist()
+            log(f"  {name} apart at {where}: kernel "
+                f"{[a[tuple(i)].item() for i in where]}, plain {[b[tuple(i)].item() for i in where]}")
+        raise SystemExit(f"{kid}'s quantized append differs from its plain version's")
+    if err > KQ_OUT_TOL or not torch.isfinite(out.float()).all():
+        raise SystemExit(f"{kid} disagrees with its plain version")
+    return q, kc, vc, sc, kn, vn, lens, ref, err, abs_err
+
+
+def kq_one_key_off_error(nbits, q, kc, vc, sc, kn, vn, lens, ref):
+    """What the check sees from a kernel whose key range is off by one (the
+    plain version at lengths - 1 and + 1): the smaller worst head rel L2."""
+    plain, H = QUANT[nbits][2], q.shape[0]
+    worst = []
+    for shift in (-1, 1):
+        off = plain(q, kc.clone(), vc.clone(), sc.clone(), lens + shift, kn, vn)
+        worst.append(rel_l2(off.reshape(H, -1), ref.reshape(H, -1))[0])
+    return min(worst)
+
+
+def time_kq(nbits, q, kc, vc, sc, kn, vn, lens):
+    """Kernel, plain and composite times for one decode layer, and its
+    bound.  Copies of the layer, 150 MB or more together (three times the
+    L2), rotate so that each call reads its cache from HBM.  Device times
+    come from CUDA-graph replay; ``wrapper_ms`` is the eager call.  No one
+    PyTorch call attends over int8 or int4 codes: the yardstick is a
+    two-call composite, dequantize the cache to bf16, then SDPA with a
+    boolean mask."""
+    _, kernel, plain, _ = QUANT[nbits]
+    H, C, W = kc.shape
+    G, D = q.shape[1], q.shape[2]
+    per_copy = 2 * kc.numel() + 2 * sc.numel()
+    n = max(4, -(-150_000_000 // per_copy))
+    copies = [(kc.clone(), vc.clone(), sc.clone()) for _ in range(n)]
+
+    def kern(i):
+        return lambda: kernel(q, *copies[i], lens, kn, vn)
+
+    def plain_call(i):
+        return lambda: plain(q, *copies[i], lens, kn, vn)
+
+    mask = (torch.arange(C, device="cuda")[None] <= lens[:, None].long())[None, :, None]
+
+    def composite(i):
+        def call():
+            c_k, c_v, c_s = copies[i]
+            k = quant_cache.dequantize(c_k, c_s[..., 0], c_s[..., 1], nbits).to(torch.bfloat16)
+            v = quant_cache.dequantize(c_v, c_s[..., 2], c_s[..., 3], nbits).to(torch.bfloat16)
+            return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask)
+        return call
+
+    ms = graph_ms([kern(i) for i in range(n)] * max(1, 20 // n))
+    wrapper_ms = event_ms(kern(0), iters=50, warmup=5)
+    plain_ms = graph_ms([plain_call(i) for i in range(n)])
+    composite_ms = graph_ms([composite(i) for i in range(n)])
+    # Bytes this call must move: the valid code rows and their four bf16
+    # scalars read once; q, k_new, v_new read and out plus the appended row
+    # and its scalars written; lengths read.  Operations: the QK and PV
+    # products, 2 x 2 x D per key, query row and head.
+    n_keys = int(torch.clamp(lens, max=C - 1).sum().item())
+    nbytes = n_keys * (2 * W + 8) + H * (2 * D * (2 * G + 2) + 2 * W + 8 + 4)
+    ops = 4 * D * G * (n_keys + H)
+    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (ops / PEAK_INT8_OPS * 1e3, "operations"))
+    log(f"{QUANT[nbits][0]} H={H} timed: kernel {ms * 1e3:.2f} us (device, graph replay), "
+        f"wrapper {wrapper_ms * 1e3:.2f} us (events, host launch included), plain "
+        f"{plain_ms * 1e3:.2f} us, composite (dequantize + SDPA) {composite_ms * 1e3:.2f} us, "
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes / 1e6:.2f} MB); "
+        f"{nbytes / ms / 1e6:.1f} GB/s")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "composite_ms": composite_ms}
+
+
+def phase_kq(rng, nbits):
+    kid, _, _, C = QUANT[nbits]
+    D = 128
+    # One request's 32 cache heads: ragged, one lower-bounded, empty, full.
+    H = 32
+    lengths = rng.integers(1, C, size=H)
+    lengths[0], lengths[1], lengths[2] = 0, C, C - 1
+    lower = np.zeros(H, np.int64)
+    lower[3] = lengths[3] // 2
+    q, kc, vc, sc, kn, vn, _, _, err, abs_err = kq_case(rng, nbits, H, 1, C, lengths, lower)
+    err4 = kq_case(rng, nbits, 8, 4, C, lengths[:8], lower[:8])[8]
+    b1 = time_kq(nbits, q, kc, vc, sc, kn, vn,
+                 torch.full((H,), 2048 + 32, dtype=torch.int32, device="cuda"))
+
+    # The main path's shape: B=2 requests x 32 cache heads at the final
+    # lengths of the decode (2048 + 31 and 1500 + 31 before the last step).
+    Hm = 64
+    final = [2048 + 31] * 32 + [1500 + 31] * 32
+    q, kc, vc, sc, kn, vn, lens, ref, err_m, abs_m = kq_case(rng, nbits, Hm, 1, C, final,
+                                                             np.zeros(Hm, np.int64))
+    off_err = kq_one_key_off_error(nbits, q, kc, vc, sc, kn, vn, lens, ref)
+    log(f"{kid} a kernel whose key range is off by one would show head rel L2 up to "
+        f"{off_err:.3e} ({off_err / KQ_OUT_TOL:.1f} x tol)")
+    if off_err <= KQ_OUT_TOL:
+        raise SystemExit(f"{kid}'s tolerance would let an off-by-one key range pass")
+    main = time_kq(nbits, q, kc, vc, sc, kn, vn, lens)
+    return {"name": f"quant{nbits}_decode_attn_append", "route": "cuda",
+            "source": decode_attn_quant.SOURCE, "replaces": decode_attn_quant.REPLACES[nbits],
+            "shape": f"H={Hm} (B=2 x 32) G=1 C={C} D={D} int{nbits}, lengths "
+                     f"{final[0]} and {final[-1]}",
+            "max_abs_err": max(abs_err, abs_m), "rel_l2": max(err, err_m),
+            "tol": KQ_OUT_TOL, "g4_rel_l2": err4, "off_by_one_rel_l2": off_err,
+            "append_bit_identical": True, **main,
+            "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1}}
+
+
 def phase_edges(rng):
     """Small shapes that the main path does not reach but the wrappers
     accept, each against the plain version.  K1: a length that is no
     multiple of the 64-row tile, a window longer than a prompt, no window,
-    the largest window, one query head per KV head.  K2: a one-slot cache,
-    a lower bound past the length, a capacity that is no multiple of 16,
-    and the group sizes 2 and 8."""
+    the largest window, one query head per KV head.  K2, K3 and K4: a
+    one-slot cache, a full cache, a lower bound past the length, a capacity
+    that is no multiple of 16, and the group sizes 2 and 8."""
     for B, Hq, Hkv, S, W, tls in ((2, 4, 4, 200, 8, [200, 5]),
                                   (1, 8, 2, 130, 0, [97]),
                                   (1, 4, 1, 192, 64, [150])):
         k1_case(rng, B, Hq, Hkv, S, W, tls)
-    for H, G, C, lengths, lower in ((2, 1, 1, [0, 1], [0, 0]),
-                                    (3, 2, 17, [17, 3, 9], [0, 5, 12]),
-                                    (2, 8, 300, [299, 150], [10, 0])):
+    shapes = ((2, 1, 1, [0, 1], [0, 0]),
+              (3, 2, 17, [17, 3, 9], [0, 5, 12]),
+              (2, 8, 300, [299, 150], [10, 0]))
+    for H, G, C, lengths, lower in shapes:
         k2_case(rng, H, G, C, lengths, lower)
+        for nbits in QUANT:
+            kq_case(rng, nbits, H, G, C, lengths, lower)
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +545,17 @@ def phase_edges(rng):
 # ---------------------------------------------------------------------------
 
 
+# The kernel wrappers whose launches the main path counts, by id.
+COUNTED = {"K1": flash_prefill.flash_prefill_attention,
+           "K2": decode_attn.decode_attention_append,
+           "K3": decode_attn_quant.quant_decode_attention_append,
+           "K4": decode_attn_quant.quant4_decode_attention_append}
+PATHS = (("bf16", None), ("int8", QuantConfig(nbits=8)), ("int4", QuantConfig(nbits=4)))
+
+
 def phase_e2e(rng, log_file):
-    cfg, comp, dev = MISTRAL_7B, SNAPKV, "cuda"
-    L = cfg.num_hidden_layers
+    """The main path with each cache, over one set of weights and prompts."""
+    cfg, dev = MISTRAL_7B, "cuda"
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     sync()
@@ -373,21 +563,42 @@ def phase_e2e(rng, log_file):
                    + list(params["layers"].values()))
     log(f"init_params: {n_params / 1e9:.3f} B parameters in "
         f"{time.perf_counter() - t0:.1f} s")
-    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp), device=dev)
-    max_new = 64
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
+    return {label: drive_path(params, n_params, prompts, quant, log_file)
+            for label, quant in PATHS}
 
-    flash_prefill.flash_prefill_attention.launches = 0
-    decode_attn.decode_attention_append.launches = 0
+
+def drive_path(params, n_params, prompts, quant, log_file):
+    """One ``generate_batch`` of the two requests with the bf16 cache
+    (``quant`` None) or a per-token quantized one, checked and timed."""
+    cfg, comp, dev = MISTRAL_7B, SNAPKV, "cuda"
+    L = cfg.num_hidden_layers
+    label = "bf16" if quant is None else f"int{quant.nbits}"
+    decode_id = "K2" if quant is None else QUANT[quant.nbits][0]
+    log(f"== main path, {label} cache")
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant),
+                             device=dev)
+    max_new = 64
+
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
     ids, res = engine.generate_batch(prompts, max_new, return_result=True)
     sync()
-    k1_launches = flash_prefill.flash_prefill_attention.launches
-    k2_launches = decode_attn.decode_attention_append.launches
+    launches = {kid: wrapper.launches for kid, wrapper in COUNTED.items()}
     steps = max_new - 1  # the last token is emitted, never fed back
-    log(f"launches on the main path: K1 {k1_launches} (expect {L}), "
-        f"K2 {k2_launches} (expect {L} x {steps} = {L * steps})")
-    if k1_launches != L or k2_launches != L * steps:
+    expect = dict.fromkeys(COUNTED, 0)
+    expect["K1"], expect[decode_id] = L, L * steps
+    log(f"launches on the main path ({label}): {launches}; expect K1 {L}, "
+        f"{decode_id} {L} x {steps} = {L * steps}, the others 0")
+    if launches != expect:
         raise SystemExit("the main path did not run each kernel the expected number of times")
+    if quant is not None:
+        cls = quant_cache.Int8KVCache if quant.nbits == 8 else quant_cache.Int4KVCache
+        C = QUANT[quant.nbits][3]
+        log(f"cache: {type(res.cache).__name__}, capacity {res.cache.capacity} "
+            f"(expect {cls.__name__}, {C})")
+        if not isinstance(res.cache, cls) or res.cache.capacity != C:
+            raise SystemExit("the engine built the wrong cache")
     lens = res.cache.lengths
     want = [comp.max_capacity_prompt + steps, len(prompts[1]) + steps]
     got = [sorted(set(lens[:, b].flatten().tolist())) for b in range(2)]
@@ -397,20 +608,30 @@ def phase_e2e(rng, log_file):
     if not torch.isfinite(res.logits).all():
         raise SystemExit("non-finite logits")
 
-    # Hold the bf16 path to the fp32 reference forward.
+    # Hold the path to the fp32 reference forward.  Quantization leaves
+    # prefill alone, so the quantized paths check request (a)'s prefill
+    # logits no further.
+    decode_tol = E2E_REL_L2_TOL if quant is None else E2E_QUANT_REL_L2_TOL[quant.nbits]
     with torch.no_grad():
-        ref_a = forward_logits(params, cfg, torch.tensor([prompts[0]], device=dev))[0, -1]
+        ref_a = None if quant is not None else \
+            forward_logits(params, cfg, torch.tensor([prompts[0]], device=dev))[0, -1]
         seq_b = prompts[1] + ids[1][:steps]
         ref_b = forward_logits(params, cfg, torch.tensor([seq_b], device=dev))[0, len(prompts[1]) - 1:]
-    rel_a, abs_a = rel_l2(res.logits[0, :1], ref_a[None])
     rel_b0, abs_b0 = rel_l2(res.logits[1, :1], ref_b[:1])
     rel_bd, abs_bd = rel_l2(res.logits[1, 1:], ref_b[1:])
     top1 = (res.logits[1].argmax(-1) == ref_b.argmax(-1)).float().mean().item()
-    log(f"prefill logits vs fp32 reference: (a) rel L2 {rel_a:.4f} max abs {abs_a:.4f}; "
-        f"(b) rel L2 {rel_b0:.4f} max abs {abs_b0:.4f}; tol rel L2 {E2E_REL_L2_TOL}")
+    if ref_a is None:
+        rel_a = None
+        log(f"prefill logits vs fp32 reference: (b) rel L2 {rel_b0:.4f} max abs "
+            f"{abs_b0:.4f}; tol rel L2 {E2E_REL_L2_TOL}")
+    else:
+        rel_a, abs_a = rel_l2(res.logits[0, :1], ref_a[None])
+        log(f"prefill logits vs fp32 reference: (a) rel L2 {rel_a:.4f} max abs {abs_a:.4f}; "
+            f"(b) rel L2 {rel_b0:.4f} max abs {abs_b0:.4f}; tol rel L2 {E2E_REL_L2_TOL}")
     log(f"(b) decode logits vs fp32 reference, {steps} teacher-forced steps: worst rel L2 "
-        f"{rel_bd:.4f}, max abs {abs_bd:.4f}; greedy top-1 agreement {top1:.3f}")
-    if max(rel_a, rel_b0, rel_bd) > E2E_REL_L2_TOL:
+        f"{rel_bd:.4f}, max abs {abs_bd:.4f}, tol {decode_tol}; greedy top-1 agreement "
+        f"{top1:.3f}")
+    if max(rel_b0, rel_a or 0.0) > E2E_REL_L2_TOL or rel_bd > decode_tol:
         raise SystemExit("logits disagree with the fp32 reference")
     del ref_a, ref_b
 
@@ -425,7 +646,10 @@ def phase_e2e(rng, log_file):
     total_s = time.perf_counter() - t0
     step_ms = (total_s - prefill_s) / steps * 1e3
     weight_bytes = 2 * (n_params - params["embed"].numel())
-    cache_bytes = 2 * 2 * cfg.head_dim * int(lens.sum().item())
+    # Valid cache bytes at the final lengths: K and V, bf16 or codes plus
+    # each token's four bf16 scalars.
+    row_bytes = 2 * 2 * cfg.head_dim if quant is None else 2 * res.cache.k_codes.shape[-1] + 8
+    cache_bytes = row_bytes * int(lens.sum().item())
     bound_step_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
     log(f"prefill {prefill_s:.3f} s for B=2 (4096 + 1500 tokens, bucket 4096); decode "
         f"{step_ms:.3f} ms/step, {2e3 / step_ms:.1f} tok/s at B=2; bandwidth bound "
@@ -435,26 +659,29 @@ def phase_e2e(rng, log_file):
     # Where the time goes: one profiled prefill, then 8 profiled decode
     # steps on the finished cache (they overwrite its last slots, which
     # nothing reads again).
-    from kvcache_factory_tpu_torch.models import llama
     pre_busy = profile_device(lambda: engine.generate_batch(prompts, 1), 1,
-                              prefill_s * 1e3, "prefill", log_file)
+                              prefill_s * 1e3, f"prefill, {label}", log_file)
     cur = torch.tensor([x[-1] for x in ids], device=dev)
     with torch.no_grad():
         for _ in range(2):
-            llama.decode_step(params, cfg, cur, res.cache)
-        busy_ms = profile_device(lambda: llama.decode_step(params, cfg, cur, res.cache), 8,
-                                 step_ms, "decode step", log_file)
+            llama.decode_step(params, cfg, cur, res.cache, quant=quant)
+        busy_ms = profile_device(
+            lambda: llama.decode_step(params, cfg, cur, res.cache, quant=quant), 8,
+            step_ms, f"decode step, {label}", log_file)
     return {"model": "Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
             "compression": "snapkv 2048/8/7 maxpool, group_reduce none",
+            "cache": label if quant is None else f"{label} per token, capacity "
+                                                 f"{res.cache.capacity}",
             "requests": "B=2: 4096 and 1500 prompt tokens, 64 new tokens, bucket 4096",
-            "k1_launches": k1_launches, "k2_launches": k2_launches,
+            "launches": launches,
             "prefill_s": prefill_s, "prefill_device_busy_ms": pre_busy,
             "decode_ms_per_step": step_ms,
             "tok_s": 2e3 / step_ms, "bound_ms_per_step": bound_step_ms,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms,
             "prefill_rel_l2": [rel_a, rel_b0], "decode_rel_l2": rel_bd,
-            "rel_l2_tol": E2E_REL_L2_TOL, "decode_top1_agreement": top1}
+            "rel_l2_tol": E2E_REL_L2_TOL, "decode_rel_l2_tol": decode_tol,
+            "decode_top1_agreement": top1}
 
 
 def profile_device(fn, reps, wall_ms, what, log_file):
@@ -507,14 +734,20 @@ def main():
     rng = np.random.default_rng(0)
     k1 = phase_k1(rng)
     k2 = phase_k2(rng)
+    k3 = phase_kq(rng, 8)
+    k4 = phase_kq(rng, 4)
     phase_edges(rng)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
         e2e = phase_e2e(rng, log_file)
-    k1["launches"] = e2e["k1_launches"]
-    k2["launches"] = e2e["k2_launches"]
-    print(json.dumps({"kernels": [k1, k2]}))
-    print(json.dumps({"e2e": e2e, "card": smi}))
+    # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
+    # path, K3 on the int8 path, K4 on the int4 path.
+    for k, label, kid in ((k1, "bf16", "K1"), (k2, "bf16", "K2"), (k3, "int8", "K3"),
+                          (k4, "int4", "K4")):
+        k["launches"] = e2e[label]["launches"][kid]
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
+                      "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -204,15 +204,17 @@ class CompressionConfig:
 
 
 # ---------------------------------------------------------------------------
-# Quantized-cache and sharding configuration (not carried by the port yet)
+# Quantized-cache and sharding configuration
 # ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """Quantized KV cache settings, as in the JAX package.  The port has no
-    quantized cache yet: passing any ``QuantConfig`` to the engine or the
-    model raises (ROADMAP.md queue 1 item 8)."""
+    """Quantized KV cache settings, as in the JAX package.  The port carries
+    the per-token int8 and int4 caches (``cache/quant_cache.py``); which
+    configurations take them is :meth:`per_token`.  Every other
+    configuration (nbits 1/2/3, an fp residual ring) raises
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 8)."""
 
     nbits: int = 8
     q_group_size: int = 64
@@ -224,6 +226,24 @@ class QuantConfig:
     def __post_init__(self):
         if self.nbits not in (1, 2, 3, 4, 8):
             raise ValueError("quantized cache supports nbits in {1, 2, 3, 4, 8}")
+
+    def per_token(self, head_dim: int) -> bool:
+        """Whether this configuration takes the per-token cache: one scale
+        and one zero per token and head over the full head_dim, whatever
+        ``q_group_size`` and ``outlier_extract`` say.  The JAX package's
+        rule (``models/llama.py::_quant_tpu_layout``) without its backend
+        and capacity tests: the port chooses from the configuration alone,
+        and its kernels take any capacity."""
+        return self.nbits in (8, 4) and self.residual_length == 0 and head_dim == 128
+
+
+def check_quant(quant: Optional[QuantConfig], head_dim: int) -> None:
+    """Raise for a ``QuantConfig`` the port does not carry yet."""
+    if quant is not None and not quant.per_token(head_dim):
+        raise NotImplementedError(
+            f"the grouped quantized cache (nbits={quant.nbits}, residual_length="
+            f"{quant.residual_length}, head_dim={head_dim}) is not ported yet "
+            "(ROADMAP.md queue 1 item 8)")
 
 
 @dataclass(frozen=True)

@@ -2,28 +2,34 @@
 
 One forward whose compression policy is a config argument.  Prefill runs
 the K1 flash kernel (``ops/kernels/flash_prefill.py``), which also emits
-the SnapKV observation-window scores; decode runs the K2 kernel
-(``ops/kernels/decode_attn.py``), which attends over one layer of the cache
-and appends the new token in place.  Everything else is plain torch, with
-the fp32 islands where the JAX package has them: norm, RoPE and softmax.
+the SnapKV observation-window scores; decode runs one attention kernel per
+layer, which attends over that layer of the cache and appends the new
+token in place: K2 (``ops/kernels/decode_attn.py``) over the dense
+``KVCache``, K3 or K4 (``ops/kernels/decode_attn_quant.py``) over the
+per-token int8 or int4 cache (``cache/quant_cache.py``).  Everything else
+is plain torch, with the fp32 islands where the JAX package has them:
+norm, RoPE and softmax.
 
-The port carries the dense ``KVCache`` path.  Quantized, ThinK, evicting,
-offloaded, MoE and sliding-window configurations raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The port carries the dense and the per-token quantized caches.  The
+grouped quantized cache, ThinK, evicting, offloaded, MoE and sliding-window
+configurations raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..cache.kv_cache import KVCache, init_cache
-from ..config import CompressionConfig, ModelConfig, QuantConfig, dtype_of
+from ..cache.quant_cache import Int4KVCache, Int8KVCache, init_quant_cache, store_rows
+from ..config import CompressionConfig, ModelConfig, QuantConfig, check_quant, dtype_of
 from ..ops.attention import NEG_INF
 from ..ops.kernels.decode_attn import decode_attention_append
+from ..ops.kernels.decode_attn_quant import (quant4_decode_attention_append,
+                                              quant_decode_attention_append)
 from ..ops.kernels.flash_prefill import flash_prefill_attention
 from ..policies.methods import LayerContext, compress_prefill
 
@@ -145,16 +151,17 @@ def swiglu_fused(x: torch.Tensor, gate_up_w: torch.Tensor, down_w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+Cache = Union[KVCache, Int8KVCache, Int4KVCache]
+
+
 class PrefillResult(NamedTuple):
     logits_last: torch.Tensor  # [B, V] fp32 logits at each sequence's last token
-    cache: KVCache
+    cache: Cache
 
 
 def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
                      quant: Optional[QuantConfig]) -> None:
-    if quant is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet "
-                                  "(ROADMAP.md queue 1 item 8)")
+    check_quant(quant, cfg.head_dim)
     if cfg.is_moe:
         raise NotImplementedError("MoE is not ported yet (ROADMAP.md queue 1 item 10)")
     if cfg.sliding_window is not None:
@@ -208,7 +215,10 @@ def prefill(
 ) -> PrefillResult:
     """Full prefill: attention over the uncompressed prompt, then the
     compression hook between the QKV computation and the cache write.
-    The cache is allocated once and filled layer by layer."""
+    The cache is allocated once and filled layer by layer; with ``quant``
+    each layer's packed K/V is quantized per token as soon as it is ready
+    (the same values as the JAX package's whole-stack
+    ``from_packed_prefill_tpu*``, without ever holding a bf16 cache)."""
     _check_supported(cfg, comp, quant)
     B, S = tokens.shape
     L = cfg.num_hidden_layers
@@ -223,7 +233,10 @@ def prefill(
     policy_capacity = comp.layer_capacity(L, S)
     assert cache_capacity >= policy_capacity, (
         f"cache capacity {cache_capacity} < policy capacity {policy_capacity}")
-    cache = init_cache(L, B, cache_heads, cache_capacity, D, dtype, dev)
+    if quant is None:
+        cache = init_cache(L, B, cache_heads, cache_capacity, D, dtype, dev)
+    else:
+        cache = init_quant_cache(quant.nbits, L, B, cache_heads, cache_capacity, D, dev)
     # Score emission only when the policy reuses it; window=0 skips it.
     emit = comp.method == "snapkv"
     win = comp.window_size if emit else 0
@@ -242,8 +255,11 @@ def prefill(
         x = _finish_layer(x, attn, lp, cfg)
         packed = compress_prefill(comp, L, policy_capacity, k, v, q, true_len,
                                   LayerContext(li, window_scores=window_scores))
-        cache.k[li, :, :, :policy_capacity] = packed.k
-        cache.v[li, :, :, :policy_capacity] = packed.v
+        if quant is None:
+            cache.k[li, :, :, :policy_capacity] = packed.k
+            cache.v[li, :, :, :policy_capacity] = packed.v
+        else:
+            store_rows(cache, li, packed.k, packed.v)
         cache.lengths[li] = packed.lengths
     cache.positions.copy_(true_len)
 
@@ -258,17 +274,20 @@ def decode_step(
     params: dict,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B] int, current input token
-    cache: KVCache,
+    cache: Cache,
     quant: Optional[QuantConfig] = None,
-) -> Tuple[torch.Tensor, KVCache]:
-    """One decode step over a dense ``KVCache``: append at each head's
-    length and attend over the compressed cache.  **Updates ``cache`` in
-    place** (its K/V slots, ``lengths`` and ``positions``) and returns it
-    with the logits [B, V] fp32; the JAX version returns a new cache."""
-    if quant is not None or not isinstance(cache, KVCache):
-        raise NotImplementedError("only the dense KVCache decodes in the port; "
-                                  "quantized, ThinK, evicting and offloaded caches "
-                                  "are ROADMAP.md queue 1 items 8 and 11")
+) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: append at each head's length and attend over the
+    compressed cache, with K2 over a dense ``KVCache`` and K3 / K4 over an
+    ``Int8KVCache`` / ``Int4KVCache`` (``quant`` is given exactly when the
+    cache is quantized, as in the JAX package).  **Updates ``cache`` in
+    place** (its slots, ``lengths`` and ``positions``) and returns it with
+    the logits [B, V] fp32; the JAX version returns a new cache."""
+    check_quant(quant, cfg.head_dim)
+    if (quant is None) != isinstance(cache, KVCache) or \
+            (quant is not None and quant.nbits != cache.nbits):
+        raise ValueError("a quant config must be passed exactly when the cache is "
+                         "quantized, with the cache's nbits")
     if cfg.is_moe or cfg.sliding_window is not None:
         raise NotImplementedError("MoE and sliding-window decode are not ported "
                                   "yet (ROADMAP.md queue 1 item 10, queue 2)")
@@ -277,7 +296,7 @@ def decode_step(
     dtype = dtype_of(cfg)
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     C = cache.capacity
-    H = cache.k.shape[2]
+    H = cache.lengths.shape[2]
     Gq = Hq // H
 
     x = params["embed"][tokens].to(dtype)[:, None]  # [B, 1, hidden]
@@ -294,12 +313,21 @@ def decode_step(
             k = k.repeat_interleave(Hq // Hkv, dim=1)
             v = v.repeat_interleave(Hq // Hkv, dim=1)
         lens = cache.lengths[li]
-        out = decode_attention_append(
-            q.reshape(B * H, Gq, D).to(dtype).contiguous(),
-            cache.k[li].view(B * H, C, D), cache.v[li].view(B * H, C, D),
-            lens.view(B * H),
-            k.reshape(B * H, D).to(dtype).contiguous(),
-            v.reshape(B * H, D).to(dtype).contiguous())
+        q_bh = q.reshape(B * H, Gq, D).to(dtype).contiguous()
+        k_bh = k.reshape(B * H, D).to(dtype).contiguous()
+        v_bh = v.reshape(B * H, D).to(dtype).contiguous()
+        if quant is None:
+            out = decode_attention_append(
+                q_bh, cache.k[li].view(B * H, C, D), cache.v[li].view(B * H, C, D),
+                lens.view(B * H), k_bh, v_bh)
+        else:
+            attend = (quant_decode_attention_append if quant.nbits == 8
+                      else quant4_decode_attention_append)
+            W = cache.k_codes.shape[-1]
+            out = attend(q_bh, cache.k_codes[li].view(B * H, C, W),
+                         cache.v_codes[li].view(B * H, C, W),
+                         cache.scales[li].view(B * H, C, 4), lens.view(B * H),
+                         k_bh, v_bh)
         torch.clamp(lens + 1, max=C, out=lens)
         x = _finish_layer(x, out.reshape(B, Hq, 1, D), lp, cfg)
 

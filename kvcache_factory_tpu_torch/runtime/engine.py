@@ -2,7 +2,8 @@
 ``kvcache_factory_tpu/runtime/engine.py``, single-device path).
 
 Prompts are right-padded to the nearest bucket and masked via ``true_len``,
-so each bucket gives results identical to an exact-length run.
+so each bucket gives results identical to an exact-length run.  With
+``cfg.quant`` the engine builds the per-token int8 or int4 cache.
 """
 
 from __future__ import annotations
@@ -14,15 +15,13 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..config import CompressionConfig, EngineConfig, GenerationConfig
+from ..config import CompressionConfig, EngineConfig, GenerationConfig, check_quant
 from .generate import GenerateResult, generate
 
 
 class InferenceEngine:
     def __init__(self, params, cfg: EngineConfig, device="cuda"):
-        if cfg.quant is not None:
-            raise NotImplementedError("quantized KV caches are not ported yet "
-                                      "(ROADMAP.md queue 1 item 8)")
+        check_quant(cfg.quant, cfg.model.head_dim)
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -53,8 +52,14 @@ class InferenceEngine:
 
     def _cache_capacity(self, S: int, max_new_tokens: int) -> int:
         comp = self._comp_for_bucket(S)
-        return comp.layer_capacity(self.cfg.model.num_hidden_layers, S) \
-            + max_new_tokens + 1
+        cap = comp.layer_capacity(self.cfg.model.num_hidden_layers, S) + max_new_tokens + 1
+        if self.cfg.quant is not None:
+            # The JAX engine's rounding for its TPU cache layouts; the port's
+            # kernels need none, but both engines then build caches of the
+            # same capacity.
+            align = 256 if self.cfg.quant.nbits == 4 else 128
+            cap = -(-cap // align) * align
+        return cap
 
     def _generate(self, toks: np.ndarray, lens: np.ndarray, max_new_tokens: int,
                   eos_token_ids: Tuple[int, ...],
@@ -64,7 +69,7 @@ class InferenceEngine:
                                    eos_token_ids=eos_token_ids)
         return generate(self.params, self.cfg.model, self._comp_for_bucket(S),
                         gen_cfg, toks, lens,
-                        self._cache_capacity(S, max_new_tokens),
+                        self._cache_capacity(S, max_new_tokens), quant_cfg=self.cfg.quant,
                         device=self.device, return_logits=return_logits)
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int,

@@ -14,7 +14,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..cache.kv_cache import KVCache
 from ..config import CompressionConfig, GenerationConfig, ModelConfig, QuantConfig
 from ..models import llama
 
@@ -22,7 +21,7 @@ from ..models import llama
 class GenerateResult(NamedTuple):
     tokens: torch.Tensor       # [B, max_new_tokens] generated ids (0 after EOS)
     num_tokens: torch.Tensor   # [B] count of valid generated tokens
-    cache: KVCache
+    cache: llama.Cache  # KVCache, or Int8KVCache / Int4KVCache with quant_cfg
     # [B, max_new_tokens, V] fp32 logits each token was chosen from (entry 0
     # is the prefill's), when requested; rows past a stop are not filled.
     logits: Optional[torch.Tensor] = None

@@ -148,13 +148,22 @@ def test_engine_generate_batch_matches_jax(setup, lengths):
         assert teng.generate_ids(prompts[0], 10) == want[0]
 
 
-@pytest.mark.parametrize("what", ["quant", "sliding_window", "sampling"])
+@pytest.mark.parametrize("what", ["quant", "quant_residual", "sliding_window", "sampling"])
 def test_unported_paths_raise(setup, what):
+    """The grouped quantized cache (nbits 1/2/3, or an fp residual ring) is
+    still unported; the per-token int8/int4 caches are
+    ``tests/test_torch_quant_decode.py``'s."""
     s = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"
+                       if what.startswith("quant") else "ROADMAP"):
         if what == "quant":
             tllama.prefill(s["tp"], s["tc"], s["tcomp"], torch.tensor(s["toks"]),
-                           torch.tensor(s["lens"]), 80, quant=tcfg.QuantConfig())
+                           torch.tensor(s["lens"]), 80, quant=tcfg.QuantConfig(nbits=2))
+        elif what == "quant_residual":
+            tengine.InferenceEngine(
+                s["tp"], tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"],
+                                           quant=tcfg.QuantConfig(residual_length=32)),
+                device="cpu")
         elif what == "sliding_window":
             cfg = tcfg.ModelConfig(**{**MODEL, "sliding_window": 16})
             tllama.prefill(s["tp"], cfg, s["tcomp"], torch.tensor(s["toks"]),

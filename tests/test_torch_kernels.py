@@ -20,6 +20,7 @@ from kvcache_factory_tpu.ops.kernels import decode_attn as jdecode
 from kvcache_factory_tpu.ops.kernels import flash_prefill as jflash
 from kvcache_factory_tpu_torch.ops.kernels import _build
 from kvcache_factory_tpu_torch.ops.kernels import decode_attn as tdecode
+from kvcache_factory_tpu_torch.ops.kernels import decode_attn_quant as tquant
 from kvcache_factory_tpu_torch.ops.kernels import flash_prefill as tflash
 
 D = 128
@@ -95,16 +96,32 @@ def test_decode_plain_matches_pallas(C, G, lengths, lower):
 
 def test_cpu_tensors_never_count_a_launch():
     rng = np.random.default_rng(3)
-    before = (tflash.flash_prefill_attention.launches,
-              tdecode.decode_attention_append.launches)
+    wrappers = (tflash.flash_prefill_attention, tdecode.decode_attention_append,
+                tquant.quant_decode_attention_append, tquant.quant4_decode_attention_append)
+    before = [w.launches for w in wrappers]
     q = t(normal(rng, 1, 2, 64, D))
     tflash.flash_prefill_attention(q, q, q, torch.tensor([64], dtype=torch.int32), 8)
+    lens = torch.tensor([3, 5], dtype=torch.int32)
     tdecode.decode_attention_append(t(normal(rng, 2, 1, D)), t(normal(rng, 2, 16, D)),
-                                    t(normal(rng, 2, 16, D)),
-                                    torch.tensor([3, 5], dtype=torch.int32),
+                                    t(normal(rng, 2, 16, D)), lens,
                                     t(normal(rng, 2, D)), t(normal(rng, 2, D)))
-    assert (tflash.flash_prefill_attention.launches,
-            tdecode.decode_attention_append.launches) == before
+    for wrapper, width in ((tquant.quant_decode_attention_append, D),
+                           (tquant.quant4_decode_attention_append, D // 2)):
+        codes = torch.zeros(2, 16, width, dtype=torch.uint8)
+        wrapper(t(normal(rng, 2, 1, D)), codes, codes.clone(),
+                torch.ones(2, 16, 4, dtype=torch.bfloat16), lens,
+                t(normal(rng, 2, D)), t(normal(rng, 2, D)))
+    assert [w.launches for w in wrappers] == before
+
+
+def _quant_args(which, make):
+    """K3/K4 arguments (q, codes, codes, scales, lengths, k_new, v_new),
+    each tensor from ``make(shape, dtype)``."""
+    width = D if which == "quant8" else D // 2
+    bf = torch.bfloat16
+    return [make((2, 1, D), bf), make((2, 16, width), torch.uint8),
+            make((2, 16, width), torch.uint8), make((2, 16, 4), bf),
+            make((2,), torch.int32), make((2, D), bf), make((2, D), bf)]
 
 
 def _meta_args(which):
@@ -112,6 +129,8 @@ def _meta_args(which):
     if which == "flash":
         q = torch.empty(1, 2, 64, D, dtype=torch.bfloat16, **m)
         return (q, q, q, torch.empty(1, dtype=torch.int32, **m), 8)
+    if which.startswith("quant"):
+        return _quant_args(which, lambda shape, dtype: torch.empty(shape, dtype=dtype, **m))
     return (torch.empty(2, 1, D, dtype=torch.bfloat16, **m),
             torch.empty(2, 16, D, dtype=torch.bfloat16, **m),
             torch.empty(2, 16, D, dtype=torch.bfloat16, **m),
@@ -123,6 +142,10 @@ def _meta_args(which):
 WRAPPERS = {
     "flash": (tflash, "flash_prefill_attention", "flash_prefill_attention_reference"),
     "decode": (tdecode, "decode_attention_append", "decode_attention_append_reference"),
+    "quant8": (tquant, "quant_decode_attention_append",
+               "quant_decode_attention_append_reference"),
+    "quant4": (tquant, "quant4_decode_attention_append",
+               "quant4_decode_attention_append_reference"),
 }
 
 
@@ -162,18 +185,22 @@ def _offset_view(shape, dtype, elements):
 
 
 def _cpu_check_args(which):
+    """The arguments of ``mod._check``: K3/K4's take the width first."""
     bf = torch.bfloat16
     if which == "flash":
         q = torch.zeros(1, 2, 64, D, dtype=bf)
         return [q, q, q, torch.zeros(1, dtype=torch.int32), 8]
+    if which.startswith("quant"):
+        return [int(which[5:])] + _quant_args(
+            which, lambda shape, dtype: torch.zeros(shape, dtype=dtype)) + [None]
     return [torch.zeros(2, 1, D, dtype=bf), torch.zeros(2, 16, D, dtype=bf),
             torch.zeros(2, 16, D, dtype=bf), torch.zeros(2, dtype=torch.int32),
             torch.zeros(2, D, dtype=bf), torch.zeros(2, D, dtype=bf), None]
 
 
 # Argument index of an int32 vector, and of an input read with 16-byte loads.
-INT32_ARG = {"flash": 3, "decode": 3}
-VECTOR_LOADED_ARG = {"flash": 1, "decode": 1}
+INT32_ARG = {"flash": 3, "decode": 3, "quant8": 5, "quant4": 5}
+VECTOR_LOADED_ARG = {"flash": 1, "decode": 1, "quant8": 2, "quant4": 2}
 
 
 @pytest.mark.parametrize("which", sorted(WRAPPERS))
@@ -193,8 +220,8 @@ def test_int32_vectors_need_only_4_byte_alignment(which):
 def test_vector_loaded_inputs_need_16_byte_alignment(which):
     mod = WRAPPERS[which][0]
     args = _cpu_check_args(which)
-    args[VECTOR_LOADED_ARG[which]] = _offset_view(args[VECTOR_LOADED_ARG[which]].shape,
-                                                  torch.bfloat16, 4)
+    arg = args[VECTOR_LOADED_ARG[which]]
+    args[VECTOR_LOADED_ARG[which]] = _offset_view(arg.shape, arg.dtype, 8 // arg.element_size())
     with pytest.raises(ValueError, match="must be 16-byte aligned"):
         mod._check(*args)
 
