@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build the port's CUDA kernels from ``kvcache_factory_tpu_torch/csrc``;
 3. K1 (flash prefill + window scores) against its plain version, timed
-   beside its plain version, SDPA and its bound;
+   beside its plain version, SDPA and its bound; then K1's sliding-window
+   and chunk (``row_offset``) variants the same, at the serving path's
+   shapes and on edge shapes, with what an off-by-one window or offset
+   would show;
 4. K2 (decode attention + in-place append) the same, K3 and K4 (the same
    over the per-token int8 and int4 caches, with a bit-for-bit check of
    the quantized append) the same, then all four kernels on small edge
@@ -20,7 +23,13 @@ Phases, in order; any failure exits non-zero:
    launch count set to 0 just before it and read just after, cache
    lengths, and logits held against the fp32 reference forward; then
    timings and a profile of prefill and decode;
-6. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+6. the serving path: ``ContinuousBatchingEngine`` at Mistral-7B-v0.1 widths
+   (sliding window 4096) drains six long-prompt requests through four
+   slots twice, with one-shot and with chunked admission, each drain with
+   every launch count set to 0 just before it; first-token logits against
+   the fp32 reference forward and against each other, greedy streams,
+   cache lengths, drain time, admission stalls, decode time and idle share;
+7. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -46,6 +55,7 @@ from kvcache_factory_tpu_torch.models.reference import forward_logits
 from kvcache_factory_tpu_torch.models.weights import init_params
 from kvcache_factory_tpu_torch.ops.kernels import (_build, decode_attn, decode_attn_quant,
                                                    flash_prefill)
+from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
 
 LOG_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke.log"
@@ -63,6 +73,11 @@ MISTRAL_7B_HF_CONFIG = {
     "rms_norm_eps": 1e-05, "sliding_window": None,
     "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
 MISTRAL_7B = ModelConfig.from_hf_config(MISTRAL_7B_HF_CONFIG)
+# mistralai/Mistral-7B-v0.1 (huggingface.co/mistralai/Mistral-7B-v0.1,
+# config.json): the same widths with rope_theta 1e4 and a 4096-token
+# sliding window, so the v0.2 weights fit it.
+MISTRAL_7B_V01 = ModelConfig.from_hf_config({**MISTRAL_7B_HF_CONFIG, "rope_theta": 10000.0,
+                                            "sliding_window": 4096})
 # The JAX bench's compression (bench.py:68-73), one entry set per query head.
 SNAPKV = CompressionConfig(method="snapkv", max_capacity_prompt=2048,
                            window_size=8, kernel_size=7, pooling="maxpool",
@@ -112,6 +127,15 @@ KQ_OUT_TOL = 3e-3
 # 0.10; int4 0.40.  A kernel that reads the wrong keys or values shows far
 # more (its worst-head check against the plain version is 3e-3 above).
 E2E_QUANT_REL_L2_TOL = {8: 0.10, 4: 0.40}
+# Chunked against one-shot admission, first-token logits rel L2.  Both are
+# the bf16 path of one function, held each within 0.10 of fp32.  Where they
+# round at other points (projections at another M, attention split into
+# chunks) their distance is about sqrt(2) times one path's distance from fp32
+# (0.0166 at 4096 tokens, PERF.md): ~0.025.  At this traffic the card gave
+# bitwise-equal logits (PERF.md, serving-path findings).  The limit keeps the bf16
+# budget, 0.10; a chunk at a wrong offset or without its window moves a row
+# by O(1).
+CHUNKED_VS_ONESHOT_TOL = 0.10
 
 
 def log(*parts):
@@ -249,6 +273,178 @@ def phase_k1(rng):
             "scores_max_abs_err": err_sc, "scores_tol": K1_SCORE_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: K1's sliding-window and chunk (row_offset) variants
+# ---------------------------------------------------------------------------
+
+
+def k1v_valid_rows(S_q, tls, offsets):
+    """[B, S_q] mask of the rows whose global id lies before true_len."""
+    off = np.zeros(len(tls), np.int64) if offsets is None else np.asarray(offsets)
+    return (off[:, None] + np.arange(S_q)[None]) < np.asarray(tls)[:, None]
+
+
+def k1v_worst(got, ref, valid):
+    """Worst row rel L2 and max abs difference over the valid rows."""
+    worst = absd = 0.0
+    for b in range(valid.shape[0]):
+        rows = torch.from_numpy(np.nonzero(valid[b])[0]).to(got.device)
+        if len(rows):
+            e, a = rel_l2(got[b][:, rows], ref[b][:, rows])
+            worst, absd = max(worst, e), max(absd, a)
+    return worst, absd
+
+
+def k1v_case(rng, B, Hq, Hkv, S_q, S_k, tls, sw, offsets):
+    """K1 with a sliding window and/or a row offset against its plain
+    version on random inputs: ``out`` over each example's valid rows (global
+    id < true_len); every row, inert ones (true_len 0) included, finite."""
+    D = 128
+    q = bf16_normal(rng, (B, Hq, S_q, D))
+    k, v = (bf16_normal(rng, (B, Hkv, S_k, D)) for _ in range(2))
+    tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
+    off = None if offsets is None else torch.tensor(offsets, dtype=torch.int32,
+                                                     device="cuda")
+    kw = dict(sliding_window=sw, row_offset=off)
+    out, _ = flash_prefill.flash_prefill_attention(q, k, v, tl, 0, **kw)
+    sync()
+    ref, _ = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0, **kw)
+    sync()
+    valid = k1v_valid_rows(S_q, tls, offsets)
+    err, absd = k1v_worst(out, ref, valid)
+    finite = bool(torch.isfinite(out.float()).all())
+    log(f"K1 {flash_prefill.variant(sw, offsets)} B={B} Hq={Hq} Hkv={Hkv} S_q={S_q} "
+        f"S_k={S_k} sw={sw} row_offset={offsets} true_len={tls}: out worst row rel L2 "
+        f"{err:.3e} (max abs {absd:.3e}) tol {K1_OUT_TOL}; every row finite {finite}")
+    if err > K1_OUT_TOL or not finite:
+        raise SystemExit("K1's variant disagrees with its plain version")
+    return dict(q=q, k=k, v=v, tl=tl, off=off, ref=ref, valid=valid, err=err, absd=absd)
+
+
+def k1v_pairs(S_q, tls, sw, offsets):
+    """Visible (row, column) pairs per query head that this data needs:
+    valid row R sees min(R + 1, SW) columns (R + 1 without a window)."""
+    off = np.zeros(len(tls), np.int64) if offsets is None else np.asarray(offsets)
+    R = off[:, None] + np.arange(S_q)[None]
+    seen = R + 1 if sw is None else np.minimum(R + 1, sw)
+    return int(np.where(R < np.asarray(tls)[:, None], seen, 0).sum())
+
+
+def time_k1v(c, sw, offsets):
+    """Kernel (graph replay), plain (events) and SDPA-with-mask (graph
+    replay) times of one call, and its bound.  SDPA gets the same function
+    as an explicit boolean [B, 1, S_q, S_k] mask, with K/V expanded to the
+    query heads outside the timed call."""
+    q, k, v, tl, off = c["q"], c["k"], c["v"], c["tl"], c["off"]
+    B, Hq, S_q, D = q.shape
+    S_k = k.shape[2]
+    tls = tl.tolist()
+    kw = dict(sliding_window=sw, row_offset=off)
+    ms = graph_ms([lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, 0, **kw)] * 5)
+    plain_ms = event_ms(lambda: flash_prefill.flash_prefill_attention_reference(
+        q, k, v, tl, 0, **kw), iters=2, warmup=1)
+    G = Hq // k.shape[1]
+    ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    offs = torch.zeros(B, dtype=torch.int64, device="cuda") if off is None else off.long()
+    rows = offs[:, None, None] + torch.arange(S_q, device="cuda")[None, :, None]
+    cols = torch.arange(S_k, device="cuda")[None, None]
+    mask = (cols <= rows) & (cols < tl.long()[:, None, None])
+    if sw is not None:
+        mask &= cols > rows - sw
+    mask = mask[:, None]
+    lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)] * 5)
+    del ke, ve, mask
+    pairs = k1v_pairs(S_q, tls, sw, None if off is None else off.tolist()) * Hq
+    flops = 4 * D * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = max((flops / PEAK_BF16_FLOPS * 1e3, "operations"),
+                             (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"K1 {flash_prefill.variant(sw, off)} timed at B={B} Hq={Hq} S_q={S_q} S_k={S_k} "
+        f"sw={sw} true_len={tls}: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
+        f"SDPA with a boolean mask {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{pairs / 1e6:.1f} M visible pairs); {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def k1v_off_by_one(c, sw, offsets, what):
+    """What the check sees from a kernel whose window is one column too wide
+    or narrow (``what="window"``) or whose row offset is one row off
+    (``"offset"``): the smaller of the two worst-row rel L2 distances of the
+    plain version so shifted from the plain version's output."""
+    q, k, v, tl, ref, valid = c["q"], c["k"], c["v"], c["tl"], c["ref"], c["valid"]
+    worst = []
+    for d in (-1, 1):
+        if what == "window":
+            kw = dict(sliding_window=sw + d, row_offset=c["off"])
+        else:
+            kw = dict(sliding_window=sw, row_offset=c["off"] + d)
+        off, _ = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0, **kw)
+        worst.append(k1v_worst(off, ref, valid)[0])
+    return min(worst)
+
+
+def phase_k1_variants(rng):
+    """K1-SW and K1-chunk against their plain versions at the serving
+    path's shapes and on edge shapes, their off-by-one sensitivity, and
+    their times."""
+    S, SW = 8192, 4096
+    # K1-SW: whole-sequence queries under Mistral-7B-v0.1's window.
+    sw = k1v_case(rng, 2, 32, 8, S, S, [8192, 5000], SW, None)
+    # K1-chunk: a pool of four 2048-row chunks over 8192-row buffers at
+    # three prefill depths, the last row inert, with and without the window.
+    chunk_args = (4, 32, 8, 2048, S, [8192, 7000, 6500, 0])
+    offsets = [0, 2048, 6144, 0]
+    ch = k1v_case(rng, *chunk_args, SW, offsets)
+    ch_dense = k1v_case(rng, *chunk_args, None, offsets)
+    # Edge shapes: offsets no multiple of the 64-row tile, S_k no multiple
+    # of 64, chunks shorter than a tile, windows shorter than a tile and
+    # longer than the sequence, inert rows.
+    for sw_e in (None, 17, 50):
+        k1v_case(rng, 2, 8, 2, 96, 300, [300, 120], sw_e, [100, 37])
+        k1v_case(rng, 3, 4, 4, 32, 200, [200, 190, 0], sw_e, [0, 160, 64])
+    for sw_e in (17, 1000):
+        k1v_case(rng, 2, 8, 2, 200, 200, [200, 77], sw_e, None)
+    # Off-by-one sensitivity.  At SW 4096 one column more or less moves a
+    # row by about 1/4096 of its norm, under any limit that bf16 rounding
+    # allows, so the window is held at SW 64, where the same code runs; the
+    # row offset is held at the chunk shape (its depth-0 chunk's first rows
+    # see one or two columns).
+    sens = k1v_case(rng, 1, 8, 2, 1024, 1024, [1024], 64, None)
+    win_err = k1v_off_by_one(sens, 64, None, "window")
+    off_err = k1v_off_by_one(ch, SW, offsets, "offset")
+    log(f"K1 variants: a window off by one column would show row rel L2 {win_err:.3e} "
+        f"({win_err / K1_OUT_TOL:.1f} x tol, at SW 64); a row offset off by one "
+        f"{off_err:.3e} ({off_err / K1_OUT_TOL:.1f} x tol)")
+    if win_err <= K1_OUT_TOL or off_err <= K1_OUT_TOL:
+        raise SystemExit("K1's tolerance would let an off-by-one window or offset pass")
+    del sens
+    for c in (sw, ch, ch_dense):
+        del c["ref"]
+
+    # Times: the serving path's one-shot prefill of one 8192-token request
+    # (B=1), the check shape above (B=2), and the pooled chunk.
+    main = k1v_case(rng, 1, 32, 8, S, S, [8192], SW, None)
+    del main["ref"]
+    t_sw = time_k1v(main, SW, None)
+    t_sw2 = time_k1v(sw, SW, None)
+    t_ch = time_k1v(ch, SW, offsets)
+    t_ch_dense = time_k1v(ch_dense, None, offsets)
+    entry = lambda name, var, shape, c, t, **extra: {
+        "name": name, "route": "cuda", "source": flash_prefill.SOURCE,
+        "replaces": flash_prefill.REPLACES_VARIANT[var], "shape": shape,
+        "max_abs_err": c["absd"], "rel_l2": c["err"], "tol": K1_OUT_TOL, **t, **extra}
+    return (entry("flash_prefill_sliding_window", "sliding_window",
+                  f"B=1 Hq=32 Hkv=8 S={S} D=128 sw={SW} true_len=[8192]", main, t_sw,
+                  window_off_by_one_rel_l2=win_err, check_rel_l2=sw["err"],
+                  b2={"shape": "B=2 true_len=[8192, 5000]", **t_sw2}),
+            entry("flash_prefill_chunk", "chunk",
+                  f"P=4 Hq=32 Hkv=8 S_q=2048 S_k={S} D=128 sw={SW} row_offset={offsets} "
+                  f"true_len={chunk_args[5]}", ch, t_ch,
+                  offset_off_by_one_rel_l2=off_err,
+                  no_window={"rel_l2": ch_dense["err"], **t_ch_dense}))
 
 
 # ---------------------------------------------------------------------------
@@ -554,7 +750,9 @@ PATHS = (("bf16", None), ("int8", QuantConfig(nbits=8)), ("int4", QuantConfig(nb
 
 
 def phase_e2e(rng, log_file):
-    """The main path with each cache, over one set of weights and prompts."""
+    """The main path with each cache, over one set of weights and prompts;
+    returns the weights too, which the serving path reuses (Mistral-7B-v0.1
+    has the same shapes)."""
     cfg, dev = MISTRAL_7B, "cuda"
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
@@ -564,8 +762,8 @@ def phase_e2e(rng, log_file):
     log(f"init_params: {n_params / 1e9:.3f} B parameters in "
         f"{time.perf_counter() - t0:.1f} s")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
-    return {label: drive_path(params, n_params, prompts, quant, log_file)
-            for label, quant in PATHS}
+    return params, {label: drive_path(params, n_params, prompts, quant, log_file)
+                    for label, quant in PATHS}
 
 
 def drive_path(params, n_params, prompts, quant, log_file):
@@ -684,6 +882,161 @@ def drive_path(params, n_params, prompts, quant, log_file):
             "decode_top1_agreement": top1}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the serving path
+# ---------------------------------------------------------------------------
+
+SERVE_PROMPTS = (8192, 7000, 6100, 5000, 3000, 1500)
+SERVE_NEW = 32
+SERVE_BUCKETS = (4096, 8192)
+SERVE_DRAINS = (("one-shot", 0), ("chunked", 2048))
+
+
+def serve_drain(params, prompts, chunk_tokens):
+    """One drain of the six requests; every launch count set to 0 just
+    before ``run`` and read just after."""
+    cfg, L = MISTRAL_7B_V01, MISTRAL_7B_V01.num_hidden_layers
+    eng = ContinuousBatchingEngine(
+        params, EngineConfig(model=cfg, compression=SNAPKV, prefill_buckets=SERVE_BUCKETS),
+        n_slots=4, max_new_cap=SERVE_NEW, chunk_size=16, prefill_chunk_tokens=chunk_tokens,
+        device="cuda", instrument=True)
+    rids = [eng.submit(p, SERVE_NEW) for p in prompts]
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+    flash_prefill.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    var = dict(flash_prefill.flash_prefill_attention.variant_launches)
+    launches = {"K1": var["dense"], "K1-SW": var["sliding_window"], "K1-chunk": var["chunk"],
+                **{kid: w.launches for kid, w in COUNTED.items() if kid != "K1"}}
+    expect = dict.fromkeys(launches, 0)
+    expect["K2"] = L * eng.steps_executed
+    if chunk_tokens:
+        expect["K1-chunk"] = L * eng.prefill_chunk_dispatches
+    else:
+        expect["K1-SW"] = L * len(prompts)
+    label = "chunked" if chunk_tokens else "one-shot"
+    stalls = eng.admission_stalls_s
+    log(f"{label} drain: {wall:.3f} s wall, {eng.steps_executed} decode steps, "
+        f"{eng.prefill_chunk_dispatches} chunk dispatches ({eng.prefill_chunks_executed} "
+        f"row-chunks), scheduler {type(eng.scheduler).__name__}; longest admission stall "
+        f"{max(stalls):.4f} s over {len(stalls)} loop iterations with prefill work "
+        f"(sum {sum(stalls):.3f} s); launches {launches}, expect {expect}")
+    if launches != expect or expect["K2"] == 0:
+        raise SystemExit(f"the {label} drain did not run each kernel the expected number of times")
+    if any(len(out[r]) != SERVE_NEW for r in rids):
+        raise SystemExit(f"the {label} drain did not produce {SERVE_NEW} tokens per request")
+    # The last request in each slot: 2048 compressed entries + 31 decoded
+    # for the prompts above 2048 tokens, 1500 + 31 for the last one.
+    got = sorted(sorted(set(eng.cache.lengths[:, b].flatten().tolist())) for b in range(4))
+    want = sorted([min(n, SNAPKV.max_capacity_prompt) + SERVE_NEW - 1]
+                  for n in SERVE_PROMPTS[-4:])
+    log(f"{label} drain: cache lengths per slot {got} (expect {want})")
+    if got != want:
+        raise SystemExit(f"the {label} drain left wrong cache lengths")
+    return {"engine": eng, "tokens": [out[r] for r in rids],
+            "logits": [torch.stack(eng.logits[r]) for r in rids],
+            "summary": {"wall_s": wall, "decode_steps": eng.steps_executed,
+                        "chunk_dispatches": eng.prefill_chunk_dispatches,
+                        "row_chunks": eng.prefill_chunks_executed,
+                        "longest_stall_s": max(stalls), "stalls_s": stalls,
+                        "drain_decode_ms_per_step":
+                            (wall - sum(stalls)) / eng.steps_executed * 1e3,
+                        "scheduler": type(eng.scheduler).__name__, "launches": launches}}
+
+
+def phase_serving(rng, params, log_file):
+    """Both drains, checked against the fp32 reference and each other, then
+    decode timed and profiled on the last drain's batched cache."""
+    cfg = MISTRAL_7B_V01
+    log("== serving path: Mistral-7B-v0.1 widths (sliding window 4096), "
+        f"prompts {SERVE_PROMPTS}, {SERVE_NEW} new tokens each, 4 slots, buckets "
+        f"{SERVE_BUCKETS}")
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_PROMPTS]
+    drains = {}
+    for label, chunk in SERVE_DRAINS:
+        drains[label] = serve_drain(params, prompts, chunk)
+        if label != SERVE_DRAINS[-1][0]:
+            del drains[label]["engine"]
+    one, ch = drains["one-shot"], drains["chunked"]
+
+    # First-token logits against the fp32 reference forward (windowed).
+    worst = {"one-shot": 0.0, "chunked": 0.0, "between": 0.0}
+    max_abs_between = 0.0
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            ref = forward_logits(params, cfg, torch.tensor([p], device="cuda"))[0, -1]
+            for label in ("one-shot", "chunked"):
+                worst[label] = max(worst[label], rel_l2(drains[label]["logits"][i][:1],
+                                                        ref[None].cpu())[0])
+            e, a = rel_l2(ch["logits"][i][:1], one["logits"][i][:1])
+            worst["between"], max_abs_between = max(worst["between"], e), max(max_abs_between, a)
+            del ref
+    log(f"first-token logits vs fp32 reference, worst rel L2 over {len(prompts)} requests: "
+        f"one-shot {worst['one-shot']:.4f}, chunked {worst['chunked']:.4f} (tol "
+        f"{E2E_REL_L2_TOL}); chunked vs one-shot {worst['between']:.4f} (tol "
+        f"{CHUNKED_VS_ONESHOT_TOL}), max abs {max_abs_between:.4f}")
+    if max(worst["one-shot"], worst["chunked"]) > E2E_REL_L2_TOL \
+            or worst["between"] > CHUNKED_VS_ONESHOT_TOL:
+        raise SystemExit("serving logits disagree with the fp32 reference or each other")
+
+    # Greedy streams: identical up to the first near-tie.  Until two streams
+    # part, both drains fed the same tokens, so their logits differ only by
+    # the prefill's roundings, which the first token measures; a stream may
+    # part where the one-shot top two are within twice the worst first-token
+    # logit difference, and the two rows must still agree there.
+    tie_margin = 2 * max_abs_between
+    parted = []
+    for i in range(len(prompts)):
+        apart = [j for j, (a, b) in enumerate(zip(one["tokens"][i], ch["tokens"][i])) if a != b]
+        if not apart:
+            continue
+        j = apart[0]
+        top2 = one["logits"][i][j].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        e = rel_l2(ch["logits"][i][j:j + 1], one["logits"][i][j:j + 1])[0]
+        parted.append({"request": i, "step": j, "top2_gap": gap, "rel_l2": e})
+        if gap > tie_margin or e > CHUNKED_VS_ONESHOT_TOL:
+            raise SystemExit(f"request {i}: the two drains part at step {j} where the one-shot "
+                             f"top-2 gap is {gap:.4f} (margin {tie_margin:.4f}), rel L2 {e:.4f}")
+    log(f"greedy streams: {len(prompts) - len(parted)} of {len(prompts)} identical over "
+        f"{SERVE_NEW} tokens; parted at near-ties (margin {tie_margin:.4f}): {parted}")
+
+    # Decode on the last drain's batched cache, 4 rows: wall time per step
+    # and a profile.  The steps overwrite slots past each row's end, which
+    # nothing reads again.
+    eng = ch["engine"]
+    cache, quant = eng.cache, None
+    cur = torch.tensor([t[-1] for t in ch["tokens"][-4:]], device="cuda")
+    with torch.no_grad():
+        for _ in range(2):
+            llama.decode_step(params, cfg, cur, cache, quant=quant)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            llama.decode_step(params, cfg, cur, cache, quant=quant)
+        sync()
+        step_ms = (time.perf_counter() - t0) / 8 * 1e3
+        busy_ms = profile_device(lambda: llama.decode_step(params, cfg, cur, cache, quant=quant),
+                                 8, step_ms, "decode step, serving B=4", log_file)
+    log(f"serving decode at B=4: {step_ms:.3f} ms/step wall, device busy "
+        f"{busy_ms if busy_ms is None else round(busy_ms, 3)} ms")
+    del drains["chunked"]["engine"], eng, cache
+    summary = {"model": "Mistral-7B-v0.1 widths (sliding window 4096), random weights (seed 0)",
+               "compression": "snapkv 2048/8/7 maxpool, group_reduce none",
+               "requests": f"prompts {list(SERVE_PROMPTS)}, {SERVE_NEW} new tokens, 4 slots, "
+                           f"buckets {SERVE_BUCKETS}, decode chunk 16",
+               "one_shot": one["summary"], "chunked": ch["summary"],
+               "first_token_rel_l2": worst, "first_token_max_abs_between": max_abs_between,
+               "tie_margin": tie_margin, "parted": parted,
+               "decode_ms_per_step_b4": step_ms, "device_busy_ms_per_step_b4": busy_ms,
+               "idle_share_b4": None if busy_ms is None else 1 - busy_ms / step_ms}
+    return summary
+
+
 def profile_device(fn, reps, wall_ms, what, log_file):
     """Device time per call of ``fn`` from ``torch.profiler`` (device-side
     kernel and copy events only), printed with the top kernels beside the
@@ -733,21 +1086,27 @@ def main():
 
     rng = np.random.default_rng(0)
     k1 = phase_k1(rng)
+    k1_sw, k1_chunk = phase_k1_variants(rng)
     k2 = phase_k2(rng)
     k3 = phase_kq(rng, 8)
     k4 = phase_kq(rng, 4)
     phase_edges(rng)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
-        e2e = phase_e2e(rng, log_file)
+        params, e2e = phase_e2e(rng, log_file)
+        serving = phase_serving(rng, params, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
-    # path, K3 on the int8 path, K4 on the int4 path.
+    # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
+    # drain, K1-chunk on the chunked drain (K2's count on each drain is in
+    # the serving line).
     for k, label, kid in ((k1, "bf16", "K1"), (k2, "bf16", "K2"), (k3, "int8", "K3"),
                           (k4, "int4", "K4")):
         k["launches"] = e2e[label]["launches"][kid]
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    k1_sw["launches"] = serving["one_shot"]["launches"]["K1-SW"]
+    k1_chunk["launches"] = serving["chunked"]["launches"]["K1-chunk"]
+    print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k2, k3, k4]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
-                      "card": smi}))
+                      "serving": serving, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,29 +1,44 @@
 // K1: causal GQA flash prefill attention plus SnapKV window-score emission,
-// for Hopper (sm_90a), bf16 in, fp32 accumulation.
+// for Hopper (sm_90a), bf16 in, fp32 accumulation, with the sliding-window
+// and chunk (row_offset) variants.
 //
 // Replaces the Pallas TPU kernel
 //   kvcache_factory_tpu/ops/kernels/flash_prefill.py::_flash_kernel
-// (dense causal path with score emission; the sliding-window, chunk,
-// return_ml and sparse variants are not ported here).
+// (dense causal path with score emission, `sliding_window` and chunk mode;
+// the return_ml and sparse variants are not ported here).
 //
-// What it computes, per example b and query head hq (kv head hq / G):
-//   out[r]   = softmax_c(q[r].k[c] / sqrt(D)) . v  over c <= min(r, tl-1)
+// What it computes, per example b and query head hq (kv head hq / G), for
+// q row r at global id R = row_offset[b] + r (row_offset 0 outside chunk
+// mode):
+//   out[r]   = softmax_c(q[r].k[c] / sqrt(D)) . v  over the visible columns
+//              c <= min(R, tl-1) and, with a sliding window SW, c > R - SW
 //   scores[c]= sum over window rows r in [tl-W, tl), c <= r, of the final
 //              normalized probability exp(s_rc - m_r) / l_r
+// Scores need the dense causal softmax of whole-sequence queries, so W > 0
+// excludes SW and chunk mode (the wrapper and the host function check).
 // The softmax is online and in fp32; probabilities are rounded to bf16
 // before the PV product, as the TPU kernel does.  Rows at or past true_len
 // in a tile that holds no valid row are written as zeros: every later mask
-// excludes those rows, and zeros keep them finite.
+// excludes those rows, and zeros keep them finite (an inert chunk-pool row,
+// true_len 0, comes out all zeros).
 //
 // What bounds it: at S=4096 the causal QK and PV products are ~137 GFLOP
 // per layer and example against ~50 MB of q/k/v/out, so it is bound by the
-// tensor cores (0.139 ms per layer at 989 TFLOP/s of dense bf16).
+// tensor cores (0.139 ms per layer at 989 TFLOP/s of dense bf16).  With a
+// window the work is O(S * SW): key tiles wholly below every row's window
+// are skipped, so an 8192-token prefill at SW 4096 does 0.75 of the dense
+// causal work.
 //
 // Design: one CTA (4 warps) per (q-tile of 64 rows, hq, b).  Each warp owns
 // 16 query rows, holds their Q fragments in registers, and walks 64-key K/V
-// tiles in shared memory up to the causal frontier with mma.sync m16n8k16
-// bf16 products; the S accumulator fragment is re-used directly as the A
-// operand of the PV product, so probabilities never touch shared memory.
+// tiles in shared memory from the window's first tile up to the causal
+// frontier with mma.sync m16n8k16 bf16 products; the S accumulator fragment
+// is re-used directly as the A operand of the PV product, so probabilities
+// never touch shared memory.  In chunk mode q holds S_q rows of a longer
+// sequence whose keys fill the S_k-row K/V buffer: the tile bounds come from
+// the global ids and K/V loads are clamped to S_k.  A row whose first tiles
+// hold no visible column folds them with m = -FLT_MAX; its first visible
+// column rescales that garbage by exp(-FLT_MAX - m) = 0.
 //
 // The window scores cannot accumulate across q-tiles as the TPU's
 // sequential grid lets them (q-tiles run concurrently here, and float
@@ -92,8 +107,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ true_len,
-                 bf16* __restrict__ out, float* __restrict__ win_ml,
-                 int Hq, int Hkv, int S, int W, float scale) {
+                 const int* __restrict__ row_offset, bf16* __restrict__ out,
+                 float* __restrict__ win_ml, int Hq, int Hkv, int S_q, int S_k,
+                 int W, int SW, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + BM * LDS;
@@ -104,26 +120,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hkv = hq / (Hq / Hkv);
   const int tl = true_len[b];
-  const int row0 = blockIdx.x * BM;
+  const int lrow0 = blockIdx.x * BM;                        // first local q row
+  const int row0 = lrow0 + (row_offset ? row_offset[b] : 0);  // its global id
 
-  const size_t qoff = ((size_t)b * Hq + hq) * S * D;
-  const bf16* kh = k + ((size_t)b * Hkv + hkv) * S * D;
-  const bf16* vh = v + ((size_t)b * Hkv + hkv) * S * D;
+  const size_t qoff = ((size_t)b * Hq + hq) * S_q * D;
+  const bf16* kh = k + ((size_t)b * Hkv + hkv) * S_k * D;
+  const bf16* vh = v + ((size_t)b * Hkv + hkv) * S_k * D;
   bf16* oh = out + qoff;
 
   const int ra = warp * 16 + g;            // this thread's first tile row
-  const int r_lo = row0 + ra, r_hi = r_lo + 8;
+  const int o_lo = lrow0 + ra, o_hi = o_lo + 8;  // local rows (output)
+  const int r_lo = row0 + ra, r_hi = r_lo + 8;   // global ids (masks)
 
   if (row0 >= tl) {  // no valid row in this tile (uniform over the CTA)
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      if (r_lo < S) *reinterpret_cast<uint32_t*>(oh + (size_t)r_lo * D + dt * 8 + t * 2) = 0u;
-      if (r_hi < S) *reinterpret_cast<uint32_t*>(oh + (size_t)r_hi * D + dt * 8 + t * 2) = 0u;
+      if (o_lo < S_q) *reinterpret_cast<uint32_t*>(oh + (size_t)o_lo * D + dt * 8 + t * 2) = 0u;
+      if (o_hi < S_q) *reinterpret_cast<uint32_t*>(oh + (size_t)o_hi * D + dt * 8 + t * 2) = 0u;
     }
     return;
   }
 
-  load_tile(Qs, q + qoff, row0, S, tid);
+  load_tile(Qs, q + qoff, lrow0, S_q, tid);
   __syncthreads();
 
   uint32_t qf[D / 16][4];
@@ -136,18 +154,24 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qf[ks][3] = ld32(p + 8 * LDS + 8);
   }
 
-  // col > row OR col >= true_len collapses to col > min(row, tl - 1).
+  // col > row OR col >= true_len collapses to col > min(row, tl - 1); the
+  // window hides col <= row - SW (no window: col <= -1, nothing).
   const int lim_lo = min(r_lo, tl - 1), lim_hi = min(r_hi, tl - 1);
+  const int wlo_lo = SW > 0 ? r_lo - SW : -1, wlo_hi = SW > 0 ? r_hi - SW : -1;
   float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
   float o[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
-  const int kv_end = min(row0 + BM, tl);  // causal frontier of this tile
-  for (int c0 = 0; c0 < kv_end; c0 += BN) {
+  // Causal frontier of this tile, and the first key tile that holds a
+  // column inside any of its rows' windows.  row0 < tl, so the tile range
+  // is never empty: row row0 sees its own column.
+  const int kv_end = min(min(row0 + BM, tl), S_k);
+  const int kv_begin = SW > 0 ? max(row0 - SW + 1, 0) / BN * BN : 0;
+  for (int c0 = kv_begin; c0 < kv_end; c0 += BN) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(Ks, kh, c0, S, tid);
-    load_tile(Vs, vh, c0, S, tid);
+    load_tile(Ks, kh, c0, S_k, tid);
+    load_tile(Vs, vh, c0, S_k, tid);
     __syncthreads();
 
     float s[BN / 8][4];
@@ -168,7 +192,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int col = c0 + nt * 8 + t * 2 + (e & 1);
         float val = s[nt][e] * scale;
-        if (col > (e < 2 ? lim_lo : lim_hi)) val = NEG_INF;
+        if (col > (e < 2 ? lim_lo : lim_hi) || col <= (e < 2 ? wlo_lo : wlo_hi))
+          val = NEG_INF;
         s[nt][e] = val;
         if (e < 2) mx_lo = fmaxf(mx_lo, val); else mx_hi = fmaxf(mx_hi, val);
       }
@@ -226,14 +251,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float dl_hi = (l_hi == 0.f) ? 1.f : l_hi;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    if (r_lo < S)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_lo * D + dt * 8 + t * 2) =
+    if (o_lo < S_q)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)o_lo * D + dt * 8 + t * 2) =
           pack_f32(o[dt][0] / dl_lo, o[dt][1] / dl_lo);
-    if (r_hi < S)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_hi * D + dt * 8 + t * 2) =
+    if (o_hi < S_q)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)o_hi * D + dt * 8 + t * 2) =
           pack_f32(o[dt][2] / dl_hi, o[dt][3] / dl_hi);
   }
 
+  // W > 0 only for whole-sequence queries (no offset): r == global id.
   if (W > 0 && t == 0) {  // final (m, l) of the observation-window rows
     const int ws = tl - W;
     float* ml = win_ml + ((size_t)b * Hq + hq) * W * 2;
@@ -313,10 +339,15 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }  // namespace
 
 extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
-                                  const void* true_len, void* out, void* win_ml,
-                                  void* scores, int B, int Hq, int Hkv, int S,
-                                  int W, float scale, void* stream) {
-  if (W < 0 || W > WMAX) return (int)cudaErrorInvalidValue;
+                                  const void* true_len, const void* row_offset,
+                                  void* out, void* win_ml, void* scores, int B,
+                                  int Hq, int Hkv, int S_q, int S_k, int W, int SW,
+                                  float scale, void* stream) {
+  // The wrapper's contract: scores only for dense whole-sequence queries;
+  // q and k lengths differ only in chunk mode.
+  if (W < 0 || W > WMAX || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
+      (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = 3 * BM * LDS * (int)sizeof(bf16);
   // Above 48 KB of dynamic shared memory needs an opt-in, once per device
@@ -330,17 +361,18 @@ extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     smem_set[dev] = true;
   }
-  dim3 grid((S + BM - 1) / BM, Hq, B);
+  dim3 grid((S_q + BM - 1) / BM, Hq, B);
   flash_fwd_kernel<<<grid, 128, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(true_len),
-      static_cast<bf16*>(out), static_cast<float*>(win_ml), Hq, Hkv, S, W, scale);
+      static_cast<const int*>(row_offset), static_cast<bf16*>(out),
+      static_cast<float*>(win_ml), Hq, Hkv, S_q, S_k, W, SW, scale);
   if (W > 0) {
-    dim3 g2((S + BN - 1) / BN, Hq, B);
+    dim3 g2((S_k + BN - 1) / BN, Hq, B);
     window_scores_kernel<<<g2, 128, 0, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const int*>(true_len), static_cast<const float*>(win_ml),
-        static_cast<float*>(scores), Hq, Hkv, S, W, scale);
+        static_cast<float*>(scores), Hq, Hkv, S_k, W, scale);
   }
   return (int)cudaGetLastError();
 }

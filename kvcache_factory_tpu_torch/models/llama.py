@@ -10,8 +10,10 @@ per-token int8 or int4 cache (``cache/quant_cache.py``).  Everything else
 is plain torch, with the fp32 islands where the JAX package has them:
 norm, RoPE and softmax.
 
-The port carries the dense and the per-token quantized caches.  The
-grouped quantized cache, ThinK, evicting, offloaded, MoE and sliding-window
+A sliding window (Mistral-7B-v0.1, Qwen2) masks prefill attention inside
+K1 and window-masks the decode rows whose cache index is the absolute
+position.  The port carries the dense and the per-token quantized caches.
+The grouped quantized cache, ThinK, evicting, offloaded and MoE
 configurations raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -31,6 +33,7 @@ from ..ops.kernels.decode_attn import decode_attention_append
 from ..ops.kernels.decode_attn_quant import (quant4_decode_attention_append,
                                               quant_decode_attention_append)
 from ..ops.kernels.flash_prefill import flash_prefill_attention
+from ..policies.base import PackedKV
 from ..policies.methods import LayerContext, compress_prefill
 
 # ---------------------------------------------------------------------------
@@ -164,9 +167,6 @@ def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
     check_quant(quant, cfg.head_dim)
     if cfg.is_moe:
         raise NotImplementedError("MoE is not ported yet (ROADMAP.md queue 1 item 10)")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not ported yet "
-                                  "(ROADMAP.md queue 2: K1 sliding_window variant)")
     if comp.decode_evict:
         raise NotImplementedError("the evicting cache is not ported yet "
                                   "(ROADMAP.md queue 1 item 11)")
@@ -203,6 +203,34 @@ def _finish_layer(x, attn, lp, cfg):
                             lp.get("gate_up_bias"), lp.get("down_bias"))
 
 
+def init_prefill_cache(cfg: ModelConfig, comp: CompressionConfig,
+                       quant: Optional[QuantConfig], batch: int,
+                       cache_capacity: int, device) -> Cache:
+    """The empty cache a prefill fills: dense, or per-token int8/int4 with
+    ``quant``.  With :func:`store_packed_layer`, the cache-building tail
+    shared by one-shot :func:`prefill` and chunked prefill's ``finalize``
+    (the JAX package's ``build_cache_from_packed``), built layer by layer so
+    that no second copy of the packed K/V is held."""
+    L, D = cfg.num_hidden_layers, cfg.head_dim
+    heads = comp.cache_heads(cfg.num_attention_heads, cfg.num_key_value_heads)
+    if quant is None:
+        return init_cache(L, batch, heads, cache_capacity, D, dtype_of(cfg), device)
+    return init_quant_cache(quant.nbits, L, batch, heads, cache_capacity, D, device)
+
+
+def store_packed_layer(cache: Cache, layer: int, packed: PackedKV) -> None:
+    """Write one layer's packed K/V ``[B, H, n, D]`` into slots ``[0, n)``
+    and its lengths, quantizing per token when the cache is quantized (the
+    same values as the JAX package's whole-stack ``from_packed_prefill_tpu*``)."""
+    if isinstance(cache, KVCache):
+        n = packed.k.shape[2]
+        cache.k[layer, :, :, :n] = packed.k
+        cache.v[layer, :, :, :n] = packed.v
+    else:
+        store_rows(cache, layer, packed.k, packed.v)
+    cache.lengths[layer] = packed.lengths
+
+
 def prefill(
     params: dict,
     cfg: ModelConfig,
@@ -216,29 +244,26 @@ def prefill(
     """Full prefill: attention over the uncompressed prompt, then the
     compression hook between the QKV computation and the cache write.
     The cache is allocated once and filled layer by layer; with ``quant``
-    each layer's packed K/V is quantized per token as soon as it is ready
-    (the same values as the JAX package's whole-stack
-    ``from_packed_prefill_tpu*``, without ever holding a bf16 cache)."""
+    each layer's packed K/V is quantized per token as soon as it is ready.
+    Under ``cfg.sliding_window`` K1 masks each row's keys to its window and
+    emits no scores: SnapKV's scores are a dense causal softmax, which no
+    windowed softmax's ``(m, l)`` can give, so the policy computes them
+    itself (``window_attention_scores``), as the JAX package does."""
     _check_supported(cfg, comp, quant)
     B, S = tokens.shape
     L = cfg.num_hidden_layers
     dtype = dtype_of(cfg)
-    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     dev = tokens.device
     true_len = true_len.to(device=dev, dtype=torch.int32)
 
     x = params["embed"][tokens].to(dtype)  # [B, S, hidden]
     cos, sin = rope_tables(cfg, S, dev)
-    cache_heads = comp.cache_heads(Hq, Hkv)
     policy_capacity = comp.layer_capacity(L, S)
     assert cache_capacity >= policy_capacity, (
         f"cache capacity {cache_capacity} < policy capacity {policy_capacity}")
-    if quant is None:
-        cache = init_cache(L, B, cache_heads, cache_capacity, D, dtype, dev)
-    else:
-        cache = init_quant_cache(quant.nbits, L, B, cache_heads, cache_capacity, D, dev)
+    cache = init_prefill_cache(cfg, comp, quant, B, cache_capacity, dev)
     # Score emission only when the policy reuses it; window=0 skips it.
-    emit = comp.method == "snapkv"
+    emit = comp.method == "snapkv" and cfg.sliding_window is None
     win = comp.window_size if emit else 0
     cols = torch.arange(S, device=dev)
 
@@ -246,21 +271,17 @@ def prefill(
         lp = _layer(params, li)
         q, k, v = _qkv(x, lp, cfg, cos, sin)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        attn, win_sc = flash_prefill_attention(q, k, v, true_len, win)
+        attn, win_sc = flash_prefill_attention(q, k, v, true_len, win,
+                                               sliding_window=cfg.sliding_window)
         window_scores = None
         if emit:
             window_scores = torch.where(
                 cols >= (true_len[:, None, None] - comp.window_size),
                 NEG_INF, win_sc)
         x = _finish_layer(x, attn, lp, cfg)
-        packed = compress_prefill(comp, L, policy_capacity, k, v, q, true_len,
-                                  LayerContext(li, window_scores=window_scores))
-        if quant is None:
-            cache.k[li, :, :, :policy_capacity] = packed.k
-            cache.v[li, :, :, :policy_capacity] = packed.v
-        else:
-            store_rows(cache, li, packed.k, packed.v)
-        cache.lengths[li] = packed.lengths
+        store_packed_layer(cache, li, compress_prefill(
+            comp, L, policy_capacity, k, v, q, true_len,
+            LayerContext(li, window_scores=window_scores)))
     cache.positions.copy_(true_len)
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -268,6 +289,21 @@ def prefill(
     x_last = x[torch.arange(B, device=dev), last]
     logits_last = wdot(x_last, params["lm_head"]).float()
     return PrefillResult(logits_last, cache)
+
+
+def window_lower(cfg: ModelConfig, lens: torch.Tensor,
+                 positions: torch.Tensor) -> Optional[torch.Tensor]:
+    """Pre-append lengths ``[B, H]`` and the positions ``[B]`` -> the first
+    slot each head's decode attention may read under ``cfg.sliding_window``
+    (None without one), as the JAX ``window_lower`` (``llama.py:676-686``).
+    Only rows whose cache index is the absolute position (pre-append length
+    == tokens seen: fullkv and the no-compress branch) are window-masked;
+    compressed rows keep their importance-selected entries."""
+    if cfg.sliding_window is None:
+        return None
+    ident = lens == positions[:, None]
+    lo = torch.clamp(lens + 1 - cfg.sliding_window, min=0)
+    return torch.where(ident, lo, torch.zeros_like(lo)).to(torch.int32)
 
 
 def decode_step(
@@ -280,7 +316,8 @@ def decode_step(
     """One decode step: append at each head's length and attend over the
     compressed cache, with K2 over a dense ``KVCache`` and K3 / K4 over an
     ``Int8KVCache`` / ``Int4KVCache`` (``quant`` is given exactly when the
-    cache is quantized, as in the JAX package).  **Updates ``cache`` in
+    cache is quantized, as in the JAX package).  Under a sliding window
+    each kernel gets the :func:`window_lower` bound.  **Updates ``cache`` in
     place** (its slots, ``lengths`` and ``positions``) and returns it with
     the logits [B, V] fp32; the JAX version returns a new cache."""
     check_quant(quant, cfg.head_dim)
@@ -288,9 +325,9 @@ def decode_step(
             (quant is not None and quant.nbits != cache.nbits):
         raise ValueError("a quant config must be passed exactly when the cache is "
                          "quantized, with the cache's nbits")
-    if cfg.is_moe or cfg.sliding_window is not None:
-        raise NotImplementedError("MoE and sliding-window decode are not ported "
-                                  "yet (ROADMAP.md queue 1 item 10, queue 2)")
+    if cfg.is_moe:
+        raise NotImplementedError("MoE decode is not ported yet (ROADMAP.md queue 1 "
+                                  "item 10)")
     B = tokens.shape[0]
     L = cfg.num_hidden_layers
     dtype = dtype_of(cfg)
@@ -313,13 +350,16 @@ def decode_step(
             k = k.repeat_interleave(Hq // Hkv, dim=1)
             v = v.repeat_interleave(Hq // Hkv, dim=1)
         lens = cache.lengths[li]
+        lower = window_lower(cfg, lens, cache.positions)
+        if lower is not None:
+            lower = lower.reshape(B * H)
         q_bh = q.reshape(B * H, Gq, D).to(dtype).contiguous()
         k_bh = k.reshape(B * H, D).to(dtype).contiguous()
         v_bh = v.reshape(B * H, D).to(dtype).contiguous()
         if quant is None:
             out = decode_attention_append(
                 q_bh, cache.k[li].view(B * H, C, D), cache.v[li].view(B * H, C, D),
-                lens.view(B * H), k_bh, v_bh)
+                lens.view(B * H), k_bh, v_bh, lower)
         else:
             attend = (quant_decode_attention_append if quant.nbits == 8
                       else quant4_decode_attention_append)
@@ -327,7 +367,7 @@ def decode_step(
             out = attend(q_bh, cache.k_codes[li].view(B * H, C, W),
                          cache.v_codes[li].view(B * H, C, W),
                          cache.scales[li].view(B * H, C, 4), lens.view(B * H),
-                         k_bh, v_bh)
+                         k_bh, v_bh, lower)
         torch.clamp(lens + 1, max=C, out=lens)
         x = _finish_layer(x, out.reshape(B, Hq, 1, D), lp, cfg)
 

@@ -21,7 +21,8 @@ from .llama import (_merge_heads, _split_heads, apply_rope, rms_norm,
 @torch.no_grad()
 def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    q_block: int = 256) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V] fp32, causal over all T tokens."""
+    """tokens [B, T] -> logits [B, T, V] fp32, causal over all T tokens
+    (and inside ``cfg.sliding_window`` when the model has one)."""
     B, T = tokens.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     dev = tokens.device
@@ -37,7 +38,8 @@ def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         k = apply_rope(_split_heads(qkv[..., Hq * D:(Hq + Hkv) * D], Hkv, D),
                        cos, sin)
         v = _split_heads(qkv[..., (Hq + Hkv) * D:], Hkv, D)
-        attn = blocked_causal_attention(q, k, v, full, q_block=q_block)
+        attn = blocked_causal_attention(q, k, v, full, cfg.sliding_window,
+                                        q_block=q_block)
         x = x + _merge_heads(attn) @ lp["o_proj"]
         h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         x = x + swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"])

@@ -25,8 +25,10 @@ from kvcache_factory_tpu.models import weights as jweights
 from kvcache_factory_tpu.runtime import engine as jengine
 from kvcache_factory_tpu.runtime.generate import generate as jax_generate
 from kvcache_factory_tpu_torch import config as tcfg
+from kvcache_factory_tpu_torch.models import chunked_prefill as tchunked
 from kvcache_factory_tpu_torch.models import llama as tllama
 from kvcache_factory_tpu_torch.models.weights import params_from_jax
+from kvcache_factory_tpu_torch.runtime import batching as tbatching
 from kvcache_factory_tpu_torch.runtime import engine as tengine
 from kvcache_factory_tpu_torch.runtime import generate as tgenerate
 
@@ -148,11 +150,15 @@ def test_engine_generate_batch_matches_jax(setup, lengths):
         assert teng.generate_ids(prompts[0], 10) == want[0]
 
 
-@pytest.mark.parametrize("what", ["quant", "quant_residual", "sliding_window", "sampling"])
+@pytest.mark.parametrize("what", ["quant", "quant_residual", "cache_prefix",
+                                  "sparse_chunked", "sampling"])
 def test_unported_paths_raise(setup, what):
     """The grouped quantized cache (nbits 1/2/3, or an fp residual ring) is
     still unported; the per-token int8/int4 caches are
-    ``tests/test_torch_quant_decode.py``'s."""
+    ``tests/test_torch_quant_decode.py``'s.  Prefix caching waits for its
+    ROADMAP item, and chunked prefill refuses MInference's sparse masks, as
+    the JAX package does (sliding-window models run: ``tests/
+    test_torch_sliding_window.py``)."""
     s = setup
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"
                        if what.startswith("quant") else "ROADMAP"):
@@ -164,10 +170,15 @@ def test_unported_paths_raise(setup, what):
                 s["tp"], tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"],
                                            quant=tcfg.QuantConfig(residual_length=32)),
                 device="cpu")
-        elif what == "sliding_window":
-            cfg = tcfg.ModelConfig(**{**MODEL, "sliding_window": 16})
-            tllama.prefill(s["tp"], cfg, s["tcomp"], torch.tensor(s["toks"]),
-                           torch.tensor(s["lens"]), 80)
+        elif what == "cache_prefix":
+            eng = tbatching.ContinuousBatchingEngine(
+                s["tp"], tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"]),
+                prefill_chunk_tokens=128, device="cpu")
+            eng.cache_prefix([1, 2, 3])
+        elif what == "sparse_chunked":
+            comp = tcfg.CompressionConfig(method="minference", sparse_prefill=("ashape", 1, 1, 4))
+            tchunked.prefill_chunked(s["tp"], s["tc"], comp, torch.tensor(s["toks"]),
+                                     torch.tensor(s["lens"]), 80, chunk_size=64)
         else:
             tgenerate.generate(s["tp"], s["tc"], s["tcomp"],
                                tcfg.GenerationConfig(do_sample=True), s["toks"],
@@ -175,8 +186,9 @@ def test_unported_paths_raise(setup, what):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, and chip_smoke.py, import without pulling
-    in jax or kvcache_factory_tpu.  An import hook refuses those names, so
+    """Every module of the port (the serving modules named below among
+    them), and chip_smoke.py, import without pulling in jax or
+    kvcache_factory_tpu.  An import hook refuses those names, so
     an import fails even where something else loaded jax first."""
     code = (
         "import importlib, importlib.abc, pkgutil, sys\n"
@@ -193,9 +205,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in BANNED]\n"
         "assert not bad, bad\n"
+        "for m in ('models.chunked_prefill', 'runtime.native', 'runtime.batching'):\n"
+        "    assert 'kvcache_factory_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('kvcache_factory_tpu_torch') for m in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # the whole package was imported
+    assert int(out.stdout.strip()) >= 23  # the whole package was imported

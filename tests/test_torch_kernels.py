@@ -66,6 +66,89 @@ def test_flash_prefill_plain_matches_pallas_batched_ragged():
                                    np.asarray(j_scores)[b, :, :tl - W], **TOL)
 
 
+@pytest.mark.parametrize("S,true_len,G,window", [
+    (256, 256, 1, 64),    # window spans several 64-key tiles
+    (384, 300, 2, 100),   # padded tail, GQA, a window no multiple of a tile
+    (256, 256, 1, 17),    # window shorter than one tile
+    (256, 200, 2, 1000),  # window longer than the sequence: dense
+])
+def test_flash_prefill_plain_sliding_window_matches_pallas(S, true_len, G, window):
+    """K1-SW's plain version against the Pallas kernel's sliding-window
+    variant in interpret mode, as ``tests/test_sliding_window_kernels.py``
+    runs it."""
+    Hq = 4
+    rng = np.random.default_rng(13)
+    q, k, v = normal(rng, Hq, S, D), normal(rng, Hq // G, S, D), normal(rng, Hq // G, S, D)
+    out, scores = tflash.flash_prefill_attention(
+        t(q)[None], t(k)[None], t(v)[None], torch.tensor([true_len], dtype=torch.int32), 0,
+        sliding_window=window)
+    j_out, _ = jflash.flash_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(true_len), window=0,
+        q_block=64, kv_block=64, interpret=True, sliding_window=window)
+    np.testing.assert_allclose(out[0, :, :true_len].numpy(),
+                               np.asarray(j_out)[:, :true_len], **TOL)
+    assert not scores.any()
+
+
+@pytest.mark.parametrize("S_q,S_k,offsets,true_lens,window", [
+    (64, 256, [0, 64], [256, 101], None),         # tile-aligned chunks
+    (32, 200, [100, 37, 0], [200, 60, 0], None),  # offsets off the tile, S_k off 64, an inert row
+    (32, 200, [100, 37, 0], [200, 60, 0], 24),    # the same under a window
+    (64, 256, [192, 130], [256, 190], 50),        # the last chunk, a window across tiles
+])
+def test_flash_prefill_plain_chunk_mode_matches_pallas(S_q, S_k, offsets, true_lens, window):
+    """K1-chunk's plain version against the Pallas kernel's chunk mode
+    (``row_offset``) in interpret mode, as ``tests/test_chunked_prefill.py``
+    drives it: each row's valid q rows (global id < true_len) agree, and
+    every row, an inert one (true_len 0) included, is finite."""
+    B, Hq, G = len(offsets), 4, 2
+    rng = np.random.default_rng(17)
+    q = normal(rng, B, Hq, S_q, D)
+    k, v = normal(rng, B, Hq // G, S_k, D), normal(rng, B, Hq // G, S_k, D)
+    off, tls = np.asarray(offsets, np.int32), np.asarray(true_lens, np.int32)
+    out, _ = tflash.flash_prefill_attention(t(q), t(k), t(v), t(tls), 0,
+                                            sliding_window=window, row_offset=t(off))
+    j_out, _ = jflash.flash_prefill_attention_batched(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tls), 0, q_block=64,
+        kv_block=64, interpret=True, sliding_window=window, row_offset=jnp.asarray(off))
+    assert torch.isfinite(out).all()
+    for b in range(B):
+        valid = off[b] + np.arange(S_q) < tls[b]
+        np.testing.assert_allclose(out[b][:, valid].numpy(), np.asarray(j_out)[b][:, valid],
+                                   **TOL)
+
+
+@pytest.mark.parametrize("call,match", [
+    (dict(window=8, sliding_window=16), "dense causal softmax"),  # scores need a dense softmax
+    (dict(window=8, row_offset=0), "dense causal softmax"),       # ... of whole-sequence queries
+    (dict(window=0, k_len=32), "only in chunk mode"),            # q/k lengths differ
+    (dict(window=0, row_offset=-1, k_len=32), "row_offset"),     # offsets are >= 0
+    (dict(window=0, sliding_window=0), "sliding_window"),        # a window holds a key
+])
+def test_flash_prefill_keeps_the_jax_contract(call, match):
+    """The JAX wrapper's asserts (``flash_prefill.py:495-507``) hold for the
+    plain version and the kernel alike: checked before dispatch."""
+    call = dict(call)
+    q = torch.zeros(1, 2, 64, D)
+    k = torch.zeros(1, 2, call.pop("k_len", 64), D)
+    with pytest.raises(ValueError, match=match):
+        tflash.flash_prefill_attention(q, k, k, torch.tensor([64], dtype=torch.int32),
+                                       **call)
+
+
+def test_flash_prefill_counts_launches_by_variant():
+    assert tflash.variant(None, None) == "dense"
+    assert tflash.variant(4096, None) == "sliding_window"
+    assert tflash.variant(None, 0) == tflash.variant(4096, torch.zeros(2)) == "chunk"
+    assert set(tflash.flash_prefill_attention.variant_launches) == {
+        "dense", "sliding_window", "chunk"}
+    tflash.flash_prefill_attention.variant_launches["chunk"] = 3
+    tflash.flash_prefill_attention.launches = 3
+    tflash.reset_launches()
+    assert tflash.flash_prefill_attention.launches == 0
+    assert not any(tflash.flash_prefill_attention.variant_launches.values())
+
+
 @pytest.mark.parametrize("C,G,lengths,lower", [
     (96, 1, [0, 1, 50, 95], None),             # ragged, C a multiple of 16
     (96, 4, [3, 40, 77, 12], [0, 0, 20, 5]),   # grouped queries, lower bounds
@@ -99,8 +182,11 @@ def test_cpu_tensors_never_count_a_launch():
     wrappers = (tflash.flash_prefill_attention, tdecode.decode_attention_append,
                 tquant.quant_decode_attention_append, tquant.quant4_decode_attention_append)
     before = [w.launches for w in wrappers]
+    variants = dict(tflash.flash_prefill_attention.variant_launches)
     q = t(normal(rng, 1, 2, 64, D))
     tflash.flash_prefill_attention(q, q, q, torch.tensor([64], dtype=torch.int32), 8)
+    tflash.flash_prefill_attention(q, q, q, torch.tensor([64], dtype=torch.int32), 0,
+                                   sliding_window=16, row_offset=0)
     lens = torch.tensor([3, 5], dtype=torch.int32)
     tdecode.decode_attention_append(t(normal(rng, 2, 1, D)), t(normal(rng, 2, 16, D)),
                                     t(normal(rng, 2, 16, D)), lens,
@@ -112,6 +198,7 @@ def test_cpu_tensors_never_count_a_launch():
                 torch.ones(2, 16, 4, dtype=torch.bfloat16), lens,
                 t(normal(rng, 2, D)), t(normal(rng, 2, D)))
     assert [w.launches for w in wrappers] == before
+    assert tflash.flash_prefill_attention.variant_launches == variants
 
 
 def _quant_args(which, make):
