@@ -11,8 +11,15 @@ Phases, in order; any failure exits non-zero:
    beside its plain version, SDPA and its bound; then K1's sliding-window
    and chunk (``row_offset``) variants the same, at the serving path's
    shapes and on edge shapes, with what an off-by-one window or offset
-   would show;
-4. K2 (decode attention + in-place append) the same, K3 and K4 (the same
+   would show; then K1's MInference variants, a-shape (K1-A) and
+   vertical-slash (K1-VS), against the plain version with their block
+   masks, with what ignoring the mask or shifting it by one block would
+   show, timed at the MInference path's layer shape (32k) beside dense K1;
+   then K5 (the row pack) bit for bit against its plain version at the
+   selection probe's shapes, timed beside ``torch.gather`` and the port's
+   ``select_and_pack``;
+4. K2 (decode attention + in-place append) the same (also at the
+   MInference path's 32.8k-entry cache), K3 and K4 (the same
    over the per-token int8 and int4 caches, with a bit-for-bit check of
    the quantized append) the same, then all four kernels on small edge
    shapes against their plain versions;
@@ -29,7 +36,15 @@ Phases, in order; any failure exits non-zero:
    every launch count set to 0 just before it; first-token logits against
    the fp32 reference forward and against each other, greedy streams,
    cache lengths, drain time, admission stalls, decode time and idle share;
-7. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+7. the MInference path: one 32000-token request through ``InferenceEngine``
+   (bucket 32768, 32 new tokens) at Mistral-7B-Instruct-v0.2 widths three
+   times, fullkv (dense K1), minference vertical-slash (K1-VS) and
+   minference a-shape (K1-A), each with every launch count set to 0 just
+   before it; prefill and decode times, profiles, mask densities, cache
+   lengths, first-token logits against fullkv's; then a full-budget
+   vertical-slash run against fullkv at 8192 tokens (logits within 1e-3,
+   the same tokens);
+8. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -38,6 +53,7 @@ Imports only torch, numpy and the port.  The full profiler tables go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import time
@@ -54,7 +70,9 @@ from kvcache_factory_tpu_torch.models import llama
 from kvcache_factory_tpu_torch.models.reference import forward_logits
 from kvcache_factory_tpu_torch.models.weights import init_params
 from kvcache_factory_tpu_torch.ops.kernels import (_build, decode_attn, decode_attn_quant,
-                                                   flash_prefill)
+                                                   flash_prefill, pack)
+from kvcache_factory_tpu_torch.policies.base import select_and_pack
+from kvcache_factory_tpu_torch.policies.minference import default_pattern
 from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
 
@@ -448,6 +466,363 @@ def phase_k1_variants(rng):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: K1's MInference variants (a-shape, vertical-slash)
+# ---------------------------------------------------------------------------
+
+ASHAPE = ("ashape", 1, 2, 8)
+VS_DEFAULT = default_pattern()  # ("vertical_slash", 1024, 128, 64)
+SPARSE_ID = {"ashape": "K1-A", "vertical_slash": "K1-VS"}
+
+
+def density(mask):
+    """Share of the causal (q block, k block) pairs that a block mask keeps,
+    over its examples and heads."""
+    n = mask.shape[-1]
+    causal = torch.ones(n, n, dtype=torch.bool, device=mask.device).tril()
+    return mask[..., causal].float().mean().item()
+
+
+def block_pairs(n, block, t):
+    """[n, n] visible (row, column) pairs of one example and head in each
+    (q block, k block): rows below ``t``, columns at or before the row."""
+    rows = np.arange(min(n * block, t))
+    j0 = np.arange(n) * block
+    seen = np.clip(np.minimum(rows[:, None], j0 + block - 1) - j0 + 1, 0, block)
+    table = np.zeros((n, n), np.int64)
+    np.add.at(table, rows // block, seen)
+    return table
+
+
+def masked_bound(mask, block, tls, nbytes, D=128):
+    """The visible pairs inside the selected blocks of this run's mask, and
+    the bound: their QK and PV products at the bf16 peak, or the bytes."""
+    pairs = 0
+    for b, t in enumerate(tls):
+        table = torch.from_numpy(block_pairs(mask.shape[-1], block, t)).to(mask.device)
+        pairs += int((mask[b].long() * table).sum().item())
+    flops = 4 * D * pairs
+    return pairs, max((flops / PEAK_BF16_FLOPS * 1e3, "operations"),
+                      (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+
+@contextlib.contextmanager
+def mask_hook(fixed=None):
+    """Intercepts the block-mask build of K1's wrapper (which looks
+    ``flash_prefill.sparse_block_mask`` up at each call).  Without ``fixed``
+    each mask built is kept (device tensors, no host read) with its build's
+    device time (CUDA events); with ``fixed = (mask, block)`` the wrapper
+    takes that mask instead of building one, so that a timing holds the
+    kernel alone."""
+    masks, events = [], []
+    orig = flash_prefill.sparse_block_mask
+
+    def hook(*args, **kwargs):
+        if fixed is not None:
+            return fixed
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = orig(*args, **kwargs)
+        end.record()
+        masks.append(out[0])
+        events.append((start, end))
+        return out
+
+    flash_prefill.sparse_block_mask = hook
+    try:
+        yield masks, events
+    finally:
+        flash_prefill.sparse_block_mask = orig
+
+
+def k1s_inputs(rng, B, Hq, Hkv, S, heavy=None):
+    """bf16 q, k, v.  With ``heavy = (c0, c1)`` the estimated vertical-slash
+    mask is sparse: q and k are halved (logit noise about 0.25), and every
+    query favours the keys [c0, c1) by 1.5 in its logits through channel 0
+    (4 in q, 4.24 in those keys, 0 in the others).  On random inputs the
+    lognormal tail of the column sums puts a few of the top 1024 columns in
+    every block, and the mask comes out dense."""
+    D = 128
+    q, k, v = (bf16_normal(rng, (B, h, S, D)) for h in (Hq, Hkv, Hkv))
+    if heavy is not None:
+        q, k = q * 0.5, k * 0.5
+        q[..., 0] = 4.0
+        k[..., 0] = 0.0
+        k[:, :, heavy[0]:heavy[1], 0] = 4.24
+    return q, k, v
+
+
+def k1s_case(q, k, v, tls, pattern, window=0, sw=None, budgets=None, q_block=None):
+    """K1 with a sparse pattern against its plain version given the same
+    block mask: ``out`` over each example's valid rows, ``scores`` over its
+    scored columns."""
+    B, Hq, S, _ = q.shape
+    tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
+    out, sc = flash_prefill.flash_prefill_attention(
+        q, k, v, tl, window, sliding_window=sw, sparse_pattern=pattern,
+        sparse_head_budgets=budgets, q_block=q_block)
+    sync()
+    mask, block = flash_prefill.sparse_block_mask(q, k, tl, pattern, budgets, q_block)
+    ref, sc_ref = flash_prefill.flash_prefill_attention_reference(
+        q, k, v, tl, window, sliding_window=sw, block_mask=mask, block=block)
+    sync()
+    valid = k1v_valid_rows(S, tls, None)
+    err, absd = k1v_worst(out, ref, valid)
+    err_sc = 0.0
+    for b, t in enumerate(tls):
+        if window and t - window > 0:
+            err_sc = max(err_sc, (sc[b, :t - window] - sc_ref[b, :t - window]).abs().max().item())
+    finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(sc).all())
+    dens = density(mask)
+    log(f"{SPARSE_ID[flash_prefill.pattern_kind(pattern)]} {pattern} B={B} Hq={Hq} "
+        f"Hkv={k.shape[1]} S={S} block={block} w={window} sw={sw} budgets="
+        f"{'per head' if budgets is not None else None} true_len={tls}: mask keeps {dens:.3f} "
+        f"of the causal block pairs; out worst row rel L2 {err:.3e} (max abs {absd:.3e}) tol "
+        f"{K1_OUT_TOL}; scores max abs err {err_sc:.3e} tol {K1_SCORE_TOL}; finite {finite}")
+    if err > K1_OUT_TOL or err_sc > K1_SCORE_TOL or not finite:
+        raise SystemExit("K1's sparse variant disagrees with its plain version")
+    return dict(kind=flash_prefill.pattern_kind(pattern), q=q, k=k, v=v, tl=tl, sw=sw,
+                mask=mask, block=block, ref=ref, valid=valid, err=err, absd=absd, density=dens)
+
+
+def k1s_mask_errors(c):
+    """What the check sees from a kernel that ignores the block mask (dense)
+    or reads it shifted by one block: the worst row rel L2 of each such
+    output (plain version) from the plain version's."""
+    q, k, v, tl, sw = c["q"], c["k"], c["v"], c["tl"], c["sw"]
+    dense, _ = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0, sliding_window=sw)
+    shifted, _ = flash_prefill.flash_prefill_attention_reference(
+        q, k, v, tl, 0, sliding_window=sw, block_mask=torch.roll(c["mask"], 1, dims=-1),
+        block=c["block"])
+    return k1v_worst(dense, c["ref"], c["valid"])[0], k1v_worst(shifted, c["ref"], c["valid"])[0]
+
+
+def time_k1s(q, k, v, tls, pattern):
+    """At one shape: the kernel alone (its mask built beforehand), held
+    against the plain version given the same mask over the valid rows, the
+    mask build, the plain version, SDPA with the boolean mask that the block
+    mask and causality give, and the bound; ``pattern`` None is dense K1
+    against causal SDPA."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    if pattern is None:
+        mask, block, mask_ms = torch.ones((B, Hq, 1, 1), dtype=torch.int32, device="cuda"), S, None
+        plain_mask = dict()
+    else:
+        mask_ms = event_ms(lambda: flash_prefill.sparse_block_mask(q, k, tl, pattern),
+                           iters=3, warmup=1)
+        mask, block = flash_prefill.sparse_block_mask(q, k, tl, pattern)
+        plain_mask = dict(block_mask=mask, block=block)
+    n = mask.shape[-1]
+    with mask_hook((mask, block)):
+        kern = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, 0,
+                                                             sparse_pattern=pattern)
+        out = kern()[0]
+        ms = event_ms(kern, iters=3, warmup=1)
+    # The plain version's output is kept from its timed call.
+    held = {}
+
+    def plain():
+        held["ref"] = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0,
+                                                                      **plain_mask)[0]
+
+    plain_ms = event_ms(plain, iters=1, warmup=1)
+    err, absd = k1v_worst(out, held["ref"], k1v_valid_rows(S, tls, None))
+    finite = bool(torch.isfinite(out.float()).all())
+    del out, held
+    if pattern is None:
+        lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=3, warmup=1)
+        lib_note = "causal SDPA, GQA (flash), true_len not masked"
+    else:
+        # SDPA with the [S, S] boolean mask of each head group: one call when
+        # every head shares the mask (a-shape), else one call per KV head
+        # (the 32-head mask of a 32k prompt does not fit in 80 GB with its
+        # bf16 conversion), summed.
+        rows = torch.arange(S, device="cuda")
+        seen = (rows[None] <= rows[:, None]) & (rows[None] < tls[0])
+        groups = [(0, Hq)] if bool((mask == mask[:, :1]).all()) else \
+            [(g * (Hq // Hkv), (g + 1) * (Hq // Hkv)) for g in range(Hkv)]
+        lib_ms = 0.0
+        for h0, h1 in groups:
+            blk = mask[0, h0:h1] if len(groups) > 1 else mask[0, :1]
+            m = blk.bool().repeat_interleave(block, 1)[:, :S].repeat_interleave(block, 2)[:, :, :S]
+            m = (m & seen)[None]
+            kk = k[:, h0 // (Hq // Hkv):(h1 - 1) // (Hq // Hkv) + 1].repeat_interleave(
+                Hq // Hkv, dim=1)
+            vv = v[:, h0 // (Hq // Hkv):(h1 - 1) // (Hq // Hkv) + 1].repeat_interleave(
+                Hq // Hkv, dim=1)
+            qq = q[:, h0:h1]
+            lib_ms += event_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m),
+                               iters=2, warmup=1)
+            del m, kk, vv
+        lib_note = (f"SDPA with a boolean mask, {len(groups)} call(s) of "
+                    f"{groups[0][1] - groups[0][0]} heads")
+    pairs, (bound_ms, bound_by) = masked_bound(mask, block, tls, nbytes, D)
+    name = "K1" if pattern is None else SPARSE_ID[flash_prefill.pattern_kind(pattern)]
+    dens = density(mask) if pattern is not None else 1.0
+    log(f"{name} timed at B={B} Hq={Hq} S={S} true_len={tls}{'' if pattern is None else f', {pattern}, block {block}, mask keeps {dens:.4f} of the {n * (n + 1) // 2} causal block pairs'}: "
+        f"kernel {ms:.4f} ms, mask build {mask_ms if mask_ms is None else round(mask_ms, 4)} ms, "
+        f"plain {plain_ms:.2f} ms, {lib_note} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {pairs / 1e6:.1f} M visible pairs); {4 * D * pairs / ms / 1e9:.1f} TFLOP/s; "
+        f"against the plain version out worst row rel L2 {err:.3e} (max abs {absd:.3e}) tol "
+        f"{K1_OUT_TOL}; finite {finite}")
+    if err > K1_OUT_TOL or not finite:
+        raise SystemExit(f"{name} disagrees with its plain version at the path's layer shape")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library": lib_note,
+            "bound_ms": bound_ms, "bound_by": bound_by, "mask_ms": mask_ms, "density": dens,
+            "visible_pairs": pairs, "path_shape_rel_l2": err, "path_shape_max_abs_err": absd}
+
+
+def phase_k1_sparse(rng):
+    """K1-A and K1-VS against their plain versions, on the check shapes and
+    edge shapes, what a kernel that ignored or shifted the mask would show,
+    and their times at the MInference path's layer shape beside dense K1."""
+    S, Hq, Hkv, tls = 8192, 32, 8, [8192, 6000]
+    q, k, v = k1s_inputs(rng, 2, Hq, Hkv, S)
+    a = k1s_case(q, k, v, tls, ASHAPE)
+    qh, kh, vh = k1s_inputs(rng, 2, Hq, Hkv, S, heavy=(1024, 2048))
+    vs = k1s_case(qh, kh, vh, tls, VS_DEFAULT)
+    budgets = torch.from_numpy(np.stack([rng.integers(1, 1025, Hq), rng.integers(0, 129, Hq)],
+                                        axis=1)).to("cuda", torch.int32)
+    vsb = k1s_case(qh, kh, vh, tls, VS_DEFAULT, budgets=budgets)
+    sanity = {}
+    for name, c in (("K1-A", a), ("K1-VS", vs)):
+        dense_err, shift_err = k1s_mask_errors(c)
+        log(f"{name}: a kernel that ignored the block mask would show row rel L2 "
+            f"{dense_err:.3e} ({dense_err / K1_OUT_TOL:.1f} x tol); one that read it shifted by "
+            f"one block {shift_err:.3e} ({shift_err / K1_OUT_TOL:.1f} x tol)")
+        if min(dense_err, shift_err) <= 2 * K1_OUT_TOL:
+            raise SystemExit(f"{name}'s tolerance would let an ignored or shifted mask pass")
+        sanity[name] = {"ignored_mask_rel_l2": dense_err, "shifted_mask_rel_l2": shift_err}
+    cases = [a, vs, vsb]
+    del q, k, v, qh, kh, vh
+    # Edge shapes: S no multiple of the 1024 block, a sliding window, window
+    # scores of the sparse softmax, a 64-row pattern block.
+    for pattern in (ASHAPE, VS_DEFAULT):
+        heavy = None if pattern is ASHAPE else (1024, 2048)
+        q, k, v = k1s_inputs(rng, 2, 8, 2, 5000, heavy)
+        cases.append(k1s_case(q, k, v, [5000, 3001], pattern))
+        q, k, v = k1s_inputs(rng, 1, 8, 2, 8192, heavy)
+        cases.append(k1s_case(q, k, v, [8192], pattern, sw=4096))
+        q, k, v = k1s_inputs(rng, 2, 8, 2, 8192, heavy)
+        cases.append(k1s_case(q, k, v, [8192, 6001], pattern, window=8))
+        q, k, v = k1s_inputs(rng, 2, 8, 2, 1000, None if heavy is None else (64, 128))
+        small = pattern if pattern is ASHAPE else ("vertical_slash", 64, 16, 64)
+        cases.append(k1s_case(q, k, v, [1000, 777], small, window=8, q_block=64))
+        del q, k, v
+    # The worst (row rel L2, max abs) of each variant over its cases.
+    worst = {kind: max((c["err"], c["absd"]) for c in cases if c["kind"] == kind)
+             for kind in SPARSE_ID}
+    densities = [vs["density"], vsb["density"]]
+    del cases, a, vs, vsb
+
+    # Times at the MInference path's layer shape (one 32000-token prompt in
+    # the 32768 bucket), each kernel held against its plain version there.
+    # Vertical-slash takes planted inputs: on random ones its mask keeps
+    # every block and the kernel runs dense K1's tiles.
+    q, k, v = k1s_inputs(rng, 1, Hq, Hkv, 32768)
+    t_dense = time_k1s(q, k, v, [32000], None)
+    t_a = time_k1s(q, k, v, [32000], ASHAPE)
+    del q, k, v
+    q, k, v = k1s_inputs(rng, 1, Hq, Hkv, 32768, heavy=(1024, 2048))
+    t_vs = time_k1s(q, k, v, [32000], VS_DEFAULT)
+    del q, k, v
+    torch.cuda.empty_cache()
+    for kind, t in (("ashape", t_a), ("vertical_slash", t_vs)):
+        worst[kind] = max(worst[kind], (t["path_shape_rel_l2"], t["path_shape_max_abs_err"]))
+    shape = "B=1 Hq=32 Hkv=8 S=32768 D=128 true_len=[32000], block 1024"
+    entry = lambda kind, t, **extra: {
+        "name": f"flash_prefill_{kind}", "route": "cuda", "source": flash_prefill.SOURCE,
+        "replaces": flash_prefill.REPLACES_VARIANT[kind], "shape": shape,
+        "max_abs_err": worst[kind][1], "rel_l2": worst[kind][0], "tol": K1_OUT_TOL,
+        **sanity[SPARSE_ID[kind]], **t, **extra}
+    return (entry("ashape", t_a, pattern=list(ASHAPE)),
+            entry("vertical_slash", t_vs, pattern=list(VS_DEFAULT),
+                  check_density=densities[0], budgets_density=densities[1]),
+            t_dense)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: K5, the row pack of the selection probe
+# ---------------------------------------------------------------------------
+
+K5_SHAPES = tuple((S, C) for S in (4096, 8192, 32768) for C in (128, 2048))
+
+
+def probe_pack(kv, scores, C):
+    """The selection probe's pack (``tools/bench_select.py``'s
+    ``pallas_full``): the top C ids by a stable descending sort, then K5."""
+    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :C]
+    return pack.pack_rows(kv, idx.to(torch.int32))
+
+
+def phase_k5(rng):
+    """The probe at H 32, K|V rows of 256 bf16 channels: every shape once
+    with the launch count set to 0 just before; then K5 bit for bit against
+    its plain version (with ids outside [0, S) too) and timed beside it,
+    ``torch.gather``, the port's ``select_and_pack`` and its byte bound."""
+    H, D2 = 32, 256
+    data = {S: (bf16_normal(rng, (H, S, D2)),
+                torch.from_numpy(rng.standard_normal((H, S), np.float32)).cuda())
+            for S in sorted({S for S, _ in K5_SHAPES})}
+    sync()
+    pack.pack_rows.launches = 0
+    for S, C in K5_SHAPES:
+        probe_pack(*data[S], C)
+    sync()
+    launches = pack.pack_rows.launches
+    log(f"K5 launches on the probe ({len(K5_SHAPES)} shapes): {launches}")
+    if launches != len(K5_SHAPES):
+        raise SystemExit("the probe did not run K5 once per shape")
+    rows = []
+    for S, C in K5_SHAPES:
+        kv, scores = data[S]
+        idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :C] \
+            .to(torch.int32).contiguous()
+        out_of_range = idx.clone()
+        at = torch.from_numpy(rng.integers(0, C, size=(H, 4))).cuda()
+        out_of_range.scatter_(1, at, torch.tensor([-1, S, S + 5, -1000], dtype=torch.int32,
+                                                  device="cuda").expand(H, 4).contiguous())
+        apart = 0
+        for ids in (idx, out_of_range):
+            got, want = pack.pack_rows(kv, ids), pack.pack_rows_reference(kv, ids)
+            apart += int((got.view(torch.int16) != want.view(torch.int16)).sum().item())
+        if apart:
+            raise SystemExit(f"K5 differs from its plain version at S={S} C={C}: "
+                             f"{apart} elements apart")
+        gidx = idx.long()[:, :, None].expand(H, C, D2)
+        k_, v_ = kv[..., :D2 // 2].contiguous(), kv[..., D2 // 2:].contiguous()
+        budget = torch.full((H,), C - 8, dtype=torch.int64, device="cuda")
+        tl, nc = torch.tensor(S, device="cuda"), torch.tensor(False, device="cuda")
+        ms = graph_ms([lambda: pack.pack_rows(kv, idx)] * 20)
+        plain_ms = graph_ms([lambda: pack.pack_rows_reference(kv, idx)] * 5)
+        lib_ms = graph_ms([lambda: torch.gather(kv, 1, gidx)] * 20)
+        probe_ms = event_ms(lambda: probe_pack(kv, scores, C), iters=10)
+        shipped_ms = event_ms(lambda: select_and_pack(k_, v_, scores, budget, 8, tl, C, nc),
+                              iters=10)
+        nbytes = 2 * 2 * H * C * D2 + 4 * H * C
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"K5 S={S} C={C}: bitwise equal to its plain version (ids out of range too); "
+            f"kernel {ms * 1e3:.2f} us (graph replay), plain {plain_ms * 1e3:.2f} us, "
+            f"torch.gather {lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us (bytes, "
+            f"{nbytes / 1e6:.2f} MB); probe (sort + K5) {probe_ms * 1e3:.1f} us, shipped "
+            f"select_and_pack {shipped_ms * 1e3:.1f} us")
+        rows.append({"S": S, "C": C, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "probe_ms": probe_ms, "shipped_ms": shipped_ms})
+        del gidx, k_, v_
+    del data
+    main = rows[-1]
+    return {"name": "pack_rows", "route": "cuda", "source": pack.SOURCE,
+            "replaces": pack.REPLACES, "launches": launches,
+            "shape": f"H={H} S={main['S']} C={main['C']} D2={D2} bf16",
+            "max_abs_err": 0.0, "bitwise": True,
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes", "library": "torch.gather", "probe": rows}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: K2
 # ---------------------------------------------------------------------------
 
@@ -556,12 +931,21 @@ def phase_k2(rng):
     if off_err <= K2_OUT_TOL:
         raise SystemExit("K2's tolerance would let an off-by-one key range pass")
     main = time_k2(q, kc, vc, kn, vn, lens)
+    # The MInference path's shape: one request's 8 KV heads (G 4) over the
+    # engine's 32801-slot cache (bucket 32768 + 32 new + 1) at the last
+    # step's 32000 + 31 entries.
+    C_long = MINF_BUCKET + MINF_NEW + 1
+    q, kc, vc, kn, vn, lens, _, _, err_l, abs_l = k2_case(
+        rng, 8, 4, C_long, [MINF_PROMPT + MINF_NEW - 1] * 8, np.zeros(8, np.int64))
+    long = time_k2(q, kc, vc, kn, vn, lens)
     return {"name": "decode_attn_append", "route": "cuda",
             "source": decode_attn.SOURCE, "replaces": decode_attn.REPLACES,
             "shape": f"H={Hm} (B=2 x 32) G=1 C={C} D={D}, lengths 2079 and 1531",
-            "max_abs_err": max(abs_err, abs_m), "rel_l2": max(err, err_m),
+            "max_abs_err": max(abs_err, abs_m, abs_l), "rel_l2": max(err, err_m, err_l),
             "tol": K2_OUT_TOL, "g4_rel_l2": err4, "off_by_one_rel_l2": off_err, **main,
-            "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1}}
+            "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1},
+            "minference": {"shape": f"H=8 G=4 C={C_long} D={D}, lengths "
+                                    f"{MINF_PROMPT + MINF_NEW - 1}", "rel_l2": err_l, **long}}
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +1129,8 @@ def phase_edges(rng):
 COUNTED = {"K1": flash_prefill.flash_prefill_attention,
            "K2": decode_attn.decode_attention_append,
            "K3": decode_attn_quant.quant_decode_attention_append,
-           "K4": decode_attn_quant.quant4_decode_attention_append}
+           "K4": decode_attn_quant.quant4_decode_attention_append,
+           "K5": pack.pack_rows}
 PATHS = (("bf16", None), ("int8", QuantConfig(nbits=8)), ("int4", QuantConfig(nbits=4)))
 
 
@@ -1037,6 +1422,191 @@ def phase_serving(rng, params, log_file):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the MInference path
+# ---------------------------------------------------------------------------
+
+MINF_PROMPT, MINF_NEW, MINF_BUCKET = 32000, 32, 32768
+MINF_RUNS = (("fullkv", CompressionConfig(method="fullkv")),
+             ("vertical_slash", CompressionConfig(method="minference", sparse_prefill=VS_DEFAULT)),
+             ("ashape", CompressionConfig(method="minference", sparse_prefill=ASHAPE)))
+# A vertical-slash budget that ranks every column of an 8192-token prompt
+# keeps every block: the same function as dense attention.
+FULL_BUDGET = ("vertical_slash", 8192, 128, 64)
+FULL_BUDGET_TOL = 1e-3
+
+
+def path_launches():
+    """Every kernel's launch count, K1 split by variant."""
+    var = flash_prefill.flash_prefill_attention.variant_launches
+    return {"K1": var["dense"], "K1-SW": var["sliding_window"], "K1-chunk": var["chunk"],
+            "K1-A": var["ashape"], "K1-VS": var["vertical_slash"],
+            **{kid: w.launches for kid, w in COUNTED.items() if kid != "K1"}}
+
+
+def reset_counts():
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+    flash_prefill.reset_launches()
+    sync()
+
+
+def minference_run(params, prompt, label, comp, bucket=MINF_BUCKET):
+    """One request through ``InferenceEngine`` with every launch count set
+    to 0 just before it and read just after, checked (launches, cache
+    lengths, finite logits).  Returns the engine, the summary, the token
+    ids, the ``GenerateResult`` and the block masks built (one per layer)."""
+    cfg, L = MISTRAL_7B, MISTRAL_7B.num_hidden_layers
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp,
+                                                  prefill_buckets=(bucket,)), device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    with mask_hook() as (masks, events):
+        ids, res = engine.generate_batch([prompt], MINF_NEW, return_result=True)
+        sync()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    expect = dict.fromkeys(launches, 0)
+    k1_id = "K1" if comp.sparse_prefill is None else \
+        SPARSE_ID[flash_prefill.pattern_kind(comp.sparse_prefill)]
+    expect[k1_id], expect["K2"] = L, L * (MINF_NEW - 1)
+    lens = sorted(set(res.cache.lengths.flatten().tolist()))
+    want_len = len(prompt) + MINF_NEW - 1
+    dens = [density(m) for m in masks]
+    mask_ms = sum(s.elapsed_time(e) for s, e in events)
+    log(f"minference path, {label} ({comp.method}, {comp.sparse_prefill}), {len(prompt)} prompt "
+        f"tokens, bucket {bucket}, {MINF_NEW} new: {wall:.3f} s; launches {launches}, expect "
+        f"{expect}; cache lengths {lens} (expect [{want_len}]); mask builds {len(masks)}, "
+        f"{mask_ms:.3f} ms on the device")
+    if launches != expect:
+        raise SystemExit(f"the {label} run did not run each kernel the expected number of times")
+    if lens != [want_len] or len(ids[0]) != MINF_NEW:
+        raise SystemExit(f"the {label} run left wrong cache lengths or token counts")
+    if not torch.isfinite(res.logits).all():
+        raise SystemExit(f"the {label} run gave non-finite logits")
+    out = {"launches": launches, "run_s": wall, "cache_lengths": lens}
+    if dens:
+        out["mask_density_per_layer"] = {"min": min(dens), "mean": sum(dens) / len(dens),
+                                         "max": max(dens)}
+        out["mask_build_ms"] = mask_ms
+        log(f"  mask density per layer (share of the causal block pairs kept): min "
+            f"{min(dens):.4f}, mean {sum(dens) / len(dens):.4f}, max {max(dens):.4f}")
+    return engine, out, ids, res, masks
+
+
+def minference_times(engine, params, prompt, label, ids, cache, mask_ms, log_file):
+    """Decode ms/step (wall and profiled) on the run's finished cache, then
+    prefill wall time and a profiled prefill."""
+    cfg = MISTRAL_7B
+    # The decode steps write slots past the end, which nothing reads again.
+    cur = torch.tensor([ids[0][-1]], device="cuda")
+    with torch.no_grad():
+        for _ in range(2):
+            llama.decode_step(params, cfg, cur, cache)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            llama.decode_step(params, cfg, cur, cache)
+        sync()
+        step_ms = (time.perf_counter() - t0) / 8 * 1e3
+        busy_ms = profile_device(lambda: llama.decode_step(params, cfg, cur, cache), 4,
+                                 step_ms, f"decode step, minference path {label}", log_file)
+    t0 = time.perf_counter()
+    engine.generate_batch([prompt], 1)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    pre_busy = profile_device(lambda: engine.generate_batch([prompt], 1), 1, prefill_s * 1e3,
+                              f"prefill, minference path {label}", log_file)
+    share = None if mask_ms is None or pre_busy is None else mask_ms / pre_busy
+    log(f"  prefill {prefill_s:.3f} s wall, device busy "
+        f"{pre_busy if pre_busy is None else round(pre_busy, 3)} ms"
+        f"{'' if share is None else f', mask builds {share:.2%} of it'}; decode {step_ms:.3f} "
+        f"ms/step wall, busy {busy_ms if busy_ms is None else round(busy_ms, 3)} ms")
+    return {"prefill_s": prefill_s, "prefill_device_busy_ms": pre_busy,
+            "mask_build_share_of_prefill_busy": share, "decode_ms_per_step": step_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms}
+
+
+def model_mask_check(rng, masks, pattern):
+    """K1 given the sparsest of a run's layer masks (the model's own) on
+    random 32k inputs, against its plain version given the same mask."""
+    mask = min(masks, key=density)
+    S, tls = MINF_BUCKET, [MINF_PROMPT]
+    block = S // mask.shape[-1]
+    q, k, v = k1s_inputs(rng, 1, MISTRAL_7B.num_attention_heads,
+                         MISTRAL_7B.num_key_value_heads, S)
+    tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
+    with mask_hook((mask, block)):
+        out, _ = flash_prefill.flash_prefill_attention(q, k, v, tl, 0, sparse_pattern=pattern)
+    ref, _ = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0, block_mask=mask,
+                                                             block=block)
+    err, absd = k1v_worst(out, ref, k1v_valid_rows(S, tls, None))
+    finite = bool(torch.isfinite(out.float()).all())
+    log(f"  the sparsest layer mask of this run (keeps {density(mask):.4f}) given to "
+        f"K1 on random inputs at S={S} true_len={tls}: out worst row rel L2 against the plain "
+        f"version {err:.3e} (max abs {absd:.3e}) tol {K1_OUT_TOL}; finite {finite}")
+    if err > K1_OUT_TOL or not finite:
+        raise SystemExit("K1 disagrees with its plain version on the model's layer mask")
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return {"density": density(mask), "rel_l2": err, "max_abs_err": absd, "tol": K1_OUT_TOL}
+
+
+def phase_minference(rng, params, log_file):
+    """The three 32k runs, timed, their first-token logits against
+    fullkv's, and the full-budget run against fullkv at 8192 tokens."""
+    log(f"== MInference path: Mistral-7B-Instruct-v0.2 widths, one request of {MINF_PROMPT} "
+        f"prompt tokens, bucket {MINF_BUCKET}, {MINF_NEW} new tokens")
+    prompt = rng.integers(0, MISTRAL_7B.vocab_size, size=MINF_PROMPT).tolist()
+    runs, firsts = {}, {}
+    for label, comp in MINF_RUNS:
+        engine, out, ids, res, masks = minference_run(params, prompt, label, comp)
+        firsts[label] = res.logits[0, 0].clone()
+        runs[label] = {**out, **minference_times(engine, params, prompt, label, ids, res.cache,
+                                                 out.get("mask_build_ms"), log_file)}
+        del engine, res
+        torch.cuda.empty_cache()
+        if label == "vertical_slash":
+            # The a-shape run's masks equal phase 3c's 32k mask, held there.
+            runs[label]["sparsest_layer_mask_check"] = model_mask_check(
+                rng, masks, comp.sparse_prefill)
+        del masks
+    for label in ("vertical_slash", "ashape"):
+        rel, absd = rel_l2(firsts[label][None], firsts["fullkv"][None])
+        runs[label]["first_token_rel_l2_vs_fullkv"] = rel
+        log(f"{label}: first-token logits against fullkv's rel L2 {rel:.4f} (max abs "
+            f"{absd:.4f}): the pattern's approximation, recorded with no limit")
+        if not np.isfinite(rel):
+            raise SystemExit(f"the {label} run's logits are not finite")
+
+    # Full budget: every column ranked, so every block kept.
+    p8 = rng.integers(0, MISTRAL_7B.vocab_size, size=8192).tolist()
+    _, _, ids_d, res_d, _ = minference_run(params, p8, "fullkv", CompressionConfig(method="fullkv"),
+                                        bucket=8192)
+    _, fb, ids_f, res_f, _ = minference_run(
+        params, p8, "full_budget", CompressionConfig(method="minference",
+                                                     sparse_prefill=FULL_BUDGET), bucket=8192)
+    rel, absd = rel_l2(res_f.logits[0, :1], res_d.logits[0, :1])
+    bitwise = torch.equal(res_f.logits, res_d.logits)
+    same = ids_f == ids_d
+    dens = fb["mask_density_per_layer"]
+    log(f"full-budget vertical-slash {FULL_BUDGET} at 8192 tokens against fullkv: masks keep "
+        f"{dens['min']:.4f}-{dens['max']:.4f} of the causal block pairs; first-token logits rel "
+        f"L2 {rel:.3e} (max abs {absd:.3e}) tol {FULL_BUDGET_TOL}; greedy streams identical "
+        f"{same}; logits of every step bitwise equal {bitwise}")
+    if rel > FULL_BUDGET_TOL or not same or dens["min"] < 1.0:
+        raise SystemExit("the full-budget run disagrees with fullkv")
+    del res_d, res_f
+    torch.cuda.empty_cache()
+    return {"model": "Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
+            "requests": f"one request, {MINF_PROMPT} prompt tokens, bucket {MINF_BUCKET}, "
+                        f"{MINF_NEW} new tokens",
+            **runs, "full_budget": {"pattern": list(FULL_BUDGET), "prompt": 8192,
+                                    "first_token_rel_l2": rel, "tol": FULL_BUDGET_TOL,
+                                    "tokens_identical": same, "logits_bitwise_equal": bitwise}}
+
+
 def profile_device(fn, reps, wall_ms, what, log_file):
     """Device time per call of ``fn`` from ``torch.profiler`` (device-side
     kernel and copy events only), printed with the top kernels beside the
@@ -1087,6 +1657,8 @@ def main():
     rng = np.random.default_rng(0)
     k1 = phase_k1(rng)
     k1_sw, k1_chunk = phase_k1_variants(rng)
+    k1_a, k1_vs, k1["minference"] = phase_k1_sparse(rng)
+    k5 = phase_k5(rng)
     k2 = phase_k2(rng)
     k3 = phase_kq(rng, 8)
     k4 = phase_kq(rng, 4)
@@ -1095,18 +1667,23 @@ def main():
     with open(LOG_PATH, "w") as log_file:
         params, e2e = phase_e2e(rng, log_file)
         serving = phase_serving(rng, params, log_file)
+        torch.cuda.empty_cache()
+        minf = phase_minference(rng, params, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
-    # drain, K1-chunk on the chunked drain (K2's count on each drain is in
-    # the serving line).
+    # drain, K1-chunk on the chunked drain (K2's count on each drain and each
+    # MInference run is in the end-to-end line).
     for k, label, kid in ((k1, "bf16", "K1"), (k2, "bf16", "K2"), (k3, "int8", "K3"),
                           (k4, "int4", "K4")):
         k["launches"] = e2e[label]["launches"][kid]
     k1_sw["launches"] = serving["one_shot"]["launches"]["K1-SW"]
     k1_chunk["launches"] = serving["chunked"]["launches"]["K1-chunk"]
-    print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k2, k3, k4]}))
+    # K1-A and K1-VS on their MInference runs; K5 on the probe (phase 3d).
+    k1_a["launches"] = minf["ashape"]["launches"]["K1-A"]
+    k1_vs["launches"] = minf["vertical_slash"]["launches"]["K1-VS"]
+    print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k2, k3, k4, k5]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
-                      "serving": serving, "card": smi}))
+                      "serving": serving, "minference": minf, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

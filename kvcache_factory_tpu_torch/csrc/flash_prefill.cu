@@ -1,11 +1,14 @@
 // K1: causal GQA flash prefill attention plus SnapKV window-score emission,
-// for Hopper (sm_90a), bf16 in, fp32 accumulation, with the sliding-window
-// and chunk (row_offset) variants.
+// for Hopper (sm_90a), bf16 in, fp32 accumulation, with the sliding-window,
+// chunk (row_offset) and MInference block-sparse (a-shape, vertical-slash)
+// variants.
 //
 // Replaces the Pallas TPU kernel
 //   kvcache_factory_tpu/ops/kernels/flash_prefill.py::_flash_kernel
-// (dense causal path with score emission, `sliding_window` and chunk mode;
-// the return_ml and sparse variants are not ported here).
+// (dense causal path with score emission, `sliding_window`, chunk mode, and
+// the sparse patterns: block_selected and the sparse body :222-252, the
+// sparse score re-sweep :327-344, the pattern setup :543-568; the return_ml
+// variant, which only ring attention reads, is not ported here).
 //
 // What it computes, per example b and query head hq (kv head hq / G), for
 // q row r at global id R = row_offset[b] + r (row_offset 0 outside chunk
@@ -14,8 +17,11 @@
 //              c <= min(R, tl-1) and, with a sliding window SW, c > R - SW
 //   scores[c]= sum over window rows r in [tl-W, tl), c <= r, of the final
 //              normalized probability exp(s_rc - m_r) / l_r
-// Scores need the dense causal softmax of whole-sequence queries, so W > 0
-// excludes SW and chunk mode (the wrapper and the host function check).
+// With a block mask M [B, Hq, n_blk, n_blk] of pattern block P, row r also
+// needs M[b, hq, r / P, c / P] != 0 for column c, and the scores sum that
+// sparse softmax.  Scores need whole-sequence queries without a sliding
+// window, so W > 0 excludes SW and chunk mode; a block mask excludes chunk
+// mode (the wrapper and the host function check).
 // The softmax is online and in fp32; probabilities are rounded to bf16
 // before the PV product, as the TPU kernel does.  Rows at or past true_len
 // in a tile that holds no valid row are written as zeros: every later mask
@@ -48,7 +54,21 @@
 // W x 64 window logits, normalizes them with the stored (m, l) and sums
 // over rows: about W/S of the main work, deterministic.
 //
-// A simple kernel first: no TMA, no wgmma, no software pipelining.
+// Sparse patterns: P is a multiple of the 64-row tile (or the whole
+// sequence, n_blk 1), so a CTA's 64 q rows lie in one pattern q block and
+// each 64-key tile in one pattern k block: the key loop reads the CTA's
+// mask row once and skips an unselected tile before any load, uniformly
+// over the CTA.  The work is then the tensor-core products of the visible
+// pairs inside the selected blocks (an a-shape (1, 2, 8) over 32 blocks keeps
+// 135 of the 528 causal block pairs), still bound by the tensor cores; the
+// skipped tiles cost one mask read each.  The window-score pass reads, per
+// window row, whether that row's own q block selects the pass's column
+// block: the window rows can straddle two q blocks.  No atomics: the
+// outputs do not depend on the run.
+//
+// A simple kernel first: no TMA, no wgmma, no software pipelining, no
+// compacted list of selected tiles (a q block walks every tile up to its
+// causal frontier and skips the unselected ones).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,9 +127,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ true_len,
-                 const int* __restrict__ row_offset, bf16* __restrict__ out,
+                 const int* __restrict__ row_offset,
+                 const int* __restrict__ block_mask, bf16* __restrict__ out,
                  float* __restrict__ win_ml, int Hq, int Hkv, int S_q, int S_k,
-                 int W, int SW, float scale) {
+                 int W, int SW, int P, int n_blk, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + BM * LDS;
@@ -168,7 +189,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // is never empty: row row0 sees its own column.
   const int kv_end = min(min(row0 + BM, tl), S_k);
   const int kv_begin = SW > 0 ? max(row0 - SW + 1, 0) / BN * BN : 0;
+  // This CTA's row of the block mask (whole-sequence queries: row0 is local).
+  const int* mrow = block_mask ?
+      block_mask + (((size_t)b * Hq + hq) * n_blk + row0 / P) * n_blk : nullptr;
   for (int c0 = kv_begin; c0 < kv_end; c0 += BN) {
+    if (mrow && !mrow[c0 / P]) continue;  // unselected block: no load, no product
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile(Ks, kh, c0, S_k, tid);
     load_tile(Vs, vh, c0, S_k, tid);
@@ -269,16 +294,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // One CTA per (64-column tile, hq, b): scores[c] = sum over window rows r
-// with c <= r of exp(q[r].k[c] * scale - m_r) / l_r.
+// with c <= r (and, with a block mask, whose q block selects c's block) of
+// exp(q[r].k[c] * scale - m_r) / l_r.
 __global__ void __launch_bounds__(128)
 window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const int* __restrict__ true_len,
+                     const int* __restrict__ block_mask,
                      const float* __restrict__ win_ml,
                      float* __restrict__ scores,
-                     int Hq, int Hkv, int S, int W, float scale) {
+                     int Hq, int Hkv, int S, int W, int P, int n_blk, float scale) {
   __shared__ __align__(16) bf16 Ks[BN * LDS];
   __shared__ __align__(16) bf16 Qw[WMAX * D];
   __shared__ float m_w[WMAX], il_w[WMAX], part[128];
+  __shared__ int sel_w[WMAX];
 
   const int tid = threadIdx.x;
   const int hq = blockIdx.y, b = blockIdx.z;
@@ -304,11 +332,13 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     *reinterpret_cast<uint4*>(Qw + r * D + c * 8) = val;
   }
   const float* ml = win_ml + ((size_t)b * Hq + hq) * W * 2;
+  const int* mh = block_mask ? block_mask + ((size_t)b * Hq + hq) * n_blk * n_blk : nullptr;
   for (int r = tid; r < W; r += 128) {
     if (ws + r >= 0) {
       const float l = ml[r * 2 + 1];
       m_w[r] = ml[r * 2];
       il_w[r] = 1.f / (l == 0.f ? 1.f : l);
+      sel_w[r] = mh ? mh[((ws + r) / P) * n_blk + col0 / P] : 1;
     }
   }
   __syncthreads();
@@ -317,7 +347,7 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc = 0.f;
   for (int r = half; r < W; r += 2) {
     const int row = ws + r;
-    if (row < 0 || c > row) continue;
+    if (row < 0 || c > row || !sel_w[r]) continue;
     float dot = 0.f;
 #pragma unroll
     for (int d8 = 0; d8 < D / 8; ++d8) {
@@ -340,13 +370,19 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
                                   const void* true_len, const void* row_offset,
-                                  void* out, void* win_ml, void* scores, int B,
-                                  int Hq, int Hkv, int S_q, int S_k, int W, int SW,
+                                  const void* block_mask, void* out, void* win_ml,
+                                  void* scores, int B, int Hq, int Hkv, int S_q,
+                                  int S_k, int W, int SW, int P, int n_blk,
                                   float scale, void* stream) {
-  // The wrapper's contract: scores only for dense whole-sequence queries;
-  // q and k lengths differ only in chunk mode.
+  // The wrapper's contract: scores only for whole-sequence queries without
+  // a window; q and k lengths differ only in chunk mode; a block mask only
+  // for whole-sequence queries, with n_blk blocks of P rows covering S_q and
+  // P a multiple of the 64-row tile unless one block covers everything.
   if (W < 0 || W > WMAX || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
       (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1)
+    return (int)cudaErrorInvalidValue;
+  if (block_mask && (row_offset || P < 1 || n_blk != (S_q + P - 1) / P ||
+                     (n_blk > 1 && P % BM != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = 3 * BM * LDS * (int)sizeof(bf16);
@@ -365,14 +401,16 @@ extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
   flash_fwd_kernel<<<grid, 128, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(true_len),
-      static_cast<const int*>(row_offset), static_cast<bf16*>(out),
-      static_cast<float*>(win_ml), Hq, Hkv, S_q, S_k, W, SW, scale);
+      static_cast<const int*>(row_offset), static_cast<const int*>(block_mask),
+      static_cast<bf16*>(out), static_cast<float*>(win_ml), Hq, Hkv, S_q, S_k, W, SW,
+      P, n_blk, scale);
   if (W > 0) {
     dim3 g2((S_k + BN - 1) / BN, Hq, B);
     window_scores_kernel<<<g2, 128, 0, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const int*>(true_len), static_cast<const float*>(win_ml),
-        static_cast<float*>(scores), Hq, Hkv, S_k, W, scale);
+        static_cast<const int*>(true_len), static_cast<const int*>(block_mask),
+        static_cast<const float*>(win_ml), static_cast<float*>(scores), Hq, Hkv, S_k,
+        W, P, n_blk, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -50,8 +50,8 @@ def _check_supported(comp: CompressionConfig) -> None:
     if comp.sparse_prefill is not None:
         raise NotImplementedError(
             "chunked prefill computes dense causal attention per chunk; "
-            "MInference sparse prefill patterns require the one-shot path "
-            "(ROADMAP.md queue 1 item 17).")
+            "MInference sparse prefill patterns require the one-shot path, as "
+            "in the JAX package (ROADMAP.md queue 1 item 17).")
     if comp.method not in _PORTED:
         raise NotImplementedError(
             f"chunked prefill for {comp.method!r} is not ported yet (ROADMAP.md "

@@ -12,7 +12,10 @@ norm, RoPE and softmax.
 
 A sliding window (Mistral-7B-v0.1, Qwen2) masks prefill attention inside
 K1 and window-masks the decode rows whose cache index is the absolute
-position.  The port carries the dense and the per-token quantized caches.
+position.  A MInference ``sparse_prefill`` pattern restricts prefill
+attention to K1's selected blocks (a-shape or vertical-slash, with optional
+per-layer per-head budgets).  The port carries the dense and the per-token
+quantized caches.
 The grouped quantized cache, ThinK, evicting, offloaded and MoE
 configurations raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -170,9 +173,8 @@ def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
     if comp.decode_evict:
         raise NotImplementedError("the evicting cache is not ported yet "
                                   "(ROADMAP.md queue 1 item 11)")
-    if comp.method == "think" or comp.sparse_prefill is not None:
-        raise NotImplementedError(f"{comp.method} is not ported yet "
-                                  "(ROADMAP.md queue 1 items 7 and 17)")
+    if comp.method == "think":
+        raise NotImplementedError("think is not ported yet (ROADMAP.md queue 1 item 7)")
 
 
 def _layer(params: dict, li: int) -> dict:
@@ -240,6 +242,7 @@ def prefill(
     cache_capacity: int,     # policy capacity + decode headroom
     *,
     quant: Optional[QuantConfig] = None,
+    sparse_budgets: Optional[torch.Tensor] = None,  # [L, Hq, 2] int (MInference)
 ) -> PrefillResult:
     """Full prefill: attention over the uncompressed prompt, then the
     compression hook between the QKV computation and the cache write.
@@ -248,7 +251,10 @@ def prefill(
     Under ``cfg.sliding_window`` K1 masks each row's keys to its window and
     emits no scores: SnapKV's scores are a dense causal softmax, which no
     windowed softmax's ``(m, l)`` can give, so the policy computes them
-    itself (``window_attention_scores``), as the JAX package does."""
+    itself (``window_attention_scores``), as the JAX package does.  With
+    ``comp.sparse_prefill`` K1 runs the MInference pattern; ``sparse_budgets``
+    gives each layer's per-head (vertical, slash) budgets (JAX ``:314,
+    487-488``), and SnapKV's scores are then sums of the sparse softmax."""
     _check_supported(cfg, comp, quant)
     B, S = tokens.shape
     L = cfg.num_hidden_layers
@@ -262,7 +268,8 @@ def prefill(
     assert cache_capacity >= policy_capacity, (
         f"cache capacity {cache_capacity} < policy capacity {policy_capacity}")
     cache = init_prefill_cache(cfg, comp, quant, B, cache_capacity, dev)
-    # Score emission only when the policy reuses it; window=0 skips it.
+    # Score emission only when the policy reuses it, sparse or not (JAX
+    # :388, 416); window=0 skips it.
     emit = comp.method == "snapkv" and cfg.sliding_window is None
     win = comp.window_size if emit else 0
     cols = torch.arange(S, device=dev)
@@ -271,8 +278,10 @@ def prefill(
         lp = _layer(params, li)
         q, k, v = _qkv(x, lp, cfg, cos, sin)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        attn, win_sc = flash_prefill_attention(q, k, v, true_len, win,
-                                               sliding_window=cfg.sliding_window)
+        attn, win_sc = flash_prefill_attention(
+            q, k, v, true_len, win, sliding_window=cfg.sliding_window,
+            sparse_pattern=comp.sparse_prefill,
+            sparse_head_budgets=None if sparse_budgets is None else sparse_budgets[li])
         window_scores = None
         if emit:
             window_scores = torch.where(

@@ -1,8 +1,10 @@
 """Prefill-time KV compression dispatcher (port of
 ``kvcache_factory_tpu/policies/methods.py``).
 
-The port carries the ``snapkv`` and ``fullkv`` branches of the shared
-``score -> budget -> select_and_pack`` pipeline.  Every other method raises
+The port carries the ``snapkv``, ``fullkv`` and ``minference`` branches of
+the shared ``score -> budget -> select_and_pack`` pipeline (``minference``
+is sparse prefill attention only and keeps the full cache, as fullkv
+does).  Every other method raises
 ``NotImplementedError`` naming its ROADMAP.md item; none falls back to
 snapkv.
 
@@ -23,7 +25,7 @@ from .base import PackedKV, select_and_pack
 from .scoring import masked_pool, window_attention_scores
 
 # Methods queued in ROADMAP.md queue 1 item 7 (remaining policies).
-_NOT_PORTED = ("minference", "pyramidkv", "h2o", "streamingllm", "l2norm",
+_NOT_PORTED = ("pyramidkv", "h2o", "streamingllm", "l2norm",
                "cam", "adakv", "headkv", "think", "random")
 
 
@@ -87,7 +89,10 @@ def compress_layer(
         raise NotImplementedError(
             "LOOK-M pivot merge is not ported yet (ROADMAP.md queue 1 item 7)")
 
-    if method == "fullkv":
+    if method in ("fullkv", "minference"):
+        # The uncompressed cache stays at the KV heads (minference changes
+        # only the prefill attention; the reference retains the full cache,
+        # pyramidkv/minference.py:49-59).
         lens = torch.clamp(true_len, max=C).to(torch.int32).expand(Hkv)
         return PackedKV(k[:, :C], v[:, :C], lens)
 

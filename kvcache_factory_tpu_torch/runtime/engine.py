@@ -4,13 +4,15 @@
 Prompts are right-padded to the nearest bucket and masked via ``true_len``,
 so each bucket gives results identical to an exact-length run.  With
 ``cfg.quant`` the engine builds the per-token int8 or int4 cache.
+``sparse_budgets`` are MInference's per-(layer, head) (vertical, slash)
+budgets ``[L, Hq, 2]`` (``policies/minference.py::load_sparse_budgets``).
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,7 +22,8 @@ from .generate import GenerateResult, generate
 
 
 class InferenceEngine:
-    def __init__(self, params, cfg: EngineConfig, device="cuda"):
+    def __init__(self, params, cfg: EngineConfig, device="cuda",
+                 sparse_budgets: Optional[np.ndarray] = None):
         check_quant(cfg.quant, cfg.model.head_dim)
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
@@ -28,6 +31,7 @@ class InferenceEngine:
                              f"engine runs on {self.device}")
         self.params = params
         self.cfg = cfg
+        self.sparse_budgets = sparse_budgets
         self.buckets = sorted(cfg.prefill_buckets)
 
     def _bucket(self, n: int) -> int:
@@ -70,7 +74,8 @@ class InferenceEngine:
         return generate(self.params, self.cfg.model, self._comp_for_bucket(S),
                         gen_cfg, toks, lens,
                         self._cache_capacity(S, max_new_tokens), quant_cfg=self.cfg.quant,
-                        device=self.device, return_logits=return_logits)
+                        device=self.device, return_logits=return_logits,
+                        sparse_budgets=self.sparse_budgets)
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int,
                      eos_token_ids: Sequence[int] = ()) -> List[int]:

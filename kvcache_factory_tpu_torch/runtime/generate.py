@@ -40,6 +40,7 @@ def generate(
     quant_cfg: Optional[QuantConfig] = None,
     device="cuda",
     return_logits: bool = False,
+    sparse_budgets=None,     # [L, Hq, 2] MInference per-head budgets
 ) -> GenerateResult:
     if gen_cfg.do_sample:
         raise NotImplementedError("sampling is not ported yet (ROADMAP.md "
@@ -50,8 +51,10 @@ def generate(
     max_new = gen_cfg.max_new_tokens
     dev = tokens.device
 
+    if sparse_budgets is not None:
+        sparse_budgets = torch.as_tensor(sparse_budgets, device=device).to(torch.int32)
     pre = llama.prefill(params, model_cfg, comp_cfg, tokens, true_len,
-                        cache_capacity, quant=quant_cfg)
+                        cache_capacity, quant=quant_cfg, sparse_budgets=sparse_budgets)
     vocab = pre.logits_last.shape[-1]
     eos_ids = [e for e in gen_cfg.eos_token_ids if 0 <= e < vocab]
     eos = torch.tensor(list(gen_cfg.eos_token_ids) or [-1], device=dev)

@@ -140,8 +140,11 @@ def test_flash_prefill_counts_launches_by_variant():
     assert tflash.variant(None, None) == "dense"
     assert tflash.variant(4096, None) == "sliding_window"
     assert tflash.variant(None, 0) == tflash.variant(4096, torch.zeros(2)) == "chunk"
+    assert tflash.variant(None, None, ("ashape", 1, 2, 8)) == "ashape"
+    assert tflash.variant(4096, None, (1, 2, 8)) == "ashape"
+    assert tflash.variant(None, None, ("vertical_slash", 64, 16, 16)) == "vertical_slash"
     assert set(tflash.flash_prefill_attention.variant_launches) == {
-        "dense", "sliding_window", "chunk"}
+        "dense", "sliding_window", "chunk", "ashape", "vertical_slash"}
     tflash.flash_prefill_attention.variant_launches["chunk"] = 3
     tflash.flash_prefill_attention.launches = 3
     tflash.reset_launches()
