@@ -44,7 +44,20 @@ Phases, in order; any failure exits non-zero:
    lengths, first-token logits against fullkv's; then a full-budget
    vertical-slash run against fullkv at 8192 tokens (logits within 1e-3,
    the same tokens);
-8. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+8. the sequence-parallel path: K1-ml (``return_ml``) against its plain
+   version (``out``, ``m``, ``l``) at the three ring hops of sp=2 over a
+   32000-token prompt and on a sliding-window hop whose upper tiles have no
+   key, with what a dropped key tile would show, each hop timed beside its
+   plain version, SDPA with a boolean mask and its bound (8a); the ring
+   fold of every rank emulated in one process against K1 over the whole
+   sequence (8b); then the 32000-token SnapKV request through
+   ``InferenceEngine(ShardingConfig(sp=2))`` on two spawned ranks that share
+   this card (gloo over a file rendezvous, K/V staged through pinned host
+   memory), each rank's launch counts set to 0 just before it: K1-ml
+   launches, cache lengths, ranks equal, first-token logits and the greedy
+   stream against the single-device engine, prefill wall, bytes staged,
+   decode ms/step (8c);
+9. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -54,23 +67,30 @@ Imports only torch, numpy and the port.  The full profiler tables go to
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
+import os
+import shutil
 import subprocess
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from kvcache_factory_tpu_torch import CompressionConfig, EngineConfig, ModelConfig, QuantConfig
+from kvcache_factory_tpu_torch import (CompressionConfig, EngineConfig, ModelConfig, QuantConfig,
+                                       ShardingConfig)
 from kvcache_factory_tpu_torch.cache import quant_cache
 from kvcache_factory_tpu_torch.models import llama
 from kvcache_factory_tpu_torch.models.reference import forward_logits
 from kvcache_factory_tpu_torch.models.weights import init_params
+from kvcache_factory_tpu_torch.ops.attention import NEG_INF
 from kvcache_factory_tpu_torch.ops.kernels import (_build, decode_attn, decode_attn_quant,
                                                    flash_prefill, pack)
+from kvcache_factory_tpu_torch.parallel.ring_attention import hop_visible, ring_attention_emulated
 from kvcache_factory_tpu_torch.policies.base import select_and_pack
 from kvcache_factory_tpu_torch.policies.minference import default_pattern
 from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
@@ -341,25 +361,29 @@ def k1v_case(rng, B, Hq, Hkv, S_q, S_k, tls, sw, offsets):
     return dict(q=q, k=k, v=v, tl=tl, off=off, ref=ref, valid=valid, err=err, absd=absd)
 
 
-def k1v_pairs(S_q, tls, sw, offsets):
+def k1v_pairs(S_q, S_k, tls, sw, offsets):
     """Visible (row, column) pairs per query head that this data needs:
-    valid row R sees min(R + 1, SW) columns (R + 1 without a window)."""
+    valid row R sees the columns from max(R - SW + 1, 0) (0 without a
+    window) to min(R, true_len - 1, S_k - 1)."""
     off = np.zeros(len(tls), np.int64) if offsets is None else np.asarray(offsets)
+    tl = np.asarray(tls)[:, None]
     R = off[:, None] + np.arange(S_q)[None]
-    seen = R + 1 if sw is None else np.minimum(R + 1, sw)
-    return int(np.where(R < np.asarray(tls)[:, None], seen, 0).sum())
+    first = 0 if sw is None else np.maximum(R - sw + 1, 0)
+    seen = np.clip(np.minimum(np.minimum(R, tl - 1), S_k - 1) - first + 1, 0, None)
+    return int(np.where(R < tl, seen, 0).sum())
 
 
-def time_k1v(c, sw, offsets):
+def time_k1v(c, sw, offsets, ml=False):
     """Kernel (graph replay), plain (events) and SDPA-with-mask (graph
-    replay) times of one call, and its bound.  SDPA gets the same function
-    as an explicit boolean [B, 1, S_q, S_k] mask, with K/V expanded to the
-    query heads outside the timed call."""
+    replay) times of one call, and its bound; ``ml`` times K1-ml (the same
+    call with ``return_ml``).  SDPA gets the same ``out`` as an explicit
+    boolean [B, 1, S_q, S_k] mask, with K/V expanded to the query heads
+    outside the timed call (it gives no ``(m, l)``)."""
     q, k, v, tl, off = c["q"], c["k"], c["v"], c["tl"], c["off"]
     B, Hq, S_q, D = q.shape
     S_k = k.shape[2]
     tls = tl.tolist()
-    kw = dict(sliding_window=sw, row_offset=off)
+    kw = dict(sliding_window=sw, row_offset=off, return_ml=ml)
     ms = graph_ms([lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, 0, **kw)] * 5)
     plain_ms = event_ms(lambda: flash_prefill.flash_prefill_attention_reference(
         q, k, v, tl, 0, **kw), iters=2, warmup=1)
@@ -374,17 +398,18 @@ def time_k1v(c, sw, offsets):
     mask = mask[:, None]
     lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)] * 5)
     del ke, ve, mask
-    pairs = k1v_pairs(S_q, tls, sw, None if off is None else off.tolist()) * Hq
+    pairs = k1v_pairs(S_q, S_k, tls, sw, None if off is None else off.tolist()) * Hq
     flops = 4 * D * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (8 * B * Hq * S_q if ml else 0)
     bound_ms, bound_by = max((flops / PEAK_BF16_FLOPS * 1e3, "operations"),
                              (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    log(f"K1 {flash_prefill.variant(sw, off)} timed at B={B} Hq={Hq} S_q={S_q} S_k={S_k} "
-        f"sw={sw} true_len={tls}: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
+    log(f"K1 {flash_prefill.variant(sw, off, None, ml)} timed at B={B} Hq={Hq} S_q={S_q} "
+        f"S_k={S_k} sw={sw} row_offset={None if off is None else off.tolist()} "
+        f"true_len={tls}: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
         f"SDPA with a boolean mask {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
         f"{pairs / 1e6:.1f} M visible pairs); {flops / ms / 1e9:.1f} TFLOP/s")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "visible_pairs": pairs}
 
 
 def k1v_off_by_one(c, sw, offsets, what):
@@ -1440,7 +1465,7 @@ def path_launches():
     """Every kernel's launch count, K1 split by variant."""
     var = flash_prefill.flash_prefill_attention.variant_launches
     return {"K1": var["dense"], "K1-SW": var["sliding_window"], "K1-chunk": var["chunk"],
-            "K1-A": var["ashape"], "K1-VS": var["vertical_slash"],
+            "K1-A": var["ashape"], "K1-VS": var["vertical_slash"], "K1-ml": var["ring"],
             **{kid: w.launches for kid, w in COUNTED.items() if kid != "K1"}}
 
 
@@ -1607,6 +1632,383 @@ def phase_minference(rng, params, log_file):
                                     "tokens_identical": same, "logits_bitwise_equal": bitwise}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the sequence-parallel path (K1-ml, the ring fold, sp=2 ranks)
+# ---------------------------------------------------------------------------
+
+SP, SP_PROMPT, SP_BUCKET, SP_NEW = 2, 32000, 32768, 32
+SP_DIR = Path(__file__).resolve().parent / "build" / "sp"
+SP_TIMEOUT_S = 600
+# K1-ml's (m, l) against its plain version, on the rows that see a column.
+# m: both take the max of the same fp32 logits (exact bf16 products summed
+# in fp32 in another order, ~1e-6 apart on values of order 5): 1e-4
+# absolute.  l: fp32 sums of up to 16384 terms in another order and a chain
+# of up to 256 rescales of one ulp each, ~3e-5 relative at worst: 2e-4
+# relative.  A kernel that drops one 64-key tile moves l by that tile's
+# share of the softmax mass, about 64/16384 = 3.9e-3 on the cross hop, and
+# by far more for a row whose max lies in the tile; the script measures it.
+K1ML_M_TOL = 1e-4
+K1ML_L_TOL = 2e-4
+
+
+def k1ml_case(q, k, v, tl_hop, off, sw=None):
+    """K1-ml against its plain version on one ring hop (q rows at global
+    ids ``off + r`` over one K/V shard, valid length ``tl_hop``): ``out``
+    over the valid rows that see a column (worst row rel L2), ``m`` (max
+    abs) and ``l`` (max relative) there; valid rows that see no column must
+    come out exactly ``(NEG_INF, 0)`` with a zero output."""
+    S_q = q.shape[2]
+    tl = torch.tensor([tl_hop], dtype=torch.int32, device="cuda")
+    offs = torch.tensor([off], dtype=torch.int32, device="cuda")
+    kw = dict(sliding_window=sw, row_offset=offs, return_ml=True)
+    out, _, m, l = flash_prefill.flash_prefill_attention(q, k, v, tl, 0, **kw)
+    sync()
+    ref, _, m_ref, l_ref = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0,
+                                                                           **kw)
+    sync()
+    valid = k1v_valid_rows(S_q, [tl_hop], [off])
+    # Whether a row sees a column depends on its position alone, not its head.
+    seen_rows = valid & (m_ref[:, 0] > NEG_INF).cpu().numpy()
+    empty_rows = valid & ~seen_rows
+    err, absd = k1v_worst(out, ref, seen_rows)
+    seen = torch.from_numpy(seen_rows).to("cuda")[:, None].expand_as(m)
+    empty = torch.from_numpy(empty_rows).to("cuda")[:, None].expand_as(m)
+    m_err = (m - m_ref).abs()[seen].max().item()
+    l_err = ((l - l_ref).abs() / l_ref)[seen].max().item()
+    empty_out = out.transpose(1, 2)[torch.from_numpy(empty_rows).to("cuda")]
+    empty_ok = bool((m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+                    and (empty_out == 0).all())
+    finite = bool(torch.isfinite(out.float()).all())
+    log(f"K1-ml hop S_q={S_q} S_k={k.shape[2]} row_offset={off} true_len={tl_hop} sw={sw}: out "
+        f"worst row rel L2 {err:.3e} (max abs {absd:.3e}) tol {K1_OUT_TOL}; m max abs err "
+        f"{m_err:.3e} tol {K1ML_M_TOL}; l max rel err {l_err:.3e} tol {K1ML_L_TOL}; "
+        f"{int(seen_rows.sum())} rows see a column, {int(empty_rows.sum())} see none (exactly "
+        f"NEG_INF, 0 and zeros: {empty_ok}); finite {finite}")
+    if err > K1_OUT_TOL or m_err > K1ML_M_TOL or l_err > K1ML_L_TOL or not empty_ok \
+            or not finite:
+        raise SystemExit("K1-ml disagrees with its plain version")
+    return dict(q=q, k=k, v=v, tl=tl, off=offs, ref=ref, m_ref=m_ref, l_ref=l_ref, err=err,
+                absd=absd, m_err=m_err, l_err=l_err, empty_rows=int(empty_rows.sum()))
+
+
+def k1ml_dropped_tile(c, rows=512):
+    """What K1-ml's check sees from a kernel that drops the key tile
+    [64, 128) of a hop (plain fp32 math, head 0, the first ``rows`` rows):
+    the worst row rel L2 of ``out`` and the worst relative change of ``l``."""
+    q, k, v, off, tl = c["q"], c["k"], c["v"], int(c["off"][0]), int(c["tl"][0])
+    D, rows = q.shape[-1], min(rows, q.shape[2])
+    s = q[0, 0, :rows].float() @ k[0, 0].float().T * D ** -0.5
+    R = off + torch.arange(rows, device="cuda")[:, None]
+    cols = torch.arange(k.shape[2], device="cuda")[None]
+    keep = (cols <= R) & (cols < tl) & ((cols < 64) | (cols >= 128))
+    s = torch.where(keep, s, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l_drop = p.sum(-1)
+    out_drop = (p @ v[0, 0].float()) / l_drop[:, None]
+    l_ref = c["l_ref"][0, 0, :rows]
+    return (rel_l2(out_drop, c["ref"][0, 0, :rows])[0],
+            ((l_drop - l_ref).abs() / l_ref).max().item())
+
+
+def phase_k1ml(rng):
+    """K1-ml at the three hop shapes of the sp=2 path and on the sliding-
+    window geometry whose upper tiles have an empty key range, what a
+    dropped key tile would show, and each hop's times."""
+    Hq, Hkv = MISTRAL_7B.num_attention_heads, MISTRAL_7B.num_key_value_heads
+    S_loc = SP_BUCKET // SP
+    log(f"== K1-ml: the ring hops of sp={SP} over a {SP_PROMPT}-token prompt (bucket "
+        f"{SP_BUCKET}, shards of {S_loc} rows)")
+    q0, q1 = (bf16_normal(rng, (1, Hq, S_loc, 128)) for _ in range(2))
+    k0, v0, k1, v1 = (bf16_normal(rng, (1, Hkv, S_loc, 128)) for _ in range(4))
+    hops = {"rank0_own": (q0, k0, v0, SP_PROMPT, 0),
+            "rank1_own": (q1, k1, v1, SP_PROMPT - S_loc, 0),
+            "rank1_cross": (q1, k0, v0, SP_PROMPT, S_loc)}
+    cases = {name: k1ml_case(*args) for name, args in hops.items()}
+    # Rank 1's hop from shard 0 at S_loc 2048 and SW 1000: the q tiles from
+    # row 3072 on start their keys at 3008 or later, past the shard's 2048.
+    # (tests/test_ring_attention.py:123-149's case at the card's 64-row tile;
+    # Mistral's SW 4096 gives no such tile at these shard sizes.)
+    edge = k1ml_case(bf16_normal(rng, (1, Hq, 2048, 128)),
+                     *(bf16_normal(rng, (1, Hkv, 2048, 128)) for _ in range(2)), 4096, 2048,
+                     sw=1000)
+    if edge["empty_rows"] == 0:
+        raise SystemExit("the sliding-window edge case has no row with an empty key range")
+    out_drop, l_drop = k1ml_dropped_tile(cases["rank1_cross"])
+    log(f"K1-ml: a kernel that dropped key tile [64, 128) of the cross hop would show out row "
+        f"rel L2 {out_drop:.3e} ({out_drop / K1_OUT_TOL:.1f} x tol) and l rel err {l_drop:.3e} "
+        f"({l_drop / K1ML_L_TOL:.1f} x tol)")
+    if out_drop <= K1_OUT_TOL or l_drop <= K1ML_L_TOL:
+        raise SystemExit("K1-ml's tolerances would let a dropped key tile pass")
+    checks = {name: {key: c[key] for key in ("err", "absd", "m_err", "l_err")}
+              for name, c in cases.items()}
+    checks["sw_edge"] = {key: edge[key] for key in ("err", "absd", "m_err", "l_err",
+                                                    "empty_rows")}
+    del edge
+    times = {}
+    for name, c in cases.items():
+        del c["ref"], c["m_ref"], c["l_ref"]
+        times[name] = {**time_k1v(c, None, c["off"].tolist(), ml=True), **checks[name]}
+    del cases, q0, q1, k0, v0, k1, v1
+    torch.cuda.empty_cache()
+    total = lambda key: sum(t[key] for t in times.values())
+    return {"name": "flash_prefill_ring", "route": "cuda", "source": flash_prefill.SOURCE,
+            "replaces": flash_prefill.REPLACES_VARIANT["ring"],
+            "shape": f"the three hops of one layer at sp={SP}: B=1 Hq={Hq} Hkv={Hkv} "
+                     f"S_loc={S_loc} D=128, true_len {SP_PROMPT}",
+            "max_abs_err": max(c["absd"] for c in checks.values()),
+            "rel_l2": max(c["err"] for c in checks.values()), "tol": K1_OUT_TOL,
+            "m_max_abs_err": max(c["m_err"] for c in checks.values()), "m_tol": K1ML_M_TOL,
+            "l_max_rel_err": max(c["l_err"] for c in checks.values()), "l_tol": K1ML_L_TOL,
+            "sw_edge": checks["sw_edge"],
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "operations", "library_ms": total("library_ms"),
+            "library": "SDPA with a boolean mask (out only; it gives no (m, l))",
+            "hops": times, "dropped_tile_rel_l2": out_drop, "dropped_tile_l_rel": l_drop}
+
+
+def fold_case(rng, n, S, tls, sw):
+    """Every rank's hops and folds of an ``n``-rank ring in one process
+    (``ring_attention_emulated``) against K1 (or K1-SW) over the whole
+    sequence, on each example's valid rows; the K1-ml launches it made."""
+    Hq, Hkv = MISTRAL_7B.num_attention_heads, MISTRAL_7B.num_key_value_heads
+    q = bf16_normal(rng, (1, Hq, S, 128))
+    k, v = (bf16_normal(rng, (1, Hkv, S, 128)) for _ in range(2))
+    tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
+    before = flash_prefill.flash_prefill_attention.variant_launches["ring"]
+    out = ring_attention_emulated(q, k, v, tl, n, sw)
+    sync()
+    hops = flash_prefill.flash_prefill_attention.variant_launches["ring"] - before
+    want = sum(hop_visible(my, src, S // n, sw) for my in range(n) for src in range(n))
+    ref, _ = flash_prefill.flash_prefill_attention(q, k, v, tl, 0, sliding_window=sw)
+    err, absd = k1v_worst(out, ref, k1v_valid_rows(S, tls, None))
+    fold_ms = event_ms(lambda: ring_attention_emulated(q, k, v, tl, n, sw), iters=2, warmup=1)
+    dense_ms = event_ms(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, 0,
+                                                                      sliding_window=sw),
+                        iters=2, warmup=1)
+    finite = bool(torch.isfinite(out.float()).all())
+    log(f"ring fold of {n} ranks in one process, S={S} true_len={tls} sw={sw}: {hops} K1-ml "
+        f"hops (expect {want} of {n * n}); against K1{'' if sw is None else '-SW'} over the "
+        f"whole sequence out worst row rel L2 {err:.3e} (max abs {absd:.3e}) tol {K1_OUT_TOL}; "
+        f"finite {finite}; fold {fold_ms:.3f} ms against {dense_ms:.3f} ms for one K1 call")
+    if err > K1_OUT_TOL or hops != want or not finite:
+        raise SystemExit("the ring fold disagrees with K1 over the whole sequence")
+    return {"n": n, "S": S, "true_len": tls, "sliding_window": sw, "hops": hops,
+            "rel_l2": err, "max_abs_err": absd, "fold_ms": fold_ms, "k1_ms": dense_ms}
+
+
+def phase_sp_fold(rng):
+    """The ring fold, emulated in one process, at the path's shape (n 2,
+    32k) and at n 4, S 8192 under Mistral-7B-v0.1's 4096-token window, where
+    rank 3's hop over shard 0 is skipped."""
+    out = [fold_case(rng, SP, SP_BUCKET, [SP_PROMPT], None),
+           fold_case(rng, 4, 8192, [8000], 4096)]
+    torch.cuda.empty_cache()
+    return out
+
+
+def weight_checksum(params):
+    """Each weight leaf's fp64 sum, layer by layer (no full-size copy)."""
+    sums = [float(params[name].sum(dtype=torch.float64)) for name in
+            ("embed", "final_norm", "lm_head")]
+    for name in sorted(params["layers"]):
+        w = params["layers"][name]
+        sums.append(sum(float(w[li].sum(dtype=torch.float64)) for li in range(w.shape[0])))
+    return sums
+
+
+def sp_rank(rank, n, directory, prompt):
+    """One rank of the sp run (a spawned process): the phase-5 weights from
+    ``init_params`` (seed 0), then ``InferenceEngine(ShardingConfig(sp=n))``
+    on ``prompt`` with every launch count set to 0 just before it and read
+    just after; then prefill and the whole request timed, and one profiled
+    prefill.  Writes its results to ``directory/rank{rank}.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Gloo's pairs over the loopback device: the ranks share one host.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
+                            world_size=n, timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    try:
+        cfg = MISTRAL_7B
+        params = init_params(cfg, seed=0, device="cuda")
+        checksum = weight_checksum(params)
+        engine = InferenceEngine(params, EngineConfig(
+            model=cfg, compression=SNAPKV, sharding=ShardingConfig(sp=n),
+            prefill_buckets=(SP_BUCKET,)), device="cuda")
+        group = engine.sp_group
+        reset_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        ids, res = engine.generate_batch([prompt], SP_NEW, return_result=True)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = path_launches()
+        result = {"rank": rank, "checksum": checksum, "launches": launches, "ids": ids[0],
+                  "lengths": sorted(set(res.cache.lengths.flatten().tolist())),
+                  "logits": res.logits[0].cpu(), "run_s": run_s,
+                  "run_staged_bytes": group.staged_bytes, "run_staged_s": group.staged_s}
+        del res
+        group.staged_bytes, group.staged_s = 0, 0.0
+        dist.barrier()
+        t0 = time.perf_counter()
+        engine.generate_batch([prompt], 1)
+        sync()
+        result.update(prefill_s=time.perf_counter() - t0, prefill_staged_bytes=group.staged_bytes,
+                      prefill_staged_s=group.staged_s)
+        dist.barrier()
+        t0 = time.perf_counter()
+        engine.generate_batch([prompt], SP_NEW)
+        sync()
+        result["request_s"] = time.perf_counter() - t0
+        result["decode_ms_per_step"] = \
+            (result["request_s"] - result["prefill_s"]) / (SP_NEW - 1) * 1e3
+        dist.barrier()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            engine.generate_batch([prompt], 1)
+            sync()
+        rows = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
+                for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
+        busy = sum(r[0] for r in rows)
+        hop = [(ms, cnt) for ms, cnt, key in rows if "flash_fwd_kernel" in key]
+        result["prefill_device_busy_ms"] = busy if busy > 0 else None
+        result["k1ml_profiled"] = None if not hop else {
+            "launches": sum(c for _, c in hop), "ms_per_launch": sum(m for m, _ in hop)
+            / sum(c for _, c in hop)}
+        # One layer's K/V shift with both ranks idle: the staging alone (the
+        # copies and the gloo exchange), with no wait for the other rank.
+        kv = [torch.empty((1, cfg.num_key_value_heads, SP_BUCKET // n, cfg.head_dim),
+                          dtype=torch.bfloat16, device="cuda") for _ in range(2)]
+        group.shift(kv)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            group.shift(kv)
+        result["idle_shift_ms"] = (time.perf_counter() - t0) / 4 * 1e3
+        result["shift_bytes"] = sum(t.numel() * t.element_size() for t in kv)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, Path(directory) / f"rank{rank}.pt")
+
+
+def phase_sp(rng, params):
+    """The sp=2 path end to end: the single-device engine on a 32000-token
+    SnapKV request, then ``SP`` spawned ranks sharing this card (gloo, a
+    file rendezvous, K/V staged through pinned host memory) on the same
+    prompt and weights; launches, cache lengths, equal ranks, and
+    first-token logits and streams against the single-device run."""
+    cfg, L = MISTRAL_7B, MISTRAL_7B.num_hidden_layers
+    log(f"== sp path: Mistral-7B-Instruct-v0.2 widths, one request of {SP_PROMPT} prompt "
+        f"tokens, bucket {SP_BUCKET}, {SP_NEW} new tokens, snapkv; single device, then "
+        f"sp={SP} ranks on this card over gloo")
+    prompt = rng.integers(0, cfg.vocab_size, size=SP_PROMPT).tolist()
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV,
+                                                  prefill_buckets=(SP_BUCKET,)), device="cuda")
+    reset_counts()
+    single_ids, res = engine.generate_batch([prompt], SP_NEW, return_result=True)
+    sync()
+    single_launches = path_launches()
+    single_logits = res.logits[0].cpu()
+    del res
+    t0 = time.perf_counter()
+    engine.generate_batch([prompt], 1)
+    sync()
+    single_prefill_s = time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    checksum = weight_checksum(params)
+    log(f"single device: prefill {single_prefill_s:.3f} s; launches {single_launches}")
+
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    SP_DIR.mkdir(parents=True)
+    ctx = torch.multiprocessing.start_processes(sp_rank, args=(SP, str(SP_DIR), prompt),
+                                                nprocs=SP, start_method="spawn", join=False)
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > SP_TIMEOUT_S:
+                raise SystemExit(f"the sp ranks did not finish in {SP_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(SP_DIR / f"rank{r}.pt") for r in range(SP)]
+
+    want_launches = [dict.fromkeys(single_launches, 0) for _ in range(SP)]
+    for r, w in enumerate(want_launches):
+        # Rank r folds its own shard and each earlier one: r + 1 hops a layer.
+        w["K1-ml"], w["K2"] = L * (r + 1), L * (SP_NEW - 1)
+    want_len = [SNAPKV.max_capacity_prompt + SP_NEW - 1]
+    for r, rk in enumerate(ranks):
+        log(f"rank {r}: launches {rk['launches']} (expect {want_launches[r]}); cache lengths "
+            f"{rk['lengths']} (expect {want_len}); weights checksum equal to this process's "
+            f"{rk['checksum'] == checksum}")
+        if rk["launches"] != want_launches[r]:
+            raise SystemExit(f"sp rank {r} did not run each kernel the expected number of times")
+        if rk["lengths"] != want_len or len(rk["ids"]) != SP_NEW:
+            raise SystemExit(f"sp rank {r} left wrong cache lengths or token counts")
+        if rk["checksum"] != checksum:
+            raise SystemExit(f"sp rank {r} holds other weights")
+        if not torch.isfinite(rk["logits"]).all():
+            raise SystemExit(f"sp rank {r} gave non-finite logits")
+    equal = all(rk["ids"] == ranks[0]["ids"] and torch.equal(rk["logits"][0], ranks[0]["logits"][0])
+                for rk in ranks)
+    rel, absd = rel_l2(ranks[0]["logits"][:1], single_logits[:1])
+    log(f"sp ranks: tokens and first-token logits equal across ranks {equal}; first-token "
+        f"logits against the single-device engine rel L2 {rel:.4f} (max abs {absd:.4f}) tol "
+        f"{E2E_REL_L2_TOL}")
+    if not equal or rel > E2E_REL_L2_TOL:
+        raise SystemExit("the sp ranks disagree with each other or with the single-device run")
+    # Greedy streams: identical up to the first near-tie (as phase 6 holds
+    # its two drains): where they part, the single-device top two must lie
+    # within twice the first token's largest logit difference.
+    tie_margin = 2 * absd
+    sp_ids = ranks[0]["ids"]
+    apart = [j for j, (a, b) in enumerate(zip(sp_ids, single_ids[0])) if a != b]
+    parted = None
+    if apart:
+        j = apart[0]
+        top2 = single_logits[j].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        e = rel_l2(ranks[0]["logits"][j:j + 1], single_logits[j:j + 1])[0]
+        parted = {"step": j, "top2_gap": gap, "rel_l2": e}
+        if gap > tie_margin or e > E2E_REL_L2_TOL:
+            raise SystemExit(f"the sp stream parts from the single-device one at step {j}, "
+                             f"where the top-2 gap is {gap:.4f} (margin {tie_margin:.4f}), "
+                             f"rel L2 {e:.4f}")
+    log(f"greedy stream against the single-device one: identical over {SP_NEW} tokens "
+        f"{not apart}; parted at a near-tie (margin {tie_margin:.4f}): {parted}")
+    for r, rk in enumerate(ranks):
+        hop, busy = rk["k1ml_profiled"], rk["prefill_device_busy_ms"]
+        hop_text = "not measured" if hop is None else \
+            f"{hop['ms_per_launch']:.3f} ms per hop over {hop['launches']} hops"
+        busy_text = "not measured" if busy is None else f"{busy:.1f} ms"
+        log(f"rank {r}: prefill {rk['prefill_s']:.3f} s wall (single device "
+            f"{single_prefill_s:.3f} s), device busy {busy_text} (profiled, sharing the card); "
+            f"K1-ml {hop_text} (profiled); staged through the host per prefill "
+            f"{rk['prefill_staged_bytes'] / 1e9:.3f} GB in {rk['prefill_staged_s']:.3f} s "
+            f"({rk['prefill_staged_bytes'] / L / 1e6:.1f} MB per layer), one layer's shift "
+            f"with both ranks idle {rk['idle_shift_ms']:.2f} ms "
+            f"({rk['shift_bytes'] / rk['idle_shift_ms'] / 1e6:.2f} GB/s each way); decode "
+            f"{rk['decode_ms_per_step']:.3f} ms/step (both ranks decoding on this card)")
+    keep = ("launches", "lengths", "run_s", "run_staged_bytes", "run_staged_s", "prefill_s",
+            "prefill_staged_bytes", "prefill_staged_s", "request_s", "decode_ms_per_step",
+            "prefill_device_busy_ms", "k1ml_profiled", "idle_shift_ms", "shift_bytes")
+    return {"model": "Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
+            "compression": "snapkv 2048/8/7 maxpool, group_reduce none",
+            "requests": f"one request, {SP_PROMPT} prompt tokens, bucket {SP_BUCKET}, "
+                        f"{SP_NEW} new tokens",
+            "sp": SP, "transport": "gloo over a file rendezvous, K/V staged through pinned "
+                                   "host buffers, all ranks on one card",
+            "single_device": {"launches": single_launches, "prefill_s": single_prefill_s},
+            "ranks": [{key: rk[key] for key in keep} for rk in ranks],
+            "ranks_equal": equal, "first_token_rel_l2_vs_single": rel,
+            "first_token_max_abs_vs_single": absd, "rel_l2_tol": E2E_REL_L2_TOL,
+            "tie_margin": tie_margin, "parted": parted, "spawn_to_join_s": spawn_s}
+
+
 def profile_device(fn, reps, wall_ms, what, log_file):
     """Device time per call of ``fn`` from ``torch.profiler`` (device-side
     kernel and copy events only), printed with the top kernels beside the
@@ -1659,6 +2061,8 @@ def main():
     k1_sw, k1_chunk = phase_k1_variants(rng)
     k1_a, k1_vs, k1["minference"] = phase_k1_sparse(rng)
     k5 = phase_k5(rng)
+    k1_ml = phase_k1ml(rng)
+    sp_fold = phase_sp_fold(rng)
     k2 = phase_k2(rng)
     k3 = phase_kq(rng, 8)
     k4 = phase_kq(rng, 4)
@@ -1669,6 +2073,7 @@ def main():
         serving = phase_serving(rng, params, log_file)
         torch.cuda.empty_cache()
         minf = phase_minference(rng, params, log_file)
+        sp = phase_sp(rng, params)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -1681,9 +2086,12 @@ def main():
     # K1-A and K1-VS on their MInference runs; K5 on the probe (phase 3d).
     k1_a["launches"] = minf["ashape"]["launches"]["K1-A"]
     k1_vs["launches"] = minf["vertical_slash"]["launches"]["K1-VS"]
-    print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k2, k3, k4, k5]}))
+    # K1-ml on the sp run: every rank's hops (32 on rank 0, 64 on rank 1).
+    k1_ml["launches"] = sum(rk["launches"]["K1-ml"] for rk in sp["ranks"])
+    print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
-                      "serving": serving, "minference": minf, "card": smi}))
+                      "serving": serving, "minference": minf,
+                      "sp": {**sp, "fold_emulated": sp_fold}, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

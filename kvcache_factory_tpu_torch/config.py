@@ -11,7 +11,6 @@ their ROADMAP.md item, rather than being silently ignored.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
@@ -248,8 +247,12 @@ def check_quant(quant: Optional[QuantConfig], head_dim: int) -> None:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """Device-mesh layout.  The port runs on one device: any value other
-    than the defaults raises (ROADMAP.md queue 1 item 16)."""
+    """Device-mesh layout.  The port carries ``sp`` alone: sequence-parallel
+    prefill over ``sp`` ranks of a ``torch.distributed`` group (ring
+    attention, ``parallel/``), with decode replicated on every rank.  The
+    JAX package's ``ValueError``s for sp with ep or pp hold; every other
+    non-default layout (dp, tp, ep, pp, and sp composed with dp or tp)
+    raises ``NotImplementedError`` (ROADMAP.md queue 1 item 16)."""
 
     dp: int = 1
     tp: int = 1
@@ -260,7 +263,14 @@ class ShardingConfig:
     dcn_dp: int = 1
 
     def __post_init__(self):
-        if dataclasses.astuple(self) != (1, 1, 1, 1, 1, 0, 1):
+        if self.sp < 1:
+            raise ValueError("sp must be >= 1")
+        if self.sp > 1 and self.ep > 1:
+            raise ValueError("sp composes with dp/tp (one (dp, sp, tp) mesh) but not with ep")
+        if self.pp > 1 and self.sp > 1:
+            raise ValueError("pp is a dedicated mesh; it does not compose with sp")
+        if (self.dp, self.tp, self.ep, self.pp, self.pp_microbatches,
+                self.dcn_dp) != (1, 1, 1, 1, 0, 1):
             raise NotImplementedError(
                 "multi-device sharding is not ported yet (ROADMAP.md queue 1 "
                 "item 16: parallel paths)")

@@ -5,10 +5,10 @@
 //
 // Replaces the Pallas TPU kernel
 //   kvcache_factory_tpu/ops/kernels/flash_prefill.py::_flash_kernel
-// (dense causal path with score emission, `sliding_window`, chunk mode, and
-// the sparse patterns: block_selected and the sparse body :222-252, the
-// sparse score re-sweep :327-344, the pattern setup :543-568; the return_ml
-// variant, which only ring attention reads, is not ported here).
+// (dense causal path with score emission, `sliding_window`, chunk mode, the
+// sparse patterns: block_selected and the sparse body :222-252, the sparse
+// score re-sweep :327-344, the pattern setup :543-568; and `return_ml`,
+// :288-297, the per-row (m, l) that ring attention folds across hops).
 //
 // What it computes, per example b and query head hq (kv head hq / G), for
 // q row r at global id R = row_offset[b] + r (row_offset 0 outside chunk
@@ -22,6 +22,14 @@
 // sparse softmax.  Scores need whole-sequence queries without a sliding
 // window, so W > 0 excludes SW and chunk mode; a block mask excludes chunk
 // mode (the wrapper and the host function check).
+// With an (m, l) output (the ring-attention hop, K1-ml) each row also writes
+// its final online-softmax max m and sum l over the columns it saw in this
+// call, fp32 [B, Hq, S_q] each; a row that saw none writes m = -FLT_MAX,
+// l = 0 and a zero output, so the hop combine weighs it to nothing (the TPU
+// kernel leaves l at the folded column count there; both fold to zero).
+// A hop's keys are one shard (true_len may exceed S_k, so columns are also
+// capped at S_k - 1), and its offset rows can sit so far past the shard that
+// a tile's window starts beyond the last key: the key loop is then empty.
 // The softmax is online and in fp32; probabilities are rounded to bf16
 // before the PV product, as the TPU kernel does.  Rows at or past true_len
 // in a tile that holds no valid row are written as zeros: every later mask
@@ -33,7 +41,10 @@
 // tensor cores (0.139 ms per layer at 989 TFLOP/s of dense bf16).  With a
 // window the work is O(S * SW): key tiles wholly below every row's window
 // are skipped, so an 8192-token prefill at SW 4096 does 0.75 of the dense
-// causal work.
+// causal work.  A ring hop does the visible pairs of one K/V shard (at sp 2
+// over 32000 tokens: 134, 122 and 256 M pairs per head for the three hops,
+// together the dense causal work) under the same bound; its (m, l) planes
+// add 8 bytes per row.
 //
 // Design: one CTA (4 warps) per (q-tile of 64 rows, hq, b).  Each warp owns
 // 16 query rows, holds their Q fragments in registers, and walks 64-key K/V
@@ -129,8 +140,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ true_len,
                  const int* __restrict__ row_offset,
                  const int* __restrict__ block_mask, bf16* __restrict__ out,
-                 float* __restrict__ win_ml, int Hq, int Hkv, int S_q, int S_k,
-                 int W, int SW, int P, int n_blk, float scale) {
+                 float* __restrict__ win_ml, float* __restrict__ row_ml, int Hq,
+                 int Hkv, int S_q, int S_k, int W, int SW, int P, int n_blk,
+                 float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + BM * LDS;
@@ -153,11 +165,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int o_lo = lrow0 + ra, o_hi = o_lo + 8;  // local rows (output)
   const int r_lo = row0 + ra, r_hi = r_lo + 8;   // global ids (masks)
 
+  // (m, l) planes of this (b, hq): m at [0, S_q), l one plane further on.
+  const size_t plane = (size_t)gridDim.z * Hq * S_q;
+  float* mh = row_ml ? row_ml + ((size_t)b * Hq + hq) * S_q : nullptr;
+
   if (row0 >= tl) {  // no valid row in this tile (uniform over the CTA)
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       if (o_lo < S_q) *reinterpret_cast<uint32_t*>(oh + (size_t)o_lo * D + dt * 8 + t * 2) = 0u;
       if (o_hi < S_q) *reinterpret_cast<uint32_t*>(oh + (size_t)o_hi * D + dt * 8 + t * 2) = 0u;
+    }
+    if (mh && t == 0) {
+      if (o_lo < S_q) { mh[o_lo] = NEG_INF; mh[plane + o_lo] = 0.f; }
+      if (o_hi < S_q) { mh[o_hi] = NEG_INF; mh[plane + o_hi] = 0.f; }
     }
     return;
   }
@@ -175,9 +195,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qf[ks][3] = ld32(p + 8 * LDS + 8);
   }
 
-  // col > row OR col >= true_len collapses to col > min(row, tl - 1); the
-  // window hides col <= row - SW (no window: col <= -1, nothing).
-  const int lim_lo = min(r_lo, tl - 1), lim_hi = min(r_hi, tl - 1);
+  // col > row OR col >= true_len OR col >= S_k collapses to col > min(row,
+  // tl - 1, S_k - 1); the window hides col <= row - SW (no window: col <= -1,
+  // nothing).  Only a ring hop has tl > S_k.
+  const int col_max = min(tl, S_k) - 1;
+  const int lim_lo = min(r_lo, col_max), lim_hi = min(r_hi, col_max);
   const int wlo_lo = SW > 0 ? r_lo - SW : -1, wlo_hi = SW > 0 ? r_hi - SW : -1;
   float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
   float o[D / 8][4];
@@ -185,8 +207,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
   // Causal frontier of this tile, and the first key tile that holds a
-  // column inside any of its rows' windows.  row0 < tl, so the tile range
-  // is never empty: row row0 sees its own column.
+  // column inside any of its rows' windows.  The range is empty only for a
+  // ring hop whose window starts past the shard (kv_begin >= S_k): the loop
+  // then runs no iteration and the rows keep m = -FLT_MAX, l = 0.
   const int kv_end = min(min(row0 + BM, tl), S_k);
   const int kv_begin = SW > 0 ? max(row0 - SW + 1, 0) / BN * BN : 0;
   // This CTA's row of the block mask (whole-sequence queries: row0 is local).
@@ -272,6 +295,24 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
+  if (mh) {
+    // A row that saw no column folded only masked logits (each exp(0) = 1
+    // against m = -FLT_MAX): report it as empty, with a zero output.
+    if (m_lo == NEG_INF) {
+      l_lo = 0.f;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = 0.f;
+    }
+    if (m_hi == NEG_INF) {
+      l_hi = 0.f;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) o[dt][2] = o[dt][3] = 0.f;
+    }
+    if (t == 0) {
+      if (o_lo < S_q) { mh[o_lo] = m_lo; mh[plane + o_lo] = l_lo; }
+      if (o_hi < S_q) { mh[o_hi] = m_hi; mh[plane + o_hi] = l_hi; }
+    }
+  }
   const float dl_lo = (l_lo == 0.f) ? 1.f : l_lo;
   const float dl_hi = (l_hi == 0.f) ? 1.f : l_hi;
 #pragma unroll
@@ -371,15 +412,17 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
                                   const void* true_len, const void* row_offset,
                                   const void* block_mask, void* out, void* win_ml,
-                                  void* scores, int B, int Hq, int Hkv, int S_q,
-                                  int S_k, int W, int SW, int P, int n_blk,
+                                  void* scores, void* row_ml, int B, int Hq, int Hkv,
+                                  int S_q, int S_k, int W, int SW, int P, int n_blk,
                                   float scale, void* stream) {
   // The wrapper's contract: scores only for whole-sequence queries without
   // a window; q and k lengths differ only in chunk mode; a block mask only
   // for whole-sequence queries, with n_blk blocks of P rows covering S_q and
-  // P a multiple of the 64-row tile unless one block covers everything.
+  // P a multiple of the 64-row tile unless one block covers everything;
+  // (m, l) only without scores or a block mask (a dense-attention feature).
   if (W < 0 || W > WMAX || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
-      (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1)
+      (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1 ||
+      (row_ml && (W > 0 || block_mask)))
     return (int)cudaErrorInvalidValue;
   if (block_mask && (row_offset || P < 1 || n_blk != (S_q + P - 1) / P ||
                      (n_blk > 1 && P % BM != 0)))
@@ -402,8 +445,8 @@ extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(true_len),
       static_cast<const int*>(row_offset), static_cast<const int*>(block_mask),
-      static_cast<bf16*>(out), static_cast<float*>(win_ml), Hq, Hkv, S_q, S_k, W, SW,
-      P, n_blk, scale);
+      static_cast<bf16*>(out), static_cast<float*>(win_ml), static_cast<float*>(row_ml),
+      Hq, Hkv, S_q, S_k, W, SW, P, n_blk, scale);
   if (W > 0) {
     dim3 g2((S_k + BN - 1) / BN, Hq, B);
     window_scores_kernel<<<g2, 128, 0, st>>>(

@@ -14,8 +14,10 @@ A sliding window (Mistral-7B-v0.1, Qwen2) masks prefill attention inside
 K1 and window-masks the decode rows whose cache index is the absolute
 position.  A MInference ``sparse_prefill`` pattern restricts prefill
 attention to K1's selected blocks (a-shape or vertical-slash, with optional
-per-layer per-head budgets).  The port carries the dense and the per-token
-quantized caches.
+per-layer per-head budgets).  With a sequence-parallel group prefill splits
+the prompt's rows over its ranks and runs ring attention (K1-ml per hop,
+``parallel/ring_attention.py``).  The port carries the dense and the
+per-token quantized caches.
 The grouped quantized cache, ThinK, evicting, offloaded and MoE
 configurations raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -36,8 +38,11 @@ from ..ops.kernels.decode_attn import decode_attention_append
 from ..ops.kernels.decode_attn_quant import (quant4_decode_attention_append,
                                               quant_decode_attention_append)
 from ..ops.kernels.flash_prefill import flash_prefill_attention
+from ..parallel.mesh import SequenceParallelGroup
+from ..parallel.ring_attention import ring_attention
 from ..policies.base import PackedKV
 from ..policies.methods import LayerContext, compress_prefill
+from ..policies.scoring import window_attention_scores, window_query_rows
 
 # ---------------------------------------------------------------------------
 # Building blocks
@@ -243,6 +248,7 @@ def prefill(
     *,
     quant: Optional[QuantConfig] = None,
     sparse_budgets: Optional[torch.Tensor] = None,  # [L, Hq, 2] int (MInference)
+    sp_group: Optional[SequenceParallelGroup] = None,
 ) -> PrefillResult:
     """Full prefill: attention over the uncompressed prompt, then the
     compression hook between the QKV computation and the cache write.
@@ -254,16 +260,29 @@ def prefill(
     itself (``window_attention_scores``), as the JAX package does.  With
     ``comp.sparse_prefill`` K1 runs the MInference pattern; ``sparse_budgets``
     gives each layer's per-head (vertical, slash) budgets (JAX ``:314,
-    487-488``), and SnapKV's scores are then sums of the sparse softmax."""
+    487-488``), and SnapKV's scores are then sums of the sparse softmax.
+
+    With ``sp_group`` (JAX ``sp_mesh``, ``:381-405``) every rank receives
+    the whole ``[B, S]`` prompt and computes only its rows ``[lo, hi)``
+    (RoPE at their global positions); attention is
+    :func:`~..parallel.ring_attention.ring_attention`, which hands back the
+    global K/V, and compression runs on that, with SnapKV's scores computed
+    from the window's q rows gathered from their ranks (the JAX sp branch
+    scores with ``window_attention_scores`` too).  Every rank builds the
+    same cache; each example's last-token logits come from the rank that
+    holds its row ``true_len - 1``.  Sparse patterns are not applied under
+    sp, as in the JAX ring."""
     _check_supported(cfg, comp, quant)
     B, S = tokens.shape
     L = cfg.num_hidden_layers
     dtype = dtype_of(cfg)
     dev = tokens.device
     true_len = true_len.to(device=dev, dtype=torch.int32)
+    lo, hi = (0, S) if sp_group is None else sp_group.bounds(S)
 
-    x = params["embed"][tokens].to(dtype)  # [B, S, hidden]
+    x = params["embed"][tokens[:, lo:hi]].to(dtype)  # [B, hi - lo, hidden]
     cos, sin = rope_tables(cfg, S, dev)
+    cos, sin = cos[lo:hi], sin[lo:hi]
     policy_capacity = comp.layer_capacity(L, S)
     assert cache_capacity >= policy_capacity, (
         f"cache capacity {cache_capacity} < policy capacity {policy_capacity}")
@@ -273,29 +292,47 @@ def prefill(
     emit = comp.method == "snapkv" and cfg.sliding_window is None
     win = comp.window_size if emit else 0
     cols = torch.arange(S, device=dev)
+    if sp_group is not None:
+        # The SnapKV window's q rows, [B, w] global ids, fetched each layer.
+        win_rows = torch.stack([window_query_rows(true_len[b], comp.window_size, S)
+                                for b in range(B)])
 
     for li in range(L):
         lp = _layer(params, li)
         q, k, v = _qkv(x, lp, cfg, cos, sin)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        attn, win_sc = flash_prefill_attention(
-            q, k, v, true_len, win, sliding_window=cfg.sliding_window,
-            sparse_pattern=comp.sparse_prefill,
-            sparse_head_budgets=None if sparse_budgets is None else sparse_budgets[li])
         window_scores = None
-        if emit:
-            window_scores = torch.where(
-                cols >= (true_len[:, None, None] - comp.window_size),
-                NEG_INF, win_sc)
+        if sp_group is None:
+            attn, win_sc = flash_prefill_attention(
+                q, k, v, true_len, win, sliding_window=cfg.sliding_window,
+                sparse_pattern=comp.sparse_prefill,
+                sparse_head_budgets=None if sparse_budgets is None else sparse_budgets[li])
+            if emit:
+                window_scores = torch.where(
+                    cols >= (true_len[:, None, None] - comp.window_size),
+                    NEG_INF, win_sc)
+        else:
+            attn, k, v = ring_attention(q, k, v, true_len, sp_group, cfg.sliding_window)
+            if comp.method == "snapkv":
+                # compress_layer reads only q's head count once scores are given.
+                q = sp_group.gather_rows(q, win_rows, dim=2).transpose(1, 2)  # [B, Hq, w, D]
+                G = q.shape[1] // k.shape[1]
+                window_scores = torch.stack([window_attention_scores(
+                    k[b].repeat_interleave(G, dim=0), None, true_len[b], comp.window_size,
+                    q_win=q[b]) for b in range(B)])
         x = _finish_layer(x, attn, lp, cfg)
         store_packed_layer(cache, li, compress_prefill(
             comp, L, policy_capacity, k, v, q, true_len,
             LayerContext(li, window_scores=window_scores)))
     cache.positions.copy_(true_len)
 
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (true_len.to(torch.int64) - 1).clamp(min=0)
-    x_last = x[torch.arange(B, device=dev), last]
+    if sp_group is None:
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        x_last = x[torch.arange(B, device=dev), last]
+    else:
+        x_last = rms_norm(sp_group.gather_rows(x, last[:, None], dim=1)[:, 0],
+                          params["final_norm"], cfg.rms_norm_eps)
     logits_last = wdot(x_last, params["lm_head"]).float()
     return PrefillResult(logits_last, cache)
 

@@ -31,9 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "flash_prefill": {
-        # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores, B,
-        # Hq, Hkv, S_q, S_k, W, SW, P, n_blk, scale, stream
-        "kvcf_flash_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
+        # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, scale, stream
+        "kvcf_flash_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "decode_attn": {

@@ -1,12 +1,14 @@
 """K1: causal flash prefill attention that also emits the SnapKV window
 scores, with its sliding-window, chunk (``row_offset``) and MInference
-sparse (a-shape, vertical-slash) variants.
+sparse (a-shape, vertical-slash) variants, and its ``return_ml`` variant
+(K1-ml), which also returns each row's online-softmax ``(m, l)`` for the
+ring-attention fold (``parallel/ring_attention.py``).
 
 The CUDA kernel (``csrc/flash_prefill.cu``) replaces the Pallas TPU kernel
 ``kvcache_factory_tpu/ops/kernels/flash_prefill.py::_flash_kernel`` (dense
-causal path with score emission, ``sliding_window``, chunk mode and the
-sparse block patterns).  Its source header says what bounds it on the card
-and how the design answers that.  The vertical-slash block mask is
+causal path with score emission, ``sliding_window``, chunk mode, the
+sparse block patterns and ``return_ml``).  Its source header says what
+bounds it on the card and how the design answers that.  The vertical-slash block mask is
 estimated in plain torch (:func:`vertical_slash_block_mask`), as the JAX
 package estimates it in XLA; both patterns reach the kernel as one
 ``[B, Hq, n_blk, n_blk]`` block mask.
@@ -18,6 +20,7 @@ launches, and ``flash_prefill_attention.variant_launches`` splits them by
 variant: ``"dense"``, ``"sliding_window"`` (whole-sequence queries under a
 window), ``"chunk"`` (``row_offset`` given, with or without a window),
 ``"ashape"`` and ``"vertical_slash"`` (a sparse pattern, with or without a
+window) and ``"ring"`` (``return_ml``, with or without an offset or a
 window).
 """
 
@@ -39,6 +42,7 @@ REPLACES_VARIANT = {
     "chunk": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:103-112",
     "ashape": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:230-252",
     "vertical_slash": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:228-252",
+    "ring": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:288-297",
 }
 HEAD_DIM = 128
 MAX_WINDOW = 64
@@ -59,8 +63,16 @@ def flash_prefill_attention(
     sparse_pattern: Optional[tuple] = None,
     sparse_head_budgets: Optional[torch.Tensor] = None,  # [Hq, 2] int32 (v, s)
     q_block: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(out [B, Hq, S_q, D], scores [B, Hq, S_k] fp32)``.
+    return_ml: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Returns ``(out [B, Hq, S_q, D], scores [B, Hq, S_k] fp32)``; with
+    ``return_ml`` also ``(m, l)``, fp32 ``[B, Hq, S_q]`` each: each row's
+    final online-softmax max and sum over the columns it saw in this call
+    (the logits scaled, the sum of ``exp(logit - m)``), so that
+    ``out * l`` is its unnormalized accumulator.  A row that saw no column
+    returns ``m = NEG_INF``, ``l = 0`` and a zero output.  (The JAX kernel
+    returns ``l`` = the folded column count there; both weigh the row to
+    zero in the ring fold.  Test ``m``, not ``l``, for an empty row.)
 
     Row ``r`` of example ``b`` has the global id ``R = row_offset[b] + r``
     (``R = r`` without ``row_offset``) and attends the columns
@@ -82,10 +94,13 @@ def flash_prefill_attention(
     need whole-sequence queries without a sliding window, so ``window`` is
     0 under ``sliding_window`` and in chunk mode; sparse patterns need
     whole-sequence queries; q and k lengths differ only in chunk mode;
-    ``row_offset >= 0``.  Output rows at or past ``true_len`` are
-    unspecified (never read by the model); a row whose ``true_len`` is 0
-    comes out finite (zeros from the kernel)."""
-    _check_contract(q, k, window, sliding_window, row_offset, sparse_pattern)
+    ``row_offset >= 0``; ``return_ml`` needs ``window=0`` and no sparse
+    pattern (``:505-507``).  A ring hop passes one K/V shard, so
+    ``true_len`` may exceed ``S_k``: columns stop at ``S_k - 1``.  Output
+    rows at or past ``true_len`` are unspecified (never read by the
+    model); a row whose ``true_len`` is 0 comes out finite (zeros from the
+    kernel)."""
+    _check_contract(q, k, window, sliding_window, row_offset, sparse_pattern, return_ml)
     block_mask, block = None, 0
     if sparse_pattern is not None:
         # Looked up as a module global at each call: chip_smoke.py swaps it
@@ -95,7 +110,8 @@ def flash_prefill_attention(
     if q.device.type == "cpu":
         return flash_prefill_attention_reference(
             q, k, v, true_len, window, sliding_window=sliding_window,
-            row_offset=row_offset, block_mask=block_mask, block=block)
+            row_offset=row_offset, block_mask=block_mask, block=block,
+            return_ml=return_ml)
     lib = _build.load("flash_prefill")
     B, Hq, S_q, D = q.shape
     S_k = k.shape[2]
@@ -110,25 +126,31 @@ def flash_prefill_attention(
         (B, Hq, S_k), dtype=torch.float32, device=dev)
     win_ml = torch.empty((B, Hq, max(window, 1), 2), dtype=torch.float32,
                          device=dev)
+    row_ml = torch.empty((2, B, Hq, S_q), dtype=torch.float32, device=dev) \
+        if return_ml else None
     with torch.cuda.device(dev):
         code = lib.kvcf_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), true_len.data_ptr(),
             None if row_offset is None else row_offset.data_ptr(),
             None if block_mask is None else block_mask.data_ptr(),
             out.data_ptr(), win_ml.data_ptr(), scores.data_ptr(),
+            None if row_ml is None else row_ml.data_ptr(),
             B, Hq, k.shape[1], S_q, S_k, window, sliding_window or 0,
             block, 0 if block_mask is None else block_mask.shape[-1], D ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "flash_prefill")
     flash_prefill_attention.launches += 1
     flash_prefill_attention.variant_launches[
-        variant(sliding_window, row_offset, sparse_pattern)] += 1
+        variant(sliding_window, row_offset, sparse_pattern, return_ml)] += 1
+    if return_ml:
+        return out, scores, row_ml[0], row_ml[1]
     return out, scores
 
 
 flash_prefill_attention.launches = 0
 flash_prefill_attention.variant_launches = {
-    "dense": 0, "sliding_window": 0, "chunk": 0, "ashape": 0, "vertical_slash": 0}
+    "dense": 0, "sliding_window": 0, "chunk": 0, "ashape": 0, "vertical_slash": 0,
+    "ring": 0}
 
 
 def pattern_kind(sparse_pattern: tuple) -> str:
@@ -143,8 +165,10 @@ def pattern_kind(sparse_pattern: tuple) -> str:
 
 
 def variant(sliding_window: Optional[int], row_offset: RowOffset,
-            sparse_pattern: Optional[tuple] = None) -> str:
+            sparse_pattern: Optional[tuple] = None, return_ml: bool = False) -> str:
     """Which of K1's variants a call runs."""
+    if return_ml:
+        return "ring"
     if row_offset is not None:
         return "chunk"
     if sparse_pattern is not None:
@@ -158,9 +182,13 @@ def reset_launches() -> None:
         flash_prefill_attention.variant_launches[key] = 0
 
 
-def _check_contract(q, k, window, sliding_window, row_offset, sparse_pattern=None):
+def _check_contract(q, k, window, sliding_window, row_offset, sparse_pattern=None,
+                    return_ml=False):
     """The JAX wrapper's asserts (``flash_prefill.py:495-507``), on every
     device."""
+    if return_ml and (window or sparse_pattern is not None):
+        raise ValueError("flash_prefill: (m, l) emission is a dense-attention feature "
+                         "(the ring fold): pass window=0 and no sparse pattern")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError("flash_prefill: sliding_window must be >= 1")
     if window and (sliding_window is not None or row_offset is not None):
@@ -349,16 +377,19 @@ def flash_prefill_attention_reference(
     true_len: torch.Tensor, window: int, q_block: int = 256,
     sliding_window: Optional[int] = None, row_offset: RowOffset = None,
     block_mask: Optional[torch.Tensor] = None, block: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_ml: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of :func:`flash_prefill_attention`: fp32 logits and
-    softmax blocked over ``q_block`` q rows, the same masks and window
-    scores.  ``block_mask [B, Hq, n, n]`` (with its ``block`` size, whole-
-    sequence queries only) hides the columns whose block the row's block
-    does not select.  As in both kernels, the unnormalized probabilities
-    ``exp(s - m)`` are rounded to the value dtype before the PV product and
-    the result is divided by the fp32 row sum afterwards.  A row that sees
+    softmax blocked over ``q_block`` q rows, the same masks, window scores
+    and, with ``return_ml``, ``(m, l)`` (an empty row: ``NEG_INF``, 0 and a
+    zero output, as the kernel gives).  ``block_mask [B, Hq, n, n]`` (with
+    its ``block`` size, whole-sequence queries only) hides the columns
+    whose block the row's block does not select.  As in both kernels, the
+    unnormalized probabilities ``exp(s - m)`` are rounded to the value
+    dtype before the PV product and the result is divided by the fp32 row
+    sum afterwards.  A row that sees
     no column (an inert row, ``true_len`` 0) averages every value row:
-    finite, and never read."""
+    finite, and never read (zeros with ``return_ml``)."""
     B, Hq, S_q, D = q.shape
     Hkv, S_k = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -373,7 +404,7 @@ def flash_prefill_attention_reference(
     if block_mask is not None:
         sel_all = block_mask.to(device=dev, dtype=torch.bool)
         col_blk = cols // block
-    outs = []
+    outs, ms, ls = [], [], []
     for r0 in range(0, S_q, q_block):
         qblk = qg[:, :, :, r0:r0 + q_block].float()
         rows = off[:, None] + r0 + torch.arange(qblk.shape[3], device=dev)  # [B, n] global
@@ -388,13 +419,23 @@ def flash_prefill_attention_reference(
             sel = sel_all[:, :, row_blk][..., col_blk]           # [B, Hq, n, S_k]
             bad = bad | ~sel.reshape(B, Hkv, G, -1, S_k)
         logits = torch.where(bad, NEG_INF, logits)
-        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
         denom = p.sum(dim=-1, keepdim=True)
         out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), vf) / denom
+        if return_ml:
+            empty = m == NEG_INF
+            denom = torch.where(empty, 0.0, denom)
+            out = torch.where(empty, 0.0, out)
+            ms.append(m[..., 0])
+            ls.append(denom[..., 0])
         outs.append(out.to(q.dtype))
         if window:
             in_win = (rows >= tl[:, None] - window) & (rows < tl[:, None])
             if bool(in_win.any()):
                 scores += (p / denom * in_win[:, None, None, :, None]).sum(dim=3)
     out = torch.cat(outs, dim=3).reshape(B, Hq, S_q, D)
+    if return_ml:
+        return (out, scores.reshape(B, Hq, S_k), torch.cat(ms, dim=3).reshape(B, Hq, S_q),
+                torch.cat(ls, dim=3).reshape(B, Hq, S_q))
     return out, scores.reshape(B, Hq, S_k)

@@ -69,7 +69,8 @@ def compress_layer(
     capacity: int,
     k: torch.Tensor,         # [H_kv, S, D] post-RoPE keys
     v: torch.Tensor,         # [H_kv, S, D]
-    q: torch.Tensor,         # [H_q, S, D]
+    q: torch.Tensor,         # [H_q, S, D] (only its head count is read when
+                             # ctx.window_scores is given)
     true_len: torch.Tensor,  # 0-d int tensor
     ctx: LayerContext,
 ) -> PackedKV:

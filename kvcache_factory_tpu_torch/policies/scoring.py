@@ -14,6 +14,8 @@ with zeros that are counted (``count_include_pad=True``), max-pool pads with
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -36,26 +38,36 @@ def pool1d(scores: torch.Tensor, kernel_size: int, pooling: str) -> torch.Tensor
     return out.reshape(scores.shape[:-1] + (out.shape[-1],))
 
 
+def window_query_rows(true_len: torch.Tensor, window_size: int, S: int) -> torch.Tensor:
+    """The ``window_size`` query rows the window scores read: from
+    ``true_len - window_size`` clamped into ``[0, S - window_size]``, as a
+    dynamic slice does (the masks use the unclamped start)."""
+    start = (true_len.to(torch.int64) - window_size).clamp(0, S - window_size)
+    return start + torch.arange(window_size, device=true_len.device)
+
+
 def window_attention_probs(
     k: torch.Tensor,         # [H, S, D] post-RoPE keys
-    q: torch.Tensor,         # [H, S, D]
+    q: Optional[torch.Tensor],  # [H, S, D]
     true_len: torch.Tensor,  # 0-d int tensor, actual prompt length (<= S)
     window_size: int,
+    *,
+    q_win: Optional[torch.Tensor] = None,  # [H, w, D]
 ) -> torch.Tensor:
     """fp32 softmax attention of the last ``window_size`` queries over all
     keys, causal only inside the trailing window block, padded columns
-    masked (pyramidkv_utils.py:317-326).  Returns ``[H, w, S]``."""
-    H, S, D = q.shape
+    masked (pyramidkv_utils.py:317-326).  Returns ``[H, w, S]``.
+    ``q_win``, the rows :func:`window_query_rows` names, stands in for
+    ``q`` where only those rows are at hand (sequence-parallel prefill)."""
+    S, D = k.shape[1], k.shape[2]
     w = window_size
     win_start = true_len.to(torch.int64) - w
-    # The window queries start at win_start clamped into [0, S - w], as a
-    # dynamic slice does; the masks below use the unclamped start.
-    start = win_start.clamp(0, S - w)
-    q_win = q.index_select(1, start + torch.arange(w, device=q.device))
+    if q_win is None:
+        q_win = q.index_select(1, window_query_rows(true_len, w, S))
     scale = 1.0 / float(D) ** 0.5
     logits = torch.einsum("hwd,hsd->hws", q_win.float(), k.float()) * scale
-    cols = torch.arange(S, device=q.device)[None]
-    rows = torch.arange(w, device=q.device)[:, None]
+    cols = torch.arange(S, device=k.device)[None]
+    rows = torch.arange(w, device=k.device)[:, None]
     in_window_col = cols >= win_start
     causal_bad = in_window_col & (cols - win_start > rows)
     padding_col = cols >= true_len
@@ -65,23 +77,25 @@ def window_attention_probs(
 
 def window_attention_scores(
     k: torch.Tensor,
-    q: torch.Tensor,
+    q: Optional[torch.Tensor],
     true_len: torch.Tensor,
     window_size: int,
     *,
     reduce: str = "sum",  # "sum" (SnapKV/PyramidKV) | "mean" (AdaKV/HeadKV)
+    q_win: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Observation-window column scores ``[H, S]`` fp32; positions
-    ``>= true_len - window_size`` are NEG_INF."""
-    H, S, _ = q.shape
-    probs = window_attention_probs(k, q, true_len, window_size)
+    ``>= true_len - window_size`` are NEG_INF.  ``q_win`` as in
+    :func:`window_attention_probs`."""
+    S = k.shape[1]
+    probs = window_attention_probs(k, q, true_len, window_size, q_win=q_win)
     if reduce == "sum":
         scores = probs.sum(dim=1)
     elif reduce == "mean":
         scores = probs.mean(dim=1)
     else:
         raise ValueError(reduce)
-    col_ids = torch.arange(S, device=q.device)[None]
+    col_ids = torch.arange(S, device=k.device)[None]
     return torch.where(col_ids >= true_len - window_size, NEG_INF, scores)
 
 

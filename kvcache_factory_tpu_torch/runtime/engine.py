@@ -1,11 +1,18 @@
 """High-level inference engine: prompt buckets and cache sizing (port of
-``kvcache_factory_tpu/runtime/engine.py``, single-device path).
+``kvcache_factory_tpu/runtime/engine.py``: the single-device path and the
+sequence-parallel one, ``cfg.sharding.sp > 1``).
 
 Prompts are right-padded to the nearest bucket and masked via ``true_len``,
 so each bucket gives results identical to an exact-length run.  With
 ``cfg.quant`` the engine builds the per-token int8 or int4 cache.
 ``sparse_budgets`` are MInference's per-(layer, head) (vertical, slash)
 budgets ``[L, Hq, 2]`` (``policies/minference.py::load_sparse_budgets``).
+
+With ``sp > 1`` (JAX ``:66-94, 195-205``) the engine runs on each rank of
+an initialized ``torch.distributed`` group of ``sp`` ranks (the default
+group, or ``group``): every rank calls :meth:`InferenceEngine.generate_batch`
+with the same prompts, prefill splits each bucket's rows over the ranks
+(ring attention), and every rank gets the same ids back.
 """
 
 from __future__ import annotations
@@ -18,12 +25,14 @@ import numpy as np
 import torch
 
 from ..config import CompressionConfig, EngineConfig, GenerationConfig, check_quant
+from ..parallel.mesh import SequenceParallelGroup
 from .generate import GenerateResult, generate
 
 
 class InferenceEngine:
     def __init__(self, params, cfg: EngineConfig, device="cuda",
-                 sparse_budgets: Optional[np.ndarray] = None):
+                 sparse_budgets: Optional[np.ndarray] = None,
+                 group: Optional["torch.distributed.ProcessGroup"] = None):
         check_quant(cfg.quant, cfg.model.head_dim)
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
@@ -33,6 +42,17 @@ class InferenceEngine:
         self.cfg = cfg
         self.sparse_budgets = sparse_budgets
         self.buckets = sorted(cfg.prefill_buckets)
+        self.sp_group = None
+        sp = cfg.sharding.sp
+        if sp > 1:
+            bad = [b for b in self.buckets if b % sp]
+            if bad:
+                raise ValueError(f"prefill buckets {bad} not divisible by sp={sp} "
+                                 "(sequence shards must be equal)")
+            self.sp_group = SequenceParallelGroup(group)
+            if self.sp_group.size != sp:
+                raise ValueError(f"sp={sp} needs a process group of {sp} ranks, got "
+                                 f"{self.sp_group.size}")
 
     def _bucket(self, n: int) -> int:
         i = bisect.bisect_left(self.buckets, n)
@@ -75,7 +95,7 @@ class InferenceEngine:
                         gen_cfg, toks, lens,
                         self._cache_capacity(S, max_new_tokens), quant_cfg=self.cfg.quant,
                         device=self.device, return_logits=return_logits,
-                        sparse_budgets=self.sparse_budgets)
+                        sparse_budgets=self.sparse_budgets, sp_group=self.sp_group)
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int,
                      eos_token_ids: Sequence[int] = ()) -> List[int]:

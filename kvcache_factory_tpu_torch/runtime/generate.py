@@ -16,6 +16,7 @@ import torch
 
 from ..config import CompressionConfig, GenerationConfig, ModelConfig, QuantConfig
 from ..models import llama
+from ..parallel.mesh import SequenceParallelGroup
 
 
 class GenerateResult(NamedTuple):
@@ -41,7 +42,12 @@ def generate(
     device="cuda",
     return_logits: bool = False,
     sparse_budgets=None,     # [L, Hq, 2] MInference per-head budgets
+    sp_group: Optional[SequenceParallelGroup] = None,
 ) -> GenerateResult:
+    """Greedy generation.  With ``sp_group`` every rank passes the same
+    prompts: prefill splits their rows over the ranks, and decode runs on
+    every rank over the same cache (the JAX engine replicates decode over
+    the sp axis, ``runtime/engine.py:113-119``)."""
     if gen_cfg.do_sample:
         raise NotImplementedError("sampling is not ported yet (ROADMAP.md "
                                   "queue 1 item 5)")
@@ -54,7 +60,8 @@ def generate(
     if sparse_budgets is not None:
         sparse_budgets = torch.as_tensor(sparse_budgets, device=device).to(torch.int32)
     pre = llama.prefill(params, model_cfg, comp_cfg, tokens, true_len,
-                        cache_capacity, quant=quant_cfg, sparse_budgets=sparse_budgets)
+                        cache_capacity, quant=quant_cfg, sparse_budgets=sparse_budgets,
+                        sp_group=sp_group)
     vocab = pre.logits_last.shape[-1]
     eos_ids = [e for e in gen_cfg.eos_token_ids if 0 <= e < vocab]
     eos = torch.tensor(list(gen_cfg.eos_token_ids) or [-1], device=dev)

@@ -143,8 +143,9 @@ def test_flash_prefill_counts_launches_by_variant():
     assert tflash.variant(None, None, ("ashape", 1, 2, 8)) == "ashape"
     assert tflash.variant(4096, None, (1, 2, 8)) == "ashape"
     assert tflash.variant(None, None, ("vertical_slash", 64, 16, 16)) == "vertical_slash"
+    assert tflash.variant(None, 0, None, True) == tflash.variant(4096, None, None, True) == "ring"
     assert set(tflash.flash_prefill_attention.variant_launches) == {
-        "dense", "sliding_window", "chunk", "ashape", "vertical_slash"}
+        "dense", "sliding_window", "chunk", "ashape", "vertical_slash", "ring"}
     tflash.flash_prefill_attention.variant_launches["chunk"] = 3
     tflash.flash_prefill_attention.launches = 3
     tflash.reset_launches()
