@@ -15,9 +15,13 @@ Phases, in order; any failure exits non-zero:
    vertical-slash (K1-VS), against the plain version with their block
    masks, with what ignoring the mask or shifting it by one block would
    show, timed at the MInference path's layer shape (32k) beside dense K1;
-   then K5 (the row pack) bit for bit against its plain version at the
-   selection probe's shapes, timed beside ``torch.gather`` and the port's
-   ``select_and_pack``;
+   with the edges of K1's 128-row CTA among the cases (true_len 1, 127,
+   128, 129 and 4095 of 4096 rows, a 64-row observation window across a
+   128-row boundary, a chunk offset of 2047, window edges mid-tile, a
+   64-row a-shape block at S 1000), two launches held bitwise equal, and the
+   window-score pass timed alone (profiler rows); then K5 (the row pack)
+   bit for bit against its plain version at the selection probe's shapes,
+   timed beside ``torch.gather`` and the port's ``select_and_pack``;
 4. K2 (decode attention + in-place append) the same (also at the
    MInference path's 32.8k-entry cache), K3 and K4 (the same
    over the per-token int8 and int4 caches, with a bit-for-bit check of
@@ -47,8 +51,9 @@ Phases, in order; any failure exits non-zero:
 8. the sequence-parallel path: K1-ml (``return_ml``) against its plain
    version (``out``, ``m``, ``l``) at the three ring hops of sp=2 over a
    32000-token prompt and on a sliding-window hop whose upper tiles have no
-   key, with what a dropped key tile would show, each hop timed beside its
-   plain version, SDPA with a boolean mask and its bound (8a); the ring
+   key, with what a dropped key tile would show, two launches of a hop
+   held bitwise equal, each hop timed beside its plain version, SDPA with
+   a boolean mask and its bound (8a); the ring
    fold of every rank emulated in one process against K1 over the whole
    sequence (8b); then the 32000-token SnapKV request through
    ``InferenceEngine(ShardingConfig(sp=2))`` on two spawned ranks that share
@@ -277,10 +282,45 @@ def k1_skipped_tile_error(q, k, v, tls, out_ref, r0=2048):
     return rel_l2(skipped, out_ref[0, 0, r0:t])[0]
 
 
+def bitwise_repeat(call):
+    """Whether two launches of ``call`` give bitwise-equal outputs."""
+    first = call()
+    second = call()
+    sync()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def k1_pass_ms(call, reps=5):
+    """Device time per call of K1's two kernels, the main pass and the
+    window-score pass, from profiler rows; None where the profiler saw no
+    device time."""
+    call()
+    sync()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        sync()
+    times = dict.fromkeys(("flash_fwd_kernel", "window_scores_kernel"))
+    for evt in prof.key_averages():
+        for name in times:
+            if evt.device_type == DeviceType.CUDA and name in evt.key:
+                times[name] = evt.self_device_time_total / reps / 1e3
+    return times
+
+
 def phase_k1(rng):
     B, Hq, Hkv, S, D, W = 2, 32, 8, 4096, 128, 8
     tls = [4096, 3000]
     q, k, v, tl, sc, out_ref, err_out, abs_out, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls)
+    # The edges of the 128-row CTA: lengths at and around a tile boundary,
+    # and a 64-row observation window across one (rows 992-1055, 1936-1999).
+    edge_errs = [k1_case(rng, 5, 8, 2, S, W, [1, 127, 128, 129, 4095])[6:9],
+                 k1_case(rng, 2, 8, 2, 2048, 64, [1056, 2000])[6:9]]
+    call = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W)
+    same = bitwise_repeat(call)
+    log(f"K1 two launches at B={B} S={S}: out and scores bitwise equal {same}")
+    if not same:
+        raise SystemExit("K1 is not deterministic")
     skip_err = k1_skipped_tile_error(q, k, v, tls, out_ref)
     log(f"K1 a kernel that skipped key tile [64, 128) for rows >= 2048 would show row rel "
         f"L2 up to {skip_err:.3e} ({skip_err / K1_OUT_TOL:.1f} x tol)")
@@ -288,7 +328,8 @@ def phase_k1(rng):
         raise SystemExit("K1's tolerance would let a skipped key tile pass")
     del out_ref
 
-    ms = event_ms(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W))
+    ms = event_ms(call)
+    passes = k1_pass_ms(call)
     plain_ms = event_ms(lambda: flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W),
                         iters=3, warmup=1)
     lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
@@ -301,8 +342,11 @@ def phase_k1(rng):
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * sc.numel()
     bound_ms, bound_by = max((flops / PEAK_BF16_FLOPS * 1e3, "operations"),
                              (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    log(f"K1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s")
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
+    log(f"K1 kernel {ms:.4f} ms (main pass {fmt(passes['flash_fwd_kernel'])}, window-score "
+        f"pass {fmt(passes['window_scores_kernel'])}, profiled), plain {plain_ms:.4f} ms, "
+        f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound")
     return {"name": "flash_prefill", "route": "cuda",
             "source": flash_prefill.SOURCE, "replaces": flash_prefill.REPLACES,
             "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
@@ -310,7 +354,11 @@ def phase_k1(rng):
             "skipped_tile_rel_l2": skip_err,
             "scores_max_abs_err": err_sc, "scores_tol": K1_SCORE_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_by": bound_by, "library_ms": lib_ms, "tflops": flops / ms / 1e9,
+            "bound_fraction": bound_ms / ms, "main_pass_ms": passes["flash_fwd_kernel"],
+            "score_pass_ms": passes["window_scores_kernel"], "deterministic": same,
+            "edge_cases": [{"rel_l2": e, "max_abs_err": a, "scores_max_abs_err": s}
+                           for e, a, s in edge_errs]}
 
 
 # ---------------------------------------------------------------------------
@@ -407,9 +455,11 @@ def time_k1v(c, sw, offsets, ml=False):
         f"S_k={S_k} sw={sw} row_offset={None if off is None else off.tolist()} "
         f"true_len={tls}: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
         f"SDPA with a boolean mask {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{pairs / 1e6:.1f} M visible pairs); {flops / ms / 1e9:.1f} TFLOP/s")
+        f"{pairs / 1e6:.1f} M visible pairs); {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.3f} of the bound")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "visible_pairs": pairs}
+            "bound_by": bound_by, "visible_pairs": pairs, "tflops": flops / ms / 1e9,
+            "bound_fraction": bound_ms / ms}
 
 
 def k1v_off_by_one(c, sw, offsets, what):
@@ -442,14 +492,21 @@ def phase_k1_variants(rng):
     offsets = [0, 2048, 6144, 0]
     ch = k1v_case(rng, *chunk_args, SW, offsets)
     ch_dense = k1v_case(rng, *chunk_args, None, offsets)
-    # Edge shapes: offsets no multiple of the 64-row tile, S_k no multiple
-    # of 64, chunks shorter than a tile, windows shorter than a tile and
+    # Edge shapes: offsets no multiple of a 64-row warpgroup or a 128-row
+    # CTA, S_k no multiple of 64, chunks shorter than a CTA, windows shorter
+    # than a 128-key tile and
     # longer than the sequence, inert rows.
     for sw_e in (None, 17, 50):
         k1v_case(rng, 2, 8, 2, 96, 300, [300, 120], sw_e, [100, 37])
         k1v_case(rng, 3, 4, 4, 32, 200, [200, 190, 0], sw_e, [0, 160, 64])
     for sw_e in (17, 1000):
         k1v_case(rng, 2, 8, 2, 200, 200, [200, 77], sw_e, None)
+    # The 128-row CTA's edges: an offset no multiple of 128, window edges
+    # in the middle of a key tile.
+    for sw_e in (None, 200):
+        k1v_case(rng, 2, 8, 2, 300, 4096, [4096, 2200], sw_e, [2047, 1999])
+    for sw_e in (200, 333):
+        k1v_case(rng, 1, 8, 2, 1000, 1000, [1000], sw_e, None)
     # Off-by-one sensitivity.  At SW 4096 one column more or less moves a
     # row by about 1/4096 of its norm, under any limit that bf16 rounding
     # allows, so the window is held at SW 64, where the same code runs; the
@@ -690,14 +747,16 @@ def time_k1s(q, k, v, tls, pattern):
     log(f"{name} timed at B={B} Hq={Hq} S={S} true_len={tls}{'' if pattern is None else f', {pattern}, block {block}, mask keeps {dens:.4f} of the {n * (n + 1) // 2} causal block pairs'}: "
         f"kernel {ms:.4f} ms, mask build {mask_ms if mask_ms is None else round(mask_ms, 4)} ms, "
         f"plain {plain_ms:.2f} ms, {lib_note} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}, {pairs / 1e6:.1f} M visible pairs); {4 * D * pairs / ms / 1e9:.1f} TFLOP/s; "
+        f"({bound_by}, {pairs / 1e6:.1f} M visible pairs); {4 * D * pairs / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.3f} of the bound; "
         f"against the plain version out worst row rel L2 {err:.3e} (max abs {absd:.3e}) tol "
         f"{K1_OUT_TOL}; finite {finite}")
     if err > K1_OUT_TOL or not finite:
         raise SystemExit(f"{name} disagrees with its plain version at the path's layer shape")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library": lib_note,
             "bound_ms": bound_ms, "bound_by": bound_by, "mask_ms": mask_ms, "density": dens,
-            "visible_pairs": pairs, "path_shape_rel_l2": err, "path_shape_max_abs_err": absd}
+            "visible_pairs": pairs, "tflops": 4 * D * pairs / ms / 1e9,
+            "bound_fraction": bound_ms / ms, "path_shape_rel_l2": err, "path_shape_max_abs_err": absd}
 
 
 def phase_k1_sparse(rng):
@@ -737,6 +796,11 @@ def phase_k1_sparse(rng):
         small = pattern if pattern is ASHAPE else ("vertical_slash", 64, 16, 64)
         cases.append(k1s_case(q, k, v, [1000, 777], small, window=8, q_block=64))
         del q, k, v
+    # 64-row blocks under 128-row CTAs: each CTA spans two q blocks and each
+    # key tile two k blocks, selected apart.
+    q, k, v = k1s_inputs(rng, 2, 8, 2, 1000)
+    cases.append(k1s_case(q, k, v, [1000, 777], ("ashape", 1, 3, 4), q_block=64))
+    del q, k, v
     # The worst (row rel L2, max abs) of each variant over its cases.
     worst = {kind: max((c["err"], c["absd"]) for c in cases if c["kind"] == kind)
              for kind in SPARSE_ID}
@@ -1128,7 +1192,8 @@ def phase_kq(rng, nbits):
 def phase_edges(rng):
     """Small shapes that the main path does not reach but the wrappers
     accept, each against the plain version.  K1: a length that is no
-    multiple of the 64-row tile, a window longer than a prompt, no window,
+    multiple of a 128-row CTA or its 64-row warpgroups, a window longer than
+    a prompt, no window,
     the largest window, one query head per KV head.  K2, K3 and K4: a
     one-slot cache, a full cache, a lower bound past the length, a capacity
     that is no multiple of 16, and the group sizes 2 and 8."""
@@ -1726,7 +1791,7 @@ def phase_k1ml(rng):
     cases = {name: k1ml_case(*args) for name, args in hops.items()}
     # Rank 1's hop from shard 0 at S_loc 2048 and SW 1000: the q tiles from
     # row 3072 on start their keys at 3008 or later, past the shard's 2048.
-    # (tests/test_ring_attention.py:123-149's case at the card's 64-row tile;
+    # (tests/test_ring_attention.py:123-149's case at the card's tile sizes;
     # Mistral's SW 4096 gives no such tile at these shard sizes.)
     edge = k1ml_case(bf16_normal(rng, (1, Hq, 2048, 128)),
                      *(bf16_normal(rng, (1, Hkv, 2048, 128)) for _ in range(2)), 4096, 2048,
@@ -1739,6 +1804,12 @@ def phase_k1ml(rng):
         f"({l_drop / K1ML_L_TOL:.1f} x tol)")
     if out_drop <= K1_OUT_TOL or l_drop <= K1ML_L_TOL:
         raise SystemExit("K1-ml's tolerances would let a dropped key tile pass")
+    c = cases["rank1_cross"]
+    same = bitwise_repeat(lambda: flash_prefill.flash_prefill_attention(
+        c["q"], c["k"], c["v"], c["tl"], 0, row_offset=c["off"], return_ml=True))
+    log(f"K1-ml two launches of the cross hop: out, m and l bitwise equal {same}")
+    if not same:
+        raise SystemExit("K1-ml is not deterministic")
     checks = {name: {key: c[key] for key in ("err", "absd", "m_err", "l_err")}
               for name, c in cases.items()}
     checks["sw_edge"] = {key: edge[key] for key in ("err", "absd", "m_err", "l_err",
@@ -1762,6 +1833,8 @@ def phase_k1ml(rng):
             "sw_edge": checks["sw_edge"],
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations", "library_ms": total("library_ms"),
+            "tflops": 4 * 128 * total("visible_pairs") / total("ms") / 1e9,
+            "bound_fraction": total("bound_ms") / total("ms"), "deterministic": same,
             "library": "SDPA with a boolean mask (out only; it gives no (m, l))",
             "hops": times, "dropped_tile_rel_l2": out_drop, "dropped_tile_l_rel": l_drop}
 
@@ -2053,7 +2126,8 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("registers", "spill", "Compiling entry",
+                                           "Performance Loss")):
                 log(f"  {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)

@@ -7,8 +7,12 @@ ring-attention fold (``parallel/ring_attention.py``).
 The CUDA kernel (``csrc/flash_prefill.cu``) replaces the Pallas TPU kernel
 ``kvcache_factory_tpu/ops/kernels/flash_prefill.py::_flash_kernel`` (dense
 causal path with score emission, ``sliding_window``, chunk mode, the
-sparse block patterns and ``return_ml``).  Its source header says what
-bounds it on the card and how the design answers that.  The vertical-slash block mask is
+sparse block patterns and ``return_ml``).  It is a Hopper kernel: one CTA
+of three warpgroups per 128 q rows of one head, a producer that loads Q
+once and 128-key K/V tiles through a 2-stage TMA ring, and two consumers of
+64 rows each that run both products with ``wgmma`` and mask only the tiles
+on an edge.  Its source header says what bounds it on the card and how the
+design answers that.  The vertical-slash block mask is
 estimated in plain torch (:func:`vertical_slash_block_mask`), as the JAX
 package estimates it in XLA; both patterns reach the kernel as one
 ``[B, Hq, n_blk, n_blk]`` block mask.
@@ -46,7 +50,10 @@ REPLACES_VARIANT = {
 }
 HEAD_DIM = 128
 MAX_WINDOW = 64
-TILE = 64                    # the kernel's q-row and key tile
+# A pattern block is a multiple of 64 (or the whole sequence): a CTA's 128 q
+# rows are two consumer warpgroups of 64 and a 128-key tile two halves of 64,
+# so each warpgroup's rows and each half of a tile lie in one block.
+PATTERN_QUANTUM = 64
 DEFAULT_PATTERN_BLOCK = 1024  # JAX's q_block whenever a pattern is given
 
 RowOffset = Union[None, int, torch.Tensor]
@@ -244,10 +251,11 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
         if block_mask.dtype != torch.int32 or block_mask.shape != (B, Hq, n, n):
             raise ValueError(f"flash_prefill: block_mask must be int32 of shape "
                              f"{(B, Hq, n, n)}")
-        # A 64-row q tile and a 64-key tile must each lie inside one block.
-        if n > 1 and block % TILE:
+        # A warpgroup's 64 q rows and a tile's 64-key half must each lie
+        # inside one block.
+        if n > 1 and block % PATTERN_QUANTUM:
             raise ValueError(f"flash_prefill: the pattern block ({block}) must be a "
-                             f"multiple of {TILE} on the card")
+                             f"multiple of {PATTERN_QUANTUM} on the card")
 
 
 # ---------------------------------------------------------------------------
