@@ -23,7 +23,14 @@ Phases, in order; any failure exits non-zero:
    bit for bit against its plain version at the selection probe's shapes,
    timed beside ``torch.gather`` and the port's ``select_and_pack``;
 4. K2 (decode attention + in-place append) the same (also at the
-   MInference path's 32.8k-entry cache), K3 and K4 (the same
+   MInference path's 32.8k-entry cache), with the edges of its split
+   rule (fewer keys than splits, ``lower == L``, all heads empty, one head
+   at C-1 beside 63 empty ones, ``lengths == C``, a window edge mid-tile),
+   G 3, 5, 6 and 7, two launches held bitwise equal, 20 CUDA-graph replays
+   followed by an eager call that must match the plain version with every
+   arrival counter back at 0, what a dropped split's partial would show,
+   and a length sweep that splits its time into a fixed part and a
+   streaming rate; K3 and K4 (the same
    over the per-token int8 and int4 caches, with a bit-for-bit check of
    the quantized append) the same, then all four kernels on small edge
    shapes against their plain versions;
@@ -139,10 +146,13 @@ SNAPKV = CompressionConfig(method="snapkv", max_capacity_prompt=2048,
 # K1: the worst row on the card is 4.5e-3 (PERF.md); a skipped key tile
 # shows 0.56.
 K1_OUT_TOL = 1.5e-2
-# K2: the fp32 results differ by ~1e-7, so the outputs differ only where one
-# side rounds to the next bf16 value; one such flip on an element three
-# times the head's rms moves that head by ~3 * 2^-7.5 / sqrt(128) = 1.5e-3.
-# The worst head on the card is 2.8e-5; a key range off by one shows 9.4e-2.
+# K2: the kernel feeds its fp32 probabilities to the tensor cores as two
+# bf16 halves (2^-17 relative), so the fp32 results differ by ~1e-5 and the
+# outputs mostly where one side rounds to the next bf16 value; one such flip
+# on an element three times the head's rms moves that head by
+# ~3 * 2^-7.5 / sqrt(128) = 1.5e-3.  The worst head on the card is 7.6e-4
+# (a head of few keys, where one flip is not averaged away); a key range off
+# by one shows 7.7e-2, a dropped split 0.18.
 K2_OUT_TOL = 3e-3
 # Window scores are fp32 end to end from bf16-exact products; only the
 # summation order differs (~1e-6 relative), on values in [0, window].
@@ -951,6 +961,91 @@ def k2_one_key_off_error(q, kc, vc, kn, vn, lens, ref):
     return min(worst)
 
 
+def k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref):
+    """What K2's check sees from a kernel that drops one split's partial:
+    the plain math without the keys of the middle split of each head (the
+    split rule of ``decode_attn.split_bounds`` at this shape's n_split),
+    as the worst head rel L2 from the plain version's output."""
+    H, G, D = q.shape
+    C = kc.shape[1]
+    n_split = decode_attn.split_count(H, C, decode_attn._sm_count(q.device))
+    L = lens.long().clamp(max=C - 1)
+    start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
+    heads = torch.arange(H, device=q.device)
+    k, v = kc.float(), vc.float()
+    k[heads, L], v[heads, L] = kn.float(), vn.float()
+    idx = torch.arange(C, device=q.device)[None]
+    dropped = (idx >= start[:, None]) & (idx < end[:, None])
+    keep = ((idx < L[:, None]) & ~dropped) | (idx == L[:, None])
+    logits = torch.einsum("hgd,hcd->hgc", q.float(), k) * D ** -0.5
+    probs = torch.softmax(torch.where(keep[:, None], logits, NEG_INF), dim=-1)
+    out = torch.einsum("hgc,hcd->hgd", probs, v).to(q.dtype)
+    return rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0], n_split
+
+
+def k2_split_edges(rng):
+    """The edges of K2's split rule (CTA sp of n_split takes the sp-th part
+    of its head's valid keys [lower, L)), each against the plain version:
+    a range shorter than n_split, ``lower == L``, ``lengths == C``, a window
+    ``lower`` mid-tile, all heads empty, one head at C-1 beside 63 empty
+    ones; then G 3, 5, 6 and 7 (1, 2, 4 and 8 are in phase 4's other
+    cases)."""
+    C, H = 2113, 64
+    n_split = decode_attn.split_count(H, C, decode_attn._sm_count(torch.device("cuda")))
+    lengths = rng.integers(1, C, size=H)
+    lower = np.zeros(H, np.int64)
+    lengths[0], lower[0] = 500, 500 - (n_split - 1)     # fewer keys than splits
+    lengths[1], lower[1] = 700, 700                     # lower == L: no cache key
+    lengths[2] = C                                      # full: overwrite slot C-1
+    lengths[3], lower[3] = 2079, 1000 + 7               # a window edge mid-tile
+    lengths[4], lower[4] = 2079, 2078                   # one key
+    errs = [k2_case(rng, H, 1, C, lengths, lower)[8]]
+    errs.append(k2_case(rng, H, 1, C, [0] * H, np.zeros(H, np.int64))[8])
+    errs.append(k2_case(rng, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64))[8])
+    # G 4 with 33 splits a head: heads shorter than, equal to and one past it.
+    errs.append(k2_case(rng, 8, 4, C, [20, 0, 32, 33, 34, C, C - 1, 1000],
+                        [0, 0, 0, 0, 1, 0, 0, 993])[8])
+    groups = {}
+    for G, Hg in ((3, 16), (5, 8), (6, 8), (7, 8)):
+        lens = rng.integers(1, C, size=Hg)
+        low = np.zeros(Hg, np.int64)
+        low[0] = lens[0] // 3
+        groups[G] = k2_case(rng, Hg, G, C, lens, low)[8]
+    log(f"K2 split edges (n_split {n_split} at H={H}): worst head rel L2 {max(errs):.3e}; "
+        f"by G: {groups}")
+    return {"n_split": n_split, "edges_rel_l2": max(errs), "groups_rel_l2": groups}
+
+
+def k2_repeat_and_replay(q, kc, vc, kn, vn, lens):
+    """Two launches bitwise equal; 20 CUDA-graph replays of a launch in a
+    row, then one eager call that must match the plain version and every
+    arrival counter back at 0."""
+    H = q.shape[0]
+
+    def call():
+        k, v = kc.clone(), vc.clone()
+        return decode_attn.decode_attention_append(q, k, v, lens, kn, vn), k, v
+
+    bitwise = bitwise_repeat(call)
+    k_g, v_g = kc.clone(), vc.clone()
+    call_g = lambda: decode_attn.decode_attention_append(q, k_g, v_g, lens, kn, vn)  # noqa: E731
+    graph_ms([call_g], reps=20)
+    sync()
+    zero_after_graph = bool((decode_attn._counters(q.device, H) == 0).all())
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out = decode_attn.decode_attention_append(q, k1, v1, lens, kn, vn)
+    ref = decode_attn.decode_attention_append_reference(q, k2, v2, lens, kn, vn)
+    sync()
+    err = rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0]
+    zero_after = bool((decode_attn._counters(q.device, H) == 0).all())
+    log(f"K2 two launches bitwise equal: {bitwise}; after 20 graph replays the counters are "
+        f"all 0: {zero_after_graph}, an eager call after them: head rel L2 {err:.3e} tol "
+        f"{K2_OUT_TOL}, counters all 0: {zero_after}")
+    if not (bitwise and zero_after_graph and zero_after) or err > K2_OUT_TOL:
+        raise SystemExit("K2 is not repeatable or leaves its arrival counters set")
+    return {"bitwise_repeat": bitwise, "after_replay_rel_l2": err}
+
+
 def time_k2(q, kc, vc, kn, vn, lens):
     """Kernel, plain and SDPA times for one decode layer, and its bound.
     Four copies of the layer (each above 30 MB; together above the 50 MB
@@ -993,6 +1088,31 @@ def time_k2(q, kc, vc, kn, vn, lens):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def k2_sweep(rng, H=64, C=2113, lengths=(0, 256, 1024, 2079)):
+    """K2's device time at H heads all holding each of ``lengths`` keys,
+    and the least-squares line through them: the intercept is the cost of
+    a launch that reads no key (start, merge, the gap between two launches
+    in a graph), the slope the rate at which it streams K/V."""
+    D = 128
+    q, kn, vn = (bf16_normal(rng, s) for s in ((H, 1, D), (H, D), (H, D)))
+    copies = [(bf16_normal(rng, (H, C, D)), bf16_normal(rng, (H, C, D))) for _ in range(4)]
+    points = []
+    for n in lengths:
+        lens = torch.full((H,), n, dtype=torch.int32, device="cuda")
+        calls = [lambda k=k, v=v: decode_attn.decode_attention_append(q, k, v, lens, kn, vn)
+                 for k, v in copies]
+        points.append((2 * D * 2 * n * H, graph_ms(calls * 5)))
+    nbytes, ms = np.array(points, dtype=np.float64).T
+    slope, fixed_ms = np.polyfit(nbytes, ms, 1)
+    rate = 1 / slope / 1e9  # TB/s
+    log(f"K2 sweep, H={H} C={C}, keys a head {list(lengths)}: "
+        f"{[round(t * 1e3, 2) for t in ms]} us; fixed {fixed_ms * 1e3:.2f} us, "
+        f"streaming {rate:.2f} TB/s")
+    del copies
+    return {"lengths": list(lengths), "us": [t * 1e3 for t in ms], "fixed_us": fixed_ms * 1e3,
+            "stream_tb_s": rate}
+
+
 def phase_k2(rng):
     C, D = 2113, 128  # the engine's capacity: 2048 + 64 new tokens + 1
     # One request's 32 cache heads: ragged, one lower-bounded, empty, full.
@@ -1019,19 +1139,30 @@ def phase_k2(rng):
         f"{off_err:.3e} ({off_err / K2_OUT_TOL:.1f} x tol)")
     if off_err <= K2_OUT_TOL:
         raise SystemExit("K2's tolerance would let an off-by-one key range pass")
+    drop_err, n_split = k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref)
+    checks = {"dropped_split_rel_l2": drop_err, **k2_repeat_and_replay(q, kc, vc, kn, vn, lens),
+              **k2_split_edges(rng)}
     main = time_k2(q, kc, vc, kn, vn, lens)
     # The MInference path's shape: one request's 8 KV heads (G 4) over the
     # engine's 32801-slot cache (bucket 32768 + 32 new + 1) at the last
     # step's 32000 + 31 entries.
     C_long = MINF_BUCKET + MINF_NEW + 1
-    q, kc, vc, kn, vn, lens, _, _, err_l, abs_l = k2_case(
+    q, kc, vc, kn, vn, lens, _, ref, err_l, abs_l = k2_case(
         rng, 8, 4, C_long, [MINF_PROMPT + MINF_NEW - 1] * 8, np.zeros(8, np.int64))
+    drop_long, n_long = k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref)
+    log(f"K2 a kernel that drops one split's partial would show head rel L2 {drop_err:.3e} "
+        f"(1 of {n_split} splits, H={Hm}) and {drop_long:.3e} (1 of {n_long}, H=8 G=4 "
+        f"C={C_long}); tol {K2_OUT_TOL}")
+    if min(drop_err, drop_long) <= K2_OUT_TOL:
+        raise SystemExit("K2's tolerance would let a dropped split pass")
     long = time_k2(q, kc, vc, kn, vn, lens)
+    sweep = k2_sweep(rng)
     return {"name": "decode_attn_append", "route": "cuda",
             "source": decode_attn.SOURCE, "replaces": decode_attn.REPLACES,
             "shape": f"H={Hm} (B=2 x 32) G=1 C={C} D={D}, lengths 2079 and 1531",
             "max_abs_err": max(abs_err, abs_m, abs_l), "rel_l2": max(err, err_m, err_l),
-            "tol": K2_OUT_TOL, "g4_rel_l2": err4, "off_by_one_rel_l2": off_err, **main,
+            "tol": K2_OUT_TOL, "g4_rel_l2": err4, "off_by_one_rel_l2": off_err, **checks,
+            "dropped_split_rel_l2_minference": drop_long, "sweep": sweep, **main,
             "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1},
             "minference": {"shape": f"H=8 G=4 C={C_long} D={D}, lengths "
                                     f"{MINF_PROMPT + MINF_NEW - 1}", "rel_l2": err_l, **long}}
@@ -1340,7 +1471,8 @@ def drive_path(params, n_params, prompts, quant, log_file):
             llama.decode_step(params, cfg, cur, res.cache, quant=quant)
         busy_ms = profile_device(
             lambda: llama.decode_step(params, cfg, cur, res.cache, quant=quant), 8,
-            step_ms, f"decode step, {label}", log_file)
+            step_ms, f"decode step, {label}", log_file,
+            check=None if quant is not None else lambda rows: k2_one_kernel_a_layer(rows, L))
     return {"model": "Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
             "compression": "snapkv 2048/8/7 maxpool, group_reduce none",
             "cache": label if quant is None else f"{label} per token, capacity "
@@ -1355,6 +1487,17 @@ def drive_path(params, n_params, prompts, quant, log_file):
             "prefill_rel_l2": [rel_a, rel_b0], "decode_rel_l2": rel_bd,
             "rel_l2_tol": E2E_REL_L2_TOL, "decode_rel_l2_tol": decode_tol,
             "decode_top1_agreement": top1}
+
+
+def k2_one_kernel_a_layer(rows, layers):
+    """K2 in a profiled bf16 decode step: one kernel name, one launch per
+    layer, and no combine kernel."""
+    k2 = [(n, key) for _, n, key in rows if "decode_attn" in key]
+    combine = [key for _, _, key in rows if "combine" in key]
+    log(f"K2 in the decode step's profile: {[(n, key[:60]) for n, key in k2]}; "
+        f"combine kernels: {len(combine)}")
+    if len(k2) != 1 or k2[0][0] != layers or combine:
+        raise SystemExit(f"the decode step does not run K2 as one kernel, {layers} times")
 
 
 # ---------------------------------------------------------------------------
@@ -2082,11 +2225,12 @@ def phase_sp(rng, params):
             "tie_margin": tie_margin, "parted": parted, "spawn_to_join_s": spawn_s}
 
 
-def profile_device(fn, reps, wall_ms, what, log_file):
+def profile_device(fn, reps, wall_ms, what, log_file, check=None):
     """Device time per call of ``fn`` from ``torch.profiler`` (device-side
     kernel and copy events only), printed with the top kernels beside the
     unprofiled wall time ``wall_ms``; None when the profiler sees no device
-    time."""
+    time.  ``check``, if given, gets the rows (ms, launches per call, kernel
+    name) of every device kernel."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -2103,6 +2247,8 @@ def profile_device(fn, reps, wall_ms, what, log_file):
         f"unprofiled: idle share {1 - busy_ms / wall_ms:.3f}")
     for ms, n, key in rows[:8]:
         log(f"  {ms:8.4f} ms  {ms / busy_ms:6.1%}  {n:6.1f} launches  {key[:80]}")
+    if check is not None:
+        check(rows)
     log_file.write(f"== {what}: {reps} call(s) profiled\n")
     log_file.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     return busy_ms
@@ -2129,6 +2275,12 @@ def main():
             if any(key in line for key in ("registers", "spill", "Compiling entry",
                                            "Performance Loss")):
                 log(f"  {name}: {line.strip()}")
+    # K2's ptxas lines: each instantiation (G 1-8) must spill nothing.
+    k2_spills = [line for line in reports.get("decode_attn", "").splitlines() if "spill" in line]
+    if any("0 bytes spill stores, 0 bytes spill loads" not in line for line in k2_spills):
+        raise SystemExit("K2 spills registers (ptxas lines above)")
+    log(f"K2 ptxas: {len(k2_spills)} entries, 0 spill bytes" if k2_spills else
+        "K2 ptxas: library cached, no ptxas report in this run")
 
     rng = np.random.default_rng(0)
     k1 = phase_k1(rng)

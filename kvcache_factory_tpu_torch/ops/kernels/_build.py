@@ -38,9 +38,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "decode_attn": {
         # q, k_cache, v_cache, lengths, lower, k_new, v_new, out,
-        # part_acc, part_ml, H, G, C, n_split, chunk, scale, stream
+        # part, counters, H, G, C, n_split, scale, stream
         "kvcf_decode_attn_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _F, _P),
+                                    _I, _I, _I, _I, _F, _P),
     },
     "decode_attn_quant": {
         # q, k_codes, v_codes, scales, lengths, lower, k_new, v_new, out,

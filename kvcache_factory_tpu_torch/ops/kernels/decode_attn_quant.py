@@ -25,12 +25,13 @@ import torch
 from ...cache.quant_cache import dequantize, encode
 from ..attention import NEG_INF
 from . import _build
-from .decode_attn import GROUPS, HEAD_DIM, MIN_KEYS_PER_SPLIT, _sm_count
+from .decode_attn import HEAD_DIM, MIN_KEYS_PER_SPLIT, _sm_count
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant.cu"
 REPLACES = {8: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:76",
             4: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:479"}
 _ENTRY = {8: "kvcf_quant8_decode_attn_append", 4: "kvcf_quant4_decode_attn_append"}
+GROUPS = (1, 2, 4, 8)  # the group sizes csrc/decode_attn_quant.cu instantiates
 
 
 def quant_decode_attention_append(

@@ -158,6 +158,9 @@ def test_flash_prefill_counts_launches_by_variant():
     (96, 4, [3, 40, 77, 12], [0, 0, 20, 5]),   # grouped queries, lower bounds
     (64, 1, [64, 10, 63, 64], None),           # full heads: the clamp to C-1
     (50, 2, [0, 10, 49, 30], None),            # any capacity
+    (96, 3, [3, 40, 77, 12], [0, 0, 20, 5]),   # G 3 with lower bounds
+    (64, 6, [64, 10, 63, 64], None),           # G 6 at a full cache
+    (50, 7, [0, 10, 49, 30], [0, 4, 0, 31]),   # G 7, one lower bound past L
 ])
 def test_decode_plain_matches_pallas(C, G, lengths, lower):
     H = 4
@@ -179,6 +182,53 @@ def test_decode_plain_matches_pallas(C, G, lengths, lower):
     np.testing.assert_array_equal(k_port.numpy(), np.asarray(j_k))
     np.testing.assert_array_equal(v_port.numpy(), np.asarray(j_v))
     np.testing.assert_array_equal(np.minimum(lens + 1, C), np.asarray(j_lens))
+
+
+def _decode_check_args(G):
+    bf = torch.bfloat16
+    return [torch.zeros(2, G, D, dtype=bf), torch.zeros(2, 16, D, dtype=bf),
+            torch.zeros(2, 16, D, dtype=bf), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, D, dtype=bf), torch.zeros(2, D, dtype=bf), None]
+
+
+@pytest.mark.parametrize("G", [3, 5, 6, 7])
+def test_decode_check_takes_every_group_up_to_8(G):
+    """Every shape check passes; only the device stops a CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdecode._check(*_decode_check_args(G))
+
+
+@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 64))])
+def test_decode_check_refuses_g_above_8_or_other_head_dims(G, shape):
+    args = _decode_check_args(G)
+    args[0] = torch.zeros(shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+        tdecode._check(*args)
+
+
+@pytest.mark.parametrize("sm_count", [1, 16, 114, 132])
+def test_decode_split_count_stays_in_bounds(sm_count):
+    """At least one CTA per head, at most one per MIN_KEYS_PER_SPLIT slots,
+    and one wave of CTAS_PER_SM per SM unless H alone is larger, at every H
+    from 1 to 128."""
+    for H in range(1, 129):
+        for C in (1, 2, 17, 63, 64, 65, 2113, 32801, 1 << 20):
+            n = tdecode.split_count(H, C, sm_count)
+            assert 1 <= n <= -(-C // tdecode.MIN_KEYS_PER_SPLIT)
+            assert H * n <= max(H, tdecode.CTAS_PER_SM * sm_count)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4, 7, 33, 264])
+def test_decode_split_bounds_cover_the_valid_keys_in_order(n_split):
+    """The splits of [lo, L) are disjoint, in order and cover it; each is
+    within one key of the others, so a range shorter than n_split leaves
+    some splits empty and none larger than one key."""
+    for lo, L in ((0, 0), (0, 1), (5, 5), (3, 40), (0, 2079), (1000, 32031), (0, 255)):
+        parts = [tdecode.split_bounds(lo, L, sp, n_split) for sp in range(n_split)]
+        assert parts[0][0] == lo and parts[-1][1] == L
+        assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+        sizes = [e - s for s, e in parts]
+        assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
 
 
 def test_cpu_tensors_never_count_a_launch():
