@@ -32,8 +32,12 @@ Phases, in order; any failure exits non-zero:
    and a length sweep that splits its time into a fixed part and a
    streaming rate; K3 and K4 (the same
    over the per-token int8 and int4 caches, with a bit-for-bit check of
-   the quantized append) the same, then all four kernels on small edge
-   shapes against their plain versions;
+   the quantized append) the same; K4, one launch like K2, also with its
+   split-rule and tile edges, G 3, 5, 6 and 7, two launches bitwise equal,
+   20 graph replays with its counters back at 0, a dropped split, the
+   MInference path's 32.8k-entry cache and a length sweep (its ptxas lines
+   must show no spill and its SASS no int-to-float conversion); then all
+   four kernels on small edge shapes against their plain versions;
 5. the main path end to end at Mistral-7B-Instruct-v0.2 widths with random
    weights, three times: with the bf16 cache, with ``QuantConfig(nbits=8)``
    and with ``QuantConfig(nbits=4)``.  Each is one
@@ -82,6 +86,7 @@ import contextlib
 import datetime
 import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -167,7 +172,10 @@ E2E_REL_L2_TOL = 0.10
 # applies the scale and zero to the reduced dot, the plain version to each
 # element first: ~1e-7 apart), keep an fp32 softmax and round the output to
 # bf16, so K2's reasoning and limit hold: one bf16 flip on an element three
-# times the head's rms is 1.5e-3.
+# times the head's rms is 1.5e-3.  K4 feeds its weights p * v_scale to the
+# tensor cores as bf16 hi + lo, as K2 does; its worst head on the card is
+# 1.3e-3 (a one-split head of few keys, PERF.md), an off-by-one key range
+# shows 7.4e-2 and a dropped split 0.18.
 KQ_OUT_TOL = 3e-3
 # The quantized paths' decode logits against the fp32 reference, which
 # keeps an unquantized cache.  Measured on the CPU, where the plain path is
@@ -1309,6 +1317,7 @@ def phase_kq(rng, nbits):
         f"{off_err:.3e} ({off_err / KQ_OUT_TOL:.1f} x tol)")
     if off_err <= KQ_OUT_TOL:
         raise SystemExit(f"{kid}'s tolerance would let an off-by-one key range pass")
+    extra = {} if nbits == 8 else k4_checks(rng, C, q, kc, vc, sc, kn, vn, lens, ref)
     main = time_kq(nbits, q, kc, vc, sc, kn, vn, lens)
     return {"name": f"quant{nbits}_decode_attn_append", "route": "cuda",
             "source": decode_attn_quant.SOURCE, "replaces": decode_attn_quant.REPLACES[nbits],
@@ -1316,8 +1325,154 @@ def phase_kq(rng, nbits):
                      f"{final[0]} and {final[-1]}",
             "max_abs_err": max(abs_err, abs_m), "rel_l2": max(err, err_m),
             "tol": KQ_OUT_TOL, "g4_rel_l2": err4, "off_by_one_rel_l2": off_err,
-            "append_bit_identical": True, **main,
+            "append_bit_identical": True, **extra, **main,
             "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1}}
+
+
+def k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref):
+    """What K4's check sees from a kernel that drops one split's partial:
+    the plain math without the keys of the middle split of each head (the
+    split rule of ``decode_attn.split_bounds`` at this shape's n_split), as
+    the worst head rel L2 from the plain version's output."""
+    H, G, D = q.shape
+    C = kc.shape[1]
+    n_split = decode_attn.split_count(H, C, decode_attn._sm_count(q.device))
+    L = lens.long().clamp(max=C - 1)
+    start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
+    k = quant_cache.dequantize(kc, sc[..., 0], sc[..., 1], 4)
+    v = quant_cache.dequantize(vc, sc[..., 2], sc[..., 3], 4)
+    idx = torch.arange(C, device=q.device)[None]
+    keep = (idx < L[:, None]) & ~((idx >= start[:, None]) & (idx < end[:, None]))
+    qs = q.float() * D ** -0.5
+    logits = torch.where(keep[:, None], torch.einsum("hgd,hcd->hgc", qs, k), NEG_INF)
+    s_new = torch.einsum("hgd,hd->hg", qs, kn.float())[..., None]
+    probs = torch.softmax(torch.cat([logits, s_new], dim=-1), dim=-1)
+    out = (torch.einsum("hgc,hcd->hgd", probs[..., :C], v)
+           + probs[..., C:] * vn.float()[:, None]).to(q.dtype)
+    return rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0], n_split
+
+
+def k4_split_edges(rng, C):
+    """The edges of K4's split rule and tiles, each against the plain
+    version with the append byte for byte: a range shorter than n_split,
+    ``lower == L``, ``lengths == C``, a window ``lower`` mid-tile, one key,
+    all heads empty, one head at C-1 beside 63 empty ones, 8 heads of G 4
+    around their split count; one split a head (H = 2 CTAs an SM x SMs) with
+    ranges at the edges of a 16-key tile, a warp's stage and a CTA's stage;
+    then G 3, 5, 6 and 7 (1, 2, 4 and 8 are in phase 4b's other cases)."""
+    H, sm = 64, decode_attn._sm_count(torch.device("cuda"))
+    n_split = decode_attn.split_count(H, C, sm)
+    lengths = rng.integers(1, C, size=H)
+    lower = np.zeros(H, np.int64)
+    lengths[0], lower[0] = 500, 500 - (n_split - 1)     # fewer keys than splits
+    lengths[1], lower[1] = 700, 700                     # lower == L: no cache key
+    lengths[2] = C                                      # full: overwrite slot C-1
+    lengths[3], lower[3] = 2079, 1000 + 7               # a window edge mid-tile
+    lengths[4], lower[4] = 2079, 2078                   # one key
+    errs = [kq_case(rng, 4, H, 1, C, lengths, lower)[8]]
+    errs.append(kq_case(rng, 4, H, 1, C, [0] * H, np.zeros(H, np.int64))[8])
+    errs.append(kq_case(rng, 4, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64))[8])
+    n8 = decode_attn.split_count(8, C, sm)
+    errs.append(kq_case(rng, 4, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
+                        [0, 0, 0, 0, 1, 0, 0, 993])[8])
+    Hs = decode_attn.CTAS_PER_SM * sm  # one CTA a head: the whole range is one CTA's
+    edges = [1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 511, 512, 513, 767, 768, 769]
+    lens = np.asarray((edges * (Hs // len(edges) + 1))[:Hs])
+    low = np.zeros(Hs, np.int64)
+    low[len(edges):2 * len(edges)] = 3                  # the same edges, shifted by a lower bound
+    lens[len(edges):2 * len(edges)] += 3
+    errs.append(kq_case(rng, 4, Hs, 1, 1024, lens, low)[8])
+    groups = {}
+    for G, Hg in ((3, 16), (5, 8), (6, 8), (7, 8)):
+        lens = rng.integers(1, C, size=Hg)
+        low = np.zeros(Hg, np.int64)
+        low[0] = lens[0] // 3
+        groups[G] = kq_case(rng, 4, Hg, G, C, lens, low)[8]
+    log(f"K4 split edges (n_split {n_split} at H={H}): worst head rel L2 {max(errs):.3e}; "
+        f"by G: {groups}")
+    return {"n_split": n_split, "edges_rel_l2": max(errs), "groups_rel_l2": groups}
+
+
+def k4_repeat_and_replay(q, kc, vc, sc, kn, vn, lens):
+    """Two launches bitwise equal (out and the appended cache); 20 CUDA-graph
+    replays of a launch in a row, then one eager call that must match the
+    plain version, with every arrival counter back at 0 after both."""
+    kernel, plain = QUANT[4][1], QUANT[4][2]
+    H = q.shape[0]
+
+    def call():
+        c = [kc.clone(), vc.clone(), sc.clone()]
+        return (kernel(q, *c, lens, kn, vn), *c)
+
+    bitwise = bitwise_repeat(call)
+    c_g = [kc.clone(), vc.clone(), sc.clone()]
+    graph_ms([lambda: kernel(q, *c_g, lens, kn, vn)], reps=20)
+    sync()
+    zero_after_graph = bool((decode_attn._counters(q.device, H) == 0).all())
+    mine = [kc.clone(), vc.clone(), sc.clone()]
+    theirs = [kc.clone(), vc.clone(), sc.clone()]
+    out = kernel(q, *mine, lens, kn, vn)
+    ref = plain(q, *theirs, lens, kn, vn)
+    sync()
+    err = rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0]
+    same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    zero_after = bool((decode_attn._counters(q.device, H) == 0).all())
+    log(f"K4 two launches bitwise equal: {bitwise}; after 20 graph replays the counters are "
+        f"all 0: {zero_after_graph}, an eager call after them: head rel L2 {err:.3e} tol "
+        f"{KQ_OUT_TOL}, append identical {same}, counters all 0: {zero_after}")
+    if not (bitwise and zero_after_graph and zero_after and same) or err > KQ_OUT_TOL:
+        raise SystemExit("K4 is not repeatable or leaves its arrival counters set")
+    return {"bitwise_repeat": bitwise, "after_replay_rel_l2": err}
+
+
+def k4_sweep(rng, H=64, C=2304, lengths=(0, 256, 1024, 2079)):
+    """K4's device time at H heads all holding each of ``lengths`` keys,
+    and the least-squares line through them: the intercept is the cost of a
+    launch that reads no key, the slope the rate at which it streams codes
+    and scalars (136 bytes a key)."""
+    q, kc, vc, sc, kn, vn = kq_inputs(rng, 4, H, 1, C)
+    n = max(4, -(-150_000_000 // (2 * kc.numel() + 2 * sc.numel())))
+    copies = [(kc.clone(), vc.clone(), sc.clone()) for _ in range(n)]
+    points = []
+    for keys in lengths:
+        lens = torch.full((H,), keys, dtype=torch.int32, device="cuda")
+        calls = [lambda c=c: QUANT[4][1](q, *c, lens, kn, vn) for c in copies]
+        points.append((keys * H * (2 * kc.shape[2] + 8), graph_ms(calls * max(1, 20 // n))))
+    nbytes, ms = np.array(points, dtype=np.float64).T
+    slope, fixed_ms = np.polyfit(nbytes, ms, 1)
+    rate = 1 / slope / 1e9  # TB/s
+    log(f"K4 sweep, H={H} C={C}, keys a head {list(lengths)}: "
+        f"{[round(t * 1e3, 2) for t in ms]} us; fixed {fixed_ms * 1e3:.2f} us, "
+        f"streaming {rate:.2f} TB/s")
+    del copies
+    return {"lengths": list(lengths), "us": [t * 1e3 for t in ms], "fixed_us": fixed_ms * 1e3,
+            "stream_tb_s": rate}
+
+
+def k4_checks(rng, C, q, kc, vc, sc, kn, vn, lens, ref):
+    """K4's one-launch checks at the main shape (``q`` ... ``ref`` from
+    it), then the MInference path's shape (H 8, G 4 over 32k) checked and
+    timed, and the length sweep."""
+    drop_err, n_split = k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref)
+    checks = {"dropped_split_rel_l2": drop_err, **k4_repeat_and_replay(q, kc, vc, sc, kn, vn, lens),
+              **k4_split_edges(rng, C)}
+    # One request's 8 KV heads (G 4) over the engine's 32801-slot cache at
+    # the last step's 32000 + 31 entries: the shape of a long-context int4
+    # user (the fullkv path of phase 7 with QuantConfig(nbits=4)).
+    C_long = MINF_BUCKET + MINF_NEW + 1
+    q, kc, vc, sc, kn, vn, lens, ref, err_l, abs_l = kq_case(
+        rng, 4, 8, 4, C_long, [MINF_PROMPT + MINF_NEW - 1] * 8, np.zeros(8, np.int64))
+    drop_long, n_long = k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref)
+    log(f"K4 a kernel that drops one split's partial would show head rel L2 {drop_err:.3e} "
+        f"(1 of {n_split} splits, H=64) and {drop_long:.3e} (1 of {n_long}, H=8 G=4 "
+        f"C={C_long}); tol {KQ_OUT_TOL}")
+    if min(drop_err, drop_long) <= KQ_OUT_TOL:
+        raise SystemExit("K4's tolerance would let a dropped split pass")
+    long = time_kq(4, q, kc, vc, sc, kn, vn, lens)
+    return {**checks, "dropped_split_rel_l2_minference": drop_long, "sweep": k4_sweep(rng),
+            "minference": {"shape": f"H=8 G=4 C={C_long} D=128 int4, lengths "
+                                    f"{MINF_PROMPT + MINF_NEW - 1}", "rel_l2": err_l,
+                           "max_abs_err": abs_l, **long}}
 
 
 def phase_edges(rng):
@@ -1472,7 +1627,8 @@ def drive_path(params, n_params, prompts, quant, log_file):
         busy_ms = profile_device(
             lambda: llama.decode_step(params, cfg, cur, res.cache, quant=quant), 8,
             step_ms, f"decode step, {label}", log_file,
-            check=None if quant is not None else lambda rows: k2_one_kernel_a_layer(rows, L))
+            check=None if label not in ONE_LAUNCH_DECODE else
+            lambda rows: one_kernel_a_layer(rows, L, *ONE_LAUNCH_DECODE[label]))
     return {"model": "Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
             "compression": "snapkv 2048/8/7 maxpool, group_reduce none",
             "cache": label if quant is None else f"{label} per token, capacity "
@@ -1489,15 +1645,19 @@ def drive_path(params, n_params, prompts, quant, log_file):
             "decode_top1_agreement": top1}
 
 
-def k2_one_kernel_a_layer(rows, layers):
-    """K2 in a profiled bf16 decode step: one kernel name, one launch per
-    layer, and no combine kernel."""
-    k2 = [(n, key) for _, n, key in rows if "decode_attn" in key]
+# The one-launch decode kernels, by cache: (id, a part of the kernel's name).
+ONE_LAUNCH_DECODE = {"bf16": ("K2", "decode_attn_kernel"), "int4": ("K4", "quant4_decode_kernel")}
+
+
+def one_kernel_a_layer(rows, layers, kid, name):
+    """``kid`` in a profiled decode step: one kernel whose name holds
+    ``name``, one launch per layer, and no combine kernel."""
+    hits = [(n, key) for _, n, key in rows if name in key]
     combine = [key for _, _, key in rows if "combine" in key]
-    log(f"K2 in the decode step's profile: {[(n, key[:60]) for n, key in k2]}; "
+    log(f"{kid} in the decode step's profile: {[(n, key[:60]) for n, key in hits]}; "
         f"combine kernels: {len(combine)}")
-    if len(k2) != 1 or k2[0][0] != layers or combine:
-        raise SystemExit(f"the decode step does not run K2 as one kernel, {layers} times")
+    if len(hits) != 1 or hits[0][0] != layers or combine:
+        raise SystemExit(f"the decode step does not run {kid} as one kernel, {layers} times")
 
 
 # ---------------------------------------------------------------------------
@@ -2225,6 +2385,49 @@ def phase_sp(rng, params):
             "tie_margin": tie_margin, "parted": parted, "spawn_to_join_s": spawn_s}
 
 
+K4_KERNEL = "quant4_decode_kernel"
+
+
+def ptxas_entries(report, name):
+    """(function, registers, spill line) of each kernel in an ``nvcc -Xptxas
+    -v`` report whose mangled name holds ``name``."""
+    found, fn, spill = [], None, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn, spill = m.group(1), None
+        elif fn is not None and "spill" in line:
+            spill = line.strip()
+        elif fn is not None and (m := re.search(r"Used (\d+) registers", line)):
+            if name in fn:
+                found.append((fn, int(m.group(1)), spill))
+            fn = None
+    return found
+
+
+def sass_i2f(lib, name):
+    """Int-to-float conversions (I2F, I2FP) in each function of ``lib`` whose
+    name holds ``name``, from ``cuobjdump -sass``, as (conversions, integer
+    divisions): an ``I2F.*.RP`` is the reciprocal step of an integer
+    division by a value known only at run time (K4's split rule), not a
+    conversion of data.  None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if name in m.group(1) else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn and (m := re.search(r"\*/\s+(?:@!?U?P\w+\s+)?(I2F\S*)", line)):
+            counts[fn][m.group(1).endswith(".RP")] += 1
+    return {fn: tuple(c) for fn, c in counts.items()}
+
+
 def profile_device(fn, reps, wall_ms, what, log_file, check=None):
     """Device time per call of ``fn`` from ``torch.profiler`` (device-side
     kernel and copy events only), printed with the top kernels beside the
@@ -2281,6 +2484,22 @@ def main():
         raise SystemExit("K2 spills registers (ptxas lines above)")
     log(f"K2 ptxas: {len(k2_spills)} entries, 0 spill bytes" if k2_spills else
         "K2 ptxas: library cached, no ptxas report in this run")
+    # K4's ptxas lines (G 1-8): no spill; and no int-to-float conversion in
+    # its SASS, where the toolkit has cuobjdump.
+    k4_ptxas = ptxas_entries(reports.get("decode_attn_quant", ""), K4_KERNEL)
+    if any("0 bytes spill stores, 0 bytes spill loads" not in (line or "")
+           for _, _, line in k4_ptxas):
+        raise SystemExit("K4 spills registers (ptxas lines above)")
+    log(f"K4 ptxas: {len(k4_ptxas)} entries, registers "
+        f"{sorted(regs for _, regs, _ in k4_ptxas)}, 0 spill bytes" if k4_ptxas else
+        "K4 ptxas: library cached, no ptxas report in this run")
+    k4_i2f = sass_i2f(_build._lib_path("decode_attn_quant"), K4_KERNEL)
+    log("K4 SASS: no cuobjdump in this toolkit (not measured)" if k4_i2f is None else
+        f"K4 SASS (cuobjdump -sass), per instantiation: I2F/I2FP conversions "
+        f"{sorted(c for c, _ in k4_i2f.values())}, integer-division reciprocals (I2F.*.RP) "
+        f"{sorted(r for _, r in k4_i2f.values())}")
+    if k4_i2f is not None and (not k4_i2f or any(c for c, _ in k4_i2f.values())):
+        raise SystemExit("K4's SASS holds int-to-float conversions (or no K4 kernel)")
 
     rng = np.random.default_rng(0)
     k1 = phase_k1(rng)

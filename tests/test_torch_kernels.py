@@ -231,6 +231,44 @@ def test_decode_split_bounds_cover_the_valid_keys_in_order(n_split):
         assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
 
 
+def _quant_check_args(nbits, G, q_shape=None):
+    """K3/K4 ``_check`` arguments for 2 heads of G query rows, C 16, on the
+    CPU."""
+    bf, width = torch.bfloat16, D if nbits == 8 else D // 2
+    q = torch.zeros(q_shape or (2, G, D), dtype=bf)
+    return [nbits, q, torch.zeros(2, 16, width, dtype=torch.uint8),
+            torch.zeros(2, 16, width, dtype=torch.uint8), torch.zeros(2, 16, 4, dtype=bf),
+            torch.zeros(2, dtype=torch.int32), torch.zeros(2, D, dtype=bf),
+            torch.zeros(2, D, dtype=bf), None]
+
+
+@pytest.mark.parametrize("G", range(1, 9))
+def test_quant4_check_takes_every_group_up_to_8(G):
+    """K4 takes G 1-8: every shape check passes; only the device stops a
+    CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tquant._check(*_quant_check_args(4, G))
+
+
+@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 64))])
+def test_quant4_check_refuses_g_above_8_or_other_head_dims(G, shape):
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+        tquant._check(*_quant_check_args(4, G, shape))
+
+
+@pytest.mark.parametrize("G", [3, 5, 6, 7, 9])
+def test_quant8_check_refuses_groups_outside_1_2_4_8(G):
+    """K3 keeps its four instantiated group sizes until its own redesign."""
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+        tquant._check(*_quant_check_args(8, G))
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_quant8_check_takes_its_groups(G):
+    with pytest.raises(ValueError, match="unsupported device"):
+        tquant._check(*_quant_check_args(8, G))
+
+
 def test_cpu_tensors_never_count_a_launch():
     rng = np.random.default_rng(3)
     wrappers = (tflash.flash_prefill_attention, tdecode.decode_attention_append,

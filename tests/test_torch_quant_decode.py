@@ -108,6 +108,8 @@ CASES = [
     (1, [0, 5, 131, 254], None),                 # empty, ragged, int4 high half, C-2
     (4, [3, 100, 200, 130], [0, 20, 150, 0]),    # grouped queries, lower bounds
     (1, [256, 10, 255, 256], None),              # full heads: slot C-1 overwritten
+    (3, [40, 256, 7, 199], [0, 100, 6, 30]),     # G 3 (K4 takes 1-8), one key
+    (6, [255, 64, 0, 128], [200, 0, 0, 127]),    # G 6, a lower bound near L
 ]
 
 
