@@ -30,14 +30,15 @@ Phases, in order; any failure exits non-zero:
    followed by an eager call that must match the plain version with every
    arrival counter back at 0, what a dropped split's partial would show,
    and a length sweep that splits its time into a fixed part and a
-   streaming rate; K3 and K4 (the same
-   over the per-token int8 and int4 caches, with a bit-for-bit check of
-   the quantized append) the same; K4, one launch like K2, also with its
-   split-rule and tile edges, G 3, 5, 6 and 7, two launches bitwise equal,
+   streaming rate; K3 and K4 (the same over the per-token int8 and int4
+   caches, with a bit-for-bit check of the quantized append), each one
+   launch like K2, also with its split-rule and tile edges, G 3, 5, 6 and
+   7, a range case (q past fp16's range, v_scale small enough that p *
+   v_scale falls below fp16's smallest normal), two launches bitwise equal,
    20 graph replays with its counters back at 0, a dropped split, the
-   MInference path's 32.8k-entry cache and a length sweep (its ptxas lines
-   must show no spill and its SASS no int-to-float conversion); then all
-   four kernels on small edge shapes against their plain versions;
+   MInference path's 32.8k-entry cache and a length sweep (their ptxas
+   lines must show no spill and their SASS no int-to-float conversion);
+   then all four kernels on small edge shapes against their plain versions;
 5. the main path end to end at Mistral-7B-Instruct-v0.2 widths with random
    weights, three times: with the bf16 cache, with ``QuantConfig(nbits=8)``
    and with ``QuantConfig(nbits=4)``.  Each is one
@@ -173,8 +174,9 @@ E2E_REL_L2_TOL = 0.10
 # element first: ~1e-7 apart), keep an fp32 softmax and round the output to
 # bf16, so K2's reasoning and limit hold: one bf16 flip on an element three
 # times the head's rms is 1.5e-3.  K4 feeds its weights p * v_scale to the
-# tensor cores as bf16 hi + lo, as K2 does; its worst head on the card is
-# 1.3e-3 (a one-split head of few keys, PERF.md), an off-by-one key range
+# tensor cores as bf16 hi + lo, as K2 does, and K3 as fp16 hi + lo under a
+# power of two (q in fp16 under another, exact); K4's worst head on the card
+# is 1.3e-3 (a one-split head of few keys, PERF.md), an off-by-one key range
 # shows 7.4e-2 and a dropped split 0.18.
 KQ_OUT_TOL = 3e-3
 # The quantized paths' decode logits against the fp32 reference, which
@@ -1187,23 +1189,31 @@ QUANT = {8: ("K3", decode_attn_quant.quant_decode_attention_append,
              decode_attn_quant.quant4_decode_attention_append_reference, 2304)}
 
 
-def kq_inputs(rng, nbits, H, G, C):
+# The range K3's fp16 products must survive (tests/test_torch_quant_decode.py,
+# the range case): standard deviations of q, K and V that put q's entries
+# past fp16's 65504 and p * v_scale below fp16's smallest normal.
+KQ_RANGE = (3e4, 1e-4, 2e-4)
+
+
+def kq_inputs(rng, nbits, H, G, C, amp=(1.0, 1.0, 1.0)):
     """bf16 q, k_new, v_new and a layer quantized from random bf16 K/V:
-    codes [H, C, D or D/2] and scales [H, C, 4]."""
+    codes [H, C, D or D/2] and scales [H, C, 4].  ``amp`` scales q, K and
+    V (with k_new and v_new)."""
     D = 128
-    q, k, v, kn, vn = (bf16_normal(rng, s) for s in ((H, G, D), (H, C, D), (H, C, D),
-                                                      (H, D), (H, D)))
+    q, k, v, kn, vn = ((bf16_normal(rng, s).float() * a).to(torch.bfloat16)
+                       for s, a in (((H, G, D), amp[0]), ((H, C, D), amp[1]),
+                                    ((H, C, D), amp[2]), ((H, D), amp[1]), ((H, D), amp[2])))
     kc, ks, kz = quant_cache.encode(k, nbits)
     vc, vs, vz = quant_cache.encode(v, nbits)
     return q, kc, vc, torch.stack([ks, kz, vs, vz], dim=-1).contiguous(), kn, vn
 
 
-def kq_case(rng, nbits, H, G, C, lengths, lower):
+def kq_case(rng, nbits, H, G, C, lengths, lower, amp=(1.0, 1.0, 1.0)):
     """K3 or K4 against its plain version: ``out``, and the whole cache after
     the in-place quantized append, which must be identical byte for byte
     (both sides quantize the new token with the same IEEE operations)."""
     kid, kernel, plain, _ = QUANT[nbits]
-    q, kc, vc, sc, kn, vn = kq_inputs(rng, nbits, H, G, C)
+    q, kc, vc, sc, kn, vn = kq_inputs(rng, nbits, H, G, C, amp)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     lo = torch.tensor(lower, dtype=torch.int32, device="cuda")
     mine = [kc.clone(), vc.clone(), sc.clone()]
@@ -1317,7 +1327,7 @@ def phase_kq(rng, nbits):
         f"{off_err:.3e} ({off_err / KQ_OUT_TOL:.1f} x tol)")
     if off_err <= KQ_OUT_TOL:
         raise SystemExit(f"{kid}'s tolerance would let an off-by-one key range pass")
-    extra = {} if nbits == 8 else k4_checks(rng, C, q, kc, vc, sc, kn, vn, lens, ref)
+    extra = kq_checks(rng, nbits, C, q, kc, vc, sc, kn, vn, lens, ref)
     main = time_kq(nbits, q, kc, vc, sc, kn, vn, lens)
     return {"name": f"quant{nbits}_decode_attn_append", "route": "cuda",
             "source": decode_attn_quant.SOURCE, "replaces": decode_attn_quant.REPLACES[nbits],
@@ -1329,8 +1339,8 @@ def phase_kq(rng, nbits):
             "b1": {"shape": f"H={H} G=1 C={C} D={D}, lengths 2080", **b1}}
 
 
-def k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref):
-    """What K4's check sees from a kernel that drops one split's partial:
+def kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref):
+    """What K3's or K4's check sees from a kernel that drops one split's partial:
     the plain math without the keys of the middle split of each head (the
     split rule of ``decode_attn.split_bounds`` at this shape's n_split), as
     the worst head rel L2 from the plain version's output."""
@@ -1339,8 +1349,8 @@ def k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref):
     n_split = decode_attn.split_count(H, C, decode_attn._sm_count(q.device))
     L = lens.long().clamp(max=C - 1)
     start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
-    k = quant_cache.dequantize(kc, sc[..., 0], sc[..., 1], 4)
-    v = quant_cache.dequantize(vc, sc[..., 2], sc[..., 3], 4)
+    k = quant_cache.dequantize(kc, sc[..., 0], sc[..., 1], nbits)
+    v = quant_cache.dequantize(vc, sc[..., 2], sc[..., 3], nbits)
     idx = torch.arange(C, device=q.device)[None]
     keep = (idx < L[:, None]) & ~((idx >= start[:, None]) & (idx < end[:, None]))
     qs = q.float() * D ** -0.5
@@ -1352,8 +1362,8 @@ def k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref):
     return rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0], n_split
 
 
-def k4_split_edges(rng, C):
-    """The edges of K4's split rule and tiles, each against the plain
+def kq_split_edges(rng, nbits, C):
+    """The edges of K3's or K4's split rule and tiles, each against the plain
     version with the append byte for byte: a range shorter than n_split,
     ``lower == L``, ``lengths == C``, a window ``lower`` mid-tile, one key,
     all heads empty, one head at C-1 beside 63 empty ones, 8 heads of G 4
@@ -1369,11 +1379,11 @@ def k4_split_edges(rng, C):
     lengths[2] = C                                      # full: overwrite slot C-1
     lengths[3], lower[3] = 2079, 1000 + 7               # a window edge mid-tile
     lengths[4], lower[4] = 2079, 2078                   # one key
-    errs = [kq_case(rng, 4, H, 1, C, lengths, lower)[8]]
-    errs.append(kq_case(rng, 4, H, 1, C, [0] * H, np.zeros(H, np.int64))[8])
-    errs.append(kq_case(rng, 4, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64))[8])
+    errs = [kq_case(rng, nbits, H, 1, C, lengths, lower)[8]]
+    errs.append(kq_case(rng, nbits, H, 1, C, [0] * H, np.zeros(H, np.int64))[8])
+    errs.append(kq_case(rng, nbits, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64))[8])
     n8 = decode_attn.split_count(8, C, sm)
-    errs.append(kq_case(rng, 4, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
+    errs.append(kq_case(rng, nbits, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
                         [0, 0, 0, 0, 1, 0, 0, 993])[8])
     Hs = decode_attn.CTAS_PER_SM * sm  # one CTA a head: the whole range is one CTA's
     edges = [1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 511, 512, 513, 767, 768, 769]
@@ -1381,23 +1391,24 @@ def k4_split_edges(rng, C):
     low = np.zeros(Hs, np.int64)
     low[len(edges):2 * len(edges)] = 3                  # the same edges, shifted by a lower bound
     lens[len(edges):2 * len(edges)] += 3
-    errs.append(kq_case(rng, 4, Hs, 1, 1024, lens, low)[8])
+    errs.append(kq_case(rng, nbits, Hs, 1, 1024, lens, low)[8])
     groups = {}
     for G, Hg in ((3, 16), (5, 8), (6, 8), (7, 8)):
         lens = rng.integers(1, C, size=Hg)
         low = np.zeros(Hg, np.int64)
         low[0] = lens[0] // 3
-        groups[G] = kq_case(rng, 4, Hg, G, C, lens, low)[8]
-    log(f"K4 split edges (n_split {n_split} at H={H}): worst head rel L2 {max(errs):.3e}; "
+        groups[G] = kq_case(rng, nbits, Hg, G, C, lens, low)[8]
+    log(f"{QUANT[nbits][0]} split edges (n_split {n_split} at H={H}): worst head rel L2 "
+        f"{max(errs):.3e}; "
         f"by G: {groups}")
     return {"n_split": n_split, "edges_rel_l2": max(errs), "groups_rel_l2": groups}
 
 
-def k4_repeat_and_replay(q, kc, vc, sc, kn, vn, lens):
+def kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lens):
     """Two launches bitwise equal (out and the appended cache); 20 CUDA-graph
     replays of a launch in a row, then one eager call that must match the
     plain version, with every arrival counter back at 0 after both."""
-    kernel, plain = QUANT[4][1], QUANT[4][2]
+    kid, kernel, plain, _ = QUANT[nbits]
     H = q.shape[0]
 
     def call():
@@ -1417,31 +1428,33 @@ def k4_repeat_and_replay(q, kc, vc, sc, kn, vn, lens):
     err = rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0]
     same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
     zero_after = bool((decode_attn._counters(q.device, H) == 0).all())
-    log(f"K4 two launches bitwise equal: {bitwise}; after 20 graph replays the counters are "
+    log(f"{kid} two launches bitwise equal: {bitwise}; after 20 graph replays the counters are "
         f"all 0: {zero_after_graph}, an eager call after them: head rel L2 {err:.3e} tol "
         f"{KQ_OUT_TOL}, append identical {same}, counters all 0: {zero_after}")
     if not (bitwise and zero_after_graph and zero_after and same) or err > KQ_OUT_TOL:
-        raise SystemExit("K4 is not repeatable or leaves its arrival counters set")
+        raise SystemExit(f"{kid} is not repeatable or leaves its arrival counters set")
     return {"bitwise_repeat": bitwise, "after_replay_rel_l2": err}
 
 
-def k4_sweep(rng, H=64, C=2304, lengths=(0, 256, 1024, 2079)):
-    """K4's device time at H heads all holding each of ``lengths`` keys,
-    and the least-squares line through them: the intercept is the cost of a
-    launch that reads no key, the slope the rate at which it streams codes
-    and scalars (136 bytes a key)."""
-    q, kc, vc, sc, kn, vn = kq_inputs(rng, 4, H, 1, C)
+def kq_sweep(rng, nbits, H=64, lengths=(0, 256, 1024, 2079)):
+    """K3's or K4's device time at H heads all holding each of ``lengths``
+    keys (at the main path's capacity), and the least-squares line through
+    them: the intercept is the cost of a launch that reads no key, the slope
+    the rate at which it streams codes and scalars (264 or 136 bytes a
+    key)."""
+    kid, kernel, _, C = QUANT[nbits]
+    q, kc, vc, sc, kn, vn = kq_inputs(rng, nbits, H, 1, C)
     n = max(4, -(-150_000_000 // (2 * kc.numel() + 2 * sc.numel())))
     copies = [(kc.clone(), vc.clone(), sc.clone()) for _ in range(n)]
     points = []
     for keys in lengths:
         lens = torch.full((H,), keys, dtype=torch.int32, device="cuda")
-        calls = [lambda c=c: QUANT[4][1](q, *c, lens, kn, vn) for c in copies]
+        calls = [lambda c=c: kernel(q, *c, lens, kn, vn) for c in copies]
         points.append((keys * H * (2 * kc.shape[2] + 8), graph_ms(calls * max(1, 20 // n))))
     nbytes, ms = np.array(points, dtype=np.float64).T
     slope, fixed_ms = np.polyfit(nbytes, ms, 1)
     rate = 1 / slope / 1e9  # TB/s
-    log(f"K4 sweep, H={H} C={C}, keys a head {list(lengths)}: "
+    log(f"{kid} sweep, H={H} C={C}, keys a head {list(lengths)}: "
         f"{[round(t * 1e3, 2) for t in ms]} us; fixed {fixed_ms * 1e3:.2f} us, "
         f"streaming {rate:.2f} TB/s")
     del copies
@@ -1449,28 +1462,34 @@ def k4_sweep(rng, H=64, C=2304, lengths=(0, 256, 1024, 2079)):
             "stream_tb_s": rate}
 
 
-def k4_checks(rng, C, q, kc, vc, sc, kn, vn, lens, ref):
-    """K4's one-launch checks at the main shape (``q`` ... ``ref`` from
-    it), then the MInference path's shape (H 8, G 4 over 32k) checked and
-    timed, and the length sweep."""
-    drop_err, n_split = k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref)
-    checks = {"dropped_split_rel_l2": drop_err, **k4_repeat_and_replay(q, kc, vc, sc, kn, vn, lens),
-              **k4_split_edges(rng, C)}
+def kq_checks(rng, nbits, C, q, kc, vc, sc, kn, vn, lens, ref):
+    """K3's or K4's one-launch checks at the main shape (``q`` ... ``ref``
+    from it), the range case there, then the MInference path's shape (H 8,
+    G 4 over 32k) checked and timed, and the length sweep."""
+    kid = QUANT[nbits][0]
+    drop_err, n_split = kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref)
+    checks = {"dropped_split_rel_l2": drop_err,
+              **kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lens),
+              **kq_split_edges(rng, nbits, C)}
+    # The range case at the main shape: q past fp16's range, p * v_scale
+    # below its smallest normal (KQ_RANGE).
+    checks["range_rel_l2"] = kq_case(rng, nbits, q.shape[0], 1, C, lens.tolist(),
+                                     np.zeros(q.shape[0], np.int64), KQ_RANGE)[8]
     # One request's 8 KV heads (G 4) over the engine's 32801-slot cache at
     # the last step's 32000 + 31 entries: the shape of a long-context int4
-    # user (the fullkv path of phase 7 with QuantConfig(nbits=4)).
+    # user (the fullkv path of phase 7 with a quantized cache).
     C_long = MINF_BUCKET + MINF_NEW + 1
     q, kc, vc, sc, kn, vn, lens, ref, err_l, abs_l = kq_case(
-        rng, 4, 8, 4, C_long, [MINF_PROMPT + MINF_NEW - 1] * 8, np.zeros(8, np.int64))
-    drop_long, n_long = k4_dropped_split_error(q, kc, vc, sc, kn, vn, lens, ref)
-    log(f"K4 a kernel that drops one split's partial would show head rel L2 {drop_err:.3e} "
+        rng, nbits, 8, 4, C_long, [MINF_PROMPT + MINF_NEW - 1] * 8, np.zeros(8, np.int64))
+    drop_long, n_long = kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref)
+    log(f"{kid} a kernel that drops one split's partial would show head rel L2 {drop_err:.3e} "
         f"(1 of {n_split} splits, H=64) and {drop_long:.3e} (1 of {n_long}, H=8 G=4 "
         f"C={C_long}); tol {KQ_OUT_TOL}")
     if min(drop_err, drop_long) <= KQ_OUT_TOL:
-        raise SystemExit("K4's tolerance would let a dropped split pass")
-    long = time_kq(4, q, kc, vc, sc, kn, vn, lens)
-    return {**checks, "dropped_split_rel_l2_minference": drop_long, "sweep": k4_sweep(rng),
-            "minference": {"shape": f"H=8 G=4 C={C_long} D=128 int4, lengths "
+        raise SystemExit(f"{kid}'s tolerance would let a dropped split pass")
+    long = time_kq(nbits, q, kc, vc, sc, kn, vn, lens)
+    return {**checks, "dropped_split_rel_l2_minference": drop_long, "sweep": kq_sweep(rng, nbits),
+            "minference": {"shape": f"H=8 G=4 C={C_long} D=128 int{nbits}, lengths "
                                     f"{MINF_PROMPT + MINF_NEW - 1}", "rel_l2": err_l,
                            "max_abs_err": abs_l, **long}}
 
@@ -1646,7 +1665,8 @@ def drive_path(params, n_params, prompts, quant, log_file):
 
 
 # The one-launch decode kernels, by cache: (id, a part of the kernel's name).
-ONE_LAUNCH_DECODE = {"bf16": ("K2", "decode_attn_kernel"), "int4": ("K4", "quant4_decode_kernel")}
+ONE_LAUNCH_DECODE = {"bf16": ("K2", "decode_attn_kernel"), "int8": ("K3", "quant8_decode_kernel"),
+                     "int4": ("K4", "quant4_decode_kernel")}
 
 
 def one_kernel_a_layer(rows, layers, kid, name):
@@ -2385,7 +2405,8 @@ def phase_sp(rng, params):
             "tie_margin": tie_margin, "parted": parted, "spawn_to_join_s": spawn_s}
 
 
-K4_KERNEL = "quant4_decode_kernel"
+# K3's and K4's kernels in csrc/decode_attn_quant.cu, by a part of their names.
+QUANT_KERNELS = {"K3": "quant8_decode_kernel", "K4": "quant4_decode_kernel"}
 
 
 def ptxas_entries(report, name):
@@ -2409,7 +2430,7 @@ def sass_i2f(lib, name):
     """Int-to-float conversions (I2F, I2FP) in each function of ``lib`` whose
     name holds ``name``, from ``cuobjdump -sass``, as (conversions, integer
     divisions): an ``I2F.*.RP`` is the reciprocal step of an integer
-    division by a value known only at run time (K4's split rule), not a
+    division by a value known only at run time (the split rule), not a
     conversion of data.  None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -2484,22 +2505,23 @@ def main():
         raise SystemExit("K2 spills registers (ptxas lines above)")
     log(f"K2 ptxas: {len(k2_spills)} entries, 0 spill bytes" if k2_spills else
         "K2 ptxas: library cached, no ptxas report in this run")
-    # K4's ptxas lines (G 1-8): no spill; and no int-to-float conversion in
-    # its SASS, where the toolkit has cuobjdump.
-    k4_ptxas = ptxas_entries(reports.get("decode_attn_quant", ""), K4_KERNEL)
-    if any("0 bytes spill stores, 0 bytes spill loads" not in (line or "")
-           for _, _, line in k4_ptxas):
-        raise SystemExit("K4 spills registers (ptxas lines above)")
-    log(f"K4 ptxas: {len(k4_ptxas)} entries, registers "
-        f"{sorted(regs for _, regs, _ in k4_ptxas)}, 0 spill bytes" if k4_ptxas else
-        "K4 ptxas: library cached, no ptxas report in this run")
-    k4_i2f = sass_i2f(_build._lib_path("decode_attn_quant"), K4_KERNEL)
-    log("K4 SASS: no cuobjdump in this toolkit (not measured)" if k4_i2f is None else
-        f"K4 SASS (cuobjdump -sass), per instantiation: I2F/I2FP conversions "
-        f"{sorted(c for c, _ in k4_i2f.values())}, integer-division reciprocals (I2F.*.RP) "
-        f"{sorted(r for _, r in k4_i2f.values())}")
-    if k4_i2f is not None and (not k4_i2f or any(c for c, _ in k4_i2f.values())):
-        raise SystemExit("K4's SASS holds int-to-float conversions (or no K4 kernel)")
+    # K3's and K4's ptxas lines (G 1-8 each): no spill; and no int-to-float
+    # conversion in their SASS, where the toolkit has cuobjdump.
+    for kid, name in QUANT_KERNELS.items():
+        entries = ptxas_entries(reports.get("decode_attn_quant", ""), name)
+        if any("0 bytes spill stores, 0 bytes spill loads" not in (line or "")
+               for _, _, line in entries):
+            raise SystemExit(f"{kid} spills registers (ptxas lines above)")
+        log(f"{kid} ptxas: {len(entries)} entries, registers "
+            f"{sorted(regs for _, regs, _ in entries)}, 0 spill bytes" if entries else
+            f"{kid} ptxas: library cached, no ptxas report in this run")
+        i2f = sass_i2f(_build._lib_path("decode_attn_quant"), name)
+        log(f"{kid} SASS: no cuobjdump in this toolkit (not measured)" if i2f is None else
+            f"{kid} SASS (cuobjdump -sass), per instantiation: I2F/I2FP conversions "
+            f"{sorted(c for c, _ in i2f.values())}, integer-division reciprocals (I2F.*.RP) "
+            f"{sorted(r for _, r in i2f.values())}")
+        if i2f is not None and (not i2f or any(c for c, _ in i2f.values())):
+            raise SystemExit(f"{kid}'s SASS holds int-to-float conversions (or no {kid} kernel)")
 
     rng = np.random.default_rng(0)
     k1 = phase_k1(rng)

@@ -43,12 +43,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                                     _I, _I, _I, _I, _F, _P),
     },
     "decode_attn_quant": {
-        # K3: q, k_codes, v_codes, scales, lengths, lower, k_new, v_new, out,
-        # part_acc, part_ml, H, G, C, n_split, chunk, scale, stream
+        # K3 and K4: q, k_codes, v_codes, scales, lengths, lower, k_new, v_new,
+        # out, part, counters, H, G, C, n_split, scale, stream
         "kvcf_quant8_decode_attn_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _F, _P),
-        # K4: q, k_codes, v_codes, scales, lengths, lower, k_new, v_new, out,
-        # part, counters, H, G, C, n_split, scale, stream
+                                           _I, _I, _I, _I, _F, _P),
         "kvcf_quant4_decode_attn_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                            _I, _I, _I, _I, _F, _P),
     },

@@ -15,12 +15,12 @@ Dispatch is K2's rule: a CPU tensor goes to the plain version
 ``quant_decode_attention_append.launches`` and
 ``quant4_decode_attention_append.launches`` count kernel launches.
 
-K4 is one launch per call, as K2 is: ``decode_attn.split_count`` picks the
-CTAs per head, each finds its share of the head's valid keys on the device,
-and the last CTA of a head to raise its arrival counter (K2's per-device
-workspace, ``decode_attn._counters``) merges.  K3 is still a split kernel
-and a combine kernel.  Launches of K2 and K4 on one device share the
-counters, so they must run in stream order, as the decode step issues them.
+K3 and K4 are one launch per call each, as K2 is: ``decode_attn.split_count``
+picks the CTAs per head, each finds its share of the head's valid keys on
+the device, and the last CTA of a head to raise its arrival counter (K2's
+per-device workspace, ``decode_attn._counters``) merges.  Launches of K2, K3
+and K4 on one device share the counters, so they must run in stream order,
+as the decode step issues them.
 """
 
 from __future__ import annotations
@@ -32,13 +32,11 @@ import torch
 from ...cache.quant_cache import dequantize, encode
 from ..attention import NEG_INF
 from . import _build
-from .decode_attn import HEAD_DIM, MIN_KEYS_PER_SPLIT, _counters, _sm_count, split_count
+from .decode_attn import GROUPS, HEAD_DIM, _counters, _sm_count, split_count
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant.cu"
 REPLACES = {8: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:76",
             4: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:479"}
-# The group sizes csrc/decode_attn_quant.cu instantiates, by nbits.
-GROUPS = {8: (1, 2, 4, 8), 4: tuple(range(1, 9))}
 
 
 def quant_decode_attention_append(
@@ -79,9 +77,6 @@ def quant4_decode_attention_append(
     if q.device.type == "cpu":
         return quant4_decode_attention_append_reference(
             q, k_codes, v_codes, scales, lengths, k_new, v_new, lower)
-    # K4 reads k_new and v_new with vector loads: a view that starts off a
-    # 16-byte boundary is copied into a fresh (aligned) tensor first.
-    k_new, v_new = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (k_new, v_new))
     out = _launch(4, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower)
     quant4_decode_attention_append.launches += 1
     return out
@@ -93,50 +88,36 @@ quant4_decode_attention_append.launches = 0
 
 def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     lib = _build.load("decode_attn_quant")
+    # K3 and K4 read k_new and v_new with vector loads: a view that starts
+    # off a 16-byte boundary is copied into a fresh (aligned) tensor first.
+    k_new, v_new = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (k_new, v_new))
     _check(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower)
     H, G, D = q.shape
     C = k_codes.shape[1]
     dev = q.device
-    if nbits == 4:
-        n_split = split_count(H, C, _sm_count(dev))
-        counters = _counters(dev, H)
-        out = torch.empty_like(q)
-        part = torch.empty(H * n_split * G * (D + 4), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            code = lib.kvcf_quant4_decode_attn_append(
-                q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), scales.data_ptr(),
-                lengths.data_ptr(), None if lower is None else lower.data_ptr(),
-                k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part.data_ptr(),
-                counters.data_ptr(), H, G, C, n_split, D ** -0.5,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(code, "decode_attn_quant (int4)")
-        return out
-    # K3: split the C axis so that about two CTAs per SM are in flight.
-    n_split = max(1, min(-(-C // MIN_KEYS_PER_SPLIT), -(-2 * _sm_count(dev) // H)))
-    chunk = -(-C // n_split)
+    n_split = split_count(H, C, _sm_count(dev))
+    counters = _counters(dev, H)
     out = torch.empty_like(q)
-    part_acc = torch.empty((H, n_split, G, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((H, n_split, G, 2), dtype=torch.float32, device=dev)
+    part = torch.empty(H * n_split * G * (D + 4), dtype=torch.float32, device=dev)
+    entry = lib.kvcf_quant8_decode_attn_append if nbits == 8 else lib.kvcf_quant4_decode_attn_append
     with torch.cuda.device(dev):
-        code = lib.kvcf_quant8_decode_attn_append(
-            q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), scales.data_ptr(),
-            lengths.data_ptr(), None if lower is None else lower.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), H, G, C, n_split, chunk, D ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "decode_attn_quant (int8)")
+        code = entry(q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), scales.data_ptr(),
+                     lengths.data_ptr(), None if lower is None else lower.data_ptr(),
+                     k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part.data_ptr(),
+                     counters.data_ptr(), H, G, C, n_split, D ** -0.5,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, f"decode_attn_quant (int{nbits})")
     return out
 
 
 def _check(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     what = f"decode_attn_quant (int{nbits})"
-    # q and the codes are read with 16-byte vector loads, a token's four
-    # scalars with one 8-byte load, the int32 vectors one int at a time;
-    # k_new/v_new one element at a time by K3, with 16-byte loads by K4.
-    new_align = 2 if nbits == 8 else 16
+    # q, the codes, k_new and v_new are read with 16-byte vector loads, a
+    # token's four scalars with one 8-byte load, the int32 vectors one int
+    # at a time.
     named = [("q", q, 16), ("k_codes", k_codes, 16), ("v_codes", v_codes, 16),
-             ("scales", scales, 8), ("lengths", lengths, 4), ("k_new", k_new, new_align),
-             ("v_new", v_new, new_align)]
+             ("scales", scales, 8), ("lengths", lengths, 4), ("k_new", k_new, 16),
+             ("v_new", v_new, 16)]
     if lower is not None:
         named.append(("lower", lower, 4))
     for name, t, align in named:
@@ -149,8 +130,8 @@ def _check(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     if q.dim() != 3:
         raise ValueError(f"{what}: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
-    if D != HEAD_DIM or G not in GROUPS[nbits]:
-        raise ValueError(f"{what}: needs head_dim {HEAD_DIM} and G in {GROUPS[nbits]}, got "
+    if D != HEAD_DIM or G not in GROUPS:
+        raise ValueError(f"{what}: needs head_dim {HEAD_DIM} and G in {tuple(GROUPS)}, got "
                          f"D={D}, G={G}; other head_dims and groups are ROADMAP.md queue 2, "
                          "\"Shapes the TPU kernels take and the port's kernels refuse on CUDA\"")
     for name, t in (("q", q), ("scales", scales), ("k_new", k_new), ("v_new", v_new)):

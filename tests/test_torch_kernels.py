@@ -243,30 +243,19 @@ def _quant_check_args(nbits, G, q_shape=None):
 
 
 @pytest.mark.parametrize("G", range(1, 9))
-def test_quant4_check_takes_every_group_up_to_8(G):
-    """K4 takes G 1-8: every shape check passes; only the device stops a
-    CPU tensor."""
+@pytest.mark.parametrize("nbits", [8, 4])
+def test_quant_check_takes_every_group_up_to_8(nbits, G):
+    """K3 and K4 take G 1-8: every shape check passes; only the device stops
+    a CPU tensor."""
     with pytest.raises(ValueError, match="unsupported device"):
-        tquant._check(*_quant_check_args(4, G))
+        tquant._check(*_quant_check_args(nbits, G))
 
 
 @pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 64))])
-def test_quant4_check_refuses_g_above_8_or_other_head_dims(G, shape):
+@pytest.mark.parametrize("nbits", [8, 4])
+def test_quant_check_refuses_g_above_8_or_other_head_dims(nbits, G, shape):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
-        tquant._check(*_quant_check_args(4, G, shape))
-
-
-@pytest.mark.parametrize("G", [3, 5, 6, 7, 9])
-def test_quant8_check_refuses_groups_outside_1_2_4_8(G):
-    """K3 keeps its four instantiated group sizes until its own redesign."""
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
-        tquant._check(*_quant_check_args(8, G))
-
-
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
-def test_quant8_check_takes_its_groups(G):
-    with pytest.raises(ValueError, match="unsupported device"):
-        tquant._check(*_quant_check_args(8, G))
+        tquant._check(*_quant_check_args(nbits, G, shape))
 
 
 def test_cpu_tensors_never_count_a_launch():

@@ -19,6 +19,14 @@ Tolerances, each with its reason:
   TPU kernel folds the affine into the dots (``(q . c) ks + sum(q) kz``
   over codes up to 255), so the two differ by a few fp32 ulps of terms of
   order 10: 1e-5.
+- The range case (q up to about 1e5, keys of 1e-4, values spanning 1e-3:
+  outputs of order 1e-4) holds the same relations relative to its largest
+  output: 1e-6 of it against the oracle (fp32 against fp64), 4e-6 of it
+  for K3 against the TPU kernel, whose folded affine there adds terms of
+  order 100 (ks (q . c) and kz sum(q)) that cancel to logits of order 3, so
+  fp32 rounding of those terms moves a logit by a few 1e-6; an off-by-one
+  range must move a head by ten times the oracle's limit.  K4's limit below
+  is relative to the value span already.
 - K4 against the TPU kernel: the TPU kernel also rounds the probability
   weights ``p * v_scale`` to bf16 before its value dot
   (``decode_attn_quant.py:692-693``), a relative error of at most 2^-9 per
@@ -103,26 +111,42 @@ def oracle(q, k, v, lens, lower, k_new, v_new):
     return out
 
 
+# Standard deviations of q, K and V in the cases below.
+UNIT = (1.0, 1.0, V_SPAN)
+# The range the CUDA K3 must survive: q entries up to about 1e5, beyond
+# fp16's 65504; keys of about 1e-4, so that logits stay of order 3 (with
+# O(1) keys a q this large would test fp32 rounding in the softmax, not
+# range); values spanning about 1e-3, so that v_scale is about 4e-6 and
+# p * v_scale falls below fp16's smallest normal, 6.1e-5.
+RANGE = (3e4, 1e-4, 2e-4)
+
 CASES = [
-    # G, lengths (C = 256), lower
-    (1, [0, 5, 131, 254], None),                 # empty, ragged, int4 high half, C-2
-    (4, [3, 100, 200, 130], [0, 20, 150, 0]),    # grouped queries, lower bounds
-    (1, [256, 10, 255, 256], None),              # full heads: slot C-1 overwritten
-    (3, [40, 256, 7, 199], [0, 100, 6, 30]),     # G 3 (K4 takes 1-8), one key
-    (6, [255, 64, 0, 128], [200, 0, 0, 127]),    # G 6, a lower bound near L
+    # G, lengths (C = 256), lower, (q, K, V) standard deviations
+    pytest.param(1, [0, 5, 131, 254], None, UNIT,    # empty, ragged, int4 high half, C-2
+                 id="1-lengths0-None"),
+    pytest.param(4, [3, 100, 200, 130], [0, 20, 150, 0], UNIT,  # grouped queries, lower bounds
+                 id="4-lengths1-lower1"),
+    pytest.param(1, [256, 10, 255, 256], None, UNIT,  # full heads: slot C-1 overwritten
+                 id="1-lengths2-None"),
+    pytest.param(3, [40, 256, 7, 199], [0, 100, 6, 30], UNIT,  # G 3 (K3/K4 take 1-8), one key
+                 id="3-lengths3-lower3"),
+    pytest.param(6, [255, 64, 0, 128], [200, 0, 0, 127], UNIT,  # G 6, a lower bound near L
+                 id="6-lengths4-lower4"),
+    pytest.param(2, [200, 37, 256, 1], [0, 5, 0, 0], RANGE, id="range"),
 ]
 
 
-@pytest.mark.parametrize("G,lengths,lower", CASES)
+@pytest.mark.parametrize("G,lengths,lower,amp", CASES)
 @pytest.mark.parametrize("nbits", [8, 4])
-def test_plain_matches_pallas(nbits, G, lengths, lower):
+def test_plain_matches_pallas(nbits, G, lengths, lower, amp):
     H, C = 4, 256
     rng = np.random.default_rng(5)
-    q = bf16_exact(rng.standard_normal((H, G, D)).astype(np.float32))
-    k_fp = rng.standard_normal((H, C, D)).astype(np.float32)
-    v_fp = (V_SPAN * rng.standard_normal((H, C, D))).astype(np.float32)
-    kn = rng.standard_normal((H, D)).astype(np.float32)
-    vn = (V_SPAN * rng.standard_normal((H, D))).astype(np.float32)
+    q_amp, k_amp, v_amp = amp
+    q = bf16_exact((q_amp * rng.standard_normal((H, G, D))).astype(np.float32))
+    k_fp = (k_amp * rng.standard_normal((H, C, D))).astype(np.float32)
+    v_fp = (v_amp * rng.standard_normal((H, C, D))).astype(np.float32)
+    kn = (k_amp * rng.standard_normal((H, D))).astype(np.float32)
+    vn = (v_amp * rng.standard_normal((H, D))).astype(np.float32)
     lens = np.asarray(lengths, np.int32)
     lo = None if lower is None else np.asarray(lower, np.int32)
     jc = JAX_PREFILL[nbits](jnp.asarray(k_fp)[None, None], jnp.asarray(v_fp)[None, None],
@@ -140,9 +164,13 @@ def test_plain_matches_pallas(nbits, G, lengths, lower):
         lower=None if lo is None else jnp.asarray(lo))
 
     want = oracle(q, k_deq, v_deq, lens, lo, kn, vn)
-    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=1e-5)
+    # The range case's outputs are of order 1e-4: its limits are relative to
+    # the largest output (see the module docstring).
+    top = 1.0 if amp == UNIT else np.abs(want).max()
+    tol = 1e-5 if amp == UNIT else 1e-6 * top
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=tol)
     span = (v_deq.max(-1) - v_deq.min(-1)).max()
-    atol = 1e-5 if nbits == 8 else 2.0 ** -9 * span
+    atol = (1e-5 if amp == UNIT else 4e-6 * top) if nbits == 8 else 2.0 ** -9 * span
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=0, atol=atol)
     # The append: the new token's codes and scalars in slot min(len, C-1),
     # byte for byte, and nothing else touched.
@@ -153,7 +181,7 @@ def test_plain_matches_pallas(nbits, G, lengths, lower):
     # one shows (heads that read no key, or a full head, are left out).
     off = oracle(q, k_deq, v_deq, lens - 1, lo, kn, vn)
     moved = np.abs(off - want).max(axis=(1, 2))
-    assert (moved[(lens > 0) & (lens < C)] > 1e-3).all()
+    assert (moved[(lens > 0) & (lens < C)] > (1e-3 if amp == UNIT else 10 * tol)).all()
 
 
 MODEL = dict(model_type="llama", vocab_size=512, hidden_size=256,
