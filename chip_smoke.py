@@ -46,6 +46,19 @@ Phases, in order; any failure exits non-zero:
    launch count set to 0 just before it and read just after, cache
    lengths, and logits held against the fp32 reference forward; then
    timings and a profile of prefill and decode;
+5b. every compression policy on the main path: the same weights and two
+   requests (16 new tokens) through ``InferenceEngine`` with snapkv, then
+   pyramidkv, h2o, streamingllm, l2norm, random, adakv, headkv (capacities
+   from a seeded head-score file), cam, think and snapkv with the LOOK-M
+   pivot merge, then adakv over the int4 cache, each with every launch
+   count set to 0 just before it: K1 and K2 (K4) launches, the score
+   window K1 is handed (window scores for snapkv, pyramidkv, think, adakv
+   and headkv only), every (layer, head, request) length against the
+   method's budget rule, think's zeroed key channels, request (b)'s logits
+   against the fp32 reference forward, K2 (K4) called directly on layers 0
+   and 31 of the finished adakv and pyramidkv caches against the plain
+   version, prefill and decode times, a profiled decode step of snapkv and
+   adakv;
 6. the serving path: ``ContinuousBatchingEngine`` at Mistral-7B-v0.1 widths
    (sliding window 4096) drains six long-prompt requests through four
    slots twice, with one-shot and with chunked admission, each drain with
@@ -84,6 +97,7 @@ Imports only torch, numpy and the port.  The full profiler tables go to
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import json
 import os
@@ -102,6 +116,7 @@ from torch.autograd import DeviceType
 from kvcache_factory_tpu_torch import (CompressionConfig, EngineConfig, ModelConfig, QuantConfig,
                                        ShardingConfig)
 from kvcache_factory_tpu_torch.cache import quant_cache
+from kvcache_factory_tpu_torch.evals.longbench import headkv_capacities
 from kvcache_factory_tpu_torch.models import llama
 from kvcache_factory_tpu_torch.models.reference import forward_logits
 from kvcache_factory_tpu_torch.models.weights import init_params
@@ -109,6 +124,7 @@ from kvcache_factory_tpu_torch.ops.attention import NEG_INF
 from kvcache_factory_tpu_torch.ops.kernels import (_build, decode_attn, decode_attn_quant,
                                                    flash_prefill, pack)
 from kvcache_factory_tpu_torch.parallel.ring_attention import hop_visible, ring_attention_emulated
+from kvcache_factory_tpu_torch.policies import cam
 from kvcache_factory_tpu_torch.policies.base import select_and_pack
 from kvcache_factory_tpu_torch.policies.minference import default_pattern
 from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
@@ -190,6 +206,13 @@ KQ_OUT_TOL = 3e-3
 # 0.10; int4 0.40.  A kernel that reads the wrong keys or values shows far
 # more (its worst-head check against the plain version is 3e-3 above).
 E2E_QUANT_REL_L2_TOL = {8: 0.10, 4: 0.40}
+# CAM's block solve against the sequential merge, both fp32 on the card:
+# forward substitution adds the same terms in another order, each rounding
+# by 2^-24 relative, so the two agree to ~1e-6 relative (1e-5 on the CPU,
+# tests/test_torch_policies.py); the merge itself moves the values by O(1)
+# (printed beside the check).
+CAM_MERGE_TOL = 1e-4
+
 # Chunked against one-shot admission, first-token logits rel L2.  Both are
 # the bf16 path of one function, held each within 0.10 of fp32.  Where they
 # round at other points (projections at another M, attention split into
@@ -1531,8 +1554,8 @@ PATHS = (("bf16", None), ("int8", QuantConfig(nbits=8)), ("int4", QuantConfig(nb
 
 def phase_e2e(rng, log_file):
     """The main path with each cache, over one set of weights and prompts;
-    returns the weights too, which the serving path reuses (Mistral-7B-v0.1
-    has the same shapes)."""
+    returns the weights and prompts too, which the policy runs reuse, and
+    the serving path the weights (Mistral-7B-v0.1 has the same shapes)."""
     cfg, dev = MISTRAL_7B, "cuda"
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
@@ -1542,8 +1565,8 @@ def phase_e2e(rng, log_file):
     log(f"init_params: {n_params / 1e9:.3f} B parameters in "
         f"{time.perf_counter() - t0:.1f} s")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
-    return params, {label: drive_path(params, n_params, prompts, quant, log_file)
-                    for label, quant in PATHS}
+    return params, prompts, {label: drive_path(params, n_params, prompts, quant, log_file)
+                             for label, quant in PATHS}
 
 
 def drive_path(params, n_params, prompts, quant, log_file):
@@ -1678,6 +1701,294 @@ def one_kernel_a_layer(rows, layers, kid, name):
         f"combine kernels: {len(combine)}")
     if len(hits) != 1 or hits[0][0] != layers or combine:
         raise SystemExit(f"the decode step does not run {kid} as one kernel, {layers} times")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: every compression policy on the main path
+# ---------------------------------------------------------------------------
+
+POLICY_NEW = 16
+# The main path's compression with each method in turn (snapkv, first, is
+# the baseline the others are read beside), then adakv over the int4 cache.
+POLICY_RUNS = (("snapkv", SNAPKV, None),
+               ("pyramidkv", dataclasses.replace(SNAPKV, method="pyramidkv"), None),
+               ("h2o", dataclasses.replace(SNAPKV, method="h2o"), None),
+               ("streamingllm", dataclasses.replace(SNAPKV, method="streamingllm"), None),
+               ("l2norm", dataclasses.replace(SNAPKV, method="l2norm"), None),
+               ("random", dataclasses.replace(SNAPKV, method="random"), None),
+               ("adakv", dataclasses.replace(SNAPKV, method="adakv"), None),
+               ("headkv", dataclasses.replace(SNAPKV, method="headkv"), None),
+               ("cam", dataclasses.replace(SNAPKV, method="cam"), None),
+               ("think", dataclasses.replace(SNAPKV, method="think"), None),
+               ("pivot", dataclasses.replace(SNAPKV, merge="pivot"), None),
+               ("adakv_int4", dataclasses.replace(SNAPKV, method="adakv"), QuantConfig(nbits=4)))
+SCORE_EMITTERS = ("snapkv", "pyramidkv", "think", "adakv", "headkv")
+
+
+def headkv_file(path, cfg, seed=0):
+    """A head-score file (one JSON line: per-head score lists, layer-major)
+    from a seeded rng, lognormal so that some heads' budgets pass the
+    engine's per-head bound; returns its capacities ``[L, H]``."""
+    L, H = cfg.num_hidden_layers, cfg.num_attention_heads
+    rng = np.random.default_rng(seed)
+    scores = {f"{li}-{h}": rng.lognormal(0.0, 1.0, size=4).tolist()
+              for li in range(L) for h in range(H)}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(scores) + "\n")
+    return headkv_capacities(str(path), L, H, SNAPKV.max_capacity_prompt)
+
+
+def expected_lengths(method, comp, L, H, head_cap, S):
+    """Request (a)'s prefill lengths [L, H] (``S`` prompt tokens, its own
+    bucket) by the method's budget rule (None for adakv, whose budgets
+    follow the scores: checked apart)."""
+    w, base = comp.window_size, comp.base_capacity
+    if method == "pyramidkv":
+        # pyramidkv_utils.py:205-238; at 4096 tokens, budget 2048, window 8
+        # and 32 layers: 3978 - 125 * layer.
+        if S < 2 * base:
+            return np.full((L, H), min(base, S - w) + w)
+        min_num, max_num = base // comp.beta, 2 * base - base // comp.beta
+        if max_num >= S - w:
+            max_num = S - w
+            min_num = 2 * base - max_num
+        steps = (max_num - min_num) // max(L - 1, 1)
+        return np.array([[min(max(max_num - li * steps, 0), S - w) + w] * H
+                         for li in range(L)])
+    if method == "l2norm":
+        return np.array([[S if li in comp.skip_layers else comp.max_capacity_prompt] * H
+                         for li in range(L)])
+    if method == "headkv":
+        # Each head's capacity, clipped to the cache's per-head bound.
+        return np.clip(head_cap, 0, comp.layer_capacity(L, S) - w) + w
+    if method == "adakv":
+        return None
+    return np.full((L, H), comp.max_capacity_prompt)
+
+
+@contextlib.contextmanager
+def score_window_hook():
+    """Record the score window K1 is handed at each prefill call (0: no
+    scores emitted)."""
+    seen, real = [], llama.flash_prefill_attention
+
+    def hooked(*args, **kwargs):
+        seen.append(args[4])
+        return real(*args, **kwargs)
+    llama.flash_prefill_attention = hooked
+    try:
+        yield seen
+    finally:
+        llama.flash_prefill_attention = real
+
+
+def direct_decode_check(rng, cache, quant, label):
+    """K2 (K4 on the int4 cache) and its plain version, called directly on a
+    copy of layers 0 and 31 of a finished cache with a random query: the
+    ragged per-head lengths of a real policy.  Returns the worst head's rel
+    L2 and max abs difference."""
+    D, dev = 128, cache.lengths.device
+    dtype = cache.k.dtype if quant is None else torch.bfloat16
+    worst = (0.0, 0.0)
+    for li in (0, cache.lengths.shape[0] - 1):
+        B, H = cache.lengths.shape[1:]
+        lens = cache.lengths[li].reshape(B * H).contiguous()
+        q, kn, vn = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, dtype)
+                     for shape in ((B * H, 1, D), (B * H, D), (B * H, D)))
+        C = cache.capacity
+        if quant is None:
+            kid, tol = "K2", K2_OUT_TOL
+            layer = [cache.k[li].reshape(B * H, C, D), cache.v[li].reshape(B * H, C, D)]
+            out = decode_attn.decode_attention_append(q, *(t.clone() for t in layer), lens, kn, vn)
+            ref = decode_attn.decode_attention_append_reference(q, *(t.clone() for t in layer),
+                                                                lens, kn, vn)
+        else:
+            kid, kernel, plain, _ = QUANT[quant.nbits]
+            tol = KQ_OUT_TOL
+            Wc = cache.k_codes.shape[-1]
+            layer = [cache.k_codes[li].reshape(B * H, C, Wc),
+                     cache.v_codes[li].reshape(B * H, C, Wc), cache.scales[li].reshape(B * H, C, 4)]
+            out = kernel(q, *(t.clone() for t in layer), lens, kn, vn)
+            ref = plain(q, *(t.clone() for t in layer), lens, kn, vn)
+        sync()
+        err = rel_l2(out.reshape(B * H, -1), ref.reshape(B * H, -1))
+        log(f"  {label}: {kid} called directly on layer {li}'s cache (lengths "
+            f"{int(lens.min())}-{int(lens.max())}): worst head rel L2 {err[0]:.3e}, max abs "
+            f"{err[1]:.3e}; tol {tol}")
+        if err[0] > tol or not torch.isfinite(out.float()).all():
+            raise SystemExit(f"{kid} disagrees with its plain version on the {label} cache")
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+    return worst
+
+
+def policy_run(rng, params, prompts, label, comp, quant, head_cap, refs, log_file):
+    """One ``generate_batch`` of phase 5's two requests under ``comp``, with
+    every launch count set to 0 just before it and read just after: launch
+    counts, K1's score emission, each (layer, head, request) length against
+    the method's budget rule, think's zeroed channels, request (b)'s logits
+    against the fp32 reference forward; then times."""
+    cfg, dev = MISTRAL_7B, params["embed"].device
+    L, H = cfg.num_hidden_layers, cfg.num_attention_heads
+    method, steps = comp.method, POLICY_NEW - 1
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant),
+                             device=dev, head_capacity=head_cap if method == "headkv" else None)
+    reset_counts()
+    with score_window_hook() as windows:
+        ids, res = engine.generate_batch(prompts, POLICY_NEW, return_result=True)
+        sync()
+    launches = path_launches()
+    decode_id = "K2" if quant is None else QUANT[quant.nbits][0]
+    expect = dict.fromkeys(launches, 0)
+    expect["K1"], expect[decode_id] = L, L * steps
+    emitted = sorted(set(windows))
+    want_window = comp.window_size if method in SCORE_EMITTERS else 0
+    log(f"== policy {label}: launches {launches} (expect K1 {L}, {decode_id} {L * steps}); "
+        f"K1 score windows {emitted} (expect [{want_window}])")
+    if launches != expect:
+        raise SystemExit(f"the {label} run did not run each kernel the expected number of times")
+    if emitted != [want_window]:
+        raise SystemExit(f"K1 emitted window scores on the {label} run against JAX's gate")
+
+    lens = res.cache.lengths.cpu().numpy() - steps  # [L, B, H] at the end of prefill
+    want_a = expected_lengths(method, comp, L, H, head_cap, len(prompts[0]))
+    a, b = lens[:, 0], lens[:, 1]
+    if want_a is None:  # adakv: each head within the bound; budgets sum to H * base
+        bound = comp.layer_capacity(L, len(prompts[0])) - comp.window_size
+        budgets = a - comp.window_size
+        unclipped = (budgets < bound).all(axis=1)
+        dev_sum = np.abs(budgets.sum(axis=1) - H * comp.base_capacity)
+        ok_a = (a <= bound + comp.window_size).all() and (dev_sum[unclipped] <= H / 2).all()
+        log(f"  request (a) lengths per layer: min {a.min(axis=1).tolist()}, max "
+            f"{a.max(axis=1).tolist()}; layers without a clipped head: {int(unclipped.sum())}, "
+            f"their budget sums off H * {comp.base_capacity} by at most "
+            f"{dev_sum[unclipped].max() if unclipped.any() else None} (limit {H / 2})")
+    else:
+        ok_a = np.array_equal(a, want_a)
+        log(f"  request (a) lengths by layer (first head): {a[:, 0].tolist()}; as the budget "
+            f"rule says: {ok_a}")
+    ok_b = (b == len(prompts[1])).all()
+    log(f"  request (b) lengths: {sorted(set(b.flatten().tolist()))} (expect "
+        f"[{len(prompts[1])}]); tokens {[len(x) for x in ids]}")
+    if not (ok_a and ok_b) or [len(x) for x in ids] != [POLICY_NEW] * 2:
+        raise SystemExit(f"the {label} run left cache lengths against its budget rule")
+    if not torch.isfinite(res.logits).all():
+        raise SystemExit(f"the {label} run gave non-finite logits")
+
+    think = None
+    if method == "think":
+        # Rows below length - recent of request (a): exactly int(D * ratio)
+        # channels zero in every such row; request (b) (uncompressed) none.
+        k = res.cache.k
+        n_pruned = comp.max_capacity_prompt - comp.recent_size
+        zero_a = (k[:, 0, :, :n_pruned] == 0).all(dim=2).sum(-1)
+        zero_a_recent = (k[:, 0, :, n_pruned:comp.max_capacity_prompt] == 0).all(dim=2).sum(-1)
+        zero_b = (k[:, 1, :, :len(prompts[1])] == 0).all(dim=2).sum(-1)
+        want = int(cfg.head_dim * comp.pruning_ratio)
+        think = {"zero_channels_a": sorted(set(zero_a.flatten().tolist())),
+                 "zero_channels_a_recent_rows": sorted(set(zero_a_recent.flatten().tolist())),
+                 "zero_channels_b": sorted(set(zero_b.flatten().tolist()))}
+        log(f"  think: key channels zero in every pruned row, per (layer, head), request (a) "
+            f"{think['zero_channels_a']} (expect [{want}]), its last {comp.recent_size} rows "
+            f"{think['zero_channels_a_recent_rows']}; request (b) {think['zero_channels_b']} "
+            f"(expect [0])")
+        if think["zero_channels_a"] != [want] or think["zero_channels_b"] != [0] or \
+                think["zero_channels_a_recent_rows"] != [0]:
+            raise SystemExit("think zeroed the wrong key channels")
+
+    # Request (b) is below the budget on every method: its logits are held to
+    # the fp32 reference forward as phase 5 holds them.
+    seq_b = tuple(prompts[1] + ids[1][:steps])
+    if seq_b not in refs:
+        with torch.no_grad():
+            refs[seq_b] = forward_logits(params, cfg, torch.tensor([seq_b], device=dev))[
+                0, len(prompts[1]) - 1:]
+    ref_b = refs[seq_b]
+    decode_tol = E2E_REL_L2_TOL if quant is None else E2E_QUANT_REL_L2_TOL[quant.nbits]
+    rel_b0, _ = rel_l2(res.logits[1, :1], ref_b[:1])
+    rel_bd, _ = rel_l2(res.logits[1, 1:], ref_b[1:])
+    log(f"  request (b) vs fp32 reference: first token rel L2 {rel_b0:.4f} (tol "
+        f"{E2E_REL_L2_TOL}), {steps} decode rows worst {rel_bd:.4f} (tol {decode_tol})")
+    if rel_b0 > E2E_REL_L2_TOL or rel_bd > decode_tol:
+        raise SystemExit(f"the {label} run's logits disagree with the fp32 reference")
+
+    direct = None
+    if method in ("adakv", "pyramidkv"):
+        direct = direct_decode_check(rng, res.cache, quant, label)
+
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, 1)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, POLICY_NEW)
+    sync()
+    step_ms = (time.perf_counter() - t0 - prefill_s) / steps * 1e3
+    busy_ms = None
+    if label in ("snapkv", "adakv"):
+        cur = torch.tensor([x[-1] for x in ids], device=dev)
+        with torch.no_grad():
+            for _ in range(2):
+                llama.decode_step(params, cfg, cur, res.cache, quant=quant)
+            busy_ms = profile_device(
+                lambda: llama.decode_step(params, cfg, cur, res.cache, quant=quant), 4, step_ms,
+                f"decode step, policy {label}", log_file)
+    cache_entries = int(res.cache.lengths.sum().item())
+    log(f"  {label}: prefill {prefill_s:.3f} s (B=2, bucket 4096); decode {step_ms:.3f} ms/step "
+        f"wall{'' if busy_ms is None else f', device busy {busy_ms:.3f} ms'}; cache capacity "
+        f"{res.cache.capacity}, {cache_entries} valid entries")
+    return {"launches": launches, "score_window": emitted[0], "prefill_s": prefill_s,
+            "decode_ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms,
+            "cache_capacity": res.cache.capacity, "valid_entries": cache_entries,
+            "first_token_rel_l2_b": rel_b0, "decode_rel_l2_b": rel_bd,
+            "direct_decode_rel_l2": direct, "think": think}
+
+
+def cam_merge_check(rng, S=4096):
+    """CAM's value merge at a phase-5 layer (32 heads x S rows of 128):
+    the block solve the engine runs against JAX's sequential form (one
+    step per row, here in fp32 on the card), both timed; worst head rel L2
+    within CAM_MERGE_TOL."""
+    H, D, w = MISTRAL_7B.num_attention_heads, MISTRAL_7B.head_dim, SNAPKV.window_size
+    v = torch.from_numpy(rng.standard_normal((H, S, D), np.float32)).cuda()
+    col_mean = torch.from_numpy(rng.random((H, S), np.float32) / S).cuda()
+    uniforms = torch.from_numpy(rng.random((S, H), np.float32)).cuda()
+    tl = torch.tensor(S, device="cuda")
+    args = (col_mean, tl, SNAPKV.start_budget_ratio, w, uniforms)
+    hits = int((cam.merge_coefficients(*args) > 0).sum().item())
+    block_ms = event_ms(lambda: cam.cam_merge_values(v, *args), iters=5, warmup=1)
+    out = cam.cam_merge_values(v, *args)
+    t0 = time.perf_counter()
+    seq = cam.cam_merge_values_sequential(v, *args)
+    sync()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    err, abs_err = rel_l2(out.reshape(H, -1), seq.reshape(H, -1))
+    moved = rel_l2(v.reshape(H, -1), seq.reshape(H, -1))[0]
+    log(f"cam merge, H={H} S={S} D={D} w={w}, {hits} merged columns: block solve "
+        f"{block_ms:.3f} ms, sequential form {seq_ms:.1f} ms wall; worst head rel L2 "
+        f"{err:.3e} (max abs {abs_err:.3e}), tol {CAM_MERGE_TOL}; the merge moved the "
+        f"values by {moved:.3f}")
+    if err > CAM_MERGE_TOL or hits == 0:
+        raise SystemExit("CAM's block solve disagrees with the sequential merge")
+    return {"block_ms": block_ms, "sequential_ms": seq_ms, "rel_l2": err,
+            "merged_columns": hits, "tol": CAM_MERGE_TOL}
+
+
+def phase_policies(rng, params, prompts, log_file):
+    """Every compression method through ``InferenceEngine`` on phase 5's
+    weights and two prompts (16 new tokens), and adakv over the int4 cache."""
+    head_cap = headkv_file(LOG_PATH.parent / "policies" / "heads.json", MISTRAL_7B)
+    bound = dataclasses.replace(SNAPKV, method="headkv").layer_capacity(
+        MISTRAL_7B.num_hidden_layers, len(prompts[0])) - SNAPKV.window_size
+    log(f"headkv capacities from a seeded head-score file: min {int(head_cap.min())}, max "
+        f"{int(head_cap.max())}, {int((head_cap > bound).sum())} of {head_cap.size} past the "
+        f"per-head bound {bound}")
+    refs, out = {}, {}
+    for label, comp, quant in POLICY_RUNS:
+        out[label] = policy_run(rng, params, prompts, label, comp, quant, head_cap, refs,
+                                log_file)
+        torch.cuda.empty_cache()
+    out["cam_merge"] = cam_merge_check(rng)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2454,15 +2765,21 @@ def profile_device(fn, reps, wall_ms, what, log_file, check=None):
     kernel and copy events only), printed with the top kernels beside the
     unprofiled wall time ``wall_ms``; None when the profiler sees no device
     time.  ``check``, if given, gets the rows (ms, launches per call, kernel
-    name) of every device kernel."""
+    name) of every device kernel.  One warm-up call runs under the profiler
+    first and is not counted: the device trace can start a few launches
+    late (a decode profile once missed the first two layers' kernels)."""
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=reps, repeat=1)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                schedule=schedule) as prof:
+        for _ in range(reps + 1):
             fn()
-        sync()
+            sync()
+            prof.step()
+    # The schedule's ProfilerStep* spans show on the device too: not kernels.
     rows = sorted(((evt.self_device_time_total / reps / 1e3, evt.count / reps, evt.key)
-                   for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA),
-                  reverse=True)
+                   for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
+                   and not evt.key.startswith("ProfilerStep")), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         log(f"profile ({what}): the profiler reported no device time (not measured)")
@@ -2536,7 +2853,8 @@ def main():
     phase_edges(rng)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
-        params, e2e = phase_e2e(rng, log_file)
+        params, prompts, e2e = phase_e2e(rng, log_file)
+        policies = phase_policies(rng, params, prompts, log_file)
         serving = phase_serving(rng, params, log_file)
         torch.cuda.empty_cache()
         minf = phase_minference(rng, params, log_file)
@@ -2557,7 +2875,7 @@ def main():
     k1_ml["launches"] = sum(rk["launches"]["K1-ml"] for rk in sp["ranks"])
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
-                      "serving": serving, "minference": minf,
+                      "policies": policies, "serving": serving, "minference": minf,
                       "sp": {**sp, "fold_emulated": sp_fold}, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,10 @@ attention to K1's selected blocks (a-shape or vertical-slash, with optional
 per-layer per-head budgets).  With a sequence-parallel group prefill splits
 the prompt's rows over its ranks and runs ring attention (K1-ml per hop,
 ``parallel/ring_attention.py``).  The port carries the dense and the
-per-token quantized caches.
-The grouped quantized cache, ThinK, evicting, offloaded and MoE
-configurations raise ``NotImplementedError`` naming their ROADMAP.md item.
+per-token quantized caches, and every compression method of the JAX
+package (``policies/methods.py``).  The grouped quantized cache, ThinK's
+channel-packed cache, the evicting, offloaded and MoE configurations raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from ..ops.kernels.flash_prefill import flash_prefill_attention
 from ..parallel.mesh import SequenceParallelGroup
 from ..parallel.ring_attention import ring_attention
 from ..policies.base import PackedKV
-from ..policies.methods import LayerContext, compress_prefill
+from ..policies.methods import SCORES_REUSABLE, LayerContext, compress_prefill
 from ..policies.scoring import window_attention_scores, window_query_rows
 
 # ---------------------------------------------------------------------------
@@ -171,15 +172,20 @@ class PrefillResult(NamedTuple):
 
 
 def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
-                     quant: Optional[QuantConfig]) -> None:
+                     quant: Optional[QuantConfig], sp: bool = False) -> None:
     check_quant(quant, cfg.head_dim)
+    if sp and comp.method not in ("snapkv", "fullkv", "minference"):
+        raise NotImplementedError(
+            f"{comp.method!r} under sequence parallelism is not ported yet (ROADMAP.md "
+            "queue 1 item 16)")
     if cfg.is_moe:
         raise NotImplementedError("MoE is not ported yet (ROADMAP.md queue 1 item 10)")
     if comp.decode_evict:
         raise NotImplementedError("the evicting cache is not ported yet "
                                   "(ROADMAP.md queue 1 item 11)")
-    if comp.method == "think":
-        raise NotImplementedError("think is not ported yet (ROADMAP.md queue 1 item 7)")
+    if comp.think_packed:
+        raise NotImplementedError("think's channel-packed cache is not ported yet "
+                                  "(ROADMAP.md queue 1 item 11)")
 
 
 def _layer(params: dict, li: int) -> dict:
@@ -249,6 +255,8 @@ def prefill(
     quant: Optional[QuantConfig] = None,
     sparse_budgets: Optional[torch.Tensor] = None,  # [L, Hq, 2] int (MInference)
     sp_group: Optional[SequenceParallelGroup] = None,
+    rng: Optional[torch.Generator] = None,         # cam, random
+    head_capacity: Optional[torch.Tensor] = None,  # [L, H] int (headkv)
 ) -> PrefillResult:
     """Full prefill: attention over the uncompressed prompt, then the
     compression hook between the QKV computation and the cache write.
@@ -261,6 +269,11 @@ def prefill(
     ``comp.sparse_prefill`` K1 runs the MInference pattern; ``sparse_budgets``
     gives each layer's per-head (vertical, slash) budgets (JAX ``:314,
     487-488``), and SnapKV's scores are then sums of the sparse softmax.
+    K1 emits the window scores for every method that reuses them
+    (``SCORES_REUSABLE``).  cam and random draw from ``rng`` (a generator
+    on the tokens' device seeded 0 when None, as JAX's ``PRNGKey(0)``);
+    headkv reads ``head_capacity[li]`` (``policies/methods.py`` raises
+    ``ValueError`` without it; the JAX prefill feeds zeros).
 
     With ``sp_group`` (JAX ``sp_mesh``, ``:381-405``) every rank receives
     the whole ``[B, S]`` prompt and computes only its rows ``[lo, hi)``
@@ -268,11 +281,13 @@ def prefill(
     :func:`~..parallel.ring_attention.ring_attention`, which hands back the
     global K/V, and compression runs on that, with SnapKV's scores computed
     from the window's q rows gathered from their ranks (the JAX sp branch
-    scores with ``window_attention_scores`` too).  Every rank builds the
+    scores with ``window_attention_scores`` too); the other compressing
+    methods raise ``NotImplementedError`` under sp (ROADMAP.md queue 1
+    item 16).  Every rank builds the
     same cache; each example's last-token logits come from the rank that
     holds its row ``true_len - 1``.  Sparse patterns are not applied under
     sp, as in the JAX ring."""
-    _check_supported(cfg, comp, quant)
+    _check_supported(cfg, comp, quant, sp=sp_group is not None)
     B, S = tokens.shape
     L = cfg.num_hidden_layers
     dtype = dtype_of(cfg)
@@ -289,7 +304,9 @@ def prefill(
     cache = init_prefill_cache(cfg, comp, quant, B, cache_capacity, dev)
     # Score emission only when the policy reuses it, sparse or not (JAX
     # :388, 416); window=0 skips it.
-    emit = comp.method == "snapkv" and cfg.sliding_window is None
+    emit = comp.method in SCORES_REUSABLE and cfg.sliding_window is None
+    if rng is None:
+        rng = torch.Generator(device=dev).manual_seed(0)
     win = comp.window_size if emit else 0
     cols = torch.arange(S, device=dev)
     if sp_group is not None:
@@ -321,9 +338,10 @@ def prefill(
                     k[b].repeat_interleave(G, dim=0), None, true_len[b], comp.window_size,
                     q_win=q[b]) for b in range(B)])
         x = _finish_layer(x, attn, lp, cfg)
+        hc = None if head_capacity is None else head_capacity[li]
         store_packed_layer(cache, li, compress_prefill(
             comp, L, policy_capacity, k, v, q, true_len,
-            LayerContext(li, window_scores=window_scores)))
+            LayerContext(li, hc, rng, window_scores)))
     cache.positions.copy_(true_len)
 
     last = (true_len.to(torch.int64) - 1).clamp(min=0)

@@ -36,7 +36,8 @@ Where torch is not JAX (state is updated in place):
   fresh device tensors at each dispatch, so changing them afterwards
   cannot reach a copy in flight.
 
-Prefix caching (``cache_prefix``) and the ``(dp, tp)`` mesh are not ported
+Prefix caching (``cache_prefix``), the ``(dp, tp)`` mesh, and headkv, cam
+and random (capacities and draws through admission) are not ported
 (ROADMAP.md queue 1 item 14).
 """
 
@@ -117,6 +118,10 @@ class ContinuousBatchingEngine:
                  device="cuda", instrument: bool = False):
         check_quant(cfg.quant, cfg.model.head_dim)
         llama._check_supported(cfg.model, cfg.compression, cfg.quant)
+        if cfg.compression.method in ("headkv", "cam", "random"):
+            raise NotImplementedError(
+                f"{cfg.compression.method!r} in the batching engine (head capacities and "
+                "draws through admission) is not ported yet (ROADMAP.md queue 1 item 14)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the engine "

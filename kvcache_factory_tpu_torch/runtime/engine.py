@@ -6,7 +6,14 @@ Prompts are right-padded to the nearest bucket and masked via ``true_len``,
 so each bucket gives results identical to an exact-length run.  With
 ``cfg.quant`` the engine builds the per-token int8 or int4 cache.
 ``sparse_budgets`` are MInference's per-(layer, head) (vertical, slash)
-budgets ``[L, Hq, 2]`` (``policies/minference.py::load_sparse_budgets``).
+budgets ``[L, Hq, 2]`` (``policies/minference.py::load_sparse_budgets``);
+``head_capacity`` HeadKV's per-(layer, cache head) budgets ``[L, H]``
+(``evals/longbench.py::headkv_capacities``), which headkv requires
+(``ValueError`` without them, as JAX's batching engine; JAX's
+``InferenceEngine`` feeds zeros instead).  ``rng`` is the
+``torch.Generator`` cam and random draw from, on the engine's device,
+seeded 0 by default; every call starts from its state at construction, as
+the JAX engine hands one key to every call.
 
 With ``sp > 1`` (JAX ``:66-94, 195-205``) the engine runs on each rank of
 an initialized ``torch.distributed`` group of ``sp`` ranks (the default
@@ -24,7 +31,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..config import CompressionConfig, EngineConfig, GenerationConfig, check_quant
+from ..config import CompressionConfig, EngineConfig, GenerationConfig
+from ..models import llama
 from ..parallel.mesh import SequenceParallelGroup
 from .generate import GenerateResult, generate
 
@@ -32,8 +40,12 @@ from .generate import GenerateResult, generate
 class InferenceEngine:
     def __init__(self, params, cfg: EngineConfig, device="cuda",
                  sparse_budgets: Optional[np.ndarray] = None,
-                 group: Optional["torch.distributed.ProcessGroup"] = None):
-        check_quant(cfg.quant, cfg.model.head_dim)
+                 group: Optional["torch.distributed.ProcessGroup"] = None,
+                 head_capacity: Optional[np.ndarray] = None,
+                 rng: Optional[torch.Generator] = None):
+        llama._check_supported(cfg.model, cfg.compression, cfg.quant, sp=cfg.sharding.sp > 1)
+        if cfg.compression.method == "headkv" and head_capacity is None:
+            raise ValueError("headkv requires head_capacity (per-(layer, head) budgets)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -41,6 +53,12 @@ class InferenceEngine:
         self.params = params
         self.cfg = cfg
         self.sparse_budgets = sparse_budgets
+        self.head_capacity = (None if head_capacity is None else
+                              torch.as_tensor(np.asarray(head_capacity), dtype=torch.int32,
+                                              device=self.device))
+        self.rng = rng if rng is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+        self._rng_state = self.rng.get_state()
         self.buckets = sorted(cfg.prefill_buckets)
         self.sp_group = None
         sp = cfg.sharding.sp
@@ -91,11 +109,13 @@ class InferenceEngine:
         S = toks.shape[1]
         gen_cfg = GenerationConfig(max_new_tokens=max_new_tokens,
                                    eos_token_ids=eos_token_ids)
+        self.rng.set_state(self._rng_state)
         return generate(self.params, self.cfg.model, self._comp_for_bucket(S),
                         gen_cfg, toks, lens,
                         self._cache_capacity(S, max_new_tokens), quant_cfg=self.cfg.quant,
                         device=self.device, return_logits=return_logits,
-                        sparse_budgets=self.sparse_budgets, sp_group=self.sp_group)
+                        sparse_budgets=self.sparse_budgets, sp_group=self.sp_group,
+                        rng=self.rng, head_capacity=self.head_capacity)
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int,
                      eos_token_ids: Sequence[int] = ()) -> List[int]:

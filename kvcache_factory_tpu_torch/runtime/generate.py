@@ -43,6 +43,8 @@ def generate(
     return_logits: bool = False,
     sparse_budgets=None,     # [L, Hq, 2] MInference per-head budgets
     sp_group: Optional[SequenceParallelGroup] = None,
+    rng: Optional[torch.Generator] = None,  # cam, random (llama.prefill)
+    head_capacity=None,                     # [L, H] int (headkv)
 ) -> GenerateResult:
     """Greedy generation.  With ``sp_group`` every rank passes the same
     prompts: prefill splits their rows over the ranks, and decode runs on
@@ -59,9 +61,11 @@ def generate(
 
     if sparse_budgets is not None:
         sparse_budgets = torch.as_tensor(sparse_budgets, device=device).to(torch.int32)
+    if head_capacity is not None:
+        head_capacity = torch.as_tensor(head_capacity, device=device).to(torch.int32)
     pre = llama.prefill(params, model_cfg, comp_cfg, tokens, true_len,
                         cache_capacity, quant=quant_cfg, sparse_budgets=sparse_budgets,
-                        sp_group=sp_group)
+                        sp_group=sp_group, rng=rng, head_capacity=head_capacity)
     vocab = pre.logits_last.shape[-1]
     eos_ids = [e for e in gen_cfg.eos_token_ids if 0 <= e < vocab]
     eos = torch.tensor(list(gen_cfg.eos_token_ids) or [-1], device=dev)

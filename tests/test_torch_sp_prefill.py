@@ -77,20 +77,6 @@ def sp_runs(weights, tmp_path_factory):
     return run
 
 
-@pytest.fixture(scope="module")
-def single(weights):
-    """The port's single-device engine on each (model, cache) case."""
-    out = {}
-
-    def run(model, nbits):
-        if (model, nbits) not in out:
-            eng = tengine.InferenceEngine(weights["tp"], _port_cfg(model, nbits), device="cpu")
-            out[(model, nbits)] = eng.generate_batch(weights["prompts"], MAX_NEW,
-                                                     return_result=True)
-        return out[(model, nbits)]
-    return run
-
-
 @pytest.mark.parametrize("n,model", [(2, "dense"), (2, "sw"), (4, "dense"), (4, "sw")])
 def test_sp_engine_matches_jax_sp_engine(weights, sp_runs, n, model):
     """Every rank's ids equal JAX ``InferenceEngine(ShardingConfig(sp=n))``'s
@@ -105,19 +91,25 @@ def test_sp_engine_matches_jax_sp_engine(weights, sp_runs, n, model):
 
 
 @pytest.mark.parametrize("n,i", [(n, i) for n in sorted(CASES) for i in range(len(CASES[n]))])
-def test_sp_engine_matches_single_device(sp_runs, single, n, i):
+def test_sp_engine_matches_single_device(sp_runs, n, i):
     """The same ids and cache lengths as the port's single-device engine
     (the int8 case too: the JAX engine on the CPU takes its grouped quant
     cache, not the port's per-token one), first-token logits within fp32
-    summation error, and every rank's logits and lengths bitwise equal."""
-    ids, res = single(*CASES[n][i])
+    summation error, and every rank's logits and lengths bitwise equal.
+    The single-device engine runs in the spawn's rank 0 after its sp runs
+    (``torch_sp_worker._engine``), as the ranks run: in a fresh process of
+    one thread with no JAX loaded, so nothing of this test process's state
+    reaches either side."""
     ranks = sp_runs(n)
-    for rank in ranks:
-        assert rank["ids"][i] == ids
-        np.testing.assert_array_equal(rank["lengths"][i], res.cache.lengths.numpy())
-        np.testing.assert_allclose(rank["first_logits"][i], res.logits[:, 0].numpy(),
-                                   **LOGITS_TOL)
-        np.testing.assert_array_equal(rank["first_logits"][i], ranks[0]["first_logits"][i])
+    ids, lengths, logits = ranks[0]["single"][i]
+    for r, rank in enumerate(ranks):
+        assert rank["ids"][i] == ids, f"rank {r}: ids {rank['ids'][i]}, single device {ids}"
+        np.testing.assert_array_equal(rank["lengths"][i], lengths,
+                                      err_msg=f"rank {r}: cache lengths")
+        np.testing.assert_allclose(rank["first_logits"][i], logits, **LOGITS_TOL,
+                                   err_msg=f"rank {r}: first-token logits")
+        np.testing.assert_array_equal(rank["first_logits"][i], ranks[0]["first_logits"][i],
+                                      err_msg=f"rank {r}: logits against rank 0's")
 
 
 @pytest.mark.parametrize("n", sorted(CASES))

@@ -83,28 +83,37 @@ def _ring(rank: int, n: int, cases) -> dict:
     return {"out": outs, "kv_global": kv_global}
 
 
+def _engine_case(c, sp: int):
+    """One case through ``InferenceEngine`` at ``sp`` ranks (1: the
+    single-device engine): ids, cache lengths, first-token logits."""
+    params = params_from_jax(c["params"], device="cpu")
+    quant = None if c["nbits"] is None else tcfg.QuantConfig(nbits=c["nbits"])
+    cfg = tcfg.EngineConfig(model=tcfg.ModelConfig(**c["model"]),
+                            compression=tcfg.CompressionConfig(**c["comp"]), quant=quant,
+                            sharding=tcfg.ShardingConfig(sp=sp), prefill_buckets=c["buckets"])
+    ids, res = InferenceEngine(params, cfg, device="cpu").generate_batch(
+        c["prompts"], c["max_new"], return_result=True)
+    return ids, res.cache.lengths.numpy(), res.logits[:, 0].numpy()
+
+
 def _engine(rank: int, n: int, cases) -> dict:
     """Each case: model, compression and weights (numpy, the JAX layout),
     an optional int8/int4 cache, prompts, new tokens and buckets; this
     rank's ids, cache lengths and first-token logits from
-    ``InferenceEngine`` at ``sp = n``.  Also what an engine whose ``sp``
-    is not the group's size raises."""
+    ``InferenceEngine`` at ``sp = n``.  Rank 0 then runs every case on the
+    single-device engine too (``single``), in this process, after its sp
+    runs: the reference is computed as the ranks are, in a fresh process of
+    one thread that has loaded no JAX.  Also what an engine whose ``sp`` is
+    not the group's size raises."""
     results = {"ids": [], "lengths": [], "first_logits": []}
     for c in cases:
-        params = params_from_jax(c["params"], device="cpu")
-        quant = None if c["nbits"] is None else tcfg.QuantConfig(nbits=c["nbits"])
-        cfg = tcfg.EngineConfig(model=tcfg.ModelConfig(**c["model"]),
-                                compression=tcfg.CompressionConfig(**c["comp"]), quant=quant,
-                                sharding=tcfg.ShardingConfig(sp=n),
-                                prefill_buckets=c["buckets"])
-        ids, res = InferenceEngine(params, cfg, device="cpu").generate_batch(
-            c["prompts"], c["max_new"], return_result=True)
-        results["ids"].append(ids)
-        results["lengths"].append(res.cache.lengths.numpy())
-        results["first_logits"].append(res.logits[:, 0].numpy())
+        for key, value in zip(("ids", "lengths", "first_logits"), _engine_case(c, n)):
+            results[key].append(value)
+    if rank == 0:
+        results["single"] = [_engine_case(c, 1) for c in cases]
     try:
-        InferenceEngine(params, tcfg.EngineConfig(
-            model=cfg.model, sharding=tcfg.ShardingConfig(sp=2 * n),
+        InferenceEngine(params_from_jax(cases[-1]["params"], device="cpu"), tcfg.EngineConfig(
+            model=tcfg.ModelConfig(**cases[-1]["model"]), sharding=tcfg.ShardingConfig(sp=2 * n),
             prefill_buckets=(2 * n,)), device="cpu")
         results["size_mismatch"] = None
     except ValueError as e:
