@@ -87,7 +87,28 @@ Phases, in order; any failure exits non-zero:
    launches, cache lengths, ranks equal, first-token logits and the greedy
    stream against the single-device engine, prefill wall, bytes staged,
    decode ms/step (8c);
-9. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+9. the checkpoint-to-score path at Qwen2-7B-Instruct widths (28 query and
+   4 KV heads, G = 7; q/k/v biases; vocab 152064): (9a) a 4-layer
+   checkpoint of random bf16 weights written in the HF layout (two shards
+   and ``model.safetensors.index.json``, by a minimal safetensors writer
+   here) and read back by ``load_params``: every leaf bitwise equal to the
+   fused, transposed tensors built in memory, the native reader serving,
+   and a SnapKV prefill on the two bitwise equal; (9b) at full depth,
+   random bf16 weights and ``quantize_weights`` (W8A16) through
+   ``InferenceEngine`` with phase 5's SnapKV and requests, once with the
+   bf16 cache (K2) and once with the int8 cache (K3), then one fullkv
+   request with each cache (K2 and K3 at G = 7), then the same requests with
+   the bf16 weights, each with every launch count set to 0 just before it:
+   launches, cache lengths, the last request's logits against the fp32
+   reference forward of the dequantized weights, prefill and decode times, a
+   profiled decode step; K1, K2 and K3 at G = 7 against their plain
+   versions and timed; (9c) sampling on the W8A16 model (support,
+   repeatability, temperature 1e-6 against greedy, no device-to-host copy
+   per decode step, sampling's device time); (9d) the LongBench, RULER and
+   Needle runners through the W8A16 engine on synthetic data with a
+   byte-level tokenizer, then ``score_results_dir``: complete files with the
+   JAX runners' keys, one prediction regenerated, wall per example;
+10. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -96,10 +117,12 @@ Imports only torch, numpy and the port.  The full profiler tables go to
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import datetime
 import json
+import math
 import os
 import re
 import shutil
@@ -113,13 +136,15 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from kvcache_factory_tpu_torch import (CompressionConfig, EngineConfig, ModelConfig, QuantConfig,
-                                       ShardingConfig)
+from kvcache_factory_tpu_torch import (CompressionConfig, EngineConfig, GenerationConfig,
+                                       ModelConfig, QuantConfig, ShardingConfig)
 from kvcache_factory_tpu_torch.cache import quant_cache
+from kvcache_factory_tpu_torch.evals import longbench, needle, ruler, score
 from kvcache_factory_tpu_torch.evals.longbench import headkv_capacities
 from kvcache_factory_tpu_torch.models import llama
 from kvcache_factory_tpu_torch.models.reference import forward_logits
-from kvcache_factory_tpu_torch.models.weights import init_params
+from kvcache_factory_tpu_torch.models.weights import (WEIGHT_QUANT_KEYS, init_params, load_params,
+                                                      quantize_weights)
 from kvcache_factory_tpu_torch.ops.attention import NEG_INF
 from kvcache_factory_tpu_torch.ops.kernels import (_build, decode_attn, decode_attn_quant,
                                                    flash_prefill, pack)
@@ -127,6 +152,7 @@ from kvcache_factory_tpu_torch.parallel.ring_attention import hop_visible, ring_
 from kvcache_factory_tpu_torch.policies import cam
 from kvcache_factory_tpu_torch.policies.base import select_and_pack
 from kvcache_factory_tpu_torch.policies.minference import default_pattern
+from kvcache_factory_tpu_torch.runtime import generate, native
 from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
 
@@ -351,6 +377,26 @@ def k1_pass_ms(call, reps=5):
     return times
 
 
+def time_k1(q, k, v, tl, W, tls, sc):
+    """K1's time beside its plain version, SDPA and its bound (the work this
+    call's data needs), as phase 3 times it."""
+    D, Hq = q.shape[-1], q.shape[1]
+    call = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W)  # noqa: E731
+    ms = event_ms(call)
+    plain_ms = event_ms(lambda: flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W),
+                        iters=3, warmup=1)
+    lib_ms = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True))
+    flops = 4 * D * sum(t * (t + 1) // 2 for t in tls) * Hq
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * sc.numel()
+    bound_ms, bound_by = max((flops / PEAK_BF16_FLOPS * 1e3, "operations"),
+                             (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"K1 timed: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "tflops": flops / ms / 1e9}
+
+
 def phase_k1(rng):
     B, Hq, Hkv, S, D, W = 2, 32, 8, 4096, 128, 8
     tls = [4096, 3000]
@@ -371,34 +417,20 @@ def phase_k1(rng):
         raise SystemExit("K1's tolerance would let a skipped key tile pass")
     del out_ref
 
-    ms = event_ms(call)
+    t = time_k1(q, k, v, tl, W, tls, sc)
+    ms = t["ms"]
     passes = k1_pass_ms(call)
-    plain_ms = event_ms(lambda: flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W),
-                        iters=3, warmup=1)
-    lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    # Work this call's data needs: valid row r attends r+1 columns, a QK and
-    # a PV product of D multiply-adds each (2 FLOP per multiply-add).  The
-    # window scores reuse those probabilities, so they add no product.
-    pairs = sum(t * (t + 1) // 2 for t in tls) * Hq
-    flops = 4 * D * pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * sc.numel()
-    bound_ms, bound_by = max((flops / PEAK_BF16_FLOPS * 1e3, "operations"),
-                             (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
-    log(f"K1 kernel {ms:.4f} ms (main pass {fmt(passes['flash_fwd_kernel'])}, window-score "
-        f"pass {fmt(passes['window_scores_kernel'])}, profiled), plain {plain_ms:.4f} ms, "
-        f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound")
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+    log(f"K1 main pass {fmt(passes['flash_fwd_kernel'])}, window-score pass "
+        f"{fmt(passes['window_scores_kernel'])} (profiled); {t['bound_ms'] / ms:.3f} of the "
+        f"bound")
     return {"name": "flash_prefill", "route": "cuda",
             "source": flash_prefill.SOURCE, "replaces": flash_prefill.REPLACES,
             "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
             "max_abs_err": abs_out, "rel_l2": err_out, "tol": K1_OUT_TOL,
             "skipped_tile_rel_l2": skip_err,
             "scores_max_abs_err": err_sc, "scores_tol": K1_SCORE_TOL,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms, "tflops": flops / ms / 1e9,
-            "bound_fraction": bound_ms / ms, "main_pass_ms": passes["flash_fwd_kernel"],
+            **t, "bound_fraction": t["bound_ms"] / ms, "main_pass_ms": passes["flash_fwd_kernel"],
             "score_pass_ms": passes["window_scores_kernel"], "deterministic": same,
             "edge_cases": [{"rel_l2": e, "max_abs_err": a, "scores_max_abs_err": s}
                            for e, a, s in edge_errs]}
@@ -1700,7 +1732,8 @@ def one_kernel_a_layer(rows, layers, kid, name):
     log(f"{kid} in the decode step's profile: {[(n, key[:60]) for n, key in hits]}; "
         f"combine kernels: {len(combine)}")
     if len(hits) != 1 or hits[0][0] != layers or combine:
-        raise SystemExit(f"the decode step does not run {kid} as one kernel, {layers} times")
+        raise SystemExit(f"the decode step does not run {kid} as one kernel, {layers} times: "
+                         f"{[(n, key[:60]) for n, key in hits]}, {len(combine)} combine kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -2716,6 +2749,639 @@ def phase_sp(rng, params):
             "tie_margin": tie_margin, "parted": parted, "spawn_to_join_s": spawn_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: Qwen2-7B-Instruct: checkpoint, W8A16 weights, sampling, harness
+# ---------------------------------------------------------------------------
+
+# The published config.json of Qwen/Qwen2-7B-Instruct
+# (huggingface.co/Qwen/Qwen2-7B-Instruct): q/k/v biases (found in the
+# checkpoint), an untied lm_head, the window gated off.
+QWEN2_7B_HF_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "vocab_size": 152064,
+    "hidden_size": 3584, "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4, "max_position_embeddings": 32768,
+    "max_window_layers": 28, "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+    "sliding_window": 131072, "use_sliding_window": False, "tie_word_embeddings": False,
+    "bos_token_id": 151643, "eos_token_id": 151645, "hidden_act": "silu",
+    "torch_dtype": "bfloat16"}
+QWEN2_7B = ModelConfig.from_hf_config(QWEN2_7B_HF_CONFIG)
+# The checkpoint written and read back in 9a has the published widths and 4
+# of the 28 layers (about 4 GB on disk): depth is cut for disk space and time.
+LOADER_LAYERS = 4
+QWEN_DIR = LOG_PATH.parent / "qwen2_ckpt"
+HARNESS_DIR = LOG_PATH.parent / "harness"
+QWEN_NEW, FULLKV_NEW, SAMPLE_NEW = 64, 16, 32
+FULLKV = CompressionConfig(method="fullkv")
+SAMPLED = GenerationConfig(max_new_tokens=SAMPLE_NEW, do_sample=True, temperature=0.7, top_k=50,
+                           top_p=0.9)
+NEAR_TIE = 1e-4  # a top-2 logit gap below which temperature 1e-6 may pick the runner-up
+ST_TAGS = {torch.bfloat16: "BF16", torch.float32: "F32"}
+# The keys each JAX runner writes per line (evals/longbench.py, ruler.py,
+# needle.py).
+LONGBENCH_KEYS = {"prompt", "input", "context", "answers", "pred", "length", "dataset",
+                  "language", "all_classes", "_id"}
+RULER_KEYS = {"input", "answers", "pred", "length", "dataset", "index"}
+NEEDLE_KEYS = {"model", "context_length", "depth_percent", "needle", "model_response", "score",
+               "test_duration_seconds", "test_timestamp_utc"}
+
+
+def hf_layer_shapes(cfg):
+    """HF tensor name (in a layer) -> shape, HF ``[out, in]`` layout."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    qd, kvd = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    return {"self_attn.q_proj.weight": (qd, h), "self_attn.q_proj.bias": (qd,),
+            "self_attn.k_proj.weight": (kvd, h), "self_attn.k_proj.bias": (kvd,),
+            "self_attn.v_proj.weight": (kvd, h), "self_attn.v_proj.bias": (kvd,),
+            "self_attn.o_proj.weight": (h, qd), "mlp.gate_proj.weight": (f, h),
+            "mlp.up_proj.weight": (f, h), "mlp.down_proj.weight": (h, f),
+            "input_layernorm.weight": (h,), "post_attention_layernorm.weight": (h,)}
+
+
+def random_hf_state(cfg, seed):
+    """Random bf16 tensors on the card under HF names: matrices normal /
+    sqrt(fan_in), biases 0.1 * normal, norms 1 + 0.1 * normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(name, shape):
+        x = torch.randn(shape, generator=g, device="cuda")
+        if name.endswith("bias"):
+            x = 0.1 * x
+        elif name.endswith("norm.weight"):
+            x = 1 + 0.1 * x
+        else:
+            x = x / math.sqrt(shape[1])
+        return x.to(torch.bfloat16)
+    h, V = cfg.hidden_size, cfg.vocab_size
+    state = {"model.embed_tokens.weight": draw("embed", (V, h))}
+    for li in range(cfg.num_hidden_layers):
+        for name, shape in hf_layer_shapes(cfg).items():
+            state[f"model.layers.{li}.{name}"] = draw(name, shape)
+    state["model.norm.weight"] = draw("model.norm.weight", (h,))
+    state["lm_head.weight"] = draw("lm_head", (V, h))
+    return state
+
+
+def write_safetensors(path, tensors):
+    """A minimal safetensors writer: 8-byte little-endian header length, the
+    JSON header (padded with spaces to 8 bytes), then each tensor's bytes."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_TAGS[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(memoryview(t.detach().contiguous().cpu().view(torch.uint8).numpy()))
+    return 8 + len(blob) + off
+
+
+def write_checkpoint(directory, hf_config, state, n_shards=2):
+    """``state`` as an HF checkpoint: ``config.json``, ``n_shards`` shards in
+    name order, and ``model.safetensors.index.json``."""
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    (directory / "config.json").write_text(json.dumps(hf_config))
+    names = list(state)
+    per = -(-len(names) // n_shards)
+    weight_map, nbytes = {}, 0
+    for i in range(n_shards):
+        shard = f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors"
+        part = {n: state[n] for n in names[i * per:(i + 1) * per]}
+        nbytes += write_safetensors(directory / shard, part)
+        weight_map.update(dict.fromkeys(part, shard))
+    (directory / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+    return nbytes
+
+
+def fused_in_memory(cfg, state):
+    """The port's layout built from ``state`` by hand (independently of
+    ``params_from_state_dict``): q/k/v and gate/up concatenated along the
+    output axis, matrices transposed to input-major, stacked over layers."""
+    lay = lambda li, n: state[f"model.layers.{li}.{n}"]  # noqa: E731
+
+    def stack(fn):
+        return torch.stack([fn(li) for li in range(cfg.num_hidden_layers)])
+    return {
+        "embed": state["model.embed_tokens.weight"],
+        "layers": {
+            "qkv_proj": stack(lambda li: torch.cat([lay(li, f"self_attn.{p}_proj.weight")
+                                                    for p in "qkv"]).T),
+            "o_proj": stack(lambda li: lay(li, "self_attn.o_proj.weight").T),
+            "gate_up_proj": stack(lambda li: torch.cat([lay(li, "mlp.gate_proj.weight"),
+                                                        lay(li, "mlp.up_proj.weight")]).T),
+            "down_proj": stack(lambda li: lay(li, "mlp.down_proj.weight").T),
+            "input_norm": stack(lambda li: lay(li, "input_layernorm.weight")),
+            "post_norm": stack(lambda li: lay(li, "post_attention_layernorm.weight")),
+            "qkv_bias": stack(lambda li: torch.cat([lay(li, f"self_attn.{p}_proj.bias")
+                                                    for p in "qkv"])),
+        },
+        "final_norm": state["model.norm.weight"],
+        "lm_head": state["lm_head.weight"].T,
+    }
+
+
+def flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def phase_loader(rng):
+    """9a: a checkpoint at Qwen2-7B-Instruct's widths, 4 layers, written in
+    the HF layout and read back by ``load_params``: every leaf bitwise equal
+    to the fused tensors built in memory, read by the native reader, and a
+    SnapKV prefill bitwise equal on the two."""
+    hf_cfg = {**QWEN2_7B_HF_CONFIG, "num_hidden_layers": LOADER_LAYERS}
+    cfg = ModelConfig.from_hf_config(hf_cfg)
+    log(f"== 9a loader: Qwen2-7B-Instruct widths, {LOADER_LAYERS} of 28 layers, bf16, 2 shards")
+    state = random_hf_state(cfg, seed=2)
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(QWEN_DIR, hf_cfg, state)
+    write_s = time.perf_counter() - t0
+    want = fused_in_memory(cfg, state)
+    native.SafetensorsFile.bytes_read.update(native=0, python=0)
+    sync()
+    t0 = time.perf_counter()
+    loaded, loaded_cfg = load_params(str(QWEN_DIR), device="cuda")
+    sync()
+    load_s = time.perf_counter() - t0
+    read = dict(native.SafetensorsFile.bytes_read)
+    tensor_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    got, exp = dict(flat_leaves(loaded)), dict(flat_leaves(want))
+    apart = sorted(k for k in exp if k not in got or got[k].dtype != exp[k].dtype
+                   or got[k].shape != exp[k].shape or not torch.equal(got[k], exp[k]))
+    log(f"wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s; load_params read {tensor_bytes / 1e9:.3f} "
+        f"GB in {load_s:.3f} s ({tensor_bytes / load_s / 1e9:.2f} GB/s, files just written: "
+        f"page cache, then host to card); bytes by reader {read}; leaves {sorted(got)}; leaves "
+        f"not bitwise equal to the in-memory fusion: {apart}; config equal "
+        f"{loaded_cfg == cfg}")
+    if apart or sorted(got) != sorted(exp) or loaded_cfg != cfg:
+        raise SystemExit("load_params disagrees with the checkpoint's tensors")
+    if read != {"native": tensor_bytes, "python": 0}:
+        raise SystemExit("the native safetensors reader did not serve the load")
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, 4096))
+    toks, tl = torch.tensor(prompt, device="cuda"), torch.tensor([4096], device="cuda")
+    with torch.no_grad():
+        pre = [llama.prefill(p, cfg, SNAPKV, toks, tl, SNAPKV.max_capacity_prompt + 1)
+               for p in (loaded, want)]
+    sync()
+    same = torch.equal(pre[0].logits_last, pre[1].logits_last) and \
+        torch.equal(pre[0].cache.k, pre[1].cache.k) and torch.equal(pre[0].cache.v, pre[1].cache.v)
+    log(f"SnapKV prefill of one 4096-token request on the loaded and the in-memory weights: "
+        f"logits and cache bitwise equal {same}")
+    if not same:
+        raise SystemExit("prefill on the loaded weights differs from the in-memory ones")
+    del state, want, loaded, pre
+    shutil.rmtree(QWEN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"layers": LOADER_LAYERS, "bytes_on_disk": nbytes, "tensor_bytes": tensor_bytes,
+            "write_s": write_s, "load_s": load_s, "load_gb_s": tensor_bytes / load_s / 1e9,
+            "bytes_by_reader": read, "leaves_bitwise_equal": True, "prefill_bitwise_equal": True}
+
+
+def qwen_params(seed=1):
+    """Random bf16 weights at full depth (``init_params``) plus random q/k/v
+    biases (0.1 * normal)."""
+    params = init_params(QWEN2_7B, seed=seed, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    cfg = QWEN2_7B
+    width = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * cfg.head_dim
+    params["layers"]["qkv_bias"] = (0.1 * torch.randn((cfg.num_hidden_layers, width), generator=g,
+                                                      device="cuda")).to(torch.bfloat16)
+    return params
+
+
+def matmul_weight_bytes(params):
+    """Bytes of the matrices a decode step streams (qkv, o, FFN, lm_head):
+    bf16, or int8 codes plus fp32 scales."""
+    leaves = [params["lm_head"]] + [params["layers"][k] for k in WEIGHT_QUANT_KEYS]
+    return sum(sum(t.numel() * t.element_size() for t in w.values()) if isinstance(w, dict)
+               else w.numel() * w.element_size() for w in leaves)
+
+
+def qwen_run(params, label, comp, quant, prompts, max_new, log_file, check_prefill_a=False):
+    """One ``generate_batch`` through ``InferenceEngine`` at Qwen2-7B widths,
+    every launch count set to 0 just before it and read just after: launches,
+    cache lengths, the last request's logits (prefill and every decode row)
+    against the fp32 reference forward of the same (dequantized) weights;
+    then prefill and decode times and a profiled decode step."""
+    cfg, L, dev = QWEN2_7B, QWEN2_7B.num_hidden_layers, "cuda"
+    decode_id = "K2" if quant is None else QUANT[quant.nbits][0]
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant),
+                             device=dev)
+    reset_counts()
+    ids, res = engine.generate_batch(prompts, max_new, return_result=True)
+    sync()
+    launches = path_launches()
+    steps = max_new - 1
+    expect = dict.fromkeys(launches, 0)
+    expect["K1"], expect[decode_id] = L, L * steps
+    H = res.cache.lengths.shape[2]
+    log(f"== 9b {label}: launches {launches} (expect K1 {L}, {decode_id} {L} x {steps}); "
+        f"cache {type(res.cache).__name__}, {H} heads a request (G = "
+        f"{cfg.num_attention_heads // H}), capacity {res.cache.capacity}")
+    if launches != expect:
+        raise SystemExit(f"the {label} run did not run each kernel the expected number of times")
+    keep = [n if comp.method == "fullkv" else min(n, comp.max_capacity_prompt) for n in
+            map(len, prompts)]
+    got = [sorted(set(res.cache.lengths[:, b].flatten().tolist())) for b in range(len(prompts))]
+    want = [[k + steps] for k in keep]
+    log(f"  cache lengths per request {got} (expect {want}); tokens {[len(x) for x in ids]}")
+    if got != want or [len(x) for x in ids] != [max_new] * len(prompts):
+        raise SystemExit(f"the {label} run left wrong cache lengths or token counts")
+    if not torch.isfinite(res.logits).all():
+        raise SystemExit(f"the {label} run gave non-finite logits")
+    decode_tol = E2E_REL_L2_TOL if quant is None else E2E_QUANT_REL_L2_TOL[quant.nbits]
+    with torch.no_grad():
+        seq = prompts[-1] + ids[-1][:steps]
+        ref = forward_logits(params, cfg, torch.tensor([seq], device=dev))[0, len(prompts[-1]) - 1:]
+        rel_a = None
+        if check_prefill_a:
+            ref_a = forward_logits(params, cfg, torch.tensor([prompts[0]], device=dev))[0, -1]
+            rel_a = rel_l2(res.logits[0, :1], ref_a[None])[0]
+            del ref_a
+    rel_0, _ = rel_l2(res.logits[-1, :1], ref[:1])
+    rel_d, abs_d = rel_l2(res.logits[-1, 1:], ref[1:])
+    top1 = (res.logits[-1].argmax(-1) == ref.argmax(-1)).float().mean().item()
+    del ref
+    log(f"  vs the fp32 reference of the same weights: first token rel L2 {rel_0:.4f}"
+        f"{'' if rel_a is None else f' (request a {rel_a:.4f})'} (tol {E2E_REL_L2_TOL}), "
+        f"{steps} decode rows worst {rel_d:.4f} (max abs {abs_d:.4f}, tol {decode_tol}); "
+        f"top-1 agreement {top1:.3f}")
+    if max(rel_0, rel_a or 0.0) > E2E_REL_L2_TOL or rel_d > decode_tol:
+        raise SystemExit(f"the {label} run's logits disagree with the fp32 reference")
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, 1)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, max_new)
+    sync()
+    step_ms = (time.perf_counter() - t0 - prefill_s) / steps * 1e3
+    rows = []
+    kid, name = ONE_LAUNCH_DECODE["bf16" if quant is None else f"int{quant.nbits}"]
+
+    def check(r):
+        rows.extend(r)
+        one_kernel_a_layer(r, L, kid, name)
+    cur = torch.tensor([x[-1] for x in ids], device=dev)
+    with torch.no_grad():
+        for _ in range(2):
+            llama.decode_step(params, cfg, cur, res.cache, quant=quant)
+        busy_ms = profile_device(lambda: llama.decode_step(params, cfg, cur, res.cache,
+                                                           quant=quant), 4, step_ms,
+                                 f"decode step, Qwen2-7B {label}", log_file, check=check)
+    weight_bytes = matmul_weight_bytes(params)
+    log(f"  {label}: prefill {prefill_s:.3f} s; decode {step_ms:.3f} ms/step wall, device busy "
+        f"{'not measured' if busy_ms is None else f'{busy_ms:.3f} ms'}; matmul weights "
+        f"{weight_bytes / 1e9:.3f} GB")
+    return {"launches": launches, "heads_per_request": H, "cache_capacity": res.cache.capacity,
+            "prefill_s": prefill_s, "decode_ms_per_step": step_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms,
+            "matmul_weight_bytes": weight_bytes, "first_token_rel_l2": rel_0,
+            "first_token_rel_l2_a": rel_a, "decode_rel_l2": rel_d,
+            "decode_rel_l2_tol": decode_tol, "top1_agreement": top1,
+            "top_device_rows": [(ms, n, key[:60]) for ms, n, key in rows[:8]]}
+
+
+def g7_checks(rng):
+    """K1, K2 and K3 at Qwen2-7B's G = 7 against their plain versions, at
+    the path's shapes, and timed: K1 at B=2, 28 / 4 heads, S 4096; K2 and
+    K3 over one fullkv request's 4 KV heads x 2 (the engine's capacity at
+    bucket 4096 with 16 new tokens)."""
+    cfg = QWEN2_7B
+    Hq, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    G = Hq // Hkv
+    log(f"== 9b kernels at G = {G} against their plain versions")
+    tls = [4096, 3000]
+    q, k, v, tl, sc, _, e1, a1, s1 = k1_case(rng, 2, Hq, Hkv, 4096, SNAPKV.window_size, tls)
+    k1 = {"shape": f"B=2 Hq={Hq} Hkv={Hkv} S=4096 w=8 true_len={tls}", "rel_l2": e1,
+          "max_abs_err": a1, "scores_max_abs_err": s1,
+          **time_k1(q, k, v, tl, SNAPKV.window_size, tls, sc)}
+    del q, k, v, sc
+    C = 4096 + FULLKV_NEW + 1
+    H = 2 * Hkv
+    lengths = [4000 + 8] * Hkv + [3000 + 8] * Hkv
+    zeros = np.zeros(H, np.int64)
+    q, kc, vc, kn, vn, lens, _, _, e2, a2 = k2_case(rng, H, G, C, lengths, zeros)
+    k2 = {"shape": f"H={H} G={G} C={C}, lengths 4008 and 3008", "rel_l2": e2, "max_abs_err": a2,
+          **time_k2(q, kc, vc, kn, vn, lens)}
+    q, kc, vc, sc8, kn, vn, lens, _, e3, a3 = kq_case(rng, 8, H, G, C, lengths, zeros)
+    k3 = {"shape": f"H={H} G={G} C={C}, lengths 4008 and 3008", "rel_l2": e3, "max_abs_err": a3,
+          **time_kq(8, q, kc, vc, sc8, kn, vn, lens)}
+    return {"K1": k1, "K2": k2, "K3": k3}
+
+
+class ByteTokenizer:
+    """A byte-level tokenizer with the interface the runners use: each UTF-8
+    byte b is id b + 3; ids 0-2 are special (2 is EOS); decode drops the
+    special ids and every id past the 256 byte ids."""
+
+    eos_token_id = 2
+
+    def encode(self, text, add_special_tokens=True):
+        return [b + 3 for b in text.encode("utf-8")]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes(i - 3 for i in ids if 3 <= i < 259).decode("utf-8", errors="replace")
+
+
+def plain_rouge1(reference, response):
+    """ROUGE-1 f-measure over lower-cased alphanumeric words, without the
+    stemmer ``rouge_score`` applies: the needle score where that package is
+    not installed."""
+    ref = collections.Counter(re.findall(r"[a-z0-9]+", reference.lower()))
+    got = collections.Counter(re.findall(r"[a-z0-9]+", response.lower()))
+    hit = sum((ref & got).values())
+    if not hit:
+        return 0.0
+    p, r = hit / sum(got.values()), hit / sum(ref.values())
+    return 2 * p * r / (p + r)
+
+
+def synthetic_text(rng, n_chars):
+    words = ["river", "stone", "garden", "lamp", "market", "signal", "paper", "orbit", "harbor",
+             "winter", "copper", "violet", "engine", "meadow", "quartz", "ladder"]
+    out, n = [], 0
+    while n < n_chars:
+        sentence = " ".join(rng.choice(words, size=int(rng.integers(6, 14)))).capitalize() + ". "
+        out.append(sentence)
+        n += len(sentence)
+    return "".join(out)[:n_chars]
+
+
+def check_lines(path, n, keys, what, quiet=False):
+    """The ``n`` JSON lines of a runner's output file, each with ``keys`` and
+    a string prediction; raises otherwise."""
+    with open(path) as f:
+        lines = [json.loads(x) for x in f]
+    bad = [sorted(set(r) ^ keys) for r in lines if set(r) != keys]
+    if not quiet or bad or len(lines) != n:
+        log(f"  {what}: {len(lines)} lines (expect {n}); keys as the JAX runner writes them "
+            f"{not bad}")
+    if len(lines) != n or bad or not all(isinstance(r.get("pred", r.get("model_response")), str)
+                                          for r in lines):
+        raise SystemExit(f"the {what} output file is incomplete or has other keys")
+    return lines
+
+
+def phase_harness(rng, params, log_file):
+    """9d: LongBench, RULER and Needle through the W8A16 engine (SnapKV,
+    bf16 cache) with a byte-level tokenizer on synthetic data, then the
+    scorer; every launch count set to 0 just before and read just after."""
+    cfg, L = QWEN2_7B, QWEN2_7B.num_hidden_layers
+    tok = ByteTokenizer()
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV), device="cuda")
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    data, out = HARNESS_DIR / "data", HARNESS_DIR / "out"
+    (data / "LongBench").mkdir(parents=True)
+    (data / "RULER" / "4096").mkdir(parents=True)
+    (data / "haystack").mkdir(parents=True)
+    model_name = "qwen2-7b-instruct"
+    model_max = longbench.model_max_len(model_name)
+    answers = {"hotpotqa": lambda i: [f"answer {i}"],
+               "passage_retrieval_en": lambda i: [f"Paragraph {i + 3}"]}
+    for dataset, ans in answers.items():
+        with open(data / "LongBench" / f"{dataset}.jsonl", "w") as f:
+            for i in range(2):
+                f.write(json.dumps({"input": f"Which {i} came first?", "context":
+                                    synthetic_text(rng, 7000), "answers": ans(i), "length": 7000,
+                                    "dataset": dataset, "language": "en", "all_classes": None,
+                                    "_id": f"{dataset}-{i}"}) + "\n")
+    with open(data / "RULER" / "4096" / "niah_single_1.jsonl", "w") as f:
+        for i in range(2):
+            f.write(json.dumps({"index": i, "input": synthetic_text(rng, 3800) + " The special "
+                                f"magic number is {7301 + i}. What is it?",
+                                "outputs": [str(7301 + i)], "length": 3900}) + "\n")
+    for i in range(3):
+        (data / "haystack" / f"essay{i}.txt").write_text(synthetic_text(rng, 4000))
+    try:
+        import rouge_score  # noqa: F401
+        scorer = "rouge_score (stemmed)"
+    except ImportError:
+        scorer = "unstemmed ROUGE-1 (rouge_score is not installed)"
+
+    reset_counts()
+    t0 = time.perf_counter()
+    lb_dir = out / "longbench" / f"{model_name}_{SNAPKV.max_capacity_prompt}"
+    lb_files = {}
+    for dataset in answers:
+        lb_files[dataset] = lb_dir / dataset / "snapkv.json"
+        longbench.run_dataset(engine, tok, dataset, str(data / "LongBench" / f"{dataset}.jsonl"),
+                              str(lb_files[dataset]), model_max, progress=False)
+    lb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ruler_dir = out / "ruler" / f"{model_name}_{SNAPKV.max_capacity_prompt}" / "4096"
+    ruler_file = ruler_dir / "niah_single_1" / "snapkv.json"
+    ruler.run_task(engine, tok, "niah_single_1", str(data / "RULER" / "4096" /
+                                                     "niah_single_1.jsonl"),
+                   str(ruler_file), model_max, progress=False)
+    ruler_s = time.perf_counter() - t0
+    real_rouge = needle.rouge1_score
+    if not scorer.startswith("rouge_score"):
+        needle.rouge1_score = plain_rouge1
+    try:
+        t0 = time.perf_counter()
+        version = f"{model_name}_snapkv_{SNAPKV.max_capacity_prompt}"
+        tester = needle.NeedleHaystackTester(
+            engine, tok, str(data / "haystack"), str(out / "needle"),
+            context_lengths=[2048, 8000], depth_percents=[0, 50, 100], model_version=version,
+            print_status=False)
+        cells = tester.run()
+        needle_s = time.perf_counter() - t0
+    finally:
+        needle.rouge1_score = real_rouge
+    sync()
+    launches = path_launches()
+    n_prompts = 4 + 2 + len(cells)
+    log(f"== 9d harness through the W8A16 engine (snapkv, bf16 cache), byte tokenizer, "
+        f"synthetic data: launches {launches} (expect K1 {L} x {n_prompts} prompts, K2 > 0, "
+        f"the others 0); needle scorer: {scorer}")
+    if launches["K1"] != L * n_prompts or launches["K2"] == 0 or \
+            any(n for kid, n in launches.items() if kid not in ("K1", "K2")):
+        raise SystemExit("the harness did not run each kernel the expected number of times")
+    lines = {d: check_lines(p, 2, LONGBENCH_KEYS, f"LongBench {d}") for d, p in lb_files.items()}
+    check_lines(ruler_file, 2, RULER_KEYS, "RULER niah_single_1")
+    cell_dir = out / "needle" / "results" / version
+    cell_files = sorted(cell_dir.glob("*.json"))
+    for p in cell_files:
+        check_lines(p, 1, NEEDLE_KEYS, f"needle {p.name}", quiet=True)
+    log(f"  needle: {len(cell_files)} cell files (expect 6), each one line with the JAX "
+        f"runner's keys; scores {[round(c['score'], 3) for c in cells]}")
+    if len(cells) != 6 or len(cell_files) != 6 or not all(0 <= c["score"] <= 10 for c in cells):
+        raise SystemExit("the needle sweep did not write its six cells")
+    # One prediction regenerated through generate_ids equals the file's.
+    first = lines["hotpotqa"][0]
+    ids = longbench.middle_truncate(tok.encode(first["prompt"]), model_max, tok)
+    again = tok.decode(engine.generate_ids(ids, longbench.DATASET2MAXLEN["hotpotqa"],
+                                           [tok.eos_token_id]))
+    log(f"  hotpotqa example 0 regenerated: {len(ids)} prompt tokens; prediction equal to the "
+        f"file's {again == first['pred']}")
+    if again != first["pred"]:
+        raise SystemExit("a regenerated prediction differs from the runner's file")
+    with contextlib.redirect_stdout(log_file):  # a line per dataset and method
+        lb_rows = score.score_results_dir(str(lb_dir), "longbench")
+        ruler_rows = score.score_results_dir(str(ruler_dir), "ruler")
+    snap = lambda rows: rows[[r[0] for r in rows].index("SnapKV")]  # noqa: E731
+    scored = {d: snap(lb_rows)[lb_rows[0].index(d)] for d in answers}
+    scored["niah_single_1"] = snap(ruler_rows)[ruler_rows[0].index("niah_single_1")]
+    log(f"  score_results_dir: SnapKV row {scored} (-1 is a file that did not score)")
+    if any(v == -1 for v in scored.values()):
+        raise SystemExit("score_results_dir could not score a runner's file")
+    per = {"longbench_s_per_example": lb_s / 4, "ruler_s_per_example": ruler_s / 2,
+           "needle_s_per_cell": needle_s / len(cells)}
+    log(f"  wall per example: LongBench {per['longbench_s_per_example']:.3f} s (about 7.2k "
+        f"tokens, 32 new), RULER {per['ruler_s_per_example']:.3f} s (about 3.9k, 64 new), "
+        f"needle {per['needle_s_per_cell']:.3f} s a cell (2048 or 8000 tokens, 30 new)")
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    return {"launches": launches, "needle_scorer": scorer, "scores": scored, **per}
+
+
+def host_reads(fn):
+    """Device-to-host copies and host reads of a device scalar during
+    ``fn``, from the profiler: (DtoH memcpy events, ``aten::_local_scalar_dense`` calls)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    dtoh = scalar = 0
+    for evt in prof.key_averages():
+        if "DtoH" in evt.key or "Device -> Pageable" in evt.key or "Device -> Pinned" in evt.key:
+            dtoh += evt.count
+        if evt.key == "aten::_local_scalar_dense":
+            scalar += evt.count
+    return dtoh, scalar
+
+
+def phase_sampling(params, prompts):
+    """9c: ``generate(do_sample=True, temperature=0.7, top_k=50, top_p=0.9)``
+    on the W8A16 model: every token in its step's masked support, two runs
+    from one seed bitwise equal, temperature 1e-6 greedy up to the first
+    near-tie, no device-to-host copy per decode step; sampling's device time
+    per step."""
+    cfg = QWEN2_7B
+    toks = np.zeros((len(prompts), 4096), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    lens = np.array([len(p) for p in prompts], np.int32)
+    cap = SNAPKV.layer_capacity(cfg.num_hidden_layers, 4096) + SAMPLE_NEW + 1
+
+    def run(gen, seed=11):
+        return generate.generate(params, cfg, SNAPKV, gen, toks, lens, cap, device="cuda",
+                                 return_logits=True,
+                                 rng=torch.Generator(device="cuda").manual_seed(seed))
+    t0 = time.perf_counter()
+    a = run(SAMPLED)
+    sync()
+    sampled_s = time.perf_counter() - t0
+    b = run(SAMPLED)
+    masked = generate.mask_logits(a.logits, SAMPLED)
+    chosen = masked.gather(-1, a.tokens[..., None])[..., 0]
+    support = torch.isfinite(masked).sum(-1)
+    in_support = bool(torch.isfinite(chosen).all())
+    same = torch.equal(a.tokens, b.tokens) and torch.equal(a.logits, b.logits)
+    t0 = time.perf_counter()
+    greedy = run(GenerationConfig(max_new_tokens=SAMPLE_NEW))
+    sync()
+    greedy_s = time.perf_counter() - t0
+    cold = run(dataclasses.replace(SAMPLED, temperature=1e-6))
+    top2 = greedy.logits.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu()
+    compared, cold_ok = [], True
+    for r in range(len(prompts)):
+        # Token j comes from step j's logits: a near-tie there may go to the
+        # runner-up, so the streams are compared on the steps before it.
+        ties = (gap[r] < NEAR_TIE).nonzero()
+        upto = int(ties[0]) if len(ties) else SAMPLE_NEW
+        compared.append(upto)
+        cold_ok &= torch.equal(cold.tokens[r, :upto], greedy.tokens[r, :upto])
+    log(f"== 9c sampling (T 0.7, top-k 50, top-p 0.9, {SAMPLE_NEW} tokens, B=2) on the W8A16 "
+        f"model: every token in its step's masked support {in_support} (support sizes "
+        f"{int(support.min())}-{int(support.max())}); two runs from one seed bitwise equal "
+        f"{same}; T 1e-6 equal to greedy over the first {compared} steps (before the first "
+        f"top-2 gap below {NEAR_TIE}) {cold_ok}")
+    if not (in_support and same and cold_ok):
+        raise SystemExit("sampling drew outside its support, or is not repeatable, or T 1e-6 "
+                         "is not greedy")
+    short = dataclasses.replace(SAMPLED, max_new_tokens=4)
+    reads = {n: host_reads(lambda n=n: run(dataclasses.replace(short, max_new_tokens=n)))
+             for n in (4, 12)}
+    log(f"  device-to-host copies and host scalar reads per generate (no EOS ids): 4 tokens "
+        f"{reads[4]}, 12 tokens {reads[12]}; the 8 decode steps between add none "
+        f"{reads[4] == reads[12]}")
+    if reads[4] != reads[12]:
+        raise SystemExit("a sampled decode step reads the device from the host")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    row = a.logits[:, 1].contiguous()
+    noise = generate.gumbel_draw(g, 1, tuple(row.shape))
+    draw_ms = event_ms(lambda: generate.sample_token(row, SAMPLED, noise), iters=20)
+    noise_ms = event_ms(lambda: generate.gumbel_draw(g, 1, tuple(row.shape)), iters=20)
+    per_step = (sampled_s - greedy_s) / (SAMPLE_NEW - 1) * 1e3
+    log(f"  sampling's device time per step at B=2, V={cfg.vocab_size}: mask and draw "
+        f"{draw_ms:.4f} ms, Gumbel noise {noise_ms:.4f} ms (events); whole request sampled "
+        f"{sampled_s:.3f} s against greedy {greedy_s:.3f} s ({per_step:.3f} ms/step wall apart, "
+        f"host-bound)")
+    return {"in_support": in_support, "repeatable": same, "cold_equals_greedy_steps": compared,
+            "host_reads_4_vs_12_tokens": [list(reads[4]), list(reads[12])],
+            "mask_and_draw_ms": draw_ms, "gumbel_ms": noise_ms, "sampled_request_s": sampled_s,
+            "greedy_request_s": greedy_s, "wall_ms_per_step_apart": per_step}
+
+
+def phase_qwen2(rng, log_file):
+    """Phase 9: the checkpoint-to-score path at Qwen2-7B-Instruct widths."""
+    cfg = QWEN2_7B
+    loader = phase_loader(rng)
+    log(f"== 9b Qwen2-7B-Instruct widths, 28 layers, random bf16 weights + q/k/v biases (seed "
+        f"1), then quantize_weights (W8A16)")
+    params = qwen_params()
+    t0 = time.perf_counter()
+    qparams = quantize_weights(params)
+    sync()
+    quant_s = time.perf_counter() - t0
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
+    full_prompt = [rng.integers(0, cfg.vocab_size, size=4000).tolist()]
+    runs = {"w8a16_bf16": qwen_run(qparams, "W8A16 weights, bf16 cache", SNAPKV, None, prompts,
+                                   QWEN_NEW, log_file, check_prefill_a=True),
+            "w8a16_int8": qwen_run(qparams, "W8A16 weights, int8 cache", SNAPKV,
+                                   QuantConfig(nbits=8), prompts, QWEN_NEW, log_file),
+            "w8a16_fullkv_bf16": qwen_run(qparams, "W8A16 weights, fullkv, bf16 cache", FULLKV,
+                                          None, full_prompt, FULLKV_NEW, log_file),
+            "w8a16_fullkv_int8": qwen_run(qparams, "W8A16 weights, fullkv, int8 cache", FULLKV,
+                                          QuantConfig(nbits=8), full_prompt, FULLKV_NEW,
+                                          log_file),
+            "bf16_bf16": qwen_run(params, "bf16 weights, bf16 cache", SNAPKV, None, prompts,
+                                  QWEN_NEW, log_file)}
+    torch.cuda.empty_cache()
+    b16, w8 = runs["bf16_bf16"], runs["w8a16_bf16"]
+    log(f"W8A16 against bf16 weights (snapkv, bf16 cache, B=2): prefill {w8['prefill_s']:.3f} / "
+        f"{b16['prefill_s']:.3f} s; decode busy {w8['device_busy_ms_per_step']} / "
+        f"{b16['device_busy_ms_per_step']} ms a step, wall {w8['decode_ms_per_step']:.3f} / "
+        f"{b16['decode_ms_per_step']:.3f} ms; matmul weights {w8['matmul_weight_bytes'] / 1e9:.3f}"
+        f" / {b16['matmul_weight_bytes'] / 1e9:.3f} GB; quantize_weights {quant_s:.2f} s")
+    g7 = g7_checks(rng)
+    del params
+    torch.cuda.empty_cache()
+    sampling = phase_sampling(qparams, prompts)
+    harness = phase_harness(rng, qparams, log_file)
+    del qparams
+    torch.cuda.empty_cache()
+    return {"model": "Qwen2-7B-Instruct widths (28 layers; the loader's checkpoint 4), random "
+                     "weights (seeds 1, 2) with q/k/v biases",
+            "compression": "snapkv 2048/8/7 maxpool, group_reduce none; fullkv",
+            "requests": f"B=2: 4096 and 1500 prompt tokens, {QWEN_NEW} new; fullkv one of 4000, "
+                        f"{FULLKV_NEW} new; bucket 4096",
+            "loader": loader, "quantize_s": quant_s, "runs": runs, "g7": g7,
+            "sampling": sampling, "harness": harness}
+
 # K3's and K4's kernels in csrc/decode_attn_quant.cu, by a part of their names.
 QUANT_KERNELS = {"K3": "quant8_decode_kernel", "K4": "quant4_decode_kernel"}
 
@@ -2760,26 +3426,51 @@ def sass_i2f(lib, name):
     return {fn: tuple(c) for fn, c in counts.items()}
 
 
+# Idle time on each side of a profiled window's edges, and the profiles
+# taken before an incomplete device trace fails the run (profile_device).
+PROFILE_MARGIN_S = 0.1
+PROFILE_ATTEMPTS = 3
+
+
 def profile_device(fn, reps, wall_ms, what, log_file, check=None):
     """Device time per call of ``fn`` from ``torch.profiler`` (device-side
     kernel and copy events only), printed with the top kernels beside the
     unprofiled wall time ``wall_ms``; None when the profiler sees no device
     time.  ``check``, if given, gets the rows (ms, launches per call, kernel
     name) of every device kernel.  One warm-up call runs under the profiler
-    first and is not counted: the device trace can start a few launches
-    late (a decode profile once missed the first two layers' kernels)."""
+    first and is not counted.  The device's timestamps can sit off the host
+    clock that bounds the recorded window, so kernels near its edges fall
+    out (a decode profile lost its first two layers' kernels): the card
+    idles ``PROFILE_MARGIN_S`` on each side of every edge.  Every call of
+    ``fn`` launches the same kernels, so a kernel counted a number of times
+    that ``reps`` does not divide marks an incomplete trace: it is taken
+    again, up to ``PROFILE_ATTEMPTS`` times, before the run fails."""
     schedule = torch.profiler.schedule(wait=0, warmup=1, active=reps, repeat=1)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA],
-                                schedule=schedule) as prof:
-        for _ in range(reps + 1):
-            fn()
-            sync()
-            prof.step()
-    # The schedule's ProfilerStep* spans show on the device too: not kernels.
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=schedule) as prof:
+            for i in range(reps + 1):
+                fn()
+                sync()
+                if i in (0, reps):
+                    time.sleep(PROFILE_MARGIN_S)
+                prof.step()
+                if i == 0:
+                    time.sleep(PROFILE_MARGIN_S)
+        # The schedule's ProfilerStep* spans show on the device too: not kernels.
+        events = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
+                  and not evt.key.startswith("ProfilerStep")]
+        partial = [(evt.count, evt.key[:60]) for evt in events if evt.count % reps]
+        if not partial:
+            break
+        log(f"profile ({what}), attempt {attempt}: incomplete device trace, counts over "
+            f"{reps} calls {partial[:4]}")
+    else:
+        raise SystemExit(f"profile ({what}): the device trace was incomplete "
+                         f"{PROFILE_ATTEMPTS} times")
     rows = sorted(((evt.self_device_time_total / reps / 1e3, evt.count / reps, evt.key)
-                   for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
-                   and not evt.key.startswith("ProfilerStep")), reverse=True)
+                   for evt in events), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         log(f"profile ({what}): the profiler reported no device time (not measured)")
@@ -2859,6 +3550,9 @@ def main():
         torch.cuda.empty_cache()
         minf = phase_minference(rng, params, log_file)
         sp = phase_sp(rng, params)
+        del params
+        torch.cuda.empty_cache()
+        qwen = phase_qwen2(rng, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -2873,10 +3567,21 @@ def main():
     k1_vs["launches"] = minf["vertical_slash"]["launches"]["K1-VS"]
     # K1-ml on the sp run: every rank's hops (32 on rank 0, 64 on rank 1).
     k1_ml["launches"] = sum(rk["launches"]["K1-ml"] for rk in sp["ranks"])
+    # Phase 9 at Qwen2-7B widths (G = 7): K1 on the W8A16 path's prefill,
+    # K2 and K3 on its fullkv runs (the snapkv runs keep a cache per query
+    # head, G = 1); each beside the kernel's direct check and time at G = 7.
+    runs = qwen["runs"]
+    k1["qwen2"] = {"launches": runs["w8a16_bf16"]["launches"]["K1"], "g7": qwen["g7"]["K1"]}
+    k2["qwen2"] = {"launches": runs["w8a16_fullkv_bf16"]["launches"]["K2"],
+                   "launches_snapkv_g1": runs["w8a16_bf16"]["launches"]["K2"],
+                   "g7": qwen["g7"]["K2"]}
+    k3["qwen2"] = {"launches": runs["w8a16_fullkv_int8"]["launches"]["K3"],
+                   "launches_snapkv_g1": runs["w8a16_int8"]["launches"]["K3"],
+                   "g7": qwen["g7"]["K3"]}
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
-                      "sp": {**sp, "fold_emulated": sp_fold}, "card": smi}))
+                      "sp": {**sp, "fold_emulated": sp_fold}, "qwen2": qwen, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

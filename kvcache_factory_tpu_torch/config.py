@@ -11,6 +11,7 @@ their ROADMAP.md item, rather than being silently ignored.
 
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
@@ -79,6 +80,12 @@ class ModelConfig:
             num_local_experts=cfg.get("num_local_experts", 0) or 0,
             num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
         )
+
+    @staticmethod
+    def from_json(path: str) -> "ModelConfig":
+        """Build from a HF checkpoint's ``config.json``."""
+        with open(path) as f:
+            return ModelConfig.from_hf_config(json.load(f))
 
 
 def _resolve_sliding_window(cfg: dict):

@@ -51,11 +51,23 @@ from ..policies.scoring import window_attention_scores, window_query_rows
 
 
 def wdot(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for floating-point weights."""
+    """``x @ w``, where ``w`` may be a W8A16 leaf ``{"q": int8 [..., in,
+    out], "s": fp32 [..., 1, out]}`` (``models/weights.py::quantize_weights``).
+    The per-out-channel scale commutes with the contraction, so it is
+    applied after the dot: ``(x @ q) * s`` (JAX ``llama.py:40-64``).  The
+    stored scale is bf16-exact, so its cast to a bf16 activation dtype is
+    lossless.  Plain torch materializes ``q`` in ``x``'s dtype on every
+    call (XLA fuses that convert into the dot's read), so this path reads
+    the int8 weights, writes and reads them again in bf16: more bytes than
+    the bf16 weights alone."""
     if isinstance(w, dict):
-        raise NotImplementedError("W8A16 weights are not ported yet "
-                                  "(ROADMAP.md queue 1 item 9)")
+        return (x @ w["q"].to(x.dtype)) * w["s"].squeeze(-2).to(x.dtype)
     return x @ w
+
+
+def wshape(w) -> tuple:
+    """Shape of a possibly weight-quantized matrix."""
+    return tuple(w["q"].shape if isinstance(w, dict) else w.shape)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -153,7 +165,7 @@ def swiglu_fused(x: torch.Tensor, gate_up_w: torch.Tensor, down_w: torch.Tensor,
     gu = wdot(x, gate_up_w)
     if gate_up_b is not None:
         gu = gu + gate_up_b
-    ffn = gate_up_w.shape[-1] // 2
+    ffn = wshape(gate_up_w)[-1] // 2
     out = wdot(F.silu(gu[..., :ffn]) * gu[..., ffn:], down_w)
     return out if down_b is None else out + down_b
 
@@ -189,7 +201,9 @@ def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
 
 
 def _layer(params: dict, li: int) -> dict:
-    return {name: w[li] for name, w in params["layers"].items()}
+    """Layer ``li``'s leaves; a W8A16 leaf gives its layer's ``q`` and ``s``."""
+    return {name: ({k: t[li] for k, t in w.items()} if isinstance(w, dict) else w[li])
+            for name, w in params["layers"].items()}
 
 
 def _qkv(x, lp, cfg, cos, sin):
@@ -272,8 +286,9 @@ def prefill(
     K1 emits the window scores for every method that reuses them
     (``SCORES_REUSABLE``).  cam and random draw from ``rng`` (a generator
     on the tokens' device seeded 0 when None, as JAX's ``PRNGKey(0)``);
-    headkv reads ``head_capacity[li]`` (``policies/methods.py`` raises
-    ``ValueError`` without it; the JAX prefill feeds zeros).
+    headkv reads ``head_capacity[li]``; without it every head's budget is 0
+    and each head keeps only its window, as the JAX prefill feeds zeros
+    (``llama.py:350-351``).
 
     With ``sp_group`` (JAX ``sp_mesh``, ``:381-405``) every rank receives
     the whole ``[B, S]`` prompt and computes only its rows ``[lo, hi)``
@@ -307,6 +322,10 @@ def prefill(
     emit = comp.method in SCORES_REUSABLE and cfg.sliding_window is None
     if rng is None:
         rng = torch.Generator(device=dev).manual_seed(0)
+    if head_capacity is None and comp.method == "headkv":
+        head_capacity = torch.zeros(
+            (L, comp.cache_heads(cfg.num_attention_heads, cfg.num_key_value_heads)),
+            dtype=torch.int32, device=dev)
     win = comp.window_size if emit else 0
     cols = torch.arange(S, device=dev)
     if sp_group is not None:

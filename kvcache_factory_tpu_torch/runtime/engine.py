@@ -8,11 +8,11 @@ so each bucket gives results identical to an exact-length run.  With
 ``sparse_budgets`` are MInference's per-(layer, head) (vertical, slash)
 budgets ``[L, Hq, 2]`` (``policies/minference.py::load_sparse_budgets``);
 ``head_capacity`` HeadKV's per-(layer, cache head) budgets ``[L, H]``
-(``evals/longbench.py::headkv_capacities``), which headkv requires
-(``ValueError`` without them, as JAX's batching engine; JAX's
-``InferenceEngine`` feeds zeros instead).  ``rng`` is the
-``torch.Generator`` cam and random draw from, on the engine's device,
-seeded 0 by default; every call starts from its state at construction, as
+(``evals/longbench.py::headkv_capacities``); without them prefill feeds
+zeros and every head keeps only its window, as JAX's ``InferenceEngine``
+does (JAX's batching engine refuses headkv without them; the port's
+refuses headkv, ROADMAP.md item 1.10).  ``rng`` is the ``torch.Generator``
+cam and random draw from, on the engine's device, seeded 0 by default; every call starts from its state at construction, as
 the JAX engine hands one key to every call.
 
 With ``sp > 1`` (JAX ``:66-94, 195-205``) the engine runs on each rank of
@@ -44,8 +44,6 @@ class InferenceEngine:
                  head_capacity: Optional[np.ndarray] = None,
                  rng: Optional[torch.Generator] = None):
         llama._check_supported(cfg.model, cfg.compression, cfg.quant, sp=cfg.sharding.sp > 1)
-        if cfg.compression.method == "headkv" and head_capacity is None:
-            raise ValueError("headkv requires head_capacity (per-(layer, head) budgets)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "

@@ -158,8 +158,19 @@ def test_unported_paths_raise(setup, what):
     ``tests/test_torch_quant_decode.py``'s.  Prefix caching waits for its
     ROADMAP item, and chunked prefill refuses MInference's sparse masks, as
     the JAX package does (sliding-window models run: ``tests/
-    test_torch_sliding_window.py``)."""
+    test_torch_sliding_window.py``).  Sampling is ported: its case now
+    holds that the refusal is gone and that temperature 1e-6 gives the
+    greedy stream (parity with JAX in ``tests/test_torch_sampling.py``)."""
     s = setup
+    if what == "sampling":
+        args = (s["tp"], s["tc"], s["tcomp"])
+        greedy = tgenerate.generate(*args, tcfg.GenerationConfig(max_new_tokens=6),
+                                    s["toks"], s["lens"], 80, device="cpu")
+        sampled = tgenerate.generate(*args, tcfg.GenerationConfig(
+            max_new_tokens=6, do_sample=True, temperature=1e-6), s["toks"], s["lens"], 80,
+            device="cpu", rng=torch.Generator().manual_seed(3))
+        assert torch.equal(sampled.tokens, greedy.tokens)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"
                        if what.startswith("quant") else "ROADMAP"):
         if what == "quant":
@@ -175,24 +186,23 @@ def test_unported_paths_raise(setup, what):
                 s["tp"], tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"]),
                 prefill_chunk_tokens=128, device="cpu")
             eng.cache_prefix([1, 2, 3])
-        elif what == "sparse_chunked":
+        else:
             comp = tcfg.CompressionConfig(method="minference", sparse_prefill=("ashape", 1, 1, 4))
             tchunked.prefill_chunked(s["tp"], s["tc"], comp, torch.tensor(s["toks"]),
                                      torch.tensor(s["lens"]), 80, chunk_size=64)
-        else:
-            tgenerate.generate(s["tp"], s["tc"], s["tcomp"],
-                               tcfg.GenerationConfig(do_sample=True), s["toks"],
-                               s["lens"], 80, device="cpu")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (the serving modules named below among
-    them), and chip_smoke.py, import without pulling in jax or
-    kvcache_factory_tpu.  An import hook refuses those names, so
-    an import fails even where something else loaded jax first."""
+    """Every module of the port (the serving, loading and eval modules
+    named below among them), and chip_smoke.py, import without pulling in
+    jax or kvcache_factory_tpu, nor ml_dtypes, transformers or safetensors
+    (the CLI imports transformers' tokenizer only when it builds an
+    engine).  An import hook refuses those names, so an import fails even
+    where something else loaded one of them first."""
     code = (
         "import importlib, importlib.abc, pkgutil, sys\n"
-        "BANNED = ('jax', 'jaxlib', 'kvcache_factory_tpu')\n"
+        "BANNED = ('jax', 'jaxlib', 'kvcache_factory_tpu', 'ml_dtypes', 'transformers',\n"
+        "          'safetensors')\n"
         "class Refuse(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BANNED:\n"
@@ -205,11 +215,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in BANNED]\n"
         "assert not bad, bad\n"
-        "for m in ('models.chunked_prefill', 'runtime.native', 'runtime.batching'):\n"
+        "for m in ('models.chunked_prefill', 'runtime.native', 'runtime.batching',\n"
+        "          'models.weights', 'evals.cli_common', 'evals.longbench', 'evals.ruler',\n"
+        "          'evals.needle', 'evals.needle_viz', 'evals.metrics', 'evals.score'):\n"
         "    assert 'kvcache_factory_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('kvcache_factory_tpu_torch') for m in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 23  # the whole package was imported
+    assert int(out.stdout.strip()) >= 31  # the whole package was imported

@@ -158,5 +158,19 @@ def test_configs_match_jax():
 
 
 def test_port_rejects_weight_quantization():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.wdot(torch.ones(2, 4), {"q": torch.ones(4, 4), "s": torch.ones(1, 4)})
+    """W8A16 is ported: ``wdot`` on a ``{"q", "s"}`` leaf is ``(x @ q) * s``
+    (parity with JAX in ``tests/test_torch_weights.py``).  What the port
+    still rejects, as the JAX package does, is int4 weights and quantizing
+    twice."""
+    from kvcache_factory_tpu_torch.models.weights import quantize_weights
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, generator=g)
+    q = torch.randint(-127, 128, (4, 3), generator=g, dtype=torch.int8)
+    s = torch.rand(1, 3, generator=g)
+    torch.testing.assert_close(tl.wdot(x, {"q": q, "s": s}), x @ (q.float() * s),
+                               rtol=1e-6, atol=1e-6)
+    params = {"lm_head": torch.randn(4, 3, generator=g), "layers": {}}
+    with pytest.raises(NotImplementedError, match="nbits=8"):
+        quantize_weights(params, nbits=4)
+    with pytest.raises(ValueError, match="already weight-quantized"):
+        quantize_weights(quantize_weights(params))

@@ -24,6 +24,7 @@ from kvcache_factory_tpu import config as jcfg
 from kvcache_factory_tpu.evals.longbench import headkv_capacities as jax_headkv_capacities
 from kvcache_factory_tpu.models import llama as jllama
 from kvcache_factory_tpu.models import weights as jweights
+from kvcache_factory_tpu.runtime import engine as jengine
 from kvcache_factory_tpu.runtime.generate import generate as jax_generate
 from kvcache_factory_tpu_torch import config as tcfg
 from kvcache_factory_tpu_torch.evals.longbench import headkv_capacities
@@ -158,8 +159,11 @@ def test_engine_draws_repeat_from_the_generators_state(model):
 @pytest.mark.parametrize("what", ["think_packed", "sp", "headkv_without_capacities",
                                   "batching_headkv", "batching_cam", "batching_random"])
 def test_refusals_name_their_roadmap_item(model, what):
-    """What this slice leaves unported raises, naming its ROADMAP.md item;
-    headkv without capacities is a ValueError, as in JAX's batching engine."""
+    """What this slice leaves unported raises, naming its ROADMAP.md item.
+    headkv without capacities is no longer refused: as JAX's
+    ``InferenceEngine`` does, prefill feeds zero capacities and every head
+    keeps only its window; that case holds the port's engine to JAX's
+    (streams, lengths, first-token logits)."""
     m = model
     cfg = lambda **kw: tcfg.EngineConfig(  # noqa: E731
         model=m["tc"], compression=tcfg.CompressionConfig(**dict(COMP, **kw)),
@@ -175,8 +179,24 @@ def test_refusals_name_their_roadmap_item(model, what):
         with pytest.raises(NotImplementedError, match="queue 1 item 16"):
             tengine.InferenceEngine(m["tp"], c, device="cpu")
     elif what == "headkv_without_capacities":
-        with pytest.raises(ValueError, match="head_capacity"):
-            tengine.InferenceEngine(m["tp"], cfg(method="headkv"), device="cpu")
+        comp_kw = dict(COMP, method="headkv")
+        eng = tengine.InferenceEngine(m["tp"], cfg(method="headkv"), device="cpu")
+        ids, res = eng.generate_batch(m["prompts"], MAX_NEW, return_result=True)
+        cap = eng._cache_capacity(BUCKET, MAX_NEW)
+        jcomp = jcfg.CompressionConfig(**comp_kw)
+        jeng = jengine.InferenceEngine(m["jp"], jcfg.EngineConfig(
+            model=m["jc"], compression=jcomp, prefill_buckets=(BUCKET,)))
+        assert ids == jeng.generate_batch(m["prompts"], MAX_NEW)
+        jres = jax_generate(m["jp"], m["jc"], jcomp, jcfg.GenerationConfig(
+            max_new_tokens=MAX_NEW), jnp.asarray(m["toks"]), jnp.asarray(m["lens"]), cap)
+        np.testing.assert_array_equal(res.cache.lengths.numpy(),
+                                      np.asarray(jres.cache.lengths))
+        # Request (a) keeps its window alone in every head.
+        assert (res.cache.lengths[:, 0].numpy() == COMP["window_size"] + MAX_NEW - 1).all()
+        jpre = jllama.prefill(m["jp"], m["jc"], jcomp, jnp.asarray(m["toks"]),
+                              jnp.asarray(m["lens"]), cap)
+        np.testing.assert_allclose(res.logits[:, 0].numpy(), np.asarray(jpre.logits_last),
+                                   **LOGITS_TOL)
     else:
         method = what.split("_")[1]
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):
