@@ -108,7 +108,26 @@ Phases, in order; any failure exits non-zero:
    Needle runners through the W8A16 engine on synthetic data with a
    byte-level tokenizer, then ``score_results_dir``: complete files with the
    JAX runners' keys, one prediction regenerated, wall per example;
-10. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+10. the cache layer at Meta-Llama-3-8B-Instruct widths (32 / 8 heads, vocab
+   128256, rope_theta 5e5), random bf16 weights, phase 5's two requests,
+   each run with every launch count set to 0 just before it: (10a) the
+   grouped quantized cache (nbits 2 with outliers and a 128-row fp ring,
+   nbits 4 with the ring, nbits 3) through ``InferenceEngine`` beside the
+   bf16 cache: K1 32 a prefill and no K2-K4 in decode, lengths, layers 0
+   and 31 against the CPU's plain ``encode`` of the bf16 run's rows (codes
+   apart only on rounding ties, ring rows bitwise), request (b)'s logits
+   against the fp32 reference, times, cache bytes and bound; (10b) ThinK's
+   channel-packed cache against in-place ThinK (K2): 77 kept channels,
+   key bytes, logits; (10c) decode eviction through ``generate`` (capacity
+   + 8, 64 new tokens): lengths, stamps, scores, evictions, logits against
+   plain snapkv before the fill and the fp32 reference; (10d) the
+   host-offloaded cache: pinned host K/V, the card's memory, the bytes a
+   step copies from the profiler's trace, logits against the fp32
+   reference and the device-resident decode; (10e) generation-state
+   checkpoints of five caches, bitwise continuations, bytes and times;
+   (10f) a ``ContinuousBatchingEngine`` drain over the nbits-2 cache; (10g)
+   the SSM and encoder-decoder caches on the card bitwise against the CPU;
+11. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -138,7 +157,10 @@ from torch.autograd import DeviceType
 
 from kvcache_factory_tpu_torch import (CompressionConfig, EngineConfig, GenerationConfig,
                                        ModelConfig, QuantConfig, ShardingConfig)
-from kvcache_factory_tpu_torch.cache import quant_cache
+from kvcache_factory_tpu_torch.cache import encdec_cache, quant_cache, ssm_cache
+from kvcache_factory_tpu_torch.cache.kv_cache import KVCache
+from kvcache_factory_tpu_torch.cache.offload_cache import LayerPrefetch, offload_kv_cache
+from kvcache_factory_tpu_torch.cache.think_cache import ThinKCache
 from kvcache_factory_tpu_torch.evals import longbench, needle, ruler, score
 from kvcache_factory_tpu_torch.evals.longbench import headkv_capacities
 from kvcache_factory_tpu_torch.models import llama
@@ -154,6 +176,8 @@ from kvcache_factory_tpu_torch.policies.base import select_and_pack
 from kvcache_factory_tpu_torch.policies.minference import default_pattern
 from kvcache_factory_tpu_torch.runtime import generate, native
 from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
+from kvcache_factory_tpu_torch.runtime.checkpoint import (load_generation_state,
+                                                          save_generation_state)
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
 
 LOG_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke.log"
@@ -232,6 +256,16 @@ KQ_OUT_TOL = 3e-3
 # 0.10; int4 0.40.  A kernel that reads the wrong keys or values shows far
 # more (its worst-head check against the plain version is 3e-3 above).
 E2E_QUANT_REL_L2_TOL = {8: 0.10, 4: 0.40}
+# Phase 10a's grouped caches, request (b)'s decode logits against the fp32
+# reference.  Measured on the CPU before the first card run, where the plain
+# path is fp32 so only the quantization shows (tests/
+# test_torch_grouped_quant.py::test_grouped_decode_logits_near_fp32_reference:
+# Llama-3-shaped, 2 layers, hidden 1024, a 600-token prompt, 16 steps): worst
+# row 0.6997 (nbits 2, groups of 64, outliers, ring 128: three quarters of the
+# rows at four levels a group), 0.1575 (nbits 4, ring 128) and 0.3503 (nbits
+# 3).  Each limit is about 1.6-1.9 times that; logits that do not correlate
+# with the reference at all sit near sqrt(2).
+GROUPED_REL_L2_TOL = {"nbits2_outliers_ring128": 1.10, "nbits4_ring128": 0.30, "nbits3": 0.60}
 # CAM's block solve against the sequential merge, both fp32 on the card:
 # forward substitution adds the same terms in another order, each rounding
 # by 2^-24 relative, so the two agree to ~1e-6 relative (1e-5 on the CPU,
@@ -1258,8 +1292,8 @@ def kq_inputs(rng, nbits, H, G, C, amp=(1.0, 1.0, 1.0)):
     q, k, v, kn, vn = ((bf16_normal(rng, s).float() * a).to(torch.bfloat16)
                        for s, a in (((H, G, D), amp[0]), ((H, C, D), amp[1]),
                                     ((H, C, D), amp[2]), ((H, D), amp[1]), ((H, D), amp[2])))
-    kc, ks, kz = quant_cache.encode(k, nbits)
-    vc, vs, vz = quant_cache.encode(v, nbits)
+    kc, ks, kz = quant_cache.encode_per_token(k, nbits)
+    vc, vs, vz = quant_cache.encode_per_token(v, nbits)
     return q, kc, vc, torch.stack([ks, kz, vs, vz], dim=-1).contiguous(), kn, vn
 
 
@@ -3382,6 +3416,669 @@ def phase_qwen2(rng, log_file):
             "loader": loader, "quantize_s": quant_s, "runs": runs, "g7": g7,
             "sampling": sampling, "harness": harness}
 
+# ---------------------------------------------------------------------------
+# Phase 10: the cache layer at Meta-Llama-3-8B-Instruct widths
+# ---------------------------------------------------------------------------
+
+# The fields the forward reads from the published config.json of
+# meta-llama/Meta-Llama-3-8B-Instruct (bf16 weights, untied lm_head, no rope
+# scaling).
+LLAMA3_8B_HF_CONFIG = {
+    "model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "max_position_embeddings": 8192, "rope_theta": 500000.0,
+    "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+LLAMA3_8B = ModelConfig.from_hf_config(LLAMA3_8B_HF_CONFIG)
+# 10a: the grouped caches, each with its new tokens (limits: GROUPED_REL_L2_TOL).
+GROUPED_RUNS = (
+    ("nbits2_outliers_ring128", QuantConfig(nbits=2, q_group_size=64, outlier_extract=True,
+                                            residual_length=128), 32),
+    ("nbits4_ring128", QuantConfig(nbits=4, residual_length=128), 32),
+    ("nbits3", QuantConfig(nbits=3), 16))
+THINK_PACKED = dataclasses.replace(SNAPKV, method="think", pruning_ratio=0.4, recent_size=32,
+                                   think_packed=True)
+EVICT = dataclasses.replace(SNAPKV, decode_evict=True, eviction_recent=32)
+LLAMA3_NEW, EVICT_NEW, EVICT_HEADROOM, OFFLOAD_RING, CKPT_STEPS = 32, 64, 8, 32, 8
+CKPT_DIR = LOG_PATH.parent / "generation_state"
+# Two bf16 computations of one function held against each other (ThinK's
+# packed cache against the in-place one; the evicting run against plain
+# snapkv before it fills; the offloaded decode against the device-resident
+# one): each path rounds every activation to bf16 and sits ~0.017 from fp32
+# (phase 5), so two of them sit ~0.025 apart; a wrong row, channel or
+# mask moves a row by O(1).
+PAIR_REL_L2_TOL = 0.05
+# PCIe 5.0 x16, one direction (the PCI-SIG rate): the host link's bound.
+HOST_LINK_BYTES_PER_S = 64e9
+
+
+def cache_bytes(cache):
+    """Bytes of every tensor of a cache (computed), split into the card's and
+    the host's."""
+    dev = host = 0
+    for t in cache:
+        if t is not None:
+            n = t.numel() * t.element_size()
+            dev, host = (dev + n, host) if t.is_cuda else (dev, host + n)
+    return dev, host
+
+
+def valid_row_bytes(cache):
+    """Bytes a decode step must read of a cache at its final lengths
+    (computed): each per-row tensor's bytes times the valid share of its
+    rows, and the ring whole."""
+    share = cache.lengths.float().mean().item() / cache.capacity
+    total = 0
+    for name, t in cache._asdict().items():
+        if t is None or name in ("lengths", "positions"):
+            continue
+        n = t.numel() * t.element_size()
+        total += n if name in ("rk", "rv") else n * share
+    return total
+
+
+def llama3_ref(params, seq, start, refs):
+    """fp32 reference logits of ``seq`` from row ``start`` on (memoised)."""
+    key = (tuple(seq), start)
+    if key not in refs:
+        with torch.no_grad():
+            refs[key] = forward_logits(params, LLAMA3_8B, torch.tensor([seq], device="cuda"))[
+                0, start:].clone()
+    return refs[key]
+
+
+def engine_run(params, prompts, comp, quant, new):
+    """One ``generate_batch`` through ``InferenceEngine`` with every launch
+    count set to 0 just before it and read just after; the engine, ids,
+    result, launches and the call's wall seconds."""
+    cfg = LLAMA3_8B
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant),
+                             device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    ids, res = engine.generate_batch(prompts, new, return_result=True)
+    sync()
+    return engine, ids, res, path_launches(), time.perf_counter() - t0
+
+
+def expect_launches(launches, label, decode_id=None, steps=0, prefills=1):
+    L = LLAMA3_8B.num_hidden_layers
+    expect = dict.fromkeys(launches, 0)
+    expect["K1"] = L * prefills
+    if decode_id:
+        expect[decode_id] = L * steps
+    log(f"  {label}: launches {launches} (expect K1 {L * prefills}"
+        f"{f', {decode_id} {L * steps}' if decode_id else ', no decode kernel'})")
+    if launches != expect:
+        raise SystemExit(f"the {label} run did not run each kernel the expected number of times")
+
+
+def time_engine(engine, prompts, new, wall_s, label, log_file, params, cur, cache, quant=None):
+    """Prefill s (host clock around a prefill-only call that ends in a
+    synchronise), decode wall ms a step (the checked run's ``wall_s`` less
+    that, over its steps) and a profiled decode step's busy time."""
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, 1)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    step_ms = (wall_s - prefill_s) / (new - 1) * 1e3
+    evr = engine.cfg.compression.eviction_recent
+    with torch.no_grad():
+        busy = profile_device(lambda: llama.decode_step(params, LLAMA3_8B, cur, cache, quant=quant,
+                                                        eviction_recent=evr), 4, step_ms,
+                              f"decode step, Llama-3-8B {label}", log_file)
+    return prefill_s, step_ms, busy
+
+
+def grouped_values_check(cache, quant, ref_layers, plen, label):
+    """The grouped cache's prefill rows of layers 0 and 31 against the plain
+    ``encode`` on the CPU in fp32 of the bf16 run's rows (its prefill is the
+    same): scales, zeros and outliers bitwise, codes equal or one step apart
+    where the CPU's quotient sits on a rounding tie, the ring's slots that
+    back prefill rows bitwise.  Returns the worst dequantized difference."""
+    nbits, gs = quant.nbits, quant.q_group_size
+    worst = apart = 0
+    for li, pair in ref_layers.items():
+        for b, P in enumerate(plen):
+            for x, planes, ring in (
+                    (pair[0], (cache.qk, cache.k_scale, cache.k_zero, cache.k_oval,
+                               cache.k_oidx), cache.rk),
+                    (pair[1], (cache.qv, cache.v_scale, cache.v_zero, cache.v_oval,
+                               cache.v_oidx), cache.rv)):
+                xs = x[b, :, :P].float()
+                want = quant_cache.encode(xs, quant)
+                got = [None if t is None else t[li, b, :, :P].cpu() for t in planes]
+                for g, w in zip(got[1:], want[1:]):
+                    if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+                        raise SystemExit(f"{label}: layer {li}'s scales, zeros or outliers "
+                                         "differ from the CPU's")
+                gc = quant_cache.unpack_codes(got[0], nbits).int()
+                wc = quant_cache.unpack_codes(want[0], nbits).int()
+                stripped = (quant_cache.extract_group_outliers(xs, gs)[0]
+                            if quant.outlier_extract else xs)
+                _, scale, zero = quant_cache.quantize_groups(stripped, gs, nbits)
+                quot = ((stripped.reshape(*xs.shape[:-1], -1, gs) - zero[..., None])
+                        / scale[..., None]).reshape(xs.shape)
+                tie = ((quot - quot.floor()) - 0.5).abs() < 1e-3
+                diff = gc != wc
+                if ((gc - wc).abs() > 1).any() or (diff & ~tie).any():
+                    raise SystemExit(f"{label}: layer {li}'s codes differ from the CPU's off a "
+                                     "rounding tie")
+                apart += int(diff.sum())
+                dv = (quant_cache.decode_values(*got[:3], quant, torch.float32, *got[3:])
+                      - quant_cache.decode_values(*want[:3], quant, torch.float32, *want[3:]))
+                worst = max(worst, dv.abs().max().item())
+                if ring is not None:
+                    R, Lf = ring.shape[3], int(cache.lengths[li, b, 0])
+                    j = torch.arange(R)
+                    rows = Lf - R + torch.remainder(j - (Lf - R), R)
+                    old = rows < P
+                    if not torch.equal(ring[li, b].cpu()[:, old], x[b][:, rows[old]]):
+                        raise SystemExit(f"{label}: layer {li}'s ring rows differ from the "
+                                         "bf16 cache's")
+    return worst, apart
+
+
+def phase_grouped(params, prompts, refs, log_file):
+    """10a: the bf16 baseline, then each grouped cache through
+    ``InferenceEngine``."""
+    cfg, L = LLAMA3_8B, LLAMA3_8B.num_hidden_layers
+    plen = [min(len(p), SNAPKV.max_capacity_prompt) for p in prompts]
+    out = {}
+    log("== 10a bf16 cache (the baseline the grouped caches are read beside)")
+    engine, ids, res, launches, wall = engine_run(params, prompts, SNAPKV, None, LLAMA3_NEW)
+    expect_launches(launches, "bf16", "K2", LLAMA3_NEW - 1)
+    ref_layers = {li: (res.cache.k[li].cpu(), res.cache.v[li].cpu()) for li in (0, L - 1)}
+    cur = torch.tensor([x[-1] for x in ids], device="cuda")
+    prefill_s, step_ms, busy = time_engine(engine, prompts, LLAMA3_NEW, wall, "bf16", log_file,
+                                           params, cur, res.cache)
+    weight_bytes = matmul_weight_bytes(params)
+    bound = (weight_bytes + valid_row_bytes(res.cache)) / HBM_BYTES_PER_S * 1e3
+    out["bf16"] = {"launches": launches, "prefill_s": prefill_s, "decode_ms_per_step": step_ms,
+                   "device_busy_ms_per_step": busy, "cache_bytes": cache_bytes(res.cache)[0],
+                   "decode_bound_ms": bound,
+                   "idle_share": None if busy is None else 1 - busy / step_ms}
+    log(f"  bf16: prefill {prefill_s:.3f} s, decode {step_ms:.3f} ms/step wall, busy {busy} ms, "
+        f"bound {bound:.3f} ms")
+    del engine, res
+    torch.cuda.empty_cache()
+    for label, quant, new in GROUPED_RUNS:
+        steps = new - 1
+        log(f"== 10a grouped cache {label}: {quant}")
+        engine, ids, res, launches, wall = engine_run(params, prompts, SNAPKV, quant, new)
+        expect_launches(launches, label, None)
+        c = res.cache
+        lens = [sorted(set(c.lengths[:, b].flatten().tolist())) for b in range(2)]
+        log(f"  cache {type(c).__name__}, capacity {c.capacity}, ring {c.residual_length}, "
+            f"outliers {c.k_oval is not None}; lengths {lens} (expect "
+            f"{[[p + steps] for p in plen]})")
+        if not isinstance(c, quant_cache.QuantizedKVCache) or lens != [[p + steps] for p in plen]:
+            raise SystemExit(f"the {label} run built the wrong cache or lengths")
+        worst, apart = grouped_values_check(c, quant, ref_layers, plen, label)
+        log(f"  layers 0 and {L - 1}, prefill rows against the CPU's encode of the bf16 run's "
+            f"rows: scales, zeros, outliers and ring rows bitwise; {apart} codes one step apart "
+            f"on ties; dequantized values apart by at most {worst:.3e}")
+        seq_b = prompts[1] + ids[1][:steps]
+        ref_b = llama3_ref(params, seq_b, len(prompts[1]) - 1, refs)
+        rel_0 = rel_l2(res.logits[1, :1], ref_b[:1])[0]
+        rel_d = rel_l2(res.logits[1, 1:], ref_b[1:])[0]
+        tol = GROUPED_REL_L2_TOL[label]
+        log(f"  request (b) against the fp32 reference: first token rel L2 {rel_0:.4f} (tol "
+            f"{E2E_REL_L2_TOL}), {steps} decode rows worst {rel_d:.4f} (tol {tol})")
+        if rel_0 > E2E_REL_L2_TOL or rel_d > tol or not torch.isfinite(res.logits).all():
+            raise SystemExit(f"the {label} run's logits disagree with the fp32 reference")
+        cur = torch.tensor([x[-1] for x in ids], device="cuda")
+        prefill_s, step_ms, busy = time_engine(engine, prompts, new, wall, label, log_file,
+                                               params, cur, c, quant)
+        nbytes = cache_bytes(c)[0]
+        bound = (weight_bytes + valid_row_bytes(c)) / HBM_BYTES_PER_S * 1e3
+        log(f"  {label}: prefill {prefill_s:.3f} s; decode {step_ms:.3f} ms/step wall, busy "
+            f"{busy} ms (bf16 {out['bf16']['device_busy_ms_per_step']}); cache {nbytes / 1e9:.3f} "
+            f"GB (bf16 {out['bf16']['cache_bytes'] / 1e9:.3f}); decode bound {bound:.3f} ms")
+        out[label] = {"launches": launches, "capacity": c.capacity, "prefill_s": prefill_s,
+                      "decode_ms_per_step": step_ms, "device_busy_ms_per_step": busy,
+                      "idle_share": None if busy is None else 1 - busy / step_ms,
+                      "cache_bytes": nbytes, "decode_bound_ms": bound,
+                      "dequant_max_abs_vs_cpu": worst, "codes_apart_on_ties": apart,
+                      "first_token_rel_l2_b": rel_0, "decode_rel_l2_b": rel_d,
+                      "decode_rel_l2_tol": tol}
+        del engine, res, c
+        torch.cuda.empty_cache()
+    return out
+
+
+def agree_rows(ids_x, ids_y):
+    """Logits rows computed from equal inputs: up to and including the first
+    step whose chosen tokens differ."""
+    n = 0
+    while n < len(ids_x) - 1 and ids_x[n] == ids_y[n]:
+        n += 1
+    return n + 1
+
+
+def phase_think_packed(params, prompts, log_file):
+    """10b: ThinK with the channel-packed cache and in place (K2)."""
+    L, D = LLAMA3_8B.num_hidden_layers, LLAMA3_8B.head_dim
+    steps = LLAMA3_NEW - 1
+    log("== 10b ThinK, pruning ratio 0.4, recent 32: packed cache, then in place")
+    engine, ids, res, launches, wall = engine_run(params, prompts, THINK_PACKED, None,
+                                                  LLAMA3_NEW)
+    expect_launches(launches, "think packed", None)
+    inplace = engine_run(params, prompts, dataclasses.replace(THINK_PACKED, think_packed=False),
+                         None, LLAMA3_NEW)
+    expect_launches(inplace[3], "think in place", "K2", steps)
+    c, d = res.cache, inplace[2].cache
+    keep = D - int(D * THINK_PACKED.pruning_ratio)
+    ascending = bool((c.channels.diff(dim=-1) > 0).all()) if isinstance(c, ThinKCache) else False
+    if not isinstance(c, ThinKCache) or c.kept_dim != keep or not ascending:
+        raise SystemExit("the packed run built the wrong cache or channels")
+    key_ratio = (c.kp.numel() + c.kd.numel()) / d.k.numel()
+    log(f"  packed cache: {keep} kept channels per (layer, head), ascending; dense buffer "
+        f"{c.dense_capacity} rows; key bytes against the in-place cache's {key_ratio:.4f} "
+        f"(computed)")
+    n = agree_rows(ids[0], inplace[1][0])
+    rel_a = rel_l2(res.logits[0, :n], inplace[2].logits[0, :n])[0]
+    # Request (b) is under the budget: the in-place cache keeps it dense, the
+    # packed one prunes its rows below length - recent all the same.
+    zero_b = int((d.k[:, 1, :, :len(prompts[1])] == 0).all(dim=2).sum())
+    bnd_b = sorted(set(c.boundary[:, 1].flatten().tolist()))
+    log(f"  request (a), packed against in place: {n} rows from equal inputs, worst rel L2 "
+        f"{rel_a:.4f} (tol {PAIR_REL_L2_TOL}); request (b): the in-place cache has {zero_b} zero "
+        f"channels (expect 0), the packed one's boundary {bnd_b} (expect "
+        f"[{len(prompts[1]) - THINK_PACKED.recent_size}])")
+    if rel_a > PAIR_REL_L2_TOL or zero_b or bnd_b != [len(prompts[1]) - THINK_PACKED.recent_size]:
+        raise SystemExit("ThinK's packed and in-place caches disagree")
+    cur = torch.tensor([x[-1] for x in ids], device="cuda")
+    prefill_s, step_ms, busy = time_engine(engine, prompts, LLAMA3_NEW, wall, "think packed",
+                                           log_file, params, cur, c)
+    out = {"launches": launches, "launches_in_place": inplace[3], "kept_channels": keep,
+           "dense_capacity": c.dense_capacity, "key_bytes_ratio": key_ratio,
+           "rows_compared": n, "rel_l2_packed_vs_in_place_a": rel_a, "prefill_s": prefill_s,
+           "decode_ms_per_step": step_ms, "device_busy_ms_per_step": busy}
+    log(f"  think packed: prefill {prefill_s:.3f} s, decode {step_ms:.3f} ms/step wall, busy "
+        f"{busy} ms")
+    del engine, res, inplace, c, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_evict(params, prompts, refs):
+    """10c: decode-stage eviction through ``generate``: request (a) fills
+    its cache after 8 appends and evicts from then on."""
+    cfg, L = LLAMA3_8B, LLAMA3_8B.num_hidden_layers
+    steps = EVICT_NEW - 1
+    cap = SNAPKV.layer_capacity(L, 4096) + EVICT_HEADROOM
+    toks = np.zeros((2, 4096), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    lens = [len(p) for p in prompts]
+    gen_cfg = GenerationConfig(max_new_tokens=EVICT_NEW)
+    log(f"== 10c decode eviction: capacity {cap}, eviction_recent {EVICT.eviction_recent}, "
+        f"{EVICT_NEW} new tokens")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = generate.generate(params, cfg, EVICT, gen_cfg, toks, lens, cap, return_logits=True)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    expect_launches(launches, "evicting", None)
+    c = res.cache
+    pos = c.positions.tolist()
+    end = lens[0] + steps
+    stamps_a = c.stamps[:, 0]
+    recent = torch.arange(end - EVICT.eviction_recent, end, device="cuda")
+    present = bool((stamps_a[..., None] == recent).any(dim=2).all())
+    valid = torch.arange(cap, device="cuda") < c.lengths[..., None]
+    scores_ok = bool((c.scores[valid] >= 0).all()) and bool((c.scores[valid] > 0).any())
+    evictions = sorted(set(((end - lens[0]) - (c.lengths[:, 0] - 2048)).flatten().tolist()))
+    log(f"  lengths max {int(c.lengths.max())} (capacity {cap}), per request "
+        f"{[sorted(set(c.lengths[:, b].flatten().tolist())) for b in range(2)]}; positions {pos} "
+        f"(expect {[n + steps for n in lens]}); last {EVICT.eviction_recent} positions present "
+        f"in every (layer, head) of (a): {present}; scores non-negative and some positive: "
+        f"{scores_ok}; evictions per (layer, head) of (a): {evictions}")
+    if int(c.lengths.max()) > cap or pos != [n + steps for n in lens] or not present or \
+            not scores_ok or evictions != [steps - EVICT_HEADROOM]:
+        raise SystemExit("the evicting cache broke its rules")
+    plain = generate.generate(params, cfg, SNAPKV, gen_cfg, toks, lens,
+                              SNAPKV.layer_capacity(L, 4096) + EVICT_NEW + 1, return_logits=True)
+    launches_plain = path_launches()
+    n = min(EVICT_HEADROOM + 1, agree_rows(res.tokens[0].tolist(), plain.tokens[0].tolist()))
+    rel_fill = rel_l2(res.logits[0, :n], plain.logits[0, :n])[0]
+    seq_b = prompts[1] + res.tokens[1, :steps].tolist()
+    ref_b = llama3_ref(params, seq_b, lens[1] - 1, refs)
+    rel_b = rel_l2(res.logits[1], ref_b)[0]
+    log(f"  request (a) before the cache fills, against plain snapkv (K2): {n} rows, worst rel "
+        f"L2 {rel_fill:.4f} (tol {PAIR_REL_L2_TOL}); request (b) (never full) against the fp32 "
+        f"reference: worst rel L2 {rel_b:.4f} (tol {E2E_REL_L2_TOL})")
+    if rel_fill > PAIR_REL_L2_TOL or rel_b > E2E_REL_L2_TOL:
+        raise SystemExit("the evicting run's logits disagree")
+    out = {"launches": launches, "capacity": cap, "evictions_per_head_a": evictions[0],
+           "wall_s": wall, "rows_before_fill": n, "rel_l2_vs_plain_before_fill": rel_fill,
+           "rel_l2_b_vs_fp32": rel_b, "launches_plain_run": launches_plain}
+    del res, plain, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def h2d_profile(fn, path):
+    """Host-to-device copies of one call of ``fn`` from the profiler's chrome
+    trace: (pinned bytes, their copy ms, other host-to-device bytes, copy
+    records, ``cudaMemcpy*`` calls).  As in ``profile_device``, the card
+    idles ``PROFILE_MARGIN_S`` at each edge of the window, and a trace in
+    which some call has no device record (by correlation id) is taken
+    again, up to ``PROFILE_ATTEMPTS`` times; the last trace is returned,
+    whole or not (after the earlier phases the profiler has dropped the
+    same few copy records on every try)."""
+    fn()
+    sync()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            fn()
+            sync()
+            time.sleep(PROFILE_MARGIN_S)
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())
+        path.unlink()
+        events = events["traceEvents"] if isinstance(events, dict) else events
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+        calls = {e["args"].get("correlation") for e in events if e.get("cat") == "cuda_runtime"
+                 and e.get("name", "").startswith("cudaMemcpy")}
+        missing = calls - {e["args"].get("correlation") for e in copies}
+        if not missing:
+            break
+        log(f"h2d profile, attempt {attempt}: incomplete device trace, {len(missing)} of "
+            f"{len(calls)} copies have no record")
+    pinned = ms = other = 0
+    for e in copies:
+        if "HtoD" in e.get("name", ""):
+            if "Pinned" in e["name"]:
+                pinned += int(e["args"]["bytes"])
+                ms += e["dur"] / 1e3
+            else:
+                other += int(e["args"]["bytes"])
+    return pinned, ms, other, len(copies), len(calls)
+
+
+def phase_offload(params, prompts, refs):
+    """10d: prefill (snapkv) into a cache of the policy's capacity, offload
+    it with a 32-slot ring, 32 decode steps."""
+    cfg, L = LLAMA3_8B, LLAMA3_8B.num_hidden_layers
+    cap = SNAPKV.layer_capacity(L, 4096)
+    toks = torch.zeros((2, 4096), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    toks = toks.cuda()
+    tl = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    log(f"== 10d host-offloaded cache: prefill capacity {cap}, ring {OFFLOAD_RING}")
+    reset_counts()
+    def card_memory():
+        """(bytes the allocator hands out, bytes the program asked for):
+        ``memory_allocated`` counts whole blocks, and the allocator leaves a
+        cached block unsplit when less than 1 MiB would remain, so each
+        large tensor may count up to 1 MiB more than it asked for."""
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    with torch.no_grad():
+        m0 = card_memory()
+        pre = llama.prefill(params, cfg, SNAPKV, toks, tl, cap)
+        logits0 = pre.logits_last
+        sync()
+        m1 = card_memory()
+        dense_bytes = cache_bytes(pre.cache)[0]
+        off = offload_kv_cache(pre.cache, OFFLOAD_RING)
+        del pre
+        sync()
+        m2 = card_memory()
+        ring_bytes, host_bytes = cache_bytes(off)
+        pinned = off.hk.is_pinned() and off.hv.is_pinned()
+        # Offloading frees the dense cache's card memory and allocates the
+        # ring and its lengths: the requested bytes change by the difference.
+        freed = m1[1] - m2[1]
+        log(f"  host K/V pinned: {pinned}, {host_bytes / 1e9:.3f} GB; card memory allocated "
+            f"{(m1[0] - m0[0]) / 1e9:.3f} GB above the weights with the dense cache "
+            f"({dense_bytes / 1e9:.3f} GB of it), {(m2[0] - m0[0]) / 1e6:.3f} MB after "
+            f"offloading; requested bytes freed {freed} (expect the dense cache less the ring "
+            f"and lengths, {dense_bytes - ring_bytes})")
+        if not pinned or freed != dense_bytes - ring_bytes:
+            raise SystemExit("the offloaded cache's host K/V is not pinned, or its card memory "
+                             "is not the ring alone")
+        cur = logits0.argmax(-1)
+        fed, rows = [cur], [logits0]
+        t0 = time.perf_counter()
+        for _ in range(OFFLOAD_RING):
+            lg, off = llama.decode_step(params, cfg, cur, off)
+            cur = lg.argmax(-1)
+            fed.append(cur)
+            rows.append(lg)
+        sync()
+        step_ms = (time.perf_counter() - t0) / OFFLOAD_RING * 1e3
+        launches = path_launches()
+        expect_launches(launches, "offloaded", None)
+        lens = off.lengths - off.prefill_len
+        if int(lens.max()) != OFFLOAD_RING:
+            raise SystemExit("the offloaded ring did not take every append")
+        # One more step (the ring full: its append is dropped): the bytes
+        # the prefetch queues by its own count, then under the profiler.
+        LayerPrefetch.bytes_copied = 0
+        llama.decode_step(params, cfg, cur, off)
+        sync()
+        queued = LayerPrefetch.bytes_copied
+        pinned_bytes, copy_ms, other, records, calls = h2d_profile(
+            lambda: llama.decode_step(params, cfg, cur, off), LOG_PATH.parent / "h2d.json")
+        gbs = pinned_bytes / copy_ms / 1e6 if copy_ms else None
+        valid = host_bytes * (off.prefill_len.float().mean().item() / off.host_capacity)
+        link_ms = host_bytes / HOST_LINK_BYTES_PER_S * 1e3
+        log(f"  decode {step_ms:.3f} ms/step wall; a step queues {queued / 1e9:.4f} GB of "
+            f"host-to-device copies (the host cache {host_bytes / 1e9:.4f} GB); the profiled "
+            f"step's trace: {records} copy records for {calls} calls, {pinned_bytes / 1e9:.4f} GB "
+            f"pinned host-to-device (other host-to-device {other} bytes) in {copy_ms:.3f} ms, "
+            f"{gbs if gbs is None else round(gbs, 2)} GB/s; link bound {link_ms:.3f} ms a step "
+            f"at 64 GB/s ({valid / 1e9:.3f} GB of valid rows)")
+        if queued != host_bytes or other or not pinned_bytes or \
+                (records == calls and pinned_bytes != host_bytes):
+            raise SystemExit("a decode step did not copy the host cache to the card once")
+        logits = torch.stack(rows, dim=1)
+        seq_b = prompts[1] + [int(t[1]) for t in fed[:-1]]
+        ref_b = llama3_ref(params, seq_b, len(prompts[1]) - 1, refs)
+        rel_b = rel_l2(logits[1], ref_b)[0]
+        # The same tokens through the device-resident cache (K2).
+        dense = KVCache(*(torch.cat([h.cuda(), torch.zeros_like(h[:, :, :, :OFFLOAD_RING],
+                                                                device="cuda")], dim=3)
+                          for h in (off.hk, off.hv)), off.prefill_len.clone(), tl.clone())
+        dev_rows = [logits0]
+        for t in fed[:-1]:
+            lg, dense = llama.decode_step(params, cfg, t, dense)
+            dev_rows.append(lg)
+        rel_dev = rel_l2(logits.reshape(-1, logits.shape[-1]),
+                         torch.stack(dev_rows, dim=1).reshape(-1, logits.shape[-1]))[0]
+        del dense
+    log(f"  request (b) against the fp32 reference: worst rel L2 {rel_b:.4f} (tol "
+        f"{E2E_REL_L2_TOL}); against the device-resident decode of the same cache and tokens: "
+        f"{rel_dev:.4f} (tol {PAIR_REL_L2_TOL})")
+    if rel_b > E2E_REL_L2_TOL or rel_dev > PAIR_REL_L2_TOL:
+        raise SystemExit("the offloaded decode's logits disagree")
+    return {"launches": launches, "host_bytes": host_bytes, "valid_host_bytes": valid,
+            "ring_card_bytes": ring_bytes, "card_bytes_after_offload": m2[0] - m0[0],
+            "dense_cache_card_bytes": dense_bytes, "decode_ms_per_step": step_ms,
+            "h2d_bytes_queued_per_step": queued, "h2d_trace_records": [records, calls],
+            "h2d_pinned_bytes_per_step": pinned_bytes, "h2d_copy_ms_per_step": copy_ms,
+            "h2d_gb_s": gbs, "link_bound_ms": link_ms, "rel_l2_b_vs_fp32": rel_b,
+            "rel_l2_vs_device_resident": rel_dev}
+
+
+def clone_cache(cache):
+    return type(cache)(*(None if t is None else t.clone() for t in cache))
+
+
+def phase_checkpoints(params, prompts):
+    """10e: 8 steps, save, load onto the card, 8 more, against 16 steps
+    without a stop, for five caches."""
+    cfg, L = LLAMA3_8B, LLAMA3_8B.num_hidden_layers
+    base = SNAPKV.layer_capacity(L, 4096)
+    kinds = (("dense", SNAPKV, None, base + 2 * CKPT_STEPS + 1),
+             ("int8", SNAPKV, QuantConfig(nbits=8), base + 2 * CKPT_STEPS + 1),
+             ("nbits2_ring128", SNAPKV, GROUPED_RUNS[0][1], base + 2 * CKPT_STEPS + 1),
+             ("evicting", EVICT, None, base + EVICT_HEADROOM),
+             ("think_packed", THINK_PACKED, None, base + 2 * CKPT_STEPS + 1))
+    toks = torch.zeros((2, 4096), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    toks = toks.cuda()
+    tl = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    out = {}
+    for label, comp, quant, cap in kinds:
+        with torch.no_grad():
+            pre = llama.prefill(params, cfg, comp, toks, tl, cap, quant=quant)
+            first = pre.logits_last.argmax(-1)
+
+            def run(c, cur, n):
+                got = []
+                for _ in range(n):
+                    lg, c = llama.decode_step(params, cfg, cur, c, quant=quant,
+                                              eviction_recent=comp.eviction_recent)
+                    cur = lg.argmax(-1)
+                    got.append((cur, lg))
+                return c, cur, got
+
+            reset_counts()
+            _, _, ref = run(clone_cache(pre.cache), first, 2 * CKPT_STEPS)
+            sync()
+            launches = path_launches()
+            c, cur, part = run(pre.cache, first, CKPT_STEPS)
+            del pre
+            path = CKPT_DIR / label
+            sync()
+            t0 = time.perf_counter()
+            save_generation_state(str(path), c, cur, torch.stack([t for t, _ in part], 1).cpu(),
+                                  {"phase": "10e", "cache": label})
+            save_s = time.perf_counter() - t0
+            nbytes = sum(f.stat().st_size for f in path.iterdir())
+            del c
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            c, cur, gen, meta = load_generation_state(str(path), device="cuda")
+            sync()
+            load_s = time.perf_counter() - t0
+            shutil.rmtree(path)
+            _, _, rest = run(c, cur, CKPT_STEPS)
+            got = part + rest
+            same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                       for a, b in zip(got, ref))
+        log(f"  10e {label}: {type(c).__name__}, {nbytes / 1e9:.3f} GB on disk, save {save_s:.2f} "
+            f"s, load {load_s:.2f} s; {2 * CKPT_STEPS} steps with the stop bitwise equal to "
+            f"16 without: {same}; launches in the 16 uninterrupted steps {launches}")
+        if not same or meta != {"phase": "10e", "cache": label} or gen.shape != (2, CKPT_STEPS):
+            raise SystemExit(f"the {label} checkpoint did not continue bit for bit")
+        out[label] = {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                      "launches_16_steps": launches}
+        del c, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_llama3_serving(params, prompts, refs):
+    """10f: one ``ContinuousBatchingEngine`` drain over the nbits-2 grouped
+    cache: phase 5's two requests and two of 1000 tokens, 2 slots."""
+    cfg, L = LLAMA3_8B, LLAMA3_8B.num_hidden_layers
+    quant, new = GROUPED_RUNS[0][1], 8
+    rng = np.random.default_rng(3)
+    reqs = prompts + [rng.integers(0, cfg.vocab_size, size=1000).tolist() for _ in range(2)]
+    engine = ContinuousBatchingEngine(params, EngineConfig(model=cfg, compression=SNAPKV,
+                                                           quant=quant, prefill_buckets=(4096,)),
+                                      n_slots=2, max_new_cap=new, instrument=True)
+    rids = [engine.submit(p, new) for p in reqs]
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = engine.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    log(f"== 10f serving drain over {quant}: 4 requests (4096, 1500, 1000, 1000 tokens), 2 "
+        f"slots, {new} new each: {wall:.3f} s")
+    expect_launches(launches, "drain", None, prefills=len(reqs))
+    c = engine.cache
+    lens = [sorted(set(c.lengths[:, s].flatten().tolist())) for s in range(2)]
+    log(f"  pool {type(c).__name__}, capacity {c.capacity}; slot lengths {lens} (expect "
+        f"[[{1000 + new - 1}]] twice: the last two requests)")
+    if not isinstance(c, quant_cache.QuantizedKVCache) or lens != [[1000 + new - 1]] * 2 or \
+            any(len(outs[r]) != new for r in rids):
+        raise SystemExit("the drain left the wrong pool, lengths or token counts")
+    worst = 0.0
+    for r, p in zip(rids, reqs):
+        ref = llama3_ref(params, p, len(p) - 1, refs)
+        worst = max(worst, rel_l2(engine.logits[r][0][None].cuda(), ref)[0])
+    log(f"  first-token logits against the fp32 reference: worst rel L2 {worst:.4f} (tol "
+        f"{E2E_REL_L2_TOL})")
+    if worst > E2E_REL_L2_TOL:
+        raise SystemExit("the drain's first tokens disagree with the fp32 reference")
+    out = {"launches": launches, "drain_s": wall, "first_token_rel_l2": worst,
+           "admission_stalls_s": engine.admission_stalls_s, "steps": engine.steps_executed}
+    del engine, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def aux_cache_calls(dev):
+    """A fixed sequence of SSM and encoder-decoder cache calls on ``dev``;
+    returns every resulting tensor on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=g).to(dev)  # noqa: E731
+    L, B, I, K, St = 4, 3, 64, 4, 16
+    c = ssm_cache.init_ssm_cache(L, B, I, K, St, dtype=torch.float32, device=dev)
+    for _ in range(6):
+        for li in range(L):
+            ssm_cache.update_conv(c, li, rnd(B, I))
+            ssm_cache.update_ssm(c, li, rnd(B, I, St))
+        ssm_cache.advance(c)
+    H, C, D = 2, 16, 32
+    mk = lambda lens: KVCache(rnd(L, B, H, C, D), rnd(L, B, H, C, D), lens.to(dev),  # noqa: E731
+                              torch.arange(B, dtype=torch.int32).to(dev))
+    e = encdec_cache.build_encoder_decoder_cache(
+        mk(torch.full((L, B, H), 3, dtype=torch.int32)),
+        mk(torch.tensor([4, 0, 4, 0], dtype=torch.int32)[:, None, None].expand(L, B, H)))
+    e = encdec_cache.mark_cross_written(e, 1)
+    sel = encdec_cache.select_cross(e, 1, rnd(B, H, 8, D), rnd(B, H, 8, D))
+    picked = encdec_cache.batch_select(e, torch.tensor([2, 0, 2]).to(dev))
+    return [t.cpu() for t in (*c, e.cross_written, *sel, *picked.self_cache,
+                              *picked.cross_cache)]
+
+
+def phase_llama3(rng, log_file):
+    """Phase 10: every cache kind of the slice at Meta-Llama-3-8B-Instruct
+    widths, random bf16 weights (seed 2), phase 5's two requests."""
+    cfg = LLAMA3_8B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=2, device="cuda")
+    sync()
+    log(f"== 10 Meta-Llama-3-8B-Instruct widths (32 layers, 32 / 8 heads, vocab 128256, "
+        f"rope_theta 5e5), random bf16 weights (seed 2) in {time.perf_counter() - t0:.1f} s")
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
+    refs = {}
+    out = {"model": "Meta-Llama-3-8B-Instruct widths, random weights (seed 2)",
+           "requests": "B=2: 4096 and 1500 prompt tokens, bucket 4096",
+           "compression": "snapkv 2048/8/7 maxpool, group_reduce none"}
+    t_phase = time.perf_counter()
+    out["grouped"] = phase_grouped(params, prompts, refs, log_file)
+    out["think_packed"] = phase_think_packed(params, prompts, log_file)
+    out["evict"] = phase_evict(params, prompts, refs)
+    out["offload"] = phase_offload(params, prompts, refs)
+    out["checkpoints"] = phase_checkpoints(params, prompts)
+    out["serving"] = phase_llama3_serving(params, prompts, refs)
+    cpu, card = aux_cache_calls("cpu"), aux_cache_calls("cuda")
+    same = len(cpu) == len(card) and all(torch.equal(a, b) for a, b in zip(cpu, card))
+    log(f"== 10g SSM and encoder-decoder caches: {len(card)} tensors on the card bitwise equal "
+        f"to the CPU's: {same}")
+    if not same:
+        raise SystemExit("the SSM or encoder-decoder cache differs on the card")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: {out['phase_s']:.1f} s after the weights")
+    del params, refs
+    torch.cuda.empty_cache()
+    return out
+
+
 # K3's and K4's kernels in csrc/decode_attn_quant.cu, by a part of their names.
 QUANT_KERNELS = {"K3": "quant8_decode_kernel", "K4": "quant4_decode_kernel"}
 
@@ -3486,6 +4183,9 @@ def profile_device(fn, reps, wall_ms, what, log_file, check=None):
     return busy_ms
 
 
+T_START = time.perf_counter()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -3553,6 +4253,7 @@ def main():
         del params
         torch.cuda.empty_cache()
         qwen = phase_qwen2(rng, log_file)
+        llama3 = phase_llama3(rng, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -3578,10 +4279,23 @@ def main():
     k3["qwen2"] = {"launches": runs["w8a16_fullkv_int8"]["launches"]["K3"],
                    "launches_snapkv_g1": runs["w8a16_int8"]["launches"]["K3"],
                    "g7": qwen["g7"]["K3"]}
+    # Phase 10 at Meta-Llama-3-8B widths (G = 1 caches): K1 on every
+    # prefill, K2 on the bf16 baseline and in-place ThinK runs and the dense
+    # checkpoint, K3 on the int8 checkpoint; the new caches' decode runs
+    # none of K2-K4.
+    ll = llama3
+    k1["llama3"] = {"launches_per_prefill": ll["grouped"]["bf16"]["launches"]["K1"],
+                    "launches_serving_drain": ll["serving"]["launches"]["K1"]}
+    k2["llama3"] = {"launches_bf16": ll["grouped"]["bf16"]["launches"]["K2"],
+                    "launches_think_in_place": ll["think_packed"]["launches_in_place"]["K2"],
+                    "launches_dense_checkpoint": ll["checkpoints"]["dense"]["launches_16_steps"]["K2"]}
+    k3["llama3"] = {"launches_int8_checkpoint":
+                    ll["checkpoints"]["int8"]["launches_16_steps"]["K3"]}
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
-                      "sp": {**sp, "fold_emulated": sp_fold}, "qwen2": qwen, "card": smi}))
+                      "sp": {**sp, "fold_emulated": sp_fold}, "qwen2": qwen, "llama3": llama3,
+                      "script_s": time.perf_counter() - T_START, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -216,11 +216,11 @@ class CompressionConfig:
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """Quantized KV cache settings, as in the JAX package.  The port carries
-    the per-token int8 and int4 caches (``cache/quant_cache.py``); which
-    configurations take them is :meth:`per_token`.  Every other
-    configuration (nbits 1/2/3, an fp residual ring) raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 8)."""
+    """Quantized KV cache settings, as in the JAX package.  Which cache a
+    configuration builds is :meth:`per_token`: the per-token int8 or int4
+    cache that K3 / K4 stream, or else the grouped cache
+    (``cache/quant_cache.py::QuantizedKVCache``: nbits 1/2/3, an fp
+    residual ring, per-group outliers, any head_dim)."""
 
     nbits: int = 8
     q_group_size: int = 64
@@ -239,17 +239,9 @@ class QuantConfig:
         ``q_group_size`` and ``outlier_extract`` say.  The JAX package's
         rule (``models/llama.py::_quant_tpu_layout``) without its backend
         and capacity tests: the port chooses from the configuration alone,
-        and its kernels take any capacity."""
+        and its kernels take any capacity.  Every other configuration
+        builds the grouped cache, as JAX's XLA path does."""
         return self.nbits in (8, 4) and self.residual_length == 0 and head_dim == 128
-
-
-def check_quant(quant: Optional[QuantConfig], head_dim: int) -> None:
-    """Raise for a ``QuantConfig`` the port does not carry yet."""
-    if quant is not None and not quant.per_token(head_dim):
-        raise NotImplementedError(
-            f"the grouped quantized cache (nbits={quant.nbits}, residual_length="
-            f"{quant.residual_length}, head_dim={head_dim}) is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
 
 
 @dataclass(frozen=True)
@@ -259,7 +251,7 @@ class ShardingConfig:
     attention, ``parallel/``), with decode replicated on every rank.  The
     JAX package's ``ValueError``s for sp with ep or pp hold; every other
     non-default layout (dp, tp, ep, pp, and sp composed with dp or tp)
-    raises ``NotImplementedError`` (ROADMAP.md queue 1 item 16)."""
+    raises ``NotImplementedError`` (ROADMAP.md item 1.11)."""
 
     dp: int = 1
     tp: int = 1
@@ -279,8 +271,8 @@ class ShardingConfig:
         if (self.dp, self.tp, self.ep, self.pp, self.pp_microbatches,
                 self.dcn_dp) != (1, 1, 1, 1, 0, 1):
             raise NotImplementedError(
-                "multi-device sharding is not ported yet (ROADMAP.md queue 1 "
-                "item 16: parallel paths)")
+                "multi-device sharding is not ported yet (ROADMAP.md item 1.11: "
+                "parallel paths)")
 
 
 # ---------------------------------------------------------------------------

@@ -16,10 +16,11 @@ read ``q`` only through its last ``window`` rows), and each row's last
 hidden state ``[B, hidden]``.  Unlike the JAX version, :func:`chunk_step`
 updates the state **in place** and returns it.
 
-The port carries the snapkv and fullkv policies.  h2o's full-query store
-and the other methods raise ``NotImplementedError`` naming ROADMAP.md queue
-1 item 7; MInference sparse prefill raises as in the JAX package (a dense
-chunked pass would compute another function).
+The port carries the snapkv and fullkv policies, into every cache that
+one-shot prefill builds (dense, per-token or grouped quantized, evicting).
+h2o's full-query store and the other methods raise ``NotImplementedError``
+naming ROADMAP.md item 1.10; MInference sparse prefill raises as in the JAX
+package (a dense chunked pass would compute another function).
 
 Host values: ``c0`` and ``true_len`` are host integers (the engine keeps
 them in numpy); each call builds fresh device tensors from them, so a
@@ -51,11 +52,11 @@ def _check_supported(comp: CompressionConfig) -> None:
         raise NotImplementedError(
             "chunked prefill computes dense causal attention per chunk; "
             "MInference sparse prefill patterns require the one-shot path, as "
-            "in the JAX package (ROADMAP.md queue 1 item 17).")
+            "in the JAX package (ROADMAP.md queues no port of it).")
     if comp.method not in _PORTED:
         raise NotImplementedError(
             f"chunked prefill for {comp.method!r} is not ported yet (ROADMAP.md "
-            "queue 1 item 7: remaining policies, h2o's full-query store with h2o)")
+            "item 1.10: remaining policies, h2o's full-query store with h2o)")
 
 
 def init_chunked_state(cfg: ModelConfig, comp: CompressionConfig, batch: int, S: int,
@@ -161,14 +162,15 @@ def finalize(
     tl_t = torch.tensor(tl, dtype=torch.int32, device=dev)
     policy_capacity = comp.layer_capacity(L, S)
     assert cache_capacity >= policy_capacity
-    cache = init_prefill_cache(cfg, comp, quant, B, cache_capacity, dev)
+    cache = init_prefill_cache(cfg, comp, quant, B, cache_capacity, policy_capacity, dev)
     for li in range(L):
         q_sub = torch.zeros((B, Hq, S, D), dtype=qwin.dtype, device=dev)
         for b, n in enumerate(tl):
             start = n - WK if n >= WK else 0
             q_sub[b, :, start:start + WK] = torch.roll(qwin[li, b], min(n, WK) - WK, dims=1)
         store_packed_layer(cache, li, compress_prefill(
-            comp, L, policy_capacity, kbuf[li], vbuf[li], q_sub, tl_t, LayerContext(li)))
+            comp, L, policy_capacity, kbuf[li], vbuf[li], q_sub, tl_t, LayerContext(li)),
+            comp, quant, q_sub, tl_t)
     cache.positions.copy_(tl_t)
     xf = rms_norm(x_last[:, None], params["final_norm"], cfg.rms_norm_eps)[:, 0]
     return PrefillResult(wdot(xf, params["lm_head"]).float(), cache)

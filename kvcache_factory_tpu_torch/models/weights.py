@@ -54,7 +54,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     :func:`params_from_jax`)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE weights are not ported yet "
-                                  "(ROADMAP.md queue 1 item 10)")
+                                  "(ROADMAP.md item 1.9)")
     dtype = dtype or dtype_of(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

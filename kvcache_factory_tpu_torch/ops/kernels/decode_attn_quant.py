@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ...cache.quant_cache import dequantize, encode
+from ...cache.quant_cache import dequantize, encode_per_token
 from ..attention import NEG_INF
 from . import _build
 from .decode_attn import GROUPS, HEAD_DIM, _counters, _sm_count, split_count
@@ -175,7 +175,7 @@ def _reference(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower)
     out = torch.einsum("hgc,hcd->hgd", probs[..., :C], v) + probs[..., C:] * vn[:, None]
     heads = torch.arange(H, device=dev)
     for codes, x, col in ((k_codes, k_new, 0), (v_codes, v_new, 2)):
-        c, scale, zero = encode(x[:, None], nbits)
+        c, scale, zero = encode_per_token(x[:, None], nbits)
         codes[heads, L] = c[:, 0]
         scales[heads, L, col] = scale[:, 0]
         scales[heads, L, col + 1] = zero[:, 0]

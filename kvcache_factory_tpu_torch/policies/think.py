@@ -7,8 +7,9 @@ least salient channels are zeroed in every row but the last
 ``recent_size``.  The decode product over zeroed channels equals the
 reference's masked-query product, so decode needs no special case.  The
 drop set is the first ``kdrop`` of a stable descending sort of
-``-saliency``, the order ``lax.top_k`` gives ties.  The channel-packed
-``ThinKCache`` (``think_packed``) is not ported here.
+``-saliency``, the order ``lax.top_k`` gives ties.  With ``think_packed``
+the keys stay whole here and :func:`think_channel_keep_idx` gives the kept
+channels that ``cache/think_cache.py`` stores.
 """
 
 from __future__ import annotations
@@ -52,6 +53,23 @@ def think_drop_channels(saliency: torch.Tensor, kdrop: int) -> torch.Tensor:
     """The ``kdrop`` least salient channels of each head, [H, kdrop], in
     ``lax.top_k(-saliency, kdrop)``'s order."""
     return torch.sort(-saliency, dim=-1, descending=True, stable=True).indices[:, :kdrop]
+
+
+def think_channel_keep_idx(
+    k: torch.Tensor,         # [H, C, D]
+    lengths: torch.Tensor,   # [H]
+    q: torch.Tensor,         # [H, S, D]
+    true_len: torch.Tensor,
+    pruning_ratio: float,
+) -> torch.Tensor:
+    """The ``D - int(D * ratio)`` most salient channels of each head,
+    ``[H, Dk]`` int32 ascending: the first ``Dk`` of a stable descending
+    sort of the saliency (``lax.top_k``'s order of ties), then sorted."""
+    D = k.shape[2]
+    dkeep = D - int(D * pruning_ratio)
+    saliency = think_saliency(k, lengths, q, true_len)
+    keep = torch.sort(saliency, dim=-1, descending=True, stable=True).indices[:, :dkeep]
+    return keep.sort(dim=-1).values.to(torch.int32)
 
 
 def think_prune_channels(

@@ -12,9 +12,10 @@ streams go on:
       -> decode chunk: up to ``chunk_size`` greedy steps over all slots
       -> EOS or the token budget frees the slot at the chunk's end
 
-Every cache of the port (``KVCache``, ``Int8KVCache``, ``Int4KVCache``)
-keeps ``positions`` as ``[B]`` and every other tensor as ``[L, B, ...]``,
-so slot insertion and pool allocation are generic.
+Every cache the engine builds (dense, per-token or grouped quantized, the
+latter with its ``None`` planes, evicting, ThinK packed) keeps
+``positions`` as ``[B]`` and every other tensor as ``[L, B, ...]``, so slot
+insertion and pool allocation are generic.
 
 Where torch is not JAX (state is updated in place):
 
@@ -38,7 +39,7 @@ Where torch is not JAX (state is updated in place):
 
 Prefix caching (``cache_prefix``), the ``(dp, tp)`` mesh, and headkv, cam
 and random (capacities and draws through admission) are not ported
-(ROADMAP.md queue 1 item 14).
+(ROADMAP.md item 1.10).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import EngineConfig, check_quant
+from ..config import EngineConfig
 from ..models import llama
 from ..models.chunked_prefill import (ChunkState, _check_supported, chunk_step, finalize,
                                       init_chunked_state)
@@ -59,6 +60,8 @@ from .native import make_scheduler
 def _insert_row(batched: llama.Cache, row: llama.Cache, slot: int) -> None:
     """Copy a one-row cache into batch position ``slot``, in place."""
     for buf, r in zip(batched, row):
+        if buf is None:
+            continue
         if buf.dim() == 1:
             buf[slot] = r[0]
         else:
@@ -72,7 +75,7 @@ def _alloc_pool(row: llama.Cache, n_slots: int) -> llama.Cache:
         shape = (n_slots,) if r.dim() == 1 else (r.shape[0], n_slots) + r.shape[2:]
         return torch.zeros(shape, dtype=r.dtype, device=r.device)
 
-    return type(row)(*(z(r) for r in row))
+    return type(row)(*(None if r is None else z(r) for r in row))
 
 
 # --- chunk-pool row plumbing (chunked admission) ---------------------------
@@ -116,12 +119,11 @@ class ContinuousBatchingEngine:
                  max_new_cap: int = 256, eos_token_ids: Sequence[int] = (),
                  chunk_size: int = 16, prefill_chunk_tokens: int = 0,
                  device="cuda", instrument: bool = False):
-        check_quant(cfg.quant, cfg.model.head_dim)
         llama._check_supported(cfg.model, cfg.compression, cfg.quant)
         if cfg.compression.method in ("headkv", "cam", "random"):
             raise NotImplementedError(
                 f"{cfg.compression.method!r} in the batching engine (head capacities and "
-                "draws through admission) is not ported yet (ROADMAP.md queue 1 item 14)")
+                "draws through admission) is not ported yet (ROADMAP.md item 1.10)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the engine "
@@ -181,8 +183,8 @@ class ContinuousBatchingEngine:
         return rid
 
     def cache_prefix(self, prefix_ids: Sequence[int]) -> None:
-        raise NotImplementedError("prefix caching is not ported yet (ROADMAP.md queue 1 "
-                                  "item 14: prefix snapshots of chunked admission)")
+        raise NotImplementedError("prefix caching is not ported yet (ROADMAP.md item 1.10: "
+                                  "prefix snapshots of chunked admission)")
 
     # --- admission -----------------------------------------------------------
 
@@ -293,6 +295,7 @@ class ContinuousBatchingEngine:
         ``[n, n_slots, V]`` when instrumented, and ``n``."""
         dev = self.device
         quant = self.cfg.quant
+        evr = self.cfg.compression.eviction_recent
         n_max = min(self.chunk_size, int(budget[active].max()))
         tok = torch.tensor(cur.tolist(), dtype=torch.int64, device=dev)
         act = torch.tensor(active.tolist(), device=dev)
@@ -304,7 +307,8 @@ class ContinuousBatchingEngine:
             if self.eos and k and not bool(act.any()):
                 break
             lens0, pos0 = cache.lengths.clone(), cache.positions.clone()
-            logits, _ = llama.decode_step(self.params, self.cfg.model, tok, cache, quant=quant)
+            logits, _ = llama.decode_step(self.params, self.cfg.model, tok, cache, quant=quant,
+                                          eviction_recent=evr)
             cache.lengths.copy_(torch.where(act[None, :, None], cache.lengths, lens0))
             cache.positions.copy_(torch.where(act, cache.positions, pos0))
             tok = torch.where(act, logits.argmax(-1), tok)

@@ -3,8 +3,11 @@
 sequence-parallel one, ``cfg.sharding.sp > 1``).
 
 Prompts are right-padded to the nearest bucket and masked via ``true_len``,
-so each bucket gives results identical to an exact-length run.  With
-``cfg.quant`` the engine builds the per-token int8 or int4 cache.
+so each bucket gives results identical to an exact-length run.  The cache
+follows the configuration (``models/llama.py::init_prefill_cache``): with
+``cfg.quant`` per-token int8 / int4 or grouped, ThinK's packed cache with
+``think_packed``, the evicting cache with ``decode_evict`` (its
+``eviction_recent`` passed to each decode step), else dense.
 ``sparse_budgets`` are MInference's per-(layer, head) (vertical, slash)
 budgets ``[L, Hq, 2]`` (``policies/minference.py::load_sparse_budgets``);
 ``head_capacity`` HeadKV's per-(layer, cache head) budgets ``[L, H]``

@@ -26,7 +26,7 @@ from ..parallel.mesh import SequenceParallelGroup
 class GenerateResult(NamedTuple):
     tokens: torch.Tensor       # [B, max_new_tokens] generated ids (0 after EOS)
     num_tokens: torch.Tensor   # [B] count of valid generated tokens
-    cache: llama.Cache  # KVCache, or Int8KVCache / Int4KVCache with quant_cfg
+    cache: llama.Cache  # the configured cache (llama.init_prefill_cache)
     # [B, max_new_tokens, V] fp32 logits each token was chosen from (entry 0
     # is the prefill's), when requested; rows past a stop are not filled.
     logits: Optional[torch.Tensor] = None
@@ -157,8 +157,8 @@ def generate(
         # device-to-host read per step.
         if gen_cfg.eos_token_ids and bool(done.all()):
             break
-        logits, cache = llama.decode_step(params, model_cfg, cur, cache,
-                                          quant=quant_cfg)
+        logits, cache = llama.decode_step(params, model_cfg, cur, cache, quant=quant_cfg,
+                                          eviction_recent=comp_cfg.eviction_recent)
         if return_logits:
             all_logits[:, step] = logits
         nxt = draw(suppress_eos(logits, step + 1 >= gen_cfg.min_new_tokens), step)

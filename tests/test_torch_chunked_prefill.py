@@ -221,7 +221,7 @@ def test_chunk_step_refuses_a_chunk_past_the_buffer(model):
 ], ids=["h2o", "pyramidkv"])
 def test_unported_methods_raise_naming_the_roadmap_item(model, kw):
     _, tc = _configs(24)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
         tchunked.prefill_chunked(model["tp"], tc, tcfg.CompressionConfig(**kw),
                                  torch.tensor(model["toks"]), torch.tensor(model["lens"]),
                                  CAP, 32)

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from kvcache_factory_tpu import config as jcfg
 from kvcache_factory_tpu.evals import cli_common as jcli
@@ -233,16 +234,17 @@ def test_cli_argument_resolution_matches_jax(argv):
                                             "--max_capacity_prompts_ratio", "0.5"]))
 
 
-def _tiny_checkpoint(path):
-    """A tiny Llama checkpoint in the HF layout and a word-level tokenizer
-    over ``w0 .. w99`` saved beside it."""
+def _tiny_checkpoint(path, **widths):
+    """A tiny Llama checkpoint in the HF layout (``widths`` override its
+    config) and a word-level tokenizer over ``w0 .. w99`` saved beside it."""
     import transformers as tf
     from tokenizers import Tokenizer, models, pre_tokenizers
     import torch
     torch.manual_seed(0)
-    model = tf.LlamaForCausalLM(tf.LlamaConfig(
-        vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512))
+    model = tf.LlamaForCausalLM(tf.LlamaConfig(**{
+        **dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512),
+        **widths}))
     model.save_pretrained(path)
     vocab = {"<unk>": 0, "</s>": 1, **{f"w{i}": i + 2 for i in range(100)}}
     tk = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
@@ -251,11 +253,8 @@ def _tiny_checkpoint(path):
                                eos_token="</s>").save_pretrained(path)
 
 
-@pytest.mark.parametrize("flags,item", [(["--think_packed", "--method", "think"], "item 11"),
-                                        (["--quant_method", "kvquant", "--nbits", "2"],
-                                         "item 8"),
-                                        (["--dp", "2"], "item 16"), (["--tp", "2"], "item 16"),
-                                        (["--pp", "2"], "item 16")])
+@pytest.mark.parametrize("flags,item", [(["--dp", "2"], "item 1.11"), (["--tp", "2"], "item 1.11"),
+                                        (["--pp", "2"], "item 1.11")])
 def test_cli_refuses_unported_flags_before_loading(tmp_path, flags, item):
     (tmp_path / "config.json").write_text(json.dumps(dict(
         model_type="llama", vocab_size=128, hidden_size=64, intermediate_size=128,
@@ -288,3 +287,57 @@ def test_longbench_cli_end_to_end(tmp_path):
         assert all(isinstance(r["pred"], str) for r in recs)
     rows = tscore.score_results_dir(str(out / "0" / "tiny-llama_64"))
     assert rows[3][0] == "SnapKV" and rows[3][rows[0].index("hotpotqa")] != -1
+
+
+@pytest.mark.parametrize("flags,widths", [
+    (["--method", "snapkv", "--quant_method", "kvquant", "--nbits", "2", "--residual_length",
+      "8"], dict(hidden_size=128, num_attention_heads=2, num_key_value_heads=1)),
+    (["--method", "think", "--think_packed"], {})], ids=["kvquant_nbits2_ring8", "think_packed"])
+def test_cli_reaches_the_new_caches_as_jax_does(tmp_path, monkeypatch, flags, widths):
+    """The flags the CLI once refused build the grouped quantized cache
+    (head_dim 64 here: the default ``q_group_size`` is 64) and ThinK's packed
+    cache, and the runner's file equals the JAX CLI's line for line.  Both
+    CLIs load the checkpoint in bf16; bf16 products round differently in
+    XLA and torch on the CPU and flip greedy near-ties, so here each loader
+    is made to load fp32 weights into an fp32 model."""
+    import dataclasses
+
+    from kvcache_factory_tpu_torch.cache.quant_cache import QuantizedKVCache
+    from kvcache_factory_tpu_torch.cache.think_cache import ThinKCache
+    from kvcache_factory_tpu_torch.models import weights as tweights
+
+    def jload(path):
+        cfg = dataclasses.replace(jcfg.ModelConfig.from_json(os.path.join(path, "config.json")),
+                                  dtype="float32")
+        return jweights.load_params(path, cfg, dtype=jnp.float32)
+
+    def tload(path, cfg, device):
+        return tweights.load_params(path, dataclasses.replace(cfg, dtype="float32"),
+                                    dtype=torch.float32, device=device)
+
+    monkeypatch.setattr(jcli, "load_params", jload)
+    monkeypatch.setattr(tcli, "load_params", tload)
+
+    ckpt = tmp_path / "tiny-llama"
+    _tiny_checkpoint(ckpt, **widths)
+    data = tmp_path / "data"
+    data.mkdir()
+    with open(data / "hotpotqa.jsonl", "w") as f:
+        for i in range(2):
+            f.write(json.dumps({"input": f"w{i} w{i + 1}", "context": " ".join(
+                f"w{(7 * j + i) % 100}" for j in range(90)), "answers": [f"w{i}"],
+                "length": 92, "all_classes": None, "_id": str(i)}) + "\n")
+    argv = ["--model_path", str(ckpt), "--data_dir", str(data), "--datasets", "hotpotqa",
+            "--max_capacity_prompts", "64", "--prefill_buckets", "128", "256"] + flags
+    ap = argparse.ArgumentParser()
+    tcli.add_engine_args(ap)
+    engine, _, _ = tcli.build_engine_from_args(
+        ap.parse_known_args(argv + ["--device", "cpu"])[0])
+    ids, res = engine.generate_batch([[5] * 100], 2, return_result=True)
+    assert isinstance(res.cache, QuantizedKVCache if "--nbits" in flags else ThinKCache)
+    tlongbench.main(argv + ["--save_dir", str(tmp_path / "port"), "--device", "cpu"])
+    jlongbench.main(argv + ["--save_dir", str(tmp_path / "jax")])
+    method = flags[1]
+    rel = os.path.join("tiny-llama_64", "hotpotqa", f"{method}.json")
+    got, want = _lines(tmp_path / "port" / rel), _lines(tmp_path / "jax" / rel)
+    assert len(got) == 2 and got == want

@@ -150,17 +150,15 @@ def test_engine_generate_batch_matches_jax(setup, lengths):
         assert teng.generate_ids(prompts[0], 10) == want[0]
 
 
-@pytest.mark.parametrize("what", ["quant", "quant_residual", "cache_prefix",
-                                  "sparse_chunked", "sampling"])
+@pytest.mark.parametrize("what", ["cache_prefix", "sparse_chunked", "sampling"])
 def test_unported_paths_raise(setup, what):
-    """The grouped quantized cache (nbits 1/2/3, or an fp residual ring) is
-    still unported; the per-token int8/int4 caches are
-    ``tests/test_torch_quant_decode.py``'s.  Prefix caching waits for its
-    ROADMAP item, and chunked prefill refuses MInference's sparse masks, as
-    the JAX package does (sliding-window models run: ``tests/
-    test_torch_sliding_window.py``).  Sampling is ported: its case now
-    holds that the refusal is gone and that temperature 1e-6 gives the
-    greedy stream (parity with JAX in ``tests/test_torch_sampling.py``)."""
+    """Prefix caching waits for its ROADMAP item, and chunked prefill
+    refuses MInference's sparse masks, as the JAX package does
+    (sliding-window models run: ``tests/test_torch_sliding_window.py``).
+    Sampling is ported: its case now holds that the refusal is gone and
+    that temperature 1e-6 gives the greedy stream (parity with JAX in
+    ``tests/test_torch_sampling.py``).  The grouped quantized cache is
+    ported: ``tests/test_torch_grouped_quant.py``."""
     s = setup
     if what == "sampling":
         args = (s["tp"], s["tc"], s["tcomp"])
@@ -171,17 +169,8 @@ def test_unported_paths_raise(setup, what):
             device="cpu", rng=torch.Generator().manual_seed(3))
         assert torch.equal(sampled.tokens, greedy.tokens)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"
-                       if what.startswith("quant") else "ROADMAP"):
-        if what == "quant":
-            tllama.prefill(s["tp"], s["tc"], s["tcomp"], torch.tensor(s["toks"]),
-                           torch.tensor(s["lens"]), 80, quant=tcfg.QuantConfig(nbits=2))
-        elif what == "quant_residual":
-            tengine.InferenceEngine(
-                s["tp"], tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"],
-                                           quant=tcfg.QuantConfig(residual_length=32)),
-                device="cpu")
-        elif what == "cache_prefix":
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if what == "cache_prefix":
             eng = tbatching.ContinuousBatchingEngine(
                 s["tp"], tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"]),
                 prefill_chunk_tokens=128, device="cpu")
@@ -193,16 +182,16 @@ def test_unported_paths_raise(setup, what):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (the serving, loading and eval modules
-    named below among them), and chip_smoke.py, import without pulling in
-    jax or kvcache_factory_tpu, nor ml_dtypes, transformers or safetensors
-    (the CLI imports transformers' tokenizer only when it builds an
-    engine).  An import hook refuses those names, so an import fails even
+    """Every module of the port (the serving, loading, cache, checkpoint
+    and eval modules named below among them), and chip_smoke.py, import
+    without pulling in jax or kvcache_factory_tpu, nor ml_dtypes,
+    transformers, orbax or safetensors (the CLI imports transformers'
+    tokenizer only when it builds an engine).  An import hook refuses those names, so an import fails even
     where something else loaded one of them first."""
     code = (
         "import importlib, importlib.abc, pkgutil, sys\n"
         "BANNED = ('jax', 'jaxlib', 'kvcache_factory_tpu', 'ml_dtypes', 'transformers',\n"
-        "          'safetensors')\n"
+        "          'safetensors', 'orbax')\n"
         "class Refuse(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BANNED:\n"
@@ -217,11 +206,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "for m in ('models.chunked_prefill', 'runtime.native', 'runtime.batching',\n"
         "          'models.weights', 'evals.cli_common', 'evals.longbench', 'evals.ruler',\n"
-        "          'evals.needle', 'evals.needle_viz', 'evals.metrics', 'evals.score'):\n"
+        "          'evals.needle', 'evals.needle_viz', 'evals.metrics', 'evals.score',\n"
+        "          'cache.quant_cache', 'cache.kv_cache', 'cache.think_cache',\n"
+        "          'cache.offload_cache', 'cache.ssm_cache', 'cache.encdec_cache',\n"
+        "          'runtime.checkpoint', 'policies.think'):\n"
         "    assert 'kvcache_factory_tpu_torch.' + m in sys.modules, m\n"
         "print(sum(m.startswith('kvcache_factory_tpu_torch') for m in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 31  # the whole package was imported
+    assert int(out.stdout.strip()) >= 36  # the whole package was imported

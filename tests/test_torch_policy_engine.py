@@ -156,27 +156,24 @@ def test_engine_draws_repeat_from_the_generators_state(model):
                            first.k)
 
 
-@pytest.mark.parametrize("what", ["think_packed", "sp", "headkv_without_capacities",
+@pytest.mark.parametrize("what", ["sp", "headkv_without_capacities",
                                   "batching_headkv", "batching_cam", "batching_random"])
 def test_refusals_name_their_roadmap_item(model, what):
     """What this slice leaves unported raises, naming its ROADMAP.md item.
     headkv without capacities is no longer refused: as JAX's
     ``InferenceEngine`` does, prefill feeds zero capacities and every head
     keeps only its window; that case holds the port's engine to JAX's
-    (streams, lengths, first-token logits)."""
+    (streams, lengths, first-token logits).  ThinK's packed cache is
+    ported: ``tests/test_torch_caches.py``."""
     m = model
     cfg = lambda **kw: tcfg.EngineConfig(  # noqa: E731
         model=m["tc"], compression=tcfg.CompressionConfig(**dict(COMP, **kw)),
         prefill_buckets=(BUCKET,))
-    if what == "think_packed":
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            tengine.InferenceEngine(m["tp"], cfg(method="think", think_packed=True),
-                                    device="cpu")
-    elif what == "sp":
+    if what == "sp":
         c = tcfg.EngineConfig(model=m["tc"], compression=tcfg.CompressionConfig(
             **dict(COMP, method="pyramidkv")), sharding=tcfg.ShardingConfig(sp=2),
             prefill_buckets=(BUCKET,))
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
+        with pytest.raises(NotImplementedError, match="item 1.11"):
             tengine.InferenceEngine(m["tp"], c, device="cpu")
     elif what == "headkv_without_capacities":
         comp_kw = dict(COMP, method="headkv")
@@ -199,7 +196,7 @@ def test_refusals_name_their_roadmap_item(model, what):
                                    **LOGITS_TOL)
     else:
         method = what.split("_")[1]
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        with pytest.raises(NotImplementedError, match="item 1.10"):
             tbatching.ContinuousBatchingEngine(m["tp"], cfg(method=method), device="cpu")
 
 

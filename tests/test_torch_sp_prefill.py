@@ -127,18 +127,18 @@ def test_sp_ranks_import_no_jax_and_check_the_group_size(sp_runs, n):
     (dict(sp=2, ep=2), ValueError),           # JAX: sp does not compose with ep
     (dict(sp=2, pp=2), ValueError),           # ... nor with pp
     (dict(sp=0), ValueError),
-    (dict(dp=2), NotImplementedError),        # the rest of queue 1 item 16
+    (dict(dp=2), NotImplementedError),        # the rest of ROADMAP item 1.11
     (dict(sp=2, tp=2), NotImplementedError),
     (dict(dp=2, sp=2), NotImplementedError),
     (dict(pp=2, pp_microbatches=2), NotImplementedError),
 ])
 def test_sharding_config_validation(kw, error):
     """sp alone is accepted; JAX's ValueErrors hold (and JAX raises them
-    too); every other layout waits for ROADMAP queue 1 item 16."""
+    too); every other layout waits for ROADMAP item 1.11."""
     if error is None:
         assert tcfg.ShardingConfig(**kw).sp == kw["sp"]
         return
-    with pytest.raises(error, match=None if error is ValueError else "item 16"):
+    with pytest.raises(error, match=None if error is ValueError else "item 1.11"):
         tcfg.ShardingConfig(**kw)
     if error is ValueError and kw.get("sp", 1) > 0:
         with pytest.raises(ValueError):
