@@ -127,7 +127,23 @@ Phases, in order; any failure exits non-zero:
    checkpoints of five caches, bitwise continuations, bytes and times;
    (10f) a ``ContinuousBatchingEngine`` drain over the nbits-2 cache; (10g)
    the SSM and encoder-decoder caches on the card bitwise against the CPU;
-11. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+11. Mixtral-8x7B-Instruct-v0.1 widths (sparse MoE, 8 experts, top-2): (11a)
+   a one-layer checkpoint in the HF layout (``block_sparse_moe`` router and
+   experts) read back by ``load_params``, every leaf bitwise equal to the
+   tensors fused by hand, the native reader serving; (11b) the full-depth
+   model with random W8A16 weights built layer by layer, phase 5's two
+   requests through ``InferenceEngine`` (SnapKV, 32 new): launches, lengths,
+   the routing of request (b) against the fp32 reference (flips only at
+   near-ties), its logits against the reference with the card's routing
+   replayed, the decode gather and the prefill dispatch against the dense
+   all-expert form, no host read a decode step, prefill and decode times,
+   a profiled decode step beside its bound; (11c) ``ContinuousBatchingEngine``
+   with a 2048-token prefix registered (``cache_prefix``): six requests
+   drained cold and with the prefix, the resumed admissions against the
+   cold ones, snapshot bytes within the budget; then h2o, headkv, cam and
+   random through chunked admission against the one-shot engine, each run
+   with every launch count set to 0 just before it;
+12. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -2831,9 +2847,24 @@ def hf_layer_shapes(cfg):
             "input_layernorm.weight": (h,), "post_attention_layernorm.weight": (h,)}
 
 
-def random_hf_state(cfg, seed):
-    """Random bf16 tensors on the card under HF names: matrices normal /
-    sqrt(fan_in), biases 0.1 * normal, norms 1 + 0.1 * normal."""
+def mixtral_layer_shapes(cfg):
+    """``hf_layer_shapes`` for a Mixtral layer: the attention and norms (no
+    biases), the router ``block_sparse_moe.gate`` ``[E, h]`` and each
+    expert's w1 / w3 ``[f, h]`` and w2 ``[h, f]``."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {n: s for n, s in hf_layer_shapes(cfg).items()
+              if not n.startswith("mlp.") and not n.endswith(".bias")}
+    shapes["block_sparse_moe.gate.weight"] = (cfg.num_local_experts, h)
+    for e in range(cfg.num_local_experts):
+        for w, shape in (("w1", (f, h)), ("w3", (f, h)), ("w2", (h, f))):
+            shapes[f"block_sparse_moe.experts.{e}.{w}.weight"] = shape
+    return shapes
+
+
+def random_hf_state(cfg, seed, layer_shapes=hf_layer_shapes):
+    """Random bf16 tensors on the card under HF names (``layer_shapes(cfg)``
+    in each layer): matrices normal / sqrt(fan_in), biases 0.1 * normal,
+    norms 1 + 0.1 * normal."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def draw(name, shape):
@@ -2848,7 +2879,7 @@ def random_hf_state(cfg, seed):
     h, V = cfg.hidden_size, cfg.vocab_size
     state = {"model.embed_tokens.weight": draw("embed", (V, h))}
     for li in range(cfg.num_hidden_layers):
-        for name, shape in hf_layer_shapes(cfg).items():
+        for name, shape in layer_shapes(cfg).items():
             state[f"model.layers.{li}.{name}"] = draw(name, shape)
     state["model.norm.weight"] = draw("model.norm.weight", (h,))
     state["lm_head.weight"] = draw("lm_head", (V, h))
@@ -2896,28 +2927,37 @@ def write_checkpoint(directory, hf_config, state, n_shards=2):
 def fused_in_memory(cfg, state):
     """The port's layout built from ``state`` by hand (independently of
     ``params_from_state_dict``): q/k/v and gate/up concatenated along the
-    output axis, matrices transposed to input-major, stacked over layers."""
+    output axis, matrices transposed to input-major, stacked over layers;
+    on a Mixtral configuration the router, and w1 | w3 and w2 of each expert
+    stacked over the experts."""
     lay = lambda li, n: state[f"model.layers.{li}.{n}"]  # noqa: E731
 
     def stack(fn):
         return torch.stack([fn(li) for li in range(cfg.num_hidden_layers)])
-    return {
-        "embed": state["model.embed_tokens.weight"],
-        "layers": {
-            "qkv_proj": stack(lambda li: torch.cat([lay(li, f"self_attn.{p}_proj.weight")
-                                                    for p in "qkv"]).T),
-            "o_proj": stack(lambda li: lay(li, "self_attn.o_proj.weight").T),
-            "gate_up_proj": stack(lambda li: torch.cat([lay(li, "mlp.gate_proj.weight"),
-                                                        lay(li, "mlp.up_proj.weight")]).T),
-            "down_proj": stack(lambda li: lay(li, "mlp.down_proj.weight").T),
-            "input_norm": stack(lambda li: lay(li, "input_layernorm.weight")),
-            "post_norm": stack(lambda li: lay(li, "post_attention_layernorm.weight")),
-            "qkv_bias": stack(lambda li: torch.cat([lay(li, f"self_attn.{p}_proj.bias")
-                                                    for p in "qkv"])),
-        },
-        "final_norm": state["model.norm.weight"],
-        "lm_head": state["lm_head.weight"].T,
+    layers = {
+        "qkv_proj": stack(lambda li: torch.cat([lay(li, f"self_attn.{p}_proj.weight")
+                                                for p in "qkv"]).T),
+        "o_proj": stack(lambda li: lay(li, "self_attn.o_proj.weight").T),
+        "input_norm": stack(lambda li: lay(li, "input_layernorm.weight")),
+        "post_norm": stack(lambda li: lay(li, "post_attention_layernorm.weight")),
     }
+    if cfg.is_moe:
+        def experts(fn):
+            return stack(lambda li: torch.stack([fn(li, f"block_sparse_moe.experts.{e}")
+                                                 for e in range(cfg.num_local_experts)]))
+        layers["router"] = stack(lambda li: lay(li, "block_sparse_moe.gate.weight").T)
+        layers["gate_up_proj"] = experts(lambda li, p: torch.cat([lay(li, f"{p}.w1.weight"),
+                                                                 lay(li, f"{p}.w3.weight")]).T)
+        layers["down_proj"] = experts(lambda li, p: lay(li, f"{p}.w2.weight").T)
+    else:
+        layers["gate_up_proj"] = stack(lambda li: torch.cat([lay(li, "mlp.gate_proj.weight"),
+                                                             lay(li, "mlp.up_proj.weight")]).T)
+        layers["down_proj"] = stack(lambda li: lay(li, "mlp.down_proj.weight").T)
+    if "model.layers.0.self_attn.q_proj.bias" in state:
+        layers["qkv_bias"] = stack(lambda li: torch.cat([lay(li, f"self_attn.{p}_proj.bias")
+                                                         for p in "qkv"]))
+    return {"embed": state["model.embed_tokens.weight"], "layers": layers,
+            "final_norm": state["model.norm.weight"], "lm_head": state["lm_head.weight"].T}
 
 
 def flat_leaves(tree, prefix=""):
@@ -3281,19 +3321,24 @@ def phase_harness(rng, params, log_file):
 
 
 def host_reads(fn):
-    """Device-to-host copies and host reads of a device scalar during
-    ``fn``, from the profiler: (DtoH memcpy events, ``aten::_local_scalar_dense`` calls)."""
+    """Device-to-host copies, host reads of a device scalar and stream /
+    device synchronisations during ``fn`` and one ``sync()`` after it, from
+    the profiler: DtoH memcpy events, ``aten::_local_scalar_dense`` calls
+    and ``cuda*Synchronize`` calls."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    dtoh = scalar = 0
+    out = {"dtoh": 0, "scalar_reads": 0, "syncs": 0}
     for evt in prof.key_averages():
         if "DtoH" in evt.key or "Device -> Pageable" in evt.key or "Device -> Pinned" in evt.key:
-            dtoh += evt.count
-        if evt.key == "aten::_local_scalar_dense":
-            scalar += evt.count
-    return dtoh, scalar
+            out["dtoh"] += evt.count
+        elif evt.key == "aten::_local_scalar_dense":
+            out["scalar_reads"] += evt.count
+        elif evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                         "cudaEventSynchronize"):
+            out["syncs"] += evt.count
+    return out
 
 
 def phase_sampling(params, prompts):
@@ -3349,10 +3394,11 @@ def phase_sampling(params, prompts):
     short = dataclasses.replace(SAMPLED, max_new_tokens=4)
     reads = {n: host_reads(lambda n=n: run(dataclasses.replace(short, max_new_tokens=n)))
              for n in (4, 12)}
+    same_reads = all(reads[4][k] == reads[12][k] for k in ("dtoh", "scalar_reads"))
     log(f"  device-to-host copies and host scalar reads per generate (no EOS ids): 4 tokens "
         f"{reads[4]}, 12 tokens {reads[12]}; the 8 decode steps between add none "
-        f"{reads[4] == reads[12]}")
-    if reads[4] != reads[12]:
+        f"{same_reads}")
+    if not same_reads:
         raise SystemExit("a sampled decode step reads the device from the host")
     g = torch.Generator(device="cuda").manual_seed(3)
     row = a.logits[:, 1].contiguous()
@@ -3365,7 +3411,7 @@ def phase_sampling(params, prompts):
         f"{sampled_s:.3f} s against greedy {greedy_s:.3f} s ({per_step:.3f} ms/step wall apart, "
         f"host-bound)")
     return {"in_support": in_support, "repeatable": same, "cold_equals_greedy_steps": compared,
-            "host_reads_4_vs_12_tokens": [list(reads[4]), list(reads[12])],
+            "host_reads_4_vs_12_tokens": [reads[4], reads[12]],
             "mask_and_draw_ms": draw_ms, "gumbel_ms": noise_ms, "sampled_request_s": sampled_s,
             "greedy_request_s": greedy_s, "wall_ms_per_step_apart": per_step}
 
@@ -4079,6 +4125,550 @@ def phase_llama3(rng, log_file):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Mixtral-8x7B-Instruct-v0.1 widths (sparse MoE), W8A16, serving
+# ---------------------------------------------------------------------------
+
+# The fields the forward reads from the published config.json of
+# mistralai/Mixtral-8x7B-Instruct-v0.1 (bf16 weights).
+MIXTRAL_HF_CONFIG = {
+    "model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-05, "sliding_window": None, "tie_word_embeddings": False,
+    "num_local_experts": 8, "num_experts_per_tok": 2, "torch_dtype": "bfloat16"}
+MIXTRAL = ModelConfig.from_hf_config(MIXTRAL_HF_CONFIG)
+MIXTRAL_DIR = LOG_PATH.parent / "mixtral_ckpt"
+MIXTRAL_NEW = 32
+# A routing decision (the set of a token's top-2 experts in a layer) may
+# differ between the card's bf16 path and the fp32 reference only where
+# the reference's 2nd and 3rd probabilities are close: bf16 rounding moves
+# each probability by at most max |dp|, so a flip needs a margin below
+# 2 max |dp|.  Measured on the CPU (tests/test_torch_moe.py::
+# test_bf16_routing_near_fp32_reference, printed with -s: a Mixtral-shaped
+# model cut to hidden 1024 and 4 layers, bf16 against the fp32 reference on
+# the same weights, 600 tokens): max |dp| 1.1e-2, 27 of 2400 decisions
+# differ, at margins up to 3.8e-3; first-token logits 0.0173 from fp32, so
+# phase 9b's 0.10 stands.  The limit is twice the 2 max |dp| reach, for the
+# wider, deeper model: 0.05.  A flip at a wider margin is a routing fault.
+MOE_FLIP_MARGIN_TOL = 0.05
+# The decode gather and the dispatch against the dense all-expert form on
+# one layer: one bf16 function whose products accumulate in fp32 in
+# another order and round to bf16 at the same points, so outputs differ
+# where a rounding goes the other way (2^-8 relative on an element): rel
+# L2 ~1e-3.  Routing one token to a wrong expert moves its row by O(1)
+# (measured beside the check).
+MOE_FORMS_REL_L2_TOL = 1e-2
+# 11c: a 2048-token shared prefix, then six requests of it plus their own
+# tokens (2560 to 8048 in all, buckets 4096 and 8192), 2048-token chunks.
+PREFIX_TOKENS, PREFIX_CHUNK = 2048, 2048
+PREFIX_OWN = (6000, 1800, 4500, 3000, 1000, 512)
+MIXTRAL_METHODS = ("h2o", "headkv", "cam", "random")
+METHOD_PROMPT, METHOD_NEW = 6000, 8
+
+
+def mixtral_w8a16(cfg, seed):
+    """Full-depth W8A16 weights drawn layer by layer from a seeded
+    ``torch.Generator`` on the card: each layer's bf16 matrices (normal /
+    sqrt(fan_in); the experts one at a time into the layer's stack) go
+    through ``quantize_weights`` before the next layer is drawn, into int8
+    stacks allocated once, so no bf16 copy of more than one layer exists.
+    The router, norms and embedding stay bf16; lm_head is int8, as
+    ``quantize_weights`` makes it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h, f, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_local_experts
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    width = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * cfg.head_dim
+    qd = cfg.num_attention_heads * cfg.head_dim
+    bf16 = torch.bfloat16
+
+    def draw(shape, out=None):
+        x = torch.randn(shape, generator=g, device="cuda") / math.sqrt(shape[-2])
+        return x.to(bf16) if out is None else out.copy_(x)
+    shapes = {"qkv_proj": (h, width), "o_proj": (qd, h), "gate_up_proj": (E, h, 2 * f),
+              "down_proj": (E, f, h)}
+    layers = {k: {"q": torch.empty((L,) + s, dtype=torch.int8, device="cuda"),
+                  "s": torch.empty((L,) + s[:-2] + (1, s[-1]), device="cuda")}
+              for k, s in shapes.items()}
+    layers["router"] = torch.empty((L, h, E), dtype=bf16, device="cuda")
+    for li in range(L):
+        one = {}
+        for k, s in shapes.items():
+            if len(s) == 3:
+                one[k] = torch.empty(s, dtype=bf16, device="cuda")
+                for e in range(E):
+                    draw(s[1:], one[k][e])
+            else:
+                one[k] = draw(s)
+        for k, w in quantize_weights({"layers": one}, skip=("lm_head",))["layers"].items():
+            layers[k]["q"][li], layers[k]["s"][li] = w["q"], w["s"]
+        del one
+        draw((h, E), layers["router"][li])
+    layers["input_norm"] = torch.ones((L, h), dtype=bf16, device="cuda")
+    layers["post_norm"] = torch.ones((L, h), dtype=bf16, device="cuda")
+    params = {"embed": draw((V, h)), "layers": layers,
+              "final_norm": torch.ones((h,), dtype=bf16, device="cuda")}
+    params["lm_head"] = quantize_weights({"layers": {}, "lm_head": draw((h, V))})["lm_head"]
+    return params
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for _, t in flat_leaves(tree))
+
+
+@contextlib.contextmanager
+def routing_record(calls):
+    """Wrap ``llama.moe_router``: append each call's (topi, fp32
+    probabilities) to ``calls``, on the card (no host read)."""
+    real = llama.moe_router
+
+    def hooked(x, w, k):
+        out = real(x, w, k)
+        calls.append((out[1], torch.softmax(x.float() @ w.float(), dim=-1)))
+        return out
+    llama.moe_router = hooked
+    try:
+        yield calls
+    finally:
+        llama.moe_router = real
+
+
+@contextlib.contextmanager
+def routing_replay(tables, report):
+    """Wrap ``llama.moe_router`` for the fp32 reference: the i-th call
+    routes its tokens to ``tables[i]`` ``[T, k]`` (the card's choices), with
+    ``topv`` this call's fp32 probabilities at those experts, renormalized;
+    ``report`` gets each call's own (topi, probabilities)."""
+    real, it = llama.moe_router, iter(tables)
+
+    def hooked(x, w, k):
+        _, own, _ = real(x, w, k)
+        probs = torch.softmax(x.float() @ w.float(), dim=-1)
+        topi = next(it).to(x.device).reshape(own.shape)
+        topv = probs.gather(-1, topi)
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+        report.append((own, probs))
+        return torch.zeros_like(probs).scatter_(-1, topi, topv), topi, topv
+    llama.moe_router = hooked
+    try:
+        yield report
+    finally:
+        llama.moe_router = real
+
+
+def dense_moe(x, lp, cfg, combine=None):
+    """JAX's dense all-expert form (``llama.py:267-272``): every expert on
+    every token, weighted by the router's ``combine`` ``[B, T, E]`` cast to
+    the activation dtype; a W8A16 leaf's scale after each product."""
+    if combine is None:
+        combine = llama.moe_router(x, lp["router"], cfg.num_experts_per_tok)[0]
+
+    def ein(subs, a, w):
+        s = w["s"].squeeze(-2)[None, :, None, :].to(a.dtype)
+        return torch.einsum(subs, a, w["q"].to(a.dtype)) * s
+    F_ = lp["gate_up_proj"]["q"].shape[-1] // 2
+    gu = ein("bth,ehf->betf", x, lp["gate_up_proj"])
+    eo = ein("betf,efh->beth", F.silu(gu[..., :F_]) * gu[..., F_:], lp["down_proj"])
+    return torch.einsum("beth,bte->bth", eo, combine.to(x.dtype))
+
+
+def moe_forms_check(rng, params):
+    """On the middle layer: the decode gather at B = 1 and 4 (JAX gathers at B = 1
+    and computes the dense form at B = 4) and the prefill dispatch over
+    1024 tokens, each against the dense all-expert form, with what routing
+    every token to its next expert would show."""
+    cfg = MIXTRAL
+    li = cfg.num_hidden_layers // 2
+    lp = llama._layer(params, li)
+    out = {}
+    for label, shape in (("gather_b1", (1, 1)), ("gather_b4", (4, 1)),
+                         ("dispatch_t1024", (1, 1024))):
+        x = bf16_normal(rng, shape + (cfg.hidden_size,))
+        with torch.no_grad():
+            got, want = llama.moe_ffn(x, lp, cfg), dense_moe(x, lp, cfg)
+            combine = llama.moe_router(x, lp["router"], cfg.num_experts_per_tok)[0]
+            wrong = dense_moe(x, lp, cfg, combine.roll(1, dims=-1))
+        rel, abs_err = rel_l2(got, want)
+        out[label] = {"rel_l2": rel, "max_abs_err": abs_err,
+                      "next_expert_rel_l2": rel_l2(wrong, want)[0]}
+    log(f"  moe_ffn against the dense all-expert form on layer {li} (tol rel L2 "
+        f"{MOE_FORMS_REL_L2_TOL}): " + "; ".join(
+            f"{k} {v['rel_l2']:.2e} (max abs {v['max_abs_err']:.2e}; every token routed to its "
+            f"next expert would show {v['next_expert_rel_l2']:.3f})" for k, v in out.items()))
+    if any(v["rel_l2"] > MOE_FORMS_REL_L2_TOL or v["next_expert_rel_l2"] < 10 *
+           MOE_FORMS_REL_L2_TOL for v in out.values()):
+        raise SystemExit("moe_ffn disagrees with the dense form (or the check cannot see a "
+                         "wrong expert)")
+    return out
+
+
+def host_syncs(fn):
+    """What ``fn`` adds to ``host_reads``: the counts of ``fn(); sync()``
+    less those of ``sync()`` alone."""
+    base, with_fn = host_reads(lambda: None), host_reads(fn)
+    return {k: with_fn[k] - base[k] for k in base}
+
+
+def request_b_rows(calls, part, n_prompt, steps, L):
+    """Request (b)'s (row 1's) rows of each layer's recorded ``part`` (0:
+    topi, 1: probabilities): its prefill rows, then each decode step's."""
+    return [torch.cat([calls[li][part][1, :n_prompt]]
+                      + [calls[L + s * L + li][part][1] for s in range(steps)]) for li in range(L)]
+
+
+def routing_check(card_i, card_p, report):
+    """The card's routing of request (b) against the fp32 reference's own:
+    the decisions that differ, the reference's margin (2nd minus 3rd
+    probability) at each, and the card's max |dp| against the reference."""
+    flips, margins, dp = 0, [], 0.0
+    for ci, cp, (own, probs) in zip(card_i, card_p, report):
+        differ = (ci.sort(-1).values != own[0].sort(-1).values).any(-1)
+        top = probs[0].sort(-1, descending=True).values
+        flips += int(differ.sum())
+        margins += (top[:, 1] - top[:, 2])[differ].tolist()
+        dp = max(dp, (cp - probs[0]).abs().max().item())
+    return flips, margins, dp
+
+
+def phase_mixtral_loader():
+    """11a: a one-layer checkpoint at Mixtral's widths in the HF layout
+    (``block_sparse_moe`` router and experts), read back by
+    ``load_params``: every leaf bitwise equal to the tensors fused by hand,
+    every byte read by the native reader."""
+    hf_cfg = {**MIXTRAL_HF_CONFIG, "num_hidden_layers": 1}
+    cfg = ModelConfig.from_hf_config(hf_cfg)
+    log("== 11a loader: Mixtral-8x7B-Instruct-v0.1 widths, 1 of 32 layers, bf16, 2 shards")
+    state = random_hf_state(cfg, seed=4, layer_shapes=mixtral_layer_shapes)
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(MIXTRAL_DIR, hf_cfg, state)
+    write_s = time.perf_counter() - t0
+    want = fused_in_memory(cfg, state)
+    native.SafetensorsFile.bytes_read.update(native=0, python=0)
+    sync()
+    t0 = time.perf_counter()
+    loaded, loaded_cfg = load_params(str(MIXTRAL_DIR), device="cuda")
+    sync()
+    load_s = time.perf_counter() - t0
+    read = dict(native.SafetensorsFile.bytes_read)
+    tensor_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    got, exp = dict(flat_leaves(loaded)), dict(flat_leaves(want))
+    apart = sorted(k for k in exp if k not in got or got[k].dtype != exp[k].dtype
+                   or got[k].shape != exp[k].shape or not torch.equal(got[k], exp[k]))
+    log(f"  wrote {nbytes / 1e9:.3f} GB ({len(state)} tensors) in {write_s:.2f} s; load_params "
+        f"read {tensor_bytes / 1e9:.3f} GB in {load_s:.3f} s; bytes by reader {read}; leaves "
+        f"{sorted(got)}; gate_up {tuple(got['layers.gate_up_proj'].shape)}; not bitwise equal "
+        f"to the hand fusion: {apart}; config equal {loaded_cfg == cfg}")
+    if apart or sorted(got) != sorted(exp) or loaded_cfg != cfg:
+        raise SystemExit("load_params disagrees with the Mixtral checkpoint's tensors")
+    if read != {"native": tensor_bytes, "python": 0}:
+        raise SystemExit("the native safetensors reader did not serve the Mixtral load")
+    del state, want, loaded, got, exp
+    shutil.rmtree(MIXTRAL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"layers": 1, "bytes_on_disk": nbytes, "tensor_bytes": tensor_bytes,
+            "write_s": write_s, "load_s": load_s, "bytes_by_reader": read,
+            "leaves_bitwise_equal": True}
+
+
+def phase_mixtral_engine(rng, params, prompts, log_file):
+    """11b: phase 5's two requests through ``InferenceEngine`` (SnapKV, bf16
+    cache, 32 new tokens) on the full-depth W8A16 model, checked and timed."""
+    cfg, L, dev = MIXTRAL, MIXTRAL.num_hidden_layers, "cuda"
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV), device=dev)
+    calls = []
+    reset_counts()
+    with routing_record(calls):
+        ids, res = engine.generate_batch(prompts, MIXTRAL_NEW, return_result=True)
+    sync()
+    launches = path_launches()
+    steps = MIXTRAL_NEW - 1
+    expect = dict.fromkeys(launches, 0)
+    expect["K1"], expect["K2"] = L, L * steps
+    got = [sorted(set(res.cache.lengths[:, b].flatten().tolist())) for b in range(2)]
+    want = [[min(len(p), SNAPKV.max_capacity_prompt) + steps] for p in prompts]
+    log(f"== 11b W8A16 Mixtral through InferenceEngine (snapkv, bf16 cache, B=2): launches "
+        f"{launches} (expect K1 {L}, K2 {L} x {steps}); cache lengths {got} (expect {want}); "
+        f"router calls {len(calls)} (expect {L * MIXTRAL_NEW})")
+    if launches != expect or got != want or len(calls) != L * MIXTRAL_NEW \
+            or [len(x) for x in ids] != [MIXTRAL_NEW] * 2:
+        raise SystemExit("the Mixtral run did not run each kernel the expected number of times, "
+                         "or left wrong lengths")
+    if not torch.isfinite(res.logits).all():
+        raise SystemExit("the Mixtral run gave non-finite logits")
+
+    # Request (b) (1500 tokens: the no-compress branch) against the fp32
+    # reference with the card's routing replayed.
+    n_b = len(prompts[1])
+    card_i = request_b_rows(calls, 0, n_b, steps, L)
+    report = []
+    with torch.no_grad(), routing_replay(card_i, report):
+        seq = prompts[1] + ids[1][:steps]
+        ref = forward_logits(params, cfg, torch.tensor([seq], device=dev))[0, n_b - 1:]
+    flips, margins, dp = routing_check(card_i, request_b_rows(calls, 1, n_b, steps, L), report)
+    rel_0, _ = rel_l2(res.logits[1, :1], ref[:1])
+    rel_d, abs_d = rel_l2(res.logits[1, 1:], ref[1:])
+    top1 = (res.logits[1].argmax(-1) == ref.argmax(-1)).float().mean().item()
+    del ref, report
+    log(f"  routing of request (b), {L} layers x {n_b + steps} tokens = {L * (n_b + steps)} "
+        f"decisions: {flips} differ from the fp32 reference's own, at reference margins "
+        f"(2nd - 3rd probability) up to {max(margins, default=0.0):.2e} (tol "
+        f"{MOE_FLIP_MARGIN_TOL}); card's probabilities within {dp:.2e} of the reference's")
+    log(f"  request (b) vs the fp32 reference (dequantized weights, card's routing replayed): "
+        f"first token rel L2 {rel_0:.4f} (tol {E2E_REL_L2_TOL}), {steps} decode rows worst "
+        f"{rel_d:.4f} (max abs {abs_d:.4f}); top-1 agreement {top1:.3f}")
+    if any(m >= MOE_FLIP_MARGIN_TOL for m in margins):
+        raise SystemExit("a routing decision flipped at a wide margin")
+    if max(rel_0, rel_d) > E2E_REL_L2_TOL:
+        raise SystemExit("the Mixtral run's logits disagree with the fp32 reference")
+    forms = moe_forms_check(rng, params)
+
+    # Times (runs without the routing hook), the host-read check and the
+    # decode bound.
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, 1)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, MIXTRAL_NEW)
+    sync()
+    step_ms = (time.perf_counter() - t0 - prefill_s) / steps * 1e3
+    cur = torch.tensor([x[-1] for x in ids], device=dev)
+    step = lambda: llama.decode_step(params, cfg, cur, res.cache)  # noqa: E731
+    x1, lp1 = bf16_normal(rng, (2, 1, cfg.hidden_size)), llama._layer(params, L // 2)
+    with torch.no_grad():
+        step()
+        reads = host_syncs(step)
+        reads_moe = host_syncs(lambda: llama.moe_ffn(x1, lp1, cfg))
+        one_step = []
+        with routing_record(one_step):
+            step()
+        distinct = [len(set(t.flatten().tolist())) for t, _ in one_step]
+        busy = profile_device(step, 4, step_ms, "decode step, Mixtral W8A16", log_file)
+    log(f"  device-to-host copies, host scalar reads and stream / device synchronisations "
+        f"added by a decode step {reads}, by one layer's moe_ffn at B=2 {reads_moe}")
+    if reads["dtoh"] or reads["scalar_reads"] or any(reads_moe.values()):
+        raise SystemExit("a Mixtral decode step reads the device from the host")
+    lay = params["layers"]
+    attn_bytes = tree_bytes({k: lay[k] for k in ("qkv_proj", "o_proj")})
+    expert_bytes = tree_bytes({k: lay[k] for k in ("gate_up_proj", "down_proj")}) / (
+        L * cfg.num_local_experts)
+    head_bytes = tree_bytes({"lm_head": params["lm_head"]})
+    small_bytes = tree_bytes({k: lay[k] for k in ("router", "input_norm", "post_norm")})
+    cache_b = 2 * 2 * cfg.head_dim * int(res.cache.lengths.sum().item())
+    bound_bytes = attn_bytes + sum(distinct) * expert_bytes + head_bytes + small_bytes + cache_b
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  prefill {prefill_s:.3f} s (B=2, 4096 + 1500 tokens); decode {step_ms:.3f} ms/step "
+        f"wall, device busy {'not measured' if busy is None else f'{busy:.3f} ms'}; bound "
+        f"{bound_ms:.3f} ms/step: {bound_bytes / 1e9:.3f} GB = attention {attn_bytes / 1e9:.3f} "
+        f"+ {sum(distinct)} distinct experts (per layer {distinct}) x "
+        f"{expert_bytes / 1e6:.1f} MB + lm_head {head_bytes / 1e9:.3f} + router and norms "
+        f"{small_bytes / 1e9:.4f} + cache {cache_b / 1e9:.3f}, at {HBM_BYTES_PER_S / 1e12} TB/s")
+    return {"launches": launches, "lengths": got, "routing_decisions": L * (n_b + steps),
+            "routing_flips": flips, "flip_margin_max": max(margins, default=0.0),
+            "flips_by_margin": {f"<{b:g}": sum(m < b for m in margins)
+                                for b in (1e-4, 1e-3, 1e-2, MOE_FLIP_MARGIN_TOL)},
+            "flip_margin_tol": MOE_FLIP_MARGIN_TOL, "card_vs_ref_max_dp": dp,
+            "first_token_rel_l2": rel_0,
+            "decode_rel_l2": rel_d, "top1_agreement": top1, "forms": forms,
+            "prefill_s": prefill_s, "decode_ms_per_step": step_ms,
+            "device_busy_ms_per_step": busy, "host_syncs_per_step": reads,
+            "host_syncs_moe_ffn": reads_moe,
+            "distinct_experts_per_layer": distinct, "bound_bytes": bound_bytes,
+            "bound_ms_per_step": bound_ms}
+
+
+def mixtral_drain(params, prompts, comp=None, prefix=None, head_cap=None, new=None):
+    """One chunked-admission drain through ``ContinuousBatchingEngine`` (4
+    slots, buckets 4096 / 8192, 2048-token chunks), every launch count set
+    to 0 just before ``run`` and read just after; records which requests
+    resumed from a prefix snapshot and the snapshot bytes after each store."""
+    L = MIXTRAL.num_hidden_layers
+    comp, new = comp or SNAPKV, new or MIXTRAL_NEW
+    eng = ContinuousBatchingEngine(
+        params, EngineConfig(model=MIXTRAL, compression=comp, prefill_buckets=SERVE_BUCKETS),
+        n_slots=4, max_new_cap=new, chunk_size=16, prefill_chunk_tokens=PREFIX_CHUNK,
+        head_capacity=head_cap, device="cuda", instrument=True)
+    resumed, snap_bytes = [], []
+    admit, store = eng._admit_chunked, eng._store_prefix_snapshot
+
+    def admit_hook(slot, rid, bucket):
+        admit(slot, rid, bucket)
+        g = eng._chunk_groups[bucket]
+        if any(m["rid"] == rid and g["c0"][r] for r, m in g["rows"].items()):
+            resumed.append(rid)
+
+    def store_hook(key, state):
+        store(key, state)
+        snap_bytes.append(eng._prefix_state_bytes())
+    eng._admit_chunked, eng._store_prefix_snapshot = admit_hook, store_hook
+    if prefix is not None:
+        eng.cache_prefix(prefix)
+    rids = [eng.submit(p, new) for p in prompts]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    # The hooks hold the engine: drop them, or the cycle keeps its pools
+    # and cache on the card until the garbage collector runs.
+    del eng._admit_chunked, eng._store_prefix_snapshot
+    launches = path_launches()
+    expect = dict.fromkeys(launches, 0)
+    expect["K1-chunk"], expect["K2"] = L * eng.prefill_chunk_dispatches, L * eng.steps_executed
+    if launches != expect or any(len(out[r]) != new for r in rids):
+        raise SystemExit(f"a Mixtral drain ran kernels {launches}, expected {expect}, or "
+                         "produced the wrong token counts")
+    stalls = eng.admission_stalls_s
+    return {"engine": eng, "rids": rids, "tokens": [out[r] for r in rids],
+            "logits": [torch.stack(eng.logits[r]) for r in rids],
+            "resumed": [rids.index(r) for r in resumed], "snapshot_bytes": snap_bytes,
+            "summary": {"wall_s": wall, "decode_steps": eng.steps_executed,
+                        "chunk_dispatches": eng.prefill_chunk_dispatches,
+                        "row_chunks": eng.prefill_chunks_executed,
+                        "longest_stall_s": max(stalls), "stalls_s": stalls,
+                        "drain_decode_ms_per_step":
+                            (wall - sum(stalls)) / eng.steps_executed * 1e3,
+                        "launches": launches}}
+
+
+def phase_mixtral_serving(rng, params):
+    """11c: prefix caching and the newly served methods at Mixtral widths."""
+    cfg, L, H = MIXTRAL, MIXTRAL.num_hidden_layers, MIXTRAL.num_attention_heads
+    prefix = rng.integers(0, cfg.vocab_size, size=PREFIX_TOKENS).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, size=n).tolist() for n in PREFIX_OWN]
+    cold = mixtral_drain(params, prompts)
+    del cold["engine"]
+    warm = mixtral_drain(params, prompts, prefix=prefix)
+    eng = warm.pop("engine")
+    skipped = cold["summary"]["row_chunks"] - warm["summary"]["row_chunks"]
+    lens = sorted(set(eng.cache.lengths.flatten().tolist()))
+    budget = eng._prefix_cache_bytes
+    bitwise, worst, max_abs, parted = True, 0.0, 0.0, []
+    for i in warm["resumed"]:
+        a, b = warm["logits"][i][:1], cold["logits"][i][:1]
+        bitwise &= torch.equal(a, b)
+        e, m = rel_l2(a, b)
+        worst, max_abs = max(worst, e), max(max_abs, m)
+    for i in warm["resumed"]:
+        apart = [j for j, (x, y) in enumerate(zip(warm["tokens"][i], cold["tokens"][i]))
+                 if x != y]
+        if apart:
+            j = apart[0]
+            top2 = cold["logits"][i][j].topk(2).values
+            parted.append({"request": i, "step": j, "top2_gap": (top2[0] - top2[1]).item()})
+    s = warm["summary"]
+    log(f"== 11c serving, prefix {PREFIX_TOKENS} tokens + own {PREFIX_OWN}, {MIXTRAL_NEW} new "
+        f"each, 4 slots, buckets {SERVE_BUCKETS}, {PREFIX_CHUNK}-token chunks: requests "
+        f"{warm['resumed']} resumed from a snapshot; row-chunks {s['row_chunks']} against "
+        f"{cold['summary']['row_chunks']} cold ({skipped} skipped); snapshot bytes after each "
+        f"store {warm['snapshot_bytes']} (budget {budget}); live snapshots "
+        f"{[(b, len(k)) for b, k in eng._prefix_states]}; slot lengths {lens}")
+    log(f"  resumed requests' first-token logits against the cold drain's: bitwise equal "
+        f"{bitwise}, worst rel L2 {worst:.2e}, max abs {max_abs:.2e} (tol "
+        f"{CHUNKED_VS_ONESHOT_TOL}); streams parted {parted}")
+    log(f"  drain {s['wall_s']:.3f} s wall (cold {cold['summary']['wall_s']:.3f} s), "
+        f"{s['decode_steps']} decode steps, longest admission stall {s['longest_stall_s']:.4f} s "
+        f"(cold {cold['summary']['longest_stall_s']:.4f} s), decode "
+        f"{s['drain_decode_ms_per_step']:.3f} ms/step; launches {s['launches']}")
+    if not warm["resumed"] or skipped != len(warm["resumed"]) * (PREFIX_TOKENS // PREFIX_CHUNK):
+        raise SystemExit("no admission resumed from the prefix, or the skipped chunks do not "
+                         "match the resumes")
+    if max(warm["snapshot_bytes"]) > budget or eng._prefix_state_bytes() > budget:
+        raise SystemExit("prefix snapshots exceeded prefix_cache_bytes")
+    if worst > CHUNKED_VS_ONESHOT_TOL or (parted and bitwise):
+        raise SystemExit("a resumed admission disagrees with the cold one")
+    tie_margin = 2 * max_abs
+    if any(p["top2_gap"] > tie_margin for p in parted):
+        raise SystemExit(f"a resumed stream parted from the cold one away from a near-tie "
+                         f"(margin {tie_margin:.4f}): {parted}")
+    if lens != [SNAPKV.max_capacity_prompt + MIXTRAL_NEW - 1]:
+        raise SystemExit("the prefix drain left wrong cache lengths")
+    out = {"prefix_tokens": PREFIX_TOKENS, "own_tokens": list(PREFIX_OWN),
+           "resumed": warm["resumed"], "row_chunks_skipped": skipped,
+           "snapshot_bytes": warm["snapshot_bytes"], "prefix_cache_bytes": budget,
+           "resumed_first_token_bitwise": bitwise, "resumed_first_token_rel_l2": worst,
+           "parted": parted, "warm": s, "cold": cold["summary"]}
+    del eng, warm, cold
+    torch.cuda.empty_cache()
+
+    # The methods the engine now serves, one 6000-token request each
+    # (bucket 8192) through chunked admission, against the one-shot engine.
+    head_cap = headkv_file(LOG_PATH.parent / "policies" / "mixtral_heads.json", cfg, seed=3)
+    prompt = rng.integers(0, cfg.vocab_size, size=METHOD_PROMPT).tolist()
+    bucket = SERVE_BUCKETS[-1]
+    out["methods"] = {}
+    for method in MIXTRAL_METHODS:
+        comp = dataclasses.replace(SNAPKV, method=method)
+        hc = head_cap if method == "headkv" else None
+        d = mixtral_drain(params, [prompt], comp=comp, head_cap=hc, new=METHOD_NEW)
+        eng = d.pop("engine")
+        store = eng._chunk_groups[bucket]["state"][2]
+        store_bytes = store.numel() * store.element_size()
+        slot = int(eng.cache.lengths[0, :, 0].argmax())
+        got = eng.cache.lengths[:, slot].cpu().numpy()
+        want = expected_lengths(method, comp, L, H, head_cap, bucket) + METHOD_NEW - 1
+        one = InferenceEngine(params, EngineConfig(model=cfg, compression=comp,
+                                                   prefill_buckets=SERVE_BUCKETS),
+                              device="cuda", head_capacity=hc)
+        _, res = one.generate_batch([prompt], 1, return_result=True)
+        rel, _ = rel_l2(d["logits"][0][:1], res.logits[0, :1].cpu())
+        rows = None
+        if method == "random":
+            # The selection is the draw alone, so both caches keep the same
+            # rows; layer 0's keys are a function of each token alone (two
+            # bf16 computations of it); rows one place apart show what a
+            # wrong row would.
+            n = SNAPKV.max_capacity_prompt
+            rows = rel_l2(eng.cache.k[0, slot, :, :n], res.cache.k[0, 0, :, :n])[0]
+            shifted = rel_l2(eng.cache.k[0, slot, :, 1:n], res.cache.k[0, 0, :, :n - 1])[0]
+        log(f"  {method}: chunked admission launches {d['summary']['launches']}; lengths "
+            f"{'equal to' if np.array_equal(got, want) else 'NOT equal to'} the rule (range "
+            f"{int(got.min())}-{int(got.max())}); first-token logits against the one-shot "
+            f"engine rel L2 {rel:.4f} (tol {CHUNKED_VS_ONESHOT_TOL})"
+            f"{'' if rows is None else f'; layer 0 kept rows against the one-shot cache, worst row rel L2 {rows:.2e} (tol {PAIR_REL_L2_TOL}; rows one place apart {shifted:.3f})'}; "
+            f"query store {tuple(store.shape)} {store_bytes / 1e9:.3f} GB; card memory "
+            f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        if not np.array_equal(got, want) or rel > CHUNKED_VS_ONESHOT_TOL or \
+                (rows is not None and (rows > PAIR_REL_L2_TOL or shifted < 10 * PAIR_REL_L2_TOL)):
+            raise SystemExit(f"{method} through chunked admission disagrees with its rule or "
+                             "with the one-shot engine")
+        out["methods"][method] = {"launches": d["summary"]["launches"],
+                                  "first_token_rel_l2": rel, "kept_rows_rel_l2": rows,
+                                  "query_store_bytes": store_bytes,
+                                  "wall_s": d["summary"]["wall_s"]}
+        del eng, d, one, res, store
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mixtral(rng, prompts, log_file):
+    """Phase 11: Mixtral-8x7B-Instruct-v0.1 widths."""
+    t_phase = time.perf_counter()
+    out = {"model": "Mixtral-8x7B-Instruct-v0.1 widths, random W8A16 weights (seed 5)",
+           "loader": phase_mixtral_loader()}
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = mixtral_w8a16(MIXTRAL, seed=5)
+    sync()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_bytes = tree_bytes(params)
+    log(f"== 11b full depth: {n_bytes / 1e9:.3f} GB of W8A16 weights built layer by layer in "
+        f"{build_s:.1f} s; allocated before {before / 1e9:.2f} GB, peak during the build "
+        f"{peak / 1e9:.2f} GB")
+    out.update(weight_bytes=n_bytes, build_s=build_s, build_peak_bytes=peak)
+    out["engine"] = phase_mixtral_engine(rng, params, prompts, log_file)
+    torch.cuda.empty_cache()
+    out["serving"] = phase_mixtral_serving(rng, params)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: {out['phase_s']:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # K3's and K4's kernels in csrc/decode_attn_quant.cu, by a part of their names.
 QUANT_KERNELS = {"K3": "quant8_decode_kernel", "K4": "quant4_decode_kernel"}
 
@@ -4254,6 +4844,7 @@ def main():
         torch.cuda.empty_cache()
         qwen = phase_qwen2(rng, log_file)
         llama3 = phase_llama3(rng, log_file)
+        mixtral = phase_mixtral(rng, prompts, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -4291,10 +4882,18 @@ def main():
                     "launches_dense_checkpoint": ll["checkpoints"]["dense"]["launches_16_steps"]["K2"]}
     k3["llama3"] = {"launches_int8_checkpoint":
                     ll["checkpoints"]["int8"]["launches_16_steps"]["K3"]}
+    # Phase 11 at Mixtral-8x7B widths: K1 on the W8A16 prefill, K1-chunk on
+    # the prefix drain, K2 on the 32-token run and the prefix drain.
+    mx, mxs = mixtral["engine"], mixtral["serving"]["warm"]
+    k1["mixtral"] = {"launches_per_prefill": mx["launches"]["K1"]}
+    k1_chunk["mixtral"] = {"launches_prefix_drain": mxs["launches"]["K1-chunk"]}
+    k2["mixtral"] = {"launches_32_new": mx["launches"]["K2"],
+                     "launches_prefix_drain": mxs["launches"]["K2"]}
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
                       "sp": {**sp, "fold_emulated": sp_fold}, "qwen2": qwen, "llama3": llama3,
+                      "mixtral": mixtral,
                       "script_s": time.perf_counter() - T_START, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,16 +11,20 @@ the end with the same policy code (``compress_prefill``).
 
 The state between chunks is ``(kbuf, vbuf, qwin, x_last)``: every layer's
 uncompressed keys and values ``[L, B, Hkv, S, D]``, a trailing-query store
-``[L, B, Hq, WK, D]`` with ``WK = min(max(window, 32), S)`` (the policies
-read ``q`` only through its last ``window`` rows), and each row's last
-hidden state ``[B, hidden]``.  Unlike the JAX version, :func:`chunk_step`
-updates the state **in place** and returns it.
+``[L, B, Hq, WK, D]`` with ``WK = min(max(window, 32), S)`` (every policy
+but h2o reads ``q`` only through its last ``max(window, 32)`` rows), and
+each row's last hidden state ``[B, hidden]``.  h2o's scores are not causal
+(every query row attends to every key, JAX ``chunked_prefill.py:29-36``),
+so its store is the full query buffer, ``WK = S``, with rows written at
+their global positions like K/V.  Unlike the JAX version,
+:func:`chunk_step` updates the state **in place** and returns it.
 
-The port carries the snapkv and fullkv policies, into every cache that
-one-shot prefill builds (dense, per-token or grouped quantized, evicting).
-h2o's full-query store and the other methods raise ``NotImplementedError``
-naming ROADMAP.md item 1.10; MInference sparse prefill raises as in the JAX
-package (a dense chunked pass would compute another function).
+Every compression method runs, with cam's and random's draws and headkv's
+capacities handed to :func:`finalize`, into every cache that one-shot
+prefill builds (dense, per-token or grouped quantized, evicting, ThinK
+packed).  MInference sparse prefill raises ``NotImplementedError`` as in
+the JAX package (a dense chunked pass would compute another function).
+A Mixtral layer's FFN is ``llama.ffn_block``, as in one-shot prefill.
 
 Host values: ``c0`` and ``true_len`` are host integers (the engine keeps
 them in numpy); each call builds fresh device tensors from them, so a
@@ -29,7 +33,7 @@ caller may change its arrays once the call returns.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,8 +48,6 @@ from .llama import (PrefillResult, _finish_layer, _layer, _qkv, init_prefill_cac
 ChunkState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 HostInts = Union[int, Sequence[int], np.ndarray]
 
-_PORTED = ("snapkv", "fullkv")
-
 
 def _check_supported(comp: CompressionConfig) -> None:
     if comp.sparse_prefill is not None:
@@ -53,10 +55,6 @@ def _check_supported(comp: CompressionConfig) -> None:
             "chunked prefill computes dense causal attention per chunk; "
             "MInference sparse prefill patterns require the one-shot path, as "
             "in the JAX package (ROADMAP.md queues no port of it).")
-    if comp.method not in _PORTED:
-        raise NotImplementedError(
-            f"chunked prefill for {comp.method!r} is not ported yet (ROADMAP.md "
-            "item 1.10: remaining policies, h2o's full-query store with h2o)")
 
 
 def init_chunked_state(cfg: ModelConfig, comp: CompressionConfig, batch: int, S: int,
@@ -67,7 +65,7 @@ def init_chunked_state(cfg: ModelConfig, comp: CompressionConfig, batch: int, S:
     L = cfg.num_hidden_layers
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     dtype = dtype_of(cfg)
-    WK = min(max(comp.window_size, 32), S)
+    WK = S if comp.method == "h2o" else min(max(comp.window_size, 32), S)
     z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     return (z(L, batch, Hkv, S, D), z(L, batch, Hkv, S, D), z(L, batch, Hq, WK, D),
             z(batch, cfg.hidden_size))
@@ -116,17 +114,19 @@ def chunk_step(
     for li in range(L):
         lp = _layer(params, li)
         q, k, v = _qkv(x, lp, cfg, cos, sin)
-        kl, vl = kbuf[li], vbuf[li]
+        kl, vl, ql = kbuf[li], vbuf[li], qwin[li]
         for b, c in rows:
             kl[b, :, c:c + Sc] = k[b]
             vl[b, :, c:c + Sc] = v[b]
+            if WK == S:  # h2o's full store: rows at their global positions
+                ql[b, :, c:c + Sc] = q[b]
         attn, _ = flash_prefill_attention(q.contiguous(), kl, vl, tl_t, 0,
                                           sliding_window=cfg.sliding_window,
                                           row_offset=c0_t)
         x = _finish_layer(x, attn, lp, cfg)
-        gathered = q.gather(2, src_t[:, None, :, None].expand(B, Hq, WK, D))
-        torch.where(take[:, None, :, None], gathered.to(qwin.dtype), qwin[li],
-                    out=qwin[li])
+        if WK != S:
+            gathered = q.gather(2, src_t[:, None, :, None].expand(B, Hq, WK, D))
+            torch.where(take[:, None, :, None], gathered.to(ql.dtype), ql, out=ql)
 
     last_row = tl - 1 - c0
     for b in np.nonzero((last_row >= 0) & (last_row < Sc) & active)[0]:
@@ -143,17 +143,25 @@ def finalize(
     cache_capacity: int,
     *,
     quant: QuantConfig = None,
+    rng: Optional[torch.Generator] = None,
+    head_capacity: Optional[torch.Tensor] = None,
 ) -> PrefillResult:
     """Compress every layer's accumulated K/V and build the configured
     cache, with the cache-building tail one-shot ``prefill`` uses.  Reads
-    ``state`` only.
+    ``state`` only.  ``rng`` and ``head_capacity`` are one-shot
+    ``prefill``'s: cam and random draw from the generator (seeded 0 on the
+    state's device when None) through ``policies/methods.py::uniform_draw``,
+    layer by layer and example by example; headkv reads ``head_capacity
+    [L, H]`` (zeros when None: every head keeps only its window, as JAX's
+    ``finalize``).
 
     The trailing-query store goes into a zeros-elsewhere full-shape q at rows
     ``[true_len - WK, true_len)``: the rows the policies read.  A prompt
     shorter than WK fills only the last ``true_len`` slots (slot j holds
     global row ``true_len - WK + j``), so the store is rolled to put its
     valid tail at row 0 and every stored row at its global position (the
-    JAX package's round-4 fix, ``chunked_prefill.py:275-284``)."""
+    JAX package's round-4 fix, ``chunked_prefill.py:275-284``).  h2o's full
+    store is that q already."""
     kbuf, vbuf, qwin, x_last = state
     L, B, Hkv, S, D = kbuf.shape
     Hq, WK = cfg.num_attention_heads, qwin.shape[3]
@@ -163,14 +171,24 @@ def finalize(
     policy_capacity = comp.layer_capacity(L, S)
     assert cache_capacity >= policy_capacity
     cache = init_prefill_cache(cfg, comp, quant, B, cache_capacity, policy_capacity, dev)
+    if rng is None:
+        rng = torch.Generator(device=dev).manual_seed(0)
+    if head_capacity is None and comp.method == "headkv":
+        head_capacity = torch.zeros((L, comp.cache_heads(Hq, Hkv)), dtype=torch.int32,
+                                    device=dev)
     for li in range(L):
-        q_sub = torch.zeros((B, Hq, S, D), dtype=qwin.dtype, device=dev)
-        for b, n in enumerate(tl):
-            start = n - WK if n >= WK else 0
-            q_sub[b, :, start:start + WK] = torch.roll(qwin[li, b], min(n, WK) - WK, dims=1)
+        if WK == S:
+            q_sub = qwin[li]
+        else:
+            q_sub = torch.zeros((B, Hq, S, D), dtype=qwin.dtype, device=dev)
+            for b, n in enumerate(tl):
+                start = n - WK if n >= WK else 0
+                q_sub[b, :, start:start + WK] = torch.roll(qwin[li, b], min(n, WK) - WK,
+                                                           dims=1)
+        hc = None if head_capacity is None else head_capacity[li]
         store_packed_layer(cache, li, compress_prefill(
-            comp, L, policy_capacity, kbuf[li], vbuf[li], q_sub, tl_t, LayerContext(li)),
-            comp, quant, q_sub, tl_t)
+            comp, L, policy_capacity, kbuf[li], vbuf[li], q_sub, tl_t,
+            LayerContext(li, hc, rng)), comp, quant, q_sub, tl_t)
     cache.positions.copy_(tl_t)
     xf = rms_norm(x_last[:, None], params["final_norm"], cfg.rms_norm_eps)[:, 0]
     return PrefillResult(wdot(xf, params["lm_head"]).float(), cache)
@@ -186,11 +204,14 @@ def prefill_chunked(
     chunk_size: int,
     *,
     quant: QuantConfig = None,
+    rng: Optional[torch.Generator] = None,
+    head_capacity: Optional[torch.Tensor] = None,
 ) -> PrefillResult:
     """One-call chunked prefill, the standalone API; the batching engine
     drives :func:`chunk_step` itself so that decode chunks interleave with
     prompt chunks.  Chunks past every row's prompt are skipped (they would
-    leave the state untouched)."""
+    leave the state untouched).  ``rng`` and ``head_capacity`` go to
+    :func:`finalize`."""
     _check_supported(comp)
     llama._check_supported(cfg, comp, quant)
     B, S = tokens.shape
@@ -200,4 +221,5 @@ def prefill_chunked(
     state = init_chunked_state(cfg, comp, B, S, tokens.device)
     for c0 in range(0, max(tl), chunk_size):
         chunk_step(params, cfg, tokens[:, c0:c0 + chunk_size], c0, tl, state)
-    return finalize(params, cfg, comp, state, tl, cache_capacity, quant=quant)
+    return finalize(params, cfg, comp, state, tl, cache_capacity, quant=quant, rng=rng,
+                    head_capacity=head_capacity)

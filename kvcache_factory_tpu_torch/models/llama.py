@@ -18,8 +18,10 @@ position.  A MInference ``sparse_prefill`` pattern restricts prefill
 attention to K1's selected blocks (a-shape or vertical-slash, with optional
 per-layer per-head budgets).  With a sequence-parallel group prefill splits
 the prompt's rows over its ranks and runs ring attention (K1-ml per hop,
-``parallel/ring_attention.py``).  MoE configurations raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``parallel/ring_attention.py``).  A Mixtral configuration's FFN is the
+sparse MoE block (:func:`moe_ffn`): decode gathers each row's top-k
+experts by a device-side index, prefill dispatches each token to its
+experts.
 """
 
 from __future__ import annotations
@@ -175,6 +177,100 @@ def swiglu_fused(x: torch.Tensor, gate_up_w: torch.Tensor, down_w: torch.Tensor,
     return out if down_b is None else out + down_b
 
 
+def moe_router(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """Mixtral routing (JAX ``llama.py:183-196``): fp32 softmax over the
+    expert logits, top-k, the kept weights renormalized.  Returns (combine
+    ``[B, T, E]`` fp32, zero off the top-k; topi ``[B, T, k]``; topv ``[B,
+    T, k]`` fp32).  The top-k ranks by a stable descending sort, so equal
+    probabilities keep the lower expert first, as ``lax.top_k`` does
+    (``torch.topk`` gives no such order)."""
+    probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+    topi = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :top_k]
+    topv = probs.gather(-1, topi)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    combine = torch.zeros_like(probs).scatter_(-1, topi, topv)
+    return combine, topi, topv
+
+
+def _expert_dot(a: torch.Tensor, w) -> torch.Tensor:
+    """``a [n, m, in] @ w [n, in, out]`` for per-row expert matrices, a
+    W8A16 leaf's scale ``[n, 1, out]`` applied after the dot (JAX
+    ``moe_ffn::ein``)."""
+    if isinstance(w, dict):
+        return torch.bmm(a, w["q"].to(a.dtype)) * w["s"].to(a.dtype)
+    return torch.bmm(a, w)
+
+
+def _take_experts(w, idx: torch.Tensor):
+    """Expert matrices ``[E, ...]`` at the device-side ids ``idx [n]``, for
+    ``q`` and ``s`` of a W8A16 leaf."""
+    if isinstance(w, dict):
+        return {k: t.index_select(0, idx) for k, t in w.items()}
+    return w.index_select(0, idx)
+
+
+def _expert(w, e: int):
+    """Expert ``e``'s matrix, for ``q`` and ``s`` of a W8A16 leaf."""
+    return {k: t[e] for k, t in w.items()} if isinstance(w, dict) else w[e]
+
+
+def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mixtral's sparse-MoE FFN (JAX ``llama.py:198-272``): the values of
+    the JAX function, not its TPU dispatch.  ``gate_up_proj [E, h, 2f]``
+    and ``down_proj [E, f, h]``, either possibly W8A16.
+
+    Decode (T == 1) gathers each row's k experts by device-side index
+    (``index_select`` on the expert axis) at every B and runs one batched
+    product per matrix: no host read, so a decode step never waits on the
+    card.  JAX's per-(b, k) dynamic slices and its dense branch at B*k >
+    E/2 are TPU choices that compute the same function.
+
+    Prefill (T > 1) dispatches: the (token, slot) pairs sorted by expert,
+    each expert's rows through its matrices, and the outputs weighted by
+    ``topv`` (cast to the activation dtype, as JAX's combine) summed into
+    an fp32 buffer with ``index_add_``, cast once.  The per-expert counts
+    are read to the host once per layer.  JAX's dense all-expert combine
+    spends E/k times the products."""
+    E, top_k = cfg.num_local_experts, cfg.num_experts_per_tok
+    gw, dw = lp["gate_up_proj"], lp["down_proj"]
+    F_ = wshape(gw)[-1] // 2
+    _, topi, topv = moe_router(x, lp["router"], top_k)
+    B, T, h = x.shape
+    if T == 1:
+        idx = topi.reshape(B * top_k)
+        xk = x.reshape(B, 1, h).repeat_interleave(top_k, dim=0)        # [B*k, 1, h]
+        gu = _expert_dot(xk, _take_experts(gw, idx))                    # [B*k, 1, 2f]
+        eo = _expert_dot(F.silu(gu[..., :F_]) * gu[..., F_:], _take_experts(dw, idx))
+        eo = eo.reshape(B, top_k, h)
+        return torch.einsum("bkh,bk->bh", eo, topv[:, 0].to(x.dtype))[:, None]
+    flat_x = x.reshape(B * T, h)
+    flat_i = topi.reshape(-1)
+    order = torch.argsort(flat_i, stable=True)
+    counts = torch.bincount(flat_i, minlength=E).tolist()
+    weight = topv.to(x.dtype).reshape(-1).float()
+    out = torch.zeros((B * T, h), dtype=torch.float32, device=x.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n == 0:
+            continue
+        slots = order[start:start + n]
+        start += n
+        tok = slots // top_k
+        gu = wdot(flat_x.index_select(0, tok), _expert(gw, e))
+        eo = wdot(F.silu(gu[..., :F_]) * gu[..., F_:], _expert(dw, e))
+        out.index_add_(0, tok, eo.float() * weight.index_select(0, slots)[:, None])
+    return out.to(x.dtype).reshape(B, T, h)
+
+
+def ffn_block(h2: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's FFN: the sparse MoE block on a Mixtral configuration,
+    else the fused SwiGLU with its optional biases."""
+    if cfg.is_moe:
+        return moe_ffn(h2, lp, cfg)
+    return swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"],
+                        lp.get("gate_up_bias"), lp.get("down_bias"))
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -203,8 +299,6 @@ def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
         raise NotImplementedError(
             f"{comp.method!r} under sequence parallelism is not ported yet (ROADMAP.md "
             "item 1.11)")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP.md item 1.9)")
 
 
 def _layer(params: dict, li: int) -> dict:
@@ -227,14 +321,12 @@ def _qkv(x, lp, cfg, cos, sin):
 
 
 def _finish_layer(x, attn, lp, cfg):
-    """o_proj + residual, then the pre-norm FFN + residual."""
+    """o_proj + residual, then the pre-norm FFN (:func:`ffn_block`) + residual."""
     h = wdot(_merge_heads(attn), lp["o_proj"])
     if "o_bias" in lp:
         h = h + lp["o_bias"]
     x = x + h
-    h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    return x + swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"],
-                            lp.get("gate_up_bias"), lp.get("down_bias"))
+    return x + ffn_block(rms_norm(x, lp["post_norm"], cfg.rms_norm_eps), lp, cfg)
 
 
 def init_prefill_cache(cfg: ModelConfig, comp: CompressionConfig,
@@ -611,8 +703,6 @@ def decode_step(
                          "quantized, with the cache's nbits")
     if grouped and (cache.k_oval is not None) != quant.outlier_extract:
         raise ValueError("cache outlier planes must match QuantConfig.outlier_extract")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decode is not ported yet (ROADMAP.md item 1.9)")
     L = cfg.num_hidden_layers
     dtype = dtype_of(cfg)
     Hq, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads

@@ -8,7 +8,11 @@ a time, and attention goes over q-row blocks, so a 7B model at a few
 thousand tokens fits beside its bf16 weights.  A W8A16 leaf enters as its
 dequantized fp32 matrix ``q * s``, the function the W8A16 path computes,
 so that path is held to the bf16 path's limits; the optional biases are
-added where the model has them.
+added where the model has them.  A Mixtral layer's FFN is ``moe_ffn`` on
+the fp32 expert stacks (its per-token dispatch, one layer's experts in
+fp32 at a time: 5.6 GB at Mixtral-8x7B widths); ``moe_router`` is looked
+up in ``models/llama.py`` at each call, so a caller may replay another
+run's routing through it.
 """
 
 from __future__ import annotations
@@ -17,12 +21,12 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.attention import blocked_causal_attention
-from .llama import (_layer, _merge_heads, _split_heads, apply_rope, rms_norm,
-                    rope_tables, swiglu_fused)
+from .llama import (_layer, _merge_heads, _split_heads, apply_rope, ffn_block, rms_norm,
+                    rope_tables)
 
 
 def _f32(w) -> torch.Tensor:
-    """A weight leaf in fp32; a W8A16 leaf dequantized."""
+    """A weight leaf in fp32; a W8A16 leaf dequantized (expert stacks too)."""
     if isinstance(w, dict):
         return w["q"].float() * w["s"].float()
     return w.float()
@@ -55,7 +59,6 @@ def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         o = _merge_heads(attn) @ lp["o_proj"]
         x = x + (o if "o_bias" not in lp else o + lp["o_bias"])
         h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = x + swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"],
-                             lp.get("gate_up_bias"), lp.get("down_bias"))
+        x = x + ffn_block(h2, lp, cfg)
     x = rms_norm(x, params["final_norm"].to(f32), cfg.rms_norm_eps)
     return x @ _f32(params["lm_head"])

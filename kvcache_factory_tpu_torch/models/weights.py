@@ -22,7 +22,10 @@ plus, where the checkpoint has them, the fused biases ``qkv_bias``
 ``attention_bias``), ``gate_up_bias`` ``[L, 2*ffn]`` and ``down_bias``
 ``[L, hidden]`` (``mlp_bias``).  :func:`quantize_weights` turns the matmul
 weights into W8A16 leaves ``{"q": int8 [..., in, out], "s": fp32 [..., 1,
-out]}``, which ``models/llama.py::wdot`` consumes.
+out]}``, which ``models/llama.py::wdot`` consumes.  A Mixtral (sparse-MoE)
+configuration replaces the two FFN leaves with expert stacks and adds the
+router: ``router [L, hidden, E]``, ``gate_up_proj [L, E, hidden, 2*ffn]``
+and ``down_proj [L, E, ffn, hidden]`` (JAX ``weights.py:60-65``).
 
 Loading sources: a HF model directory (``config.json`` and safetensors
 shards, read by ``runtime/native.py::SafetensorsFile``) or an in-memory
@@ -51,10 +54,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     on ``device``, layer by layer so no full-model fp32 copy is ever held.
     The same seed gives the same weights on the same device type; the draws
     differ from the JAX package's (tests carry JAX weights across with
-    :func:`params_from_jax`)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE weights are not ported yet "
-                                  "(ROADMAP.md item 1.9)")
+    :func:`params_from_jax`).  The fan-in is a matrix's input axis, the
+    second to last (an expert stack leads with the expert axis)."""
     dtype = dtype or dtype_of(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -65,7 +66,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 
     def mat(shape):
         w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return (w / math.sqrt(shape[0])).to(dtype)
+        return (w / math.sqrt(shape[-2])).to(dtype)
 
     def stacked(shape):
         out = torch.empty((L,) + shape, dtype=dtype, device=device)
@@ -73,13 +74,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
             out[li] = mat(shape)
         return out
 
+    if cfg.is_moe:
+        E = cfg.num_local_experts
+        ffn_w = {"router": stacked((h, E)), "gate_up_proj": stacked((E, h, 2 * ffn)),
+                 "down_proj": stacked((E, ffn, h))}
+    else:
+        ffn_w = {"gate_up_proj": stacked((h, 2 * ffn)), "down_proj": stacked((ffn, h))}
     return {
         "embed": mat((V, h)),
         "layers": {
             "qkv_proj": stacked((h, qd + 2 * kvd)),
             "o_proj": stacked((qd, h)),
-            "gate_up_proj": stacked((h, 2 * ffn)),
-            "down_proj": stacked((ffn, h)),
+            **ffn_w,
             "input_norm": torch.ones((L, h), dtype=dtype, device=device),
             "post_norm": torch.ones((L, h), dtype=dtype, device=device),
         },
@@ -136,6 +142,17 @@ _BIAS_MAP = {
 }
 
 
+# Mixtral's ``block_sparse_moe`` (JAX ``weights.py:140-155``): the router
+# ``gate`` per layer; per expert ``{e}`` w1 (gate) and w3 (up) fused into
+# gate_up, w2 into down, each stacked over the experts.
+_MOE_MAP = {
+    "router": ("block_sparse_moe.gate.weight",),
+    "gate_up_proj": ("block_sparse_moe.experts.{e}.w1.weight",
+                     "block_sparse_moe.experts.{e}.w3.weight"),
+    "down_proj": ("block_sparse_moe.experts.{e}.w2.weight",),
+}
+
+
 def _as_tensor(x) -> torch.Tensor:
     return x.detach() if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
 
@@ -146,34 +163,44 @@ def params_from_state_dict(cfg: ModelConfig, state: Mapping, dtype=torch.float32
     torch tensor or numpy array, HF ``[out, in]`` layout) as the stacked
     layout in ``dtype`` on ``device`` (JAX ``weights.py:94-177``): q/k/v
     and gate/up fused along the output axis, matrices transposed to
-    input-major, the four optional bias kinds, and ``lm_head`` from the
-    embedding when the model ties them or the checkpoint has none.  Each
-    source tensor is read once, moved to ``device`` in its stored dtype,
-    and copied (cast, transposed) into its layer's slot of the stacked
-    leaf, so the mapping may read lazily from disk."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE checkpoints are not ported yet (ROADMAP.md item 1.9)")
+    input-major, the four optional bias kinds, Mixtral's router and expert
+    stacks (``_MOE_MAP``), and ``lm_head`` from the embedding when the
+    model ties them or the checkpoint has none.  Each source tensor is read
+    once, moved to ``device`` in its stored dtype, and copied (cast,
+    transposed) into its layer's (and expert's) slot of the stacked leaf,
+    so the mapping may read lazily from disk."""
     L = cfg.num_hidden_layers
 
     def get(name: str) -> torch.Tensor:
         return _as_tensor(state[name]).to(device)
 
-    def stack(names: Tuple[str, ...]) -> torch.Tensor:
+    def stack(names: Tuple[str, ...], experts: int = 0) -> torch.Tensor:
+        """Leaf ``[L, ...]``, or ``[L, E, ...]`` over ``experts`` whose
+        names hold ``{e}``."""
         out = None
-        for li in range(L):
-            parts = [get(f"model.layers.{li}.{n}") for n in names]
+        lead = (L, experts) if experts else (L,)
+        for idx in np.ndindex(*lead):
+            e = idx[1] if experts else None
+            parts = [get(f"model.layers.{idx[0]}.{n.format(e=e)}") for n in names]
             parts = [w.T if w.dim() == 2 else w for w in parts]
             if out is None:
                 width = sum(w.shape[-1] for w in parts)
-                out = torch.empty((L,) + parts[0].shape[:-1] + (width,), dtype=dtype,
+                out = torch.empty(lead + parts[0].shape[:-1] + (width,), dtype=dtype,
                                   device=device)
             o = 0
             for w in parts:
-                out[li, ..., o:o + w.shape[-1]].copy_(w)
+                out[idx][..., o:o + w.shape[-1]].copy_(w)
                 o += w.shape[-1]
         return out
 
-    layers = {ours: stack(theirs) for ours, theirs in _LAYER_MAP.items()}
+    layer_map = dict(_LAYER_MAP)
+    if cfg.is_moe:
+        del layer_map["gate_up_proj"], layer_map["down_proj"]
+    layers = {ours: stack(theirs) for ours, theirs in layer_map.items()}
+    if cfg.is_moe:
+        layers["router"] = stack(_MOE_MAP["router"])
+        for ours in ("gate_up_proj", "down_proj"):
+            layers[ours] = stack(_MOE_MAP[ours], cfg.num_local_experts)
     for ours, theirs in _BIAS_MAP.items():
         if f"model.layers.0.{theirs[0]}" in state:
             layers[ours] = stack(theirs)
@@ -251,15 +278,16 @@ def load_params(model_dir: str, cfg: Optional[ModelConfig] = None, dtype=torch.b
 # ---------------------------------------------------------------------------
 
 # The matmul weights that carry decode's weight stream (JAX
-# ``weights.py:186``).  The embedding (a row gather), norms and biases stay
-# in the model's dtype.
+# ``weights.py:206``).  The embedding (a row gather), norms, biases and
+# Mixtral's router (its fp32 logits steer the routing) stay in the model's
+# dtype.
 WEIGHT_QUANT_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
 
 
 def _quantize_matrix(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """``[..., in, out]`` -> per-out-channel symmetric int8 over the input
-    axis, one leading index at a time (a 7B FFN leaf in fp32 at once would
-    take 15 GB)."""
+    axis, one leading index (layer, and expert of a stack) at a time (a 7B
+    FFN leaf in fp32 at once would take 15 GB)."""
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     s = torch.empty(w.shape[:-2] + (1, w.shape[-1]), dtype=torch.float32, device=w.device)
     for idx in np.ndindex(*w.shape[:-2]):
@@ -277,7 +305,8 @@ def _quantize_matrix(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 def quantize_weights(params: Dict[str, Any], nbits: int = 8,
                      skip: tuple = ()) -> Dict[str, Any]:
     """Weight-only int8 quantization (W8A16) of the matmul weights (JAX
-    ``weights.py:209-276``): each weight ``[..., in, out]`` becomes ``{"q":
+    ``weights.py:209-276``): each weight ``[..., in, out]``, Mixtral's
+    expert stacks ``[L, E, in, out]`` included, becomes ``{"q":
     int8, "s": fp32 [..., 1, out]}`` with a per-out-channel symmetric scale
     over the input axis, rounded half to even and clipped to +-127; the
     forward applies the scale after the dot (``models/llama.py::wdot``).

@@ -36,10 +36,15 @@ Where torch is not JAX (state is updated in place):
 - The host arrays of chunk offsets, lengths and tokens are turned into
   fresh device tensors at each dispatch, so changing them afterwards
   cannot reach a copy in flight.
+- Prefix snapshots (``cache_prefix``) are copies of a pool row taken at
+  the prefix's chunk boundary, and a resumed admission copies the
+  snapshot into its own pool row: ``chunk_step`` writes the pool in place,
+  so an alias would let a resumed prompt's chunks overwrite the snapshot.
+- cam's and random's ``torch.Generator`` is restored to its state at
+  construction before every admission's prefill or finalize, as JAX's
+  engine hands one key to every call.
 
-Prefix caching (``cache_prefix``), the ``(dp, tp)`` mesh, and headkv, cam
-and random (capacities and draws through admission) are not ported
-(ROADMAP.md item 1.10).
+The ``(dp, tp)`` mesh is not ported (ROADMAP.md item 1.11).
 """
 
 from __future__ import annotations
@@ -108,6 +113,14 @@ class ContinuousBatchingEngine:
     """Drains a request queue through a fixed-slot batched decode loop, on
     ``device`` ("cuda" unless the caller asks for the CPU).
 
+    ``head_capacity`` is headkv's ``[L, H]`` budgets, required with headkv
+    (``ValueError`` otherwise, as JAX's engine); ``rng`` the generator cam
+    and random draw from, on ``device``, seeded 0 by default.
+
+    ``prefix_cache_bytes`` bounds the device bytes that prefix snapshots
+    (:meth:`cache_prefix`) hold; the oldest-used snapshot goes first, and
+    one alone over the budget is never kept.
+
     ``instrument`` records, for checks and measurements, each request's
     fp32 logits for every token it emitted (``logits[rid]``, entry 0 from
     its prefill) and the wall time of each loop iteration's prefill work,
@@ -117,19 +130,25 @@ class ContinuousBatchingEngine:
 
     def __init__(self, params, cfg: EngineConfig, n_slots: int = 4,
                  max_new_cap: int = 256, eos_token_ids: Sequence[int] = (),
+                 head_capacity=None, rng: Optional[torch.Generator] = None,
                  chunk_size: int = 16, prefill_chunk_tokens: int = 0,
+                 prefix_cache_bytes: int = 3 * 2**29,
                  device="cuda", instrument: bool = False):
         llama._check_supported(cfg.model, cfg.compression, cfg.quant)
-        if cfg.compression.method in ("headkv", "cam", "random"):
-            raise NotImplementedError(
-                f"{cfg.compression.method!r} in the batching engine (head capacities and "
-                "draws through admission) is not ported yet (ROADMAP.md item 1.10)")
+        if cfg.compression.method == "headkv" and head_capacity is None:
+            raise ValueError("headkv requires head_capacity (as in InferenceEngine)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the engine "
                              f"runs on {self.device}")
         self.params = params
         self.cfg = cfg
+        self.head_capacity = (None if head_capacity is None else
+                              torch.as_tensor(np.asarray(head_capacity), dtype=torch.int32,
+                                              device=self.device))
+        self.rng = rng if rng is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+        self._rng_state = self.rng.get_state()
         self.n_slots = n_slots
         self.max_new_cap = max_new_cap
         self.chunk_size = max(1, chunk_size)
@@ -144,6 +163,12 @@ class ContinuousBatchingEngine:
             if bad:
                 raise ValueError(f"prefill buckets {bad} not divisible by "
                                  f"prefill_chunk_tokens={prefill_chunk_tokens}")
+        # Prefix caching: registered prefixes (a shared system prompt), and
+        # snapshots of a pool row at a prefix's chunk boundary keyed by
+        # (bucket, prefix tokens), oldest use first.
+        self._prefixes: List[List[int]] = []
+        self._prefix_states: Dict[tuple, ChunkState] = {}
+        self._prefix_cache_bytes = int(prefix_cache_bytes)
         # Pending chunked admissions pool per bucket: one [P]-row chunk state
         # advances every pending prompt of a bucket in one chunk_step call
         # (per-row offsets).  Pools start at one row, double on demand and
@@ -182,11 +207,48 @@ class ContinuousBatchingEngine:
         self._max_new[rid] = max_new_tokens
         return rid
 
+    # --- prefix caching --------------------------------------------------------
+
     def cache_prefix(self, prefix_ids: Sequence[int]) -> None:
-        raise NotImplementedError("prefix caching is not ported yet (ROADMAP.md item 1.10: "
-                                  "prefix snapshots of chunked admission)")
+        """Register a shared prompt prefix (a system prompt).  The first
+        admitted prompt that starts with it snapshots its chunked state at
+        the prefix's chunk boundary; later admissions resume from the
+        snapshot and skip the prefix's chunks.  Requires chunked admission
+        (JAX ``batching.py:430-437``)."""
+        if not self.prefill_chunk_tokens:
+            raise ValueError("prefix caching requires prefill_chunk_tokens")
+        self._prefixes.append(list(prefix_ids))
+
+    def _prefix_resume_point(self, prompt: List[int]) -> int:
+        """The largest registered prefix's chunk boundary this prompt can
+        resume from (0: none), capped at ``true_len - max(window, 32)`` so
+        that every query row the policies read is recomputed after the
+        resume (JAX ``batching.py:439-452``)."""
+        Sc = self.prefill_chunk_tokens
+        wk = max(self.cfg.compression.window_size, 32)
+        best = 0
+        for pref in self._prefixes:
+            c0 = min((len(pref) // Sc) * Sc, ((len(prompt) - wk) // Sc) * Sc)
+            if c0 > best and prompt[:c0] == pref[:c0]:
+                best = c0
+        return best
+
+    def _prefix_state_bytes(self) -> int:
+        """Device bytes held by the live prefix snapshots."""
+        return sum(t.numel() * t.element_size()
+                   for st in self._prefix_states.values() for t in st)
+
+    def _store_prefix_snapshot(self, key: tuple, state: ChunkState) -> None:
+        self._prefix_states[key] = state
+        while self._prefix_states and self._prefix_state_bytes() > self._prefix_cache_bytes:
+            self._prefix_states.pop(next(iter(self._prefix_states)))
 
     # --- admission -----------------------------------------------------------
+
+    def _fresh_rng(self) -> torch.Generator:
+        """The generator at its state at construction (one per call)."""
+        self.rng.set_state(self._rng_state)
+        return self.rng
 
     def _prefill_row(self, prompt: List[int], bucket: int):
         toks = torch.zeros((1, bucket), dtype=torch.int64)
@@ -194,7 +256,8 @@ class ContinuousBatchingEngine:
         res = llama.prefill(self.params, self.cfg.model, self.cfg.compression,
                             toks.to(self.device),
                             torch.tensor([len(prompt)], dtype=torch.int32, device=self.device),
-                            self.cache_capacity, quant=self.cfg.quant)
+                            self.cache_capacity, quant=self.cfg.quant, rng=self._fresh_rng(),
+                            head_capacity=self.head_capacity)
         return res.cache, res.logits_last
 
     def _chunk_group(self, bucket: int) -> dict:
@@ -221,15 +284,28 @@ class ContinuousBatchingEngine:
         return g
 
     def _admit_chunked(self, slot: int, rid: int, bucket: int) -> None:
-        """Claim a pool row for a newly admitted prompt."""
+        """Claim a pool row for a newly admitted prompt; a prompt whose
+        registered prefix has a snapshot resumes after it, the snapshot
+        copied into the row."""
         g = self._chunk_group(bucket)
         r = g["free"].pop()
         prompt = self._prompts[rid]
         g["toks"][r] = 0
         g["toks"][r, :len(prompt)] = prompt
         g["tl"][r] = len(prompt)
-        g["c0"][r] = 0
-        g["rows"][r] = {"rid": rid, "slot": slot, "n": len(prompt)}
+        c0 = 0
+        snap_at = self._prefix_resume_point(prompt)
+        if snap_at:
+            key = (bucket, tuple(prompt[:snap_at]))
+            hit = self._prefix_states.pop(key, None)
+            if hit is not None:
+                self._prefix_states[key] = hit  # most recently used
+                for buf, one in zip(_pool_row(g["state"], r), hit):
+                    buf.copy_(one)
+                c0, snap_at = snap_at, 0  # resumed: nothing left to record
+        g["c0"][r] = c0
+        g["rows"][r] = {"rid": rid, "slot": slot, "n": len(prompt), "snap_at": snap_at,
+                        "prompt": prompt}
 
     def _shrink_chunk_group(self, g: dict) -> None:
         """Halve a pool whose live rows fit in half of it, compacting them to
@@ -256,7 +332,7 @@ class ContinuousBatchingEngine:
         model, comp = self.cfg.model, self.cfg.compression
         Sc = self.prefill_chunk_tokens
         done = []
-        for g in self._chunk_groups.values():
+        for bucket, g in self._chunk_groups.items():
             if not g["rows"]:
                 continue
             while g["P"] > 1 and len(g["rows"]) <= g["P"] // 2:
@@ -271,9 +347,14 @@ class ContinuousBatchingEngine:
                 meta = g["rows"][r]
                 g["c0"][r] += Sc
                 self.prefill_chunks_executed += 1
+                if meta["snap_at"] and g["c0"][r] == meta["snap_at"]:
+                    self._store_prefix_snapshot(
+                        (bucket, tuple(meta["prompt"][:meta["snap_at"]])),
+                        _pool_take(g["state"], [r]))
                 if g["c0"][r] >= meta["n"]:
                     res = finalize(self.params, model, comp, _pool_row(g["state"], r),
-                                   [meta["n"]], self.cache_capacity, quant=self.cfg.quant)
+                                   [meta["n"]], self.cache_capacity, quant=self.cfg.quant,
+                                   rng=self._fresh_rng(), head_capacity=self.head_capacity)
                     done.append((meta["slot"], meta["rid"], res.cache, res.logits_last))
                     g["rows"].pop(r)
                     g["free"].append(r)

@@ -13,9 +13,9 @@ budgets ``[L, Hq, 2]`` (``policies/minference.py::load_sparse_budgets``);
 ``head_capacity`` HeadKV's per-(layer, cache head) budgets ``[L, H]``
 (``evals/longbench.py::headkv_capacities``); without them prefill feeds
 zeros and every head keeps only its window, as JAX's ``InferenceEngine``
-does (JAX's batching engine refuses headkv without them; the port's
-refuses headkv, ROADMAP.md item 1.10).  ``rng`` is the ``torch.Generator``
-cam and random draw from, on the engine's device, seeded 0 by default; every call starts from its state at construction, as
+does (both batching engines refuse headkv without them).  ``rng`` is the
+``torch.Generator`` cam and random draw from, on the engine's device,
+seeded 0 by default; every call starts from its state at construction, as
 the JAX engine hands one key to every call.
 
 With ``sp > 1`` (JAX ``:66-94, 195-205``) the engine runs on each rank of

@@ -249,3 +249,192 @@ def test_engine_refuses_what_it_cannot_serve(model):
     eng = tbatching.ContinuousBatchingEngine(m["tp"], _ecfg(m), device="cpu")
     with pytest.raises(ValueError, match="exceeds largest bucket"):
         eng.submit([1] * 129, 4)
+
+
+# --- headkv, cam and random through admission ---------------------------------
+
+def jax_draws(layers=MODEL["num_hidden_layers"]):
+    """``uniform_draw`` with JAX's draws for a one-row admission: JAX's
+    engine hands ``PRNGKey(0)`` to every prefill and finalize, which split
+    it over the layers, then each layer's key over the one row."""
+    layer_keys = jax.random.split(jax.random.PRNGKey(0), layers)
+
+    def draw(rng, layer_idx, example, shape):
+        key = jax.random.split(layer_keys[layer_idx], 1)[example]
+        return torch.from_numpy(np.array(jax.random.uniform(key, shape))).to(rng.device)
+    return draw
+
+
+@pytest.mark.parametrize("method", ["headkv", "cam", "random"])
+def test_chunked_admission_of_drawing_and_capacity_methods_matches_jax(model, method,
+                                                                       monkeypatch):
+    """headkv (capacities from one seeded array), cam and random (JAX's
+    draws, the generator restored for every admission) through chunked
+    admission: the port's streams equal the JAX engine's, and each
+    admission drew the same uniforms (two prompts of one length give one
+    cache)."""
+    from kvcache_factory_tpu_torch.policies import methods as tmethods
+    m = model
+    monkeypatch.setattr(tmethods, "uniform_draw", jax_draws())
+    comp = dict(COMP, method=method)
+    H = tcfg.CompressionConfig(**comp).cache_heads(MODEL["num_attention_heads"],
+                                                    MODEL["num_key_value_heads"])
+    hc = np.random.default_rng(3).integers(4, 30, size=(MODEL["num_hidden_layers"], H))
+    hc = hc.astype(np.int32) if method == "headkv" else None
+    prompts = _prompts(61, (120, 90, 100))
+    kw = dict(n_slots=2, max_new_cap=5, chunk_size=4, prefill_chunk_tokens=32,
+              head_capacity=hc)
+    eng = tbatching.ContinuousBatchingEngine(
+        m["tp"], tcfg.EngineConfig(model=m["tc"], compression=tcfg.CompressionConfig(**comp),
+                                   prefill_buckets=BUCKETS), device="cpu", **kw)
+    rids = [eng.submit(p, 5) for p in prompts]
+    out = eng.run()
+    jeng = jbatching.ContinuousBatchingEngine(
+        m["jp"], jcfg.EngineConfig(model=m["jc"], compression=jcfg.CompressionConfig(**comp),
+                                   prefill_buckets=BUCKETS), **kw)
+    jrids = [jeng.submit(p, 5) for p in prompts]
+    jout = jeng.run()
+    assert [out[r] for r in rids] == [jout[r] for r in jrids]
+    assert eng.prefill_chunks_executed == jeng.prefill_chunks_executed
+
+
+def test_headkv_without_capacities_is_refused_as_in_jax(model):
+    cfg = tcfg.EngineConfig(model=model["tc"], compression=tcfg.CompressionConfig(
+        **dict(COMP, method="headkv")), prefill_buckets=BUCKETS)
+    with pytest.raises(ValueError, match="head_capacity"):
+        tbatching.ContinuousBatchingEngine(model["tp"], cfg, device="cpu")
+
+
+# --- prefix caching -----------------------------------------------------------
+# The JAX package's prefix-cache tests (tests/test_chunked_prefill.py) on
+# their own model: Llama, vocab 128, hidden 128, 8 / 4 heads, head_dim 16.
+
+PREFIX_MODEL = dict(model_type="llama", vocab_size=128, hidden_size=128, intermediate_size=256,
+                    num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=4,
+                    head_dim=16, max_position_embeddings=512, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def prefix_model():
+    jc, tc = jcfg.ModelConfig(**PREFIX_MODEL), tcfg.ModelConfig(**PREFIX_MODEL)
+    jp = jweights.init_params(jc, jax.random.PRNGKey(7), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return dict(jc=jc, tc=tc, jp=jp, tp=tp)
+
+
+def _prefix_engines(m, buckets, **kw):
+    """(port engine, JAX engine) over the prefix model with JAX's test
+    compression (snapkv, capacity 32, window 8)."""
+    comp = dict(method="snapkv", max_capacity_prompt=32, window_size=8, kernel_size=7,
+                pooling="maxpool")
+    teng = tbatching.ContinuousBatchingEngine(
+        m["tp"], tcfg.EngineConfig(model=m["tc"], compression=tcfg.CompressionConfig(**comp),
+                                   prefill_buckets=buckets), device="cpu", **kw)
+    jeng = jbatching.ContinuousBatchingEngine(
+        m["jp"], jcfg.EngineConfig(model=m["jc"], compression=jcfg.CompressionConfig(**comp),
+                                   prefill_buckets=buckets), **kw)
+    return teng, jeng
+
+
+def test_prefix_cache_resume_matches_and_skips_chunks(prefix_model):
+    """Registered shared prefixes snapshot their chunk state once and later
+    admissions resume from it: the streams equal a drain without the
+    prefix and the JAX engine's, and the 2-chunk prefix is skipped for the
+    2nd and 3rd prompts (JAX's counts)."""
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, 128, size=70).tolist()
+    prompts = [system + rng.integers(0, 128, size=n).tolist() for n in (40, 50, 45)]
+
+    def drain(eng, register):
+        if register:
+            eng.cache_prefix(system)
+        rids = [eng.submit(p, 5) for p in prompts]
+        out = eng.run()
+        return [out[r] for r in rids], eng.prefill_chunks_executed
+
+    kw = dict(n_slots=1, max_new_cap=5, prefill_chunk_tokens=32)
+    plain, n_plain = drain(_prefix_engines(prefix_model, (128,), **kw)[0], False)
+    teng, jeng = _prefix_engines(prefix_model, (128,), **kw)
+    cached, n_cached = drain(teng, True)
+    jcached, jn_cached = drain(jeng, True)
+    assert cached == plain == jcached
+    assert n_cached == jn_cached <= n_plain - 4, (n_cached, jn_cached, n_plain)
+    assert list(teng._prefix_states) == list(jeng._prefix_states)
+
+
+def test_prefix_cache_double_resume_leaves_the_snapshot_untouched(prefix_model):
+    """The port's ``chunk_step`` writes its pool in place, so a resumed row
+    must copy the snapshot, never alias it: two resumes from one snapshot
+    (in turn, then side by side in one pool) give the cold streams, and the
+    snapshot stays bitwise what it was when taken."""
+    rng = np.random.default_rng(19)
+    system = rng.integers(0, 128, size=70).tolist()
+    first = system + rng.integers(0, 128, size=40).tolist()
+    tails = [system + rng.integers(0, 128, size=n).tolist() for n in (50, 45)]
+    kw = dict(max_new_cap=5, prefill_chunk_tokens=32)
+    cold, _ = _prefix_engines(prefix_model, (128,), n_slots=2, **kw)
+    rids = [cold.submit(p, 5) for p in tails]
+    want = cold.run()
+    want = [want[r] for r in rids]
+
+    eng, _ = _prefix_engines(prefix_model, (128,), n_slots=2, **kw)
+    eng.cache_prefix(system)
+    eng.submit(first, 5)
+    eng.run()
+    ((key, snap),) = eng._prefix_states.items()
+    taken = [t.clone() for t in snap]
+    for _ in range(2):  # one resume after the other, each alone in the pool
+        before = eng.prefill_chunks_executed
+        rid = eng.submit(tails[0], 5)
+        assert eng.run()[rid] == want[0]
+        assert eng.prefill_chunks_executed - before == 2  # the chunks past 64
+    rids = [eng.submit(p, 5) for p in tails]  # two resumes in one dispatch
+    out = eng.run()
+    assert [out[r] for r in rids] == want
+    assert all(torch.equal(a, b) for a, b in zip(eng._prefix_states[key], taken))
+
+
+def test_prefix_cache_byte_budget_evicts_oldest(prefix_model):
+    """The snapshot LRU is bounded in bytes: a larger-bucket snapshot
+    evicts the smaller one, and an evicted prefix's chunks run again with
+    the one-shot stream (JAX's test, the JAX engine beside)."""
+    rng = np.random.default_rng(17)
+    pref_small = rng.integers(0, 128, size=33).tolist()
+    pref_large = rng.integers(0, 128, size=70).tolist()
+
+    def snap_bytes(bucket):
+        # kbuf + vbuf ([L, 1, Hkv, S, D] fp32 each) + qwin + x_last
+        return 2 * 2 * 1 * 4 * bucket * 16 * 4 + 2 * 1 * 8 * 32 * 16 * 4 + 128 * 4
+
+    kw = dict(n_slots=1, max_new_cap=4, prefill_chunk_tokens=32,
+              prefix_cache_bytes=snap_bytes(128) + snap_bytes(64) // 2)
+    engines = _prefix_engines(prefix_model, (64, 128), **kw)
+    tails = [rng.integers(0, 128, size=n).tolist() for n in (31, 20, 31)]
+    outs = []
+    for eng in engines:
+        eng.cache_prefix(pref_small)
+        eng.cache_prefix(pref_large)
+        eng.submit(pref_small + tails[0], 4)
+        eng.run()
+        assert len(eng._prefix_states) == 1
+        eng.submit(pref_large + tails[1], 4)
+        eng.run()
+        ((bucket, _),) = eng._prefix_states.keys()
+        assert bucket == 128 and eng._prefix_state_bytes() <= eng._prefix_cache_bytes
+        before = eng.prefill_chunks_executed
+        rid = eng.submit(pref_small + tails[2], 4)
+        outs.append(eng.run()[rid])
+        assert eng.prefill_chunks_executed - before == 2  # both chunks ran again
+    # The re-run took the small snapshot again, which evicted the large one.
+    assert [list(e._prefix_states) for e in engines] == [[(64, tuple(pref_small[:32]))]] * 2
+    assert engines[0]._prefix_state_bytes() == engines[1]._prefix_state_bytes() \
+        == snap_bytes(64)
+    plain, _ = _prefix_engines(prefix_model, (64, 128), n_slots=1, max_new_cap=4)
+    rid = plain.submit(pref_small + tails[2], 4)
+    assert outs[0] == outs[1] == plain.run()[rid]
+
+
+def test_prefix_cache_requires_chunked_admission(prefix_model):
+    eng, _ = _prefix_engines(prefix_model, (128,))
+    with pytest.raises(ValueError, match="prefill_chunk_tokens"):
+        eng.cache_prefix([1, 2, 3])

@@ -31,6 +31,7 @@ from kvcache_factory_tpu_torch.cache import quant_cache as tq
 from kvcache_factory_tpu_torch.models import chunked_prefill as tchunked
 from kvcache_factory_tpu_torch.models import llama as tllama
 from kvcache_factory_tpu_torch.models.weights import params_from_jax
+from kvcache_factory_tpu_torch.policies import methods as tmethods
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 MODEL = dict(model_type="mistral", vocab_size=256, hidden_size=256, intermediate_size=512,
@@ -215,16 +216,74 @@ def test_chunk_step_refuses_a_chunk_past_the_buffer(model):
                             [64], state)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(method="h2o", max_capacity_prompt=48, window_size=8),
-    dict(method="pyramidkv", max_capacity_prompt=48, window_size=8),
-], ids=["h2o", "pyramidkv"])
-def test_unported_methods_raise_naming_the_roadmap_item(model, kw):
-    _, tc = _configs(24)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
-        tchunked.prefill_chunked(model["tp"], tc, tcfg.CompressionConfig(**kw),
-                                 torch.tensor(model["toks"]), torch.tensor(model["lens"]),
-                                 CAP, 32)
+# Every method beside snapkv and fullkv: the CompressionConfig fields over
+# SNAPKV's.  l2norm skips layer 0 only, so that layer 1 compresses.
+METHODS = {
+    "h2o": dict(method="h2o"),
+    "pyramidkv": dict(method="pyramidkv"),
+    "streamingllm": dict(method="streamingllm"),
+    "l2norm": dict(method="l2norm", skip_layers=(0,)),
+    "random": dict(method="random"),
+    "adakv": dict(method="adakv"),
+    "headkv": dict(method="headkv"),
+    "cam": dict(method="cam"),
+    "think": dict(method="think"),
+    "think_packed": dict(method="think", think_packed=True),
+    "pivot": dict(method="snapkv", merge="pivot"),
+}
+
+
+def jax_draws(batch, layers=MODEL["num_hidden_layers"]):
+    """``uniform_draw`` with JAX's draws: ``finalize`` splits ``PRNGKey(0)``
+    over the layers, each layer's key over the batch, and draws
+    ``uniform(key, shape)`` per example (as one-shot prefill)."""
+    layer_keys = jax.random.split(jax.random.PRNGKey(0), layers)
+
+    def draw(rng, layer_idx, example, shape):
+        key = jax.random.split(layer_keys[layer_idx], batch)[example]
+        return torch.from_numpy(np.array(jax.random.uniform(key, shape))).to(rng.device)
+    return draw
+
+
+@pytest.mark.parametrize("case", list(METHODS))
+def test_every_method_chunked_matches_jax_and_oneshot(model, case, monkeypatch):
+    """Each method's chunked prefill against JAX's ``prefill_chunked`` (cam
+    and random on JAX's draws, headkv on capacities from one seeded array):
+    cache lengths exact, logits within 1e-4, the dense caches' valid
+    entries within TOL; and against the port's one-shot ``prefill`` on the
+    same draws.  h2o keeps the full-query store (WK = S)."""
+    m = model
+    jc, tc = _configs(None)
+    kw = dict(SNAPKV, **METHODS[case])
+    jcomp, tcomp = jcfg.CompressionConfig(**kw), tcfg.CompressionConfig(**kw)
+    monkeypatch.setattr(tmethods, "uniform_draw", jax_draws(2))
+    H = tcomp.cache_heads(MODEL["num_attention_heads"], MODEL["num_key_value_heads"])
+    hc = np.random.default_rng(5).integers(4, 40, size=(MODEL["num_hidden_layers"], H))
+    hc = hc.astype(np.int32) if case == "headkv" else None
+    toks, lens = torch.tensor(m["toks"]), torch.tensor(m["lens"])
+    got = tchunked.prefill_chunked(m["tp"], tc, tcomp, toks, lens, CAP, 32,
+                                   head_capacity=None if hc is None else torch.tensor(hc))
+    want = jchunked.prefill_chunked(m["jp"], jc, jcomp, jnp.asarray(m["toks"]),
+                                    jnp.asarray(m["lens"]), CAP, 32,
+                                    head_capacity=None if hc is None else jnp.asarray(hc))
+    one = tllama.prefill(m["tp"], tc, tcomp, toks, lens, CAP,
+                         head_capacity=None if hc is None else torch.tensor(hc))
+    if case == "h2o":
+        assert tchunked.init_chunked_state(tc, tcomp, 1, S, "cpu")[2].shape[3] == S
+    np.testing.assert_array_equal(got.cache.lengths.numpy(), np.asarray(want.cache.lengths))
+    np.testing.assert_array_equal(got.cache.lengths.numpy(), one.cache.lengths.numpy())
+    assert (got.cache.lengths < S).any(), "nothing was compressed"
+    LOGITS = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.logits_last.numpy(), np.asarray(want.logits_last), **LOGITS)
+    np.testing.assert_allclose(got.logits_last.numpy(), one.logits_last.numpy(), **LOGITS)
+    if case != "think_packed":
+        _assert_caches_match(got.cache, want.cache.lengths, want.cache.k, want.cache.v)
+        _assert_caches_match(got.cache, one.cache.lengths, one.cache.k, one.cache.v)
+    else:
+        assert type(got.cache).__name__ == type(one.cache).__name__ == "ThinKCache"
+        for name in ("channels", "kp", "kd", "v", "boundary"):
+            np.testing.assert_allclose(getattr(got.cache, name).numpy(),
+                                       getattr(one.cache, name).numpy(), **TOL)
 
 
 def test_chunked_state_shapes_keep_the_trailing_query_store():

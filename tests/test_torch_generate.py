@@ -152,14 +152,25 @@ def test_engine_generate_batch_matches_jax(setup, lengths):
 
 @pytest.mark.parametrize("what", ["cache_prefix", "sparse_chunked", "sampling"])
 def test_unported_paths_raise(setup, what):
-    """Prefix caching waits for its ROADMAP item, and chunked prefill
-    refuses MInference's sparse masks, as the JAX package does
-    (sliding-window models run: ``tests/test_torch_sliding_window.py``).
-    Sampling is ported: its case now holds that the refusal is gone and
+    """Chunked prefill refuses MInference's sparse masks, as the JAX
+    package does (sliding-window models run:
+    ``tests/test_torch_sliding_window.py``).  Prefix caching is ported: its
+    case holds JAX's ``ValueError`` without chunked admission and a
+    registration with it (parity with JAX in
+    ``tests/test_torch_batching.py``).  Sampling is ported: its case holds
     that temperature 1e-6 gives the greedy stream (parity with JAX in
     ``tests/test_torch_sampling.py``).  The grouped quantized cache is
     ported: ``tests/test_torch_grouped_quant.py``."""
     s = setup
+    if what == "cache_prefix":
+        ecfg = tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"])
+        with pytest.raises(ValueError, match="prefill_chunk_tokens"):
+            tbatching.ContinuousBatchingEngine(s["tp"], ecfg, device="cpu").cache_prefix([1, 2])
+        eng = tbatching.ContinuousBatchingEngine(s["tp"], ecfg, prefill_chunk_tokens=128,
+                                                 device="cpu")
+        eng.cache_prefix([1, 2, 3])
+        assert eng._prefixes == [[1, 2, 3]]
+        return
     if what == "sampling":
         args = (s["tp"], s["tc"], s["tcomp"])
         greedy = tgenerate.generate(*args, tcfg.GenerationConfig(max_new_tokens=6),
@@ -170,15 +181,9 @@ def test_unported_paths_raise(setup, what):
         assert torch.equal(sampled.tokens, greedy.tokens)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "cache_prefix":
-            eng = tbatching.ContinuousBatchingEngine(
-                s["tp"], tcfg.EngineConfig(model=s["tc"], compression=s["tcomp"]),
-                prefill_chunk_tokens=128, device="cpu")
-            eng.cache_prefix([1, 2, 3])
-        else:
-            comp = tcfg.CompressionConfig(method="minference", sparse_prefill=("ashape", 1, 1, 4))
-            tchunked.prefill_chunked(s["tp"], s["tc"], comp, torch.tensor(s["toks"]),
-                                     torch.tensor(s["lens"]), 80, chunk_size=64)
+        comp = tcfg.CompressionConfig(method="minference", sparse_prefill=("ashape", 1, 1, 4))
+        tchunked.prefill_chunked(s["tp"], s["tc"], comp, torch.tensor(s["toks"]),
+                                 torch.tensor(s["lens"]), 80, chunk_size=64)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -24,6 +24,7 @@ from kvcache_factory_tpu import config as jcfg
 from kvcache_factory_tpu.evals.longbench import headkv_capacities as jax_headkv_capacities
 from kvcache_factory_tpu.models import llama as jllama
 from kvcache_factory_tpu.models import weights as jweights
+from kvcache_factory_tpu.runtime import batching as jbatching
 from kvcache_factory_tpu.runtime import engine as jengine
 from kvcache_factory_tpu.runtime.generate import generate as jax_generate
 from kvcache_factory_tpu_torch import config as tcfg
@@ -158,13 +159,15 @@ def test_engine_draws_repeat_from_the_generators_state(model):
 
 @pytest.mark.parametrize("what", ["sp", "headkv_without_capacities",
                                   "batching_headkv", "batching_cam", "batching_random"])
-def test_refusals_name_their_roadmap_item(model, what):
-    """What this slice leaves unported raises, naming its ROADMAP.md item.
-    headkv without capacities is no longer refused: as JAX's
+def test_refusals_and_their_ported_paths(model, what, monkeypatch):
+    """sp with a compressing method other than snapkv raises, naming its
+    ROADMAP.md item.  headkv without capacities is not refused: as JAX's
     ``InferenceEngine`` does, prefill feeds zero capacities and every head
     keeps only its window; that case holds the port's engine to JAX's
-    (streams, lengths, first-token logits).  ThinK's packed cache is
-    ported: ``tests/test_torch_caches.py``."""
+    (streams, lengths, first-token logits).  headkv, cam and random run
+    through the batching engine's one-shot admission (capacities and JAX's
+    draws handed to every admission): the streams equal JAX's batching
+    engine's.  ThinK's packed cache is ported: ``tests/test_torch_caches.py``."""
     m = model
     cfg = lambda **kw: tcfg.EngineConfig(  # noqa: E731
         model=m["tc"], compression=tcfg.CompressionConfig(**dict(COMP, **kw)),
@@ -196,8 +199,19 @@ def test_refusals_name_their_roadmap_item(model, what):
                                    **LOGITS_TOL)
     else:
         method = what.split("_")[1]
-        with pytest.raises(NotImplementedError, match="item 1.10"):
-            tbatching.ContinuousBatchingEngine(m["tp"], cfg(method=method), device="cpu")
+        monkeypatch.setattr(tmethods, "uniform_draw", jax_draws(1))
+        hc = m["hc"] if method == "headkv" else None
+        kw = dict(n_slots=2, max_new_cap=MAX_NEW, head_capacity=hc)
+        eng = tbatching.ContinuousBatchingEngine(m["tp"], cfg(method=method), device="cpu",
+                                                 **kw)
+        rids = [eng.submit(p, MAX_NEW) for p in m["prompts"]]
+        out = eng.run()
+        jeng = jbatching.ContinuousBatchingEngine(m["jp"], jcfg.EngineConfig(
+            model=m["jc"], compression=jcfg.CompressionConfig(**dict(COMP, method=method)),
+            prefill_buckets=(BUCKET,)), **kw)
+        jrids = [jeng.submit(p, MAX_NEW) for p in m["prompts"]]
+        jout = jeng.run()
+        assert [out[r] for r in rids] == [jout[r] for r in jrids]
 
 
 @pytest.mark.parametrize("method", ["pyramidkv", "h2o", "l2norm", "adakv", "think"])

@@ -185,14 +185,28 @@ def test_load_params_matches_jax(tmp_path, monkeypatch, family, shard):
             np.testing.assert_array_equal(got[name].numpy(), arr, err_msg=name)
 
 
-def test_tied_embeddings_and_moe_refusal():
+def test_tied_embeddings_and_mixtral_state_dict():
+    """A checkpoint without ``lm_head`` ties it to the embedding; a Mixtral
+    ``state_dict`` (``block_sparse_moe`` router and w1/w3/w2 experts)
+    loads leaf for leaf bitwise equal to JAX's ``params_from_state_dict``."""
     model, cfg = tiny_hf("llama")
     state = {k: v for k, v in model.state_dict().items() if k != "lm_head.weight"}
     tp = tweights.params_from_state_dict(cfg, state, torch.float32, device="cpu")
     assert torch.equal(tp["lm_head"], tp["embed"].T)
-    with pytest.raises(NotImplementedError, match="1.9"):
-        tweights.params_from_state_dict(dataclasses.replace(cfg, num_local_experts=4),
-                                        model.state_dict(), device="cpu")
+    import transformers as tf
+    torch.manual_seed(4)
+    moe = tf.MixtralForCausalLM(tf.MixtralConfig(**dict(TINY, num_hidden_layers=2),
+                                                 num_local_experts=4, num_experts_per_tok=2))
+    mcfg = dataclasses.replace(tcfg.ModelConfig.from_hf_config(moe.config), dtype="float32")
+    got = dict(_leaves(tweights.params_from_state_dict(mcfg, moe.state_dict(), torch.float32,
+                                                       device="cpu")))
+    jc = jcfg.ModelConfig.from_hf_config(moe.config)
+    want = dict(_leaves(jax.tree.map(np.asarray, jweights.params_from_state_dict(
+        jc, moe.state_dict(), jnp.float32))))
+    assert set(got) == set(want)
+    assert got["layers.gate_up_proj"].shape == (2, 4, 64, 2 * 128)
+    for name, t in got.items():
+        np.testing.assert_array_equal(t.numpy(), want[name], err_msg=name)
 
 
 # ---------------------------------------------------------------------------
