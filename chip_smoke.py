@@ -143,7 +143,28 @@ Phases, in order; any failure exits non-zero:
    cold ones, snapshot bytes within the budget; then h2o, headkv, cam and
    random through chunked admission against the one-shot engine, each run
    with every launch count set to 0 just before it;
-12. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+12. (run right after phase 8, on phase 5's weights and requests) the
+   ``(dp, sp, tp)`` layouts on ranks that share this card over gloo, each
+   CUDA tensor staged through pinned host memory: the single-device
+   references and the fp32 reference forward first, the parent's weights
+   then freed; each rank draws the weights (seed 0) in turn and keeps its
+   tp=2 shard.  (12a) two ranks: ``ShardingConfig(tp=2)`` over the bf16,
+   int8 and int4 caches (K1 with K2, K3, K4 on each rank's 16 heads),
+   ``dp=2`` over the bf16 cache, ``tp=2`` with fullkv (K2 at G 4 on 4 KV
+   heads); (12b) four ranks: ``(dp, tp) = (2, 2)``, ``(sp, tp) = (2, 2)``
+   on one 8192-token request (K1-ml in the ring, K2 in decode) and a
+   ``ContinuousBatchingEngine`` drain at ``(2, 2)`` of four 4096-token
+   requests with chunked admission (K1-chunk).  Each run with every launch
+   and collective count set to 0 just before it: launches per rank, each
+   rank's cache lengths and head count, the ranks' ids and first-token
+   logits equal, logits against the single-device engine and the fp32
+   reference within phase 5's limits, streams equal up to a near-tie, K2
+   (K3, K4) on layers 0 and 31 of each rank's cache against the plain
+   version with every rank on the card at once; prefill wall, decode
+   ms/step wall and busy (rank 0, profiled), collectives and bytes and
+   seconds staged per prefill and per step; K2 at one tp=2 rank's shape
+   timed beside its bound;
+13. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -186,6 +207,7 @@ from kvcache_factory_tpu_torch.models.weights import (WEIGHT_QUANT_KEYS, init_pa
 from kvcache_factory_tpu_torch.ops.attention import NEG_INF
 from kvcache_factory_tpu_torch.ops.kernels import (_build, decode_attn, decode_attn_quant,
                                                    flash_prefill, pack)
+from kvcache_factory_tpu_torch.parallel.mesh import shard_tree
 from kvcache_factory_tpu_torch.parallel.ring_attention import hop_visible, ring_attention_emulated
 from kvcache_factory_tpu_torch.policies import cam
 from kvcache_factory_tpu_torch.policies.base import select_and_pack
@@ -2606,12 +2628,14 @@ def weight_checksum(params):
     return sums
 
 
-def sp_rank(rank, n, directory, prompt):
+def sp_rank(rank, n, directory):
     """One rank of the sp run (a spawned process): the phase-5 weights from
     ``init_params`` (seed 0), then ``InferenceEngine(ShardingConfig(sp=n))``
-    on ``prompt`` with every launch count set to 0 just before it and read
-    just after; then prefill and the whole request timed, and one profiled
-    prefill.  Writes its results to ``directory/rank{rank}.pt``."""
+    on the prompt in ``directory/prompt.pt`` with every launch count set to
+    0 just before it and read just after; then prefill and the whole
+    request timed, and one profiled prefill.  Writes its results to
+    ``directory/rank{rank}.pt``."""
+    prompt = torch.load(Path(directory) / "prompt.pt")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # Gloo's pairs over the loopback device: the ranks share one host.
@@ -2712,7 +2736,10 @@ def phase_sp(rng, params):
 
     shutil.rmtree(SP_DIR, ignore_errors=True)
     SP_DIR.mkdir(parents=True)
-    ctx = torch.multiprocessing.start_processes(sp_rank, args=(SP, str(SP_DIR), prompt),
+    # By file: an argument past the pipe's buffer would hold each spawn
+    # until its child has imported this script.
+    torch.save(prompt, SP_DIR / "prompt.pt")
+    ctx = torch.multiprocessing.start_processes(sp_rank, args=(SP, str(SP_DIR)),
                                                 nprocs=SP, start_method="spawn", join=False)
     t0 = time.perf_counter()
     try:
@@ -2797,6 +2824,421 @@ def phase_sp(rng, params):
             "ranks_equal": equal, "first_token_rel_l2_vs_single": rel,
             "first_token_max_abs_vs_single": absd, "rel_l2_tol": E2E_REL_L2_TOL,
             "tie_margin": tie_margin, "parted": parted, "spawn_to_join_s": spawn_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: tp, dp and (sp, tp) on the card
+# ---------------------------------------------------------------------------
+
+GRID_DIR = LOG_PATH.parent / "grid"
+GRID_TIMEOUT_S = 900
+GRID_NEW = 64
+GRID_SP_PROMPT = GRID_SP_BUCKET = 8192
+GRID_SP_NEW = 32
+GRID_DRAIN_PROMPT, GRID_DRAIN_NEW, GRID_DRAIN_CHUNK = 4096, 32, 2048
+# Run label -> ((dp, sp, tp), compression, quant, reference label, new
+# tokens).  12a runs on two ranks, 12b on four, every rank sharing this card
+# over gloo.  A decode step that stages 65 collectives through the host
+# costs 0.12-0.33 s with the ranks time-sliced on one card (PERF.md §6), so
+# only the timed runs go on past 16 new tokens (the references run 64); the
+# sp request and the drain run 32.
+GRID_RUNS = {
+    "tp2_bf16": ((1, 1, 2), SNAPKV, None, "bf16", GRID_NEW),
+    "tp2_int8": ((1, 1, 2), SNAPKV, QuantConfig(nbits=8), "int8", 16),
+    "tp2_int4": ((1, 1, 2), SNAPKV, QuantConfig(nbits=4), "int4", 16),
+    "dp2_bf16": ((2, 1, 1), SNAPKV, None, "bf16", 16),
+    "tp2_fullkv": ((1, 1, 2), CompressionConfig(method="fullkv"), None, "fullkv", 16),
+    "dp2_tp2_bf16": ((2, 1, 2), SNAPKV, None, "bf16", 32),
+    "sp2_tp2_bf16": ((1, 2, 2), SNAPKV, None, "sp", GRID_SP_NEW),
+    "drain_dp2_tp2": ((2, 1, 2), SNAPKV, None, "drain", GRID_DRAIN_NEW),
+}
+GRID_SPAWNS = (("12a", 2, ("tp2_bf16", "tp2_int8", "tp2_int4", "dp2_bf16", "tp2_fullkv")),
+               ("12b", 4, ("dp2_tp2_bf16", "sp2_tp2_bf16", "drain_dp2_tp2")))
+# The runs whose prefill is also timed alone and whose decode step is profiled.
+GRID_TIMED = ("tp2_bf16", "dp2_tp2_bf16")
+
+
+def grid_references(rng, params, prompts):
+    """Phase 12's references, on the parent's weights before they are freed:
+    the single-device engine on phase 5's two requests with each cache the
+    ranks run (ids and every step's logits), the fp32 reference forward of
+    request (a)'s prompt and of request (b) along each single-device
+    stream, the single-device engine on one 8192-token request (sp) and a
+    single-device drain of four 4096-token requests (chunked admission);
+    and K2 at one tp=2 rank's shape against its plain version, timed.  All
+    kept on the host."""
+    cfg, dev = MISTRAL_7B, "cuda"
+    log(f"== phase 12 references: single-device runs on the parent's weights")
+    refs = {"checksum": weight_checksum(params), "prompts": prompts}
+    for label, comp, quant in (("bf16", SNAPKV, None), ("int8", SNAPKV, QuantConfig(nbits=8)),
+                               ("int4", SNAPKV, QuantConfig(nbits=4)),
+                               ("fullkv", CompressionConfig(method="fullkv"), None)):
+        engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant,
+                                                      prefill_buckets=(4096,)), device=dev)
+        ids, res = engine.generate_batch(prompts, GRID_NEW, return_result=True)
+        seq_b = prompts[1] + ids[1][:GRID_NEW - 1]
+        ref_b = forward_logits(params, cfg, torch.tensor([seq_b], device=dev))[
+            0, len(prompts[1]) - 1:].cpu()
+        refs[label] = {"ids": ids, "logits": res.logits.cpu(), "ref_b": ref_b}
+        del engine, res
+    refs["ref_a"] = forward_logits(params, cfg, torch.tensor([prompts[0]], device=dev))[0, -1].cpu()
+    sp_prompt = rng.integers(0, cfg.vocab_size, size=GRID_SP_PROMPT).tolist()
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV,
+                                                  prefill_buckets=(GRID_SP_BUCKET,)), device=dev)
+    ids, res = engine.generate_batch([sp_prompt], GRID_SP_NEW, return_result=True)
+    refs["sp"] = {"prompt": sp_prompt, "ids": ids, "logits": res.logits.cpu()}
+    del engine, res
+    drain_prompts = [rng.integers(0, cfg.vocab_size, size=GRID_DRAIN_PROMPT).tolist()
+                     for _ in range(4)]
+    eng = ContinuousBatchingEngine(
+        params, EngineConfig(model=cfg, compression=SNAPKV, prefill_buckets=(GRID_DRAIN_PROMPT,)),
+        n_slots=4, max_new_cap=GRID_DRAIN_NEW, prefill_chunk_tokens=GRID_DRAIN_CHUNK,
+        device=dev, instrument=True)
+    rids = [eng.submit(p, GRID_DRAIN_NEW) for p in drain_prompts]
+    out = eng.run()
+    refs["drain"] = {"prompts": drain_prompts, "ids": [out[r] for r in rids],
+                     "logits": torch.stack([torch.stack(eng.logits[r]) for r in rids])}
+    del eng
+    torch.cuda.empty_cache()
+    # K2 at one tp=2 rank's decode shape: B=2 x 16 query heads of the
+    # per-query-head cache, half-way through decode.
+    C, H = SNAPKV.max_capacity_prompt + GRID_NEW + 1, 2 * (cfg.num_attention_heads // 2)
+    mid = [2048 + 31] * (H // 2) + [1500 + 31] * (H // 2)
+    q, kc, vc, kn, vn, lens, _, _, err, abs_err = k2_case(rng, H, 1, C, mid, np.zeros(H, np.int64))
+    refs["k2_tp2"] = {"shape": f"H={H} (B=2 x 16, one of tp=2) G=1 C={C} D=128, lengths "
+                               f"2079 and 1531", "rel_l2": err, "max_abs_err": abs_err,
+                      **time_k2(q, kc, vc, kn, vn, lens)}
+    return refs
+
+
+def grid_rank(rank, n, directory):
+    """One rank of a phase-12 spawn (a spawned process sharing this card):
+    the weights of phase 5 (``init_params`` seed 0), drawn whole by one rank
+    at a time and cut to the rank's tp=2 shard (``shard_tree``), the whole
+    model kept only where a run has no tp; then each run of the job in
+    ``directory/job.pt``.  Writes its results to ``directory/rank{rank}.pt``."""
+    job = torch.load(Path(directory) / "job.pt")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        raise SystemExit(f"grid rank {rank}: no CUDA device")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
+                            world_size=n, timeout=datetime.timedelta(seconds=GRID_TIMEOUT_S))
+    t0 = time.perf_counter()
+    try:
+        cfg = MISTRAL_7B
+        whole = shard = checksum = None
+        keep_whole = any(GRID_RUNS[label][0][2] == 1 for label in job["runs"])
+        for r in range(n):
+            if r == rank:
+                whole = init_params(cfg, seed=0, device="cuda")
+                checksum = weight_checksum(whole)
+                shard = shard_tree(whole, cfg, 2, rank % 2)  # tp is the grid's last axis
+                if not keep_whole:
+                    whole = None
+                torch.cuda.empty_cache()
+            dist.barrier()
+        result = {"rank": rank, "checksum": checksum, "runs": {},
+                  "shard_bytes": tree_bytes(shard), "rank_s": {"weights": time.perf_counter() - t0}}
+        t0 = time.perf_counter()
+        for label in job["runs"]:
+            result["runs"][label] = grid_run(rank, label, job, whole, shard)
+            torch.cuda.empty_cache()
+            dist.barrier()
+        result["rank_s"]["runs"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, Path(directory) / f"rank{rank}.pt")
+
+
+def grid_run(rank, label, job, whole, shard):
+    """One run of a spawn, every launch count and collective count set to 0
+    just before it and read just after: ids and every step's logits (the
+    whole batch's), this rank's cache lengths and head count, K2 (K3, K4)
+    on layers 0 and 31 of the rank's finished cache against the plain
+    version while the other ranks do the same on the card; for
+    ``GRID_TIMED`` runs also a prefill alone (wall, collectives) and
+    profiled decode steps."""
+    grid, comp, quant, _, new = GRID_RUNS[label]
+    dp, sp, tp = grid
+    params = shard if tp > 1 else whole
+    sharding = ShardingConfig(dp=dp, sp=sp, tp=tp)
+    if label.startswith("drain"):
+        return grid_drain(rank, params, sharding, job["drain_prompts"])
+    prompts = [job["sp_prompt"]] if sp > 1 else job["prompts"]
+    bucket = GRID_SP_BUCKET if sp > 1 else 4096
+    engine = InferenceEngine(params, EngineConfig(model=MISTRAL_7B, compression=comp, quant=quant,
+                                                  sharding=sharding, prefill_buckets=(bucket,)),
+                             device="cuda")
+    groups = engine.groups
+    reset_counts()
+    groups.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    ids, res = engine.generate_batch(prompts, new, return_result=True)
+    sync()
+    run_s = time.perf_counter() - t0
+    result = {"launches": path_launches(), "counts_run": groups.counts(), "run_s": run_s,
+              "ids": ids, "logits": res.logits.cpu(), "cache": type(res.cache).__name__,
+              "heads": res.cache.lengths.shape[2],
+              "coords": (groups.dp_rank, groups.sp_rank, groups.tp_rank),
+              "lengths": [sorted(set(res.cache.lengths[:, b].flatten().tolist()))
+                          for b in range(res.cache.lengths.shape[1])]}
+    result["direct_rel_l2"] = direct_decode_check(np.random.default_rng(rank), res.cache, quant,
+                                                  f"{label} rank {rank}")
+    if label in GRID_TIMED:
+        groups.reset_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        engine.generate_batch(prompts, 1)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        result.update(prefill_s=prefill_s, counts_prefill=groups.counts(),
+                      decode_ms_per_step=(run_s - prefill_s) / (new - 1) * 1e3)
+        lo, hi = groups.rows(-(-len(prompts) // dp) * dp)
+        cur = torch.tensor([x[-1] for x in ids[lo:hi]], device="cuda")
+        result["decode_busy_ms"] = grid_decode_busy(rank, engine, res.cache, cur, quant)
+    return result
+
+
+def grid_decode_busy(rank, engine, cache, cur, quant, steps=4):
+    """Device busy time per decode step on rank 0, from ``torch.profiler``
+    over ``steps`` steps that every rank runs together (they overwrite the
+    cache's last slots, which nothing reads again); None elsewhere, or when
+    the profiler sees no device time."""
+    def step():
+        llama.decode_step(engine.params, engine.model_cfg, cur, cache, quant=quant,
+                          tp=engine.tp_group)
+
+    with torch.no_grad():
+        step()
+        sync()
+        dist.barrier()
+        if rank:
+            for _ in range(steps):
+                step()
+            sync()
+            return None
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            sync()
+    busy = sum(evt.self_device_time_total for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA) / steps / 1e3
+    return busy if busy > 0 else None
+
+
+def grid_drain(rank, params, sharding, prompts):
+    """The four requests through ``ContinuousBatchingEngine`` under
+    ``sharding``, chunked admission; every count set to 0 just before
+    ``run`` and read just after."""
+    eng = ContinuousBatchingEngine(
+        params, EngineConfig(model=MISTRAL_7B, compression=SNAPKV, sharding=sharding,
+                             prefill_buckets=(GRID_DRAIN_PROMPT,)),
+        n_slots=4, max_new_cap=GRID_DRAIN_NEW, prefill_chunk_tokens=GRID_DRAIN_CHUNK,
+        device="cuda", instrument=True)
+    rids = [eng.submit(p, GRID_DRAIN_NEW) for p in prompts]
+    reset_counts()
+    eng.groups.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = eng.run()
+    sync()
+    lens = eng.cache.lengths
+    groups = eng.groups
+    return {"launches": path_launches(), "counts_run": groups.counts(),
+            "run_s": time.perf_counter() - t0, "ids": [out[r] for r in rids],
+            "first_logits": {i: eng.logits[r][0] for i, r in enumerate(rids) if r in eng.logits},
+            "chunk_dispatches": eng.prefill_chunk_dispatches, "steps": eng.steps_executed,
+            "heads": lens.shape[2], "coords": (groups.dp_rank, groups.sp_rank, groups.tp_rank),
+            "lengths": [sorted(set(lens[:, b].flatten().tolist())) for b in range(lens.shape[1])]}
+
+
+def spawn_grid(name, n, job):
+    """``n`` ranks of ``grid_rank`` on ``job``; their results in rank order.
+    A rank that fails, or a spawn past ``GRID_TIMEOUT_S``, ends the script."""
+    directory = GRID_DIR / name
+    directory.mkdir(parents=True)
+    # The prompts go by file: arguments past the pipe's buffer would hold
+    # each spawn until its child has imported this script.
+    torch.save(job, directory / "job.pt")
+    ctx = torch.multiprocessing.start_processes(grid_rank, args=(n, str(directory)),
+                                                nprocs=n, start_method="spawn", join=False)
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > GRID_TIMEOUT_S:
+                raise SystemExit(f"the {name} ranks did not finish in {GRID_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(directory / f"rank{r}.pt") for r in range(n)]
+    return ranks, spawn_s, time.perf_counter() - t0 - spawn_s
+
+
+def stream_parting(got, want, want_logits, margin, what):
+    """Where a greedy stream ``got`` first parts from ``want`` (None where
+    they agree over ``got``'s tokens); the parting must sit at a near-tie of ``want``'s logits
+    (top-2 gap within ``margin``, as phase 8 holds its ranks)."""
+    apart = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+    if not apart:  # a shorter run is compared over its own tokens
+        return None
+    j = apart[0]
+    top2 = want_logits[j].topk(2).values
+    gap = (top2[0] - top2[1]).item()
+    if gap > margin:
+        raise SystemExit(f"{what}: the stream parts from the single-device one at step {j}, "
+                         f"where the top-2 gap is {gap:.4f} (margin {margin:.4f})")
+    return {"step": j, "top2_gap": gap}
+
+
+def grid_check(label, ranks, refs):
+    """Phase 12's checks of one run over every rank: launches per rank,
+    cache lengths and head counts, ranks agreeing (ids, and first-token
+    logits bitwise), first-token logits against the single-device engine
+    and the fp32 reference, request (b)'s decode logits against the fp32
+    reference while its stream follows the single-device one, and the
+    streams identical up to a near-tie.  Returns the run's summary."""
+    grid, comp, quant, ref_label, new = GRID_RUNS[label]
+    dp, sp, tp = grid
+    L = MISTRAL_7B.num_hidden_layers
+    runs = [rk["runs"][label] for rk in ranks]
+    ref = refs[ref_label]
+    tol = E2E_REL_L2_TOL if quant is None else E2E_QUANT_REL_L2_TOL[quant.nbits]
+    decode_id = "K2" if quant is None else QUANT[quant.nbits][0]
+    drain = label.startswith("drain")
+    for r, run in enumerate(runs):
+        want = dict.fromkeys(run["launches"], 0)
+        if drain:
+            want["K1-chunk"], want["K2"] = L * run["chunk_dispatches"], L * run["steps"]
+            if not run["chunk_dispatches"] or not run["steps"]:
+                raise SystemExit(f"{label} rank {r} ran no chunk or no decode step")
+        elif sp > 1:
+            want["K1-ml"], want["K2"] = L * (run["coords"][1] + 1), L * (new - 1)
+        else:
+            want["K1"], want[decode_id] = L, L * (new - 1)
+        if run["launches"] != want:
+            raise SystemExit(f"{label} rank {r}: launches {run['launches']}, expect {want}")
+        heads = MISTRAL_7B.num_attention_heads // tp if comp.method != "fullkv" else \
+            MISTRAL_7B.num_key_value_heads // tp
+        if drain:
+            lengths = [[GRID_DRAIN_NEW - 1 + SNAPKV.max_capacity_prompt]] * (4 // dp)
+        elif sp > 1:
+            lengths = [[SNAPKV.max_capacity_prompt + new - 1]]
+        else:
+            plen = [len(p) for p in refs["prompts"]]
+            cap = [n if comp.method == "fullkv" else min(n, SNAPKV.max_capacity_prompt)
+                   for n in plen]
+            lengths = [[c + new - 1] for c in cap]
+            lengths = lengths[run["coords"][0]::dp]
+        if run["heads"] != heads or run["lengths"] != lengths:
+            raise SystemExit(f"{label} rank {r}: {run['heads']} heads, lengths {run['lengths']}; "
+                             f"expect {heads}, {lengths}")
+    if drain:
+        firsts = {}
+        for run in runs:
+            firsts.update(run["first_logits"])
+        got_first = torch.stack([firsts[i] for i in range(len(ref["ids"]))])
+        want_first = ref["logits"][:, 0]
+        ids = runs[0]["ids"]
+        agree = all(run["ids"] == ids for run in runs)
+    else:
+        ids = runs[0]["ids"]
+        agree = all(run["ids"] == ids and torch.equal(run["logits"][:, 0], runs[0]["logits"][:, 0])
+                    for run in runs)
+        got_first, want_first = runs[0]["logits"][:, 0], ref["logits"][:, 0]
+    rel, absd = rel_l2(got_first, want_first)
+    log(f"{label}: ranks agree (ids{'' if drain else ', first-token logits bitwise'}) {agree}; "
+        f"first-token logits against the single-device engine rel L2 {rel:.4f} (max abs "
+        f"{absd:.4f}) tol {tol}")
+    if not agree or rel > tol:
+        raise SystemExit(f"{label}: the ranks disagree with each other or with the single device")
+    summary = {"grid": {"dp": dp, "sp": sp, "tp": tp}, "ranks_agree": agree,
+               "first_token_rel_l2_vs_single": rel, "first_token_max_abs_vs_single": absd,
+               "rel_l2_tol": tol}
+    if not drain and sp == 1:
+        logits = runs[0]["logits"]
+        rel_a = rel_l2(logits[0, :1], refs["ref_a"][None])[0]
+        rel_b0 = rel_l2(logits[1, :1], ref["ref_b"][:1])[0]
+        # Request (b)'s decode logits along the steps where its stream
+        # still follows the single-device one (the reference's context).
+        same = next((j for j, (a, b) in enumerate(zip(ids[1], ref["ids"][1])) if a != b), new)
+        rel_bd = rel_l2(logits[1, 1:same], ref["ref_b"][1:same])[0] if same > 1 else None
+        log(f"{label}: against the fp32 reference: first-token (a) rel L2 {rel_a:.4f}, (b) "
+            f"{rel_b0:.4f} (tol {E2E_REL_L2_TOL}); (b) decode over {max(same - 1, 0)} steps "
+            f"worst rel L2 {rel_bd} (tol {tol})")
+        if max(rel_a, rel_b0) > E2E_REL_L2_TOL or (rel_bd is not None and rel_bd > tol):
+            raise SystemExit(f"{label}: logits disagree with the fp32 reference")
+        summary.update(first_token_rel_l2_vs_fp32=[rel_a, rel_b0], decode_rel_l2_vs_fp32=rel_bd,
+                       decode_steps_compared=max(same - 1, 0))
+    margin = 2 * absd
+    want_logits = ref["logits"]
+    parted = [stream_parting(ids[i], ref["ids"][i], want_logits[i], margin,
+                             f"{label} request {i}") for i in range(len(ids))]
+    log(f"{label}: greedy streams against the single-device ones identical "
+        f"{all(p is None for p in parted)}; parted at near-ties (margin {margin:.4f}): "
+        f"{[p for p in parted if p]}")
+    summary["parted"] = parted
+    for r, run in enumerate(runs):
+        keep = ("launches", "heads", "lengths", "coords", "run_s", "counts_run", "direct_rel_l2",
+                "prefill_s", "counts_prefill", "decode_ms_per_step", "decode_busy_ms",
+                "chunk_dispatches", "steps")
+        summary.setdefault("ranks", []).append({k: run[k] for k in keep if k in run})
+    return summary
+
+
+def phase_grid(refs):
+    """The (dp, sp, tp) layouts on this card: 12a on two ranks (tp=2 over
+    the bf16, int8 and int4 caches, dp=2, tp=2 with fullkv), 12b on four
+    ((dp, tp) = (2, 2), (sp, tp) = (2, 2) on one 8192-token request, a
+    (2, 2) serving drain with chunked admission), every rank sharing the
+    card over gloo; each run checked against the single-device references
+    (``grid_references``)."""
+    log(f"== phase 12: dp, tp and (sp, tp) at Mistral-7B-Instruct-v0.2 widths, ranks sharing "
+        f"this card over gloo (tensors staged through pinned host memory)")
+    shutil.rmtree(GRID_DIR, ignore_errors=True)
+    job = {"prompts": refs["prompts"], "sp_prompt": refs["sp"]["prompt"],
+           "drain_prompts": refs["drain"]["prompts"]}
+    out = {"k2_tp2": refs["k2_tp2"], "runs": {}}
+    for name, n, labels in GRID_SPAWNS:
+        t0 = time.perf_counter()
+        ranks, spawn_s, load_s = spawn_grid(name, n, dict(job, runs=labels))
+        for r, rk in enumerate(ranks):
+            if rk["checksum"] != refs["checksum"]:
+                raise SystemExit(f"{name} rank {r} holds other weights")
+        t_check = time.perf_counter()
+        for label in labels:
+            out["runs"][label] = grid_check(label, ranks, refs)
+        check_s = time.perf_counter() - t_check
+        out[name] = {"ranks": n, "spawn_to_join_s": spawn_s, "load_s": load_s,
+                     "check_s": check_s, "shard_bytes": [rk["shard_bytes"] for rk in ranks],
+                     "rank_s": [rk["rank_s"] for rk in ranks], "wall_s": time.perf_counter() - t0}
+        log(f"{name}: {n} ranks, spawn to join {spawn_s:.1f} s (in the ranks: weights "
+            f"{[round(rk['rank_s']['weights'], 1) for rk in ranks]} s, runs "
+            f"{[round(rk['rank_s']['runs'], 1) for rk in ranks]} s), results loaded in "
+            f"{load_s:.1f} s, checked in {check_s:.1f} s; each rank's tp=2 shard "
+            f"{ranks[0]['shard_bytes'] / 1e9:.2f} GB")
+    for label in GRID_TIMED:
+        for r, run in enumerate(out["runs"][label]["ranks"]):
+            pre, tot = run["counts_prefill"], run["counts_run"]
+            steps = GRID_RUNS[label][4] - 1
+            per_step = {axis: {k: (tot[axis][k] - pre[axis][k]) / steps for k in tot[axis]}
+                        for axis in tot}
+            run["counts_per_step"] = per_step
+            busy = run["decode_busy_ms"]
+            log(f"{label} rank {r}: prefill {run['prefill_s']:.3f} s wall; per prefill "
+                + "; ".join(f"{a}: {c['collectives']} collectives, {c['staged_bytes'] / 1e9:.3f} GB "
+                            f"staged in {c['staged_s']:.3f} s" for a, c in pre.items())
+                + f"; decode {run['decode_ms_per_step']:.3f} ms/step wall, busy "
+                + ("not measured" if busy is None else f"{busy:.3f} ms")
+                + " (rank 0, profiled); per step "
+                + "; ".join(f"{a}: {c['collectives']:.1f} collectives, {c['staged_bytes'] / 1e6:.3f} "
+                            f"MB staged in {c['staged_s'] * 1e3:.2f} ms" for a, c in per_step.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3474,7 +3916,11 @@ LLAMA3_8B_HF_CONFIG = {
     "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
     "num_key_value_heads": 8, "max_position_embeddings": 8192, "rope_theta": 500000.0,
     "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
-LLAMA3_8B = ModelConfig.from_hf_config(LLAMA3_8B_HF_CONFIG)
+# Depth cut to 16 of the 32 layers since phase 12 joined the script, to keep
+# the whole script well inside its time limit: every check of phase 10
+# reads layers 0 and L - 1 and counts launches per layer.
+LLAMA3_8B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA3_8B_HF_CONFIG),
+                                num_hidden_layers=16)
 # 10a: the grouped caches, each with its new tokens (limits: GROUPED_REL_L2_TOL).
 GROUPED_RUNS = (
     ("nbits2_outliers_ring128", QuantConfig(nbits=2, q_group_size=64, outlier_extract=True,
@@ -4098,7 +4544,8 @@ def phase_llama3(rng, log_file):
     t0 = time.perf_counter()
     params = init_params(cfg, seed=2, device="cuda")
     sync()
-    log(f"== 10 Meta-Llama-3-8B-Instruct widths (32 layers, 32 / 8 heads, vocab 128256, "
+    log(f"== 10 Meta-Llama-3-8B-Instruct widths ({cfg.num_hidden_layers} of 32 layers, 32 / 8 "
+        f"heads, vocab 128256, "
         f"rope_theta 5e5), random bf16 weights (seed 2) in {time.perf_counter() - t0:.1f} s")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
     refs = {}
@@ -4774,6 +5221,16 @@ def profile_device(fn, reps, wall_ms, what, log_file, check=None):
 
 
 T_START = time.perf_counter()
+PHASE_S = {}  # each phase's wall seconds, in the end-to-end line
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its wall time logged and kept in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"[{time.perf_counter() - T_START:.1f} s] {name}: {PHASE_S[name]:.1f} s")
+    return out
 
 
 def main():
@@ -4822,29 +5279,37 @@ def main():
             raise SystemExit(f"{kid}'s SASS holds int-to-float conversions (or no {kid} kernel)")
 
     rng = np.random.default_rng(0)
-    k1 = phase_k1(rng)
-    k1_sw, k1_chunk = phase_k1_variants(rng)
-    k1_a, k1_vs, k1["minference"] = phase_k1_sparse(rng)
-    k5 = phase_k5(rng)
-    k1_ml = phase_k1ml(rng)
-    sp_fold = phase_sp_fold(rng)
-    k2 = phase_k2(rng)
-    k3 = phase_kq(rng, 8)
-    k4 = phase_kq(rng, 4)
-    phase_edges(rng)
+    k1 = timed("3 K1", phase_k1, rng)
+    k1_sw, k1_chunk = timed("3b K1 variants", phase_k1_variants, rng)
+    k1_a, k1_vs, k1["minference"] = timed("3c K1 sparse", phase_k1_sparse, rng)
+    k5 = timed("3d K5", phase_k5, rng)
+    k1_ml = timed("8a K1-ml", phase_k1ml, rng)
+    sp_fold = timed("8b ring fold", phase_sp_fold, rng)
+    k2 = timed("4 K2", phase_k2, rng)
+    k3 = timed("4b K3", phase_kq, rng, 8)
+    k4 = timed("4b K4", phase_kq, rng, 4)
+    timed("4 edges", phase_edges, rng)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
-        params, prompts, e2e = phase_e2e(rng, log_file)
-        policies = phase_policies(rng, params, prompts, log_file)
-        serving = phase_serving(rng, params, log_file)
+        params, prompts, e2e = timed("5 main path", phase_e2e, rng, log_file)
+        policies = timed("5b policies", phase_policies, rng, params, prompts, log_file)
+        serving = timed("6 serving", phase_serving, rng, params, log_file)
         torch.cuda.empty_cache()
-        minf = phase_minference(rng, params, log_file)
-        sp = phase_sp(rng, params)
+        minf = timed("7 MInference", phase_minference, rng, params, log_file)
+        sp = timed("8c sp", phase_sp, rng, params)
+        # Phase 12 draws from a generator of its own, so that phases 9-11
+        # keep the inputs they had before it joined (ROADMAP queue 3 item 3:
+        # phase 11c's resumed-vs-cold limit fails on other prompts).
+        grid_refs = timed("12 references", grid_references, np.random.default_rng(12), params,
+                          prompts)
+        # The ranks draw their own weights: the parent's go first.
         del params
         torch.cuda.empty_cache()
-        qwen = phase_qwen2(rng, log_file)
-        llama3 = phase_llama3(rng, log_file)
-        mixtral = phase_mixtral(rng, prompts, log_file)
+        grid = timed("12 grid", phase_grid, grid_refs)
+        del grid_refs
+        qwen = timed("9 Qwen2", phase_qwen2, rng, log_file)
+        llama3 = timed("10 Llama-3", phase_llama3, rng, log_file)
+        mixtral = timed("11 Mixtral", phase_mixtral, rng, prompts, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -4889,11 +5354,29 @@ def main():
     k1_chunk["mixtral"] = {"launches_prefix_drain": mxs["launches"]["K1-chunk"]}
     k2["mixtral"] = {"launches_32_new": mx["launches"]["K2"],
                      "launches_prefix_drain": mxs["launches"]["K2"]}
+    # Phase 12: each kernel's launches per rank on the (dp, sp, tp) runs
+    # that run it, and K2 at one tp=2 rank's shape.
+    gr = grid["runs"]
+
+    def per_rank(label, kid):
+        return [rk["launches"][kid] for rk in gr[label]["ranks"]]
+
+    k1["tp"] = {label: per_rank(label, "K1") for label in
+                ("tp2_bf16", "tp2_int8", "tp2_int4", "dp2_bf16", "tp2_fullkv", "dp2_tp2_bf16")}
+    k1_ml["tp"] = {"sp2_tp2_bf16": per_rank("sp2_tp2_bf16", "K1-ml")}
+    k1_chunk["tp"] = {"drain_dp2_tp2": per_rank("drain_dp2_tp2", "K1-chunk")}
+    k2["tp"] = {label: per_rank(label, "K2") for label in
+                ("tp2_bf16", "dp2_bf16", "tp2_fullkv", "dp2_tp2_bf16", "sp2_tp2_bf16",
+                 "drain_dp2_tp2")}
+    k2["tp"]["shard_timing"] = grid["k2_tp2"]
+    k3["tp"] = {"tp2_int8": per_rank("tp2_int8", "K3")}
+    k4["tp"] = {"tp2_int4": per_rank("tp2_int4", "K4")}
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
-                      "sp": {**sp, "fold_emulated": sp_fold}, "qwen2": qwen, "llama3": llama3,
-                      "mixtral": mixtral,
+                      "sp": {**sp, "fold_emulated": sp_fold}, "grid": grid, "qwen2": qwen,
+                      "llama3": llama3,
+                      "mixtral": mixtral, "phase_s": PHASE_S,
                       "script_s": time.perf_counter() - T_START, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

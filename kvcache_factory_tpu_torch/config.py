@@ -246,12 +246,13 @@ class QuantConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """Device-mesh layout.  The port carries ``sp`` alone: sequence-parallel
-    prefill over ``sp`` ranks of a ``torch.distributed`` group (ring
-    attention, ``parallel/``), with decode replicated on every rank.  The
-    JAX package's ``ValueError``s for sp with ep or pp hold; every other
-    non-default layout (dp, tp, ep, pp, and sp composed with dp or tp)
-    raises ``NotImplementedError`` (ROADMAP.md item 1.11)."""
+    """Device-mesh layout, as in the JAX package.  The port serves ``dp``
+    (batch rows), ``tp`` (heads and FFN columns, Megatron-style) and ``sp``
+    (sequence-parallel prefill by ring attention) in one ``(dp, sp, tp)``
+    grid over the ranks of a ``torch.distributed`` group
+    (``parallel/mesh.py::ParallelGroups``).  The JAX package's
+    ``ValueError``s hold; ``ep``, ``pp`` and ``dcn_dp`` raise
+    ``NotImplementedError`` (ROADMAP.md item 1.11)."""
 
     dp: int = 1
     tp: int = 1
@@ -262,17 +263,37 @@ class ShardingConfig:
     dcn_dp: int = 1
 
     def __post_init__(self):
-        if self.sp < 1:
-            raise ValueError("sp must be >= 1")
+        if min(self.dp, self.tp, self.ep, self.sp, self.pp, self.dcn_dp) < 1:
+            raise ValueError("every mesh axis must be >= 1")
+        if self.dp % self.dcn_dp != 0:
+            raise ValueError("dcn_dp must divide dp")
         if self.sp > 1 and self.ep > 1:
             raise ValueError("sp composes with dp/tp (one (dp, sp, tp) mesh) but not with ep")
-        if self.pp > 1 and self.sp > 1:
-            raise ValueError("pp is a dedicated mesh; it does not compose with sp")
-        if (self.dp, self.tp, self.ep, self.pp, self.pp_microbatches,
-                self.dcn_dp) != (1, 1, 1, 1, 0, 1):
+        if self.pp > 1 and (self.dp * self.tp * self.ep > 1 or self.sp > 1):
+            raise ValueError("pp is a dedicated mesh; it does not compose with dp/tp/ep/sp "
+                             "in one config")
+        if self.pp_microbatches and self.pp_microbatches < self.pp:
+            raise ValueError("pp_microbatches must be >= pp (GPipe decode needs one "
+                             "microbatch per in-flight stage)")
+        unported = [f"{name}={value}" for name, value in
+                    (("ep", self.ep), ("pp", self.pp), ("dcn_dp", self.dcn_dp)) if value > 1]
+        if self.pp_microbatches:
+            unported.append(f"pp_microbatches={self.pp_microbatches}")
+        if unported:
             raise NotImplementedError(
-                "multi-device sharding is not ported yet (ROADMAP.md item 1.11: "
-                "parallel paths)")
+                f"{', '.join(unported)} is not ported yet (ROADMAP.md item 1.11: parallel "
+                "paths; dp, tp and sp are)")
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The JAX package's mesh axes for this layout (its ``(dp[, ep],
+        tp)`` mesh; an ``sp`` layout runs on the ``(dp, sp, tp)`` grid)."""
+        return ("dp", "ep", "tp") if self.ep > 1 else ("dp", "tp")
+
+    @property
+    def world(self) -> int:
+        """Ranks of the ``(dp, sp, tp)`` grid."""
+        return self.dp * self.sp * self.tp
 
 
 # ---------------------------------------------------------------------------

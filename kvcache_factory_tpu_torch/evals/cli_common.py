@@ -3,12 +3,18 @@
 
 Replaces the reference's argparse + per-layer config injection
 (run_longbench.py:319-368, :241-261) with a typed EngineConfig resolved once,
-before any weight is loaded: a flag the port does not carry yet (``--nbits``
-1/2/3 or ``--residual_length``, ``--think_packed``, ``--dp``/``--tp``/
-``--ep``/``--pp``) reaches its config and raises ``NotImplementedError``
-naming its ROADMAP.md item there.  The engine runs on ``--device`` (the card
-unless the caller asks for the CPU), its ``torch.Generator`` seeded from
-``--seed``.
+before any weight is loaded: a flag the port does not carry yet (``--ep``,
+``--pp``, ``--dcn_dp``) reaches its config and raises
+``NotImplementedError`` naming its ROADMAP.md item there.  The engine runs
+on ``--device`` (the card unless the caller asks for the CPU), its
+``torch.Generator`` seeded from ``--seed``.
+
+``--dp``, ``--tp`` and ``--sp`` ask for ``dp * sp * tp`` ranks: the CLI then
+runs under ``torchrun --nproc-per-node <dp * sp * tp>``, one process per
+rank, and brings up the process group from torchrun's environment (NCCL
+with a card per rank, gloo when ranks outnumber cards or run on the CPU);
+rank 0 writes the result files (:func:`writes_results`).  Without a
+launch of that size it raises ``ValueError`` saying how to launch it.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import os
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import (CompressionConfig, EngineConfig, ModelConfig, QuantConfig,
                       ShardingConfig)
@@ -80,9 +87,9 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
                     # must reach MODEL2MAXLEN's mistral ceiling (31500) or
                     # mid-run prompts raise 'exceeds largest bucket'
                     default=[512, 1024, 2048, 4096, 8192, 16384, 32768])
-    # Parallelism: the port carries sp alone (a torch.distributed group of
-    # sp ranks, each running this CLI); dp, tp, ep and pp raise in
-    # ShardingConfig (ROADMAP.md item 1.11).
+    # Parallelism: dp, tp and sp run one process per rank under torchrun
+    # (init_distributed); ep, pp and dcn_dp raise in ShardingConfig
+    # (ROADMAP.md item 1.11).
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel ways (batch sharding)")
     ap.add_argument("--tp", type=int, default=1,
@@ -110,6 +117,44 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
                          "lists; loaded into [L, Hq, 2] budgets for the "
                          "vertical-slash block mask. Only with "
                          "--method minference")
+
+
+def init_distributed(sharding: ShardingConfig, device: str) -> None:
+    """The process group a ``(dp, sp, tp)`` layout of ``sharding.world > 1``
+    ranks runs on, brought up from torchrun's environment (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``): NCCL where every
+    rank has a card of its own (each takes card ``LOCAL_RANK``), gloo when
+    the ranks outnumber the cards or run on the CPU (ranks sharing a card
+    stage their tensors through pinned host memory,
+    ``parallel/mesh.py``).  A group that is already up must have the
+    layout's size."""
+    world = sharding.world
+    if world == 1:
+        return
+    launch = (f"--dp {sharding.dp} --sp {sharding.sp} --tp {sharding.tp} ask for {world} "
+              f"ranks: launch the CLI as `torchrun --nproc-per-node {world} -m "
+              "kvcache_factory_tpu_torch.evals.<runner> ...`")
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise ValueError(f"{launch} (the process group has {dist.get_world_size()})")
+        return
+    found = int(os.environ.get("WORLD_SIZE", "1"))
+    if found != world:
+        raise ValueError(f"{launch} (found WORLD_SIZE={found})")
+    on_cards = torch.device(device).type == "cuda"
+    backend = "nccl" if on_cards and torch.cuda.device_count() >= world else "gloo"
+    if on_cards:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+    if backend == "gloo" and os.environ.get("MASTER_ADDR", "localhost") in ("localhost",
+                                                                             "127.0.0.1"):
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend)
+
+
+def writes_results() -> bool:
+    """Whether this process writes the runners' result files: rank 0 of a
+    process group, or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def resolve_capacity(args):
@@ -173,6 +218,8 @@ def build_engine_from_args(args) -> Tuple[InferenceEngine, object, str]:
                               pp_microbatches=getattr(args, "pp_microbatches", 0),
                               dcn_dp=getattr(args, "dcn_dp", 1))
     llama._check_supported(model_cfg, comp, quant, sp=sharding.sp > 1)
+    device = getattr(args, "device", "cuda")
+    init_distributed(sharding, device)
 
     head_capacity = None
     if args.method.lower() == "headkv":
@@ -202,7 +249,6 @@ def build_engine_from_args(args) -> Tuple[InferenceEngine, object, str]:
 
     tokenizer = AutoTokenizer.from_pretrained(args.model_path, use_fast=True,
                                               padding_side="left")
-    device = getattr(args, "device", "cuda")
     params, model_cfg = load_params(args.model_path, model_cfg, device=device)
     if getattr(args, "wq8", False):
         params = quantize_weights(params, skip=tuple(getattr(args, "wq8_skip", ())))

@@ -176,6 +176,9 @@ class NeedleHaystackTester:
             "test_timestamp_utc": datetime.now(timezone.utc)
                 .strftime("%Y-%m-%d %H:%M:%S%z"),
         }
+        from .cli_common import writes_results
+        if not writes_results():  # every rank generates; rank 0 writes
+            return result
         path = self._cell_path(context_length, depth_percent)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "w") as f:

@@ -38,14 +38,17 @@ def run_task(engine, tokenizer, task: str, data_file: str, out_path: str,
     if max_num_examples:
         examples = examples[:max_num_examples]
 
-    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    from .cli_common import writes_results
+    if writes_results():
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
     eos_ids = []
     if getattr(tokenizer, "eos_token_id", None) is not None:
         eos_ids = [tokenizer.eos_token_id]
 
     out_max_len = TASK2MAXLEN[task]
     n = 0
-    with open(out_path, "w") as fout:
+    # Every rank of a parallel layout generates; rank 0 writes.
+    with open(out_path if writes_results() else os.devnull, "w") as fout:
         it = examples
         if progress:
             try:

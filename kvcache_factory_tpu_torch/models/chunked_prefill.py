@@ -26,6 +26,11 @@ packed).  MInference sparse prefill raises ``NotImplementedError`` as in
 the JAX package (a dense chunked pass would compute another function).
 A Mixtral layer's FFN is ``llama.ffn_block``, as in one-shot prefill.
 
+Under tensor parallelism (``tp``) ``params`` and ``cfg`` are one rank's
+shard, as in one-shot ``llama.prefill``: the state holds the rank's heads,
+each layer reduces over tp twice, and ``finalize`` gathers the logits and
+takes ``shard`` for the rules that are not local to a head tile.
+
 Host values: ``c0`` and ``true_len`` are host integers (the engine keeps
 them in numpy); each call builds fresh device tensors from them, so a
 caller may change its arrays once the call returns.
@@ -40,10 +45,11 @@ import torch
 
 from ..config import CompressionConfig, ModelConfig, QuantConfig, dtype_of
 from ..ops.kernels.flash_prefill import flash_prefill_attention
-from ..policies.methods import LayerContext, compress_prefill
+from ..parallel.mesh import StagedGroup
+from ..policies.methods import HeadShard, LayerContext, compress_prefill
 from . import llama
 from .llama import (PrefillResult, _finish_layer, _layer, _qkv, init_prefill_cache,
-                    rms_norm, rope_inv_freq, store_packed_layer, wdot)
+                    lm_logits, rms_norm, rope_inv_freq, store_packed_layer)
 
 ChunkState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 HostInts = Union[int, Sequence[int], np.ndarray]
@@ -78,6 +84,7 @@ def chunk_step(
     c0: HostInts,              # int | [B]: global offset of each row's chunk
     true_len: HostInts,        # [B] global prompt lengths
     state: ChunkState,
+    tp: Optional[StagedGroup] = None,
 ) -> ChunkState:
     """Run one chunk through all layers, updating ``state`` in place.  A
     ``[B]`` ``c0`` gives every row its own prefill depth, so concurrent
@@ -123,7 +130,7 @@ def chunk_step(
         attn, _ = flash_prefill_attention(q.contiguous(), kl, vl, tl_t, 0,
                                           sliding_window=cfg.sliding_window,
                                           row_offset=c0_t)
-        x = _finish_layer(x, attn, lp, cfg)
+        x = _finish_layer(x, attn, lp, cfg, tp)
         if WK != S:
             gathered = q.gather(2, src_t[:, None, :, None].expand(B, Hq, WK, D))
             torch.where(take[:, None, :, None], gathered.to(ql.dtype), ql, out=ql)
@@ -145,6 +152,8 @@ def finalize(
     quant: QuantConfig = None,
     rng: Optional[torch.Generator] = None,
     head_capacity: Optional[torch.Tensor] = None,
+    tp: Optional[StagedGroup] = None,
+    shard: Optional[HeadShard] = None,
 ) -> PrefillResult:
     """Compress every layer's accumulated K/V and build the configured
     cache, with the cache-building tail one-shot ``prefill`` uses.  Reads
@@ -188,10 +197,10 @@ def finalize(
         hc = None if head_capacity is None else head_capacity[li]
         store_packed_layer(cache, li, compress_prefill(
             comp, L, policy_capacity, kbuf[li], vbuf[li], q_sub, tl_t,
-            LayerContext(li, hc, rng)), comp, quant, q_sub, tl_t)
+            LayerContext(li, hc, rng, None, shard)), comp, quant, q_sub, tl_t)
     cache.positions.copy_(tl_t)
     xf = rms_norm(x_last[:, None], params["final_norm"], cfg.rms_norm_eps)[:, 0]
-    return PrefillResult(wdot(xf, params["lm_head"]).float(), cache)
+    return PrefillResult(lm_logits(xf, params, tp), cache)
 
 
 def prefill_chunked(

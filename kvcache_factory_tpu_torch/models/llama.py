@@ -18,7 +18,10 @@ position.  A MInference ``sparse_prefill`` pattern restricts prefill
 attention to K1's selected blocks (a-shape or vertical-slash, with optional
 per-layer per-head budgets).  With a sequence-parallel group prefill splits
 the prompt's rows over its ranks and runs ring attention (K1-ml per hop,
-``parallel/ring_attention.py``).  A Mixtral configuration's FFN is the
+``parallel/ring_attention.py``).  Under tensor parallelism each rank
+holds its shard of the weights (``parallel/mesh.py``) and runs the same
+forward on its heads and FFN columns, with two reductions a layer and the
+vocabulary gathered before a token is chosen.  A Mixtral configuration's FFN is the
 sparse MoE block (:func:`moe_ffn`): decode gathers each row's top-k
 experts by a device-side index, prefill dispatches each token to its
 experts.
@@ -45,10 +48,10 @@ from ..ops.kernels.decode_attn import decode_attention_append
 from ..ops.kernels.decode_attn_quant import (quant4_decode_attention_append,
                                               quant_decode_attention_append)
 from ..ops.kernels.flash_prefill import flash_prefill_attention
-from ..parallel.mesh import SequenceParallelGroup
+from ..parallel.mesh import SequenceParallelGroup, StagedGroup, gather_vocab
 from ..parallel.ring_attention import ring_attention
 from ..policies.base import PackedKV
-from ..policies.methods import SCORES_REUSABLE, LayerContext, compress_prefill
+from ..policies.methods import SCORES_REUSABLE, HeadShard, LayerContext, compress_prefill
 from ..policies.scoring import window_attention_scores, window_query_rows
 from ..policies.think import aggregate_queries_per_kv_head, think_channel_keep_idx
 
@@ -262,13 +265,20 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
     return out.to(x.dtype).reshape(B, T, h)
 
 
-def ffn_block(h2: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def ffn_block(h2: torch.Tensor, lp: dict, cfg: ModelConfig,
+              tp: Optional[StagedGroup] = None) -> torch.Tensor:
     """The layer's FFN: the sparse MoE block on a Mixtral configuration,
-    else the fused SwiGLU with its optional biases."""
+    else the fused SwiGLU with its optional biases.  Under ``tp`` each rank
+    holds its FFN columns (of every expert), and the block's one reduction
+    comes after the down projection (after the weighted combine of the
+    experts), the down bias after it (JAX ``parallel/mesh.py:110-117``)."""
     if cfg.is_moe:
-        return moe_ffn(h2, lp, cfg)
-    return swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"],
-                        lp.get("gate_up_bias"), lp.get("down_bias"))
+        out = moe_ffn(h2, lp, cfg)
+    else:
+        out = swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"], lp.get("gate_up_bias"))
+    if tp is not None:
+        out = tp.all_reduce(out)
+    return out if "down_bias" not in lp else out + lp["down_bias"]
 
 
 # ---------------------------------------------------------------------------
@@ -320,13 +330,24 @@ def _qkv(x, lp, cfg, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_layer(x, attn, lp, cfg):
-    """o_proj + residual, then the pre-norm FFN (:func:`ffn_block`) + residual."""
+def _finish_layer(x, attn, lp, cfg, tp: Optional[StagedGroup] = None):
+    """o_proj + residual, then the pre-norm FFN (:func:`ffn_block`) +
+    residual.  Under ``tp`` ``attn`` holds this rank's heads, ``o_proj``
+    their rows, and the projection is reduced over tp before its bias."""
     h = wdot(_merge_heads(attn), lp["o_proj"])
+    if tp is not None:
+        h = tp.all_reduce(h)
     if "o_bias" in lp:
         h = h + lp["o_bias"]
     x = x + h
-    return x + ffn_block(rms_norm(x, lp["post_norm"], cfg.rms_norm_eps), lp, cfg)
+    return x + ffn_block(rms_norm(x, lp["post_norm"], cfg.rms_norm_eps), lp, cfg, tp)
+
+
+def lm_logits(x: torch.Tensor, params: dict, tp: Optional[StagedGroup] = None) -> torch.Tensor:
+    """fp32 logits ``[..., V]`` of final-normed hidden states; under ``tp``
+    each rank's vocabulary columns gathered, so that every token is chosen
+    over the whole vocabulary by one device's rule."""
+    return gather_vocab(tp, wdot(x, params["lm_head"])).float()
 
 
 def init_prefill_cache(cfg: ModelConfig, comp: CompressionConfig,
@@ -405,6 +426,8 @@ def prefill(
     sp_group: Optional[SequenceParallelGroup] = None,
     rng: Optional[torch.Generator] = None,         # cam, random
     head_capacity: Optional[torch.Tensor] = None,  # [L, H] int (headkv)
+    tp: Optional[StagedGroup] = None,
+    shard: Optional[HeadShard] = None,
 ) -> PrefillResult:
     """Full prefill: attention over the uncompressed prompt, then the
     compression hook between the QKV computation and the cache write.
@@ -436,7 +459,19 @@ def prefill(
     1.11).  Every rank builds the
     same cache; each example's last-token logits come from the rank that
     holds its row ``true_len - 1``.  Sparse patterns are not applied under
-    sp, as in the JAX ring."""
+    sp, as in the JAX ring.
+
+    Under tensor parallelism (``tp``, the JAX ``(dp, tp)`` mesh) ``params``
+    and ``cfg`` are one rank's shard (``parallel/mesh.py::shard_params``,
+    ``shard_model_config``): its query heads, the KV heads they read and
+    its FFN and vocabulary columns.  K1 runs on the rank's heads, each
+    layer reduces over ``tp`` twice (:func:`_finish_layer`), and the logits
+    are gathered (:func:`lm_logits`).  ``sparse_budgets`` and
+    ``head_capacity`` are then the rank's head slices, ``shard`` says where
+    its ``[B, H]`` tile lies for the rules that are not tile-local (cam's
+    and random's draws, AdaKV's budgets), and the cache holds the rank's
+    heads.  Composed with ``sp_group`` (JAX's ring with ``head_axis="tp"``)
+    the ring runs in the sp subgroup over the rank's heads."""
     _check_supported(cfg, comp, quant, sp=sp_group is not None)
     B, S = tokens.shape
     L = cfg.num_hidden_layers
@@ -491,11 +526,11 @@ def prefill(
                 window_scores = torch.stack([window_attention_scores(
                     k[b].repeat_interleave(G, dim=0), None, true_len[b], comp.window_size,
                     q_win=q[b]) for b in range(B)])
-        x = _finish_layer(x, attn, lp, cfg)
+        x = _finish_layer(x, attn, lp, cfg, tp)
         hc = None if head_capacity is None else head_capacity[li]
         store_packed_layer(cache, li, compress_prefill(
             comp, L, policy_capacity, k, v, q, true_len,
-            LayerContext(li, hc, rng, window_scores)), comp, quant, q, true_len)
+            LayerContext(li, hc, rng, window_scores, shard)), comp, quant, q, true_len)
     cache.positions.copy_(true_len)
 
     last = (true_len.to(torch.int64) - 1).clamp(min=0)
@@ -505,8 +540,7 @@ def prefill(
     else:
         x_last = rms_norm(sp_group.gather_rows(x, last[:, None], dim=1)[:, 0],
                           params["final_norm"], cfg.rms_norm_eps)
-    logits_last = wdot(x_last, params["lm_head"]).float()
-    return PrefillResult(logits_last, cache)
+    return PrefillResult(lm_logits(x_last, params, tp), cache)
 
 
 def window_lower(cfg: ModelConfig, lens: torch.Tensor,
@@ -682,6 +716,7 @@ def decode_step(
     cache: Cache,
     quant: Optional[QuantConfig] = None,
     eviction_recent: int = 32,
+    tp: Optional[StagedGroup] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: append at each head's length and attend over the
     compressed cache, dispatched on the cache's type (JAX ``:600-606``):
@@ -694,7 +729,9 @@ def decode_step(
     ``quant`` is given exactly when the cache is quantized, as in the JAX
     package.  **Updates ``cache`` in place** (its slots, ``lengths`` and
     ``positions``) and returns it with the logits [B, V] fp32; the JAX
-    version returns a new cache."""
+    version returns a new cache.  Under ``tp`` (see :func:`prefill`)
+    ``params``, ``cfg`` and ``cache`` are one rank's shard: K2-K4 attend
+    over the rank's heads, and the logits are gathered over the vocabulary."""
     per_token = isinstance(cache, (Int8KVCache, Int4KVCache))
     grouped = isinstance(cache, QuantizedKVCache)
     if (quant is None) == (per_token or grouped) or \
@@ -735,9 +772,8 @@ def decode_step(
             out = _attend_think(cache, li, q)
         else:
             out = _attend_offloaded(cache, li, q, k, v, *host.layer(li))
-        x = _finish_layer(x, out, lp, cfg)
+        x = _finish_layer(x, out, lp, cfg, tp)
 
     cache.positions.add_(1)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = wdot(x[:, 0], params["lm_head"]).float()
-    return logits, cache
+    return lm_logits(x[:, 0], params, tp), cache

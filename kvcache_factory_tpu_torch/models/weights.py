@@ -115,6 +115,17 @@ def params_from_jax(np_params: Dict[str, Any], device="cuda",
     return conv(np_params)
 
 
+def shard_params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, tp: int, rank: int,
+                          device="cuda", dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Rank ``rank`` of ``tp``'s shard of the JAX package's parameter
+    pytree (numpy, as :func:`params_from_jax` takes it), cut as
+    ``parallel/mesh.py::shard_params`` cuts the port's tree (q, k and v
+    split by heads, gate and up by FFN columns, each re-fused), then
+    converted as :func:`params_from_jax` converts."""
+    from ..parallel.mesh import shard_tree
+    return params_from_jax(shard_tree(np_params, cfg, tp, rank), device=device, dtype=dtype)
+
+
 # ---------------------------------------------------------------------------
 # HF checkpoints
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
-"""Sequence parallelism: a process group over the ranks that share one
-prompt (``mesh.py``) and ring attention over it (``ring_attention.py``)."""
+"""The parallel layer: the ``(dp, sp, tp)`` grid of process groups, the
+staged collectives and the Megatron-style parameter shards (``mesh.py``),
+and ring attention over the sp ranks (``ring_attention.py``)."""

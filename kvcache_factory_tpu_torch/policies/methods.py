@@ -24,7 +24,7 @@ example in that order, in the shapes JAX draws; they cannot equal
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,6 +43,30 @@ SCORES_REUSABLE = ("snapkv", "pyramidkv", "think", "adakv", "headkv")
 _PIVOT_MERGED = ("snapkv", "pyramidkv", "h2o", "streamingllm")
 
 
+class HeadShard(NamedTuple):
+    """Where one rank's ``[B, H]`` tile lies in a data- and
+    tensor-parallel prefill (``parallel/mesh.py``), for the rules that are
+    not local to a tile: cam's and random's draws, made at the whole
+    batch's and model's shape on every rank and sliced, and AdaKV's budgets,
+    ranked over every head of a layer."""
+
+    b0: int     # this rank's first example
+    batch: int  # examples in the whole batch
+    q0: int     # this rank's first query head
+    n_q: int    # query heads of the whole model
+    n_kv: int   # KV heads of the whole model
+    # [H_loc, ...] -> [tp, H_loc, ...]: every tp rank's tensor in head
+    # order (None with one tp rank).
+    gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def cache_head_offset(self, cfg: CompressionConfig) -> int:
+        """The first of this rank's cache heads: its first query head on a
+        per-query-head cache, else the KV head it reads first."""
+        if cfg.cache_heads(self.n_q, self.n_kv) == self.n_q:
+            return self.q0
+        return self.q0 // (self.n_q // self.n_kv)
+
+
 class LayerContext(NamedTuple):
     """Per-layer inputs of one compression call."""
 
@@ -57,6 +81,9 @@ class LayerContext(NamedTuple):
     # ([H_q, S], NEG_INF-masked at >= true_len - window); when present the
     # policy skips its own scoring matmul.
     window_scores: Optional[torch.Tensor] = None
+    # This rank's tile under data or tensor parallelism (None: the whole
+    # batch and every head).
+    shard: Optional[HeadShard] = None
 
 
 def uniform_draw(rng: torch.Generator, layer_idx: int, example: int,
@@ -175,8 +202,16 @@ def compress_layer(
         raw = _reduce_groups(window_scores("mean"), groups, cfg.group_reduce)
         scores = masked_pool(raw, true_len - w, cfg.kernel_size, cfg.pooling)
         if method == "adakv":
-            budget = adakv_budgets(scores, cfg.base_capacity, cfg.floor_ratio,
+            # A global top over every head of the layer: under tp each rank
+            # ranks every head's scores the same way and keeps its slice.
+            every = scores
+            if ctx.shard is not None and ctx.shard.gather is not None:
+                every = ctx.shard.gather(scores).reshape(-1, S)
+            budget = adakv_budgets(every, cfg.base_capacity, cfg.floor_ratio,
                                    cfg.normalize, true_len - w, C - w)
+            if every is not scores:
+                h0 = ctx.shard.cache_head_offset(cfg)
+                budget = budget[h0:h0 + H_out]
         else:
             if ctx.head_capacity is None:
                 raise ValueError("headkv requires per-head capacities (head_capacity)")
@@ -264,16 +299,38 @@ def compress_prefill(
     """Batched form: :func:`compress_layer` per example, stacked over B.
     Each example gets the layer's ``head_capacity`` row and, for cam and
     random, its own draw from the generator ``ctx.rng``, as JAX's ``vmap``
-    splits the layer's key over the batch."""
+    splits the layer's key over the batch.  With ``ctx.shard`` the ``B``
+    examples and the heads of ``k``, ``v`` and ``q`` are one rank's tile:
+    every example of the whole batch is drawn at the whole model's shape,
+    in order, and the tile's part of its own examples' draws is kept, so
+    that the ranks select what one device selects."""
     B, Hkv, S, _ = k.shape
-    shape = draw_shape(cfg, q.shape[1], Hkv, S)
+    sh = ctx.shard
+    shape = (draw_shape(cfg, q.shape[1], Hkv, S) if sh is None
+             else draw_shape(cfg, sh.n_q, sh.n_kv, S))
     if shape is not None and ctx.rng is None:
         raise ValueError(f"{cfg.method} requires a torch.Generator (ctx.rng)")
+    b0, batch = (0, B) if sh is None else (sh.b0, sh.batch)
+    draws = [None] * B
+    if shape is not None:
+        for b in range(batch):
+            d = uniform_draw(ctx.rng, ctx.layer_idx, b, shape)
+            if b0 <= b < b0 + B:
+                draws[b - b0] = d if sh is None else _draw_tile(cfg, d, q.shape[1], Hkv, sh)
     outs = []
     for b in range(B):
         ws = None if ctx.window_scores is None else ctx.window_scores[b]
-        draw = None if shape is None else uniform_draw(ctx.rng, ctx.layer_idx, b, shape)
-        c = LayerContext(ctx.layer_idx, ctx.head_capacity, draw, ws)
+        c = LayerContext(ctx.layer_idx, ctx.head_capacity, draws[b], ws, sh)
         outs.append(compress_layer(cfg, num_layers, capacity, k[b], v[b], q[b],
                                    true_len[b], c))
     return PackedKV(*(torch.stack(parts) for parts in zip(*outs)))
+
+
+def _draw_tile(cfg: CompressionConfig, draw: torch.Tensor, n_q: int, n_kv: int,
+               sh: HeadShard) -> torch.Tensor:
+    """One rank's heads of a whole-model draw: cam's ``[S, H_q]`` columns,
+    random's ``[H_out, S]`` rows."""
+    if cfg.method == "cam":
+        return draw[:, sh.q0:sh.q0 + n_q]
+    h0 = sh.cache_head_offset(cfg)
+    return draw[h0:h0 + cfg.cache_heads(n_q, n_kv)]

@@ -1,5 +1,6 @@
 """Continuous batching: slot-based request scheduling over one batched cache
-(port of ``kvcache_factory_tpu/runtime/batching.py``, single device).
+(port of ``kvcache_factory_tpu/runtime/batching.py``, on one device or on
+a ``(dp, tp)`` grid of ranks).
 
 A fixed pool of decode slots shares one batched cache ``[L, n_slots, H, C,
 D]``; finished slots are refilled from the request queue while the other
@@ -44,7 +45,20 @@ Where torch is not JAX (state is updated in place):
   construction before every admission's prefill or finalize, as JAX's
   engine hands one key to every call.
 
-The ``(dp, tp)`` mesh is not ported (ROADMAP.md item 1.11).
+Under ``cfg.sharding`` ``(dp, tp)`` (JAX ``:207-217``) the engine runs on
+each rank of a ``torch.distributed`` group of ``dp * tp`` ranks
+(``parallel/mesh.py::ParallelGroups``), every rank submitting the same
+requests.  Slots shard over dp: dp rank ``d`` holds slots ``[d * n /
+dp, (d + 1) * n / dp)`` of ``n`` and computes only their rows (their
+prefills, chunk pools and cache rows); heads shard over tp, each tp rank
+holding its shard of the weights and of the cache.  Every rank runs the
+same scheduler.  After each loop iteration's admission work and after
+each decode chunk the dp ranks gather the first tokens of the slots they
+activated, their pending chunked admissions and every slot's tokens, so
+that the replicated schedulers agree on what each slot emitted and which
+slot finished.  Under dp a slot's activation waits for that gather: the
+slots prefilled in one iteration activate together, in admission order,
+after its admission loop.  sp is not served here (ROADMAP.md item 1.11).
 """
 
 from __future__ import annotations
@@ -59,6 +73,8 @@ from ..config import EngineConfig
 from ..models import llama
 from ..models.chunked_prefill import (ChunkState, _check_supported, chunk_step, finalize,
                                       init_chunked_state)
+from ..policies.methods import HeadShard
+from .engine import head_rows, rank_grid, rank_params
 from .native import make_scheduler
 
 
@@ -126,26 +142,45 @@ class ContinuousBatchingEngine:
     its prefill) and the wall time of each loop iteration's prefill work,
     the stall it puts on running streams (``admission_stalls_s``); the
     device is synchronised around that work.  Off, the engine records
-    neither and makes no extra synchronisation."""
+    neither and makes no extra synchronisation.  Under dp a rank records
+    the logits of the requests its slots served.
+
+    ``group`` is the ``torch.distributed`` group of a ``(dp, tp)`` layout
+    (the default group when None); the engine shards full ``params`` or
+    takes the rank's shard, as ``InferenceEngine`` does, and ``self.cache``
+    is then this rank's slots and heads."""
 
     def __init__(self, params, cfg: EngineConfig, n_slots: int = 4,
                  max_new_cap: int = 256, eos_token_ids: Sequence[int] = (),
                  head_capacity=None, rng: Optional[torch.Generator] = None,
                  chunk_size: int = 16, prefill_chunk_tokens: int = 0,
                  prefix_cache_bytes: int = 3 * 2**29,
-                 device="cuda", instrument: bool = False):
+                 device="cuda", instrument: bool = False,
+                 group: Optional["torch.distributed.ProcessGroup"] = None):
         llama._check_supported(cfg.model, cfg.compression, cfg.quant)
         if cfg.compression.method == "headkv" and head_capacity is None:
             raise ValueError("headkv requires head_capacity (as in InferenceEngine)")
+        sh = cfg.sharding
+        if sh.sp > 1:
+            raise NotImplementedError("sp in the batching engine is not ported yet "
+                                      "(ROADMAP.md item 1.11)")
+        if n_slots % sh.dp:
+            raise ValueError(f"n_slots={n_slots} must be divisible by dp={sh.dp} "
+                             "(slots shard over dp)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the engine "
                              f"runs on {self.device}")
-        self.params = params
         self.cfg = cfg
-        self.head_capacity = (None if head_capacity is None else
-                              torch.as_tensor(np.asarray(head_capacity), dtype=torch.int32,
-                                              device=self.device))
+        # This rank's grid, widths and slots [slot0, slot0 + n_local).
+        self.groups, self.model_cfg = rank_grid(cfg, group)
+        self.tp_group = self.dp_group = None
+        self.n_local, self.slot0 = n_slots // sh.dp, 0
+        if self.groups is not None:
+            self.tp_group, self.dp_group = self.groups.tp, self.groups.dp
+            self.slot0 = self.groups.dp_rank * self.n_local
+        self.params = rank_params(params, cfg, self.groups)
+        self.head_capacity = head_rows(head_capacity, cfg, self.groups, self.device)
         self.rng = rng if rng is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         self._rng_state = self.rng.get_state()
@@ -177,7 +212,7 @@ class ContinuousBatchingEngine:
         self._chunk_groups: Dict[int, dict] = {}
         self.prefill_chunks_executed = 0   # row-chunks advanced
         self.prefill_chunk_dispatches = 0  # chunk_step calls issued
-        self.steps_executed = 0            # decode steps run (EOS- and budget-aware)
+        self.steps_executed = 0            # decode steps this rank ran (EOS- and budget-aware)
         self.eos = tuple(eos_token_ids)
         self.scheduler = make_scheduler(n_slots, self.buckets)
         self._prompts: Dict[int, List[int]] = {}
@@ -250,14 +285,28 @@ class ContinuousBatchingEngine:
         self.rng.set_state(self._rng_state)
         return self.rng
 
+    def _row_shard(self) -> Optional[HeadShard]:
+        """A one-row admission's tile under tp: its heads (one row, drawn
+        and ranked as one device draws and ranks it)."""
+        if self.tp_group is None:
+            return None
+        m = self.cfg.model
+        return HeadShard(0, 1, self.groups.q_head_offset(m), m.num_attention_heads,
+                         m.num_key_value_heads, self.tp_group.all_gather)
+
+    def _mine(self, slot: int) -> bool:
+        """Whether this dp rank holds ``slot``."""
+        return self.slot0 <= slot < self.slot0 + self.n_local
+
     def _prefill_row(self, prompt: List[int], bucket: int):
         toks = torch.zeros((1, bucket), dtype=torch.int64)
         toks[0, :len(prompt)] = torch.tensor(prompt)
-        res = llama.prefill(self.params, self.cfg.model, self.cfg.compression,
+        res = llama.prefill(self.params, self.model_cfg, self.cfg.compression,
                             toks.to(self.device),
                             torch.tensor([len(prompt)], dtype=torch.int32, device=self.device),
                             self.cache_capacity, quant=self.cfg.quant, rng=self._fresh_rng(),
-                            head_capacity=self.head_capacity)
+                            head_capacity=self.head_capacity, tp=self.tp_group,
+                            shard=self._row_shard())
         return res.cache, res.logits_last
 
     def _chunk_group(self, bucket: int) -> dict:
@@ -270,7 +319,7 @@ class ContinuousBatchingEngine:
         if not g["free"]:
             # grow the pool: double the rows, graft the existing state in
             newP = max(1, 2 * g["P"])
-            fresh = init_chunked_state(self.cfg.model, self.cfg.compression, newP,
+            fresh = init_chunked_state(self.model_cfg, self.cfg.compression, newP,
                                        bucket, self.device)
             if g["P"]:
                 _pool_graft(fresh, g["state"])
@@ -329,7 +378,7 @@ class ContinuousBatchingEngine:
         """Advance every pending admission by one chunk: one chunk_step per
         bucket pool, however many rows are pending.  Returns the finished
         rows as (slot, rid, cache, logits of the first token)."""
-        model, comp = self.cfg.model, self.cfg.compression
+        model, comp = self.model_cfg, self.cfg.compression
         Sc = self.prefill_chunk_tokens
         done = []
         for bucket, g in self._chunk_groups.items():
@@ -341,7 +390,7 @@ class ContinuousBatchingEngine:
             for r in g["rows"]:
                 toks_c[r] = g["toks"][r, g["c0"][r]:g["c0"][r] + Sc]
             chunk_step(self.params, model, torch.tensor(toks_c, device=self.device),
-                       g["c0"], g["tl"], g["state"])
+                       g["c0"], g["tl"], g["state"], tp=self.tp_group)
             self.prefill_chunk_dispatches += 1
             for r in list(g["rows"]):
                 meta = g["rows"][r]
@@ -354,7 +403,8 @@ class ContinuousBatchingEngine:
                 if g["c0"][r] >= meta["n"]:
                     res = finalize(self.params, model, comp, _pool_row(g["state"], r),
                                    [meta["n"]], self.cache_capacity, quant=self.cfg.quant,
-                                   rng=self._fresh_rng(), head_capacity=self.head_capacity)
+                                   rng=self._fresh_rng(), head_capacity=self.head_capacity,
+                                   tp=self.tp_group, shard=self._row_shard())
                     done.append((meta["slot"], meta["rid"], res.cache, res.logits_last))
                     g["rows"].pop(r)
                     g["free"].append(r)
@@ -367,13 +417,34 @@ class ContinuousBatchingEngine:
 
     # --- decode ----------------------------------------------------------------
 
-    def _decode_chunk(self, cur: np.ndarray, cache: llama.Cache, active: np.ndarray,
+    def _decode_chunk(self, cur: np.ndarray, cache: Optional[llama.Cache], active: np.ndarray,
                       budget: np.ndarray):
         """Up to ``chunk_size`` greedy steps over every slot.  A row freezes
         when its token is an EOS or when it has produced ``budget`` tokens;
         the chunk ends when every row is frozen.  Returns the tokens
         ``[n, n_slots]`` (a frozen row repeats its last token), the logits
-        ``[n, n_slots, V]`` when instrumented, and ``n``."""
+        ``[n, n_local, V]`` of this rank's slots when instrumented, and
+        ``n``.  Under dp each rank steps its own slots (none when none of
+        them is active) and the ranks gather every slot's tokens: ``n`` is
+        the longest rank's count, a shorter rank's rows repeating their
+        last token."""
+        if self.dp_group is None:
+            return self._decode_rows(cur, cache, active, budget)
+        mine = slice(self.slot0, self.slot0 + self.n_local)
+        toks = np.repeat(cur[None, mine], self.chunk_size, axis=0)
+        logits, n = None, 0
+        if active[mine].any():
+            local, logits, n = self._decode_rows(cur[mine], cache, active[mine], budget[mine])
+            toks[:n], toks[n:] = local, local[n - 1]
+        sent = np.concatenate([toks.reshape(-1), [n]])
+        every = self.dp_group.all_gather(torch.tensor(sent, device=self.device)).cpu().numpy()
+        n = int(every[:, -1].max())
+        toks = every[:, :-1].reshape(-1, self.chunk_size, self.n_local)    # [dp, chunk, n_local]
+        return np.concatenate(list(toks), axis=1)[:n], logits, n
+
+    def _decode_rows(self, cur: np.ndarray, cache: llama.Cache, active: np.ndarray,
+                     budget: np.ndarray):
+        """:meth:`_decode_chunk` over the slots of one cache."""
         dev = self.device
         quant = self.cfg.quant
         evr = self.cfg.compression.eviction_recent
@@ -388,8 +459,8 @@ class ContinuousBatchingEngine:
             if self.eos and k and not bool(act.any()):
                 break
             lens0, pos0 = cache.lengths.clone(), cache.positions.clone()
-            logits, _ = llama.decode_step(self.params, self.cfg.model, tok, cache, quant=quant,
-                                          eviction_recent=evr)
+            logits, _ = llama.decode_step(self.params, self.model_cfg, tok, cache, quant=quant,
+                                          eviction_recent=evr, tp=self.tp_group)
             cache.lengths.copy_(torch.where(act[None, :, None], cache.lengths, lens0))
             cache.positions.copy_(torch.where(act, cache.positions, pos0))
             tok = torch.where(act, logits.argmax(-1), tok)
@@ -398,7 +469,23 @@ class ContinuousBatchingEngine:
                 logits_all.append(logits)
             act = act & ~torch.isin(tok, eos) & (left > k + 1)
         out = torch.stack(toks).cpu().numpy()
+        self.steps_executed += len(toks)
         return out, torch.stack(logits_all).cpu() if logits_all else None, len(toks)
+
+    def _gather_firsts(self, ready, pending: int) -> Tuple[Dict[int, int], int]:
+        """The dp ranks' first tokens of the slots each prefilled this
+        iteration (``ready``: slot, rid, row cache, logits), as ``{slot:
+        token}``, and the sum of their ``pending`` chunked admissions."""
+        sent = np.full((self.n_local + 1,), -1, np.int64)
+        if ready:
+            firsts = torch.cat([lg for *_, lg in ready]).argmax(-1).tolist()
+            for (slot, *_), first in zip(ready, firsts):
+                sent[slot - self.slot0] = first
+        sent[-1] = pending
+        every = self.dp_group.all_gather(torch.tensor(sent, device=self.device)).cpu().numpy()
+        toks = every[:, :-1].reshape(-1)
+        return ({int(s): int(toks[s]) for s in np.nonzero(toks >= 0)[0]},
+                int(every[:, -1].sum()))
 
     # --- the loop --------------------------------------------------------------
 
@@ -417,13 +504,18 @@ class ContinuousBatchingEngine:
         cur = np.zeros((self.n_slots,), np.int64)
         active = np.zeros((self.n_slots,), bool)
 
-        def activate(slot, rid, row_cache, first, logits):
+        admitted: Dict[int, int] = {}  # slot -> the request admitted to it last
+
+        def activate(slot, rid, first, row_cache=None, logits=None):
+            """Start ``slot``'s stream; ``row_cache`` and ``logits`` where
+            this rank prefilled it."""
             nonlocal batched
-            if batched is None:
-                batched = _alloc_pool(row_cache, self.n_slots)
-            _insert_row(batched, row_cache, slot)
+            if row_cache is not None:
+                if batched is None:
+                    batched = _alloc_pool(row_cache, self.n_local)
+                _insert_row(batched, row_cache, slot - self.slot0)
             outputs[rid] = [first]
-            if self.instrument:
+            if self.instrument and logits is not None:
                 self.logits[rid] = [logits[0].float().cpu()]
             slot_rid[slot] = rid
             cur[slot] = first
@@ -439,32 +531,47 @@ class ContinuousBatchingEngine:
                 self._sync()
                 t0 = time.perf_counter()
             prefilled = False
+            ready = []  # (slot, rid, row cache, logits): prefilled, held for the dp gather
             # Admit as many queued requests as there are free slots.
             while (adm := self.scheduler.admit()) is not None:
                 slot, rid, bucket, _ = adm
+                admitted[slot] = rid
+                if not self._mine(slot):
+                    continue
                 prefilled = True
                 if self.prefill_chunk_tokens:
                     self._admit_chunked(slot, rid, bucket)
                     continue
                 row_cache, logits = self._prefill_row(self._prompts[rid], bucket)
-                activate(slot, rid, row_cache, int(logits[0].argmax()), logits)
+                if self.dp_group is None:
+                    activate(slot, rid, int(logits[0].argmax()), row_cache, logits)
+                else:
+                    ready.append((slot, rid, row_cache, logits))
 
             # Advance every pending chunked prefill by one chunk; the first
             # tokens of the rows that finish come back in one transfer.
             if self._chunked_pending():
                 prefilled = True
                 done = self._advance_chunked_groups()
-                if done:
+                if self.dp_group is not None:
+                    ready += done
+                elif done:
                     firsts = torch.cat([lg for *_, lg in done]).argmax(-1).tolist()
                     for (slot, rid, row_cache, lg), first in zip(done, firsts):
-                        activate(slot, rid, row_cache, first, lg)
+                        activate(slot, rid, first, row_cache, lg)
+            pending = self._chunked_pending()
+            if self.dp_group is not None:
+                firsts, pending = self._gather_firsts(ready, pending)
+                local = {slot: (row_cache, lg) for slot, _, row_cache, lg in ready}
+                for slot in sorted(firsts, key=admitted.get):
+                    activate(slot, admitted[slot], firsts[slot], *local.get(slot, (None, None)))
             if self.instrument and prefilled:
                 self._sync()
                 self.admission_stalls_s.append(time.perf_counter() - t0)
 
             if not active.any():
                 st = self.scheduler.stats()
-                if st["queued"] == 0 and st["active"] == 0 and not self._chunked_pending():
+                if st["queued"] == 0 and st["active"] == 0 and not pending:
                     break
                 continue
 
@@ -473,7 +580,6 @@ class ContinuousBatchingEngine:
                 rid = slot_rid[slot]
                 budget[slot] = self._max_new[rid] - len(outputs[rid])
             toks, logits, n = self._decode_chunk(cur, batched, active, budget)
-            self.steps_executed += n
             for k in range(n):
                 for slot in range(self.n_slots):
                     if not active[slot]:
@@ -481,8 +587,8 @@ class ContinuousBatchingEngine:
                     tok = int(toks[k, slot])
                     rid = slot_rid[slot]
                     outputs[rid].append(tok)
-                    if self.instrument:
-                        self.logits[rid].append(logits[k, slot])
+                    if self.instrument and self._mine(slot):
+                        self.logits[rid].append(logits[k, slot - self.slot0])
                     if self.scheduler.step(slot, tok in self.eos):
                         active[slot] = False
                         slot_rid[slot] = -1

@@ -1,6 +1,6 @@
 """High-level inference engine: prompt buckets and cache sizing (port of
 ``kvcache_factory_tpu/runtime/engine.py``: the single-device path and the
-sequence-parallel one, ``cfg.sharding.sp > 1``).
+``(dp, sp, tp)`` layouts of ``cfg.sharding``).
 
 Prompts are right-padded to the nearest bucket and masked via ``true_len``,
 so each bucket gives results identical to an exact-length run.  The cache
@@ -18,11 +18,19 @@ does (both batching engines refuse headkv without them).  ``rng`` is the
 seeded 0 by default; every call starts from its state at construction, as
 the JAX engine hands one key to every call.
 
-With ``sp > 1`` (JAX ``:66-94, 195-205``) the engine runs on each rank of
-an initialized ``torch.distributed`` group of ``sp`` ranks (the default
-group, or ``group``): every rank calls :meth:`InferenceEngine.generate_batch`
-with the same prompts, prefill splits each bucket's rows over the ranks
-(ring attention), and every rank gets the same ids back.
+With ``dp * sp * tp > 1`` (JAX ``:48-119, 195-236``) the engine runs on
+each rank of an initialized ``torch.distributed`` group of that many ranks
+(the default group, or ``group``), laid out as the ``(dp, sp, tp)`` grid of
+``parallel/mesh.py::ParallelGroups``; every rank calls
+:meth:`InferenceEngine.generate_batch` with the same prompts and gets the
+whole batch's ids (and logits) back.  The batch is padded to a multiple of
+dp by repeating its last row and each dp rank generates its rows; each tp
+rank holds its shard of the weights (the engine shards full ``params``
+itself, or takes the rank's shard from ``shard_params``, so that a caller
+at full width never holds the whole model) and of the cache; sp splits
+each bucket's rows over the sp ranks (ring attention in prefill, decode on
+every sp rank).  ``sparse_budgets`` and ``head_capacity`` are the whole
+model's; each rank keeps its heads' rows.
 """
 
 from __future__ import annotations
@@ -34,10 +42,70 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..config import CompressionConfig, EngineConfig, GenerationConfig
+from ..config import CompressionConfig, EngineConfig, GenerationConfig, ModelConfig
 from ..models import llama
-from ..parallel.mesh import SequenceParallelGroup
+from ..parallel.mesh import ParallelGroups, parallel_groups, shard_model_config, shard_params
+from ..policies.methods import HeadShard
 from .generate import GenerateResult, generate
+
+
+def check_tp_layout(cfg: EngineConfig) -> None:
+    """``ValueError`` for a layout whose widths do not split over tp
+    (``parallel/mesh.py::shard_model_config``), or a cache of the KV heads
+    (fullkv, minference, a grouped reduce) that tp does not divide: each
+    rank of a larger tp reads a KV head that other ranks read too, and only
+    a cache kept per query head splits then."""
+    tp, m = cfg.sharding.tp, cfg.model
+    shard_model_config(m, tp)
+    heads = cfg.compression.cache_heads(m.num_attention_heads, m.num_key_value_heads)
+    if heads % tp:
+        raise ValueError(f"{cfg.compression.method!r} (group_reduce="
+                         f"{cfg.compression.group_reduce!r}) keeps a cache of the "
+                         f"{heads} KV heads, which tp={tp} does not divide")
+
+
+def rank_grid(cfg: EngineConfig, group=None) -> Tuple[Optional[ParallelGroups], ModelConfig]:
+    """This rank's ``(dp, sp, tp)`` grid over ``group`` and the widths it
+    computes (``None`` and the whole model on one device), after the
+    layout's checks."""
+    if cfg.sharding.world == 1:
+        return None, cfg.model
+    check_tp_layout(cfg)
+    groups = parallel_groups(cfg.sharding, group)
+    return groups, groups.local_model(cfg.model)
+
+
+def rank_params(params, cfg: EngineConfig, groups: Optional[ParallelGroups]):
+    """This rank's tp shard of ``params``: cut from the full tree, or the
+    tree itself where ``shard_params`` has cut it (its ``lm_head`` holds
+    ``V / tp`` columns) or tp is 1."""
+    tp, V = cfg.sharding.tp, cfg.model.vocab_size
+    cols = llama.wshape(params["lm_head"])[-1]
+    if tp == 1 or cols * tp == V:
+        return params
+    if cols != V:
+        raise ValueError(f"lm_head has {cols} columns: neither the vocabulary ({V}) "
+                         f"nor one tp={tp} shard of it")
+    return shard_params(params, groups, cfg.model)
+
+
+def head_rows(per_head, cfg: EngineConfig, groups: Optional[ParallelGroups], device,
+              cache_heads: bool = True) -> Optional[torch.Tensor]:
+    """Per-head values ``[L, H, ...]`` (HeadKV's capacities over the cache
+    heads; MInference's budgets over the query heads, ``cache_heads``
+    False) as an int32 device tensor, this rank's heads only under tp."""
+    if per_head is None:
+        return None
+    t = torch.as_tensor(np.asarray(per_head), dtype=torch.int32, device=device)
+    tp, m = cfg.sharding.tp, cfg.model
+    if tp == 1:
+        return t
+    n = m.num_attention_heads
+    if cache_heads:
+        n = cfg.compression.cache_heads(m.num_attention_heads, m.num_key_value_heads)
+    h0 = (groups.tp_rank * (n // tp) if n == m.num_attention_heads
+          else groups.kv_head_offset(m))
+    return t[:, h0:h0 + n // tp].contiguous()
 
 
 class InferenceEngine:
@@ -46,32 +114,31 @@ class InferenceEngine:
                  group: Optional["torch.distributed.ProcessGroup"] = None,
                  head_capacity: Optional[np.ndarray] = None,
                  rng: Optional[torch.Generator] = None):
-        llama._check_supported(cfg.model, cfg.compression, cfg.quant, sp=cfg.sharding.sp > 1)
+        sh = cfg.sharding
+        llama._check_supported(cfg.model, cfg.compression, cfg.quant, sp=sh.sp > 1)
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
-        self.params = params
         self.cfg = cfg
-        self.sparse_budgets = sparse_budgets
-        self.head_capacity = (None if head_capacity is None else
-                              torch.as_tensor(np.asarray(head_capacity), dtype=torch.int32,
-                                              device=self.device))
+        self.buckets = sorted(cfg.prefill_buckets)
+        if sh.sp > 1:
+            bad = [b for b in self.buckets if b % sh.sp]
+            if bad:
+                raise ValueError(f"prefill buckets {bad} not divisible by sp={sh.sp} "
+                                 "(sequence shards must be equal)")
+        # This rank's groups (None on one device) and the widths it computes.
+        self.groups, self.model_cfg = rank_grid(cfg, group)
+        self.sp_group = self.tp_group = None
+        if self.groups is not None:
+            self.sp_group, self.tp_group = self.groups.sp, self.groups.tp
+        self.params = rank_params(params, cfg, self.groups)
+        self.sparse_budgets = head_rows(sparse_budgets, cfg, self.groups, self.device,
+                                        cache_heads=False)
+        self.head_capacity = head_rows(head_capacity, cfg, self.groups, self.device)
         self.rng = rng if rng is not None else \
             torch.Generator(device=self.device).manual_seed(0)
         self._rng_state = self.rng.get_state()
-        self.buckets = sorted(cfg.prefill_buckets)
-        self.sp_group = None
-        sp = cfg.sharding.sp
-        if sp > 1:
-            bad = [b for b in self.buckets if b % sp]
-            if bad:
-                raise ValueError(f"prefill buckets {bad} not divisible by sp={sp} "
-                                 "(sequence shards must be equal)")
-            self.sp_group = SequenceParallelGroup(group)
-            if self.sp_group.size != sp:
-                raise ValueError(f"sp={sp} needs a process group of {sp} ranks, got "
-                                 f"{self.sp_group.size}")
 
     def _bucket(self, n: int) -> int:
         i = bisect.bisect_left(self.buckets, n)
@@ -111,12 +178,26 @@ class InferenceEngine:
         gen_cfg = GenerationConfig(max_new_tokens=max_new_tokens,
                                    eos_token_ids=eos_token_ids)
         self.rng.set_state(self._rng_state)
-        return generate(self.params, self.cfg.model, self._comp_for_bucket(S),
-                        gen_cfg, toks, lens,
-                        self._cache_capacity(S, max_new_tokens), quant_cfg=self.cfg.quant,
-                        device=self.device, return_logits=return_logits,
-                        sparse_budgets=self.sparse_budgets, sp_group=self.sp_group,
-                        rng=self.rng, head_capacity=self.head_capacity)
+        B = toks.shape[0]
+        lo, hi, shard = 0, B, None
+        sh, m = self.cfg.sharding, self.cfg.model
+        if sh.dp * sh.tp > 1:
+            lo, hi = self.groups.rows(B)
+            shard = HeadShard(lo, B, self.groups.q_head_offset(m), m.num_attention_heads,
+                              m.num_key_value_heads,
+                              None if self.tp_group is None else self.tp_group.all_gather)
+        res = generate(self.params, self.model_cfg, self._comp_for_bucket(S),
+                       gen_cfg, toks[lo:hi], lens[lo:hi],
+                       self._cache_capacity(S, max_new_tokens), quant_cfg=self.cfg.quant,
+                       device=self.device, return_logits=return_logits,
+                       sparse_budgets=self.sparse_budgets, sp_group=self.sp_group,
+                       rng=self.rng, head_capacity=self.head_capacity, tp=self.tp_group,
+                       shard=shard)
+        if sh.dp == 1:
+            return res
+        gather = self.groups.gather_dp
+        return GenerateResult(gather(res.tokens), gather(res.num_tokens), res.cache,
+                              None if res.logits is None else gather(res.logits))
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int,
                      eos_token_ids: Sequence[int] = ()) -> List[int]:
@@ -128,14 +209,19 @@ class InferenceEngine:
                        return_result: bool = False,
                        ) -> Union[List[List[int]], Tuple[List[List[int]], GenerateResult]]:
         """Batched greedy generation over prompts padded to the largest
-        member's bucket.  Returns one EOS-trimmed id list per prompt; with
-        ``return_result`` also the ``GenerateResult`` (final cache, and the
-        fp32 logits each token was chosen from)."""
+        member's bucket, the batch padded to a multiple of dp by repeating
+        its last row (JAX ``engine.py:226-236``).  Returns one EOS-trimmed id
+        list per prompt; with ``return_result`` also the ``GenerateResult``
+        (the fp32 logits each token was chosen from, the padded batch's rows
+        on every rank; the final cache, this rank's shard of it)."""
         n = len(prompts)
         S = self._bucket(max(len(p) for p in prompts))
-        toks = np.zeros((n, S), np.int64)
-        lens = np.zeros((n,), np.int32)
-        for i, p in enumerate(prompts):
+        dp = self.cfg.sharding.dp
+        B = -(-n // dp) * dp
+        toks = np.zeros((B, S), np.int64)
+        lens = np.zeros((B,), np.int32)
+        for i in range(B):
+            p = prompts[min(i, n - 1)]
             toks[i, :len(p)] = p
             lens[i] = len(p)
         res = self._generate(toks, lens, max_new_tokens, tuple(eos_token_ids),

@@ -20,7 +20,8 @@ import torch
 
 from ..config import CompressionConfig, GenerationConfig, ModelConfig, QuantConfig
 from ..models import llama
-from ..parallel.mesh import SequenceParallelGroup
+from ..parallel.mesh import SequenceParallelGroup, StagedGroup
+from ..policies.methods import HeadShard
 
 
 class GenerateResult(NamedTuple):
@@ -96,6 +97,8 @@ def generate(
     sp_group: Optional[SequenceParallelGroup] = None,
     rng: Optional[torch.Generator] = None,  # cam, random (llama.prefill)
     head_capacity=None,                     # [L, H] int (headkv)
+    tp: Optional[StagedGroup] = None,
+    shard: Optional[HeadShard] = None,
 ) -> GenerateResult:
     """Greedy or sampled generation.  ``rng`` (a generator on ``device``,
     seeded 0 when None, as JAX's ``PRNGKey(0)``) serves prefill's cam and
@@ -104,7 +107,13 @@ def generate(
     ``min_new_tokens > 1``, as JAX reuses ``k0``.  With ``sp_group`` every
     rank passes the same prompts: prefill splits their rows over the
     ranks, and decode runs on every rank over the same cache (the JAX
-    engine replicates decode over the sp axis, ``runtime/engine.py:113-119``)."""
+    engine replicates decode over the sp axis, ``runtime/engine.py:113-119``).
+    With ``tp`` (and ``shard``) ``params`` and ``model_cfg`` are one rank's
+    tensor-parallel shard and ``tokens`` its rows of the batch
+    (``llama.prefill``); the logits each token is chosen from are gathered
+    over the vocabulary, so the tp ranks choose the same tokens, and each
+    sampled step's Gumbel noise is drawn at the whole batch's ``[B, V]`` on
+    every rank from the same generator and sliced to the rank's rows."""
     tokens = torch.as_tensor(tokens, device=device).to(torch.int64)
     true_len = torch.as_tensor(true_len, device=device).to(torch.int32)
     B = tokens.shape[0]
@@ -119,7 +128,8 @@ def generate(
         rng = torch.Generator(device=dev).manual_seed(0)
     pre = llama.prefill(params, model_cfg, comp_cfg, tokens, true_len,
                         cache_capacity, quant=quant_cfg, sparse_budgets=sparse_budgets,
-                        sp_group=sp_group, rng=rng, head_capacity=head_capacity)
+                        sp_group=sp_group, rng=rng, head_capacity=head_capacity, tp=tp,
+                        shard=shard)
     vocab = pre.logits_last.shape[-1]
     eos_ids = [e for e in gen_cfg.eos_token_ids if 0 <= e < vocab]
     eos = torch.tensor(list(gen_cfg.eos_token_ids) or [-1], device=dev)
@@ -141,8 +151,12 @@ def generate(
         all_logits = torch.zeros((B, max_new, vocab), dtype=torch.float32, device=dev)
         all_logits[:, 0] = pre.logits_last
 
+    b0, batch = (0, B) if shard is None else (shard.b0, shard.batch)
+
     def draw(logits, step):
-        noise = gumbel_draw(rng, step, tuple(logits.shape)) if gen_cfg.do_sample else None
+        noise = None
+        if gen_cfg.do_sample:
+            noise = gumbel_draw(rng, step, (batch, vocab))[b0:b0 + B]
         return sample_token(logits, gen_cfg, noise)
 
     first = draw(suppress_eos(pre.logits_last, gen_cfg.min_new_tokens <= 1), 0)
@@ -158,7 +172,7 @@ def generate(
         if gen_cfg.eos_token_ids and bool(done.all()):
             break
         logits, cache = llama.decode_step(params, model_cfg, cur, cache, quant=quant_cfg,
-                                          eviction_recent=comp_cfg.eviction_recent)
+                                          eviction_recent=comp_cfg.eviction_recent, tp=tp)
         if return_logits:
             all_logits[:, step] = logits
         nxt = draw(suppress_eos(logits, step + 1 >= gen_cfg.min_new_tokens), step)

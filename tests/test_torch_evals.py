@@ -253,15 +253,24 @@ def _tiny_checkpoint(path, **widths):
                                eos_token="</s>").save_pretrained(path)
 
 
-@pytest.mark.parametrize("flags,item", [(["--dp", "2"], "item 1.11"), (["--tp", "2"], "item 1.11"),
-                                        (["--pp", "2"], "item 1.11")])
-def test_cli_refuses_unported_flags_before_loading(tmp_path, flags, item):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--dp", "2"], ValueError, "torchrun --nproc-per-node 2"),
+    (["--tp", "2"], ValueError, "torchrun --nproc-per-node 2"),
+    (["--dp", "2", "--sp", "2", "--tp", "2"], ValueError, "torchrun --nproc-per-node 8"),
+    (["--pp", "2"], NotImplementedError, "item 1.11"),
+    (["--ep", "2"], NotImplementedError, "item 1.11"),
+    (["--dp", "2", "--dcn_dp", "2"], NotImplementedError, "item 1.11")])
+def test_cli_refuses_unported_flags_before_loading(tmp_path, flags, error, match):
+    """Before anything is loaded: ``--dp``/``--tp``/``--sp`` outside a
+    torchrun launch of their size raise ``ValueError`` saying how to
+    launch; ``--pp``, ``--ep`` and ``--dcn_dp`` still name ROADMAP item
+    1.11."""
     (tmp_path / "config.json").write_text(json.dumps(dict(
         model_type="llama", vocab_size=128, hidden_size=64, intermediate_size=128,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)))
     args = _parse(tcli, flags)
     args.model_path = str(tmp_path)  # no weights, no tokenizer: nothing may be loaded
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         tcli.build_engine_from_args(args)
 
 

@@ -154,7 +154,7 @@ def test_configs_match_jax():
             for S in (1500, 2048, 4096):
                 assert tc.layer_capacity(32, S) == jc.layer_capacity(32, S)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.ShardingConfig(tp=2)
+        tcfg.ShardingConfig(ep=2)
 
 
 def test_port_rejects_weight_quantization():

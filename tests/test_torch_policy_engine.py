@@ -157,11 +157,12 @@ def test_engine_draws_repeat_from_the_generators_state(model):
                            first.k)
 
 
-@pytest.mark.parametrize("what", ["sp", "headkv_without_capacities",
+@pytest.mark.parametrize("what", ["sp", "batching_sp", "headkv_without_capacities",
                                   "batching_headkv", "batching_cam", "batching_random"])
 def test_refusals_and_their_ported_paths(model, what, monkeypatch):
     """sp with a compressing method other than snapkv raises, naming its
-    ROADMAP.md item.  headkv without capacities is not refused: as JAX's
+    ROADMAP.md item, and so does sp in the batching engine (which serves
+    dp and tp: ``tests/test_torch_sharding.py``).  headkv without capacities is not refused: as JAX's
     ``InferenceEngine`` does, prefill feeds zero capacities and every head
     keeps only its window; that case holds the port's engine to JAX's
     (streams, lengths, first-token logits).  headkv, cam and random run
@@ -178,6 +179,11 @@ def test_refusals_and_their_ported_paths(model, what, monkeypatch):
             prefill_buckets=(BUCKET,))
         with pytest.raises(NotImplementedError, match="item 1.11"):
             tengine.InferenceEngine(m["tp"], c, device="cpu")
+    elif what == "batching_sp":
+        c = tcfg.EngineConfig(model=m["tc"], compression=tcfg.CompressionConfig(**COMP),
+                              sharding=tcfg.ShardingConfig(sp=2), prefill_buckets=(BUCKET,))
+        with pytest.raises(NotImplementedError, match="item 1.11"):
+            tbatching.ContinuousBatchingEngine(m["tp"], c, device="cpu")
     elif what == "headkv_without_capacities":
         comp_kw = dict(COMP, method="headkv")
         eng = tengine.InferenceEngine(m["tp"], cfg(method="headkv"), device="cpu")

@@ -127,16 +127,23 @@ def test_sp_ranks_import_no_jax_and_check_the_group_size(sp_runs, n):
     (dict(sp=2, ep=2), ValueError),           # JAX: sp does not compose with ep
     (dict(sp=2, pp=2), ValueError),           # ... nor with pp
     (dict(sp=0), ValueError),
-    (dict(dp=2), NotImplementedError),        # the rest of ROADMAP item 1.11
-    (dict(sp=2, tp=2), NotImplementedError),
-    (dict(dp=2, sp=2), NotImplementedError),
-    (dict(pp=2, pp_microbatches=2), NotImplementedError),
+    (dict(dp=2), None),                       # dp, tp and sp composed: the (dp, sp, tp) grid
+    (dict(sp=2, tp=2), None),
+    (dict(dp=2, sp=2), None),
+    (dict(pp=2, pp_microbatches=2), NotImplementedError),  # the rest of ROADMAP item 1.11
+    (dict(ep=2), NotImplementedError),
+    (dict(dp=2, dcn_dp=2), NotImplementedError),
+    (dict(dp=2, dcn_dp=3), ValueError),       # JAX: dcn_dp must divide dp
 ])
 def test_sharding_config_validation(kw, error):
-    """sp alone is accepted; JAX's ValueErrors hold (and JAX raises them
-    too); every other layout waits for ROADMAP item 1.11."""
+    """dp, tp and sp, alone or composed, are accepted (as JAX accepts
+    them); JAX's ValueErrors hold (and JAX raises them too); ep, pp and
+    dcn_dp wait for ROADMAP item 1.11."""
     if error is None:
-        assert tcfg.ShardingConfig(**kw).sp == kw["sp"]
+        sc = tcfg.ShardingConfig(**kw)
+        assert (sc.dp, sc.sp, sc.tp) == tuple(kw.get(a, 1) for a in ("dp", "sp", "tp"))
+        assert sc.world == sc.dp * sc.sp * sc.tp
+        assert sc.axis_names == jcfg.ShardingConfig(**kw).axis_names
         return
     with pytest.raises(error, match=None if error is ValueError else "item 1.11"):
         tcfg.ShardingConfig(**kw)

@@ -1,4 +1,7 @@
-"""Spawned ranks of the port's sequence-parallel tests (CPU, gloo).
+"""Spawned ranks of the port's parallel tests (CPU, gloo): sequence
+parallelism (``tests/test_torch_sp_prefill.py``, ``tests/
+test_torch_ring_attention.py``) and the ``(dp, sp, tp)`` layouts
+(``tests/test_torch_sharding.py``).
 
 This module imports only torch, numpy and the port, never JAX or the JAX
 package, and each rank reports the names of any such module it finds
@@ -17,15 +20,19 @@ import pickle
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from kvcache_factory_tpu_torch import config as tcfg
-from kvcache_factory_tpu_torch.models.weights import params_from_jax
+from kvcache_factory_tpu_torch.models.weights import params_from_jax, shard_params_from_jax
 from kvcache_factory_tpu_torch.parallel.mesh import SequenceParallelGroup
 from kvcache_factory_tpu_torch.parallel.ring_attention import ring_attention
+from kvcache_factory_tpu_torch.policies import methods
+from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
+from kvcache_factory_tpu_torch.runtime.generate import generate
 
 BANNED = ("jax", "jaxlib", "kvcache_factory_tpu")
 TIMEOUT_S = 300
@@ -35,7 +42,11 @@ def spawn(n: int, directory: Path, job: str, payload) -> list:
     """Run ``job`` on ``n`` gloo ranks; returns each rank's results."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    ctx = mp.start_processes(_rank_main, args=(n, str(directory), job, payload), nprocs=n,
+    # The payload goes by file: arguments past the pipe's buffer would hold
+    # each start until the previous rank has imported its modules.
+    with open(directory / "payload.pkl", "wb") as f:
+        pickle.dump(payload, f)
+    ctx = mp.start_processes(_rank_main, args=(n, str(directory), job), nprocs=n,
                              start_method="spawn", join=False)
     deadline = datetime.datetime.now() + datetime.timedelta(seconds=TIMEOUT_S)
     while not ctx.join(timeout=5):
@@ -50,8 +61,10 @@ def spawn(n: int, directory: Path, job: str, payload) -> list:
     return out
 
 
-def _rank_main(rank: int, n: int, directory: str, job: str, payload) -> None:
+def _rank_main(rank: int, n: int, directory: str, job: str) -> None:
     torch.set_num_threads(1)
+    with open(os.path.join(directory, "payload.pkl"), "rb") as f:
+        payload = pickle.load(f)
     dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous",
                             rank=rank, world_size=n,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
@@ -121,5 +134,96 @@ def _engine(rank: int, n: int, cases) -> dict:
     return results
 
 
-JOBS = {"ring": _ring, "engine": _engine}
+def _sharded_case(c, rank: int, grid) -> dict:
+    """One case of ``tests/test_torch_sharding.py`` on this rank of the
+    ``grid`` ``(dp, sp, tp)`` (``(1, 1, 1)``: the single-device engine).
+    The case holds the model, compression, an optional quant config, the
+    JAX layout's weights (numpy; each rank takes its tp shard through
+    ``shard_params_from_jax``, or hands the engine the whole tree where
+    ``whole_params``), prompts, new tokens, buckets, optional HeadKV
+    capacities, JAX's uniform draws for cam and random (``draws[(layer,
+    example)]``), and for a ``ContinuousBatchingEngine`` drain its slots and
+    chunk size, or for a sampled run (``sample``: ``GenerationConfig``
+    fields) the seed of its generator.  Returns the ids, the first-token
+    logits of every prompt, this rank's cache (each field as numpy) and its
+    grid coordinates."""
+    dp, sp, tp = grid
+    coords = tuple(int(x) for x in np.unravel_index(rank, grid))
+    model = tcfg.ModelConfig(**c["model"])
+    params = (params_from_jax(c["params"], device="cpu") if c.get("whole_params")
+              else shard_params_from_jax(c["params"], model, tp, coords[2], device="cpu"))
+    cfg = tcfg.EngineConfig(
+        model=model, compression=tcfg.CompressionConfig(**c["comp"]),
+        quant=None if c.get("quant") is None else tcfg.QuantConfig(**c["quant"]),
+        sharding=tcfg.ShardingConfig(dp=dp, sp=sp, tp=tp), prefill_buckets=c["buckets"])
+    draws = c.get("draws")
+    drawn = methods.uniform_draw
+    if draws is not None:
+        methods.uniform_draw = lambda rng, layer, example, shape: torch.from_numpy(
+            draws[(layer, example)])
+    try:
+        if "n_slots" in c:
+            eng = ContinuousBatchingEngine(params, cfg, n_slots=c["n_slots"],
+                                           max_new_cap=c["max_new"], device="cpu",
+                                           prefill_chunk_tokens=c.get("chunk", 0),
+                                           instrument=True)
+            rids = [eng.submit(p, c["max_new"]) for p in c["prompts"]]
+            out = eng.run()
+            ids, cache = [out[r] for r in rids], eng.cache
+            logits = {i: eng.logits[r][0].numpy() for i, r in enumerate(rids) if r in eng.logits}
+        else:
+            eng = InferenceEngine(params, cfg, device="cpu", head_capacity=c.get("hc"))
+            if "sample" in c:
+                ids, res = _sampled(eng, c)
+            else:
+                ids, res = eng.generate_batch(c["prompts"], c["max_new"], return_result=True)
+            cache = res.cache
+            logits = dict(enumerate(res.logits[:len(c["prompts"]), 0].numpy()))
+    finally:
+        methods.uniform_draw = drawn
+    fields = {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+              for k, v in cache._asdict().items() if v is not None}
+    return {"ids": ids, "logits": logits, "cache": fields, "coords": coords,
+            "counts": None if eng.groups is None else eng.groups.counts()}
+
+
+def _sampled(eng: InferenceEngine, c):
+    """``runtime.generate`` with ``do_sample`` on this rank's tile of the
+    engine's layout (its rows of the padded batch, its shard), the tokens
+    and logits gathered over dp as the engine gathers them."""
+    prompts, dp = c["prompts"], eng.cfg.sharding.dp
+    B, S = -(-len(prompts) // dp) * dp, c["buckets"][0]
+    toks, lens = np.zeros((B, S), np.int64), np.zeros((B,), np.int32)
+    for i in range(B):
+        p = prompts[min(i, len(prompts) - 1)]
+        toks[i, :len(p)], lens[i] = p, len(p)
+    lo, hi, shard = 0, B, None
+    m = eng.cfg.model
+    if eng.groups is not None:
+        lo, hi = eng.groups.rows(B)
+        shard = methods.HeadShard(lo, B, eng.groups.q_head_offset(m), m.num_attention_heads,
+                                  m.num_key_value_heads,
+                                  None if eng.tp_group is None else eng.tp_group.all_gather)
+    res = generate(eng.params, eng.model_cfg, eng.cfg.compression,
+                   tcfg.GenerationConfig(max_new_tokens=c["max_new"], **c["sample"]),
+                   toks[lo:hi], lens[lo:hi], eng._cache_capacity(S, c["max_new"]), device="cpu",
+                   return_logits=True, rng=torch.Generator().manual_seed(c["seed"]),
+                   tp=eng.tp_group, shard=shard)
+    if dp > 1:
+        res = res._replace(tokens=eng.groups.gather_dp(res.tokens),
+                           logits=eng.groups.gather_dp(res.logits))
+    return res.tokens[:len(prompts)].tolist(), res
+
+
+def _sharded(rank: int, n: int, cases) -> dict:
+    """Each case at its grid of ``n`` ranks; then, on rank 0, each case on
+    the single-device engine (``single``), in this process after the
+    sharded runs, as :func:`_engine` computes its reference."""
+    results = {"cases": [_sharded_case(c, rank, c["grid"]) for c in cases]}
+    if rank == 0:
+        results["single"] = [_sharded_case(c, 0, (1, 1, 1)) for c in cases]
+    return results
+
+
+JOBS = {"ring": _ring, "engine": _engine, "sharded": _sharded}
 
