@@ -2838,17 +2838,15 @@ GRID_SP_NEW = 32
 GRID_DRAIN_PROMPT, GRID_DRAIN_NEW, GRID_DRAIN_CHUNK = 4096, 32, 2048
 # Run label -> ((dp, sp, tp), compression, quant, reference label, new
 # tokens).  12a runs on two ranks, 12b on four, every rank sharing this card
-# over gloo.  A decode step that stages 65 collectives through the host
-# costs 0.12-0.33 s with the ranks time-sliced on one card (PERF.md §6), so
-# only the timed runs go on past 16 new tokens (the references run 64); the
-# sp request and the drain run 32.
+# over gloo.  Phase 5's requests run its 64 new tokens; the sp request and
+# the drain run 32.
 GRID_RUNS = {
     "tp2_bf16": ((1, 1, 2), SNAPKV, None, "bf16", GRID_NEW),
-    "tp2_int8": ((1, 1, 2), SNAPKV, QuantConfig(nbits=8), "int8", 16),
-    "tp2_int4": ((1, 1, 2), SNAPKV, QuantConfig(nbits=4), "int4", 16),
-    "dp2_bf16": ((2, 1, 1), SNAPKV, None, "bf16", 16),
-    "tp2_fullkv": ((1, 1, 2), CompressionConfig(method="fullkv"), None, "fullkv", 16),
-    "dp2_tp2_bf16": ((2, 1, 2), SNAPKV, None, "bf16", 32),
+    "tp2_int8": ((1, 1, 2), SNAPKV, QuantConfig(nbits=8), "int8", GRID_NEW),
+    "tp2_int4": ((1, 1, 2), SNAPKV, QuantConfig(nbits=4), "int4", GRID_NEW),
+    "dp2_bf16": ((2, 1, 1), SNAPKV, None, "bf16", GRID_NEW),
+    "tp2_fullkv": ((1, 1, 2), CompressionConfig(method="fullkv"), None, "fullkv", GRID_NEW),
+    "dp2_tp2_bf16": ((2, 1, 2), SNAPKV, None, "bf16", GRID_NEW),
     "sp2_tp2_bf16": ((1, 2, 2), SNAPKV, None, "sp", GRID_SP_NEW),
     "drain_dp2_tp2": ((2, 1, 2), SNAPKV, None, "drain", GRID_DRAIN_NEW),
 }
@@ -3916,11 +3914,7 @@ LLAMA3_8B_HF_CONFIG = {
     "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
     "num_key_value_heads": 8, "max_position_embeddings": 8192, "rope_theta": 500000.0,
     "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
-# Depth cut to 16 of the 32 layers since phase 12 joined the script, to keep
-# the whole script well inside its time limit: every check of phase 10
-# reads layers 0 and L - 1 and counts launches per layer.
-LLAMA3_8B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA3_8B_HF_CONFIG),
-                                num_hidden_layers=16)
+LLAMA3_8B = ModelConfig.from_hf_config(LLAMA3_8B_HF_CONFIG)
 # 10a: the grouped caches, each with its new tokens (limits: GROUPED_REL_L2_TOL).
 GROUPED_RUNS = (
     ("nbits2_outliers_ring128", QuantConfig(nbits=2, q_group_size=64, outlier_extract=True,
@@ -4544,8 +4538,7 @@ def phase_llama3(rng, log_file):
     t0 = time.perf_counter()
     params = init_params(cfg, seed=2, device="cuda")
     sync()
-    log(f"== 10 Meta-Llama-3-8B-Instruct widths ({cfg.num_hidden_layers} of 32 layers, 32 / 8 "
-        f"heads, vocab 128256, "
+    log(f"== 10 Meta-Llama-3-8B-Instruct widths (32 layers, 32 / 8 heads, vocab 128256, "
         f"rope_theta 5e5), random bf16 weights (seed 2) in {time.perf_counter() - t0:.1f} s")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
     refs = {}

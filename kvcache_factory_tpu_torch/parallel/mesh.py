@@ -310,10 +310,10 @@ def shard_tree(params: Dict[str, Any], cfg: ModelConfig, tp: int, rank: int) -> 
 
 
 class ParallelGroups:
-    """The ``(dp, sp, tp)`` grid of ``sharding`` over the ranks of
-    ``group`` (the default group when None), which must hold ``dp * sp *
-    tp`` ranks: this rank's coordinates (``dp_rank``, ``sp_rank``,
-    ``tp_rank``) and one group object per axis wider than one rank
+    """The ``(dp, sp, tp)`` grid of ``sharding`` over the ranks of the
+    default group, which must hold ``dp * sp * tp`` ranks: this rank's
+    coordinates (``dp_rank``, ``sp_rank``, ``tp_rank``) and one group
+    object per axis wider than one rank
     (``dp``, ``tp``: :class:`StagedGroup`; ``sp``:
     :class:`SequenceParallelGroup`; None for an axis of one rank).  The
     subgroups come from ``dist.new_group``, which every rank of the default
@@ -321,20 +321,20 @@ class ParallelGroups:
     grid together (:func:`parallel_groups` builds each grid once per
     process)."""
 
-    def __init__(self, sharding: ShardingConfig, group: Optional[dist.ProcessGroup] = None):
+    def __init__(self, sharding: ShardingConfig):
         if not (dist.is_available() and dist.is_initialized()):
             raise ValueError(
                 f"ShardingConfig(dp={sharding.dp}, sp={sharding.sp}, tp={sharding.tp}) needs an "
                 "initialized torch.distributed process group of "
                 f"{sharding.world} ranks: launch under torchrun --nproc-per-node "
                 f"{sharding.world}, or call init_process_group in every rank")
-        world = dist.get_world_size(group)
+        world = dist.get_world_size()
         shape = (sharding.dp, sharding.sp, sharding.tp)
         if world != sharding.world:
             raise ValueError(f"ShardingConfig(dp={shape[0]}, sp={shape[1]}, tp={shape[2]}) needs "
                              f"a process group of {sharding.world} ranks, got {world}")
         self.sharding = sharding
-        self.rank = dist.get_rank(group)
+        self.rank = dist.get_rank()
         self.dp_rank, self.sp_rank, self.tp_rank = (int(c) for c in
                                                     np.unravel_index(self.rank, shape))
         grid = np.arange(world).reshape(shape)
@@ -344,13 +344,11 @@ class ParallelGroups:
                 subgroups.append(None)
                 continue
             if shape[axis] == world:
-                subgroups.append(kind(group))
+                subgroups.append(kind())
                 continue
             mine = None
             for members in np.moveaxis(grid, axis, -1).reshape(-1, shape[axis]):
-                ranks = [r if group is None else dist.get_global_rank(group, int(r))
-                         for r in members.tolist()]
-                g = dist.new_group(ranks=ranks)
+                g = dist.new_group(ranks=members.tolist())
                 if self.rank in members:
                     mine = kind(g)
             subgroups.append(mine)
@@ -396,16 +394,15 @@ class ParallelGroups:
 _GRIDS: Dict[Tuple, ParallelGroups] = {}
 
 
-def parallel_groups(sharding: ShardingConfig,
-                    group: Optional[dist.ProcessGroup] = None) -> ParallelGroups:
-    """The :class:`ParallelGroups` of ``sharding`` over ``group``, built
-    once per process and process group (building one creates subgroups, a
-    collective call of every rank)."""
+def parallel_groups(sharding: ShardingConfig) -> ParallelGroups:
+    """The :class:`ParallelGroups` of ``sharding``, built once per process
+    and default group (building one creates subgroups, a collective call of
+    every rank)."""
     world = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
-    key = (sharding.dp, sharding.sp, sharding.tp, group, world)
+    key = (sharding.dp, sharding.sp, sharding.tp, world)
     grid = _GRIDS.get(key)
     if grid is None:
-        grid = _GRIDS[key] = ParallelGroups(sharding, group)
+        grid = _GRIDS[key] = ParallelGroups(sharding)
     return grid
 
 

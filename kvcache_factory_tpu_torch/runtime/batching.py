@@ -145,18 +145,17 @@ class ContinuousBatchingEngine:
     neither and makes no extra synchronisation.  Under dp a rank records
     the logits of the requests its slots served.
 
-    ``group`` is the ``torch.distributed`` group of a ``(dp, tp)`` layout
-    (the default group when None); the engine shards full ``params`` or
-    takes the rank's shard, as ``InferenceEngine`` does, and ``self.cache``
-    is then this rank's slots and heads."""
+    Under a ``(dp, tp)`` layout the engine runs on each rank of the
+    default ``torch.distributed`` group; it shards full ``params`` or takes
+    the rank's shard, as ``InferenceEngine`` does, and ``self.cache`` is
+    then this rank's slots and heads."""
 
     def __init__(self, params, cfg: EngineConfig, n_slots: int = 4,
                  max_new_cap: int = 256, eos_token_ids: Sequence[int] = (),
                  head_capacity=None, rng: Optional[torch.Generator] = None,
                  chunk_size: int = 16, prefill_chunk_tokens: int = 0,
                  prefix_cache_bytes: int = 3 * 2**29,
-                 device="cuda", instrument: bool = False,
-                 group: Optional["torch.distributed.ProcessGroup"] = None):
+                 device="cuda", instrument: bool = False):
         llama._check_supported(cfg.model, cfg.compression, cfg.quant)
         if cfg.compression.method == "headkv" and head_capacity is None:
             raise ValueError("headkv requires head_capacity (as in InferenceEngine)")
@@ -173,7 +172,7 @@ class ContinuousBatchingEngine:
                              f"runs on {self.device}")
         self.cfg = cfg
         # This rank's grid, widths and slots [slot0, slot0 + n_local).
-        self.groups, self.model_cfg = rank_grid(cfg, group)
+        self.groups, self.model_cfg = rank_grid(cfg)
         self.tp_group = self.dp_group = None
         self.n_local, self.slot0 = n_slots // sh.dp, 0
         if self.groups is not None:

@@ -20,7 +20,7 @@ the JAX engine hands one key to every call.
 
 With ``dp * sp * tp > 1`` (JAX ``:48-119, 195-236``) the engine runs on
 each rank of an initialized ``torch.distributed`` group of that many ranks
-(the default group, or ``group``), laid out as the ``(dp, sp, tp)`` grid of
+(the default group), laid out as the ``(dp, sp, tp)`` grid of
 ``parallel/mesh.py::ParallelGroups``; every rank calls
 :meth:`InferenceEngine.generate_batch` with the same prompts and gets the
 whole batch's ids (and logits) back.  The batch is padded to a multiple of
@@ -64,14 +64,14 @@ def check_tp_layout(cfg: EngineConfig) -> None:
                          f"{heads} KV heads, which tp={tp} does not divide")
 
 
-def rank_grid(cfg: EngineConfig, group=None) -> Tuple[Optional[ParallelGroups], ModelConfig]:
-    """This rank's ``(dp, sp, tp)`` grid over ``group`` and the widths it
-    computes (``None`` and the whole model on one device), after the
+def rank_grid(cfg: EngineConfig) -> Tuple[Optional[ParallelGroups], ModelConfig]:
+    """This rank's ``(dp, sp, tp)`` grid over the default group and the
+    widths it computes (``None`` and the whole model on one device), after the
     layout's checks."""
     if cfg.sharding.world == 1:
         return None, cfg.model
     check_tp_layout(cfg)
-    groups = parallel_groups(cfg.sharding, group)
+    groups = parallel_groups(cfg.sharding)
     return groups, groups.local_model(cfg.model)
 
 
@@ -111,7 +111,6 @@ def head_rows(per_head, cfg: EngineConfig, groups: Optional[ParallelGroups], dev
 class InferenceEngine:
     def __init__(self, params, cfg: EngineConfig, device="cuda",
                  sparse_budgets: Optional[np.ndarray] = None,
-                 group: Optional["torch.distributed.ProcessGroup"] = None,
                  head_capacity: Optional[np.ndarray] = None,
                  rng: Optional[torch.Generator] = None):
         sh = cfg.sharding
@@ -128,7 +127,7 @@ class InferenceEngine:
                 raise ValueError(f"prefill buckets {bad} not divisible by sp={sh.sp} "
                                  "(sequence shards must be equal)")
         # This rank's groups (None on one device) and the widths it computes.
-        self.groups, self.model_cfg = rank_grid(cfg, group)
+        self.groups, self.model_cfg = rank_grid(cfg)
         self.sp_group = self.tp_group = None
         if self.groups is not None:
             self.sp_group, self.tp_group = self.groups.sp, self.groups.tp
@@ -171,12 +170,9 @@ class InferenceEngine:
             cap = -(-cap // align) * align
         return cap
 
-    def _generate(self, toks: np.ndarray, lens: np.ndarray, max_new_tokens: int,
-                  eos_token_ids: Tuple[int, ...],
+    def _generate(self, toks: np.ndarray, lens: np.ndarray, gen_cfg: GenerationConfig,
                   return_logits: bool = False) -> GenerateResult:
         S = toks.shape[1]
-        gen_cfg = GenerationConfig(max_new_tokens=max_new_tokens,
-                                   eos_token_ids=eos_token_ids)
         self.rng.set_state(self._rng_state)
         B = toks.shape[0]
         lo, hi, shard = 0, B, None
@@ -188,7 +184,7 @@ class InferenceEngine:
                               None if self.tp_group is None else self.tp_group.all_gather)
         res = generate(self.params, self.model_cfg, self._comp_for_bucket(S),
                        gen_cfg, toks[lo:hi], lens[lo:hi],
-                       self._cache_capacity(S, max_new_tokens), quant_cfg=self.cfg.quant,
+                       self._cache_capacity(S, gen_cfg.max_new_tokens), quant_cfg=self.cfg.quant,
                        device=self.device, return_logits=return_logits,
                        sparse_budgets=self.sparse_budgets, sp_group=self.sp_group,
                        rng=self.rng, head_capacity=self.head_capacity, tp=self.tp_group,
@@ -213,7 +209,11 @@ class InferenceEngine:
         its last row (JAX ``engine.py:226-236``).  Returns one EOS-trimmed id
         list per prompt; with ``return_result`` also the ``GenerateResult``
         (the fp32 logits each token was chosen from, the padded batch's rows
-        on every rank; the final cache, this rank's shard of it)."""
+        on every rank; the final cache, this rank's shard of it).  Where
+        ``cfg.generation`` sets ``do_sample`` the tokens are drawn by its
+        temperature / top-k / top-p from the engine's ``rng`` (JAX's engine
+        is greedy only), every rank drawing the whole batch's noise and
+        keeping its rows."""
         n = len(prompts)
         S = self._bucket(max(len(p) for p in prompts))
         dp = self.cfg.sharding.dp
@@ -224,8 +224,9 @@ class InferenceEngine:
             p = prompts[min(i, n - 1)]
             toks[i, :len(p)] = p
             lens[i] = len(p)
-        res = self._generate(toks, lens, max_new_tokens, tuple(eos_token_ids),
-                             return_logits=return_result)
+        gen_cfg = dataclasses.replace(self.cfg.generation, max_new_tokens=max_new_tokens,
+                                      eos_token_ids=tuple(eos_token_ids))
+        res = self._generate(toks, lens, gen_cfg, return_logits=return_result)
         nums = res.num_tokens.cpu().numpy()
         all_toks = res.tokens.cpu().numpy()
         ids = [all_toks[i, :int(nums[i])].tolist() for i in range(n)]

@@ -14,8 +14,11 @@ through ``shard_params_from_jax`` (one case hands the engine the whole tree
 to cut).  Prompts come from ``np.random.default_rng``: 100, 60, 90 and 30
 tokens on a 128-row bucket, 6 new tokens.  cam and random run on JAX's
 draws, handed to the ranks as numpy arrays.  One case samples through
-``runtime.generate`` at ``(dp, tp) = (2, 2)``: each rank draws the whole
-batch's Gumbel noise from one seed and keeps its rows.
+``InferenceEngine`` at ``(dp, tp) = (2, 2)`` (``EngineConfig.generation``):
+each rank draws the whole batch's Gumbel noise from one seed and keeps its
+rows.  The ``ContinuousBatchingEngine`` drains run one-shot and chunked
+admission (32-token chunks), each against JAX's engine with the same
+``prefill_chunk_tokens``.
 
 One module-scoped spawn per world size (2 and 4 ranks) runs every case of
 that size (``tests/torch_sp_worker.py::_sharded``); rank 0 then runs each
@@ -24,7 +27,7 @@ ids and first-token logits within 1e-5 relative L2 (the per-token int8 /
 int4 caches excepted: JAX's engine on the CPU takes its grouped cache, so
 those are held to the port's single-device engine, which
 ``tests/test_torch_quant_decode.py`` holds to JAX, as is the sampled case,
-whose noise JAX draws otherwise); the single-device
+since JAX's engine is greedy only); the single-device
 engine's ids and logits within the same tolerance; every other rank's ids
 and logits bitwise; and its cache shard against the matching rows and
 heads of the single-device cache over each head's valid prefix.
@@ -100,10 +103,9 @@ CASES = {
 }
 ALL = [(n, name) for n in CASES for name in CASES[n]]
 PER_TOKEN = ("int8_tp2", "int4_tp2")
-# Held to the port's single device only: JAX draws its own noise, and the
-# chunked drain's single-device engine is held to JAX's in
-# tests/test_torch_batching.py (the one-shot drain meets JAX's sharded one).
-NOT_JAX = PER_TOKEN + ("sampled_dp2_tp2", "drain_chunked_dp2_tp2")
+# Held to the port's single device only: JAX's engine on the CPU takes its
+# grouped cache for the per-token quant configs, and its engine is greedy.
+NOT_JAX = PER_TOKEN + ("sampled_dp2_tp2",)
 
 
 @pytest.fixture(scope="module")

@@ -32,7 +32,6 @@ from kvcache_factory_tpu_torch.parallel.ring_attention import ring_attention
 from kvcache_factory_tpu_torch.policies import methods
 from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
-from kvcache_factory_tpu_torch.runtime.generate import generate
 
 BANNED = ("jax", "jaxlib", "kvcache_factory_tpu")
 TIMEOUT_S = 300
@@ -144,7 +143,8 @@ def _sharded_case(c, rank: int, grid) -> dict:
     capacities, JAX's uniform draws for cam and random (``draws[(layer,
     example)]``), and for a ``ContinuousBatchingEngine`` drain its slots and
     chunk size, or for a sampled run (``sample``: ``GenerationConfig``
-    fields) the seed of its generator.  Returns the ids, the first-token
+    fields, the engine's ``cfg.generation``) the seed of the engine's
+    generator.  Returns the ids, the first-token
     logits of every prompt, this rank's cache (each field as numpy) and its
     grid coordinates."""
     dp, sp, tp = grid
@@ -155,7 +155,8 @@ def _sharded_case(c, rank: int, grid) -> dict:
     cfg = tcfg.EngineConfig(
         model=model, compression=tcfg.CompressionConfig(**c["comp"]),
         quant=None if c.get("quant") is None else tcfg.QuantConfig(**c["quant"]),
-        sharding=tcfg.ShardingConfig(dp=dp, sp=sp, tp=tp), prefill_buckets=c["buckets"])
+        sharding=tcfg.ShardingConfig(dp=dp, sp=sp, tp=tp), prefill_buckets=c["buckets"],
+        generation=tcfg.GenerationConfig(**c.get("sample", {})))
     draws = c.get("draws")
     drawn = methods.uniform_draw
     if draws is not None:
@@ -172,11 +173,9 @@ def _sharded_case(c, rank: int, grid) -> dict:
             ids, cache = [out[r] for r in rids], eng.cache
             logits = {i: eng.logits[r][0].numpy() for i, r in enumerate(rids) if r in eng.logits}
         else:
-            eng = InferenceEngine(params, cfg, device="cpu", head_capacity=c.get("hc"))
-            if "sample" in c:
-                ids, res = _sampled(eng, c)
-            else:
-                ids, res = eng.generate_batch(c["prompts"], c["max_new"], return_result=True)
+            rng = torch.Generator().manual_seed(c["seed"]) if "seed" in c else None
+            eng = InferenceEngine(params, cfg, device="cpu", head_capacity=c.get("hc"), rng=rng)
+            ids, res = eng.generate_batch(c["prompts"], c["max_new"], return_result=True)
             cache = res.cache
             logits = dict(enumerate(res.logits[:len(c["prompts"]), 0].numpy()))
     finally:
@@ -185,34 +184,6 @@ def _sharded_case(c, rank: int, grid) -> dict:
               for k, v in cache._asdict().items() if v is not None}
     return {"ids": ids, "logits": logits, "cache": fields, "coords": coords,
             "counts": None if eng.groups is None else eng.groups.counts()}
-
-
-def _sampled(eng: InferenceEngine, c):
-    """``runtime.generate`` with ``do_sample`` on this rank's tile of the
-    engine's layout (its rows of the padded batch, its shard), the tokens
-    and logits gathered over dp as the engine gathers them."""
-    prompts, dp = c["prompts"], eng.cfg.sharding.dp
-    B, S = -(-len(prompts) // dp) * dp, c["buckets"][0]
-    toks, lens = np.zeros((B, S), np.int64), np.zeros((B,), np.int32)
-    for i in range(B):
-        p = prompts[min(i, len(prompts) - 1)]
-        toks[i, :len(p)], lens[i] = p, len(p)
-    lo, hi, shard = 0, B, None
-    m = eng.cfg.model
-    if eng.groups is not None:
-        lo, hi = eng.groups.rows(B)
-        shard = methods.HeadShard(lo, B, eng.groups.q_head_offset(m), m.num_attention_heads,
-                                  m.num_key_value_heads,
-                                  None if eng.tp_group is None else eng.tp_group.all_gather)
-    res = generate(eng.params, eng.model_cfg, eng.cfg.compression,
-                   tcfg.GenerationConfig(max_new_tokens=c["max_new"], **c["sample"]),
-                   toks[lo:hi], lens[lo:hi], eng._cache_capacity(S, c["max_new"]), device="cpu",
-                   return_logits=True, rng=torch.Generator().manual_seed(c["seed"]),
-                   tp=eng.tp_group, shard=shard)
-    if dp > 1:
-        res = res._replace(tokens=eng.groups.gather_dp(res.tokens),
-                           logits=eng.groups.gather_dp(res.logits))
-    return res.tokens[:len(prompts)].tolist(), res
 
 
 def _sharded(rank: int, n: int, cases) -> dict:
