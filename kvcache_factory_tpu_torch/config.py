@@ -246,13 +246,14 @@ class QuantConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """Device-mesh layout, as in the JAX package.  The port serves ``dp``
-    (batch rows), ``tp`` (heads and FFN columns, Megatron-style) and ``sp``
-    (sequence-parallel prefill by ring attention) in one ``(dp, sp, tp)``
-    grid over the ranks of a ``torch.distributed`` group
-    (``parallel/mesh.py::ParallelGroups``).  The JAX package's
-    ``ValueError``s hold; ``ep``, ``pp`` and ``dcn_dp`` raise
-    ``NotImplementedError`` (ROADMAP.md item 1.11)."""
+    """Device-mesh layout, as in the JAX package, over the ranks of a
+    ``torch.distributed`` group (``parallel/mesh.py::ParallelGroups``):
+    ``dp`` (batch rows), ``tp`` (heads and FFN columns, Megatron-style) and
+    either ``sp`` (sequence-parallel prefill by ring attention) or ``ep``
+    (the MoE expert axis) in one ``(dp, sp, tp)`` or ``(dp, ep, tp)`` grid;
+    ``pp`` (layers over GPipe stages, ``parallel/pipeline.py``) alone, with
+    ``pp_microbatches`` (0 = pp) microbatches; ``dcn_dp`` the dp ways that
+    cross hosts.  The JAX package's ``ValueError``s hold."""
 
     dp: int = 1
     tp: int = 1
@@ -275,25 +276,18 @@ class ShardingConfig:
         if self.pp_microbatches and self.pp_microbatches < self.pp:
             raise ValueError("pp_microbatches must be >= pp (GPipe decode needs one "
                              "microbatch per in-flight stage)")
-        unported = [f"{name}={value}" for name, value in
-                    (("ep", self.ep), ("pp", self.pp), ("dcn_dp", self.dcn_dp)) if value > 1]
-        if self.pp_microbatches:
-            unported.append(f"pp_microbatches={self.pp_microbatches}")
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)} is not ported yet (ROADMAP.md item 1.11: parallel "
-                "paths; dp, tp and sp are)")
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
         """The JAX package's mesh axes for this layout (its ``(dp[, ep],
-        tp)`` mesh; an ``sp`` layout runs on the ``(dp, sp, tp)`` grid)."""
+        tp)`` mesh; an ``sp`` layout runs on the ``(dp, sp, tp)`` grid, a
+        ``pp`` layout on its own stage axis)."""
         return ("dp", "ep", "tp") if self.ep > 1 else ("dp", "tp")
 
     @property
     def world(self) -> int:
-        """Ranks of the ``(dp, sp, tp)`` grid."""
-        return self.dp * self.sp * self.tp
+        """Ranks of the layout: the ``(dp, sp|ep, tp)`` grid, or the pp stages."""
+        return self.dp * self.sp * self.ep * self.tp * self.pp
 
 
 # ---------------------------------------------------------------------------

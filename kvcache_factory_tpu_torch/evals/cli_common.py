@@ -3,14 +3,14 @@
 
 Replaces the reference's argparse + per-layer config injection
 (run_longbench.py:319-368, :241-261) with a typed EngineConfig resolved once,
-before any weight is loaded: a flag the port does not carry yet (``--ep``,
-``--pp``, ``--dcn_dp``) reaches its config and raises
-``NotImplementedError`` naming its ROADMAP.md item there.  The engine runs
-on ``--device`` (the card unless the caller asks for the CPU), its
-``torch.Generator`` seeded from ``--seed``.
+before any weight is loaded: a layout the JAX package refuses raises its
+``ValueError`` there.  The engine runs on ``--device`` (the card unless the
+caller asks for the CPU), its ``torch.Generator`` seeded from ``--seed``.
 
-``--dp``, ``--tp`` and ``--sp`` ask for ``dp * sp * tp`` ranks: the CLI then
-runs under ``torchrun --nproc-per-node <dp * sp * tp>``, one process per
+``--dp``, ``--sp`` or ``--ep``, and ``--tp`` ask for ``dp * sp * ep * tp``
+ranks, ``--pp`` for ``pp`` (with ``--pp_microbatches``; ``--dcn_dp`` says
+how many dp ways cross hosts): the CLI then runs under ``torchrun
+--nproc-per-node <ranks>`` (``--nnodes`` across hosts), one process per
 rank, and brings up the process group from torchrun's environment (NCCL
 with a card per rank, gloo when ranks outnumber cards or run on the CPU);
 rank 0 writes the result files (:func:`writes_results`).  Without a
@@ -87,9 +87,8 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
                     # must reach MODEL2MAXLEN's mistral ceiling (31500) or
                     # mid-run prompts raise 'exceeds largest bucket'
                     default=[512, 1024, 2048, 4096, 8192, 16384, 32768])
-    # Parallelism: dp, tp and sp run one process per rank under torchrun
-    # (init_distributed); ep, pp and dcn_dp raise in ShardingConfig
-    # (ROADMAP.md item 1.11).
+    # Parallelism: every layout runs one process per rank under torchrun
+    # (init_distributed).
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel ways (batch sharding)")
     ap.add_argument("--tp", type=int, default=1,
@@ -120,8 +119,8 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
 
 
 def init_distributed(sharding: ShardingConfig, device: str) -> None:
-    """The process group a ``(dp, sp, tp)`` layout of ``sharding.world > 1``
-    ranks runs on, brought up from torchrun's environment (``WORLD_SIZE``,
+    """The process group a layout of ``sharding.world > 1`` ranks (the
+    ``(dp, sp|ep, tp)`` grid or the pp stages) runs on, brought up from torchrun's environment (``WORLD_SIZE``,
     ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``): NCCL where every
     rank has a card of its own (each takes card ``LOCAL_RANK``), gloo when
     the ranks outnumber the cards or run on the CPU (ranks sharing a card
@@ -131,9 +130,10 @@ def init_distributed(sharding: ShardingConfig, device: str) -> None:
     world = sharding.world
     if world == 1:
         return
-    launch = (f"--dp {sharding.dp} --sp {sharding.sp} --tp {sharding.tp} ask for {world} "
-              f"ranks: launch the CLI as `torchrun --nproc-per-node {world} -m "
-              "kvcache_factory_tpu_torch.evals.<runner> ...`")
+    flags = " ".join(f"--{a} {getattr(sharding, a)}" for a in ("dp", "sp", "ep", "tp", "pp")
+                     if getattr(sharding, a) > 1)
+    launch = (f"{flags} ask for {world} ranks: launch the CLI as `torchrun "
+              f"--nproc-per-node {world} -m kvcache_factory_tpu_torch.evals.<runner> ...`")
     if dist.is_initialized():
         if dist.get_world_size() != world:
             raise ValueError(f"{launch} (the process group has {dist.get_world_size()})")
@@ -217,7 +217,7 @@ def build_engine_from_args(args) -> Tuple[InferenceEngine, object, str]:
                               pp=getattr(args, "pp", 1),
                               pp_microbatches=getattr(args, "pp_microbatches", 0),
                               dcn_dp=getattr(args, "dcn_dp", 1))
-    llama._check_supported(model_cfg, comp, quant, sp=sharding.sp > 1)
+    llama._check_supported(model_cfg, comp, quant)
     device = getattr(args, "device", "cuda")
     init_distributed(sharding, device)
 

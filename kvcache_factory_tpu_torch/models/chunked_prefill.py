@@ -29,7 +29,9 @@ A Mixtral layer's FFN is ``llama.ffn_block``, as in one-shot prefill.
 Under tensor parallelism (``tp``) ``params`` and ``cfg`` are one rank's
 shard, as in one-shot ``llama.prefill``: the state holds the rank's heads,
 each layer reduces over tp twice, and ``finalize`` gathers the logits and
-takes ``shard`` for the rules that are not local to a head tile.
+takes ``shard`` for the rules that are not local to a head tile.  Expert
+parallelism is not taken here: the batching engine refuses chunked
+admission under ep, as JAX's does (``runtime/batching.py:144-153``).
 
 Host values: ``c0`` and ``true_len`` are host integers (the engine keeps
 them in numpy); each call builds fresh device tensors from them, so a

@@ -48,11 +48,11 @@ from ..ops.kernels.decode_attn import decode_attention_append
 from ..ops.kernels.decode_attn_quant import (quant4_decode_attention_append,
                                               quant_decode_attention_append)
 from ..ops.kernels.flash_prefill import flash_prefill_attention
-from ..parallel.mesh import SequenceParallelGroup, StagedGroup, gather_vocab
+from ..parallel.mesh import ExpertShard, SequenceParallelGroup, StagedGroup, gather_vocab
 from ..parallel.ring_attention import ring_attention
 from ..policies.base import PackedKV
 from ..policies.methods import SCORES_REUSABLE, HeadShard, LayerContext, compress_prefill
-from ..policies.scoring import window_attention_scores, window_query_rows
+from ..policies.scoring import full_attention_scores, window_query_rows
 from ..policies.think import aggregate_queries_per_kv_head, think_channel_keep_idx
 
 # ---------------------------------------------------------------------------
@@ -217,7 +217,7 @@ def _expert(w, e: int):
     return {k: t[e] for k, t in w.items()} if isinstance(w, dict) else w[e]
 
 
-def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig, e0: int = 0) -> torch.Tensor:
     """Mixtral's sparse-MoE FFN (JAX ``llama.py:198-272``): the values of
     the JAX function, not its TPU dispatch.  ``gate_up_proj [E, h, 2f]``
     and ``down_proj [E, f, h]``, either possibly W8A16.
@@ -233,19 +233,34 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
     ``topv`` (cast to the activation dtype, as JAX's combine) summed into
     an fp32 buffer with ``index_add_``, cast once.  The per-expert counts
     are read to the host once per layer.  JAX's dense all-expert combine
-    spends E/k times the products."""
+    spends E/k times the products.
+
+    Under expert parallelism the leaves hold experts ``[e0, e0 + n)`` of
+    the model's ``E`` and the router all ``E`` (replicated, so every rank
+    routes alike): the block computes only the local experts' share, the
+    sum over experts that JAX's ``force_dense`` branch computes on one ep
+    shard (``llama.py:221-233``), which the caller reduces over the ranks.
+    Decode gathers each row's k selected experts clamped into the local
+    block and weights those not held here by zero; prefill dispatches only
+    the local experts' (token, slot) pairs."""
     E, top_k = cfg.num_local_experts, cfg.num_experts_per_tok
     gw, dw = lp["gate_up_proj"], lp["down_proj"]
     F_ = wshape(gw)[-1] // 2
+    n_local = wshape(gw)[0]
     _, topi, topv = moe_router(x, lp["router"], top_k)
     B, T, h = x.shape
     if T == 1:
-        idx = topi.reshape(B * top_k)
+        idx = topi.reshape(B * top_k) - e0
+        weight = topv[:, 0].to(x.dtype)
+        if n_local != E:
+            held = (idx >= 0) & (idx < n_local)
+            idx = idx.clamp(0, n_local - 1)
+            weight = torch.where(held.reshape(B, top_k), weight, torch.zeros_like(weight))
         xk = x.reshape(B, 1, h).repeat_interleave(top_k, dim=0)        # [B*k, 1, h]
         gu = _expert_dot(xk, _take_experts(gw, idx))                    # [B*k, 1, 2f]
         eo = _expert_dot(F.silu(gu[..., :F_]) * gu[..., F_:], _take_experts(dw, idx))
         eo = eo.reshape(B, top_k, h)
-        return torch.einsum("bkh,bk->bh", eo, topv[:, 0].to(x.dtype))[:, None]
+        return torch.einsum("bkh,bk->bh", eo, weight)[:, None]
     flat_x = x.reshape(B * T, h)
     flat_i = topi.reshape(-1)
     order = torch.argsort(flat_i, stable=True)
@@ -254,30 +269,34 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
     out = torch.zeros((B * T, h), dtype=torch.float32, device=x.device)
     start = 0
     for e, n in enumerate(counts):
-        if n == 0:
-            continue
         slots = order[start:start + n]
         start += n
+        if n == 0 or not e0 <= e < e0 + n_local:
+            continue
         tok = slots // top_k
-        gu = wdot(flat_x.index_select(0, tok), _expert(gw, e))
-        eo = wdot(F.silu(gu[..., :F_]) * gu[..., F_:], _expert(dw, e))
+        gu = wdot(flat_x.index_select(0, tok), _expert(gw, e - e0))
+        eo = wdot(F.silu(gu[..., :F_]) * gu[..., F_:], _expert(dw, e - e0))
         out.index_add_(0, tok, eo.float() * weight.index_select(0, slots)[:, None])
     return out.to(x.dtype).reshape(B, T, h)
 
 
 def ffn_block(h2: torch.Tensor, lp: dict, cfg: ModelConfig,
-              tp: Optional[StagedGroup] = None) -> torch.Tensor:
+              tp: Optional[StagedGroup] = None,
+              ep: Optional[ExpertShard] = None) -> torch.Tensor:
     """The layer's FFN: the sparse MoE block on a Mixtral configuration,
     else the fused SwiGLU with its optional biases.  Under ``tp`` each rank
     holds its FFN columns (of every expert), and the block's one reduction
     comes after the down projection (after the weighted combine of the
-    experts), the down bias after it (JAX ``parallel/mesh.py:110-117``)."""
+    experts), the down bias after it (JAX ``parallel/mesh.py:110-117``).
+    Under ``ep`` the rank holds its experts (:func:`moe_ffn`) and the one
+    reduction runs over the ``(ep, tp)`` plane, ``ep.group``."""
     if cfg.is_moe:
-        out = moe_ffn(h2, lp, cfg)
+        out = moe_ffn(h2, lp, cfg, 0 if ep is None else ep.e0)
     else:
         out = swiglu_fused(h2, lp["gate_up_proj"], lp["down_proj"], lp.get("gate_up_bias"))
-    if tp is not None:
-        out = tp.all_reduce(out)
+    group = tp if ep is None else ep.group
+    if group is not None:
+        out = group.all_reduce(out)
     return out if "down_bias" not in lp else out + lp["down_bias"]
 
 
@@ -296,19 +315,14 @@ class PrefillResult(NamedTuple):
 
 
 def _check_supported(cfg: ModelConfig, comp: CompressionConfig,
-                     quant: Optional[QuantConfig], sp: bool = False) -> None:
+                     quant: Optional[QuantConfig]) -> None:
     """The JAX package's refusals of cache combinations (``ValueError``
-    here, assertions there: ``llama.py:482-483, 526-527``), then what the
-    port does not carry yet."""
+    here, assertions there: ``llama.py:482-483, 526-527``)."""
     if comp.think_packed and (quant is not None or comp.decode_evict):
         raise ValueError("think_packed composes with neither the quantized cache nor "
                          "decode_evict")
     if comp.decode_evict and quant is not None:
         raise ValueError("decode_evict composes with the dense cache only, not quant")
-    if sp and comp.method not in ("snapkv", "fullkv", "minference"):
-        raise NotImplementedError(
-            f"{comp.method!r} under sequence parallelism is not ported yet (ROADMAP.md "
-            "item 1.11)")
 
 
 def _layer(params: dict, li: int) -> dict:
@@ -330,17 +344,19 @@ def _qkv(x, lp, cfg, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_layer(x, attn, lp, cfg, tp: Optional[StagedGroup] = None):
+def _finish_layer(x, attn, lp, cfg, tp: Optional[StagedGroup] = None,
+                  ep: Optional[ExpertShard] = None):
     """o_proj + residual, then the pre-norm FFN (:func:`ffn_block`) +
     residual.  Under ``tp`` ``attn`` holds this rank's heads, ``o_proj``
-    their rows, and the projection is reduced over tp before its bias."""
+    their rows, and the projection is reduced over tp before its bias;
+    attention is replicated over ``ep``."""
     h = wdot(_merge_heads(attn), lp["o_proj"])
     if tp is not None:
         h = tp.all_reduce(h)
     if "o_bias" in lp:
         h = h + lp["o_bias"]
     x = x + h
-    return x + ffn_block(rms_norm(x, lp["post_norm"], cfg.rms_norm_eps), lp, cfg, tp)
+    return x + ffn_block(rms_norm(x, lp["post_norm"], cfg.rms_norm_eps), lp, cfg, tp, ep)
 
 
 def lm_logits(x: torch.Tensor, params: dict, tp: Optional[StagedGroup] = None) -> torch.Tensor:
@@ -413,6 +429,68 @@ def store_packed_layer(cache: Cache, layer: int, packed: PackedKV, comp: Compres
     cache.lengths[layer] = packed.lengths
 
 
+def attend_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, true_len: torch.Tensor,
+                   cfg: ModelConfig, comp: CompressionConfig,
+                   sparse_budgets: Optional[torch.Tensor] = None,
+                   sparse: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer's prefill attention over the whole prompt by K1, and the
+    observation-window scores K1 emits for the methods that reuse them
+    (``SCORES_REUSABLE``, no sliding window: JAX ``:388, 416``), masked at
+    ``>= true_len - window`` (None for the other methods).  ``sparse``
+    False runs dense attention whatever ``comp.sparse_prefill`` says."""
+    emit = comp.method in SCORES_REUSABLE and cfg.sliding_window is None
+    attn, win_sc = flash_prefill_attention(
+        q, k, v, true_len, comp.window_size if emit else 0, sliding_window=cfg.sliding_window,
+        sparse_pattern=comp.sparse_prefill if sparse else None,
+        sparse_head_budgets=sparse_budgets if sparse else None)
+    if not emit:
+        return attn, None
+    cols = torch.arange(q.shape[2], device=q.device)
+    return attn, torch.where(cols >= (true_len[:, None, None] - comp.window_size), NEG_INF,
+                             win_sc)
+
+
+# Methods whose compression reads prefill query rows: the window's
+# (scores, cam's probabilities) and ThinK's last 32.  h2o reads every row
+# (sequence parallelism hands it its scores); the others read none.
+_READS_QUERY_ROWS = SCORES_REUSABLE + ("cam",)
+
+
+def sp_policy_queries(q: torch.Tensor, true_len: torch.Tensor, comp: CompressionConfig,
+                      S: int, sp_group: SequenceParallelGroup) -> torch.Tensor:
+    """The prefill queries a compression method reads, as a ``[B, Hq, S,
+    D]`` tensor that a sequence-parallel rank can hand ``compress_prefill``:
+    the last ``max(window, 32)`` rows of each prompt (the window's, as
+    ``window_query_rows`` clamps them, and ThinK's 32 inside them), fetched
+    from the ranks that hold them, at their global positions; zeros
+    elsewhere, which those methods never read.  For a method that reads no
+    row, ``q`` with no rows: only its head count is read."""
+    if comp.method not in _READS_QUERY_ROWS:
+        return q[:, :, :0]
+    B, Hq, _, D = q.shape
+    R = min(max(comp.window_size, 32), S)
+    rows = torch.stack([window_query_rows(true_len[b], R, S) for b in range(B)])   # [B, R]
+    got = sp_group.gather_rows(q, rows, dim=2).transpose(1, 2)                   # [B, Hq, R, D]
+    full = q.new_zeros((B, Hq, S, D))
+    full.scatter_(2, rows[:, None, :, None].expand(B, Hq, R, D), got)
+    return full
+
+
+def sp_full_scores(q: torch.Tensor, k: torch.Tensor, true_len: torch.Tensor, window: int,
+                   row0: int, sp_group: SequenceParallelGroup) -> torch.Tensor:
+    """h2o's column sums over every query row under sequence parallelism:
+    each rank sums the rows it holds (``q`` ``[B, Hq, S_loc, D]``, rows
+    ``[row0, row0 + S_loc)``) against the global keys ``k`` ``[B, Hkv, S,
+    D]``, and the partial sums are added over the ranks (one reduction per
+    example), ``[B, Hq, S]``.  This moves ``Hq * S`` fp32 a rank, where
+    gathering the queries would move ``Hq * S * D`` values."""
+    G = q.shape[1] // k.shape[1]
+    return torch.stack([full_attention_scores(k[b].repeat_interleave(G, dim=0), q[b],
+                                              true_len[b], window, row0=row0,
+                                              reduce=sp_group.all_reduce)
+                        for b in range(q.shape[0])])
+
+
 def prefill(
     params: dict,
     cfg: ModelConfig,
@@ -428,6 +506,7 @@ def prefill(
     head_capacity: Optional[torch.Tensor] = None,  # [L, H] int (headkv)
     tp: Optional[StagedGroup] = None,
     shard: Optional[HeadShard] = None,
+    ep: Optional[ExpertShard] = None,
 ) -> PrefillResult:
     """Full prefill: attention over the uncompressed prompt, then the
     compression hook between the QKV computation and the cache write.
@@ -442,7 +521,7 @@ def prefill(
     gives each layer's per-head (vertical, slash) budgets (JAX ``:314,
     487-488``), and SnapKV's scores are then sums of the sparse softmax.
     K1 emits the window scores for every method that reuses them
-    (``SCORES_REUSABLE``).  cam and random draw from ``rng`` (a generator
+    (:func:`attend_prefill`).  cam and random draw from ``rng`` (a generator
     on the tokens' device seeded 0 when None, as JAX's ``PRNGKey(0)``);
     headkv reads ``head_capacity[li]``; without it every head's budget is 0
     and each head keeps only its window, as the JAX prefill feeds zeros
@@ -452,14 +531,15 @@ def prefill(
     the whole ``[B, S]`` prompt and computes only its rows ``[lo, hi)``
     (RoPE at their global positions); attention is
     :func:`~..parallel.ring_attention.ring_attention`, which hands back the
-    global K/V, and compression runs on that, with SnapKV's scores computed
-    from the window's q rows gathered from their ranks (the JAX sp branch
-    scores with ``window_attention_scores`` too); the other compressing
-    methods raise ``NotImplementedError`` under sp (ROADMAP.md item
-    1.11).  Every rank builds the
-    same cache; each example's last-token logits come from the rank that
-    holds its row ``true_len - 1``.  Sparse patterns are not applied under
-    sp, as in the JAX ring.
+    global K/V, and every method compresses that, as JAX compresses the
+    global K/V GSPMD gathers: the query rows a method reads are fetched
+    from their ranks (:func:`sp_policy_queries`), and h2o's scores over
+    every row are each rank's partial column sums added over the ranks
+    (:func:`sp_full_scores`).  cam and random draw the whole shape on
+    every rank from the same generator state.  Every rank builds the same
+    cache; each example's last-token logits come from the rank that holds
+    its row ``true_len - 1``.  Sparse patterns are not applied under sp,
+    as in the JAX ring.
 
     Under tensor parallelism (``tp``, the JAX ``(dp, tp)`` mesh) ``params``
     and ``cfg`` are one rank's shard (``parallel/mesh.py::shard_params``,
@@ -471,8 +551,11 @@ def prefill(
     its ``[B, H]`` tile lies for the rules that are not tile-local (cam's
     and random's draws, AdaKV's budgets), and the cache holds the rank's
     heads.  Composed with ``sp_group`` (JAX's ring with ``head_axis="tp"``)
-    the ring runs in the sp subgroup over the rank's heads."""
-    _check_supported(cfg, comp, quant, sp=sp_group is not None)
+    the ring runs in the sp subgroup over the rank's heads.  Under expert
+    parallelism (``ep``) ``params`` holds the rank's experts and the MoE
+    block is reduced over ``ep.group`` (:func:`ffn_block`); attention runs
+    on every head of every rank."""
+    _check_supported(cfg, comp, quant)
     B, S = tokens.shape
     L = cfg.num_hidden_layers
     dtype = dtype_of(cfg)
@@ -487,50 +570,34 @@ def prefill(
     assert cache_capacity >= policy_capacity, (
         f"cache capacity {cache_capacity} < policy capacity {policy_capacity}")
     cache = init_prefill_cache(cfg, comp, quant, B, cache_capacity, policy_capacity, dev)
-    # Score emission only when the policy reuses it, sparse or not (JAX
-    # :388, 416); window=0 skips it.
-    emit = comp.method in SCORES_REUSABLE and cfg.sliding_window is None
     if rng is None:
         rng = torch.Generator(device=dev).manual_seed(0)
     if head_capacity is None and comp.method == "headkv":
         head_capacity = torch.zeros(
             (L, comp.cache_heads(cfg.num_attention_heads, cfg.num_key_value_heads)),
             dtype=torch.int32, device=dev)
-    win = comp.window_size if emit else 0
-    cols = torch.arange(S, device=dev)
-    if sp_group is not None:
-        # The SnapKV window's q rows, [B, w] global ids, fetched each layer.
-        win_rows = torch.stack([window_query_rows(true_len[b], comp.window_size, S)
-                                for b in range(B)])
 
     for li in range(L):
         lp = _layer(params, li)
         q, k, v = _qkv(x, lp, cfg, cos, sin)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        window_scores = None
+        full_scores = None
         if sp_group is None:
-            attn, win_sc = flash_prefill_attention(
-                q, k, v, true_len, win, sliding_window=cfg.sliding_window,
-                sparse_pattern=comp.sparse_prefill,
-                sparse_head_budgets=None if sparse_budgets is None else sparse_budgets[li])
-            if emit:
-                window_scores = torch.where(
-                    cols >= (true_len[:, None, None] - comp.window_size),
-                    NEG_INF, win_sc)
+            attn, window_scores = attend_prefill(
+                q, k, v, true_len, cfg, comp,
+                None if sparse_budgets is None else sparse_budgets[li])
         else:
             attn, k, v = ring_attention(q, k, v, true_len, sp_group, cfg.sliding_window)
-            if comp.method == "snapkv":
-                # compress_layer reads only q's head count once scores are given.
-                q = sp_group.gather_rows(q, win_rows, dim=2).transpose(1, 2)  # [B, Hq, w, D]
-                G = q.shape[1] // k.shape[1]
-                window_scores = torch.stack([window_attention_scores(
-                    k[b].repeat_interleave(G, dim=0), None, true_len[b], comp.window_size,
-                    q_win=q[b]) for b in range(B)])
-        x = _finish_layer(x, attn, lp, cfg, tp)
+            window_scores = None
+            if comp.method == "h2o":
+                full_scores = sp_full_scores(q, k, true_len, comp.window_size, lo, sp_group)
+            q = sp_policy_queries(q, true_len, comp, S, sp_group)
+        x = _finish_layer(x, attn, lp, cfg, tp, ep)
         hc = None if head_capacity is None else head_capacity[li]
         store_packed_layer(cache, li, compress_prefill(
             comp, L, policy_capacity, k, v, q, true_len,
-            LayerContext(li, hc, rng, window_scores, shard)), comp, quant, q, true_len)
+            LayerContext(li, hc, rng, window_scores, shard, full_scores)),
+            comp, quant, q, true_len)
     cache.positions.copy_(true_len)
 
     last = (true_len.to(torch.int64) - 1).clamp(min=0)
@@ -709,29 +776,21 @@ def _attend_offloaded(cache: OffloadedKVCache, li, q, k, v, host_k, host_v):
                              torch.cat([host_v, cache.dv[li]], dim=2), mask[:, :, None, :])
 
 
-def decode_step(
+def decode_hidden(
     params: dict,
     cfg: ModelConfig,
-    tokens: torch.Tensor,  # [B] int, current input token
+    x: torch.Tensor,       # [B, 1, hidden] the layers' input
     cache: Cache,
     quant: Optional[QuantConfig] = None,
     eviction_recent: int = 32,
     tp: Optional[StagedGroup] = None,
-) -> Tuple[torch.Tensor, Cache]:
-    """One decode step: append at each head's length and attend over the
-    compressed cache, dispatched on the cache's type (JAX ``:600-606``):
-    K2 over a dense ``KVCache``, K3 / K4 over an ``Int8KVCache`` /
-    ``Int4KVCache`` (with the :func:`window_lower` bound under a sliding
-    window), and plain torch over a ``QuantizedKVCache``,
-    ``EvictingKVCache`` (``eviction_recent``), ``ThinKCache`` or
-    ``OffloadedKVCache`` (layer ``i + 1``'s host K/V copied while layer
-    ``i`` computes, :class:`~..cache.offload_cache.LayerPrefetch`).
-    ``quant`` is given exactly when the cache is quantized, as in the JAX
-    package.  **Updates ``cache`` in place** (its slots, ``lengths`` and
-    ``positions``) and returns it with the logits [B, V] fp32; the JAX
-    version returns a new cache.  Under ``tp`` (see :func:`prefill`)
-    ``params``, ``cfg`` and ``cache`` are one rank's shard: K2-K4 attend
-    over the rank's heads, and the logits are gathered over the vocabulary."""
+    ep: Optional[ExpertShard] = None,
+) -> torch.Tensor:
+    """The layers of one decode step over hidden states ``x``: every layer
+    of ``params["layers"]`` against the matching layer of ``cache`` (a
+    pipeline stage's layers and its cache slab), RoPE at
+    ``cache.positions``, which advance by one.  Returns the last layer's
+    output ``[B, 1, hidden]``; see :func:`decode_step`."""
     per_token = isinstance(cache, (Int8KVCache, Int4KVCache))
     grouped = isinstance(cache, QuantizedKVCache)
     if (quant is None) == (per_token or grouped) or \
@@ -740,13 +799,10 @@ def decode_step(
                          "quantized, with the cache's nbits")
     if grouped and (cache.k_oval is not None) != quant.outlier_extract:
         raise ValueError("cache outlier planes must match QuantConfig.outlier_extract")
-    L = cfg.num_hidden_layers
     dtype = dtype_of(cfg)
     Hq, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
     H = cache.lengths.shape[2]
     pos = cache.positions
-
-    x = params["embed"][tokens].to(dtype)[:, None]  # [B, 1, hidden]
     # RoPE position = uncompressed token count (reference _seen_tokens sync),
     # not the compressed cache length.
     freqs = pos[:, None].float() * rope_inv_freq(cfg, x.device)[None]
@@ -754,7 +810,7 @@ def decode_step(
     cos, sin = emb.cos(), emb.sin()
     host = LayerPrefetch(cache, x.device) if isinstance(cache, OffloadedKVCache) else None
 
-    for li in range(L):
+    for li in range(wshape(params["layers"]["qkv_proj"])[0]):
         lp = _layer(params, li)
         q, k, v = _qkv(x, lp, cfg, cos, sin)
         if H == Hq and Hq != Hkv:  # per-query-head cache
@@ -772,8 +828,37 @@ def decode_step(
             out = _attend_think(cache, li, q)
         else:
             out = _attend_offloaded(cache, li, q, k, v, *host.layer(li))
-        x = _finish_layer(x, out, lp, cfg, tp)
-
+        x = _finish_layer(x, out, lp, cfg, tp, ep)
     cache.positions.add_(1)
+    return x
+
+
+def decode_step(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B] int, current input token
+    cache: Cache,
+    quant: Optional[QuantConfig] = None,
+    eviction_recent: int = 32,
+    tp: Optional[StagedGroup] = None,
+    ep: Optional[ExpertShard] = None,
+) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: append at each head's length and attend over the
+    compressed cache, dispatched on the cache's type (JAX ``:600-606``):
+    K2 over a dense ``KVCache``, K3 / K4 over an ``Int8KVCache`` /
+    ``Int4KVCache`` (with the :func:`window_lower` bound under a sliding
+    window), and plain torch over a ``QuantizedKVCache``,
+    ``EvictingKVCache`` (``eviction_recent``), ``ThinKCache`` or
+    ``OffloadedKVCache`` (layer ``i + 1``'s host K/V copied while layer
+    ``i`` computes, :class:`~..cache.offload_cache.LayerPrefetch`).
+    ``quant`` is given exactly when the cache is quantized, as in the JAX
+    package.  **Updates ``cache`` in place** (its slots, ``lengths`` and
+    ``positions``) and returns it with the logits [B, V] fp32; the JAX
+    version returns a new cache.  Under ``tp`` (see :func:`prefill`)
+    ``params``, ``cfg`` and ``cache`` are one rank's shard: K2-K4 attend
+    over the rank's heads, and the logits are gathered over the vocabulary;
+    under ``ep`` ``params`` holds the rank's experts (:func:`ffn_block`)."""
+    x = params["embed"][tokens].to(dtype_of(cfg))[:, None]  # [B, 1, hidden]
+    x = decode_hidden(params, cfg, x, cache, quant, eviction_recent, tp, ep)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return lm_logits(x[:, 0], params, tp), cache

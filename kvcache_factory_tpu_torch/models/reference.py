@@ -12,14 +12,19 @@ added where the model has them.  A Mixtral layer's FFN is ``moe_ffn`` on
 the fp32 expert stacks (its per-token dispatch, one layer's experts in
 fp32 at a time: 5.6 GB at Mixtral-8x7B widths); ``moe_router`` is looked
 up in ``models/llama.py`` at each call, so a caller may replay another
-run's routing through it.
+run's routing through it.  Under expert parallelism (``ep``) each rank
+holds its experts and the fp32 block's output is summed over the ranks
+(``llama.ffn_block``), so no rank dequantizes or holds the whole model.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import ModelConfig
+from ..parallel.mesh import ExpertShard
 from ..ops.attention import blocked_causal_attention
 from .llama import (_layer, _merge_heads, _split_heads, apply_rope, ffn_block, rms_norm,
                     rope_tables)
@@ -34,7 +39,7 @@ def _f32(w) -> torch.Tensor:
 
 @torch.no_grad()
 def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   q_block: int = 256) -> torch.Tensor:
+                   q_block: int = 256, ep: Optional[ExpertShard] = None) -> torch.Tensor:
     """tokens [B, T] -> logits [B, T, V] fp32, causal over all T tokens
     (and inside ``cfg.sliding_window`` when the model has one)."""
     B, T = tokens.shape
@@ -59,6 +64,6 @@ def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         o = _merge_heads(attn) @ lp["o_proj"]
         x = x + (o if "o_bias" not in lp else o + lp["o_bias"])
         h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = x + ffn_block(h2, lp, cfg)
+        x = x + ffn_block(h2, lp, cfg, ep=ep)
     x = rms_norm(x, params["final_norm"].to(f32), cfg.rms_norm_eps)
     return x @ _f32(params["lm_head"])

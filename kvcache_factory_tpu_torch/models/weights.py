@@ -116,14 +116,27 @@ def params_from_jax(np_params: Dict[str, Any], device="cuda",
 
 
 def shard_params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, tp: int, rank: int,
-                          device="cuda", dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Rank ``rank`` of ``tp``'s shard of the JAX package's parameter
-    pytree (numpy, as :func:`params_from_jax` takes it), cut as
-    ``parallel/mesh.py::shard_params`` cuts the port's tree (q, k and v
-    split by heads, gate and up by FFN columns, each re-fused), then
-    converted as :func:`params_from_jax` converts."""
+                          device="cuda", dtype: Optional[torch.dtype] = None,
+                          ep: int = 1, ep_rank: int = 0) -> Dict[str, Any]:
+    """Rank ``rank`` of ``tp``'s (and ``ep_rank`` of ``ep``'s) shard of the
+    JAX package's parameter pytree (numpy, as :func:`params_from_jax`
+    takes it), cut as ``parallel/mesh.py::shard_params`` cuts the port's
+    tree (q, k and v split by heads, gate and up by FFN columns, each
+    re-fused; the expert stacks by experts), then converted as
+    :func:`params_from_jax` converts."""
     from ..parallel.mesh import shard_tree
-    return params_from_jax(shard_tree(np_params, cfg, tp, rank), device=device, dtype=dtype)
+    return params_from_jax(shard_tree(np_params, cfg, tp, rank, ep, ep_rank), device=device,
+                           dtype=dtype)
+
+
+def stage_params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, pp: int, stage: int,
+                          device="cuda", dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Pipeline stage ``stage`` of ``pp``'s part of the JAX package's
+    parameter pytree (``parallel/pipeline.py::shard_params_pp``), converted
+    as :func:`params_from_jax` converts."""
+    from ..parallel.pipeline import shard_params_pp
+    return params_from_jax(shard_params_pp(np_params, cfg, pp, stage), device=device,
+                           dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,3 +1,5 @@
-"""The parallel layer: the ``(dp, sp, tp)`` grid of process groups, the
-staged collectives and the Megatron-style parameter shards (``mesh.py``),
-and ring attention over the sp ranks (``ring_attention.py``)."""
+"""The parallel layer: the ``(dp, sp|ep, tp)`` grid of process groups, the
+staged collectives and point-to-point exchanges, and the Megatron-style and
+expert parameter shards (``mesh.py``), ring attention over the sp ranks
+(``ring_attention.py``), and the GPipe pipeline over pp stages
+(``pipeline.py``)."""

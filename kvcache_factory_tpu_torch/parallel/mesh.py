@@ -7,9 +7,10 @@ The port is multi-controller: one process per rank, each holding its own
 shard.  The caller brings up the ``torch.distributed`` process group (a
 script calls ``init_process_group`` itself; the CLI runs under
 ``torchrun``), and :class:`ParallelGroups` lays its ranks out as the
-``(dp, sp, tp)`` grid in row-major order, as ``mesh_utils.
-create_device_mesh((dp, sp, tp))`` lays out JAX's devices, with one
-subgroup (``dist.new_group``) per axis:
+``(dp, sp, tp)`` grid, or the ``(dp, ep, tp)`` grid of an expert-parallel
+layout (sp and ep never compose), in row-major order, as ``mesh_utils.
+create_device_mesh`` lays out JAX's devices, with one subgroup
+(``dist.new_group``) per axis:
 
 * ``dp`` ranks hold rows ``[d * B / dp, (d + 1) * B / dp)`` of the batch;
 * ``sp`` ranks share one prompt; rank ``r`` holds rows ``[r * S / sp,
@@ -18,11 +19,20 @@ subgroup (``dist.new_group``) per axis:
   one rank along the ring (:meth:`SequenceParallelGroup.shift`), and
   prefill fetches a few rows from the ranks that own them
   (:meth:`SequenceParallelGroup.gather_rows`);
+* ``ep`` ranks hold ``E / ep`` of a Mixtral layer's experts each
+  (:func:`shard_tree`); attention, the router, norms, embedding and
+  ``lm_head`` are replicated over ep, and the MoE block's output is
+  reduced once over the ``(ep, tp)`` plane (:attr:`ParallelGroups.ep`);
 * ``tp`` ranks hold a Megatron-style shard of the weights
   (:func:`param_specs`, :func:`shard_params`): their query heads, the KV
   heads those read, their FFN columns and their vocabulary columns.  A
   layer reduces twice over tp (after ``o_proj`` and after the FFN), and
   the logits are gathered over tp before any token is chosen.
+
+``dcn_dp`` of the dp ways cross hosts (:func:`check_dcn`): on one host
+the layout is plain dp.  Pipeline stages (``pp``) are the ranks of the
+default group in order (``parallel/pipeline.py``); they talk point to
+point (:meth:`StagedGroup.exchange`).
 
 The transport follows the group's backend (:class:`StagedGroup`).  NCCL
 moves device tensors when each rank has its own card.  Gloo moves CPU
@@ -38,8 +48,9 @@ or ``tcp://localhost`` address), world size and rank yourself.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +109,55 @@ class StagedGroup:
         self.staged_bytes += nbytes
         self.staged_s += time.perf_counter() - t0
 
+    def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]],
+                 recvs: Sequence[Tuple[Tuple[int, ...], torch.dtype, int]],
+                 device=None) -> List[torch.Tensor]:
+        """Point to point: send each ``(tensor, peer)`` and receive each
+        ``(shape, dtype, peer)`` (peers are ranks of this group), all posted
+        at once, so that ranks exchanging in both directions cannot wait on
+        each other; returns the received tensors on ``device`` (the sent
+        tensors' device by default), complete on return.  Several tensors
+        between one pair of ranks match in order.  One call that moves
+        anything counts as one collective; staged bytes are this rank's
+        sends."""
+        if not sends and not recvs:
+            return []
+        self.collectives += 1
+        if device is None:
+            device = sends[0][0].device if sends else torch.device("cpu")
+        device = torch.device(device)
+        staged = self.backend != "nccl" and (device.type == "cuda" or any(
+            t.is_cuda for t, _ in sends))
+        t0 = time.perf_counter()
+        tags: Dict[Tuple[str, int], int] = {}
+
+        def tag(kind, peer):
+            tags[kind, peer] = tags.get((kind, peer), -1) + 1
+            return tags[kind, peer]
+        send_tags = [tag("send", peer) for _, peer in sends]
+        recv_tags = [tag("recv", peer) for *_, peer in recvs]
+        if staged:
+            out = ([] if not sends else
+                   self._to_host(("xsend",) + tuple((tuple(t.shape), t.dtype, p)
+                                                   for t, p in sends), [t for t, _ in sends]))
+            bufs = [self._host(("xrecv", i, p), shape, dtype)
+                    for i, (shape, dtype, p) in enumerate(recvs)]
+        else:
+            out = [t.contiguous() for t, _ in sends]
+            bufs = [torch.empty(shape, dtype=dtype, device=device) for shape, dtype, _ in recvs]
+        ops = [dist.P2POp(dist.isend, t, peer=self._global_rank(p), group=self.group, tag=tg)
+               for t, (_, p), tg in zip(out, sends, send_tags)]
+        ops += [dist.P2POp(dist.irecv, t, peer=self._global_rank(p), group=self.group, tag=tg)
+                for t, (*_, p), tg in zip(bufs, recvs, recv_tags)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if not staged:
+            return bufs
+        # A blocking copy from pinned memory: the buffers are free on return.
+        got = [b.to(device) for b in bufs]
+        self._count(sum(t.numel() * t.element_size() for t in out), t0)
+        return got
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t``, stacked in rank order: ``[size, *t.shape]``
         on ``t``'s device, the same bytes on every rank."""
@@ -139,11 +199,6 @@ class SequenceParallelGroup(StagedGroup):
     """The ranks of one group (the default group when ``group`` is None)
     as one sequence-parallel ring."""
 
-    def __init__(self, group: Optional[dist.ProcessGroup] = None):
-        super().__init__(group)
-        self._next = self._global_rank((self.rank + 1) % self.size)
-        self._prev = self._global_rank((self.rank - 1) % self.size)
-
     def bounds(self, S: int) -> Tuple[int, int]:
         """This rank's rows ``[lo, hi)`` of a bucket of ``S`` rows."""
         if S % self.size:
@@ -154,28 +209,12 @@ class SequenceParallelGroup(StagedGroup):
 
     def shift(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """One step of the ring: send each tensor to rank + 1 and return the
-        tensors of the same shapes received from rank - 1."""
-        self.collectives += 1
-        staged = self._staged(tensors[0])
-        t0 = time.perf_counter()
-        if staged:
-            sends = self._to_host(("send",), tensors)
-            recvs = [self._host(("recv", i), t.shape, t.dtype) for i, t in enumerate(tensors)]
-        else:
-            sends = [t.contiguous() for t in tensors]
-            recvs = [torch.empty_like(t) for t in sends]
-        ops = [dist.P2POp(dist.isend, t, peer=self._next, group=self.group, tag=i)
-               for i, t in enumerate(sends)]
-        ops += [dist.P2POp(dist.irecv, t, peer=self._prev, group=self.group, tag=i)
-                for i, t in enumerate(recvs)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        if not staged:
-            return recvs
-        # A blocking copy from pinned memory: the buffers are free on return.
-        out = [host.to(t.device) for host, t in zip(recvs, tensors)]
-        self._count(sum(t.numel() * t.element_size() for t in sends), t0)
-        return out
+        tensors of the same shapes received from rank - 1
+        (:meth:`StagedGroup.exchange`)."""
+        nxt, prev = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        return self.exchange([(t, nxt) for t in tensors],
+                             [(tuple(t.shape), t.dtype, prev) for t in tensors],
+                             device=tensors[0].device)
 
     def gather_rows(self, t: torch.Tensor, rows: torch.Tensor, dim: int) -> torch.Tensor:
         """The rows ``rows [B, R]`` (global ids along axis ``dim`` of ``t``,
@@ -286,20 +325,44 @@ def shard_leaf(x, name: str, axis: Optional[int], cfg: ModelConfig, tp: int, ran
     return _cat([_take(x, axis, rank * w, (rank + 1) * w)], axis)
 
 
-def shard_tree(params: Dict[str, Any], cfg: ModelConfig, tp: int, rank: int) -> Dict[str, Any]:
+def expert_slice(cfg: ModelConfig, ep: int, ep_rank: int) -> Tuple[int, int]:
+    """Rank ``ep_rank`` of ``ep``'s experts ``[e0, e0 + n)``: contiguous
+    blocks, as JAX's ``param_specs`` splits the expert axis over ``ep``
+    (``parallel/mesh.py:97-102``)."""
+    E = cfg.num_local_experts
+    if not cfg.is_moe:
+        raise ValueError("ep shards the experts of an MoE model; this model has none")
+    if E % ep:
+        raise ValueError(f"ep={ep} does not divide num_local_experts={E}")
+    n = E // ep
+    return ep_rank * n, n
+
+
+def shard_tree(params: Dict[str, Any], cfg: ModelConfig, tp: int, rank: int,
+               ep: int = 1, ep_rank: int = 0) -> Dict[str, Any]:
     """Rank ``rank``'s shard of a weight tree by :func:`param_specs`.  A
     W8A16 leaf ``{"q", "s"}`` shards ``q`` like its weight and ``s [..., 1,
     out]`` with the output columns of a column-parallel weight; a
-    row-parallel weight's ``s`` is replicated (JAX ``mesh.py:138-166``)."""
+    row-parallel weight's ``s`` is replicated (JAX ``mesh.py:138-166``).
+    With ``ep`` the expert stacks ``gate_up_proj`` / ``down_proj`` ``[L, E,
+    ...]`` (``q`` and ``s`` alike) keep rank ``ep_rank``'s experts
+    (:func:`expert_slice`) before the tp cut inside each expert; every
+    other leaf is replicated over ep."""
     shard_model_config(cfg, tp)  # the widths must split
     specs = param_specs(cfg)
+    e0, n_e = expert_slice(cfg, ep, ep_rank) if ep > 1 else (0, 0)
+
+    def experts(name, x):
+        if ep == 1 or name not in ("gate_up_proj", "down_proj"):
+            return x
+        return _cat([_take(x, 1, e0, e0 + n_e)], 1)
 
     def leaf(name, x, axis):
         if isinstance(x, dict):
             s_axis = axis if axis == -1 else None
-            return {"q": shard_leaf(x["q"], name, axis, cfg, tp, rank),
-                    "s": shard_leaf(x["s"], name, s_axis, cfg, tp, rank)}
-        return shard_leaf(x, name, axis, cfg, tp, rank)
+            return {"q": shard_leaf(experts(name, x["q"]), name, axis, cfg, tp, rank),
+                    "s": shard_leaf(experts(name, x["s"]), name, s_axis, cfg, tp, rank)}
+        return shard_leaf(experts(name, x), name, axis, cfg, tp, rank)
 
     missing = (set(params["layers"]) - set(specs["layers"])) | (set(params) - set(specs))
     if missing:
@@ -309,56 +372,107 @@ def shard_tree(params: Dict[str, Any], cfg: ModelConfig, tp: int, rank: int) -> 
     return out
 
 
+def check_dcn(sharding: ShardingConfig, world: Optional[int] = None,
+              local_world: Optional[int] = None) -> int:
+    """The hosts a layout's ranks span, by torchrun's ``WORLD_SIZE`` and
+    ``LOCAL_WORLD_SIZE`` (one host where they are unset or equal).  On one
+    host ``dcn_dp`` is plain dp, as JAX's flat mesh when
+    ``process_count() == 1``; across hosts the leading ``dcn_dp`` ways of
+    dp must be the hosts (ranks are numbered host by host, so a host
+    holds ``world / hosts`` consecutive ranks), else ``ValueError``: the
+    layout cannot put its inter-host ways across hosts."""
+    world = int(os.environ.get("WORLD_SIZE", sharding.world)) if world is None else world
+    local_world = (int(os.environ.get("LOCAL_WORLD_SIZE", world)) if local_world is None
+                   else local_world)
+    if world % local_world:
+        raise ValueError(f"{world} ranks do not split into hosts of {local_world}")
+    hosts = world // local_world
+    if hosts == 1:
+        return 1
+    if hosts != sharding.dcn_dp:
+        raise ValueError(f"dcn_dp={sharding.dcn_dp} must equal the hosts the ranks span "
+                         f"({hosts}: {world} ranks, {local_world} a host): dp's inter-host "
+                         "ways are the hosts, and only dp crosses them")
+    return hosts
+
+
+class ExpertShard(NamedTuple):
+    """One rank's experts under ep: its first expert ``e0`` (it holds
+    ``[e0, e0 + n)``, ``n`` from its weights) and the group over which the
+    MoE block's output is reduced (the ``(ep, tp)`` plane)."""
+
+    e0: int
+    group: StagedGroup
+
+
 class ParallelGroups:
     """The ``(dp, sp, tp)`` grid of ``sharding`` over the ranks of the
-    default group, which must hold ``dp * sp * tp`` ranks: this rank's
-    coordinates (``dp_rank``, ``sp_rank``, ``tp_rank``) and one group
-    object per axis wider than one rank
-    (``dp``, ``tp``: :class:`StagedGroup`; ``sp``:
-    :class:`SequenceParallelGroup`; None for an axis of one rank).  The
-    subgroups come from ``dist.new_group``, which every rank of the default
-    group calls for every subgroup in one order, so every rank builds the
-    grid together (:func:`parallel_groups` builds each grid once per
-    process)."""
+    default group, or its ``(dp, ep, tp)`` grid when ``ep > 1``, which must
+    hold ``sharding.world`` ranks: this rank's coordinates (``dp_rank``,
+    ``sp_rank``, ``ep_rank``, ``tp_rank``) and one group object per axis
+    wider than one rank (``dp``, ``tp``: :class:`StagedGroup`; ``sp``:
+    :class:`SequenceParallelGroup`; None for an axis of one rank).  Under
+    ep, ``ep`` is the ``(ep, tp)`` plane of this rank's dp row: the ranks
+    that hold one layer's experts between them, over which the MoE block
+    is reduced once.  The subgroups come from ``dist.new_group``, which
+    every rank of the default group calls for every subgroup in one order,
+    so every rank builds the grid together (:func:`parallel_groups` builds
+    each grid once per process)."""
 
     def __init__(self, sharding: ShardingConfig):
+        mid_name, mid = ("ep", sharding.ep) if sharding.ep > 1 else ("sp", sharding.sp)
+        layout = (f"ShardingConfig(dp={sharding.dp}, {mid_name}={mid}, tp={sharding.tp}"
+                  + (f", dcn_dp={sharding.dcn_dp})" if sharding.dcn_dp > 1 else ")"))
         if not (dist.is_available() and dist.is_initialized()):
             raise ValueError(
-                f"ShardingConfig(dp={sharding.dp}, sp={sharding.sp}, tp={sharding.tp}) needs an "
-                "initialized torch.distributed process group of "
+                f"{layout} needs an initialized torch.distributed process group of "
                 f"{sharding.world} ranks: launch under torchrun --nproc-per-node "
                 f"{sharding.world}, or call init_process_group in every rank")
+        if sharding.pp > 1:
+            raise ValueError("a pp layout runs on its stages (parallel/pipeline.py), "
+                             "not on the (dp, sp|ep, tp) grid")
         world = dist.get_world_size()
-        shape = (sharding.dp, sharding.sp, sharding.tp)
+        shape = (sharding.dp, mid, sharding.tp)
         if world != sharding.world:
-            raise ValueError(f"ShardingConfig(dp={shape[0]}, sp={shape[1]}, tp={shape[2]}) needs "
-                             f"a process group of {sharding.world} ranks, got {world}")
+            raise ValueError(f"{layout} needs a process group of {sharding.world} ranks, "
+                             f"got {world}")
+        if sharding.dcn_dp > 1:
+            check_dcn(sharding, world)
         self.sharding = sharding
         self.rank = dist.get_rank()
-        self.dp_rank, self.sp_rank, self.tp_rank = (int(c) for c in
-                                                    np.unravel_index(self.rank, shape))
+        self.dp_rank, mid_rank, self.tp_rank = (int(c) for c in
+                                                np.unravel_index(self.rank, shape))
+        self.sp_rank, self.ep_rank = (0, mid_rank) if mid_name == "ep" else (mid_rank, 0)
         grid = np.arange(world).reshape(shape)
-        subgroups = []
-        for axis, kind in enumerate((StagedGroup, SequenceParallelGroup, StagedGroup)):
-            if shape[axis] == 1:
-                subgroups.append(None)
-                continue
-            if shape[axis] == world:
-                subgroups.append(kind())
-                continue
-            mine = None
-            for members in np.moveaxis(grid, axis, -1).reshape(-1, shape[axis]):
-                g = dist.new_group(ranks=members.tolist())
-                if self.rank in members:
-                    mine = kind(g)
-            subgroups.append(mine)
-        self.dp, self.sp, self.tp = subgroups
+        self.dp = self._subgroup(grid, shape, world, (0,), StagedGroup)
+        self.sp = self.ep = None
+        if mid_name == "sp":
+            self.sp = self._subgroup(grid, shape, world, (1,), SequenceParallelGroup)
+        else:
+            self.ep = self._subgroup(grid, shape, world, (1, 2), StagedGroup)
+        self.tp = self._subgroup(grid, shape, world, (2,), StagedGroup)
+
+    def _subgroup(self, grid, shape, world, axes, kind):
+        """This rank's group over the grid ``axes`` (None for one rank):
+        ``dist.new_group`` for every group of that kind, on every rank."""
+        size = int(np.prod([shape[a] for a in axes]))
+        if size == 1:
+            return None
+        if size == world:
+            return kind()
+        mine = None
+        rest = [a for a in range(3) if a not in axes]
+        for members in np.transpose(grid, rest + list(axes)).reshape(-1, size):
+            g = dist.new_group(ranks=members.tolist())
+            if self.rank in members:
+                mine = kind(g)
+        return mine
 
     @property
     def groups(self) -> Dict[str, StagedGroup]:
         """The axes wider than one rank, by name."""
-        return {name: g for name, g in (("dp", self.dp), ("sp", self.sp), ("tp", self.tp))
-                if g is not None}
+        return {name: g for name, g in (("dp", self.dp), ("sp", self.sp), ("ep", self.ep),
+                                        ("tp", self.tp)) if g is not None}
 
     def reset_counts(self) -> None:
         for g in self.groups.values():
@@ -383,6 +497,12 @@ class ParallelGroups:
     def kv_head_offset(self, cfg: ModelConfig) -> int:
         return kv_head_offset(cfg, self.sharding.tp, self.tp_rank)
 
+    def experts(self, cfg: ModelConfig) -> Optional[ExpertShard]:
+        """This rank's :class:`ExpertShard` under ep (None without ep)."""
+        if self.ep is None:
+            return None
+        return ExpertShard(expert_slice(cfg, self.sharding.ep, self.ep_rank)[0], self.ep)
+
     def gather_dp(self, t: torch.Tensor) -> torch.Tensor:
         """The dp ranks' ``t`` concatenated along axis 0, in dp order."""
         if self.dp is None:
@@ -399,7 +519,7 @@ def parallel_groups(sharding: ShardingConfig) -> ParallelGroups:
     and default group (building one creates subgroups, a collective call of
     every rank)."""
     world = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
-    key = (sharding.dp, sharding.sp, sharding.tp, world)
+    key = (sharding.dp, sharding.sp, sharding.ep, sharding.tp, sharding.dcn_dp, world)
     grid = _GRIDS.get(key)
     if grid is None:
         grid = _GRIDS[key] = ParallelGroups(sharding)
@@ -408,9 +528,12 @@ def parallel_groups(sharding: ShardingConfig) -> ParallelGroups:
 
 def shard_params(params: Dict[str, Any], groups: ParallelGroups,
                  cfg: ModelConfig) -> Dict[str, Any]:
-    """This rank's tp shard of ``params`` (:func:`shard_tree`); the whole
-    tree where tp is 1."""
-    return shard_tree(params, cfg, groups.sharding.tp, groups.tp_rank)
+    """This rank's tp (and ep) shard of ``params`` (:func:`shard_tree`);
+    the whole tree where tp and ep are 1."""
+    sh = groups.sharding
+    if sh.tp == 1 and sh.ep == 1:
+        return params
+    return shard_tree(params, cfg, sh.tp, groups.tp_rank, sh.ep, groups.ep_rank)
 
 
 def gather_vocab(tp: Optional[StagedGroup], logits: torch.Tensor) -> torch.Tensor:

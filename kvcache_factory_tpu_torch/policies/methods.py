@@ -84,6 +84,10 @@ class LayerContext(NamedTuple):
     # This rank's tile under data or tensor parallelism (None: the whole
     # batch and every head).
     shard: Optional[HeadShard] = None
+    # h2o's column sums over every query row ([H_q, S], NEG_INF-masked),
+    # computed by the caller where no rank holds every row (sequence
+    # parallelism); when present h2o skips its own scoring.
+    full_scores: Optional[torch.Tensor] = None
 
 
 def uniform_draw(rng: torch.Generator, layer_idx: int, example: int,
@@ -152,7 +156,8 @@ def compress_layer(
     k: torch.Tensor,         # [H_kv, S, D] post-RoPE keys
     v: torch.Tensor,         # [H_kv, S, D]
     q: torch.Tensor,         # [H_q, S, D] (with ctx.window_scores, only its
-                             # head count is read, and think's last rows)
+                             # head count is read, and think's last rows;
+                             # with ctx.full_scores only its head count)
     true_len: torch.Tensor,  # 0-d int tensor
     ctx: LayerContext,
 ) -> PackedKV:
@@ -219,7 +224,9 @@ def compress_layer(
             budget = torch.minimum(ctx.head_capacity.to(torch.int64).clamp(min=0), upper)
 
     elif method == "h2o":
-        raw = full_attention_scores(_repeat_heads(k, groups), q, true_len, w)
+        raw = ctx.full_scores
+        if raw is None:
+            raw = full_attention_scores(_repeat_heads(k, groups), q, true_len, w)
         scores = _reduce_groups(raw, groups, cfg.group_reduce)
         budget = uniform_budget(cfg.base_capacity)
 
@@ -320,7 +327,8 @@ def compress_prefill(
     outs = []
     for b in range(B):
         ws = None if ctx.window_scores is None else ctx.window_scores[b]
-        c = LayerContext(ctx.layer_idx, ctx.head_capacity, draws[b], ws, sh)
+        fs = None if ctx.full_scores is None else ctx.full_scores[b]
+        c = LayerContext(ctx.layer_idx, ctx.head_capacity, draws[b], ws, sh, fs)
         outs.append(compress_layer(cfg, num_layers, capacity, k[b], v[b], q[b],
                                    true_len[b], c))
     return PackedKV(*(torch.stack(parts) for parts in zip(*outs)))

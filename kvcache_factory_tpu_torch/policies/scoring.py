@@ -14,7 +14,7 @@ with zeros that are counted (``count_include_pad=True``), max-pool pads with
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -101,34 +101,42 @@ def window_attention_scores(
 
 def full_attention_scores(
     k: torch.Tensor,         # [H, S, D]
-    q: torch.Tensor,         # [H, S, D]
+    q: torch.Tensor,         # [H, S_q, D], rows [row0, row0 + S_q) of the prompt
     true_len: torch.Tensor,  # 0-d int tensor
     window_size: int,
     *,
     row_block: int = 256,
+    row0: int = 0,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """H2O heavy-hitter scores: column sums of the fp32 softmax over all
     valid query rows (JAX ``full_attention_scores``), with the reference's
     quirk kept: the only causal mask is the trailing window x window block,
     so earlier rows attend to later keys.  Query rows go in blocks of
     ``row_block``, so memory is O(H * row_block * S).  Returns ``[H, S]``
-    fp32 with the window and padding columns at NEG_INF."""
-    H, S, D = q.shape
+    fp32 with the window and padding columns at NEG_INF.  ``q`` may hold
+    only rows ``[row0, row0 + S_q)`` (a sequence-parallel rank's): their
+    sums then pass through ``reduce`` (the sum over the ranks that hold
+    the other rows) before the masking."""
+    H, S_q, D = q.shape
+    S = k.shape[1]
     tl = true_len.to(torch.int64)
     win_start = tl - window_size
     scale = 1.0 / float(D) ** 0.5
     kt = k.float().transpose(1, 2)
     cols = torch.arange(S, device=k.device)[None]
     acc = torch.zeros((H, S), dtype=torch.float32, device=k.device)
-    for r0 in range(0, S, row_block):
+    for r0 in range(0, S_q, row_block):
         qb = q[:, r0:r0 + row_block].float()
-        rows = torch.arange(r0, r0 + qb.shape[1], device=k.device)[:, None]
+        rows = torch.arange(row0 + r0, row0 + r0 + qb.shape[1], device=k.device)[:, None]
         logits = torch.matmul(qb, kt).mul_(scale)  # [H, rb, S]
         bad = ((rows >= win_start) & (cols >= win_start) & (cols > rows)) | (cols >= tl)
         probs = torch.softmax(logits.masked_fill_(bad, NEG_INF), dim=-1)
         # The column sums over the valid rows, as one product.
         valid = (rows < tl).to(torch.float32).T.expand(H, 1, -1)
         acc += torch.matmul(valid, probs)[:, 0]
+    if reduce is not None:
+        acc = reduce(acc)
     return torch.where(cols >= win_start, NEG_INF, acc)
 
 

@@ -1,6 +1,6 @@
 """Continuous batching: slot-based request scheduling over one batched cache
 (port of ``kvcache_factory_tpu/runtime/batching.py``, on one device or on
-a ``(dp, tp)`` grid of ranks).
+a ``(dp, tp)`` or ``(dp, ep, tp)`` grid of ranks).
 
 A fixed pool of decode slots shares one batched cache ``[L, n_slots, H, C,
 D]``; finished slots are refilled from the request queue while the other
@@ -45,20 +45,24 @@ Where torch is not JAX (state is updated in place):
   construction before every admission's prefill or finalize, as JAX's
   engine hands one key to every call.
 
-Under ``cfg.sharding`` ``(dp, tp)`` (JAX ``:207-217``) the engine runs on
-each rank of a ``torch.distributed`` group of ``dp * tp`` ranks
+Under ``cfg.sharding`` ``(dp, tp)`` or ``(dp, ep, tp)`` (JAX
+``:144-153, 207-217``) the engine runs on each rank of a
+``torch.distributed`` group of ``dp * ep * tp`` ranks
 (``parallel/mesh.py::ParallelGroups``), every rank submitting the same
 requests.  Slots shard over dp: dp rank ``d`` holds slots ``[d * n /
 dp, (d + 1) * n / dp)`` of ``n`` and computes only their rows (their
 prefills, chunk pools and cache rows); heads shard over tp, each tp rank
-holding its shard of the weights and of the cache.  Every rank runs the
+holding its shard of the weights and of the cache; each ep rank holds its
+experts and every head (one-shot admission only: chunked admission under
+ep raises JAX's ``ValueError``).  Every rank runs the
 same scheduler.  After each loop iteration's admission work and after
 each decode chunk the dp ranks gather the first tokens of the slots they
 activated, their pending chunked admissions and every slot's tokens, so
 that the replicated schedulers agree on what each slot emitted and which
 slot finished.  Under dp a slot's activation waits for that gather: the
 slots prefilled in one iteration activate together, in admission order,
-after its admission loop.  sp is not served here (ROADMAP.md item 1.11).
+after its admission loop.  sp and pp are not served here, as JAX's
+batching engine has no path for either.
 """
 
 from __future__ import annotations
@@ -145,10 +149,10 @@ class ContinuousBatchingEngine:
     neither and makes no extra synchronisation.  Under dp a rank records
     the logits of the requests its slots served.
 
-    Under a ``(dp, tp)`` layout the engine runs on each rank of the
-    default ``torch.distributed`` group; it shards full ``params`` or takes
-    the rank's shard, as ``InferenceEngine`` does, and ``self.cache`` is
-    then this rank's slots and heads."""
+    Under a ``(dp, tp)`` or ``(dp, ep, tp)`` layout the engine runs on
+    each rank of the default ``torch.distributed`` group; it shards full
+    ``params`` or takes the rank's shard, as ``InferenceEngine`` does, and
+    ``self.cache`` is then this rank's slots and heads."""
 
     def __init__(self, params, cfg: EngineConfig, n_slots: int = 4,
                  max_new_cap: int = 256, eos_token_ids: Sequence[int] = (),
@@ -160,9 +164,12 @@ class ContinuousBatchingEngine:
         if cfg.compression.method == "headkv" and head_capacity is None:
             raise ValueError("headkv requires head_capacity (as in InferenceEngine)")
         sh = cfg.sharding
-        if sh.sp > 1:
-            raise NotImplementedError("sp in the batching engine is not ported yet "
-                                      "(ROADMAP.md item 1.11)")
+        if sh.sp > 1 or sh.pp > 1:
+            raise ValueError("the batching engine serves dp, tp and ep; sp and pp run "
+                             "through InferenceEngine (JAX's batching engine has neither)")
+        if prefill_chunk_tokens and sh.ep > 1:
+            raise ValueError("chunked admission (prefill_chunk_tokens) does not compose with "
+                             "expert parallelism (ep); use one-shot admission under ep meshes")
         if n_slots % sh.dp:
             raise ValueError(f"n_slots={n_slots} must be divisible by dp={sh.dp} "
                              "(slots shard over dp)")
@@ -173,10 +180,11 @@ class ContinuousBatchingEngine:
         self.cfg = cfg
         # This rank's grid, widths and slots [slot0, slot0 + n_local).
         self.groups, self.model_cfg = rank_grid(cfg)
-        self.tp_group = self.dp_group = None
+        self.tp_group = self.dp_group = self.experts = None
         self.n_local, self.slot0 = n_slots // sh.dp, 0
         if self.groups is not None:
             self.tp_group, self.dp_group = self.groups.tp, self.groups.dp
+            self.experts = self.groups.experts(cfg.model)
             self.slot0 = self.groups.dp_rank * self.n_local
         self.params = rank_params(params, cfg, self.groups)
         self.head_capacity = head_rows(head_capacity, cfg, self.groups, self.device)
@@ -305,7 +313,7 @@ class ContinuousBatchingEngine:
                             torch.tensor([len(prompt)], dtype=torch.int32, device=self.device),
                             self.cache_capacity, quant=self.cfg.quant, rng=self._fresh_rng(),
                             head_capacity=self.head_capacity, tp=self.tp_group,
-                            shard=self._row_shard())
+                            shard=self._row_shard(), ep=self.experts)
         return res.cache, res.logits_last
 
     def _chunk_group(self, bucket: int) -> dict:
@@ -459,7 +467,8 @@ class ContinuousBatchingEngine:
                 break
             lens0, pos0 = cache.lengths.clone(), cache.positions.clone()
             logits, _ = llama.decode_step(self.params, self.model_cfg, tok, cache, quant=quant,
-                                          eviction_recent=evr, tp=self.tp_group)
+                                          eviction_recent=evr, tp=self.tp_group,
+                                          ep=self.experts)
             cache.lengths.copy_(torch.where(act[None, :, None], cache.lengths, lens0))
             cache.positions.copy_(torch.where(act, cache.positions, pos0))
             tok = torch.where(act, logits.argmax(-1), tok)

@@ -1,6 +1,6 @@
 """High-level inference engine: prompt buckets and cache sizing (port of
-``kvcache_factory_tpu/runtime/engine.py``: the single-device path and the
-``(dp, sp, tp)`` layouts of ``cfg.sharding``).
+``kvcache_factory_tpu/runtime/engine.py``: the single-device path and
+every layout of ``cfg.sharding``).
 
 Prompts are right-padded to the nearest bucket and masked via ``true_len``,
 so each bucket gives results identical to an exact-length run.  The cache
@@ -18,19 +18,25 @@ does (both batching engines refuse headkv without them).  ``rng`` is the
 seeded 0 by default; every call starts from its state at construction, as
 the JAX engine hands one key to every call.
 
-With ``dp * sp * tp > 1`` (JAX ``:48-119, 195-236``) the engine runs on
-each rank of an initialized ``torch.distributed`` group of that many ranks
-(the default group), laid out as the ``(dp, sp, tp)`` grid of
-``parallel/mesh.py::ParallelGroups``; every rank calls
+With ``cfg.sharding.world > 1`` (JAX ``:48-119, 170-236``) the engine
+runs on each rank of an initialized ``torch.distributed`` group of that
+many ranks (the default group); every rank calls
 :meth:`InferenceEngine.generate_batch` with the same prompts and gets the
-whole batch's ids (and logits) back.  The batch is padded to a multiple of
-dp by repeating its last row and each dp rank generates its rows; each tp
-rank holds its shard of the weights (the engine shards full ``params``
-itself, or takes the rank's shard from ``shard_params``, so that a caller
-at full width never holds the whole model) and of the cache; sp splits
-each bucket's rows over the sp ranks (ring attention in prefill, decode on
-every sp rank).  ``sparse_budgets`` and ``head_capacity`` are the whole
-model's; each rank keeps its heads' rows.
+whole batch's ids (and logits) back.  A ``(dp, sp, tp)`` or ``(dp, ep,
+tp)`` layout runs on the grid of ``parallel/mesh.py::ParallelGroups``:
+the batch is padded to a multiple of dp by repeating its last row and
+each dp rank generates its rows; each tp rank holds its shard of the
+weights and of the cache, each ep rank its experts (the engine shards
+full ``params`` itself, or takes the rank's shard from
+``shard_params``, so that a caller at full width never holds the whole
+model); sp splits each bucket's rows over the sp ranks (ring attention in
+prefill, decode on every sp rank).  ``sparse_budgets`` and
+``head_capacity`` are the whole model's; each rank keeps its heads' rows.
+A ``pp`` layout runs the GPipe schedule (``parallel/pipeline.py``): each
+rank is a stage holding its layers (cut from full ``params`` here, or
+taken from ``shard_params_pp``), the batch pads to ``pp_microbatches``
+(0 = pp), and the greedy ids are trimmed at EOS afterwards, as JAX's
+engine does (``:170-190``).
 """
 
 from __future__ import annotations
@@ -41,10 +47,13 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CompressionConfig, EngineConfig, GenerationConfig, ModelConfig
 from ..models import llama
-from ..parallel.mesh import ParallelGroups, parallel_groups, shard_model_config, shard_params
+from ..parallel import pipeline
+from ..parallel.mesh import (ParallelGroups, StagedGroup, expert_slice, parallel_groups,
+                             shard_model_config, shard_params)
 from ..policies.methods import HeadShard
 from .generate import GenerateResult, generate
 
@@ -54,9 +63,12 @@ def check_tp_layout(cfg: EngineConfig) -> None:
     (``parallel/mesh.py::shard_model_config``), or a cache of the KV heads
     (fullkv, minference, a grouped reduce) that tp does not divide: each
     rank of a larger tp reads a KV head that other ranks read too, and only
-    a cache kept per query head splits then."""
+    a cache kept per query head splits then; or an ep that is not a
+    divisor of an MoE model's experts."""
     tp, m = cfg.sharding.tp, cfg.model
     shard_model_config(m, tp)
+    if cfg.sharding.ep > 1:
+        expert_slice(m, cfg.sharding.ep, 0)
     heads = cfg.compression.cache_heads(m.num_attention_heads, m.num_key_value_heads)
     if heads % tp:
         raise ValueError(f"{cfg.compression.method!r} (group_reduce="
@@ -65,9 +77,9 @@ def check_tp_layout(cfg: EngineConfig) -> None:
 
 
 def rank_grid(cfg: EngineConfig) -> Tuple[Optional[ParallelGroups], ModelConfig]:
-    """This rank's ``(dp, sp, tp)`` grid over the default group and the
-    widths it computes (``None`` and the whole model on one device), after the
-    layout's checks."""
+    """This rank's ``(dp, sp|ep, tp)`` grid over the default group and the
+    widths it computes (``None`` and the whole model on one device), after
+    the layout's checks."""
     if cfg.sharding.world == 1:
         return None, cfg.model
     check_tp_layout(cfg)
@@ -76,17 +88,31 @@ def rank_grid(cfg: EngineConfig) -> Tuple[Optional[ParallelGroups], ModelConfig]
 
 
 def rank_params(params, cfg: EngineConfig, groups: Optional[ParallelGroups]):
-    """This rank's tp shard of ``params``: cut from the full tree, or the
-    tree itself where ``shard_params`` has cut it (its ``lm_head`` holds
-    ``V / tp`` columns) or tp is 1."""
-    tp, V = cfg.sharding.tp, cfg.model.vocab_size
-    cols = llama.wshape(params["lm_head"])[-1]
-    if tp == 1 or cols * tp == V:
+    """This rank's tp / ep shard of ``params``: cut from the full tree, or
+    the tree itself where ``shard_params`` has cut it (its ``lm_head``
+    holds ``V / tp`` columns, its expert stacks ``E / ep`` experts) or tp
+    and ep are 1."""
+    sh, m = cfg.sharding, cfg.model
+    if groups is None or (sh.tp == 1 and sh.ep == 1):
         return params
-    if cols != V:
-        raise ValueError(f"lm_head has {cols} columns: neither the vocabulary ({V}) "
-                         f"nor one tp={tp} shard of it")
-    return shard_params(params, groups, cfg.model)
+    V, cols = m.vocab_size, llama.wshape(params["lm_head"])[-1]
+    cut = []
+    if sh.tp > 1:
+        if cols not in (V, V // sh.tp):
+            raise ValueError(f"lm_head has {cols} columns: neither the vocabulary ({V}) "
+                             f"nor one tp={sh.tp} shard of it")
+        cut.append(cols * sh.tp == V)
+    if sh.ep > 1:
+        n_e = llama.wshape(params["layers"]["gate_up_proj"])[1]
+        if n_e not in (m.num_local_experts, m.num_local_experts // sh.ep):
+            raise ValueError(f"gate_up_proj holds {n_e} experts: neither the model's "
+                             f"({m.num_local_experts}) nor one ep={sh.ep} shard of them")
+        cut.append(n_e * sh.ep == m.num_local_experts)
+    if all(cut):
+        return params
+    if any(cut):
+        raise ValueError("params are cut over some of the layout's axes and not others")
+    return shard_params(params, groups, m)
 
 
 def head_rows(per_head, cfg: EngineConfig, groups: Optional[ParallelGroups], device,
@@ -108,16 +134,23 @@ def head_rows(per_head, cfg: EngineConfig, groups: Optional[ParallelGroups], dev
     return t[:, h0:h0 + n // tp].contiguous()
 
 
+def _device_of(params) -> torch.device:
+    """The device of a weight tree (a pipeline stage's holds no embedding
+    past stage 0)."""
+    w = params["layers"]["input_norm"]
+    return w.device
+
+
 class InferenceEngine:
     def __init__(self, params, cfg: EngineConfig, device="cuda",
                  sparse_budgets: Optional[np.ndarray] = None,
                  head_capacity: Optional[np.ndarray] = None,
                  rng: Optional[torch.Generator] = None):
         sh = cfg.sharding
-        llama._check_supported(cfg.model, cfg.compression, cfg.quant, sp=sh.sp > 1)
+        llama._check_supported(cfg.model, cfg.compression, cfg.quant)
         self.device = torch.device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params are on {params['embed'].device}, the "
+        if _device_of(params).type != self.device.type:
+            raise ValueError(f"params are on {_device_of(params)}, the "
                              f"engine runs on {self.device}")
         self.cfg = cfg
         self.buckets = sorted(cfg.prefill_buckets)
@@ -126,12 +159,21 @@ class InferenceEngine:
             if bad:
                 raise ValueError(f"prefill buckets {bad} not divisible by sp={sh.sp} "
                                  "(sequence shards must be equal)")
-        # This rank's groups (None on one device) and the widths it computes.
-        self.groups, self.model_cfg = rank_grid(cfg)
-        self.sp_group = self.tp_group = None
-        if self.groups is not None:
-            self.sp_group, self.tp_group = self.groups.sp, self.groups.tp
-        self.params = rank_params(params, cfg, self.groups)
+        self.groups, self.model_cfg = None, cfg.model
+        self.sp_group = self.tp_group = self.experts = self.pp_group = None
+        self.batch_multiple = sh.dp
+        if sh.pp > 1:
+            pipeline.check_pp(cfg)
+            self.pp_group = pp_group(sh.pp)
+            self.batch_multiple = sh.pp_microbatches or sh.pp
+            self.params = stage_params(params, cfg.model, sh.pp, self.pp_group.rank)
+        else:
+            # This rank's groups (None on one device) and the widths it computes.
+            self.groups, self.model_cfg = rank_grid(cfg)
+            if self.groups is not None:
+                self.sp_group, self.tp_group = self.groups.sp, self.groups.tp
+                self.experts = self.groups.experts(cfg.model)
+            self.params = rank_params(params, cfg, self.groups)
         self.sparse_budgets = head_rows(sparse_budgets, cfg, self.groups, self.device,
                                         cache_heads=False)
         self.head_capacity = head_rows(head_capacity, cfg, self.groups, self.device)
@@ -174,6 +216,8 @@ class InferenceEngine:
                   return_logits: bool = False) -> GenerateResult:
         S = toks.shape[1]
         self.rng.set_state(self._rng_state)
+        if self.pp_group is not None:
+            return self._generate_pp(toks, lens, gen_cfg, return_logits)
         B = toks.shape[0]
         lo, hi, shard = 0, B, None
         sh, m = self.cfg.sharding, self.cfg.model
@@ -188,12 +232,34 @@ class InferenceEngine:
                        device=self.device, return_logits=return_logits,
                        sparse_budgets=self.sparse_budgets, sp_group=self.sp_group,
                        rng=self.rng, head_capacity=self.head_capacity, tp=self.tp_group,
-                       shard=shard)
+                       shard=shard, ep=self.experts)
         if sh.dp == 1:
             return res
         gather = self.groups.gather_dp
         return GenerateResult(gather(res.tokens), gather(res.num_tokens), res.cache,
                               None if res.logits is None else gather(res.logits))
+
+    def _generate_pp(self, toks: np.ndarray, lens: np.ndarray, gen_cfg: GenerationConfig,
+                     return_logits: bool) -> GenerateResult:
+        """The pp branch (JAX ``:170-190``): ``pp_generate``'s fixed-length
+        greedy ids, trimmed at EOS afterwards; a token up to and including
+        the first EOS is the one ``generate`` emits, and the EOS counts."""
+        if gen_cfg.do_sample:
+            raise ValueError("pp decodes greedily (JAX's pp_generate); sampling runs on "
+                             "one device or the (dp, sp|ep, tp) grid")
+        S, N = toks.shape[1], gen_cfg.max_new_tokens
+        res = pipeline.pp_generate(
+            self.params, self.cfg.model, self._comp_for_bucket(S),
+            torch.as_tensor(toks, device=self.device), torch.as_tensor(lens, device=self.device),
+            self.pp_group, n_microbatches=self.batch_multiple, max_new_tokens=N,
+            cache_capacity=self._cache_capacity(S, N), head_capacity=self.head_capacity,
+            rng=self.rng, return_logits=return_logits)
+        out = res.tokens
+        num = torch.full((out.shape[0],), N, dtype=torch.int32, device=out.device)
+        if gen_cfg.eos_token_ids:
+            hit = torch.isin(out, torch.tensor(gen_cfg.eos_token_ids, device=out.device))
+            num = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1, num).to(torch.int32)
+        return GenerateResult(out, num, res.cache, res.logits)
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int,
                      eos_token_ids: Sequence[int] = ()) -> List[int]:
@@ -203,31 +269,65 @@ class InferenceEngine:
     def generate_batch(self, prompts: Sequence[Sequence[int]], max_new_tokens: int,
                        eos_token_ids: Sequence[int] = (),
                        return_result: bool = False,
+                       generation: Optional[GenerationConfig] = None,
                        ) -> Union[List[List[int]], Tuple[List[List[int]], GenerateResult]]:
         """Batched greedy generation over prompts padded to the largest
-        member's bucket, the batch padded to a multiple of dp by repeating
-        its last row (JAX ``engine.py:226-236``).  Returns one EOS-trimmed id
-        list per prompt; with ``return_result`` also the ``GenerateResult``
-        (the fp32 logits each token was chosen from, the padded batch's rows
-        on every rank; the final cache, this rank's shard of it).  Where
-        ``cfg.generation`` sets ``do_sample`` the tokens are drawn by its
-        temperature / top-k / top-p from the engine's ``rng`` (JAX's engine
-        is greedy only), every rank drawing the whole batch's noise and
-        keeping its rows."""
+        member's bucket, the batch padded to a multiple of dp (of
+        ``pp_microbatches`` under pp) by repeating its last row (JAX
+        ``engine.py:226-236``).  Returns one EOS-trimmed id list per prompt;
+        with ``return_result`` also the ``GenerateResult`` (the fp32 logits
+        each token was chosen from, the padded batch's rows on every rank;
+        the final cache, this rank's shard of it).  The tokens are chosen
+        by ``GenerationConfig(max_new_tokens, eos_token_ids)``, greedy, as
+        JAX's engine chooses them (``cfg.generation`` is not read).  An
+        explicit ``generation`` (its ``max_new_tokens`` and
+        ``eos_token_ids`` replaced by the arguments) takes its
+        ``min_new_tokens`` and, with ``do_sample``, draws each token by its
+        temperature / top-k / top-p from the engine's ``rng``, every rank
+        drawing the whole batch's noise and keeping its rows."""
         n = len(prompts)
         S = self._bucket(max(len(p) for p in prompts))
-        dp = self.cfg.sharding.dp
-        B = -(-n // dp) * dp
+        B = -(-n // self.batch_multiple) * self.batch_multiple
         toks = np.zeros((B, S), np.int64)
         lens = np.zeros((B,), np.int32)
         for i in range(B):
             p = prompts[min(i, n - 1)]
             toks[i, :len(p)] = p
             lens[i] = len(p)
-        gen_cfg = dataclasses.replace(self.cfg.generation, max_new_tokens=max_new_tokens,
-                                      eos_token_ids=tuple(eos_token_ids))
+        gen_cfg = GenerationConfig(max_new_tokens=max_new_tokens,
+                                   eos_token_ids=tuple(eos_token_ids))
+        if generation is not None:
+            gen_cfg = dataclasses.replace(generation, max_new_tokens=max_new_tokens,
+                                          eos_token_ids=tuple(eos_token_ids))
         res = self._generate(toks, lens, gen_cfg, return_logits=return_result)
         nums = res.num_tokens.cpu().numpy()
         all_toks = res.tokens.cpu().numpy()
         ids = [all_toks[i, :int(nums[i])].tolist() for i in range(n)]
         return (ids, res) if return_result else ids
+
+
+def pp_group(pp: int) -> StagedGroup:
+    """The pipeline's stages: the ranks of the default group, which must
+    hold ``pp`` of them, in rank order."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"ShardingConfig(pp={pp}) needs an initialized torch.distributed "
+                         f"process group of {pp} ranks: launch under torchrun "
+                         f"--nproc-per-node {pp}, or call init_process_group in every rank")
+    if dist.get_world_size() != pp:
+        raise ValueError(f"ShardingConfig(pp={pp}) needs a process group of {pp} ranks, "
+                         f"got {dist.get_world_size()}")
+    return StagedGroup()
+
+
+def stage_params(params, cfg: ModelConfig, pp: int, stage: int):
+    """This stage's part of ``params``: cut from the whole tree
+    (``pipeline.shard_params_pp``), or the tree itself where it holds the
+    stage's ``L / pp`` layers already."""
+    n = llama.wshape(params["layers"]["qkv_proj"])[0]
+    L = cfg.num_hidden_layers
+    if n == L // pp:
+        return params
+    if n != L:
+        raise ValueError(f"params hold {n} layers: neither the model's ({L}) nor one "
+                         f"pp={pp} stage's")
+    return pipeline.shard_params_pp(params, cfg, pp, stage)

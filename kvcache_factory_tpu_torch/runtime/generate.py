@@ -20,7 +20,7 @@ import torch
 
 from ..config import CompressionConfig, GenerationConfig, ModelConfig, QuantConfig
 from ..models import llama
-from ..parallel.mesh import SequenceParallelGroup, StagedGroup
+from ..parallel.mesh import ExpertShard, SequenceParallelGroup, StagedGroup
 from ..policies.methods import HeadShard
 
 
@@ -99,6 +99,7 @@ def generate(
     head_capacity=None,                     # [L, H] int (headkv)
     tp: Optional[StagedGroup] = None,
     shard: Optional[HeadShard] = None,
+    ep: Optional[ExpertShard] = None,
 ) -> GenerateResult:
     """Greedy or sampled generation.  ``rng`` (a generator on ``device``,
     seeded 0 when None, as JAX's ``PRNGKey(0)``) serves prefill's cam and
@@ -113,7 +114,8 @@ def generate(
     (``llama.prefill``); the logits each token is chosen from are gathered
     over the vocabulary, so the tp ranks choose the same tokens, and each
     sampled step's Gumbel noise is drawn at the whole batch's ``[B, V]`` on
-    every rank from the same generator and sliced to the rank's rows."""
+    every rank from the same generator and sliced to the rank's rows.
+    With ``ep`` ``params`` holds the rank's experts (``llama.ffn_block``)."""
     tokens = torch.as_tensor(tokens, device=device).to(torch.int64)
     true_len = torch.as_tensor(true_len, device=device).to(torch.int32)
     B = tokens.shape[0]
@@ -129,7 +131,7 @@ def generate(
     pre = llama.prefill(params, model_cfg, comp_cfg, tokens, true_len,
                         cache_capacity, quant=quant_cfg, sparse_budgets=sparse_budgets,
                         sp_group=sp_group, rng=rng, head_capacity=head_capacity, tp=tp,
-                        shard=shard)
+                        shard=shard, ep=ep)
     vocab = pre.logits_last.shape[-1]
     eos_ids = [e for e in gen_cfg.eos_token_ids if 0 <= e < vocab]
     eos = torch.tensor(list(gen_cfg.eos_token_ids) or [-1], device=dev)
@@ -172,7 +174,8 @@ def generate(
         if gen_cfg.eos_token_ids and bool(done.all()):
             break
         logits, cache = llama.decode_step(params, model_cfg, cur, cache, quant=quant_cfg,
-                                          eviction_recent=comp_cfg.eviction_recent, tp=tp)
+                                          eviction_recent=comp_cfg.eviction_recent, tp=tp,
+                                          ep=ep)
         if return_logits:
             all_logits[:, step] = logits
         nxt = draw(suppress_eos(logits, step + 1 >= gen_cfg.min_new_tokens), step)

@@ -234,17 +234,20 @@ def test_cli_argument_resolution_matches_jax(argv):
                                             "--max_capacity_prompts_ratio", "0.5"]))
 
 
-def _tiny_checkpoint(path, **widths):
-    """A tiny Llama checkpoint in the HF layout (``widths`` override its
-    config) and a word-level tokenizer over ``w0 .. w99`` saved beside it."""
+def _tiny_checkpoint(path, mixtral=False, **widths):
+    """A tiny Llama (or, with ``mixtral``, a 4-expert Mixtral) checkpoint in
+    the HF layout (``widths`` override its config) and a word-level
+    tokenizer over ``w0 .. w99`` saved beside it."""
     import transformers as tf
     from tokenizers import Tokenizer, models, pre_tokenizers
     import torch
     torch.manual_seed(0)
-    model = tf.LlamaForCausalLM(tf.LlamaConfig(**{
-        **dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-               num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512),
-        **widths}))
+    widths = {**dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                     num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512),
+              **widths}
+    model = (tf.MixtralForCausalLM(tf.MixtralConfig(num_local_experts=4, num_experts_per_tok=2,
+                                                    **widths))
+             if mixtral else tf.LlamaForCausalLM(tf.LlamaConfig(**widths)))
     model.save_pretrained(path)
     vocab = {"<unk>": 0, "</s>": 1, **{f"w{i}": i + 2 for i in range(100)}}
     tk = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
@@ -257,14 +260,13 @@ def _tiny_checkpoint(path, **widths):
     (["--dp", "2"], ValueError, "torchrun --nproc-per-node 2"),
     (["--tp", "2"], ValueError, "torchrun --nproc-per-node 2"),
     (["--dp", "2", "--sp", "2", "--tp", "2"], ValueError, "torchrun --nproc-per-node 8"),
-    (["--pp", "2"], NotImplementedError, "item 1.11"),
-    (["--ep", "2"], NotImplementedError, "item 1.11"),
-    (["--dp", "2", "--dcn_dp", "2"], NotImplementedError, "item 1.11")])
+    (["--pp", "2"], ValueError, "torchrun --nproc-per-node 2"),
+    (["--ep", "2"], ValueError, "torchrun --nproc-per-node 2"),
+    (["--dp", "2", "--dcn_dp", "2"], ValueError, "torchrun --nproc-per-node 2")])
 def test_cli_refuses_unported_flags_before_loading(tmp_path, flags, error, match):
-    """Before anything is loaded: ``--dp``/``--tp``/``--sp`` outside a
-    torchrun launch of their size raise ``ValueError`` saying how to
-    launch; ``--pp``, ``--ep`` and ``--dcn_dp`` still name ROADMAP item
-    1.11."""
+    """Before anything is loaded: ``--dp``/``--tp``/``--sp``, ``--pp``,
+    ``--ep`` and ``--dp`` with ``--dcn_dp`` outside a torchrun launch of
+    their size raise ``ValueError`` saying how to launch."""
     (tmp_path / "config.json").write_text(json.dumps(dict(
         model_type="llama", vocab_size=128, hidden_size=64, intermediate_size=128,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)))
@@ -272,6 +274,90 @@ def test_cli_refuses_unported_flags_before_loading(tmp_path, flags, error, match
     args.model_path = str(tmp_path)  # no weights, no tokenizer: nothing may be loaded
     with pytest.raises(error, match=match):
         tcli.build_engine_from_args(args)
+
+
+# Rank 0 of a torchrun launch: the LongBench CLI once per argument list
+# in ``sys.argv[1]`` (JSON), every checkpoint loaded in fp32.
+_TORCHRUN_CLI = """import dataclasses, json, sys
+import torch
+from kvcache_factory_tpu_torch.evals import cli_common, longbench
+from kvcache_factory_tpu_torch.models import weights
+
+def load(path, cfg, device):
+    return weights.load_params(path, dataclasses.replace(cfg, dtype="float32"),
+                               dtype=torch.float32, device=device)
+
+cli_common.load_params = load
+for argv in json.load(open(sys.argv[1])):
+    longbench.main(argv)
+"""
+LAYOUTS = {"pp": ["--pp", "2", "--pp_microbatches", "2"], "ep": ["--ep", "2"],
+           "dcn_dp": ["--dp", "2", "--dcn_dp", "2"], "sp_h2o": ["--sp", "2", "--method", "h2o"]}
+
+
+def _layout_argv(root, layout):
+    flags = LAYOUTS[layout]
+    method = flags[flags.index("--method") + 1] if "--method" in flags else "snapkv"
+    ckpt = root / ("tiny-mixtral" if layout == "ep" else "tiny-llama")
+    return method, ["--model_path", str(ckpt), "--data_dir", str(root / "data"), "--datasets",
+                    "hotpotqa", "--max_capacity_prompts", "64", "--prefill_buckets", "128",
+                    "256", "--device", "cpu", "--method", method]
+
+
+@pytest.fixture(scope="module")
+def torchrun_layouts(tmp_path_factory):
+    """One ``torchrun --nproc-per-node 2`` launch (gloo on the CPU) running
+    the CLI under each layout of ``LAYOUTS``, on a tiny Llama and a tiny
+    4-expert Mixtral; returns the directory of their result files."""
+    import subprocess
+    import sys
+
+    root = tmp_path_factory.mktemp("torchrun")
+    _tiny_checkpoint(root / "tiny-llama")
+    _tiny_checkpoint(root / "tiny-mixtral", mixtral=True)
+    (root / "data").mkdir()
+    with open(root / "data" / "hotpotqa.jsonl", "w") as f:
+        for i in range(2):
+            f.write(json.dumps({"input": f"w{i} w{i + 1}", "context": " ".join(
+                f"w{(7 * j + i) % 100}" for j in range(90)), "answers": [f"w{i}"],
+                "length": 92, "all_classes": None, "_id": str(i)}) + "\n")
+    runs = [_layout_argv(root, layout)[1] + LAYOUTS[layout]
+            + ["--save_dir", str(root / layout)] for layout in LAYOUTS]
+    (root / "argv.json").write_text(json.dumps(runs))
+    (root / "cli.py").write_text(_TORCHRUN_CLI)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", "2", str(root / "cli.py"), str(root / "argv.json")],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-3000:]
+    return root
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_cli_runs_each_layout_under_torchrun(torchrun_layouts, monkeypatch, layout):
+    """Under ``torchrun`` the LongBench CLI runs pp, ep (a tiny Mixtral),
+    dcn_dp on one host and an sp method (h2o), and rank 0's file equals
+    the single-device CLI's line for line.  Both load the checkpoint in
+    fp32 (bf16 products would round otherwise on each layout and flip
+    greedy near-ties)."""
+    import dataclasses
+
+    from kvcache_factory_tpu_torch.models import weights as tweights
+
+    def tload(path, cfg, device):
+        return tweights.load_params(path, dataclasses.replace(cfg, dtype="float32"),
+                                    dtype=torch.float32, device=device)
+
+    monkeypatch.setattr(tcli, "load_params", tload)
+    root = torchrun_layouts
+    method, argv = _layout_argv(root, layout)
+    tlongbench.main(argv + ["--save_dir", str(root / f"{layout}_single")])
+    name = "tiny-mixtral_64" if layout == "ep" else "tiny-llama_64"
+    rel = os.path.join(name, "hotpotqa", f"{method}.json")
+    got, want = _lines(root / layout / rel), _lines(root / f"{layout}_single" / rel)
+    assert len(got) == 2 and got == want
 
 
 def test_longbench_cli_end_to_end(tmp_path):

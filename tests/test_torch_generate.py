@@ -150,6 +150,41 @@ def test_engine_generate_batch_matches_jax(setup, lengths):
         assert teng.generate_ids(prompts[0], 10) == want[0]
 
 
+def test_engine_chooses_as_jax_whatever_cfg_generation_says(setup):
+    """An ``EngineConfig`` whose ``generation`` samples with
+    ``min_new_tokens=4``: ``generate_batch`` chooses greedily with
+    ``GenerationConfig(max_new_tokens, eos_token_ids)``, as JAX's engine
+    does (``runtime/engine.py:157-158``): ids equal to JAX's, EOS trimming
+    included, and first-token logits within 1e-5 relative L2 of JAX's
+    prefill.  Handed to ``generate_batch`` as ``generation``, the config
+    takes effect: no row stops before 4 tokens."""
+    s = setup
+    gen = dict(min_new_tokens=4, do_sample=True, temperature=0.9, top_k=20)
+    kw = dict(prefill_buckets=(128, 256))
+    jeng = jengine.InferenceEngine(s["jp"], jcfg.EngineConfig(
+        model=s["jc"], compression=s["jcomp"], generation=jcfg.GenerationConfig(**gen), **kw))
+    tgen = tcfg.GenerationConfig(**gen)
+    teng = tengine.InferenceEngine(s["tp"], tcfg.EngineConfig(
+        model=s["tc"], compression=s["tcomp"], generation=tgen, **kw), device="cpu",
+        rng=torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, MODEL["vocab_size"], size=n).tolist() for n in (200, 90)]
+    eos = (jeng.generate_batch(prompts, 8)[0][1],)
+    want = jeng.generate_batch(prompts, 8, eos_token_ids=eos)
+    ids, res = teng.generate_batch(prompts, 8, eos_token_ids=eos, return_result=True)
+    assert ids == want and len(want[0]) == 2
+    toks = np.zeros((2, S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    jlog = np.asarray(jllama.prefill(s["jp"], s["jc"], s["jcomp"], jnp.asarray(toks),
+                                     jnp.asarray([len(p) for p in prompts], jnp.int32),
+                                     jeng._cache_capacity(S, 8)).logits_last)
+    got = res.logits[:, 0].numpy()
+    assert np.linalg.norm(got - jlog) / np.linalg.norm(jlog) < 1e-5
+    sampled = teng.generate_batch(prompts, 8, eos_token_ids=eos, generation=tgen)
+    assert all(len(x) >= 4 for x in sampled)
+
+
 @pytest.mark.parametrize("what", ["cache_prefix", "sparse_chunked", "sampling"])
 def test_unported_paths_raise(setup, what):
     """Chunked prefill refuses MInference's sparse masks, as the JAX

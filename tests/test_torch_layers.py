@@ -136,8 +136,9 @@ def test_cache_append_layer_and_valid_mask():
 
 
 def test_configs_match_jax():
-    """``from_hf_config`` on the Mistral-7B config the card runs, and the
-    compression budget arithmetic, field for field."""
+    """``from_hf_config`` on the Mistral-7B config the card runs, the
+    compression budget arithmetic, field for field, and an ep layout's
+    mesh axes and world."""
     import chip_smoke
     hf = chip_smoke.MISTRAL_7B_HF_CONFIG
     got = dataclasses.asdict(tcfg.ModelConfig.from_hf_config(hf))
@@ -153,8 +154,8 @@ def test_configs_match_jax():
             assert tc.cache_heads(32, 8) == jc.cache_heads(32, 8)
             for S in (1500, 2048, 4096):
                 assert tc.layer_capacity(32, S) == jc.layer_capacity(32, S)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.ShardingConfig(ep=2)
+    sc = tcfg.ShardingConfig(ep=2)
+    assert sc.axis_names == jcfg.ShardingConfig(ep=2).axis_names and sc.world == 2
 
 
 def test_port_rejects_weight_quantization():

@@ -160,9 +160,12 @@ def test_engine_draws_repeat_from_the_generators_state(model):
 @pytest.mark.parametrize("what", ["sp", "batching_sp", "headkv_without_capacities",
                                   "batching_headkv", "batching_cam", "batching_random"])
 def test_refusals_and_their_ported_paths(model, what, monkeypatch):
-    """sp with a compressing method other than snapkv raises, naming its
-    ROADMAP.md item, and so does sp in the batching engine (which serves
-    dp and tp: ``tests/test_torch_sharding.py``).  headkv without capacities is not refused: as JAX's
+    """Every compressing method runs under sp: pyramidkv's engine passes
+    every check and asks for the process group of its two ranks (the
+    values: ``tests/test_torch_sharding.py``'s ``sp2_*`` cases).  sp in the
+    batching engine stays refused with a ``ValueError``: JAX's batching
+    engine has no sp path (it serves dp, tp and ep:
+    ``tests/test_torch_sharding.py``).  headkv without capacities is not refused: as JAX's
     ``InferenceEngine`` does, prefill feeds zero capacities and every head
     keeps only its window; that case holds the port's engine to JAX's
     (streams, lengths, first-token logits).  headkv, cam and random run
@@ -177,12 +180,12 @@ def test_refusals_and_their_ported_paths(model, what, monkeypatch):
         c = tcfg.EngineConfig(model=m["tc"], compression=tcfg.CompressionConfig(
             **dict(COMP, method="pyramidkv")), sharding=tcfg.ShardingConfig(sp=2),
             prefill_buckets=(BUCKET,))
-        with pytest.raises(NotImplementedError, match="item 1.11"):
+        with pytest.raises(ValueError, match="initialized torch.distributed process group of 2"):
             tengine.InferenceEngine(m["tp"], c, device="cpu")
     elif what == "batching_sp":
         c = tcfg.EngineConfig(model=m["tc"], compression=tcfg.CompressionConfig(**COMP),
                               sharding=tcfg.ShardingConfig(sp=2), prefill_buckets=(BUCKET,))
-        with pytest.raises(NotImplementedError, match="item 1.11"):
+        with pytest.raises(ValueError, match="sp and pp run through InferenceEngine"):
             tbatching.ContinuousBatchingEngine(m["tp"], c, device="cpu")
     elif what == "headkv_without_capacities":
         comp_kw = dict(COMP, method="headkv")

@@ -1,36 +1,41 @@
-"""The port's ``(dp, sp, tp)`` layouts (``ShardingConfig(dp, tp)`` and
-``(dp, sp, tp)`` through ``InferenceEngine``, ``(dp, tp)`` through
-``ContinuousBatchingEngine``) on spawned gloo ranks, against the JAX
-package's engines under the same ``ShardingConfig`` on the 8-device CPU mesh
-and the port's single-device engine.
+"""The port's parallel layouts (``ShardingConfig`` dp, tp, ep, sp, pp and
+dcn_dp through ``InferenceEngine``, ``(dp, tp)`` and ``(dp, ep)`` through
+``ContinuousBatchingEngine``, ``pipeline_forward``) on spawned gloo ranks,
+against the JAX package's engines under the same ``ShardingConfig`` on the
+8-device CPU mesh and the port's single-device engine.
 
 Models, fp32, 2 layers: JAX's sharding tests' (hidden 128, Hq 8, Hkv 4,
 head_dim 16, vocab 256; ``tests/test_sharding.py:22-32``), the same with
-Hkv 2 (tp 4 > Hkv), one with head_dim 128 for the per-token int8 / int4
-caches (hidden 256, Hq 4, Hkv 2), one with q/k/v, o, gate/up and down
-biases, its W8A16 tree (JAX's ``quantize_weights``) and a 4-expert
-Mixtral.  Weights are JAX's ``init_params``; each rank takes its tp shard
-through ``shard_params_from_jax`` (one case hands the engine the whole tree
-to cut).  Prompts come from ``np.random.default_rng``: 100, 60, 90 and 30
+Hkv 2 (tp 4 > Hkv) and with 4 layers (pp over 4 stages), one with head_dim
+128 for the per-token int8 / int4 caches (hidden 256, Hq 4, Hkv 2), one
+with q/k/v, o, gate/up and down biases, its W8A16 tree (JAX's
+``quantize_weights``) and a 4-expert Mixtral with its W8A16 tree.  Weights
+are JAX's ``init_params``; each rank takes its tp / ep shard through
+``shard_params_from_jax`` or its pipeline stage through
+``stage_params_from_jax`` (one case hands the engine the whole tree to
+cut).  Prompts come from ``np.random.default_rng``: 100, 60, 90 and 30
 tokens on a 128-row bucket, 6 new tokens.  cam and random run on JAX's
 draws, handed to the ranks as numpy arrays.  One case samples through
-``InferenceEngine`` at ``(dp, tp) = (2, 2)`` (``EngineConfig.generation``):
-each rank draws the whole batch's Gumbel noise from one seed and keeps its
-rows.  The ``ContinuousBatchingEngine`` drains run one-shot and chunked
-admission (32-token chunks), each against JAX's engine with the same
-``prefill_chunk_tokens``.
+``InferenceEngine`` at ``(dp, tp) = (2, 2)`` (``generate_batch``'s
+``generation``): each rank draws the whole batch's Gumbel noise from one
+seed and keeps its rows.  The ``ContinuousBatchingEngine`` drains run
+one-shot and chunked admission (32-token chunks), each against JAX's
+engine with the same ``prefill_chunk_tokens``; under ep one-shot only.
+Under sp every compressing method runs; under pp the GPipe engine at M = P
+and M = 2P, and ``pipeline_forward`` against JAX's on its pp mesh.
 
 One module-scoped spawn per world size (2 and 4 ranks) runs every case of
 that size (``tests/torch_sp_worker.py::_sharded``); rank 0 then runs each
 case on the single-device engine.  Every rank is held to: JAX's engine's
-ids and first-token logits within 1e-5 relative L2 (the per-token int8 /
-int4 caches excepted: JAX's engine on the CPU takes its grouped cache, so
-those are held to the port's single-device engine, which
-``tests/test_torch_quant_decode.py`` holds to JAX, as is the sampled case,
-since JAX's engine is greedy only); the single-device
-engine's ids and logits within the same tolerance; every other rank's ids
-and logits bitwise; and its cache shard against the matching rows and
-heads of the single-device cache over each head's valid prefix.
+ids under the same layout and first-token logits within 1e-5 relative L2
+of JAX's prefill there (under pp, of JAX's single-device prefill; the
+per-token int8 / int4 caches excepted: JAX's engine on the CPU takes its
+grouped cache, so those are held to the port's single-device engine,
+which ``tests/test_torch_quant_decode.py`` holds to JAX, as is the sampled
+case, since JAX's engine is greedy only); the single-device engine's ids
+and logits within the same tolerance; every other rank's ids and logits
+bitwise; and its cache shard (its rows and heads, its stage's layers)
+against the single-device cache over each head's valid prefix.
 """
 
 import jax
@@ -43,11 +48,13 @@ from kvcache_factory_tpu import config as jcfg
 from kvcache_factory_tpu.models import llama as jllama
 from kvcache_factory_tpu.models import weights as jweights
 from kvcache_factory_tpu.parallel import mesh as jmesh
+from kvcache_factory_tpu.parallel import pipeline as jpipeline
 from kvcache_factory_tpu.runtime import batching as jbatching
 from kvcache_factory_tpu.runtime import engine as jengine
 from kvcache_factory_tpu_torch import config as tcfg
 from kvcache_factory_tpu_torch.models.weights import params_from_jax
 from kvcache_factory_tpu_torch.parallel import mesh as tmesh
+from kvcache_factory_tpu_torch.parallel import pipeline as tpipeline
 from kvcache_factory_tpu_torch.policies.methods import draw_shape
 from kvcache_factory_tpu_torch.runtime import batching as tbatching
 from kvcache_factory_tpu_torch.runtime import engine as tengine
@@ -55,14 +62,17 @@ from kvcache_factory_tpu_torch.runtime import engine as tengine
 BASE = dict(model_type="llama", vocab_size=256, hidden_size=128, intermediate_size=256,
             num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=4, head_dim=16,
             dtype="float32")
+MOE = dict(BASE, model_type="mixtral", num_local_experts=4, num_experts_per_tok=2)
 MODELS = {
     "tiny": BASE,
     "hkv2": dict(BASE, num_key_value_heads=2),
+    "deep": dict(BASE, num_hidden_layers=4),
     "d128": dict(BASE, hidden_size=256, intermediate_size=512, num_attention_heads=4,
                  num_key_value_heads=2, head_dim=128),
     "bias": BASE,   # + the four bias kinds (weights fixture)
     "w8a16": BASE,  # JAX's quantize_weights of the tiny weights
-    "moe": dict(BASE, model_type="mixtral", num_local_experts=4, num_experts_per_tok=2),
+    "moe": MOE,
+    "moe_w8a16": MOE,  # JAX's quantize_weights of the moe weights
 }
 SNAPKV = dict(method="snapkv", max_capacity_prompt=48, window_size=8, kernel_size=7,
               pooling="maxpool")
@@ -71,34 +81,60 @@ MAX_NEW = 6
 PROMPT_LENS = (100, 60, 90, 30)
 REL_L2_TOL = 1e-5
 L = BASE["num_hidden_layers"]
+# The compressing methods sequence parallelism serves beside snapkv
+# (tests/test_torch_sp_prefill.py), and LOOK-M's merge on snapkv.
+SP_METHODS = {m: dict(SNAPKV, method=m) for m in (
+    "pyramidkv", "h2o", "streamingllm", "l2norm", "random", "adakv", "headkv", "cam", "think")}
+SP_METHODS["lookm"] = dict(SNAPKV, merge="pivot")
 
-# name -> (model, (dp, sp, tp), case fields beside the defaults)
+# name -> (model, ShardingConfig fields, case fields beside the defaults)
 CASES = {
     2: {
-        "tp2": ("tiny", (1, 1, 2), {}),
-        "dp2_padded": ("tiny", (2, 1, 1), dict(n_prompts=3)),
-        "fullkv_tp2": ("tiny", (1, 1, 2), dict(comp=dict(method="fullkv"))),
-        "int8_tp2": ("d128", (1, 1, 2), dict(quant=dict(nbits=8))),
-        "int4_tp2": ("d128", (1, 1, 2), dict(quant=dict(nbits=4))),
-        "grouped4_tp2": ("tiny", (1, 1, 2), dict(quant=dict(nbits=4, q_group_size=16))),
-        "adakv_tp2": ("tiny", (1, 1, 2), dict(comp=dict(SNAPKV, method="adakv"))),
-        "cam_tp2": ("tiny", (1, 1, 2), dict(comp=dict(SNAPKV, method="cam"))),
-        "random_dp2": ("tiny", (2, 1, 1), dict(comp=dict(SNAPKV, method="random"))),
-        "headkv_tp2": ("tiny", (1, 1, 2), dict(comp=dict(SNAPKV, method="headkv"))),
-        "w8a16_tp2": ("w8a16", (1, 1, 2), {}),
-        "bias_tp2_whole": ("bias", (1, 1, 2), dict(whole_params=True)),
-        "moe_tp2": ("moe", (1, 1, 2), {}),
+        "tp2": ("tiny", dict(tp=2), {}),
+        "dp2_padded": ("tiny", dict(dp=2), dict(n_prompts=3)),
+        "dcn2_dp2_padded": ("tiny", dict(dp=2, dcn_dp=2), dict(n_prompts=3)),
+        "fullkv_tp2": ("tiny", dict(tp=2), dict(comp=dict(method="fullkv"))),
+        "int8_tp2": ("d128", dict(tp=2), dict(quant=dict(nbits=8))),
+        "int4_tp2": ("d128", dict(tp=2), dict(quant=dict(nbits=4))),
+        "grouped4_tp2": ("tiny", dict(tp=2), dict(quant=dict(nbits=4, q_group_size=16))),
+        "adakv_tp2": ("tiny", dict(tp=2), dict(comp=dict(SNAPKV, method="adakv"))),
+        "cam_tp2": ("tiny", dict(tp=2), dict(comp=dict(SNAPKV, method="cam"))),
+        "random_dp2": ("tiny", dict(dp=2), dict(comp=dict(SNAPKV, method="random"))),
+        "headkv_tp2": ("tiny", dict(tp=2), dict(comp=dict(SNAPKV, method="headkv"))),
+        "w8a16_tp2": ("w8a16", dict(tp=2), {}),
+        "bias_tp2_whole": ("bias", dict(tp=2), dict(whole_params=True)),
+        "moe_tp2": ("moe", dict(tp=2), {}),
+        "ep2": ("moe", dict(ep=2), {}),
+        "ep2_w8a16_whole": ("moe_w8a16", dict(ep=2), dict(whole_params=True)),
+        "pp2_m2": ("deep", dict(pp=2, pp_microbatches=2), {}),
+        "pp2_m4_pyramidkv": ("deep", dict(pp=2, pp_microbatches=4),
+                             dict(comp=dict(SNAPKV, method="pyramidkv"))),
+        "pp2_w8a16": ("w8a16", dict(pp=2), {}),
+        "pp2_cam": ("deep", dict(pp=2), dict(comp=dict(SNAPKV, method="cam"))),
+        "pp2_headkv_whole": ("deep", dict(pp=2), dict(comp=dict(SNAPKV, method="headkv"),
+                                                      whole_params=True)),
+        "forward_pp2": ("deep", dict(pp=2, pp_microbatches=2), dict(forward=True)),
+        **{f"sp2_{m}": ("tiny", dict(sp=2), dict(comp=comp)) for m, comp in SP_METHODS.items()},
     },
     4: {
-        "dp2_tp2": ("tiny", (2, 1, 2), {}),
-        "tp4": ("tiny", (1, 1, 4), {}),
-        "tp4_over_hkv2": ("hkv2", (1, 1, 4), {}),
-        "sp2_tp2": ("tiny", (1, 2, 2), {}),
-        "random_dp2_tp2": ("tiny", (2, 1, 2), dict(comp=dict(SNAPKV, method="random"))),
-        "drain_dp2_tp2": ("tiny", (2, 1, 2), dict(n_slots=4, n_prompts=5)),
-        "drain_chunked_dp2_tp2": ("tiny", (2, 1, 2), dict(n_slots=4, n_prompts=5, chunk=32)),
-        "sampled_dp2_tp2": ("tiny", (2, 1, 2), dict(sample=dict(do_sample=True, temperature=0.8,
-                                                                top_k=40), seed=5)),
+        "dp2_tp2": ("tiny", dict(dp=2, tp=2), {}),
+        "tp4": ("tiny", dict(tp=4), {}),
+        "tp4_over_hkv2": ("hkv2", dict(tp=4), {}),
+        "sp2_tp2": ("tiny", dict(sp=2, tp=2), {}),
+        "sp2_tp2_h2o": ("tiny", dict(sp=2, tp=2), dict(comp=SP_METHODS["h2o"])),
+        "random_dp2_tp2": ("tiny", dict(dp=2, tp=2), dict(comp=dict(SNAPKV, method="random"))),
+        "drain_dp2_tp2": ("tiny", dict(dp=2, tp=2), dict(n_slots=4, n_prompts=5)),
+        "drain_chunked_dp2_tp2": ("tiny", dict(dp=2, tp=2), dict(n_slots=4, n_prompts=5,
+                                                                chunk=32)),
+        "sampled_dp2_tp2": ("tiny", dict(dp=2, tp=2), dict(sample=dict(
+            do_sample=True, temperature=0.8, top_k=40), seed=5)),
+        "ep2_tp2": ("moe", dict(ep=2, tp=2), {}),
+        "dp2_ep2": ("moe", dict(dp=2, ep=2), {}),
+        "drain_dp2_ep2": ("moe", dict(dp=2, ep=2), dict(n_slots=4, n_prompts=5)),
+        "pp4_m4": ("deep", dict(pp=4), {}),
+        "pp4_m8_random": ("deep", dict(pp=4, pp_microbatches=8),
+                          dict(comp=dict(SNAPKV, method="random"))),
+        "forward_pp4": ("deep", dict(pp=4, pp_microbatches=4), dict(forward=True)),
     },
 }
 ALL = [(n, name) for n in CASES for name in CASES[n]]
@@ -106,6 +142,8 @@ PER_TOKEN = ("int8_tp2", "int4_tp2")
 # Held to the port's single device only: JAX's engine on the CPU takes its
 # grouped cache for the per-token quant configs, and its engine is greedy.
 NOT_JAX = PER_TOKEN + ("sampled_dp2_tp2",)
+# The forward cases hold logits only.
+ENGINE = [x for x in ALL if not CASES[x[0]][x[1]][2].get("forward")]
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +152,7 @@ def weights():
     capacities."""
     out = {}
     for name, m in MODELS.items():
-        if name in ("bias", "w8a16"):
+        if name in ("bias", "w8a16", "moe_w8a16"):
             continue
         jp = jweights.init_params(jcfg.ModelConfig(**m), jax.random.PRNGKey(3), dtype=jnp.float32)
         out[name] = jp
@@ -127,24 +165,40 @@ def weights():
         layers[key] = jnp.asarray(0.1 * rng.standard_normal((L, w)), jnp.float32)
     out["bias"] = dict(jp, layers=layers)
     out["w8a16"] = jweights.quantize_weights(out["tiny"])
+    out["moe_w8a16"] = jweights.quantize_weights(out["moe"])
     prompts = [rng.integers(0, BASE["vocab_size"], size=n).tolist() for n in PROMPT_LENS]
     prompts.append(rng.integers(0, BASE["vocab_size"], size=75).tolist())
-    hc = rng.integers(0, 60, size=(L, BASE["num_attention_heads"])).astype(np.int32)
+    hc = rng.integers(0, 60, size=(4, BASE["num_attention_heads"])).astype(np.int32)
     return dict(jp=out, np={k: jax.tree.map(np.asarray, v) for k, v in out.items()},
                 prompts=prompts, hc=hc)
 
 
+def batch_multiple(sharding):
+    """The multiple a layout pads its batch to: dp, or the microbatches."""
+    sh = tcfg.ShardingConfig(**sharding)
+    return (sh.pp_microbatches or sh.pp) if sh.pp > 1 else sh.dp
+
+
 def _case(n, name, w):
     """The payload of one case (``torch_sp_worker._sharded_case``)."""
-    model, grid, extra = CASES[n][name]
+    model, sharding, extra = CASES[n][name]
     extra = dict(extra)
     prompts = w["prompts"][:extra.pop("n_prompts", len(PROMPT_LENS))]
-    c = dict(dict(model=MODELS[model], comp=dict(SNAPKV), grid=grid, params=w["np"][model],
-                  prompts=prompts, max_new=MAX_NEW, buckets=BUCKETS), **extra)
+    c = dict(dict(model=MODELS[model], comp=dict(SNAPKV), sharding=sharding,
+                  params=w["np"][model], prompts=prompts, max_new=MAX_NEW, buckets=BUCKETS),
+             **extra)
     if c["comp"]["method"] == "headkv":
-        c["hc"] = w["hc"]
+        c["hc"] = w["hc"][:MODELS[model]["num_hidden_layers"]]
     if c["comp"]["method"] in ("cam", "random"):
-        c["draws"] = jax_draws(c, -(-len(prompts) // grid[0]) * grid[0])
+        c["draws"] = jax_draws(c, -(-len(prompts) // batch_multiple(sharding))
+                               * batch_multiple(sharding))
+    if c.get("forward"):
+        B = batch_multiple(sharding)
+        c["tokens"] = np.zeros((B, BUCKETS[0]), np.int64)
+        c["lens"] = np.zeros((B,), np.int32)
+        for i in range(B):
+            p = prompts[i % len(prompts)]
+            c["tokens"][i, :len(p)], c["lens"][i] = p, len(p)
     return c
 
 
@@ -153,11 +207,12 @@ def jax_draws(c, batch):
     ``batch`` rows: ``PRNGKey(0)`` split over the layers, each layer's key
     over the batch, ``uniform(key, shape)`` at the whole model's shape."""
     m, comp = c["model"], tcfg.CompressionConfig(**c["comp"])
+    layers = m["num_hidden_layers"]
     shape = draw_shape(comp, m["num_attention_heads"], m["num_key_value_heads"], BUCKETS[0])
-    layer_keys = jax.random.split(jax.random.PRNGKey(0), L)
+    layer_keys = jax.random.split(jax.random.PRNGKey(0), layers)
     return {(li, b): np.array(jax.random.uniform(jax.random.split(layer_keys[li], batch)[b],
                                                  shape))
-            for li in range(L) for b in range(batch)}
+            for li in range(layers) for b in range(batch)}
 
 
 @pytest.fixture(scope="module")
@@ -184,21 +239,35 @@ def rel_l2(got, want):
 
 
 def _jax_engine_cfg(c):
-    dp, sp, tp = c["grid"]
     quant = None if c.get("quant") is None else jcfg.QuantConfig(**c["quant"])
     return jcfg.EngineConfig(model=jcfg.ModelConfig(**c["model"]),
                              compression=jcfg.CompressionConfig(**c["comp"]), quant=quant,
-                             sharding=jcfg.ShardingConfig(dp=dp, sp=sp, tp=tp),
+                             sharding=jcfg.ShardingConfig(**c["sharding"]),
                              prefill_buckets=c["buckets"])
+
+
+# JAX's first-token logits by (weights, layout, padded batch): the prefill's
+# logits do not depend on the compression or the cache, so the cases that
+# differ only there share one compiled prefill.
+_JAX_LOGITS = {}
 
 
 def jax_reference(c, jp):
     """JAX's ids and first-token logits under the case's ``ShardingConfig``:
     its ``InferenceEngine`` (or ``ContinuousBatchingEngine``), and its
     prefill on the engine's sharded weights under the engine's mesh, on the
-    batch its engine pads."""
+    batch its engine pads (under pp JAX's single-device prefill, since
+    ``pp_generate`` returns no logits); for a forward case JAX's
+    ``pipeline_forward`` on its pp mesh."""
     cfg = _jax_engine_cfg(c)
     prompts = c["prompts"]
+    if c.get("forward"):
+        mesh = jpipeline.make_pp_mesh(cfg.sharding.pp)
+        got = jax.jit(lambda p, t, tl: jpipeline.pipeline_forward(
+            p, cfg.model, t, tl, mesh, n_microbatches=cfg.sharding.pp_microbatches))(
+            jpipeline.shard_params_pp(jp, mesh), jnp.asarray(c["tokens"], jnp.int32),
+            jnp.asarray(c["lens"]))
+        return [], np.asarray(got)
     if "n_slots" in c:
         eng = jbatching.ContinuousBatchingEngine(jp, cfg, n_slots=c["n_slots"],
                                                  max_new_cap=c["max_new"],
@@ -217,20 +286,28 @@ def jax_reference(c, jp):
         toks[i, :len(p)], lens[i] = p, len(p)
     comp, cap = eng._comp_for_bucket(S), eng._cache_capacity(S, c["max_new"])
     mesh = eng.sp_mesh if eng.sp_mesh is not None else eng.mesh
+    key = (id(jp), len(prompts), B,
+           None if mesh is None else tuple(sorted(c["sharding"].items())))
+    if key in _JAX_LOGITS:
+        return ids, _JAX_LOGITS[key][:len(prompts)]
 
     def logits(p, t, tl):
         return jllama.prefill(p, cfg.model, comp, t, tl, cap, rng=eng.rng,
                               head_capacity=eng.head_capacity, quant=cfg.quant,
                               attn_backend="xla", sp_mesh=eng.sp_mesh).logits_last
 
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    b_ax = "dp" if "dp" in mesh.axis_names else None
-    t_spec = P(b_ax, "sp") if eng.sp_mesh is not None else P(b_ax, None)
-    with mesh:
-        got = jax.jit(logits)(eng.params,
-                              jax.device_put(jnp.asarray(toks), NamedSharding(mesh, t_spec)),
-                              jax.device_put(jnp.asarray(lens), NamedSharding(mesh, P(b_ax))))
-    return ids, np.asarray(got)[:len(prompts)]
+    if mesh is None:  # pp: the single-device prefill on the whole tree
+        got = jax.jit(logits)(jp, jnp.asarray(toks), jnp.asarray(lens))
+    else:
+        from jax.sharding import NamedSharding, PartitionSpec as P
+        b_ax = "dp" if "dp" in mesh.axis_names else None
+        t_spec = P(b_ax, "sp") if eng.sp_mesh is not None else P(b_ax, None)
+        with mesh:
+            got = jax.jit(logits)(eng.params,
+                                  jax.device_put(jnp.asarray(toks), NamedSharding(mesh, t_spec)),
+                                  jax.device_put(jnp.asarray(lens), NamedSharding(mesh, P(b_ax))))
+    _JAX_LOGITS[key] = np.asarray(got)
+    return ids, _JAX_LOGITS[key][:len(prompts)]
 
 
 @pytest.mark.parametrize("n,name", [x for x in ALL if x[1] not in NOT_JAX])
@@ -262,31 +339,39 @@ def test_ranks_match_single_device_and_each_other(runs, n, name):
             np.testing.assert_array_equal(
                 got, next(o["logits"][i] for o in ranks if i in o["logits"]))
     served = set().union(*(rk["logits"] for rk in ranks))
-    assert served == set(range(len(single["ids"])))
+    assert served == set(single["logits"])
 
 
 def _cache_slices(c, coords, heads):
-    """The single-device cache's batch rows and heads that the rank at
-    ``coords`` holds."""
-    dp, _, tp = c["grid"]
+    """The single-device cache's layers, batch rows and heads that the rank
+    at ``coords`` holds: a pipeline stage all rows and heads of its layers;
+    a grid rank all layers, its dp rows and its tp heads (every head under
+    ep alone)."""
+    sh = tcfg.ShardingConfig(**c["sharding"])
     m = tcfg.ModelConfig(**c["model"])
-    n_rows = c.get("n_slots") or -(-len(c["prompts"]) // dp) * dp
-    rows = n_rows // dp
+    n_rows = c.get("n_slots") or -(-len(c["prompts"]) // batch_multiple(c["sharding"])) * \
+        batch_multiple(c["sharding"])
+    if sh.pp > 1:
+        l0, n = tpipeline.stage_layers(m, sh.pp, coords[0])
+        return slice(l0, l0 + n), slice(0, n_rows), slice(0, heads)
+    rows = n_rows // sh.dp
     comp = tcfg.CompressionConfig(**c["comp"])
     per_query = comp.cache_heads(m.num_attention_heads, m.num_key_value_heads) == \
         m.num_attention_heads
-    h0 = coords[2] * heads if per_query else tmesh.kv_head_offset(m, tp, coords[2])
-    return slice(coords[0] * rows, (coords[0] + 1) * rows), slice(h0, h0 + heads)
+    h0 = coords[2] * heads if per_query else tmesh.kv_head_offset(m, sh.tp, coords[2])
+    return (slice(None), slice(coords[0] * rows, (coords[0] + 1) * rows),
+            slice(h0, h0 + heads))
 
 
-@pytest.mark.parametrize("n,name", ALL)
+@pytest.mark.parametrize("n,name", ENGINE)
 def test_cache_shards_are_slices_of_the_single_device_cache(weights, runs, n, name):
-    """Each rank's cache holds its rows and heads of the single-device
-    cache: lengths and positions equal, and over each head's valid prefix
-    float planes within fp32 summation error and code planes equal but for
-    rounding ties (at most 1% of the bytes).  A drain's slots are admitted
-    in one order on both sides; its rows are compared where the single
-    device ran the same request in the same slot."""
+    """Each rank's cache holds its rows and heads (a pipeline stage, its
+    layers) of the single-device cache: lengths and positions equal, and
+    over each head's valid prefix float planes within fp32 summation error
+    and code planes equal but for rounding ties (at most 1% of the bytes),
+    so every rank selected what one device selects.  A drain's slots are
+    admitted in one order on both sides; its rows are compared where the
+    single device ran the same request in the same slot."""
     c = _case(n, name, weights)
     ranks, single = _rank_results(runs, n, name)
     want = single["cache"]
@@ -294,18 +379,18 @@ def test_cache_shards_are_slices_of_the_single_device_cache(weights, runs, n, na
         got = rk["cache"]
         assert set(got) == set(want)
         heads = got["lengths"].shape[2]
-        rows, hs = _cache_slices(c, rk["coords"], heads)
+        layers, rows, hs = _cache_slices(c, rk["coords"], heads)
         # Rows past the prompts pad the batch to a multiple of dp.
         n_real = c["n_slots"] if "n_slots" in c else len(c["prompts"])
         keep = slice(0, min(rows.stop, n_real) - rows.start)
-        lens = want["lengths"][:, rows, hs][:, keep]
+        lens = want["lengths"][layers, rows, hs][:, keep]
         np.testing.assert_array_equal(got["lengths"][:, keep], lens, err_msg=f"rank {r}")
         np.testing.assert_array_equal(got["positions"][keep], want["positions"][rows][keep])
         capacity = max(p.shape[3] for p in got.values() if p.ndim >= 4)
         for key, plane in got.items():
             if plane.ndim < 4:
                 continue
-            ref = want[key][:, rows, hs][:, keep]
+            ref = want[key][layers, rows, hs][:, keep]
             plane = plane[:, keep]
             assert plane.shape == ref.shape, key
             # A plane of the cache's capacity over each head's valid prefix;
@@ -430,3 +515,149 @@ def test_shards_concatenate_back_to_the_whole_leaves(weights, model, tp):
         parts = [g["q"] for g in got] if isinstance(leaf, dict) else got
         np.testing.assert_array_equal(rebuild(key, parts, specs[key]),
                                       leaf["q"] if isinstance(leaf, dict) else leaf)
+
+
+def test_dcn_dp_on_one_host_is_dp(runs):
+    """``ShardingConfig(dp=2, dcn_dp=2)`` on one host is plain dp, as JAX's
+    flat mesh when ``process_count() == 1``: every rank's ids, logits and
+    cache bitwise those of the dp=2 run."""
+    dcn, _ = _rank_results(runs, 2, "dcn2_dp2_padded")
+    dp, _ = _rank_results(runs, 2, "dp2_padded")
+    for a, b in zip(dcn, dp):
+        assert a["ids"] == b["ids"] and a["coords"] == b["coords"]
+        for i in b["logits"]:
+            np.testing.assert_array_equal(a["logits"][i], b["logits"][i])
+        for key in b["cache"]:
+            np.testing.assert_array_equal(a["cache"][key], b["cache"][key])
+
+
+@pytest.mark.parametrize("world,local,dcn_dp,hosts", [
+    (4, 4, 2, 1),      # one host: plain dp
+    (4, 2, 2, 2),      # two hosts carry the two inter-host ways
+    (4, 1, 2, None),   # four hosts for two ways: cannot be placed
+    (8, 2, 2, None),   # four hosts, dcn_dp 2
+    (6, 4, 2, None),   # ranks that do not split into hosts
+])
+def test_dcn_dp_placement(world, local, dcn_dp, hosts):
+    """Across hosts (torchrun's ``WORLD_SIZE`` over ``LOCAL_WORLD_SIZE``)
+    the ``dcn_dp`` ways of dp are the hosts; a layout that cannot put them
+    there raises ``ValueError``.  JAX's ``dcn_dp`` must divide ``dp``."""
+    sh = tcfg.ShardingConfig(dp=4, dcn_dp=dcn_dp)
+    if hosts is None:
+        with pytest.raises(ValueError):
+            tmesh.check_dcn(sh, world, local)
+    else:
+        assert tmesh.check_dcn(sh, world, local) == hosts
+    with pytest.raises(ValueError, match="dcn_dp must divide dp"):
+        tcfg.ShardingConfig(dp=2, dcn_dp=4)
+    with pytest.raises(ValueError, match="dcn_dp must divide dp"):
+        jcfg.ShardingConfig(dp=2, dcn_dp=4)
+
+
+@pytest.mark.parametrize("what", ["quant", "decode_evict", "think_packed", "sliding_window",
+                                  "microbatches"])
+def test_pp_refusals(weights, what):
+    """JAX's pp scope, as ``ValueError`` before any process group is
+    needed: the dense cache only (JAX asserts at its engine,
+    ``runtime/engine.py:58-61``), no sliding window (JAX asserts in
+    ``pp_generate``), microbatches at least the stages (JAX's
+    ``ValueError``)."""
+    params = params_from_jax(weights["np"]["deep"], device="cpu")
+    model, comp, quant = dict(MODELS["deep"]), dict(SNAPKV), None
+    if what == "microbatches":
+        with pytest.raises(ValueError, match="pp_microbatches must be >= pp"):
+            tcfg.ShardingConfig(pp=4, pp_microbatches=2)
+        with pytest.raises(ValueError, match="pp_microbatches must be >= pp"):
+            jcfg.ShardingConfig(pp=4, pp_microbatches=2)
+        return
+    if what == "quant":
+        quant = dict(nbits=8)
+    elif what == "sliding_window":
+        model["sliding_window"] = 64
+    else:
+        comp.update({what: True}, method="think" if what == "think_packed" else "snapkv")
+    cfg = tcfg.EngineConfig(model=tcfg.ModelConfig(**model),
+                            compression=tcfg.CompressionConfig(**comp),
+                            quant=None if quant is None else tcfg.QuantConfig(**quant),
+                            sharding=tcfg.ShardingConfig(pp=2), prefill_buckets=BUCKETS)
+    with pytest.raises(ValueError, match="pp"):
+        tengine.InferenceEngine(params, cfg, device="cpu")
+    if what != "sliding_window":
+        jc = jcfg.EngineConfig(model=jcfg.ModelConfig(**model),
+                               compression=jcfg.CompressionConfig(**comp),
+                               quant=None if quant is None else jcfg.QuantConfig(**quant),
+                               sharding=jcfg.ShardingConfig(pp=2), prefill_buckets=BUCKETS)
+        with pytest.raises(AssertionError):
+            jengine.InferenceEngine(weights["jp"]["deep"], jc)
+
+
+@pytest.mark.parametrize("what", ["chunked_ep", "batching_sp", "batching_pp", "ep_dense_model",
+                                  "ep_over_experts"])
+def test_layout_refusals_that_remain(weights, what):
+    """What stays refused: chunked admission under ep (JAX's ``ValueError``,
+    ``runtime/batching.py:144-153``), sp and pp in the batching engine
+    (JAX's has no path for either), ep on a model without experts or over
+    more ranks than experts divide."""
+    moe = params_from_jax(weights["np"]["moe"], device="cpu")
+    tiny = params_from_jax(weights["np"]["tiny"], device="cpu")
+    if what == "chunked_ep":
+        with pytest.raises(ValueError, match="expert parallelism"):
+            tbatching.ContinuousBatchingEngine(moe, _port_cfg("moe", ep=2), device="cpu",
+                                               prefill_chunk_tokens=32)
+        with pytest.raises(ValueError, match="expert parallelism"):
+            jbatching.ContinuousBatchingEngine(weights["jp"]["moe"], jcfg.EngineConfig(
+                model=jcfg.ModelConfig(**MOE), sharding=jcfg.ShardingConfig(ep=2),
+                prefill_buckets=BUCKETS), prefill_chunk_tokens=32)
+    elif what.startswith("batching"):
+        axis = what.split("_")[1]
+        with pytest.raises(ValueError, match="sp and pp run through InferenceEngine"):
+            tbatching.ContinuousBatchingEngine(tiny, _port_cfg(**{axis: 2}), device="cpu")
+    elif what == "ep_dense_model":
+        with pytest.raises(ValueError, match="no"):
+            tengine.InferenceEngine(tiny, _port_cfg(ep=2), device="cpu")
+    else:
+        with pytest.raises(ValueError, match="does not divide num_local_experts"):
+            tengine.InferenceEngine(moe, _port_cfg("moe", ep=8), device="cpu")
+
+
+@pytest.mark.parametrize("model", ["moe", "moe_w8a16"])
+@pytest.mark.parametrize("ep,tp", [(2, 1), (4, 1), (2, 2)])
+def test_expert_shards_concatenate_back(weights, model, ep, tp):
+    """Each ep rank's expert stacks (``q`` and ``s`` alike) are its block
+    of experts; concatenated over ep they are the tp shard of the whole
+    stack bitwise; every other leaf is the tp shard alone (replicated over
+    ep, as JAX's ``param_specs(ep=True)``)."""
+    cfg = tcfg.ModelConfig(**MODELS[model])
+    whole = weights["np"][model]
+    jspecs = jmesh.param_specs(jcfg.ModelConfig(**MODELS[model]), ep=True)
+    for r in range(tp):
+        plain = tmesh.shard_tree(whole, cfg, tp, r)
+        parts = [tmesh.shard_tree(whole, cfg, tp, r, ep, e) for e in range(ep)]
+        for key, leaf in plain["layers"].items():
+            expert = "ep" in jspecs["layers"][key]
+            for name in (("q", "s") if isinstance(leaf, dict) else (None,)):
+                pick = (lambda x: x[name]) if name else (lambda x: x)
+                got = [pick(p["layers"][key]) for p in parts]
+                if expert:
+                    np.testing.assert_array_equal(np.concatenate(got, axis=1), pick(leaf))
+                else:
+                    for g in got:
+                        np.testing.assert_array_equal(g, pick(leaf))
+
+
+@pytest.mark.parametrize("model,pp", [("deep", 2), ("deep", 4), ("w8a16", 2)])
+def test_stage_params_concatenate_back(weights, model, pp):
+    """A stage holds its ``L / pp`` contiguous layers of every layer leaf
+    (``q`` and ``s`` alike), the embedding on stage 0 and ``final_norm`` /
+    ``lm_head`` on the last stage; the stages' layers concatenated are the
+    whole leaves bitwise."""
+    cfg = tcfg.ModelConfig(**MODELS[model])
+    whole = weights["np"][model]
+    stages = [tpipeline.shard_params_pp(whole, cfg, pp, s) for s in range(pp)]
+    assert [sorted(k for k in st if k != "layers") for st in stages] == \
+        [["embed"]] + [[]] * (pp - 2) + [["final_norm", "lm_head"]]
+    for key, leaf in whole["layers"].items():
+        for name in (("q", "s") if isinstance(leaf, dict) else (None,)):
+            pick = (lambda x: x[name]) if name else (lambda x: x)
+            np.testing.assert_array_equal(
+                np.concatenate([pick(st["layers"][key]) for st in stages]), pick(leaf))

@@ -130,24 +130,25 @@ def test_sp_ranks_import_no_jax_and_check_the_group_size(sp_runs, n):
     (dict(dp=2), None),                       # dp, tp and sp composed: the (dp, sp, tp) grid
     (dict(sp=2, tp=2), None),
     (dict(dp=2, sp=2), None),
-    (dict(pp=2, pp_microbatches=2), NotImplementedError),  # the rest of ROADMAP item 1.11
-    (dict(ep=2), NotImplementedError),
-    (dict(dp=2, dcn_dp=2), NotImplementedError),
+    (dict(pp=2, pp_microbatches=2), None),    # pp, ep and dcn_dp, as JAX takes them
+    (dict(ep=2), None),
+    (dict(dp=2, dcn_dp=2), None),
     (dict(dp=2, dcn_dp=3), ValueError),       # JAX: dcn_dp must divide dp
 ])
 def test_sharding_config_validation(kw, error):
-    """dp, tp and sp, alone or composed, are accepted (as JAX accepts
-    them); JAX's ValueErrors hold (and JAX raises them too); ep, pp and
-    dcn_dp wait for ROADMAP item 1.11."""
+    """Every layout JAX accepts is accepted, with the world the ranks of
+    its grid or its stages; JAX's ValueErrors hold (and JAX raises them
+    too)."""
     if error is None:
         sc = tcfg.ShardingConfig(**kw)
-        assert (sc.dp, sc.sp, sc.tp) == tuple(kw.get(a, 1) for a in ("dp", "sp", "tp"))
-        assert sc.world == sc.dp * sc.sp * sc.tp
+        axes = ("dp", "sp", "ep", "tp", "pp", "dcn_dp")
+        assert tuple(getattr(sc, a) for a in axes) == tuple(kw.get(a, 1) for a in axes)
+        assert sc.world == sc.dp * sc.sp * sc.ep * sc.tp * sc.pp
         assert sc.axis_names == jcfg.ShardingConfig(**kw).axis_names
         return
-    with pytest.raises(error, match=None if error is ValueError else "item 1.11"):
+    with pytest.raises(error):
         tcfg.ShardingConfig(**kw)
-    if error is ValueError and kw.get("sp", 1) > 0:
+    if kw.get("sp", 1) > 0:
         with pytest.raises(ValueError):
             jcfg.ShardingConfig(**kw)
 

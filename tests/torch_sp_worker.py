@@ -1,7 +1,7 @@
 """Spawned ranks of the port's parallel tests (CPU, gloo): sequence
 parallelism (``tests/test_torch_sp_prefill.py``, ``tests/
-test_torch_ring_attention.py``) and the ``(dp, sp, tp)`` layouts
-(``tests/test_torch_sharding.py``).
+test_torch_ring_attention.py``) and the ``(dp, sp, tp)``, ``(dp, ep, tp)``
+and pipeline layouts (``tests/test_torch_sharding.py``).
 
 This module imports only torch, numpy and the port, never JAX or the JAX
 package, and each rank reports the names of any such module it finds
@@ -26,8 +26,11 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from kvcache_factory_tpu_torch import config as tcfg
-from kvcache_factory_tpu_torch.models.weights import params_from_jax, shard_params_from_jax
-from kvcache_factory_tpu_torch.parallel.mesh import SequenceParallelGroup
+from kvcache_factory_tpu_torch.models import llama
+from kvcache_factory_tpu_torch.models.weights import (params_from_jax, shard_params_from_jax,
+                                                      stage_params_from_jax)
+from kvcache_factory_tpu_torch.parallel.mesh import SequenceParallelGroup, StagedGroup
+from kvcache_factory_tpu_torch.parallel.pipeline import pipeline_forward
 from kvcache_factory_tpu_torch.parallel.ring_attention import ring_attention
 from kvcache_factory_tpu_torch.policies import methods
 from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
@@ -133,30 +136,71 @@ def _engine(rank: int, n: int, cases) -> dict:
     return results
 
 
-def _sharded_case(c, rank: int, grid) -> dict:
+def layout(sharding: dict, rank: int):
+    """A case's ``ShardingConfig`` and this rank's coordinates: ``(dp, sp |
+    ep, tp)`` on the grid, ``(stage,)`` under pp."""
+    sh = tcfg.ShardingConfig(**sharding)
+    if sh.pp > 1:
+        return sh, (rank,)
+    grid = (sh.dp, sh.ep if sh.ep > 1 else sh.sp, sh.tp)
+    return sh, tuple(int(x) for x in np.unravel_index(rank, grid))
+
+
+def _rank_params(c, sh, coords, model):
+    """This rank's weights: its tp / ep shard or its pipeline stage, cut
+    from the JAX tree here, or the whole tree where ``whole_params``."""
+    if c.get("whole_params"):
+        return params_from_jax(c["params"], device="cpu")
+    if sh.pp > 1:
+        return stage_params_from_jax(c["params"], model, sh.pp, coords[0], device="cpu")
+    return shard_params_from_jax(c["params"], model, sh.tp, coords[2], device="cpu", ep=sh.ep,
+                                 ep_rank=coords[1] if sh.ep > 1 else 0)
+
+
+def _forward_case(c, rank: int, sh, coords, model) -> dict:
+    """``pipeline_forward`` on this rank's stage (one device: the port's
+    prefill with fullkv): the last-token logits of every prompt."""
+    toks, lens = torch.from_numpy(c["tokens"]), torch.from_numpy(c["lens"])
+    counts = None
+    if sh.pp > 1:
+        group = StagedGroup()
+        logits = pipeline_forward(_rank_params(c, sh, coords, model), model, toks, lens,
+                                  group, n_microbatches=sh.pp_microbatches or sh.pp)
+        counts = {"pp": {"collectives": group.collectives, "staged_bytes": group.staged_bytes,
+                         "staged_s": group.staged_s}}
+    else:
+        logits = llama.prefill(params_from_jax(c["params"], device="cpu"), model,
+                               tcfg.CompressionConfig(method="fullkv"), toks, lens,
+                               toks.shape[1]).logits_last
+    return {"ids": [], "logits": dict(enumerate(logits.numpy())), "cache": {},
+            "coords": coords, "counts": counts}
+
+
+def _sharded_case(c, rank: int, sharding: dict) -> dict:
     """One case of ``tests/test_torch_sharding.py`` on this rank of the
-    ``grid`` ``(dp, sp, tp)`` (``(1, 1, 1)``: the single-device engine).
-    The case holds the model, compression, an optional quant config, the
-    JAX layout's weights (numpy; each rank takes its tp shard through
-    ``shard_params_from_jax``, or hands the engine the whole tree where
-    ``whole_params``), prompts, new tokens, buckets, optional HeadKV
+    layout ``sharding`` (``ShardingConfig`` fields; ``{}``: the
+    single-device engine).  The case holds the model, compression, an
+    optional quant config, the JAX layout's weights (numpy; each rank takes
+    its tp / ep shard through ``shard_params_from_jax`` or its stage
+    through ``stage_params_from_jax``, or hands the engine the whole tree
+    where ``whole_params``), prompts, new tokens, buckets, optional HeadKV
     capacities, JAX's uniform draws for cam and random (``draws[(layer,
     example)]``), and for a ``ContinuousBatchingEngine`` drain its slots and
     chunk size, or for a sampled run (``sample``: ``GenerationConfig``
-    fields, the engine's ``cfg.generation``) the seed of the engine's
-    generator.  Returns the ids, the first-token
-    logits of every prompt, this rank's cache (each field as numpy) and its
-    grid coordinates."""
-    dp, sp, tp = grid
-    coords = tuple(int(x) for x in np.unravel_index(rank, grid))
+    fields, handed to ``generate_batch``) the seed of the engine's
+    generator; a ``forward`` case holds tokens and lengths for
+    ``pipeline_forward``.  Returns the ids, the first-token logits of every
+    prompt, this rank's cache (each field as numpy), its coordinates and
+    its groups' counts."""
     model = tcfg.ModelConfig(**c["model"])
-    params = (params_from_jax(c["params"], device="cpu") if c.get("whole_params")
-              else shard_params_from_jax(c["params"], model, tp, coords[2], device="cpu"))
+    sh, coords = layout(sharding, rank)
+    if c.get("forward"):
+        return _forward_case(c, rank, sh, coords, model)
+    params = _rank_params(c, sh, coords, model)
     cfg = tcfg.EngineConfig(
         model=model, compression=tcfg.CompressionConfig(**c["comp"]),
         quant=None if c.get("quant") is None else tcfg.QuantConfig(**c["quant"]),
-        sharding=tcfg.ShardingConfig(dp=dp, sp=sp, tp=tp), prefill_buckets=c["buckets"],
-        generation=tcfg.GenerationConfig(**c.get("sample", {})))
+        sharding=sh, prefill_buckets=c["buckets"])
     draws = c.get("draws")
     drawn = methods.uniform_draw
     if draws is not None:
@@ -175,24 +219,30 @@ def _sharded_case(c, rank: int, grid) -> dict:
         else:
             rng = torch.Generator().manual_seed(c["seed"]) if "seed" in c else None
             eng = InferenceEngine(params, cfg, device="cpu", head_capacity=c.get("hc"), rng=rng)
-            ids, res = eng.generate_batch(c["prompts"], c["max_new"], return_result=True)
+            gen = tcfg.GenerationConfig(**c["sample"]) if "sample" in c else None
+            ids, res = eng.generate_batch(c["prompts"], c["max_new"], return_result=True,
+                                          generation=gen)
             cache = res.cache
             logits = dict(enumerate(res.logits[:len(c["prompts"]), 0].numpy()))
     finally:
         methods.uniform_draw = drawn
     fields = {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
               for k, v in cache._asdict().items() if v is not None}
-    return {"ids": ids, "logits": logits, "cache": fields, "coords": coords,
-            "counts": None if eng.groups is None else eng.groups.counts()}
+    groups = getattr(eng, "pp_group", None)
+    counts = (None if eng.groups is None and groups is None else
+              eng.groups.counts() if eng.groups is not None else
+              {"pp": {"collectives": groups.collectives, "staged_bytes": groups.staged_bytes,
+                      "staged_s": groups.staged_s}})
+    return {"ids": ids, "logits": logits, "cache": fields, "coords": coords, "counts": counts}
 
 
 def _sharded(rank: int, n: int, cases) -> dict:
-    """Each case at its grid of ``n`` ranks; then, on rank 0, each case on
-    the single-device engine (``single``), in this process after the
+    """Each case at its layout of ``n`` ranks; then, on rank 0, each case
+    on the single-device engine (``single``), in this process after the
     sharded runs, as :func:`_engine` computes its reference."""
-    results = {"cases": [_sharded_case(c, rank, c["grid"]) for c in cases]}
+    results = {"cases": [_sharded_case(c, rank, c["sharding"]) for c in cases]}
     if rank == 0:
-        results["single"] = [_sharded_case(c, 0, (1, 1, 1)) for c in cases]
+        results["single"] = [_sharded_case(c, 0, {}) for c in cases]
     return results
 
 
