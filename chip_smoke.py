@@ -39,6 +39,14 @@ Phases, in order; any failure exits non-zero:
    MInference path's 32.8k-entry cache and a length sweep (their ptxas
    lines must show no spill and their SASS no int-to-float conversion);
    then all four kernels on small edge shapes against their plain versions;
+   then K1-K4 at head_dim 64 and 256 (K3 / K4 at 256; their own generator):
+   K1 at B 2, S 4096, window 8 with Llama-3.2-1B's heads at 64 and 16 / 4
+   heads at 256, its CTA edges, two launches bitwise equal, timed beside
+   its plain version, SDPA and its bound; at 64 a sliding-window case, a
+   chunk pool and a ring hop (K1-ml), at 256 two a-shape cases (3e); K2 at
+   G 1 and G 4 with its off-by-one, dropped-split, repeat and graph-replay
+   checks and split edges (4c); K3 and K4 the same with their range case
+   (4d); every instantiation's ptxas registers and spills;
 5. the main path end to end at Mistral-7B-Instruct-v0.2 widths with random
    weights, three times: with the bf16 cache, with ``QuantConfig(nbits=8)``
    and with ``QuantConfig(nbits=4)``.  Each is one
@@ -93,7 +101,7 @@ Phases, in order; any failure exits non-zero:
    and ``model.safetensors.index.json``, by a minimal safetensors writer
    here) and read back by ``load_params``: every leaf bitwise equal to the
    fused, transposed tensors built in memory, the native reader serving,
-   and a SnapKV prefill on the two bitwise equal; (9b) at full depth,
+   and a SnapKV prefill on the two bitwise equal; (9b) at 7 of the 28 layers,
    random bf16 weights and ``quantize_weights`` (W8A16) through
    ``InferenceEngine`` with phase 5's SnapKV and requests, once with the
    bf16 cache (K2) and once with the int8 cache (K3), then one fullkv
@@ -109,7 +117,7 @@ Phases, in order; any failure exits non-zero:
    byte-level tokenizer, then ``score_results_dir``: complete files with the
    JAX runners' keys, one prediction regenerated, wall per example;
 10. the cache layer at Meta-Llama-3-8B-Instruct widths (32 / 8 heads, vocab
-   128256, rope_theta 5e5; 16 of its 32 layers, for the script's time),
+   128256, rope_theta 5e5; 4 of its 32 layers, for the script's time),
    random bf16 weights, phase 5's two requests,
    each run with every launch count set to 0 just before it: (10a) the
    grouped quantized cache (nbits 2 with outliers and a 128-row fp ring,
@@ -188,7 +196,16 @@ Phases, in order; any failure exits non-zero:
    reference with the run's routing replayed (its MoE block summed over
    the ranks), flips only at near-ties, the distance from 11b's run, the
    decode step's wall and busy time beside 11b's;
-15. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+16. Llama-3.2-1B-Instruct at full width and depth (16 layers, head_dim 64,
+   G 4, llama3 rope scaling, tied embeddings; random bf16 weights), phase
+   5's requests through ``InferenceEngine`` with snapkv (K1 16 a prefill,
+   K2 1008 at G 1) and fullkv (K2 at G 4), each checked as phase 5's paths
+   (launches, lengths, logits against the fp32 reference, K2 directly on
+   layers 0 and 15, times and a profiled decode step), then a
+   ``ContinuousBatchingEngine`` drain of four 4096-token requests with
+   chunked admission (K1-chunk at 64); 16b: a 4-layer head_dim 256 model
+   over the bf16, int8 and int4 caches (K1-K4 at 256), checked the same;
+17. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -410,10 +427,9 @@ def bf16_normal(rng, shape):
     return torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", torch.bfloat16)
 
 
-def k1_case(rng, B, Hq, Hkv, S, W, tls):
+def k1_case(rng, B, Hq, Hkv, S, W, tls, D=128):
     """K1 against its plain version on random inputs: ``out`` over each
     example's valid rows, ``scores`` over its scored columns."""
-    D = 128
     q, k, v = (bf16_normal(rng, (B, h, S, D)) for h in (Hq, Hkv, Hkv))
     tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
     out, sc = flash_prefill.flash_prefill_attention(q, k, v, tl, W)
@@ -427,7 +443,7 @@ def k1_case(rng, B, Hq, Hkv, S, W, tls):
         if t - W > 0:
             err_sc = max(err_sc, (sc[b, :, :t - W] - sc_ref[b, :, :t - W]).abs().max().item())
     finite = all(torch.isfinite(x.float()).all() for x in (out, sc))
-    log(f"K1 B={B} Hq={Hq} Hkv={Hkv} S={S} w={W} true_len={tls}: out worst row rel L2 "
+    log(f"K1 B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}: out worst row rel L2 "
         f"{err_out:.3e} (max abs {abs_out:.3e}) tol {K1_OUT_TOL}; scores max abs err "
         f"{err_sc:.3e} tol {K1_SCORE_TOL}; finite {finite}")
     if err_out > K1_OUT_TOL or err_sc > K1_SCORE_TOL or not finite:
@@ -457,9 +473,10 @@ def bitwise_repeat(call):
 
 
 def k1_pass_ms(call, reps=5):
-    """Device time per call of K1's two kernels, the main pass and the
+    """Device time per launch of K1's two kernels, the main pass and the
     window-score pass, from profiler rows; None where the profiler saw no
-    device time."""
+    device time.  Each row's time is divided by the launches the trace
+    holds, not by ``reps``: a trace can miss launches at its edges."""
     call()
     sync()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -469,8 +486,10 @@ def k1_pass_ms(call, reps=5):
     times = dict.fromkeys(("flash_fwd_kernel", "window_scores_kernel"))
     for evt in prof.key_averages():
         for name in times:
-            if evt.device_type == DeviceType.CUDA and name in evt.key:
-                times[name] = evt.self_device_time_total / reps / 1e3
+            if evt.device_type == DeviceType.CUDA and name in evt.key and evt.count:
+                times[name] = evt.self_device_time_total / evt.count / 1e3
+                if evt.count != reps:
+                    log(f"K1 profile: {evt.count} of {reps} {name} launches in the trace")
     return times
 
 
@@ -555,11 +574,10 @@ def k1v_worst(got, ref, valid):
     return worst, absd
 
 
-def k1v_case(rng, B, Hq, Hkv, S_q, S_k, tls, sw, offsets):
+def k1v_case(rng, B, Hq, Hkv, S_q, S_k, tls, sw, offsets, D=128):
     """K1 with a sliding window and/or a row offset against its plain
     version on random inputs: ``out`` over each example's valid rows (global
     id < true_len); every row, inert ones (true_len 0) included, finite."""
-    D = 128
     q = bf16_normal(rng, (B, Hq, S_q, D))
     k, v = (bf16_normal(rng, (B, Hkv, S_k, D)) for _ in range(2))
     tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
@@ -574,7 +592,7 @@ def k1v_case(rng, B, Hq, Hkv, S_q, S_k, tls, sw, offsets):
     err, absd = k1v_worst(out, ref, valid)
     finite = bool(torch.isfinite(out.float()).all())
     log(f"K1 {flash_prefill.variant(sw, offsets)} B={B} Hq={Hq} Hkv={Hkv} S_q={S_q} "
-        f"S_k={S_k} sw={sw} row_offset={offsets} true_len={tls}: out worst row rel L2 "
+        f"S_k={S_k} D={D} sw={sw} row_offset={offsets} true_len={tls}: out worst row rel L2 "
         f"{err:.3e} (max abs {absd:.3e}) tol {K1_OUT_TOL}; every row finite {finite}")
     if err > K1_OUT_TOL or not finite:
         raise SystemExit("K1's variant disagrees with its plain version")
@@ -747,7 +765,7 @@ def block_pairs(n, block, t):
     return table
 
 
-def masked_bound(mask, block, tls, nbytes, D=128):
+def masked_bound(mask, block, tls, nbytes, D):
     """The visible pairs inside the selected blocks of this run's mask, and
     the bound: their QK and PV products at the bf16 peak, or the bytes."""
     pairs = 0
@@ -788,14 +806,13 @@ def mask_hook(fixed=None):
         flash_prefill.sparse_block_mask = orig
 
 
-def k1s_inputs(rng, B, Hq, Hkv, S, heavy=None):
+def k1s_inputs(rng, B, Hq, Hkv, S, heavy=None, D=128):
     """bf16 q, k, v.  With ``heavy = (c0, c1)`` the estimated vertical-slash
     mask is sparse: q and k are halved (logit noise about 0.25), and every
     query favours the keys [c0, c1) by 1.5 in its logits through channel 0
     (4 in q, 4.24 in those keys, 0 in the others).  On random inputs the
     lognormal tail of the column sums puts a few of the top 1024 columns in
     every block, and the mask comes out dense."""
-    D = 128
     q, k, v = (bf16_normal(rng, (B, h, S, D)) for h in (Hq, Hkv, Hkv))
     if heavy is not None:
         q, k = q * 0.5, k * 0.5
@@ -828,7 +845,7 @@ def k1s_case(q, k, v, tls, pattern, window=0, sw=None, budgets=None, q_block=Non
     finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(sc).all())
     dens = density(mask)
     log(f"{SPARSE_ID[flash_prefill.pattern_kind(pattern)]} {pattern} B={B} Hq={Hq} "
-        f"Hkv={k.shape[1]} S={S} block={block} w={window} sw={sw} budgets="
+        f"Hkv={k.shape[1]} S={S} D={q.shape[-1]} block={block} w={window} sw={sw} budgets="
         f"{'per head' if budgets is not None else None} true_len={tls}: mask keeps {dens:.3f} "
         f"of the causal block pairs; out worst row rel L2 {err:.3e} (max abs {absd:.3e}) tol "
         f"{K1_OUT_TOL}; scores max abs err {err_sc:.3e} tol {K1_SCORE_TOL}; finite {finite}")
@@ -1088,10 +1105,9 @@ def phase_k5(rng):
 # ---------------------------------------------------------------------------
 
 
-def k2_case(rng, H, G, C, lengths, lower):
+def k2_case(rng, H, G, C, lengths, lower, D=128):
     """K2 against its plain version: ``out``, and the whole cache after the
     in-place append, which must be identical."""
-    D = 128
     q, kc, vc, kn, vn = (bf16_normal(rng, s) for s in ((H, G, D), (H, C, D), (H, C, D),
                                                        (H, D), (H, D)))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -1102,7 +1118,7 @@ def k2_case(rng, H, G, C, lengths, lower):
     sync()
     err, abs_err = rel_l2(out.reshape(H, -1), ref.reshape(H, -1))
     slot_ok = torch.equal(k1, k2) and torch.equal(v1, v2)
-    log(f"K2 H={H} G={G} C={C}: out worst head rel L2 {err:.3e} (max abs {abs_err:.3e}) "
+    log(f"K2 H={H} G={G} C={C} D={D}: out worst head rel L2 {err:.3e} (max abs {abs_err:.3e}) "
         f"tol {K2_OUT_TOL}; cache after append identical: {slot_ok}")
     if err > K2_OUT_TOL or not slot_ok or not torch.isfinite(out.float()).all():
         raise SystemExit("K2 disagrees with its plain version")
@@ -1130,7 +1146,7 @@ def k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref):
     as the worst head rel L2 from the plain version's output."""
     H, G, D = q.shape
     C = kc.shape[1]
-    n_split = decode_attn.split_count(H, C, decode_attn._sm_count(q.device))
+    n_split = k2_splits(H, C, D)
     L = lens.long().clamp(max=C - 1)
     start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
     heads = torch.arange(H, device=q.device)
@@ -1145,7 +1161,13 @@ def k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref):
     return rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0], n_split
 
 
-def k2_split_edges(rng):
+def k2_splits(H, C, D=128):
+    """K2's n_split at H heads, capacity C and head_dim D on this card."""
+    return decode_attn.split_count(H, C, decode_attn._sm_count(torch.device("cuda")),
+                                   decode_attn.CTAS_PER_SM_AT[D])
+
+
+def k2_split_edges(rng, D=128):
     """The edges of K2's split rule (CTA sp of n_split takes the sp-th part
     of its head's valid keys [lower, L)), each against the plain version:
     a range shorter than n_split, ``lower == L``, ``lengths == C``, a window
@@ -1153,7 +1175,7 @@ def k2_split_edges(rng):
     ones; then G 3, 5, 6 and 7 (1, 2, 4 and 8 are in phase 4's other
     cases)."""
     C, H = 2113, 64
-    n_split = decode_attn.split_count(H, C, decode_attn._sm_count(torch.device("cuda")))
+    n_split = k2_splits(H, C, D)
     lengths = rng.integers(1, C, size=H)
     lower = np.zeros(H, np.int64)
     lengths[0], lower[0] = 500, 500 - (n_split - 1)     # fewer keys than splits
@@ -1161,20 +1183,22 @@ def k2_split_edges(rng):
     lengths[2] = C                                      # full: overwrite slot C-1
     lengths[3], lower[3] = 2079, 1000 + 7               # a window edge mid-tile
     lengths[4], lower[4] = 2079, 2078                   # one key
-    errs = [k2_case(rng, H, 1, C, lengths, lower)[8]]
-    errs.append(k2_case(rng, H, 1, C, [0] * H, np.zeros(H, np.int64))[8])
-    errs.append(k2_case(rng, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64))[8])
-    # G 4 with 33 splits a head: heads shorter than, equal to and one past it.
-    errs.append(k2_case(rng, 8, 4, C, [20, 0, 32, 33, 34, C, C - 1, 1000],
-                        [0, 0, 0, 0, 1, 0, 0, 993])[8])
+    errs = [k2_case(rng, H, 1, C, lengths, lower, D)[8]]
+    errs.append(k2_case(rng, H, 1, C, [0] * H, np.zeros(H, np.int64), D)[8])
+    errs.append(k2_case(rng, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64), D)[8])
+    # G 4 at 8 heads (33 splits a head at D 128): heads shorter than, equal
+    # to and one past the split count.
+    n8 = k2_splits(8, C, D)
+    errs.append(k2_case(rng, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
+                        [0, 0, 0, 0, 1, 0, 0, 993], D)[8])
     groups = {}
     for G, Hg in ((3, 16), (5, 8), (6, 8), (7, 8)):
         lens = rng.integers(1, C, size=Hg)
         low = np.zeros(Hg, np.int64)
         low[0] = lens[0] // 3
-        groups[G] = k2_case(rng, Hg, G, C, lens, low)[8]
-    log(f"K2 split edges (n_split {n_split} at H={H}): worst head rel L2 {max(errs):.3e}; "
-        f"by G: {groups}")
+        groups[G] = k2_case(rng, Hg, G, C, lens, low, D)[8]
+    log(f"K2 split edges at D={D} (n_split {n_split} at H={H}): worst head rel L2 "
+        f"{max(errs):.3e}; by G: {groups}")
     return {"n_split": n_split, "edges_rel_l2": max(errs), "groups_rel_l2": groups}
 
 
@@ -1242,7 +1266,7 @@ def time_k2(q, kc, vc, kn, vn, lens):
     flops = 4 * D * q.shape[1] * (n_keys + H)
     bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                              (flops / PEAK_BF16_FLOPS * 1e3, "operations"))
-    log(f"K2 H={H} timed: kernel {ms * 1e3:.2f} us (device, graph replay), wrapper "
+    log(f"K2 H={H} G={q.shape[1]} D={D} timed: kernel {ms * 1e3:.2f} us (device, graph replay), wrapper "
         f"{wrapper_ms * 1e3:.2f} us (events, host launch included), plain "
         f"{plain_ms * 1e3:.2f} us, SDPA {lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
         f"({bound_by}); {nbytes / ms / 1e6:.1f} GB/s")
@@ -1347,11 +1371,10 @@ QUANT = {8: ("K3", decode_attn_quant.quant_decode_attention_append,
 KQ_RANGE = (3e4, 1e-4, 2e-4)
 
 
-def kq_inputs(rng, nbits, H, G, C, amp=(1.0, 1.0, 1.0)):
+def kq_inputs(rng, nbits, H, G, C, amp=(1.0, 1.0, 1.0), D=128):
     """bf16 q, k_new, v_new and a layer quantized from random bf16 K/V:
     codes [H, C, D or D/2] and scales [H, C, 4].  ``amp`` scales q, K and
     V (with k_new and v_new)."""
-    D = 128
     q, k, v, kn, vn = ((bf16_normal(rng, s).float() * a).to(torch.bfloat16)
                        for s, a in (((H, G, D), amp[0]), ((H, C, D), amp[1]),
                                     ((H, C, D), amp[2]), ((H, D), amp[1]), ((H, D), amp[2])))
@@ -1360,12 +1383,12 @@ def kq_inputs(rng, nbits, H, G, C, amp=(1.0, 1.0, 1.0)):
     return q, kc, vc, torch.stack([ks, kz, vs, vz], dim=-1).contiguous(), kn, vn
 
 
-def kq_case(rng, nbits, H, G, C, lengths, lower, amp=(1.0, 1.0, 1.0)):
+def kq_case(rng, nbits, H, G, C, lengths, lower, amp=(1.0, 1.0, 1.0), D=128):
     """K3 or K4 against its plain version: ``out``, and the whole cache after
     the in-place quantized append, which must be identical byte for byte
     (both sides quantize the new token with the same IEEE operations)."""
     kid, kernel, plain, _ = QUANT[nbits]
-    q, kc, vc, sc, kn, vn = kq_inputs(rng, nbits, H, G, C, amp)
+    q, kc, vc, sc, kn, vn = kq_inputs(rng, nbits, H, G, C, amp, D)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     lo = torch.tensor(lower, dtype=torch.int32, device="cuda")
     mine = [kc.clone(), vc.clone(), sc.clone()]
@@ -1375,7 +1398,7 @@ def kq_case(rng, nbits, H, G, C, lengths, lower, amp=(1.0, 1.0, 1.0)):
     sync()
     err, abs_err = rel_l2(out.reshape(H, -1), ref.reshape(H, -1))
     apart = [int((a != b).sum().item()) for a, b in zip(mine, theirs)]
-    log(f"{kid} H={H} G={G} C={C}: out worst head rel L2 {err:.3e} (max abs {abs_err:.3e}) "
+    log(f"{kid} H={H} G={G} C={C} D={D}: out worst head rel L2 {err:.3e} (max abs {abs_err:.3e}) "
         f"tol {KQ_OUT_TOL}; bytes apart after the append (k codes, v codes, scalars): "
         f"{apart}")
     if any(apart):
@@ -1444,7 +1467,7 @@ def time_kq(nbits, q, kc, vc, sc, kn, vn, lens):
     ops = 4 * D * G * (n_keys + H)
     bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                              (ops / PEAK_INT8_OPS * 1e3, "operations"))
-    log(f"{QUANT[nbits][0]} H={H} timed: kernel {ms * 1e3:.2f} us (device, graph replay), "
+    log(f"{QUANT[nbits][0]} H={H} G={G} D={D} timed: kernel {ms * 1e3:.2f} us (device, graph replay), "
         f"wrapper {wrapper_ms * 1e3:.2f} us (events, host launch included), plain "
         f"{plain_ms * 1e3:.2f} us, composite (dequantize + SDPA) {composite_ms * 1e3:.2f} us, "
         f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes / 1e6:.2f} MB); "
@@ -1514,7 +1537,7 @@ def kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref):
     return rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0], n_split
 
 
-def kq_split_edges(rng, nbits, C):
+def kq_split_edges(rng, nbits, C, D=128):
     """The edges of K3's or K4's split rule and tiles, each against the plain
     version with the append byte for byte: a range shorter than n_split,
     ``lower == L``, ``lengths == C``, a window ``lower`` mid-tile, one key,
@@ -1531,26 +1554,28 @@ def kq_split_edges(rng, nbits, C):
     lengths[2] = C                                      # full: overwrite slot C-1
     lengths[3], lower[3] = 2079, 1000 + 7               # a window edge mid-tile
     lengths[4], lower[4] = 2079, 2078                   # one key
-    errs = [kq_case(rng, nbits, H, 1, C, lengths, lower)[8]]
-    errs.append(kq_case(rng, nbits, H, 1, C, [0] * H, np.zeros(H, np.int64))[8])
-    errs.append(kq_case(rng, nbits, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64))[8])
+    kw = dict(D=D)
+    errs = [kq_case(rng, nbits, H, 1, C, lengths, lower, **kw)[8]]
+    errs.append(kq_case(rng, nbits, H, 1, C, [0] * H, np.zeros(H, np.int64), **kw)[8])
+    errs.append(kq_case(rng, nbits, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64),
+                        **kw)[8])
     n8 = decode_attn.split_count(8, C, sm)
     errs.append(kq_case(rng, nbits, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
-                        [0, 0, 0, 0, 1, 0, 0, 993])[8])
+                        [0, 0, 0, 0, 1, 0, 0, 993], **kw)[8])
     Hs = decode_attn.CTAS_PER_SM * sm  # one CTA a head: the whole range is one CTA's
     edges = [1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 511, 512, 513, 767, 768, 769]
     lens = np.asarray((edges * (Hs // len(edges) + 1))[:Hs])
     low = np.zeros(Hs, np.int64)
     low[len(edges):2 * len(edges)] = 3                  # the same edges, shifted by a lower bound
     lens[len(edges):2 * len(edges)] += 3
-    errs.append(kq_case(rng, nbits, Hs, 1, 1024, lens, low)[8])
+    errs.append(kq_case(rng, nbits, Hs, 1, 1024, lens, low, **kw)[8])
     groups = {}
     for G, Hg in ((3, 16), (5, 8), (6, 8), (7, 8)):
         lens = rng.integers(1, C, size=Hg)
         low = np.zeros(Hg, np.int64)
         low[0] = lens[0] // 3
-        groups[G] = kq_case(rng, nbits, Hg, G, C, lens, low)[8]
-    log(f"{QUANT[nbits][0]} split edges (n_split {n_split} at H={H}): worst head rel L2 "
+        groups[G] = kq_case(rng, nbits, Hg, G, C, lens, low, **kw)[8]
+    log(f"{QUANT[nbits][0]} split edges at D={D} (n_split {n_split} at H={H}): worst head rel L2 "
         f"{max(errs):.3e}; "
         f"by G: {groups}")
     return {"n_split": n_split, "edges_rel_l2": max(errs), "groups_rel_l2": groups}
@@ -1668,6 +1693,227 @@ def phase_edges(rng):
 
 
 # ---------------------------------------------------------------------------
+# Phases 3e, 4c and 4d: K1-K4 at head_dim 64 and 256
+# ---------------------------------------------------------------------------
+
+# Each head_dim's K1 case: (Hq, Hkv) at B 2, S 4096, window 8, true_len
+# (4096, 3000): Llama-3.2-1B-Instruct's heads at 64, phase 16b's at 256.
+K1_HEAD_DIM_HEADS = {64: (32, 8), 256: (16, 4)}
+
+
+def head_dim_of(fn):
+    """The head_dim template argument of a mangled kernel name (its first
+    ``ILi<n>E``), or None."""
+    m = re.search(r"ILi(\d+)E", fn)
+    return int(m.group(1)) if m else None
+
+
+def registers_by_head_dim(reports, lib, name):
+    """{D: (registers, spill line) of each instantiation} of the kernels of
+    ``lib`` whose names hold ``name``, from this run's ptxas report; empty
+    when the library was cached."""
+    out = {}
+    for fn, regs, spill in ptxas_entries(reports.get(lib, ""), name):
+        out.setdefault(head_dim_of(fn), []).append((regs, spill))
+    return out
+
+
+def phase_k1_head_dims(rng, reports):
+    """K1 at head_dim 64 and 256 against its plain version (the CTA's
+    length edges, a 64-row observation window across a tile edge, two
+    launches bitwise equal, a skipped key tile's error) and timed beside
+    its plain version, SDPA and its bound; at 64 also a sliding-window case,
+    a chunk case and a ring hop (K1-ml), at 256 two a-shape cases (the
+    sparse tile list under 64-key tiles)."""
+    regs = registers_by_head_dim(reports, "flash_prefill", "flash_fwd_kernel")
+    out = {}
+    for D, (Hq, Hkv) in K1_HEAD_DIM_HEADS.items():
+        B, S, W, tls = 2, 4096, 8, [4096, 3000]
+        q, k, v, tl, sc, out_ref, err, absd, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls, D)
+        edges = [k1_case(rng, 4, 8, 2, 1024, W, [1, 127, 129, 1024], D)[6:9],
+                 k1_case(rng, 2, 8, 2, 2048, 64, [1056, 2000], D)[6:9]]
+        call = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W)  # noqa: E731
+        same = bitwise_repeat(call)
+        skip_err = k1_skipped_tile_error(q, k, v, tls, out_ref)
+        log(f"K1 D={D}: two launches bitwise equal {same}; a skipped key tile [64, 128) would "
+            f"show row rel L2 {skip_err:.3e} ({skip_err / K1_OUT_TOL:.1f} x tol); ptxas "
+            f"(registers, spill) {regs.get(D, 'cached: no report')}")
+        if not same or skip_err <= K1_OUT_TOL:
+            raise SystemExit(f"K1 at D={D} is not deterministic, or its tolerance would let a "
+                             "skipped tile pass")
+        del out_ref
+        t = time_k1(q, k, v, tl, W, tls, sc)
+        passes = k1_pass_ms(call)
+        log(f"K1 D={D} main pass {passes['flash_fwd_kernel']} ms, window-score pass "
+            f"{passes['window_scores_kernel']} ms (profiled)")
+        del q, k, v, sc
+        entry = {"name": f"flash_prefill_d{D}", "route": "cuda", "source": flash_prefill.SOURCE,
+                 "replaces": flash_prefill.REPLACES,
+                 "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
+                 "max_abs_err": absd, "rel_l2": err, "tol": K1_OUT_TOL,
+                 "scores_max_abs_err": err_sc, "skipped_tile_rel_l2": skip_err, **t,
+                 "bound_fraction": t["bound_ms"] / t["ms"],
+                 "main_pass_ms": passes["flash_fwd_kernel"],
+                 "score_pass_ms": passes["window_scores_kernel"], "deterministic": same,
+                 "edge_cases": [{"rel_l2": e, "max_abs_err": a, "scores_max_abs_err": s}
+                                for e, a, s in edges],
+                 "ptxas": regs.get(D)}
+        if D == 64:
+            # Sliding window (Mistral-7B-v0.1's 4096 over 8192 rows at these
+            # heads), a chunk pool of phase 16's drain (2048-row chunks over
+            # 4096-row buffers, one inert), a ring hop of sp=2 over 8000 tokens.
+            sw = k1v_case(rng, 1, Hq, Hkv, 8192, 8192, [8192], 4096, None, D)
+            del sw["ref"]
+            entry["sliding_window"] = {"rel_l2": sw["err"], "max_abs_err": sw["absd"],
+                                       "shape": f"B=1 Hq={Hq} S=8192 D=64 sw=4096",
+                                       **time_k1v(sw, 4096, None)}
+            del sw
+            offsets = [0, 2048, 2048, 0]
+            ch = k1v_case(rng, 4, Hq, Hkv, 2048, 4096, [4096, 4096, 3000, 0], None, offsets, D)
+            del ch["ref"]
+            out["chunk"] = {
+                "name": "flash_prefill_chunk_d64", "route": "cuda",
+                "source": flash_prefill.SOURCE,
+                "replaces": flash_prefill.REPLACES_VARIANT["chunk"],
+                "shape": f"P=4 Hq={Hq} Hkv={Hkv} S_q=2048 S_k=4096 D=64 row_offset={offsets} "
+                         "true_len=[4096, 4096, 3000, 0]",
+                "max_abs_err": ch["absd"], "rel_l2": ch["err"], "tol": K1_OUT_TOL,
+                "deterministic": bitwise_repeat(lambda: flash_prefill.flash_prefill_attention(
+                    ch["q"], ch["k"], ch["v"], ch["tl"], 0, row_offset=ch["off"])),
+                **time_k1v(ch, None, offsets)}
+            del ch
+            qh, kh, vh = (bf16_normal(rng, (1, h, 4000, 64)) for h in (Hq, Hkv, Hkv))
+            hop = k1ml_case(qh, kh, vh, 8000, 4000)
+            entry["ring_hop"] = {"rel_l2": hop["err"], "max_abs_err": hop["absd"],
+                                 "m_max_abs_err": hop["m_err"], "l_max_rel_err": hop["l_err"],
+                                 "shape": "B=1 Hq=32 S_loc=4000 D=64, rank 1 over shard 0, "
+                                          "true_len 8000",
+                                 **time_k1v(hop, None, [4000], ml=True)}
+            del qh, kh, vh, hop
+        else:
+            # A-shape at this head_dim: 1024-row blocks at the check shape,
+            # and 64-row blocks at S 1000, where each 64-key tile is one
+            # half and the two warpgroups select apart; then timed at B 1.
+            q, k, v = k1s_inputs(rng, 2, Hq, Hkv, S, D=D)
+            a = k1s_case(q, k, v, tls, ASHAPE)
+            dense_err, shift_err = k1s_mask_errors(a)
+            del q, k, v, a["ref"]
+            q, k, v = k1s_inputs(rng, 2, 8, 2, 1000, D=D)
+            a64 = k1s_case(q, k, v, [1000, 777], ("ashape", 1, 3, 4), window=8, q_block=64)
+            del q, k, v, a64["ref"]
+            log(f"K1-A D={D}: an ignored mask would show {dense_err:.3e}, a shifted one "
+                f"{shift_err:.3e} (tol {K1_OUT_TOL})")
+            if min(dense_err, shift_err) <= 2 * K1_OUT_TOL:
+                raise SystemExit("K1-A's tolerance would let an ignored or shifted mask pass")
+            q, k, v = k1s_inputs(rng, 1, Hq, Hkv, 8192, D=D)
+            t_a = time_k1s(q, k, v, [8000], ASHAPE)
+            del q, k, v
+            entry["ashape"] = {"rel_l2": max(a["err"], a64["err"], t_a["path_shape_rel_l2"]),
+                               "max_abs_err": max(a["absd"], a64["absd"]),
+                               "density": a["density"], "ignored_mask_rel_l2": dense_err,
+                               "shifted_mask_rel_l2": shift_err, "block64_rel_l2": a64["err"],
+                               "shape": f"B=1 Hq={Hq} Hkv={Hkv} S=8192 D={D} true_len=[8000], "
+                                        f"{ASHAPE}, block 1024", **t_a}
+        out[D] = entry
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_k2_head_dims(rng, reports):
+    """K2 at head_dim 64 and 256, G 1 and G 4, against its plain version
+    (off-by-one and dropped-split sensitivity, bitwise repeats and graph
+    replays, the split-rule edges) and timed beside its plain version, SDPA
+    and its bound: at G 1 the snapkv decode of phases 16 / 16b (B 2 x the
+    query heads at 2079 / 1531 keys), at G 4 phase 16's fullkv decode (B 2
+    x 8 KV heads at 4159 / 1563 keys, C 4161)."""
+    regs = registers_by_head_dim(reports, "decode_attn", "decode_attn_kernel")
+    out = {}
+    for D, Hq, Hkv in ((64, 32, 8), (256, 16, 4)):
+        C = 2113
+        H = 2 * Hq
+        lens = [2048 + 31] * Hq + [1500 + 31] * Hq
+        q, kc, vc, kn, vn, lt, _, ref, err, absd = k2_case(rng, H, 1, C, lens,
+                                                            np.zeros(H, np.int64), D)
+        off_err = k2_one_key_off_error(q, kc, vc, kn, vn, lt, ref)
+        drop_err, n_split = k2_dropped_split_error(q, kc, vc, kn, vn, lt, ref)
+        log(f"K2 D={D}: a key range off by one would show {off_err:.3e}, a dropped split "
+            f"(1 of {n_split}) {drop_err:.3e} (tol {K2_OUT_TOL}); ptxas (registers, spill) "
+            f"{sorted(set(regs.get(D, [])))}")
+        if min(off_err, drop_err) <= K2_OUT_TOL:
+            raise SystemExit(f"K2's tolerance at D={D} would let an off-by-one or dropped split "
+                             "pass")
+        checks = {**k2_repeat_and_replay(q, kc, vc, kn, vn, lt), **k2_split_edges(rng, D)}
+        main = time_k2(q, kc, vc, kn, vn, lt)
+        del q, kc, vc, ref
+        C4 = 4096 + 64 + 1
+        H4 = 2 * Hkv
+        q, kc, vc, kn, vn, lt, _, ref, err4, abs4 = k2_case(
+            rng, H4, Hq // Hkv, C4, [4096 + 63] * Hkv + [1500 + 63] * Hkv,
+            np.zeros(H4, np.int64), D)
+        drop4, n4 = k2_dropped_split_error(q, kc, vc, kn, vn, lt, ref)
+        if drop4 <= K2_OUT_TOL:
+            raise SystemExit(f"K2's tolerance at D={D}, G 4 would let a dropped split pass")
+        g4 = time_k2(q, kc, vc, kn, vn, lt)
+        del q, kc, vc, ref
+        out[D] = {"name": f"decode_attn_append_d{D}", "route": "cuda",
+                  "source": decode_attn.SOURCE, "replaces": decode_attn.REPLACES,
+                  "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D}, lengths 2079 and 1531",
+                  "max_abs_err": max(absd, abs4), "rel_l2": max(err, err4),
+                  "tol": K2_OUT_TOL, "off_by_one_rel_l2": off_err,
+                  "dropped_split_rel_l2": drop_err, "n_split": n_split, **checks, **main,
+                  "g4": {"shape": f"H={H4} (B=2 x {Hkv}) G={Hq // Hkv} C={C4} D={D}, lengths "
+                                  "4159 and 1563", "rel_l2": err4, "max_abs_err": abs4,
+                         "dropped_split_rel_l2": drop4, "n_split": n4, **g4},
+                  "ptxas": regs.get(D)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kq_head_dims(rng, reports):
+    """K3 and K4 at head_dim 256, G 1 and G 4, against their plain versions
+    with the append byte for byte (off-by-one and dropped-split
+    sensitivity, bitwise repeats and graph replays, the split and tile
+    edges, the range case ``KQ_RANGE``) and timed beside the plain version
+    and the dequantize + SDPA composite at phase 16b's decode shape (B 2 x
+    16 heads at 2079 / 1531 keys)."""
+    D, Hq, Hkv = 256, 16, 4
+    out = {}
+    for nbits in (8, 4):
+        kid, _, _, C = QUANT[nbits]
+        regs = registers_by_head_dim(reports, "decode_attn_quant", QUANT_KERNELS[kid])
+        H = 2 * Hq
+        lens = [2048 + 31] * Hq + [1500 + 31] * Hq
+        q, kc, vc, sc, kn, vn, lt, ref, err, absd = kq_case(
+            rng, nbits, H, 1, C, lens, np.zeros(H, np.int64), D=D)
+        off_err = kq_one_key_off_error(nbits, q, kc, vc, sc, kn, vn, lt, ref)
+        drop_err, n_split = kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lt, ref)
+        log(f"{kid} D={D}: a key range off by one would show {off_err:.3e}, a dropped split "
+            f"(1 of {n_split}) {drop_err:.3e} (tol {KQ_OUT_TOL}); ptxas (registers, spill) "
+            f"{sorted(set(regs.get(D, [])))}")
+        if min(off_err, drop_err) <= KQ_OUT_TOL:
+            raise SystemExit(f"{kid}'s tolerance at D={D} would let an off-by-one or dropped "
+                             "split pass")
+        checks = {**kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lt),
+                  **kq_split_edges(rng, nbits, C, D)}
+        checks["range_rel_l2"] = kq_case(rng, nbits, H, 1, C, lens, np.zeros(H, np.int64),
+                                         KQ_RANGE, D)[8]
+        err4 = kq_case(rng, nbits, 2 * Hkv, Hq // Hkv, C, [2048 + 31] * Hkv + [1500 + 31] * Hkv,
+                       np.zeros(2 * Hkv, np.int64), D=D)[8]
+        main = time_kq(nbits, q, kc, vc, sc, kn, vn, lt)
+        del q, kc, vc, sc, ref
+        out[nbits] = {"name": f"quant{nbits}_decode_attn_append_d{D}", "route": "cuda",
+                      "source": decode_attn_quant.SOURCE,
+                      "replaces": decode_attn_quant.REPLACES[nbits],
+                      "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D} int{nbits}, lengths 2079 "
+                               "and 1531", "max_abs_err": absd, "rel_l2": err,
+                      "tol": KQ_OUT_TOL, "g4_rel_l2": err4, "off_by_one_rel_l2": off_err,
+                      "dropped_split_rel_l2": drop_err, "n_split": n_split,
+                      "append_bit_identical": True, **checks, **main, "ptxas": regs.get(D)}
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: end to end
 # ---------------------------------------------------------------------------
 
@@ -1698,14 +1944,18 @@ def phase_e2e(rng, log_file):
                              for label, quant in PATHS}
 
 
-def drive_path(params, n_params, prompts, quant, log_file):
+def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=SNAPKV,
+               model="Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
+               direct_rng=None):
     """One ``generate_batch`` of the two requests with the bf16 cache
-    (``quant`` None) or a per-token quantized one, checked and timed."""
-    cfg, comp, dev = MISTRAL_7B, SNAPKV, "cuda"
+    (``quant`` None) or a per-token quantized one, checked and timed; with
+    ``direct_rng``, K2 (K3, K4) is also called directly on the finished
+    cache's first and last layer against its plain version."""
+    dev = "cuda"
     L = cfg.num_hidden_layers
     label = "bf16" if quant is None else f"int{quant.nbits}"
     decode_id = "K2" if quant is None else QUANT[quant.nbits][0]
-    log(f"== main path, {label} cache")
+    log(f"== {model.split(',')[0]}, {comp.method}, {label} cache")
     engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant),
                              device=dev)
     max_new = 64
@@ -1730,7 +1980,9 @@ def drive_path(params, n_params, prompts, quant, log_file):
         if not isinstance(res.cache, cls) or res.cache.capacity != C:
             raise SystemExit("the engine built the wrong cache")
     lens = res.cache.lengths
-    want = [comp.max_capacity_prompt + steps, len(prompts[1]) + steps]
+    keep = (lambda n: n) if comp.method == "fullkv" else \
+        (lambda n: min(n, comp.max_capacity_prompt))
+    want = [keep(len(p)) + steps for p in prompts]
     got = [sorted(set(lens[:, b].flatten().tolist())) for b in range(2)]
     log(f"cache lengths per request: {got} (expect {want})")
     if got != [[w] for w in want] or [len(x) for x in ids] != [max_new, max_new]:
@@ -1764,6 +2016,8 @@ def drive_path(params, n_params, prompts, quant, log_file):
     if max(rel_b0, rel_a or 0.0) > E2E_REL_L2_TOL or rel_bd > decode_tol:
         raise SystemExit("logits disagree with the fp32 reference")
     del ref_a, ref_b
+    direct = None if direct_rng is None else \
+        direct_decode_check(direct_rng, res.cache, quant, f"{comp.method} {label}")
 
     # Timings: prefill alone (max_new_tokens=1), then the full request.
     t0 = time.perf_counter()
@@ -1781,7 +2035,7 @@ def drive_path(params, n_params, prompts, quant, log_file):
     row_bytes = 2 * 2 * cfg.head_dim if quant is None else 2 * res.cache.k_codes.shape[-1] + 8
     cache_bytes = row_bytes * int(lens.sum().item())
     bound_step_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"prefill {prefill_s:.3f} s for B=2 (4096 + 1500 tokens, bucket 4096); decode "
+    log(f"prefill {prefill_s:.3f} s for B=2 ({len(prompts[0])} + {len(prompts[1])} tokens); decode "
         f"{step_ms:.3f} ms/step, {2e3 / step_ms:.1f} tok/s at B=2; bandwidth bound "
         f"{bound_step_ms:.3f} ms/step ({weight_bytes / 1e9:.2f} GB weights + "
         f"{cache_bytes / 1e9:.2f} GB cache)")
@@ -1800,12 +2054,13 @@ def drive_path(params, n_params, prompts, quant, log_file):
             step_ms, f"decode step, {label}", log_file,
             check=None if label not in ONE_LAUNCH_DECODE else
             lambda rows: one_kernel_a_layer(rows, L, *ONE_LAUNCH_DECODE[label]))
-    return {"model": "Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
-            "compression": "snapkv 2048/8/7 maxpool, group_reduce none",
+    return {"model": model,
+            "compression": "snapkv 2048/8/7 maxpool, group_reduce none" if comp is SNAPKV
+                           else comp.method,
             "cache": label if quant is None else f"{label} per token, capacity "
                                                  f"{res.cache.capacity}",
             "requests": "B=2: 4096 and 1500 prompt tokens, 64 new tokens, bucket 4096",
-            "launches": launches,
+            "launches": launches, "lengths": got, "tokens": ids,
             "prefill_s": prefill_s, "prefill_device_busy_ms": pre_busy,
             "decode_ms_per_step": step_ms,
             "tok_s": 2e3 / step_ms, "bound_ms_per_step": bound_step_ms,
@@ -1813,7 +2068,8 @@ def drive_path(params, n_params, prompts, quant, log_file):
             "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms,
             "prefill_rel_l2": [rel_a, rel_b0], "decode_rel_l2": rel_bd,
             "rel_l2_tol": E2E_REL_L2_TOL, "decode_rel_l2_tol": decode_tol,
-            "decode_top1_agreement": top1}
+            "decode_top1_agreement": top1, "direct_rel_l2": direct,
+            "weight_bytes": weight_bytes, "cache_bytes": cache_bytes}
 
 
 # The one-launch decode kernels, by cache: (id, a part of the kernel's name).
@@ -1917,7 +2173,8 @@ def direct_decode_check(rng, cache, quant, label):
     copy of layers 0 and 31 of a finished cache with a random query: the
     ragged per-head lengths of a real policy.  Returns the worst head's rel
     L2 and max abs difference."""
-    D, dev = 128, cache.lengths.device
+    dev = cache.lengths.device
+    D = cache.k.shape[-1] if quant is None else cache.k_codes.shape[-1] * 8 // quant.nbits
     dtype = cache.k.dtype if quant is None else torch.bfloat16
     worst = (0.0, 0.0)
     for li in (0, cache.lengths.shape[0] - 1):
@@ -3515,7 +3772,13 @@ QWEN2_7B_HF_CONFIG = {
     "sliding_window": 131072, "use_sliding_window": False, "tie_word_embeddings": False,
     "bos_token_id": 151643, "eos_token_id": 151645, "hidden_act": "silu",
     "torch_dtype": "bfloat16"}
-QWEN2_7B = ModelConfig.from_hf_config(QWEN2_7B_HF_CONFIG)
+# Depth cut to 7 of the 28 layers since phases 16 and 16b joined the
+# script, to keep it well inside its time limit (PERF.md §6: 1140.4
+# s at 28 layers here and 16 in phase 10, 1100.9 s at 14 and 8): the checks
+# count launches per layer and the logits hold to the fp32 reference at any
+# depth.
+QWEN2_7B = dataclasses.replace(ModelConfig.from_hf_config(QWEN2_7B_HF_CONFIG),
+                               num_hidden_layers=7)
 # The checkpoint written and read back in 9a has the published widths and 4
 # of the 28 layers (about 4 GB on disk): depth is cut for disk space and time.
 LOADER_LAYERS = 4
@@ -4121,8 +4384,8 @@ def phase_qwen2(rng, log_file):
     """Phase 9: the checkpoint-to-score path at Qwen2-7B-Instruct widths."""
     cfg = QWEN2_7B
     loader = phase_loader(rng)
-    log(f"== 9b Qwen2-7B-Instruct widths, 28 layers, random bf16 weights + q/k/v biases (seed "
-        f"1), then quantize_weights (W8A16)")
+    log(f"== 9b Qwen2-7B-Instruct widths, {cfg.num_hidden_layers} of 28 layers, random bf16 "
+        f"weights + q/k/v biases (seed 1), then quantize_weights (W8A16)")
     params = qwen_params()
     t0 = time.perf_counter()
     qparams = quantize_weights(params)
@@ -4155,7 +4418,8 @@ def phase_qwen2(rng, log_file):
     harness = phase_harness(rng, qparams, log_file)
     del qparams
     torch.cuda.empty_cache()
-    return {"model": "Qwen2-7B-Instruct widths (28 layers; the loader's checkpoint 4), random "
+    return {"model": f"Qwen2-7B-Instruct widths ({cfg.num_hidden_layers} of 28 layers; the "
+                     "loader's checkpoint 4), random "
                      "weights (seeds 1, 2) with q/k/v biases",
             "compression": "snapkv 2048/8/7 maxpool, group_reduce none; fullkv",
             "requests": f"B=2: 4096 and 1500 prompt tokens, {QWEN_NEW} new; fullkv one of 4000, "
@@ -4175,12 +4439,13 @@ LLAMA3_8B_HF_CONFIG = {
     "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
     "num_key_value_heads": 8, "max_position_embeddings": 8192, "rope_theta": 500000.0,
     "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
-# Depth cut to 16 of the 32 layers since phases 13 and 14 joined the script,
-# to keep the whole script well inside its time limit (PERF.md §6: 1131.8
-# s at 32 layers): every check of phase 10 reads layers 0 and L - 1 and
-# counts launches per layer.
+# Depth cut to 16 of the 32 layers since phases 13 and 14 joined the script
+# (PERF.md §6: 1131.8 s at 32 layers), and to 4 since phases 16 and 16b did
+# (1140.4 s at 16, 1100.9 s at 8), to keep the whole script well inside its
+# time limit: every check of phase 10 reads layers 0 and L - 1 and counts
+# launches per layer.
 LLAMA3_8B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA3_8B_HF_CONFIG),
-                                num_hidden_layers=16)
+                                num_hidden_layers=4)
 # 10a: the grouped caches, each with its new tokens (limits: GROUPED_REL_L2_TOL).
 GROUPED_RUNS = (
     ("nbits2_outliers_ring128", QuantConfig(nbits=2, q_group_size=64, outlier_extract=True,
@@ -5657,6 +5922,146 @@ def phase_ep(prompts, ep_refs, busy_11b):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: Llama-3.2-1B-Instruct (head_dim 64); 16b: a head_dim 256 model
+# ---------------------------------------------------------------------------
+
+# The fields the forward reads from the published config.json of
+# meta-llama/Llama-3.2-1B-Instruct (bf16 weights, tied embeddings, llama3
+# rope scaling).
+LLAMA32_1B_HF_CONFIG = {
+    "model_type": "llama", "vocab_size": 128256, "hidden_size": 2048,
+    "intermediate_size": 8192, "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "max_position_embeddings": 131072,
+    "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rms_norm_eps": 1e-05, "tie_word_embeddings": True, "torch_dtype": "bfloat16"}
+LLAMA32_1B = ModelConfig.from_hf_config(LLAMA32_1B_HF_CONFIG)
+# A 4-layer model at head_dim 256 (hidden 4096 = 16 x 256, 4 KV heads, G 4):
+# no public Llama / Mistral / Qwen2 / Mixtral model has this head_dim; it
+# runs K1-K4 at 256 in the model.
+D256_MODEL = ModelConfig.from_hf_config({
+    "model_type": "llama", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 4, "num_attention_heads": 16,
+    "num_key_value_heads": 4, "head_dim": 256, "max_position_embeddings": 32768,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-05, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16"})
+LLAMA32_DRAIN_PROMPTS = 4      # requests of 4096 tokens
+LLAMA32_DRAIN_NEW = 16
+LLAMA32_DRAIN_CHUNK = 2048
+
+
+def count_params(params):
+    return sum(t.numel() for t in [params["embed"], params["final_norm"], params["lm_head"]]
+               + list(params["layers"].values()))
+
+
+def llama32_drain(params, rng):
+    """Four 4096-token requests through ``ContinuousBatchingEngine`` with
+    2048-token chunked admission (K1-chunk at head_dim 64), every launch
+    count set to 0 just before ``run``: launches, lengths, each request's
+    first-token logits against the fp32 reference."""
+    cfg, L = LLAMA32_1B, LLAMA32_1B.num_hidden_layers
+    prompts = [rng.integers(0, cfg.vocab_size, size=4096).tolist()
+               for _ in range(LLAMA32_DRAIN_PROMPTS)]
+    eng = ContinuousBatchingEngine(
+        params, EngineConfig(model=cfg, compression=SNAPKV, prefill_buckets=(4096,)),
+        n_slots=4, max_new_cap=LLAMA32_DRAIN_NEW, chunk_size=16,
+        prefill_chunk_tokens=LLAMA32_DRAIN_CHUNK, device="cuda", instrument=True)
+    rids = [eng.submit(p, LLAMA32_DRAIN_NEW) for p in prompts]
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    expect = dict.fromkeys(launches, 0)
+    expect["K1-chunk"] = L * eng.prefill_chunk_dispatches
+    expect["K2"] = L * eng.steps_executed
+    log(f"16 drain: {len(prompts)} x 4096 tokens, {LLAMA32_DRAIN_NEW} new, chunks of "
+        f"{LLAMA32_DRAIN_CHUNK}: {wall:.3f} s, {eng.steps_executed} decode steps, "
+        f"{eng.prefill_chunk_dispatches} chunk dispatches; launches {launches}, expect {expect}")
+    if launches != expect or expect["K1-chunk"] == 0:
+        raise SystemExit("the Llama-3.2 drain did not run each kernel the expected number of times")
+    got = sorted(sorted(set(eng.cache.lengths[:, b].flatten().tolist())) for b in range(4))
+    want = [[SNAPKV.max_capacity_prompt + LLAMA32_DRAIN_NEW - 1]] * 4
+    if got != want or any(len(outs[r]) != LLAMA32_DRAIN_NEW for r in rids):
+        raise SystemExit(f"the Llama-3.2 drain left lengths {got} (expect {want}) or wrong "
+                         "token counts")
+    worst = 0.0
+    with torch.no_grad():
+        for r, p in zip(rids, prompts):
+            ref = forward_logits(params, cfg, torch.tensor([p], device="cuda"))[0, -1]
+            worst = max(worst, rel_l2(eng.logits[r][0][None].cuda().float(), ref[None])[0])
+            del ref
+    log(f"16 drain: cache lengths {got}; first-token logits against the fp32 reference: worst "
+        f"rel L2 {worst:.4f} (tol {E2E_REL_L2_TOL})")
+    if worst > E2E_REL_L2_TOL:
+        raise SystemExit("the Llama-3.2 drain's first tokens disagree with the fp32 reference")
+    out = {"launches": launches, "drain_s": wall, "decode_steps": eng.steps_executed,
+           "chunk_dispatches": eng.prefill_chunk_dispatches, "first_token_rel_l2": worst,
+           "longest_stall_s": max(eng.admission_stalls_s), "lengths": got}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_llama32(rng, prompts, log_file):
+    """Phase 16: Llama-3.2-1B-Instruct at full width and depth (random bf16
+    weights, seed 4, lm_head tied to the embedding), phase 5's requests
+    through ``InferenceEngine`` with snapkv (K1 16 a prefill, K2 at G 1) and
+    fullkv (K2 at G 4 on 8 KV heads), each checked as phase 5's paths are
+    (launches, lengths, logits against the fp32 reference, K2 called
+    directly on layers 0 and 15, times, a profiled decode step); then a
+    chunked drain (K1-chunk at head_dim 64)."""
+    cfg = LLAMA32_1B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=4, device="cuda")
+    params["lm_head"] = params["embed"].T.contiguous()  # tie_word_embeddings
+    sync()
+    n_params = count_params(params) - params["lm_head"].numel()  # tied: one matrix
+    log(f"== 16 Llama-3.2-1B-Instruct (16 layers, hidden 2048, 32 / 8 heads of 64, vocab "
+        f"128256, llama3 rope scaling, tied embeddings): {n_params / 1e9:.3f} B parameters, "
+        f"random bf16 (seed 4), in {time.perf_counter() - t0:.1f} s")
+    model = "Llama-3.2-1B-Instruct widths, random weights (seed 4), tied embeddings"
+    out = {"model": model, "parameters": n_params}
+    for name, comp in (("snapkv", SNAPKV), ("fullkv", CompressionConfig(method="fullkv"))):
+        # drive_path counts the weight bytes a step reads: the layers' and
+        # the lm_head's (the embedding is gathered by row).
+        out[name] = drive_path(params, count_params(params), prompts, None, log_file, cfg=cfg,
+                               comp=comp, model=model, direct_rng=rng)
+        log(f"16 {name}: greedy streams (a) {out[name]['tokens'][0][:16]} ..., (b) "
+            f"{out[name]['tokens'][1][:16]} ...")
+    out["drain"] = llama32_drain(params, np.random.default_rng(16))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_d256(rng, prompts, log_file):
+    """Phase 16b: the 4-layer head_dim 256 model (random bf16 weights, seed
+    6), phase 5's requests through ``InferenceEngine`` with snapkv over the
+    bf16, int8 and int4 caches (K1 and K2, K3, K4 at head_dim 256), each
+    checked as phase 5's paths are: limits 0.10 (bf16, int8) and 0.40
+    (int4)."""
+    cfg = D256_MODEL
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=6, device="cuda")
+    sync()
+    n_params = count_params(params)
+    log(f"== 16b head_dim 256 model (4 layers, hidden 4096, 16 / 4 heads of 256, ffn 14336, "
+        f"vocab 32000): {n_params / 1e9:.3f} B parameters, random bf16 (seed 6), in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = "head_dim 256 model (4 layers, 16 / 4 heads), random weights (seed 6)"
+    out = {label: drive_path(params, n_params, prompts, quant, log_file, cfg=cfg, model=model,
+                             direct_rng=rng)
+           for label, quant in PATHS}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # K3's and K4's kernels in csrc/decode_attn_quant.cu, by a part of their names.
 QUANT_KERNELS = {"K3": "quant8_decode_kernel", "K4": "quant4_decode_kernel"}
 
@@ -5795,7 +6200,15 @@ def main():
             if any(key in line for key in ("registers", "spill", "Compiling entry",
                                            "Performance Loss")):
                 log(f"  {name}: {line.strip()}")
-    # K2's ptxas lines: each instantiation (G 1-8) must spill nothing.
+    # K1's ptxas lines: each head_dim's main kernel must spill nothing.
+    k1_entries = ptxas_entries(reports.get("flash_prefill", ""), "flash_fwd_kernel")
+    if any("0 bytes spill stores, 0 bytes spill loads" not in (line or "")
+           for _, _, line in k1_entries):
+        raise SystemExit("K1 spills registers (ptxas lines above)")
+    log(f"K1 ptxas: {len(k1_entries)} entries (head_dims "
+        f"{sorted(head_dim_of(fn) for fn, _, _ in k1_entries)}), 0 spill bytes" if k1_entries
+        else "K1 ptxas: library cached, no ptxas report in this run")
+    # K2's ptxas lines: each instantiation (D 64/128/256, G 1-8) must spill nothing.
     k2_spills = [line for line in reports.get("decode_attn", "").splitlines() if "spill" in line]
     if any("0 bytes spill stores, 0 bytes spill loads" not in line for line in k2_spills):
         raise SystemExit("K2 spills registers (ptxas lines above)")
@@ -5830,6 +6243,12 @@ def main():
     k3 = timed("4b K3", phase_kq, rng, 8)
     k4 = timed("4b K4", phase_kq, rng, 4)
     timed("4 edges", phase_edges, rng)
+    # The head_dim 64 and 256 cases draw from a generator of their own, so
+    # that every other phase keeps its inputs.
+    rng_hd = np.random.default_rng(17)
+    k1_hd = timed("3e K1 head dims", phase_k1_head_dims, rng_hd, reports)
+    k2_hd = timed("4c K2 head dims", phase_k2_head_dims, rng_hd, reports)
+    kq_hd = timed("4d K3/K4 head dim 256", phase_kq_head_dims, rng_hd, reports)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
         params, prompts, e2e = timed("5 main path", phase_e2e, rng, log_file)
@@ -5857,6 +6276,9 @@ def main():
         ep = timed("14 ep", phase_ep, prompts, ep_refs,
                    mixtral["engine"]["device_busy_ms_per_step"])
         del ep_refs
+        torch.cuda.empty_cache()
+        llama32 = timed("16 Llama-3.2-1B", phase_llama32, rng_hd, prompts, log_file)
+        d256 = timed("16b head_dim 256", phase_d256, rng_hd, prompts, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -5925,11 +6347,24 @@ def main():
     for k, kid in ((k1, "K1"), (k2, "K2")):
         k["pp"] = {"per_stage": [st["launches"][kid] for st in pp["stages"]]}
         k["ep"] = {"per_rank": [rk["launches"][kid] for rk in ep["ranks"]]}
-    print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5]}))
+    # Phase 16 and 16b: each (kernel, head_dim) on the run that runs it.
+    k1_hd[64].update(launches=llama32["snapkv"]["launches"]["K1"],
+                     launches_fullkv=llama32["fullkv"]["launches"]["K1"])
+    k1_hd["chunk"]["launches"] = llama32["drain"]["launches"]["K1-chunk"]
+    k1_hd[256]["launches"] = d256["bf16"]["launches"]["K1"]
+    k2_hd[64].update(launches=llama32["snapkv"]["launches"]["K2"])
+    k2_hd[64]["g4"]["launches"] = llama32["fullkv"]["launches"]["K2"]
+    k2_hd[256]["launches"] = d256["bf16"]["launches"]["K2"]
+    kq_hd[8]["launches"] = d256["int8"]["launches"]["K3"]
+    kq_hd[4]["launches"] = d256["int4"]["launches"]["K4"]
+    print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5,
+                                  k1_hd[64], k1_hd["chunk"], k1_hd[256], k2_hd[64], k2_hd[256],
+                                  kq_hd[8], kq_hd[4]]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
                       "sp": {**sp, "fold_emulated": sp_fold}, "grid": grid, "pp": pp,
                       "qwen2": qwen, "llama3": llama3, "mixtral": mixtral, "ep": ep,
+                      "llama32": llama32, "d256": d256,
                       "phase_s": PHASE_S,
                       "script_s": time.perf_counter() - T_START, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -237,11 +237,14 @@ class QuantConfig:
         """Whether this configuration takes the per-token cache: one scale
         and one zero per token and head over the full head_dim, whatever
         ``q_group_size`` and ``outlier_extract`` say.  The JAX package's
-        rule (``models/llama.py::_quant_tpu_layout``) without its backend
-        and capacity tests: the port chooses from the configuration alone,
-        and its kernels take any capacity.  Every other configuration
-        builds the grouped cache, as JAX's XLA path does."""
-        return self.nbits in (8, 4) and self.residual_length == 0 and head_dim == 128
+        rule (``models/llama.py::_quant_tpu_layout``: ``head_dim % 128 ==
+        0``) without its backend and capacity tests, at the head_dims K3 and
+        K4 take (128 and 256): the port chooses from the configuration
+        alone, and its kernels take any capacity.  Every other configuration
+        (head_dim 64 included) builds the grouped cache, as JAX's XLA path
+        does."""
+        return (self.nbits in (8, 4) and self.residual_length == 0
+                and head_dim in (128, 256))
 
 
 @dataclass(frozen=True)

@@ -11,7 +11,10 @@
 //         whose K/V are folded in from registers; fp32 probabilities.
 //   k_cache[h, L] = k_new[h]; v_cache[h, L] = v_new[h]
 // The caller advances lengths to min(lengths + 1, C).  Any capacity C > 0,
-// G from 1 to 8, D = 128.
+// G from 1 to 8, head_dim D in {64, 128, 256} (a template parameter; the
+// library exports kvcf_decode_attn_append_d<D> for each).  The numbers
+// below are at D 128; shared memory is 768 D bytes a CTA, so 4, 2 or 1 CTAs
+// fit an SM at D 64, 128 or 256 and the bytes in flight an SM stay the same.
 //
 // What bounds it: reading the valid K/V rows once, 2 * len * D * 2 bytes
 // per head (59.3 MB per layer at the main path's 64 heads of 2079 and 1531
@@ -79,23 +82,30 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;        // head_dim (the wrapper checks)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int KEYS = 16;      // keys a warp a stage: the mma's M
 constexpr int STAGE_KEYS = WARPS * KEYS;
 constexpr int STAGES = 3;
-constexpr int ROW_BYTES = D * 2;
-constexpr int SLOT_BYTES = 2 * KEYS * ROW_BYTES;   // K, then V: 8 KB
-constexpr int WARP_RING = STAGES * SLOT_BYTES;     // 24 KB
-constexpr int SMEM_BYTES = WARPS * WARP_RING;      // 96 KB
-constexpr int O_STRIDE = D + 4;                    // padded row of the warp merge
 constexpr int MERGE_BATCH = 8;                     // splits whose loads the merge issues together
 constexpr float NEG_INF = -3.4028234663852886e38f; // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-static_assert(THREADS == D, "one thread per channel in the merges");
-static_assert(WARPS * 8 * O_STRIDE * 4 + 2 * WARPS * 8 * 4 <= SMEM_BYTES, "warp merge");
+
+// The ring of head_dim D (bytes at D 128).
+template <int D>
+struct Ring {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  static constexpr int ROW_BYTES = D * 2;
+  static constexpr int CHUNKS = D / 8;                 // 16-byte chunks a row
+  static constexpr int SLOT_BYTES = 2 * KEYS * ROW_BYTES;  // K, then V: 8 KB
+  static constexpr int WARP_RING = STAGES * SLOT_BYTES;    // 24 KB
+  static constexpr int SMEM_BYTES = WARPS * WARP_RING;     // 96 KB
+  static constexpr int CTAS_PER_SM = 256 / D;          // resident CTAs an SM: 4, 2, 1
+  static constexpr int O_STRIDE = D + 4;               // padded row of the warp merge
+  static constexpr int CPL = D / 32;                   // channels a lane in the head merge
+  static_assert(WARPS * 8 * O_STRIDE * 4 + 2 * WARPS * 8 * 4 <= SMEM_BYTES, "warp merge");
+};
 
 struct Params {
   const bf16* q;        // [H, G, D]
@@ -168,20 +178,55 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(v);
 }
 
+// N consecutive fp32 values from global memory, past L1 (N = 2, 4 or 8).
+template <int N>
+__device__ __forceinline__ void ldcg(const float* src, float (&x)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(src + i));
+      x[i] = v.x; x[i + 1] = v.y; x[i + 2] = v.z; x[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(src + i));
+      x[i] = v.x; x[i + 1] = v.y;
+    }
+  }
+}
+
+// N values (N even) rounded to bf16 and stored at dst in one vector store
+// (N = 2, 4 or 8: 4, 8 or 16 bytes).
+template <int N>
+__device__ __forceinline__ void store_bf16(bf16* dst, const float (&x)[N]) {
+  uint32_t w[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) w[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+  if constexpr (N == 8)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (N == 4)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+}
+
 // The last CTA of head h to arrive: merge the n_split partials in split
 // order, fold in the new token, write out, append, reset the counter.  Warp
-// w takes query rows w and w + 4, lane l channels 4l .. 4l + 3.  The splits
-// are merged in batches of MERGE_BATCH: all of a batch's loads are issued
-// together, then one rescale of the running sums and one exp per split.
-template <int G>
+// w takes query rows w and w + 4, lane l channels CPL l .. CPL l + CPL - 1
+// (CPL = D / 32).  The splits are merged in batches of MERGE_BATCH: all of
+// a batch's loads are issued together, then one rescale of the running
+// sums and one exp per split.
+template <int D, int G>
 __device__ void merge_head(const Params& p, int h, int L) {
-  const int tid = threadIdx.x, lane = tid & 31, d = lane * 4;
+  constexpr int CPL = Ring<D>::CPL;
+  const int tid = threadIdx.x, lane = tid & 31, d = lane * CPL;
   const int ns = p.n_split;
   for (int g = tid >> 5; g < G; g += WARPS) {
     const bf16* qg = p.q + ((size_t)h * G + g) * D + d;
     float s_new = 0.f;  // the new token's logit
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < CPL; ++i)
       s_new += __bfloat162float(qg[i]) * __bfloat162float(p.k_new[(size_t)h * D + d + i]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s_new += __shfl_xor_sync(0xffffffffu, s_new, off);
@@ -189,15 +234,17 @@ __device__ void merge_head(const Params& p, int h, int L) {
 
     const float* ml = p.part_ml + ((size_t)h * ns * G + g) * 2;
     const float* acc = p.part_acc + ((size_t)h * ns * G + g) * D + d;
-    float M = NEG_INF, Ls = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+    float M = NEG_INF, Ls = 0.f, a[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) a[i] = 0.f;
     for (int s0 = 0; s0 < ns; s0 += MERGE_BATCH) {
       float2 mls[MERGE_BATCH];
-      float4 x[MERGE_BATCH];
+      float x[MERGE_BATCH][CPL];
 #pragma unroll
       for (int j = 0; j < MERGE_BATCH; ++j) {
         const size_t s = min(s0 + j, ns - 1);  // past ns: a real split, weighed 0
         mls[j] = __ldcg(reinterpret_cast<const float2*>(ml + s * G * 2));
-        x[j] = __ldcg(reinterpret_cast<const float4*>(acc + s * G * D));
+        ldcg<CPL>(acc + s * G * D, x[j]);
       }
       bool live[MERGE_BATCH];  // an empty split (l = 0) adds nothing
       float Mb = M;
@@ -209,38 +256,39 @@ __device__ void merge_head(const Params& p, int h, int L) {
       const float alpha = expf(M - Mb);
       Ls *= alpha;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] *= alpha;
+      for (int i = 0; i < CPL; ++i) a[i] *= alpha;
 #pragma unroll
       for (int j = 0; j < MERGE_BATCH; ++j) {
         const float w = live[j] ? expf(mls[j].x - Mb) : 0.f;
         Ls += w * mls[j].y;
-        a[0] += w * x[j].x;
-        a[1] += w * x[j].y;
-        a[2] += w * x[j].z;
-        a[3] += w * x[j].w;
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) a[i] += w * x[j][i];
       }
       M = Mb;
     }
     const float m_f = fmaxf(M, s_new);
     const float alpha = expf(M - m_f), p_new = expf(s_new - m_f);
     const float inv = 1.f / (Ls * alpha + p_new);
-    __align__(8) bf16 o[4];
+    float o[CPL];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < CPL; ++i) {
       const float vn = __bfloat162float(p.v_new[(size_t)h * D + d + i]);
-      o[i] = __float2bfloat16((a[i] * alpha + p_new * vn) * inv);
+      o[i] = (a[i] * alpha + p_new * vn) * inv;
     }
-    *reinterpret_cast<uint2*>(p.out + ((size_t)h * G + g) * D + d) =
-        *reinterpret_cast<const uint2*>(o);
+    store_bf16<CPL>(p.out + ((size_t)h * G + g) * D + d, o);
   }
-  p.kc[((size_t)h * p.C + L) * D + tid] = p.k_new[(size_t)h * D + tid];
-  p.vc[((size_t)h * p.C + L) * D + tid] = p.v_new[(size_t)h * D + tid];
+  for (int c = tid; c < D; c += THREADS) {
+    p.kc[((size_t)h * p.C + L) * D + c] = p.k_new[(size_t)h * D + c];
+    p.vc[((size_t)h * p.C + L) * D + c] = p.v_new[(size_t)h * D + c];
+  }
   if (tid == 0) p.counters[h] = 0;
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int D, int G>
+__global__ void __launch_bounds__(THREADS, Ring<D>::CTAS_PER_SM)
 decode_attn_kernel(const Params p) {
+  using R = Ring<D>;
+  constexpr int ROW_BYTES = R::ROW_BYTES, CHUNKS = R::CHUNKS, O_STRIDE = R::O_STRIDE;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int sm_last;
 
@@ -266,19 +314,21 @@ decode_attn_kernel(const Params p) {
                                 p.q + ((size_t)h * G + gid) * D + kc * 16 + j * 8 + 2 * tig)
                           : 0u;
 
-  // This warp's ring; lane l copies 16-byte chunk (l & 15) of rows
-  // 2j + (l >> 4), j = 0..7, of K and of V each stage.
-  const uint32_t ring = smem_u32(smem) + warp * WARP_RING;
+  // This warp's ring; lane l copies 16-byte chunk l % CHUNKS of rows
+  // RPP j + l / CHUNKS, j = 0 .. KEYS / RPP - 1 (RPP = 32 / CHUNKS rows a
+  // pass: 2 at D 128), of K and of V each stage.
+  constexpr int RPP = 32 / CHUNKS;
+  const uint32_t ring = smem_u32(smem) + warp * R::WARP_RING;
   const bf16* kh = p.kc + (size_t)h * C * D;
   const bf16* vh = p.vc + (size_t)h * C * D;
-  const int cp_chunk = lane & 15, cp_row = lane >> 4;
+  const int cp_chunk = lane % CHUNKS, cp_row = lane / CHUNKS;
   auto load_stage = [&](int i) {
     const int row0 = start + i * STAGE_KEYS + warp * KEYS;
     if (row0 >= end) return;
-    const uint32_t slot = ring + (i % STAGES) * SLOT_BYTES;
+    const uint32_t slot = ring + (i % STAGES) * R::SLOT_BYTES;
 #pragma unroll
-    for (int j = 0; j < KEYS / 2; ++j) {
-      const int r = 2 * j + cp_row;
+    for (int j = 0; j < KEYS / RPP; ++j) {
+      const int r = RPP * j + cp_row;
       const bool valid = row0 + r < end;
       const size_t off = (size_t)(valid ? row0 + r : start) * D + cp_chunk * 8;
       const uint32_t dst = slot + r * ROW_BYTES + ((cp_chunk ^ (r & 7)) << 4);
@@ -315,7 +365,7 @@ decode_attn_kernel(const Params p) {
     cp_async_commit();
     const int row0 = start + i * STAGE_KEYS + warp * KEYS;
     if (row0 >= end) continue;  // warp-uniform: none of this warp's keys
-    const uint32_t slot = ring + (i % STAGES) * SLOT_BYTES;
+    const uint32_t slot = ring + (i % STAGES) * R::SLOT_BYTES;
 
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -387,24 +437,25 @@ decode_attn_kernel(const Params p) {
     sm_l[warp * 8 + 2 * tig + 1] = l1;
   }
   __syncthreads();
-  const int d = tid;
   const size_t pbase = ((size_t)h * p.n_split + sp) * G;
+  for (int d = tid; d < D; d += THREADS) {  // channel d (D 64: threads 0-63)
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float M = NEG_INF;
+    for (int g = 0; g < G; ++g) {
+      float M = NEG_INF;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w * 8 + g]);
-    float Ls = 0.f, A = 0.f;
+      for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w * 8 + g]);
+      float Ls = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float wt = exp2f(sm_m[w * 8 + g] - M);
-      Ls += sm_l[w * 8 + g] * wt;
-      A += sm_o[(w * 8 + g) * O_STRIDE + d] * wt;
-    }
-    p.part_acc[(pbase + g) * D + d] = A;
-    if (d == 0) {
-      p.part_ml[(pbase + g) * 2] = Ls > 0.f ? M * LN2 : NEG_INF;
-      p.part_ml[(pbase + g) * 2 + 1] = Ls;
+      for (int w = 0; w < WARPS; ++w) {
+        const float wt = exp2f(sm_m[w * 8 + g] - M);
+        Ls += sm_l[w * 8 + g] * wt;
+        A += sm_o[(w * 8 + g) * O_STRIDE + d] * wt;
+      }
+      p.part_acc[(pbase + g) * D + d] = A;
+      if (d == 0) {
+        p.part_ml[(pbase + g) * 2] = Ls > 0.f ? M * LN2 : NEG_INF;
+        p.part_ml[(pbase + g) * 2 + 1] = Ls;
+      }
     }
   }
 
@@ -416,38 +467,35 @@ decode_attn_kernel(const Params p) {
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
-  merge_head<G>(p, h, L);
+  merge_head<D, G>(p, h, L);
 }
 
-template <int G>
+template <int D, int G>
 int launch(const Params& p, int H, cudaStream_t st) {
+  constexpr int SMEM = Ring<D>::SMEM_BYTES;
   static bool configured[64] = {false};  // once per instantiation and device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<G>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           SMEM_BYTES);
+    cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D, G>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(decode_attn_kernel<G>,
+      err = cudaFuncSetAttribute(decode_attn_kernel<D, G>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
-  decode_attn_kernel<G><<<dim3(H, p.n_split), THREADS, SMEM_BYTES, st>>>(p);
+  decode_attn_kernel<D, G><<<dim3(H, p.n_split), THREADS, SMEM, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int kvcf_decode_attn_append(const void* q, void* k_cache, void* v_cache,
-                                       const void* lengths, const void* lower,
-                                       const void* k_new, const void* v_new,
-                                       void* out, void* part, void* counters,
-                                       int H, int G, int C, int n_split,
-                                       float scale, void* stream) {
+template <int D>
+int decode_attn_append(const void* q, void* k_cache, void* v_cache, const void* lengths,
+                       const void* lower, const void* k_new, const void* v_new, void* out,
+                       void* part, void* counters, int H, int G, int C, int n_split,
+                       float scale, void* stream) {
   if (n_split < 1) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const bf16*>(q);
@@ -466,14 +514,30 @@ extern "C" int kvcf_decode_attn_append(const void* q, void* k_cache, void* v_cac
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 1: return launch<1>(p, H, st);
-    case 2: return launch<2>(p, H, st);
-    case 3: return launch<3>(p, H, st);
-    case 4: return launch<4>(p, H, st);
-    case 5: return launch<5>(p, H, st);
-    case 6: return launch<6>(p, H, st);
-    case 7: return launch<7>(p, H, st);
-    case 8: return launch<8>(p, H, st);
+    case 1: return launch<D, 1>(p, H, st);
+    case 2: return launch<D, 2>(p, H, st);
+    case 3: return launch<D, 3>(p, H, st);
+    case 4: return launch<D, 4>(p, H, st);
+    case 5: return launch<D, 5>(p, H, st);
+    case 6: return launch<D, 6>(p, H, st);
+    case 7: return launch<D, 7>(p, H, st);
+    case 8: return launch<D, 8>(p, H, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+// One entry point per head_dim: kvcf_decode_attn_append_d64, _d128, _d256.
+#define KVCF_DECODE_ATTN(DIM)                                                          \
+  extern "C" int kvcf_decode_attn_append_d##DIM(                                       \
+      const void* q, void* k_cache, void* v_cache, const void* lengths,                \
+      const void* lower, const void* k_new, const void* v_new, void* out, void* part,  \
+      void* counters, int H, int G, int C, int n_split, float scale, void* stream) {   \
+    return decode_attn_append<DIM>(q, k_cache, v_cache, lengths, lower, k_new, v_new,  \
+                                   out, part, counters, H, G, C, n_split, scale,       \
+                                   stream);                                            \
+  }
+KVCF_DECODE_ATTN(64)
+KVCF_DECODE_ATTN(128)
+KVCF_DECODE_ATTN(256)

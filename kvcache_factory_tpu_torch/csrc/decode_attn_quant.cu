@@ -25,7 +25,11 @@
 //   IEEE division, codes rintf((x - min) / scale) clamped to [0, 255] (or
 //   [0, 15]); its codes and four bf16 scalars are written into slot L.
 // The caller advances lengths to min(lengths + 1, C).  Any capacity C > 0,
-// G from 1 to 8, D = 128.
+// G from 1 to 8, head_dim D in {128, 256} (a template parameter; the
+// per-token cache exists only at D % 128 == 0, as in the JAX package; the
+// library exports kvcf_quant8_decode_attn_append_d<D> and _quant4_ for
+// each).  At D 256 each lane's channels are two segments of 128, each laid
+// out as at D 128; the numbers below are at D 128.
 //
 // What bounds it: reading the valid codes and scalars, per valid token-head
 // 2 * D bytes of codes (int8) or D (int4) plus 8 bytes of scalars.  At the
@@ -135,7 +139,6 @@ namespace kq {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;             // head_dim (the wrapper checks)
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -143,11 +146,9 @@ constexpr float NEG_INF = -3.4028234663852886e38f;  // float32 finfo.min
 constexpr int TILE = 16;                          // keys of one mma tile: its M
 constexpr int TILE_STRIDE = WARPS * TILE;         // keys from one of a warp's tiles to the next
 constexpr int STAGES = 3;
-constexpr int O_STRIDE = D + 4;                   // padded row of the warp merge
-constexpr int PART = D + 4;  // floats of one split's partial a query row: acc[D], m, l, 2 unused
+constexpr int SEG = 128;                          // channels a segment (D 256: two)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-static_assert(THREADS == D, "one thread per channel in the merges");
 
 // K3's codes as fp16: the byte n under a zero high byte is the fp16
 // subnormal n * 2^-24, exact, and the tensor cores multiply fp16 subnormals
@@ -158,11 +159,14 @@ static_assert(THREADS == D, "one thread per channel in the merges");
 // (PERF.md, PR 10).
 constexpr float CODE_UNIT = 1.f / 16777216.f;  // the value of code 1
 
-// The ring of one warp, by code width.  A key row is ROW bytes of codes
-// (CHUNKS 16-byte chunks); a slot holds a stage: K rows, V rows, then each
-// key's four bf16 scalars.  Chunk c of row r lies at k_chunk / v_chunk.
-template <int NBITS>
+// The ring of one warp, by code width and head_dim (bytes at D 128).  A key
+// row is ROW bytes of codes (CHUNKS 16-byte chunks); a slot holds a stage:
+// K rows, V rows, then each key's four bf16 scalars.  Chunk c of row r lies
+// at k_chunk / v_chunk.
+template <int NBITS, int D>
 struct Ring {
+  static_assert(D == 128 || D == 256, "head_dim 128 or 256");
+  static constexpr int NSEG = D / SEG;                      // 128-channel segments
   static constexpr int TILES = NBITS == 4 ? 2 : 1;          // tiles a warp a stage
   static constexpr int WARP_KEYS = TILES * TILE;            // 32 or 16
   static constexpr int STAGE_KEYS = WARPS * WARP_KEYS;      // keys a CTA a stage
@@ -172,19 +176,28 @@ struct Ring {
   static constexpr int S_OFF = 2 * WARP_KEYS * ROW;
   static constexpr int SLOT_BYTES = S_OFF + WARP_KEYS * 8;  // 4.25 or 4.125 KB
   static constexpr int WARP_RING = STAGES * SLOT_BYTES;
-  static constexpr int SMEM_BYTES = WARPS * WARP_RING;      // 51 or 49.5 KB
-  // CTAs an SM can hold (launch bounds: at most 170 or 255 registers).
-  static constexpr int CTAS_PER_SM = NBITS == 4 ? 3 : 2;
+  static constexpr int SMEM_BYTES = WARPS * WARP_RING;      // 51 or 49.5 KB (D 256: 99, 97.5)
+  // CTAs an SM can hold (launch bounds: at most 170 or 255 registers); at
+  // D 256 the ring is twice as large and two fit.
+  static constexpr int CTAS_PER_SM = NBITS == 4 && D == 128 ? 3 : 2;
   static constexpr float QMAX = NBITS == 8 ? 255.f : 15.f;
-  // K4 reads K rows whole in 16-byte pieces (no swizzle) and 8-byte pieces
-  // of V at chunk c ^ 2 ((r >> 2) & 1).  K3 reads chunks 2 tig and 2 tig + 1
-  // of K rows gid and gid + 8 (rows of one phase alternate) and chunk gid of
-  // V rows 2 tig (+1, +8, +9).
+  static constexpr int O_STRIDE = D + 4;  // padded row of the warp merge
+  static constexpr int PART = D + 4;      // floats of one split's partial a query row: acc[D], m, l, 2 unused
+  static constexpr int CPL = D / 32;      // channels a lane in the head merge
+  // K4 at D 128 reads K rows whole in 16-byte pieces (no swizzle) and 8-byte
+  // pieces of V at chunk c ^ 2 ((r >> 2) & 1).  At D 256 (128-byte rows, as
+  // K3's at D 128) it reads chunks tig and 4 + tig of K rows gid and gid + 8
+  // at chunk c ^ 4 (r & 1), and V at chunk c ^ 2 ((r >> 1) & 3).  K3 reads
+  // chunks 8 s + 2 tig and 8 s + 2 tig + 1 of K rows gid and gid + 8 (rows
+  // of one phase alternate) and chunk 8 s + gid of V rows 2 tig (+1, +8,
+  // +9), segment s.
   static __device__ __forceinline__ int k_chunk(int c, int r) {
-    return NBITS == 4 ? c : c ^ (r & 1);
+    if constexpr (NBITS == 4) return ROW == 64 ? c : c ^ ((r & 1) << 2);
+    return c ^ (r & 1);
   }
   static __device__ __forceinline__ int v_chunk(int c, int r) {
-    return NBITS == 4 ? c ^ (2 * ((r >> 2) & 1)) : c ^ (((r >> 1) & 3) << 1);
+    if constexpr (NBITS == 4 && ROW == 64) return c ^ (2 * ((r >> 2) & 1));
+    return c ^ (((r >> 1) & 3) << 1);
   }
   static_assert(WARPS * 8 * O_STRIDE * 4 + 3 * WARPS * 8 * 4 <= SMEM_BYTES, "warp merge");
   static_assert(SMEM_BYTES >= 8 * PART * 4, "the merge holds at least one split of G = 8");
@@ -200,7 +213,7 @@ struct Params {
   const bf16* k_new;    // [H, D]
   const bf16* v_new;    // [H, D]
   bf16* out;            // [H, G, D]
-  float* part;          // [H, n_split, G, PART]: acc[D], m (natural log), l
+  float* part;          // [H, n_split, G, D + 4]: acc[D], m (natural log), l
   int* counters;        // [>= H], 0 between launches
   int C, n_split;
   float scale;          // 1 / sqrt(D)
@@ -356,26 +369,28 @@ __device__ __forceinline__ void v_pairs8(uint4 a, uint4 b, uint32_t (&r)[16]) {
 // partials come into shared memory (`buf`, the ring's BUF bytes) by
 // cp.async, as many splits at a time as fit, all in flight together: one
 // round trip a chunk.  Warp w then folds query rows w and w + 4, lane l
-// channels 4l .. 4l + 3: the chunk's max, one rescale, one exp per split,
-// the exps of 32 splits at a time on the 32 lanes.  The new token's logits
-// come in `s_new` (query row g's on lane 4g of every warp) and its value in
-// `vn`, both read at the start of the launch.
-template <int G, int BUF>
-__device__ void merge_head(const Params& p, int h, float s_new_lanes, const float (&vn)[4],
-                           uint8_t* buf) {
+// channels CPL l .. CPL l + CPL - 1 (CPL = D / 32): the chunk's max, one
+// rescale, one exp per split, the exps of 32 splits at a time on the 32
+// lanes.  The new token's logits come in `s_new` (query row g's on lane 4g
+// of every warp) and its value in `vn`, both read at the start of the
+// launch.
+template <int D, int G, int BUF>
+__device__ void merge_head(const Params& p, int h, float s_new_lanes,
+                           const float (&vn)[D / 32], uint8_t* buf) {
+  constexpr int PART = D + 4, CPL = D / 32;
   constexpr int ROWS = (G + WARPS - 1) / WARPS;          // query rows a warp folds
   constexpr int CHUNK = BUF / (G * PART * 4);            // splits a round trip
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, d = lane * 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, d = lane * CPL;
   const int ns = p.n_split;
   const float* part = p.part + (size_t)h * ns * G * PART;
   const float* sp_buf = reinterpret_cast<const float*>(buf);
-  float M[ROWS], Ls[ROWS], a[ROWS][4];
+  float M[ROWS], Ls[ROWS], a[ROWS][CPL];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     M[r] = NEG_INF;
     Ls[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[r][i] = 0.f;
+    for (int i = 0; i < CPL; ++i) a[r][i] = 0.f;
   }
   for (int s0 = 0; s0 < ns; s0 += CHUNK) {
     const int pieces = min(CHUNK, ns - s0) * G * PART / 4;  // 16-byte pieces
@@ -405,9 +420,9 @@ __device__ void merge_head(const Params& p, int h, float s_new_lanes, const floa
       const float Mb = fmaxf(M[r], mx), alpha = expf(M[r] - Mb);
       Ls[r] *= alpha;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[r][i] *= alpha;
+      for (int i = 0; i < CPL; ++i) a[r][i] *= alpha;
       // Each lane weighs one split of every 32; the weights go round by
-      // shuffles while each lane adds its 4 channels, in split order.
+      // shuffles while each lane adds its CPL channels, in split order.
       float lsum = 0.f;
       for (int b = 0; b < n; b += 32) {
         float w = 0.f;
@@ -420,11 +435,15 @@ __device__ void merge_head(const Params& p, int h, float s_new_lanes, const floa
 #pragma unroll 8
         for (int j = 0; j < cnt; ++j) {
           const float wj = __shfl_sync(FULL, w, j);
-          const float4 x = *reinterpret_cast<const float4*>(sp_buf + ((b + j) * G + g) * PART + d);
-          a[r][0] += wj * x.x;
-          a[r][1] += wj * x.y;
-          a[r][2] += wj * x.z;
-          a[r][3] += wj * x.w;
+#pragma unroll
+          for (int i = 0; i < CPL; i += 4) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(sp_buf + ((b + j) * G + g) * PART + d + i);
+            a[r][i] += wj * x.x;
+            a[r][i + 1] += wj * x.y;
+            a[r][i + 2] += wj * x.z;
+            a[r][i + 3] += wj * x.w;
+          }
         }
       }
 #pragma unroll
@@ -441,27 +460,36 @@ __device__ void merge_head(const Params& p, int h, float s_new_lanes, const floa
     const float m_f = fmaxf(M[r], s_new);
     const float alpha = expf(M[r] - m_f), p_new = expf(s_new - m_f);
     const float inv = 1.f / (Ls[r] * alpha + p_new);
-    __align__(8) bf16 o[4];
+    __align__(16) bf16 o[CPL];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = __float2bfloat16((a[r][i] * alpha + p_new * vn[i]) * inv);
-    *reinterpret_cast<uint2*>(p.out + ((size_t)h * G + g) * D + d) =
-        *reinterpret_cast<const uint2*>(o);
+    for (int i = 0; i < CPL; ++i) o[i] = __float2bfloat16((a[r][i] * alpha + p_new * vn[i]) * inv);
+#pragma unroll
+    for (int i = 0; i < CPL; i += 4)
+      *reinterpret_cast<uint2*>(p.out + ((size_t)h * G + g) * D + d + i) =
+          *reinterpret_cast<const uint2*>(o + i);
   }
   if (tid == 0) p.counters[h] = 0;
 }
 
-// Quantize the new token (channel threadIdx.x: kn of k_new, vn of v_new) as
-// the plain version does and write it into slot L: min and max over D (a
-// warp reduction, then across the 4 warps), scale = max(max - min, 1e-8) /
-// QMAX with IEEE division, codes rintf((x - min) / scale) clamped to [0,
-// QMAX] (rintf rounds half to even, as torch.round).  One CTA of the head
-// does it; no CTA reads slot L, so it may at any time.
-template <int NBITS>
-__device__ void append_token(const Params& p, int h, int L, float kn, float vn) {
+// Quantize the new token (channels threadIdx.x + 128 i: kn of k_new, vn of
+// v_new) as the plain version does and write it into slot L: min and max
+// over D (a warp reduction, then across the 4 warps), scale = max(max -
+// min, 1e-8) / QMAX with IEEE division, codes rintf((x - min) / scale)
+// clamped to [0, QMAX] (rintf rounds half to even, as torch.round).  One
+// CTA of the head does it; no CTA reads slot L, so it may at any time.
+template <int NBITS, int D>
+__device__ void append_token(const Params& p, int h, int L, const float (&kn)[D / SEG],
+                             const float (&vn)[D / SEG]) {
   __shared__ float ext[WARPS][4];
-  constexpr float QMAX = Ring<NBITS>::QMAX;
+  constexpr int NSEG = D / SEG;
+  constexpr float QMAX = Ring<NBITS, D>::QMAX;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float kmn = kn, kmx = kn, vmn = vn, vmx = vn;
+  float kmn = kn[0], kmx = kn[0], vmn = vn[0], vmx = vn[0];
+#pragma unroll
+  for (int i = 1; i < NSEG; ++i) {
+    kmn = fminf(kmn, kn[i]); kmx = fmaxf(kmx, kn[i]);
+    vmn = fminf(vmn, vn[i]); vmx = fmaxf(vmx, vn[i]);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     kmn = fminf(kmn, __shfl_xor_sync(FULL, kmn, off));
@@ -480,19 +508,23 @@ __device__ void append_token(const Params& p, int h, int L, float kn, float vn) 
   }
   const float ks = fmaxf(kmx - kmn, 1e-8f) / QMAX;
   const float vs = fmaxf(vmx - vmn, 1e-8f) / QMAX;
-  const int kq = (int)fminf(fmaxf(rintf((kn - kmn) / ks), 0.f), QMAX);
-  const int vq = (int)fminf(fmaxf(rintf((vn - vmn) / vs), 0.f), QMAX);
   const size_t row = (size_t)h * p.C + L;
-  constexpr int ROW = Ring<NBITS>::ROW;
-  if constexpr (NBITS == 8) {
-    p.kc[row * ROW + tid] = (uint8_t)kq;
-    p.vc[row * ROW + tid] = (uint8_t)vq;
-  } else {  // even channel d takes the low nibble of byte d / 2, d + 1 the high one
-    const int kq_hi = __shfl_down_sync(FULL, kq, 1);
-    const int vq_hi = __shfl_down_sync(FULL, vq, 1);
-    if ((tid & 1) == 0) {
-      p.kc[row * ROW + tid / 2] = (uint8_t)(kq | (kq_hi << 4));
-      p.vc[row * ROW + tid / 2] = (uint8_t)(vq | (vq_hi << 4));
+  constexpr int ROW = Ring<NBITS, D>::ROW;
+#pragma unroll
+  for (int i = 0; i < NSEG; ++i) {
+    const int c = tid + SEG * i;  // this channel
+    const int kq = (int)fminf(fmaxf(rintf((kn[i] - kmn) / ks), 0.f), QMAX);
+    const int vq = (int)fminf(fmaxf(rintf((vn[i] - vmn) / vs), 0.f), QMAX);
+    if constexpr (NBITS == 8) {
+      p.kc[row * ROW + c] = (uint8_t)kq;
+      p.vc[row * ROW + c] = (uint8_t)vq;
+    } else {  // even channel c takes the low nibble of byte c / 2, c + 1 the high one
+      const int kq_hi = __shfl_down_sync(FULL, kq, 1);
+      const int vq_hi = __shfl_down_sync(FULL, vq, 1);
+      if ((tid & 1) == 0) {
+        p.kc[row * ROW + c / 2] = (uint8_t)(kq | (kq_hi << 4));
+        p.vc[row * ROW + c / 2] = (uint8_t)(vq | (vq_hi << 4));
+      }
     }
   }
   if (tid == 0) {
@@ -504,34 +536,47 @@ __device__ void append_token(const Params& p, int h, int L, float kn, float vn) 
   }
 }
 
-// One CTA (h, sp) of K3 (NBITS 8) or K4 (NBITS 4): its share of the head's
-// keys, its partial, the arrival, and the merge if it arrives last.
-template <int NBITS, int G>
+// One CTA (h, sp) of K3 (NBITS 8) or K4 (NBITS 4) at head_dim D: its share
+// of the head's keys, its partial, the arrival, and the merge if it arrives
+// last.
+template <int NBITS, int D, int G>
 __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int* sm_last) {
-  using R = Ring<NBITS>;
-  constexpr int ROW = R::ROW, CHUNKS = R::CHUNKS;
+  using R = Ring<NBITS, D>;
+  constexpr int ROW = R::ROW, CHUNKS = R::CHUNKS, NSEG = R::NSEG, CPL = R::CPL;
+  constexpr int O_STRIDE = R::O_STRIDE, PART = R::PART;
   constexpr bool F16 = NBITS == 8;
   const int h = blockIdx.x, sp = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int C = p.C;
   // The small reads go out before the lengths, so that they neither wait
-  // for them nor queue behind the codes: this lane's 32 channels of q row
-  // gid and of k_new (the new token's logit), the 4 channels of v_new the
-  // merge writes, and channel tid of k_new and v_new for the append.  Then
-  // the first stage's copies; the rest of the ring is issued once q is in
-  // registers, so each SM's first stages are served first.
-  uint4 q_raw[4], kn_raw[4];
+  // for them nor queue behind the codes: this lane's 32 channels of each
+  // segment of q row gid and of k_new (the new token's logit), the CPL
+  // channels of v_new the merge writes, and channels tid + 128 i of k_new
+  // and v_new for the append.  Then the first stage's copies; the rest of
+  // the ring is issued once q is in registers, so each SM's first stages
+  // are served first.
+  uint4 q_raw[4 * NSEG], kn_raw[4 * NSEG];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    q_raw[i] = gid < G ? *reinterpret_cast<const uint4*>(
-                             p.q + ((size_t)h * G + gid) * D + 32 * tig + 8 * i)
-                       : make_uint4(0, 0, 0, 0);
-    kn_raw[i] = *reinterpret_cast<const uint4*>(p.k_new + (size_t)h * D + 32 * tig + 8 * i);
+  for (int sg = 0; sg < NSEG; ++sg)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = SEG * sg + 32 * tig + 8 * i;
+      q_raw[4 * sg + i] = gid < G ? *reinterpret_cast<const uint4*>(
+                                        p.q + ((size_t)h * G + gid) * D + c)
+                                  : make_uint4(0, 0, 0, 0);
+      kn_raw[4 * sg + i] = *reinterpret_cast<const uint4*>(p.k_new + (size_t)h * D + c);
+    }
+  uint2 vn_raw[CPL / 4];
+#pragma unroll
+  for (int i = 0; i < CPL / 4; ++i)
+    vn_raw[i] = *reinterpret_cast<const uint2*>(p.v_new + (size_t)h * D + CPL * lane + 4 * i);
+  float kn_own[NSEG], vn_own[NSEG];
+#pragma unroll
+  for (int i = 0; i < NSEG; ++i) {
+    kn_own[i] = __bfloat162float(p.k_new[(size_t)h * D + tid + SEG * i]);
+    vn_own[i] = __bfloat162float(p.v_new[(size_t)h * D + tid + SEG * i]);
   }
-  const uint2 vn_raw = *reinterpret_cast<const uint2*>(p.v_new + (size_t)h * D + 4 * lane);
-  const float kn_own = __bfloat162float(p.k_new[(size_t)h * D + tid]);
-  const float vn_own = __bfloat162float(p.v_new[(size_t)h * D + tid]);
   const int L = min(p.lengths[h], C - 1);
   const int lo = p.lower ? min(max(p.lower[h], 0), L) : 0;
   // This CTA's share of [lo, L): the sp-th of n_split near-equal parts.
@@ -577,13 +622,15 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   cp_async_commit();
 
   // q^T as the B operand of S^T = K q^T.  Lane (gid, tig) holds query row
-  // gid (zero past G) at channels 32 tig .. 32 tig + 31, the channels whose
-  // codes it reads from each key.  K4: the channels of the contraction are
-  // permuted to match the A fragments the nibble unpacking gives: k-chunk
-  // 2j + e, positions 2tig, 2tig + 1, 2tig + 8, 2tig + 9 hold channels
-  // c + 2e, c + 2e + 4, c + 2e + 1, c + 2e + 5 with c = 32 tig + 8 j.  K3:
-  // k-chunk j, the same positions hold channels c, c + 1, c + 2, c + 3 with
-  // c = 32 tig + 4 j, as fp16 times the row's power of two qsc.
+  // gid (zero past G) at channels 128 s + 32 tig .. 128 s + 32 tig + 31 of
+  // each segment s, the channels whose codes it reads from each key; the
+  // k-chunks of segment s are 8 s .. 8 s + 7.  K4: the channels of the
+  // contraction are permuted to match the A fragments the nibble unpacking
+  // gives: k-chunk 8 s + 2j + e, positions 2tig, 2tig + 1, 2tig + 8, 2tig + 9
+  // hold channels c + 2e, c + 2e + 4, c + 2e + 1, c + 2e + 5 with c = 128 s +
+  // 32 tig + 8 j.  K3: k-chunk 8 s + j, the same positions hold channels c,
+  // c + 1, c + 2, c + 3 with c = 128 s + 32 tig + 4 j, as fp16 times the
+  // row's power of two qsc.
   uint32_t qf[D / 16][2];
   float qs = 0.f, s_new = 0.f;  // sum of q over the channels; q . k_new
   float qsc = 1.f;              // K3: q's power of two
@@ -593,28 +640,30 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     auto qx = [&](int k) { return __bfloat162float(__ushort_as_bfloat16(qv[k])); };
     if constexpr (NBITS == 4) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int sg = 0; sg < NSEG; ++sg)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * j + 2 * e;
-          qf[2 * j + e][0] = qv[c] | ((uint32_t)qv[c + 4] << 16);
-          qf[2 * j + e][1] = qv[c + 1] | ((uint32_t)qv[c + 5] << 16);
-        }
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 32 * sg + 8 * j + 2 * e;
+            qf[8 * sg + 2 * j + e][0] = qv[c] | ((uint32_t)qv[c + 4] << 16);
+            qf[8 * sg + 2 * j + e][1] = qv[c + 1] | ((uint32_t)qv[c + 5] << 16);
+          }
     } else {
       float amax = 0.f;
 #pragma unroll
-      for (int k = 0; k < 32; ++k) amax = fmaxf(amax, fabsf(qx(k)));
+      for (int k = 0; k < 32 * NSEG; ++k) amax = fmaxf(amax, fabsf(qx(k)));
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
       qsc = pow2_to_2e14(amax);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8 * NSEG; ++j) {
         qf[j][0] = pack_f16(qx(4 * j) * qsc, qx(4 * j + 1) * qsc);
         qf[j][1] = pack_f16(qx(4 * j + 2) * qsc, qx(4 * j + 3) * qsc);
       }
     }
 #pragma unroll
-    for (int k = 0; k < 32; ++k) {
+    for (int k = 0; k < 32 * NSEG; ++k) {
       const float x = qx(k);
       qs += x;
       s_new = fmaf(x, __bfloat162float(__ushort_as_bfloat16(kv[k])), s_new);
@@ -631,7 +680,7 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     if (i < n_stages) load_stage(i);
     cp_async_commit();
   }
-  if (sp == 0) append_token<NBITS>(p, h, L, kn_own, vn_own);  // CTA-uniform
+  if (sp == 0) append_token<NBITS, D>(p, h, L, kn_own, vn_own);  // CTA-uniform
   // This lane's accumulator columns are query rows 2 tig and 2 tig + 1.
   // A score is ks kf (dot - qo) + kz ql: kf turns the product's units into
   // log2 units of (q . k) / sqrt(D), qo is what K4's code offset adds to the
@@ -649,30 +698,44 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     kf1 = sl2 / (CODE_UNIT * qsc1);
   }
 
-  // K reads.  K4: rows gid and gid + 8, chunk tig (8 nibble words).  K3:
-  // the same rows, chunks 2 tig and 2 tig + 1 at their swizzled places.
-  const int ko0 = gid * ROW + (R::k_chunk(NBITS == 4 ? tig : 2 * tig, gid) << 4);
-  const int ko1 = gid * ROW + (R::k_chunk(2 * tig + 1, gid) << 4);
-  // V reads.  K4: rows 2 tig and 2 tig + 1 (+ 8), the odd lanes' first read
-  // the odd row, 8-byte chunk gid at its swizzled place.  K3: rows 2 tig,
-  // 2 tig + 1, 2 tig + 8, 2 tig + 9, 16-byte chunk gid.
+  // K reads, segment s.  K4: rows gid and gid + 8, chunk 4 s + tig (8
+  // nibble words).  K3: the same rows, chunks 8 s + 2 tig and 8 s + 2 tig + 1,
+  // at their swizzled places.
+  int ko0[NSEG], ko1[NSEG];
+#pragma unroll
+  for (int sg = 0; sg < NSEG; ++sg) {
+    ko0[sg] = gid * ROW + (R::k_chunk(NBITS == 4 ? 4 * sg + tig : 8 * sg + 2 * tig, gid) << 4);
+    ko1[sg] = gid * ROW + (R::k_chunk(8 * sg + 2 * tig + 1, gid) << 4);
+  }
+  // V reads, segment s.  K4: rows 2 tig and 2 tig + 1 (+ 8), the odd lanes'
+  // first read the odd row, 8-byte piece gid of the segment's 64 bytes at
+  // its swizzled place.  K3: rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9,
+  // 16-byte chunk 8 s + gid.
   const int odd = NBITS == 4 ? tig & 1 : 0;
   const uint32_t sel_lo = odd ? 0x1054u : 0x5410u, sel_hi = odd ? 0x3276u : 0x7632u;
   const int v_first = 2 * tig + odd, v_second = 2 * tig + 1 - odd;
-  auto v_addr = [&](int r) {  // byte offset of row r's chunk gid in a tile
+  auto v_addr = [&](int r, int sg) {  // byte offset of row r's piece gid of segment sg
     if constexpr (NBITS == 4)
-      return r * ROW + (R::v_chunk(gid >> 1, r) << 4) + (gid & 1) * 8;
+      return r * ROW + (R::v_chunk(4 * sg + (gid >> 1), r) << 4) + (gid & 1) * 8;
     else
-      return r * ROW + (R::v_chunk(gid, r) << 4);
+      return r * ROW + (R::v_chunk(8 * sg + gid, r) << 4);
   };
-  const int va0 = v_addr(v_first), vb0 = v_addr(v_second);
-  const int va1 = v_addr(v_first + 8), vb1 = v_addr(v_second + 8);
+  int va0[NSEG], vb0[NSEG], va1[NSEG], vb1[NSEG];
+#pragma unroll
+  for (int sg = 0; sg < NSEG; ++sg) {
+    va0[sg] = v_addr(v_first, sg);
+    vb0[sg] = v_addr(v_second, sg);
+    va1[sg] = v_addr(v_first + 8, sg);
+    vb1[sg] = v_addr(v_second + 8, sg);
+  }
 
   float m0 = NEG_INF, m1 = NEG_INF;  // running max (log2 units), columns 2 tig, 2 tig + 1
   float l0 = 0.f, l1 = 0.f;          // this lane's share of the sums of p
   float z0 = 0.f, z1 = 0.f;          // and of p * v_zero
   float vsc = 1.7014118346046923e38f;  // K3: W's power of two (2^127 until the first key)
-  float o[D / 16][4];                // O^T: channels 16 gid + 2 mb (+1), columns 2 tig (+1)
+  // O^T: m-tile 8 s + mb holds channels 128 s + 16 gid + 2 mb (+1), columns
+  // 2 tig (+1).
+  float o[D / 16][4];
 #pragma unroll
   for (int mb = 0; mb < D / 16; ++mb)
 #pragma unroll
@@ -704,45 +767,57 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
       // word shifted by 0, 4, 8 and 12 bits, masked and ORed under the magic
       // exponent, gives the bf16 pairs 128 + n of channels (c, c + 4),
       // (c + 1, c + 5), (c + 2, c + 6), (c + 3, c + 7): the A operand.
-      uint4 ra[R::TILES], rb[R::TILES];
+      uint4 ra[R::TILES][NSEG], rb[R::TILES][NSEG];
 #pragma unroll
-      for (int ti = 0; ti < R::TILES; ++ti) {
-        const uint8_t* kt = slot + ti * TILE * ROW;
-        ra[ti] = *reinterpret_cast<const uint4*>(kt + ko0);
-        rb[ti] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0);
-      }
+      for (int ti = 0; ti < R::TILES; ++ti)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int sg = 0; sg < NSEG; ++sg) {
+          const uint8_t* kt = slot + ti * TILE * ROW;
+          ra[ti][sg] = *reinterpret_cast<const uint4*>(kt + ko0[sg]);
+          rb[ti][sg] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0[sg]);
+        }
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
+      for (int sg = 0; sg < NSEG; ++sg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int ti = 0; ti < R::TILES; ++ti) {
+              const uint32_t wa = (&ra[ti][sg].x)[j], wb = (&rb[ti][sg].x)[j];
+              const int sh = 8 * e;  // k-chunk 8 s + 2j + e: nibbles at bits sh and sh + 4
+              const int kc = 8 * sg + 2 * j + e;
+              mma16816<F16>(s[ti], nib_bf16(wa >> sh), nib_bf16(wb >> sh),
+                            nib_bf16(wa >> (sh + 4)), nib_bf16(wb >> (sh + 4)), qf[kc][0],
+                            qf[kc][1]);
+            }
+    } else {
+      // Word j of a lane's 32 bytes of a key (a segment's) holds channels c
+      // .. c + 3; one PRMT gives the fp16 pair of channels (c, c + 1),
+      // another (c + 2, c + 3): the A operand of k-chunk 8 s + j.
+      uint4 ka[R::TILES][NSEG][2], kb[R::TILES][NSEG][2];
+#pragma unroll
+      for (int ti = 0; ti < R::TILES; ++ti)
+#pragma unroll
+        for (int sg = 0; sg < NSEG; ++sg) {
+          const uint8_t* kt = slot + ti * TILE * ROW;
+          ka[ti][sg][0] = *reinterpret_cast<const uint4*>(kt + ko0[sg]);
+          ka[ti][sg][1] = *reinterpret_cast<const uint4*>(kt + ko1[sg]);
+          kb[ti][sg][0] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0[sg]);
+          kb[ti][sg][1] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko1[sg]);
+        }
+#pragma unroll
+      for (int sg = 0; sg < NSEG; ++sg)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int ti = 0; ti < R::TILES; ++ti) {
-            const uint32_t wa = (&ra[ti].x)[j], wb = (&rb[ti].x)[j];
-            const int sh = 8 * e;  // k-chunk 2j + e: nibbles at bits sh and sh + 4
-            mma16816<F16>(s[ti], nib_bf16(wa >> sh), nib_bf16(wb >> sh), nib_bf16(wa >> (sh + 4)),
-                          nib_bf16(wb >> (sh + 4)), qf[2 * j + e][0], qf[2 * j + e][1]);
+            const uint32_t wa = (&ka[ti][sg][j >> 2].x)[j & 3];
+            const uint32_t wb = (&kb[ti][sg][j >> 2].x)[j & 3];
+            mma16816<F16>(s[ti], byte_f16(wa, 0x4140), byte_f16(wb, 0x4140),
+                          byte_f16(wa, 0x4342), byte_f16(wb, 0x4342), qf[8 * sg + j][0],
+                          qf[8 * sg + j][1]);
           }
-    } else {
-      // Word j of a lane's 32 bytes of a key holds channels c .. c + 3; one
-      // PRMT gives the fp16 pair of channels (c, c + 1), another (c + 2,
-      // c + 3): the A operand of k-chunk j.
-      uint4 ka[R::TILES][2], kb[R::TILES][2];
-#pragma unroll
-      for (int ti = 0; ti < R::TILES; ++ti) {
-        const uint8_t* kt = slot + ti * TILE * ROW;
-        ka[ti][0] = *reinterpret_cast<const uint4*>(kt + ko0);
-        ka[ti][1] = *reinterpret_cast<const uint4*>(kt + ko1);
-        kb[ti][0] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0);
-        kb[ti][1] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko1);
-      }
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-#pragma unroll
-        for (int ti = 0; ti < R::TILES; ++ti) {
-          const uint32_t wa = (&ka[ti][j >> 2].x)[j & 3], wb = (&kb[ti][j >> 2].x)[j & 3];
-          mma16816<F16>(s[ti], byte_f16(wa, 0x4140), byte_f16(wb, 0x4140), byte_f16(wa, 0x4342),
-                        byte_f16(wb, 0x4342), qf[j][0], qf[j][1]);
-        }
     }
     // Keys gid (s 0, 1) and gid + 8 (s 2, 3) of each tile: logit = kf (ks
     // (dot - qo) + kz qs), here in log2 units, NEG_INF past the range.
@@ -808,8 +883,8 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     // O^T += V^T W^T per tile, W = p * v_scale (K3: times vsc) as hi + lo,
     // transposed from the S^T layout by movmatrix; V^T's A operand pairs
     // two keys of one channel, built from the two keys' code words.  The hi
-    // products of all channel blocks go before the lo ones, so
-    // neighbouring mma are independent.
+    // products of all of a segment's channel blocks go before the lo ones,
+    // so neighbouring mma are independent.
 #pragma unroll
     for (int ti = 0; ti < R::TILES; ++ti) {
       const float2 va = unpack_bf16(scalars(ti, gid).y);
@@ -840,24 +915,29 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
       const uint32_t bl0 = movmatrix_trans(l01), bl1 = movmatrix_trans(l23);
 
       const uint8_t* vt = slot + R::V_OFF + ti * TILE * ROW;
-      uint32_t pa[16], pb[16];  // keys (2 tig, 2 tig + 1) and (+ 8), channels 16 gid + k
-      if constexpr (NBITS == 4) {
-        v_pairs4(*reinterpret_cast<const uint2*>(vt + va0),
-                 *reinterpret_cast<const uint2*>(vt + vb0), sel_lo, sel_hi, pa);
-        v_pairs4(*reinterpret_cast<const uint2*>(vt + va1),
-                 *reinterpret_cast<const uint2*>(vt + vb1), sel_lo, sel_hi, pb);
-      } else {
-        v_pairs8(*reinterpret_cast<const uint4*>(vt + va0),
-                 *reinterpret_cast<const uint4*>(vt + vb0), pa);
-        v_pairs8(*reinterpret_cast<const uint4*>(vt + va1),
-                 *reinterpret_cast<const uint4*>(vt + vb1), pb);
+#pragma unroll
+      for (int sg = 0; sg < NSEG; ++sg) {
+        uint32_t pa[16], pb[16];  // keys (2 tig, 2 tig + 1) and (+ 8), channels 16 gid + k
+        if constexpr (NBITS == 4) {
+          v_pairs4(*reinterpret_cast<const uint2*>(vt + va0[sg]),
+                   *reinterpret_cast<const uint2*>(vt + vb0[sg]), sel_lo, sel_hi, pa);
+          v_pairs4(*reinterpret_cast<const uint2*>(vt + va1[sg]),
+                   *reinterpret_cast<const uint2*>(vt + vb1[sg]), sel_lo, sel_hi, pb);
+        } else {
+          v_pairs8(*reinterpret_cast<const uint4*>(vt + va0[sg]),
+                   *reinterpret_cast<const uint4*>(vt + vb0[sg]), pa);
+          v_pairs8(*reinterpret_cast<const uint4*>(vt + va1[sg]),
+                   *reinterpret_cast<const uint4*>(vt + vb1[sg]), pb);
+        }
+#pragma unroll
+        for (int mb = 0; mb < 8; ++mb)
+          mma16816<F16>(o[8 * sg + mb], pa[2 * mb], pa[2 * mb + 1], pb[2 * mb], pb[2 * mb + 1],
+                        bh0, bh1);
+#pragma unroll
+        for (int mb = 0; mb < 8; ++mb)
+          mma16816<F16>(o[8 * sg + mb], pa[2 * mb], pa[2 * mb + 1], pb[2 * mb], pb[2 * mb + 1],
+                        bl0, bl1);
       }
-#pragma unroll
-      for (int mb = 0; mb < D / 16; ++mb)
-        mma16816<F16>(o[mb], pa[2 * mb], pa[2 * mb + 1], pb[2 * mb], pb[2 * mb + 1], bh0, bh1);
-#pragma unroll
-      for (int mb = 0; mb < D / 16; ++mb)
-        mma16816<F16>(o[mb], pa[2 * mb], pa[2 * mb + 1], pb[2 * mb], pb[2 * mb + 1], bl0, bl1);
     }
   }
   cp_async_wait<0>();
@@ -885,7 +965,7 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   };
 #pragma unroll
   for (int mb = 0; mb < D / 16; ++mb) {
-    float* c0 = sm_o + (warp * 8 + 2 * tig) * O_STRIDE + 16 * gid + 2 * mb;
+    float* c0 = sm_o + (warp * 8 + 2 * tig) * O_STRIDE + SEG * (mb >> 3) + 16 * gid + 2 * (mb & 7);
     *reinterpret_cast<float2*>(c0) = make_float2(acc(o[mb][0], z0), acc(o[mb][2], z0));
     *reinterpret_cast<float2*>(c0 + O_STRIDE) = make_float2(acc(o[mb][1], z1), acc(o[mb][3], z1));
   }
@@ -896,23 +976,27 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     sm_l[warp * 8 + 2 * tig + 1] = l1;
   }
   __syncthreads();
-  const int d = tid;
   const size_t pbase = ((size_t)h * p.n_split + sp) * G;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w * 8 + g]);
-    float Ls = 0.f, A = 0.f;
+    float Ls = 0.f, A[NSEG];
+#pragma unroll
+    for (int i = 0; i < NSEG; ++i) A[i] = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
       const float wt = exp2f(sm_m[w * 8 + g] - M);
       Ls += sm_l[w * 8 + g] * wt;
-      A += sm_o[(w * 8 + g) * O_STRIDE + d] * wt;
+#pragma unroll
+      for (int i = 0; i < NSEG; ++i) A[i] += sm_o[(w * 8 + g) * O_STRIDE + tid + SEG * i] * wt;
     }
     float* out = p.part + (pbase + g) * PART;
-    out[d] = A;
-    if (d == 0) *reinterpret_cast<float2*>(out + D) = make_float2(Ls > 0.f ? M * LN2 : NEG_INF, Ls);
+#pragma unroll
+    for (int i = 0; i < NSEG; ++i) out[tid + SEG * i] = A[i];
+    if (tid == 0)
+      *reinterpret_cast<float2*>(out + D) = make_float2(Ls > 0.f ? M * LN2 : NEG_INF, Ls);
   }
 
   // Arrive; the last CTA of the head merges.  The barrier orders every
@@ -929,31 +1013,38 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   }
   __syncthreads();
   if (!*sm_last) return;
-  const float2 vlo = unpack_bf16(vn_raw.x), vhi = unpack_bf16(vn_raw.y);
-  const float vn4[4] = {vlo.x, vlo.y, vhi.x, vhi.y};
-  merge_head<G, R::SMEM_BYTES>(p, h, s_new, vn4, smem);
+  float vn[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL / 4; ++i) {
+    const float2 vlo = unpack_bf16(vn_raw[i].x), vhi = unpack_bf16(vn_raw[i].y);
+    vn[4 * i] = vlo.x;
+    vn[4 * i + 1] = vlo.y;
+    vn[4 * i + 2] = vhi.x;
+    vn[4 * i + 3] = vhi.y;
+  }
+  merge_head<D, G, R::SMEM_BYTES>(p, h, s_new, vn, smem);
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS, Ring<8>::CTAS_PER_SM)
+template <int D, int G>
+__global__ void __launch_bounds__(THREADS, Ring<8, D>::CTAS_PER_SM)
 quant8_decode_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int sm_last;
-  decode_body<8, G>(p, smem, &sm_last);
+  decode_body<8, D, G>(p, smem, &sm_last);
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS, Ring<4>::CTAS_PER_SM)
+template <int D, int G>
+__global__ void __launch_bounds__(THREADS, Ring<4, D>::CTAS_PER_SM)
 quant4_decode_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int sm_last;
-  decode_body<4, G>(p, smem, &sm_last);
+  decode_body<4, D, G>(p, smem, &sm_last);
 }
 
-template <int NBITS, int G>
+template <int NBITS, int D, int G>
 int launch(const Params& p, int H, cudaStream_t st) {
-  constexpr int SMEM = Ring<NBITS>::SMEM_BYTES;
-  const auto kernel = NBITS == 8 ? quant8_decode_kernel<G> : quant4_decode_kernel<G>;
+  constexpr int SMEM = Ring<NBITS, D>::SMEM_BYTES;
+  const auto kernel = NBITS == 8 ? quant8_decode_kernel<D, G> : quant4_decode_kernel<D, G>;
   static bool configured[64] = {false};  // once per instantiation and device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -971,7 +1062,7 @@ int launch(const Params& p, int H, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int NBITS>
+template <int NBITS, int D>
 int entry(const void* q, void* k_codes, void* v_codes, void* scales, const void* lengths,
           const void* lower, const void* k_new, const void* v_new, void* out, void* part,
           void* counters, int H, int G, int C, int n_split, float scale, void* stream) {
@@ -993,14 +1084,14 @@ int entry(const void* q, void* k_codes, void* v_codes, void* scales, const void*
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 1: return launch<NBITS, 1>(p, H, st);
-    case 2: return launch<NBITS, 2>(p, H, st);
-    case 3: return launch<NBITS, 3>(p, H, st);
-    case 4: return launch<NBITS, 4>(p, H, st);
-    case 5: return launch<NBITS, 5>(p, H, st);
-    case 6: return launch<NBITS, 6>(p, H, st);
-    case 7: return launch<NBITS, 7>(p, H, st);
-    case 8: return launch<NBITS, 8>(p, H, st);
+    case 1: return launch<NBITS, D, 1>(p, H, st);
+    case 2: return launch<NBITS, D, 2>(p, H, st);
+    case 3: return launch<NBITS, D, 3>(p, H, st);
+    case 4: return launch<NBITS, D, 4>(p, H, st);
+    case 5: return launch<NBITS, D, 5>(p, H, st);
+    case 6: return launch<NBITS, D, 6>(p, H, st);
+    case 7: return launch<NBITS, D, 7>(p, H, st);
+    case 8: return launch<NBITS, D, 8>(p, H, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1008,18 +1099,18 @@ int entry(const void* q, void* k_codes, void* v_codes, void* scales, const void*
 }  // namespace kq
 }  // namespace
 
-extern "C" int kvcf_quant8_decode_attn_append(
-    const void* q, void* k_codes, void* v_codes, void* scales, const void* lengths,
-    const void* lower, const void* k_new, const void* v_new, void* out, void* part,
-    void* counters, int H, int G, int C, int n_split, float scale, void* stream) {
-  return kq::entry<8>(q, k_codes, v_codes, scales, lengths, lower, k_new, v_new, out, part,
-                      counters, H, G, C, n_split, scale, stream);
-}
-
-extern "C" int kvcf_quant4_decode_attn_append(
-    const void* q, void* k_codes, void* v_codes, void* scales, const void* lengths,
-    const void* lower, const void* k_new, const void* v_new, void* out, void* part,
-    void* counters, int H, int G, int C, int n_split, float scale, void* stream) {
-  return kq::entry<4>(q, k_codes, v_codes, scales, lengths, lower, k_new, v_new, out, part,
-                      counters, H, G, C, n_split, scale, stream);
-}
+// One entry point per code width and head_dim:
+// kvcf_quant8_decode_attn_append_d128, _d256 (K3) and kvcf_quant4_... (K4).
+#define KVCF_QUANT_DECODE(NB, DIM)                                                     \
+  extern "C" int kvcf_quant##NB##_decode_attn_append_d##DIM(                           \
+      const void* q, void* k_codes, void* v_codes, void* scales, const void* lengths,  \
+      const void* lower, const void* k_new, const void* v_new, void* out, void* part,  \
+      void* counters, int H, int G, int C, int n_split, float scale, void* stream) {   \
+    return kq::entry<NB, DIM>(q, k_codes, v_codes, scales, lengths, lower, k_new,      \
+                              v_new, out, part, counters, H, G, C, n_split, scale,     \
+                              stream);                                                 \
+  }
+KVCF_QUANT_DECODE(8, 128)
+KVCF_QUANT_DECODE(8, 256)
+KVCF_QUANT_DECODE(4, 128)
+KVCF_QUANT_DECODE(4, 256)

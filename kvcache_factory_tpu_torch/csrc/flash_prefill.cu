@@ -42,13 +42,21 @@
 // and only wgmma reaches their full rate.  A window or a block mask cuts the
 // pairs, not the kind of bound.
 //
+// head_dim D is a template parameter, D in {64, 128, 256}; the library
+// exports kvcf_flash_prefill_d<D> for each.  Key tiles are BN = 128 keys at D
+// 64 and 128 and BN = 64 at D 256, where Q (64 KB) and a 2-stage ring of
+// 128-key tiles (4 x 64 KB) would pass the 227 KB a block may hold: 64-key
+// tiles make it 64 + 2 x (32 + 32) = 192 KB.  QK^T is then wgmma m64nBNk16
+// over D / 16 k-steps and PV m64nDk16 (D / 2 fp32 accumulators a consumer
+// thread: 32, 64 or 128); the numbers below are at D 128.
+//
 // Design.  One CTA of three warpgroups per (128 q rows, hq, b): warpgroup 2
 // is the producer, warpgroups 0 and 1 are consumers of 64 q rows each
 // (setmaxnreg moves registers from the producer, 40 a thread, to the
 // consumers, 232).  Against the six things that held the earlier kernel
 // back (mma.sync m16n8k16, synchronous loads, scalar V fragments, 64-row
 // tiles, per-element masks everywhere, ascending tile order):
-//  1. Both products are wgmma m64n128k16: S = Q K^T with both operands in
+//  1. Both products are wgmma (m64n128k16 at D 128): S = Q K^T with both operands in
 //     shared memory (K-major), O += P V with P from registers and V from
 //     shared memory (MN-major, the transpose flag), so V is never repacked.
 //  2. One elected producer thread loads Q once and K and V per 128-key tile
@@ -74,7 +82,8 @@
 //     longest rows start first and the short ones fill the tail.
 // Sparse patterns: P is a multiple of 64 (or one block covers the whole
 // sequence), so each warpgroup's 64 rows lie in one q block and each
-// 64-column half of a key tile in one k block.  The prologue reads the
+// 64-column half of a key tile (a 64-key tile at D 256 is one half) in one
+// k block.  The prologue reads the
 // block mask once per (warpgroup, half) of every tile in the causal range
 // and compacts the tiles that either warpgroup selects into a list in
 // shared memory; the producer and the consumers walk that list, and a
@@ -99,27 +108,42 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;          // head_dim (the wrapper checks)
 constexpr int BM = 128;         // q rows per CTA: two consumer warpgroups of 64
-constexpr int BN = 128;         // keys per K/V tile
 constexpr int HALF = 64;        // columns per TMA box: 128 bytes, the swizzle span
 constexpr int STAGES = 2;       // K/V ring depth
 constexpr int THREADS = 384;    // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr int BOX_BYTES = 128 * HALF * 2;            // 16 KB: 128 rows x 64 columns
-constexpr int TILE_BYTES = 2 * BOX_BYTES;            // 32 KB: 128 rows x D
-constexpr int SMEM_K = TILE_BYTES;                   // after Q; stage s at + 2 s TILE_BYTES
-constexpr int SMEM_BAR = TILE_BYTES * (1 + 2 * STAGES);  // 160 KB
-constexpr int SMEM_CNT = SMEM_BAR + 64;              // per-warp counts of the list build
-constexpr int SMEM_LIST = SMEM_BAR + 128;            // the compacted key-tile list
 constexpr int SMEM_MAX = 232448;                     // the opt-in limit of a block
 constexpr int EMPTY_ARRIVALS = 8;                    // the consumers' warps
-constexpr uint32_t ALL_SELECTED = 0xFu;              // (warpgroup, half) bits of a tile
 constexpr int WMAX = 64;        // largest observation window
 constexpr int SBN = 64;         // columns per CTA of the window-score pass
-constexpr int LDS = D + 8;      // its padded shared-memory row stride
 constexpr float NEG_INF = -3.4028234663852886e38f;  // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// The tile plan of head_dim D.  Shared memory: Q (NB boxes of 128 rows x
+// 64 columns), then STAGES x (K tile, V tile), each NB boxes of BN rows x 64
+// columns; then the mbarriers, the list build's per-warp counts and the
+// compacted key-tile list.
+template <int D>
+struct Plan {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  static constexpr int BN = D == 256 ? 64 : 128;       // keys per K/V tile
+  static constexpr int NB = D / HALF;                  // 64-column boxes a row
+  static constexpr int NH = BN / HALF;                 // 64-key halves a tile
+  static constexpr int Q_BOX = BM * 128;               // 16 KB
+  static constexpr int KV_BOX = BN * 128;              // 16 or 8 KB
+  static constexpr int Q_BYTES = NB * Q_BOX;           // 16, 32 or 64 KB
+  static constexpr int TILE_BYTES = NB * KV_BOX;       // one K or V tile: 16, 32 or 32 KB
+  static constexpr int SMEM_K = Q_BYTES;               // stage s at + 2 s TILE_BYTES
+  static constexpr int SMEM_BAR = Q_BYTES + 2 * STAGES * TILE_BYTES;  // 80, 160 or 192 KB
+  static constexpr int SMEM_CNT = SMEM_BAR + 64;       // per-warp counts of the list build
+  static constexpr int SMEM_LIST = SMEM_BAR + 128;     // the compacted key-tile list
+  static constexpr uint32_t ALL_SELECTED = (1u << (2 * NH)) - 1;  // (warpgroup, half) bits
+  static constexpr int LDS = D + 8;  // the window-score pass's padded row stride
+  // The window-score pass's dynamic shared memory: K rows, window q rows,
+  // (m, 1/l, selected) of each window row and the two halves' sums.
+  static constexpr int WS_SMEM = 2 * (SBN * LDS + WMAX * D) + 4 * (3 * WMAX + 128);
+};
 
 // --- shared memory, mbarriers and TMA --------------------------------------
 
@@ -176,10 +200,10 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return gmma_desc(addr, 16, 1024);
 }
 
-// V as the MN-major B operand: 8-key groups 1024 bytes apart (stride), the
-// second 64-column half of D one box further on (leading).
-__device__ __forceinline__ uint64_t desc_v(uint32_t addr) {
-  return gmma_desc(addr, BOX_BYTES, 1024);
+// V as the MN-major B operand: 8-key groups 1024 bytes apart (stride), each
+// next 64 columns of D one box (`box` bytes) further on (leading).
+__device__ __forceinline__ uint64_t desc_v(uint32_t addr, uint32_t box) {
+  return gmma_desc(addr, box, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -194,26 +218,55 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // Keeps the compiler from moving accesses of an accumulator across the
 // asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+#define KVCF_D32                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define KVCF_D64                                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
   "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define KVCF_D128                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "   \
+  "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "   \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "   \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "       \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "     \
+  "%124, %125, %126, %127}"
 #define KVCF_F8(d, i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define KVCF_F64(d)                                                                    \
-  KVCF_F8(d, 0), KVCF_F8(d, 8), KVCF_F8(d, 16), KVCF_F8(d, 24), KVCF_F8(d, 32),        \
-      KVCF_F8(d, 40), KVCF_F8(d, 48), KVCF_F8(d, 56)
+#define KVCF_F32(d, i) KVCF_F8(d, i), KVCF_F8(d, i + 8), KVCF_F8(d, i + 16), KVCF_F8(d, i + 24)
+#define KVCF_F64(d) KVCF_F32(d, 0), KVCF_F32(d, 32)
+#define KVCF_F128(d) KVCF_F32(d, 0), KVCF_F32(d, 32), KVCF_F32(d, 64), KVCF_F32(d, 96)
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory, K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int accumulate) {
+// d[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory, K-major;
+// N = 64 or 128 (the keys of a tile).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " KVCF_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : KVCF_F32(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " KVCF_D64
@@ -222,15 +275,39 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the m16n8k16
-// A fragment per warp), B from shared memory, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint64_t db) {
+// d[64 x N] += A[64 x 16] B[16 x N], A from registers (the m16n8k16 A
+// fragment per warp), B from shared memory, MN-major (transposed); N = D.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " KVCF_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : KVCF_F32(d, 0)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " KVCF_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : KVCF_F64(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " KVCF_D128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : KVCF_F128(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
@@ -241,6 +318,7 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 
 // --- the main kernel ----------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -250,14 +328,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  float* __restrict__ win_ml, float* __restrict__ row_ml, int Hq,
                  int Hkv, int S_q, int S_k, int W, int SW, int P, int n_blk,
                  float scale_log2) {
+  using T = Plan<D>;
+  constexpr int BN = T::BN, NH = T::NH, NB = T::NB;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzling repeats every 1024 bytes: align the tiles to that.
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t sbase = smem_u32(smem);
-  int* warp_cnt = reinterpret_cast<int*>(smem + SMEM_CNT);
-  int* list = reinterpret_cast<int*>(smem + SMEM_LIST);
-  const uint32_t bar_q = sbase + SMEM_BAR;
+  int* warp_cnt = reinterpret_cast<int*>(smem + T::SMEM_CNT);
+  int* list = reinterpret_cast<int*>(smem + T::SMEM_LIST);
+  const uint32_t bar_q = sbase + T::SMEM_BAR;
   auto k_full = [&](int s) { return bar_q + 8u * (1 + s); };
   auto v_full = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
   auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
@@ -311,10 +391,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   if (block_mask) {
     // Compact the tiles that either warpgroup selects (whole-sequence
-    // queries: row0 is local).  Bit 2 wg + h of an entry says whether
-    // warpgroup wg's q block selects the k block of the tile's half h; a
-    // block index past the last (one block over the whole sequence) is the
-    // last, whose columns or rows are masked anyway.
+    // queries: row0 is local).  Bit NH wg + h of an entry says whether
+    // warpgroup wg's q block selects the k block of the tile's half h (NH
+    // halves a tile); a block index past the last (one block over the whole
+    // sequence) is the last, whose columns or rows are masked anyway.
     const int* mb = block_mask + bh * n_blk * n_blk;
     const int qb0 = min(row0 / P, n_blk - 1), qb1 = min((row0 + HALF) / P, n_blk - 1);
     int base = 0;
@@ -322,9 +402,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int kt = start + tid;
       uint32_t sel = 0;
       if (kt < kt_end) {
-        const int kb0 = min(kt * BN / P, n_blk - 1), kb1 = min((kt * BN + HALF) / P, n_blk - 1);
-        sel = (mb[qb0 * n_blk + kb0] ? 1u : 0u) | (mb[qb0 * n_blk + kb1] ? 2u : 0u) |
-              (mb[qb1 * n_blk + kb0] ? 4u : 0u) | (mb[qb1 * n_blk + kb1] ? 8u : 0u);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const int kb = min((kt * BN + h * HALF) / P, n_blk - 1);
+          sel |= (mb[qb0 * n_blk + kb] ? 1u : 0u) << h;
+          sel |= (mb[qb1 * n_blk + kb] ? 1u : 0u) << (NH + h);
+        }
       }
       const unsigned bal = __ballot_sync(0xffffffffu, sel != 0);
       if (lane == 0) warp_cnt[warp] = __popc(bal);
@@ -347,21 +430,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer warpgroup: one thread issues every copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 256 && n_list > 0) {
-      mbar_expect_tx(bar_q, TILE_BYTES);
-      tma_load(sbase, &tm_q, bar_q, 0, lrow0, (int)bh);
-      tma_load(sbase + BOX_BYTES, &tm_q, bar_q, HALF, lrow0, (int)bh);
+      mbar_expect_tx(bar_q, T::Q_BYTES);
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        tma_load(sbase + x * T::Q_BOX, &tm_q, bar_q, x * HALF, lrow0, (int)bh);
       const int plane_kv = b * Hkv + hkv;
       for (int i = 0; i < n_list; ++i) {
         const int s = i % STAGES;
         mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // the first pass finds it free
         const int kt = block_mask ? (list[i] & 0xFFFFFF) : kt_begin + i;
-        const uint32_t kd = sbase + SMEM_K + s * 2 * TILE_BYTES, vd = kd + TILE_BYTES;
-        mbar_expect_tx(k_full(s), TILE_BYTES);
-        tma_load(kd, &tm_k, k_full(s), 0, kt * BN, plane_kv);
-        tma_load(kd + BOX_BYTES, &tm_k, k_full(s), HALF, kt * BN, plane_kv);
-        mbar_expect_tx(v_full(s), TILE_BYTES);
-        tma_load(vd, &tm_v, v_full(s), 0, kt * BN, plane_kv);
-        tma_load(vd + BOX_BYTES, &tm_v, v_full(s), HALF, kt * BN, plane_kv);
+        const uint32_t kd = sbase + T::SMEM_K + s * 2 * T::TILE_BYTES, vd = kd + T::TILE_BYTES;
+        mbar_expect_tx(k_full(s), T::TILE_BYTES);
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          tma_load(kd + x * T::KV_BOX, &tm_k, k_full(s), x * HALF, kt * BN, plane_kv);
+        mbar_expect_tx(v_full(s), T::TILE_BYTES);
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          tma_load(vd + x * T::KV_BOX, &tm_v, v_full(s), x * HALF, kt * BN, plane_kv);
       }
     }
   } else {
@@ -379,31 +465,33 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int diag = min(Rw0, col_max), reach = min(Rw1, col_max);
     // Running max (base-2 logits) and this thread's share of the row sums.
     float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     const uint32_t qa = sbase + wg * (HALF * 128);  // this warpgroup's 64 rows of Q
 
     if (n_list > 0) mbar_wait(bar_q, 0);
     for (int i = 0; i < n_list; ++i) {
       const int s = i % STAGES;
       const uint32_t ph = (i / STAGES) & 1;
-      const int e = block_mask ? list[i] : (kt_begin + i) | (int)(ALL_SELECTED << 24);
+      const int e = block_mask ? list[i] : (kt_begin + i) | (int)(T::ALL_SELECTED << 24);
       const int c0 = (e & 0xFFFFFF) * BN;
-      const uint32_t sel = ((uint32_t)e >> (24 + 2 * wg)) & 3u;
-      const uint32_t kd = sbase + SMEM_K + s * 2 * TILE_BYTES, vd = kd + TILE_BYTES;
+      const uint32_t sel = ((uint32_t)e >> (24 + NH * wg)) & ((1u << NH) - 1u);
+      const uint32_t kd = sbase + T::SMEM_K + s * 2 * T::TILE_BYTES, vd = kd + T::TILE_BYTES;
       // Uniform over the warpgroup: no column of the tile reaches its rows;
       // or every column reaches every row.
       const bool skip = sel == 0 || c0 > reach || (SW > 0 && c0 + BN - 1 <= Rw0 - SW);
-      const bool full = sel == 3u && c0 + BN - 1 <= diag && (SW == 0 || c0 > Rw1 - SW);
+      const bool full =
+          sel == (1u << NH) - 1u && c0 + BN - 1 <= diag && (SW == 0 || c0 > Rw1 - SW);
       mbar_wait(k_full(s), ph);
       if (!skip) {
-        float sc[64];
+        float sc[BN / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = (kk >> 2) * BOX_BYTES + (kk & 3) * 32;
-          wgmma_ss(sc, desc_kmajor(qa + off), desc_kmajor(kd + off), kk);
+          const uint32_t in_row = (kk & 3) * 32;  // k-step kk: box kk / 4, 32 bytes each
+          wgmma_ss<BN>(sc, desc_kmajor(qa + (kk >> 2) * T::Q_BOX + in_row),
+                       desc_kmajor(kd + (kk >> 2) * T::KV_BOX + in_row), kk);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -414,13 +502,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         float mx_lo = m_lo, mx_hi = m_hi;
         if (full) {
 #pragma unroll
-          for (int j = 0; j < 64; ++j) {
+          for (int j = 0; j < BN / 2; ++j) {
             sc[j] *= scale_log2;
             if ((j & 3) < 2) mx_lo = fmaxf(mx_lo, sc[j]); else mx_hi = fmaxf(mx_hi, sc[j]);
           }
         } else {
 #pragma unroll
-          for (int j = 0; j < 64; ++j) {
+          for (int j = 0; j < BN / 2; ++j) {
             const int col = c0 + (j >> 2) * 8 + t * 2 + (j & 1);
             const bool lo = (j & 3) < 2;
             const bool vis = col <= (lo ? lim_lo : lim_hi) && col > (lo ? wlo_lo : wlo_hi) &&
@@ -429,7 +517,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             if (lo) mx_lo = fmaxf(mx_lo, sc[j]); else mx_hi = fmaxf(mx_hi, sc[j]);
           }
         }
-        // A row's 128 columns live in the 4 threads of one quad.
+        // A row's BN columns live in the 4 threads of one quad.
         mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
         mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
         mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
@@ -439,7 +527,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         m_hi = mx_hi;
         float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-        for (int j = 0; j < 64; ++j) {
+        for (int j = 0; j < BN / 2; ++j) {
           const bool lo = (j & 3) < 2;
           sc[j] = exp2f(sc[j] - (lo ? m_lo : m_hi));
           if (lo) sum_lo += sc[j]; else sum_hi += sc[j];
@@ -448,18 +536,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         l_hi = l_hi * a_hi + sum_hi;
         // P as the A fragments of the PV product: the accumulator of
         // columns [16 kk, 16 kk + 16) is the A fragment of k-step kk.
-        uint32_t pa[32];
+        uint32_t pa[BN / 4];
 #pragma unroll
-        for (int j = 0; j < 32; ++j) pa[j] = pack_f32(sc[2 * j], sc[2 * j + 1]);
+        for (int j = 0; j < BN / 4; ++j) pa[j] = pack_f32(sc[2 * j], sc[2 * j + 1]);
 #pragma unroll
-        for (int j = 0; j < 64; ++j) o[j] *= (j & 3) < 2 ? a_lo : a_hi;
+        for (int j = 0; j < D / 2; ++j) o[j] *= (j & 3) < 2 ? a_lo : a_hi;
 
         mbar_wait(v_full(s), ph);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                   desc_v(vd + kk * 16 * 128));
+          wgmma_rs<D>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                      desc_v(vd + kk * 16 * 128, T::KV_BOX));
         wgmma_commit();
         wgmma_wait_all();
         fence_acc(o);
@@ -483,12 +571,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (m_lo == NEG_INF) {
         l_lo = 0.f;
 #pragma unroll
-        for (int j = 0; j < 64; ++j) if ((j & 3) < 2) o[j] = 0.f;
+        for (int j = 0; j < D / 2; ++j) if ((j & 3) < 2) o[j] = 0.f;
       }
       if (m_hi == NEG_INF) {
         l_hi = 0.f;
 #pragma unroll
-        for (int j = 0; j < 64; ++j) if ((j & 3) >= 2) o[j] = 0.f;
+        for (int j = 0; j < D / 2; ++j) if ((j & 3) >= 2) o[j] = 0.f;
       }
       if (t == 0) {
         if (o_lo < S_q) { mh[o_lo] = mn_lo; mh[plane + o_lo] = l_lo; }
@@ -521,6 +609,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // Copy rows [row0, row0 + 64) of a [*, D] bf16 matrix into shared memory,
 // zero-filling rows at or past `limit`.
+template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int limit,
                                           int tid) {
 #pragma unroll
@@ -529,13 +618,15 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row0 + r < limit)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c * 8) = val;
+    *reinterpret_cast<uint4*>(dst + r * Plan<D>::LDS + c * 8) = val;
   }
 }
 
 // One CTA per (64-column tile, hq, b): scores[c] = sum over window rows r
 // with c <= r (and, with a block mask, whose q block selects c's block) of
 // exp(q[r].k[c] * scale - m_r) / l_r, with (m, l) in natural-log units.
+// Its shared memory is dynamic (Plan<D>::WS_SMEM: 67 KB at D 256).
+template <int D>
 __global__ void __launch_bounds__(128)
 window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const int* __restrict__ true_len,
@@ -543,10 +634,14 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ win_ml,
                      float* __restrict__ scores,
                      int Hq, int Hkv, int S, int W, int P, int n_blk, float scale) {
-  __shared__ __align__(16) bf16 Ks[SBN * LDS];
-  __shared__ __align__(16) bf16 Qw[WMAX * D];
-  __shared__ float m_w[WMAX], il_w[WMAX], part[128];
-  __shared__ int sel_w[WMAX];
+  constexpr int LDS = Plan<D>::LDS;
+  extern __shared__ __align__(16) unsigned char ws_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(ws_raw);                    // [SBN][LDS]
+  bf16* Qw = Ks + SBN * LDS;                                     // [WMAX][D]
+  float* m_w = reinterpret_cast<float*>(Qw + WMAX * D);
+  float* il_w = m_w + WMAX;
+  float* part = il_w + WMAX;                                     // [128]
+  int* sel_w = reinterpret_cast<int*>(part + 128);
 
   const int tid = threadIdx.x;
   const int hq = blockIdx.y, b = blockIdx.z;
@@ -562,7 +657,7 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return;
   }
 
-  load_rows(Ks, k + ((size_t)b * Hkv + hkv) * S * D, col0, S, tid);
+  load_rows<D>(Ks, k + ((size_t)b * Hkv + hkv) * S * D, col0, S, tid);
   const bf16* qh = q + ((size_t)b * Hq + hq) * S * D;
   for (int i = tid; i < W * (D / 8); i += 128) {
     const int r = i / (D / 8), c = i % (D / 8);
@@ -633,12 +728,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A [planes, rows, D] bf16 tensor as a 3-D map read in boxes of 128 rows x
-// 64 columns, 128-byte swizzled; rows past `rows` read as zeros.
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int rows, int planes) {
+// A [planes, rows, D] bf16 tensor as a 3-D map read in boxes of `box_rows`
+// rows x 64 columns, 128-byte swizzled; rows past `rows` read as zeros.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D, int rows,
+              int planes, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)HALF, (cuuint32_t)BN, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)HALF, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
              box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -646,20 +742,18 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int rows, int
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
-                                  const void* true_len, const void* row_offset,
-                                  const void* block_mask, void* out, void* win_ml,
-                                  void* scores, void* row_ml, int B, int Hq, int Hkv,
-                                  int S_q, int S_k, int W, int SW, int P, int n_blk,
-                                  float scale, void* stream) {
-  // The wrapper's contract: scores only for whole-sequence queries without
-  // a window; q and k lengths differ only in chunk mode; a block mask only
-  // for whole-sequence queries, with n_blk blocks of P rows covering S_q and
-  // P a multiple of 64 (a warpgroup's rows, a tile's half) unless one block
-  // covers everything; (m, l) only without scores or a block mask (a
-  // dense-attention feature).
+// The host function of head_dim D.  The wrapper's contract: scores only
+// for whole-sequence queries without a window; q and k lengths differ only
+// in chunk mode; a block mask only for whole-sequence queries, with n_blk
+// blocks of P rows covering S_q and P a multiple of 64 (a warpgroup's rows,
+// a tile's half) unless one block covers everything; (m, l) only without
+// scores or a block mask (a dense-attention feature).
+template <int D>
+int flash_prefill(const void* q, const void* k, const void* v, const void* true_len,
+                  const void* row_offset, const void* block_mask, void* out, void* win_ml,
+                  void* scores, void* row_ml, int B, int Hq, int Hkv, int S_q, int S_k,
+                  int W, int SW, int P, int n_blk, float scale, void* stream) {
+  using T = Plan<D>;
   if (W < 0 || W > WMAX || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
       (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1 ||
       (row_ml && (W > 0 || block_mask)))
@@ -667,36 +761,41 @@ extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
   if (block_mask && (row_offset || P < 1 || n_blk != (S_q + P - 1) / P ||
                      (n_blk > 1 && P % HALF != 0)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 1024 + SMEM_LIST + sizeof(int) * (size_t)((S_k + BN - 1) / BN);
+  const size_t smem = 1024 + T::SMEM_LIST + sizeof(int) * (size_t)((S_k + T::BN - 1) / T::BN);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, S_q, B * Hq) || !make_map(enc, &tk, k, S_k, B * Hkv) ||
-      !make_map(enc, &tv, v, S_k, B * Hkv))
+  if (!make_map(enc, &tq, q, D, S_q, B * Hq, BM) ||
+      !make_map(enc, &tk, k, D, S_k, B * Hkv, T::BN) ||
+      !make_map(enc, &tv, v, D, S_k, B * Hkv, T::BN))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // Above 48 KB of dynamic shared memory needs an opt-in, once per device
-  // (so that a launch under CUDA-graph capture makes no such call).
+  // Above 48 KB of dynamic shared memory needs an opt-in, once per
+  // instantiation and device (so that a launch under CUDA-graph capture
+  // makes no such call).
   static bool smem_set[64] = {false};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(window_scores_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, T::WS_SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set[dev] = true;
   }
   dim3 grid(Hq, (S_q + BM - 1) / BM, B);
-  flash_fwd_kernel<<<grid, THREADS, smem, st>>>(
+  flash_fwd_kernel<D><<<grid, THREADS, smem, st>>>(
       tq, tk, tv, static_cast<const int*>(true_len), static_cast<const int*>(row_offset),
       static_cast<const int*>(block_mask), static_cast<bf16*>(out),
       static_cast<float*>(win_ml), static_cast<float*>(row_ml), Hq, Hkv, S_q, S_k, W, SW, P,
       n_blk, scale * LOG2E);
   if (W > 0) {
     dim3 g2((S_k + SBN - 1) / SBN, Hq, B);
-    window_scores_kernel<<<g2, 128, 0, st>>>(
+    window_scores_kernel<D><<<g2, 128, T::WS_SMEM, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const int*>(true_len), static_cast<const int*>(block_mask),
         static_cast<const float*>(win_ml), static_cast<float*>(scores), Hq, Hkv, S_k,
@@ -704,3 +803,20 @@ extern "C" int kvcf_flash_prefill(const void* q, const void* k, const void* v,
   }
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// One entry point per head_dim: kvcf_flash_prefill_d64, _d128, _d256.
+#define KVCF_FLASH_PREFILL(DIM)                                                        \
+  extern "C" int kvcf_flash_prefill_d##DIM(                                            \
+      const void* q, const void* k, const void* v, const void* true_len,               \
+      const void* row_offset, const void* block_mask, void* out, void* win_ml,         \
+      void* scores, void* row_ml, int B, int Hq, int Hkv, int S_q, int S_k, int W,     \
+      int SW, int P, int n_blk, float scale, void* stream) {                           \
+    return flash_prefill<DIM>(q, k, v, true_len, row_offset, block_mask, out, win_ml,  \
+                              scores, row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk,   \
+                              scale, stream);                                          \
+  }
+KVCF_FLASH_PREFILL(64)
+KVCF_FLASH_PREFILL(128)
+KVCF_FLASH_PREFILL(256)

@@ -29,27 +29,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # ctypes signatures of every C entry point, by library.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K1 and K2 export one entry point per head_dim they take, K3 and K4 one
+# per code width and head_dim (``..._d64``, ``_d128``, ``_d256``).
+_K1 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
+_K2 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)
+_KQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
-    "flash_prefill": {
-        # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
-        # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, scale, stream
-        "kvcf_flash_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    },
-    "decode_attn": {
-        # q, k_cache, v_cache, lengths, lower, k_new, v_new, out,
-        # part, counters, H, G, C, n_split, scale, stream
-        "kvcf_decode_attn_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _F, _P),
-    },
-    "decode_attn_quant": {
-        # K3 and K4: q, k_codes, v_codes, scales, lengths, lower, k_new, v_new,
-        # out, part, counters, H, G, C, n_split, scale, stream
-        "kvcf_quant8_decode_attn_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _F, _P),
-        "kvcf_quant4_decode_attn_append": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _F, _P),
-    },
+    # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
+    # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, scale, stream
+    "flash_prefill": {f"kvcf_flash_prefill_d{d}": _K1 for d in (64, 128, 256)},
+    # q, k_cache, v_cache, lengths, lower, k_new, v_new, out,
+    # part, counters, H, G, C, n_split, scale, stream
+    "decode_attn": {f"kvcf_decode_attn_append_d{d}": _K2 for d in (64, 128, 256)},
+    # K3 and K4: q, k_codes, v_codes, scales, lengths, lower, k_new, v_new,
+    # out, part, counters, H, G, C, n_split, scale, stream
+    "decode_attn_quant": {f"kvcf_quant{nbits}_decode_attn_append_d{d}": _KQ
+                          for nbits in (8, 4) for d in (128, 256)},
     "pack": {
         # kv, idx, out, H, S, C, vecs, stream
         "kvcf_pack_rows": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -10,6 +10,10 @@ Dispatch is one rule: a CPU tensor goes to the plain version
 kernel, or raises.  ``decode_attention_append.launches`` counts kernel
 launches.
 
+The kernel takes head_dim 64, 128 and 256 (``HEAD_DIMS``), one
+instantiation and entry point each; its shared memory is 768 D bytes a CTA,
+so ``CTAS_PER_SM_AT[D]`` CTAs fit an SM.
+
 One launch per call: each head's keys are split over ``n_split`` CTAs
 (:func:`split_count`, from the shapes and the SM count only), and the CTA
 of a head that finishes last merges the head's partials.  It finds out
@@ -27,13 +31,15 @@ import torch
 
 from ..attention import NEG_INF
 from . import _build
+from .flash_prefill import REFUSED
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn.cu"
 REPLACES = "kvcache_factory_tpu/ops/kernels/decode_attn.py:71"
-HEAD_DIM = 128
+HEAD_DIMS = (64, 128, 256)
 GROUPS = range(1, 9)
 MIN_KEYS_PER_SPLIT = 64
-CTAS_PER_SM = 2    # resident CTAs an SM holds (the source header's shared memory)
+CTAS_PER_SM = 2    # resident CTAs an SM holds at head_dim 128 (and K3 / K4's split rule)
+CTAS_PER_SM_AT = {64: 4, 128: 2, 256: 1}  # by head_dim (the source header's shared memory)
 MIN_COUNTERS = 4096  # counters allocated at once, so a graph capture rarely needs more
 
 
@@ -60,12 +66,12 @@ def decode_attention_append(
     H, G, D = q.shape
     C = k_layer.shape[1]
     dev = q.device
-    n_split = split_count(H, C, _sm_count(dev))
+    n_split = split_count(H, C, _sm_count(dev), CTAS_PER_SM_AT[D])
     counters = _counters(dev, H)
     out = torch.empty_like(q)
     part = torch.empty(H * n_split * G * (D + 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.kvcf_decode_attn_append(
+        code = getattr(lib, f"kvcf_decode_attn_append_d{D}")(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
             lengths.data_ptr(), None if lower is None else lower.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part.data_ptr(),
@@ -79,12 +85,12 @@ def decode_attention_append(
 decode_attention_append.launches = 0
 
 
-def split_count(H: int, C: int, sm_count: int) -> int:
-    """CTAs per head: about ``CTAS_PER_SM`` CTAs on every SM in one wave
+def split_count(H: int, C: int, sm_count: int, ctas_per_sm: int = CTAS_PER_SM) -> int:
+    """CTAs per head: about ``ctas_per_sm`` CTAs on every SM in one wave
     over the ``H`` heads, at most one per ``MIN_KEYS_PER_SPLIT`` slots of the
     capacity; at least 1.  It reads no lengths: each CTA finds its own share
     of its head's valid keys on the device (:func:`split_bounds`)."""
-    return max(1, min(CTAS_PER_SM * sm_count // H, -(-C // MIN_KEYS_PER_SPLIT)))
+    return max(1, min(ctas_per_sm * sm_count // H, -(-C // MIN_KEYS_PER_SPLIT)))
 
 
 def split_bounds(lo: int, L: int, sp: int, n_split: int) -> Tuple[int, int]:
@@ -135,11 +141,9 @@ def _check(q, k_layer, v_layer, lengths, k_new, v_new, lower):
     if q.dim() != 3:
         raise ValueError(f"decode_attn: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
-    if D != HEAD_DIM or G not in GROUPS:
-        raise ValueError(f"decode_attn: needs head_dim {HEAD_DIM} and G from {GROUPS[0]} "
-                         f"to {GROUPS[-1]}, got D={D}, G={G}; other head_dims and groups "
-                         "are ROADMAP.md queue 2, \"Shapes the TPU kernels take and the "
-                         "port's kernels refuse on CUDA\"")
+    if D not in HEAD_DIMS or G not in GROUPS:
+        raise ValueError(f"decode_attn: needs head_dim in {HEAD_DIMS} and G from "
+                         f"{GROUPS[0]} to {GROUPS[-1]}, got D={D}, G={G}; {REFUSED}")
     for name, t in (("q", q), ("k_layer", k_layer), ("v_layer", v_layer),
                     ("k_new", k_new), ("v_new", v_new)):
         if t.dtype != torch.bfloat16:

@@ -15,6 +15,10 @@ Dispatch is K2's rule: a CPU tensor goes to the plain version
 ``quant_decode_attention_append.launches`` and
 ``quant4_decode_attention_append.launches`` count kernel launches.
 
+They take head_dim 128 and 256 (``HEAD_DIMS``; the per-token cache exists
+only at ``D % 128 == 0``, ``config.py::QuantConfig.per_token``), one
+instantiation and entry point each.
+
 K3 and K4 are one launch per call each, as K2 is: ``decode_attn.split_count``
 picks the CTAs per head, each finds its share of the head's valid keys on
 the device, and the last CTA of a head to raise its arrival counter (K2's
@@ -32,11 +36,13 @@ import torch
 from ...cache.quant_cache import dequantize, encode_per_token
 from ..attention import NEG_INF
 from . import _build
-from .decode_attn import GROUPS, HEAD_DIM, _counters, _sm_count, split_count
+from .decode_attn import GROUPS, _counters, _sm_count, split_count
+from .flash_prefill import REFUSED
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant.cu"
 REPLACES = {8: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:76",
             4: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:479"}
+HEAD_DIMS = (128, 256)
 
 
 def quant_decode_attention_append(
@@ -99,7 +105,7 @@ def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     counters = _counters(dev, H)
     out = torch.empty_like(q)
     part = torch.empty(H * n_split * G * (D + 4), dtype=torch.float32, device=dev)
-    entry = lib.kvcf_quant8_decode_attn_append if nbits == 8 else lib.kvcf_quant4_decode_attn_append
+    entry = getattr(lib, f"kvcf_quant{nbits}_decode_attn_append_d{D}")
     with torch.cuda.device(dev):
         code = entry(q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), scales.data_ptr(),
                      lengths.data_ptr(), None if lower is None else lower.data_ptr(),
@@ -130,10 +136,9 @@ def _check(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     if q.dim() != 3:
         raise ValueError(f"{what}: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
-    if D != HEAD_DIM or G not in GROUPS:
-        raise ValueError(f"{what}: needs head_dim {HEAD_DIM} and G in {tuple(GROUPS)}, got "
-                         f"D={D}, G={G}; other head_dims and groups are ROADMAP.md queue 2, "
-                         "\"Shapes the TPU kernels take and the port's kernels refuse on CUDA\"")
+    if D not in HEAD_DIMS or G not in GROUPS:
+        raise ValueError(f"{what}: needs head_dim in {HEAD_DIMS} and G in {tuple(GROUPS)}, "
+                         f"got D={D}, G={G}; {REFUSED}")
     for name, t in (("q", q), ("scales", scales), ("k_new", k_new), ("v_new", v_new)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{what}: {name} must be bfloat16, got {t.dtype}")

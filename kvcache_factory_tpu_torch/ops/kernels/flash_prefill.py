@@ -9,9 +9,10 @@ The CUDA kernel (``csrc/flash_prefill.cu``) replaces the Pallas TPU kernel
 causal path with score emission, ``sliding_window``, chunk mode, the
 sparse block patterns and ``return_ml``).  It is a Hopper kernel: one CTA
 of three warpgroups per 128 q rows of one head, a producer that loads Q
-once and 128-key K/V tiles through a 2-stage TMA ring, and two consumers of
-64 rows each that run both products with ``wgmma`` and mask only the tiles
-on an edge.  Its source header says what bounds it on the card and how the
+once and 128-key K/V tiles (64-key at head_dim 256) through a 2-stage TMA
+ring, and two consumers of 64 rows each that run both products with
+``wgmma`` and mask only the tiles on an edge.  It takes head_dim 64, 128
+and 256 (``HEAD_DIMS``), one instantiation and entry point each.  Its source header says what bounds it on the card and how the
 design answers that.  The vertical-slash block mask is
 estimated in plain torch (:func:`vertical_slash_block_mask`), as the JAX
 package estimates it in XLA; both patterns reach the kernel as one
@@ -48,11 +49,16 @@ REPLACES_VARIANT = {
     "vertical_slash": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:228-252",
     "ring": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:288-297",
 }
-HEAD_DIM = 128
+HEAD_DIMS = (64, 128, 256)
 MAX_WINDOW = 64
+# What the card refuses, and where it is queued.
+REFUSED = ("head_dims outside (64, 128, 256), groups above 8 and observation windows "
+           "above 64 are ROADMAP.md queue 2, \"Shapes the TPU kernels take and the "
+           "port's kernels refuse on CUDA\"")
 # A pattern block is a multiple of 64 (or the whole sequence): a CTA's 128 q
-# rows are two consumer warpgroups of 64 and a 128-key tile two halves of 64,
-# so each warpgroup's rows and each half of a tile lie in one block.
+# rows are two consumer warpgroups of 64 and a key tile (128 keys, 64 at
+# head_dim 256) one or two halves of 64, so each warpgroup's rows and each
+# half of a tile lie in one block.
 PATTERN_QUANTUM = 64
 DEFAULT_PATTERN_BLOCK = 1024  # JAX's q_block whenever a pattern is given
 
@@ -136,7 +142,7 @@ def flash_prefill_attention(
     row_ml = torch.empty((2, B, Hq, S_q), dtype=torch.float32, device=dev) \
         if return_ml else None
     with torch.cuda.device(dev):
-        code = lib.kvcf_flash_prefill(
+        code = getattr(lib, f"kvcf_flash_prefill_d{D}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), true_len.data_ptr(),
             None if row_offset is None else row_offset.data_ptr(),
             None if block_mask is None else block_mask.data_ptr(),
@@ -228,15 +234,13 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
             raise ValueError(f"flash_prefill: {name} must be contiguous")
         if t.data_ptr() % align:
             raise ValueError(f"flash_prefill: {name} must be {align}-byte aligned")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_prefill: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or t.dim() != 4:
             raise ValueError(f"flash_prefill: {name} must be a 4-d bfloat16 "
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
     B, Hq, S_q, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"flash_prefill: head_dim must be {HEAD_DIM}, got {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_prefill: needs head_dim in {HEAD_DIMS}, got D={D}; {REFUSED}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or k.shape[2] < 1 \
             or Hq % k.shape[1]:
         raise ValueError(f"flash_prefill: k/v shape {tuple(k.shape)} does not "
@@ -245,7 +249,7 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
         if t is not None and (t.dtype != torch.int32 or t.shape != (B,)):
             raise ValueError(f"flash_prefill: {name} must be int32 of shape [B]")
     if not 0 <= window <= MAX_WINDOW:
-        raise ValueError(f"flash_prefill: window must be in [0, {MAX_WINDOW}]")
+        raise ValueError(f"flash_prefill: window must be in [0, {MAX_WINDOW}]; {REFUSED}")
     if block_mask is not None:
         n = -(-S_q // block)
         if block_mask.dtype != torch.int32 or block_mask.shape != (B, Hq, n, n):
@@ -256,6 +260,8 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
         if n > 1 and block % PATTERN_QUANTUM:
             raise ValueError(f"flash_prefill: the pattern block ({block}) must be a "
                              f"multiple of {PATTERN_QUANTUM} on the card")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill: unsupported device {q.device}")
 
 
 # ---------------------------------------------------------------------------

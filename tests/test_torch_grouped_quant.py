@@ -204,11 +204,13 @@ def test_reconstruction_within_noise_of_the_hqq_oracle():
     (128, dict(nbits=8, residual_length=16), tq.QuantizedKVCache),
     (128, dict(nbits=4, residual_length=16), tq.QuantizedKVCache),
     (128, dict(nbits=3), tq.QuantizedKVCache), (128, dict(nbits=1), tq.QuantizedKVCache),
-    (64, dict(nbits=8), tq.QuantizedKVCache)])
+    (64, dict(nbits=8), tq.QuantizedKVCache),
+    (256, dict(nbits=8), tq.Int8KVCache), (256, dict(nbits=4), tq.Int4KVCache)])
 def test_each_quant_config_builds_its_cache(head_dim, quant, want):
     """``QuantConfig.per_token`` picks the per-token cache (K3 / K4): nbits 8
-    or 4, no ring, head_dim 128; everything else builds the grouped cache,
-    nbits 8 with a ring included."""
+    or 4, no ring, head_dim 128 or 256 (JAX's ``head_dim % 128 == 0`` at the
+    head_dims K3 and K4 take); everything else builds the grouped cache,
+    nbits 8 with a ring or at head_dim 64 included."""
     cfg = tcfg.ModelConfig(**dict(MODEL, head_dim=head_dim))
     cache = tllama.init_prefill_cache(cfg, tcfg.CompressionConfig(**COMP), tcfg.QuantConfig(
         **quant), 2, 40, 32, "cpu")

@@ -184,11 +184,11 @@ def test_decode_plain_matches_pallas(C, G, lengths, lower):
     np.testing.assert_array_equal(np.minimum(lens + 1, C), np.asarray(j_lens))
 
 
-def _decode_check_args(G):
+def _decode_check_args(G, d=D):
     bf = torch.bfloat16
-    return [torch.zeros(2, G, D, dtype=bf), torch.zeros(2, 16, D, dtype=bf),
-            torch.zeros(2, 16, D, dtype=bf), torch.zeros(2, dtype=torch.int32),
-            torch.zeros(2, D, dtype=bf), torch.zeros(2, D, dtype=bf), None]
+    return [torch.zeros(2, G, d, dtype=bf), torch.zeros(2, 16, d, dtype=bf),
+            torch.zeros(2, 16, d, dtype=bf), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, d, dtype=bf), torch.zeros(2, d, dtype=bf), None]
 
 
 @pytest.mark.parametrize("G", [3, 5, 6, 7])
@@ -198,9 +198,18 @@ def test_decode_check_takes_every_group_up_to_8(G):
         tdecode._check(*_decode_check_args(G))
 
 
-@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 64))])
+@pytest.mark.parametrize("D_", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4])
+def test_decode_check_takes_each_head_dim(G, D_):
+    """K2 takes head_dim 64, 128 and 256: every shape check passes; only the
+    device stops a CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdecode._check(*_decode_check_args(G, D_))
+
+
+@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 96)), (1, (2, 1, 384))])
 def test_decode_check_refuses_g_above_8_or_other_head_dims(G, shape):
-    args = _decode_check_args(G)
+    args = _decode_check_args(G, shape[-1])
     args[0] = torch.zeros(shape, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
         tdecode._check(*args)
@@ -231,15 +240,15 @@ def test_decode_split_bounds_cover_the_valid_keys_in_order(n_split):
         assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
 
 
-def _quant_check_args(nbits, G, q_shape=None):
-    """K3/K4 ``_check`` arguments for 2 heads of G query rows, C 16, on the
-    CPU."""
-    bf, width = torch.bfloat16, D if nbits == 8 else D // 2
-    q = torch.zeros(q_shape or (2, G, D), dtype=bf)
+def _quant_check_args(nbits, G, q_shape=None, d=D):
+    """K3/K4 ``_check`` arguments for 2 heads of G query rows, C 16, head_dim
+    ``d``, on the CPU."""
+    bf, width = torch.bfloat16, d if nbits == 8 else d // 2
+    q = torch.zeros(q_shape or (2, G, d), dtype=bf)
     return [nbits, q, torch.zeros(2, 16, width, dtype=torch.uint8),
             torch.zeros(2, 16, width, dtype=torch.uint8), torch.zeros(2, 16, 4, dtype=bf),
-            torch.zeros(2, dtype=torch.int32), torch.zeros(2, D, dtype=bf),
-            torch.zeros(2, D, dtype=bf), None]
+            torch.zeros(2, dtype=torch.int32), torch.zeros(2, d, dtype=bf),
+            torch.zeros(2, d, dtype=bf), None]
 
 
 @pytest.mark.parametrize("G", range(1, 9))
@@ -251,11 +260,42 @@ def test_quant_check_takes_every_group_up_to_8(nbits, G):
         tquant._check(*_quant_check_args(nbits, G))
 
 
-@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 64))])
+@pytest.mark.parametrize("D_", [128, 256])
+@pytest.mark.parametrize("nbits", [8, 4])
+def test_quant_check_takes_each_head_dim(nbits, D_):
+    """K3 and K4 take head_dim 128 and 256 (the per-token cache's): every
+    shape check passes; only the device stops a CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tquant._check(*_quant_check_args(nbits, 4, d=D_))
+
+
+@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 64)), (1, (2, 1, 96)),
+                                     (1, (2, 1, 384))])
 @pytest.mark.parametrize("nbits", [8, 4])
 def test_quant_check_refuses_g_above_8_or_other_head_dims(nbits, G, shape):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
-        tquant._check(*_quant_check_args(nbits, G, shape))
+        tquant._check(*_quant_check_args(nbits, G, shape, d=shape[-1]))
+
+
+def _flash_check_args(d, window=8):
+    """K1 ``_check`` arguments at head_dim ``d``: B 1, Hq 4, Hkv 2, S 64."""
+    bf = torch.bfloat16
+    return [torch.zeros(1, 4, 64, d, dtype=bf), torch.zeros(1, 2, 64, d, dtype=bf),
+            torch.zeros(1, 2, 64, d, dtype=bf), torch.zeros(1, dtype=torch.int32), window]
+
+
+@pytest.mark.parametrize("D_", [64, 128, 256])
+def test_flash_check_takes_each_head_dim(D_):
+    """K1 takes head_dim 64, 128 and 256: every shape check passes; the
+    device check comes last (as K2's), so only it stops a CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash._check(*_flash_check_args(D_))
+
+
+@pytest.mark.parametrize("D_,window", [(96, 8), (384, 8), (128, 65)])
+def test_flash_check_refuses_other_head_dims_or_windows_above_64(D_, window):
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+        tflash._check(*_flash_check_args(D_, window))
 
 
 def test_cpu_tensors_never_count_a_launch():
@@ -282,29 +322,29 @@ def test_cpu_tensors_never_count_a_launch():
     assert tflash.flash_prefill_attention.variant_launches == variants
 
 
-def _quant_args(which, make):
+def _quant_args(which, make, d=D):
     """K3/K4 arguments (q, codes, codes, scales, lengths, k_new, v_new),
     each tensor from ``make(shape, dtype)``."""
-    width = D if which == "quant8" else D // 2
+    width = d if which == "quant8" else d // 2
     bf = torch.bfloat16
-    return [make((2, 1, D), bf), make((2, 16, width), torch.uint8),
+    return [make((2, 1, d), bf), make((2, 16, width), torch.uint8),
             make((2, 16, width), torch.uint8), make((2, 16, 4), bf),
-            make((2,), torch.int32), make((2, D), bf), make((2, D), bf)]
+            make((2,), torch.int32), make((2, d), bf), make((2, d), bf)]
 
 
-def _meta_args(which):
+def _meta_args(which, d=D):
     m = dict(device="meta")
     if which == "flash":
-        q = torch.empty(1, 2, 64, D, dtype=torch.bfloat16, **m)
+        q = torch.empty(1, 2, 64, d, dtype=torch.bfloat16, **m)
         return (q, q, q, torch.empty(1, dtype=torch.int32, **m), 8)
     if which.startswith("quant"):
-        return _quant_args(which, lambda shape, dtype: torch.empty(shape, dtype=dtype, **m))
-    return (torch.empty(2, 1, D, dtype=torch.bfloat16, **m),
-            torch.empty(2, 16, D, dtype=torch.bfloat16, **m),
-            torch.empty(2, 16, D, dtype=torch.bfloat16, **m),
+        return _quant_args(which, lambda shape, dtype: torch.empty(shape, dtype=dtype, **m), d)
+    return (torch.empty(2, 1, d, dtype=torch.bfloat16, **m),
+            torch.empty(2, 16, d, dtype=torch.bfloat16, **m),
+            torch.empty(2, 16, d, dtype=torch.bfloat16, **m),
             torch.empty(2, dtype=torch.int32, **m),
-            torch.empty(2, D, dtype=torch.bfloat16, **m),
-            torch.empty(2, D, dtype=torch.bfloat16, **m))
+            torch.empty(2, d, dtype=torch.bfloat16, **m),
+            torch.empty(2, d, dtype=torch.bfloat16, **m))
 
 
 WRAPPERS = {
@@ -317,10 +357,18 @@ WRAPPERS = {
 }
 
 
-@pytest.mark.parametrize("which", sorted(WRAPPERS))
-def test_failed_build_raises_and_never_falls_back(which, monkeypatch):
-    """A tensor off the CPU must reach the kernel: when its library fails to
-    build, the wrapper raises instead of running the plain version."""
+# Each wrapper at each head_dim its kernel takes (the ids of head_dim 128
+# are the wrapper's name alone).
+BUILD_CASES = [pytest.param(which, d, id=which if d == D else f"{which}-d{d}")
+               for which in sorted(WRAPPERS)
+               for d in ((128, 256) if which.startswith("quant") else (64, 128, 256))]
+
+
+@pytest.mark.parametrize("which,d", BUILD_CASES)
+def test_failed_build_raises_and_never_falls_back(which, d, monkeypatch):
+    """A tensor off the CPU must reach the kernel, at every head_dim: when
+    its library fails to build, the wrapper raises instead of running the
+    plain version."""
     mod, wrapper_name, plain_name = WRAPPERS[which]
 
     def failing_load(name):
@@ -334,7 +382,7 @@ def test_failed_build_raises_and_never_falls_back(which, monkeypatch):
     wrapper = getattr(mod, wrapper_name)
     before = wrapper.launches
     with pytest.raises(_build.KernelBuildError, match="stubbed"):
-        wrapper(*_meta_args(which))
+        wrapper(*_meta_args(which, d))
     assert wrapper.launches == before
 
 

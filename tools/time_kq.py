@@ -47,10 +47,10 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from kvcache_factory_tpu_torch.ops.kernels import _build, decode_attn_quant  # noqa: E402
 
-# nbits -> (the wrapper's name, the main path's capacity, the G-1 kernel's
-# mangled name fragment)
-KERNELS = {8: ("quant_decode_attention_append", 2176, "quant8_decode_kernelILi1EE"),
-           4: ("quant4_decode_attention_append", 2304, "quant4_decode_kernelILi1EE")}
+# nbits -> (the wrapper's name, the main path's capacity, the head_dim 128, G 1
+# kernel's mangled name fragment)
+KERNELS = {8: ("quant_decode_attention_append", 2176, "quant8_decode_kernelILi128ELi1EE"),
+           4: ("quant4_decode_attention_append", 2304, "quant4_decode_kernelILi128ELi1EE")}
 SWEEP = (0, 256, 1024, 2079)  # keys a head, 64 heads, the main path's capacity
 
 

@@ -44,15 +44,14 @@ EDITS = (
     ("  if (n_stages > 0) load_stage(0);\n  cp_async_commit();\n", "  MARK(1);\n"),
     ("  s_new *= p.scale;  // query row gid's new logit, on each of its 4 lanes\n", "  MARK(2);\n"),
     ("    cp_async_wait<STAGES - 2>();\n    __syncwarp();\n", "    if (i < 4) MARK(3 + 2 * i);\n"),
-    ("        mma16816<F16>(o[mb], pa[2 * mb], pa[2 * mb + 1], pb[2 * mb], pb[2 * mb + 1], bl0, bl1);\n"
-     "    }\n",
+    ("                        bl0, bl1);\n      }\n    }\n",
      # reading the accumulator makes the mark wait for the stage's products
      "    if (i < 4 && o[0][0] + o[7][3] != 12345.f) MARK(4 + 2 * i);\n"),
     ("  __syncthreads();  // every warp is done with its ring: reuse it\n", "  MARK(11);\n"),
     ("    *sm_last = before == p.n_split - 1;\n  }\n  __syncthreads();\n",
      "  MARK(12);\n  if (threadIdx.x == 0) "
      "trace_buf[(blockIdx.x * gridDim.y + blockIdx.y) * 16 + 14] = n_stages;\n"),
-    ("  merge_head<G, R::SMEM_BYTES>(p, h, s_new, vn4, smem);\n",
+    ("  merge_head<D, G, R::SMEM_BYTES>(p, h, s_new, vn, smem);\n",
      "  __syncthreads();\n  MARK(13);\n"),
 )
 READER = """
