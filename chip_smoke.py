@@ -46,7 +46,12 @@ Phases, in order; any failure exits non-zero:
    chunk pool and a ring hop (K1-ml), at 256 two a-shape cases (3e); K2 at
    G 1 and G 4 with its off-by-one, dropped-split, repeat and graph-replay
    checks and split edges (4c); K3 and K4 the same with their range case
-   (4d); every instantiation's ptxas registers and spills;
+   (4d); every instantiation's ptxas registers and spills; then K1 at
+   observation windows 65, 96 and 128 (3f: its CTA edges, a true_len
+   shorter than the window, what a pass cut at 64 window rows would show,
+   the score pass timed beside the main pass) and K2-K4 at G 9, 12 and 16
+   (4e: Mistral-Large-2's and Llama-3.1-405B's 8 KV heads, with K2's
+   checks, K3 / K4's range case and appends, times and ptxas lines);
 5. the main path end to end at Mistral-7B-Instruct-v0.2 widths with random
    weights, three times: with the bf16 cache, with ``QuantConfig(nbits=8)``
    and with ``QuantConfig(nbits=4)``.  Each is one
@@ -139,8 +144,8 @@ Phases, in order; any failure exits non-zero:
 11. Mixtral-8x7B-Instruct-v0.1 widths (sparse MoE, 8 experts, top-2): (11a)
    a one-layer checkpoint in the HF layout (``block_sparse_moe`` router and
    experts) read back by ``load_params``, every leaf bitwise equal to the
-   tensors fused by hand, the native reader serving; (11b) the full-depth
-   model with random W8A16 weights built layer by layer, phase 5's two
+   tensors fused by hand, the native reader serving; (11b) the model at 8
+   of its 32 layers with random W8A16 weights built layer by layer, phase 5's two
    requests through ``InferenceEngine`` (SnapKV, 32 new): launches, lengths,
    the routing of request (b) against the fp32 reference (flips only at
    near-ties), its logits against the reference with the card's routing
@@ -154,10 +159,11 @@ Phases, in order; any failure exits non-zero:
    within the budget; then h2o, headkv, cam and
    random through chunked admission against the one-shot engine, each run
    with every launch count set to 0 just before it;
-12. (run right after phase 8, on phase 5's weights and requests) the
+12. (run right after phase 8, on phase 5's requests and widths at 16 of
+   its 32 layers, ``GRID_MODEL``) the
    ``(dp, sp, tp)`` layouts on ranks that share this card over gloo, each
    CUDA tensor staged through pinned host memory: the single-device
-   references and the fp32 reference forward first, the parent's weights
+   references and the fp32 reference forward first, phase 5's weights
    then freed; each rank draws the weights (seed 0) in turn and keeps its
    tp=2 shard.  (12a) two ranks: ``ShardingConfig(tp=2)`` over the bf16,
    int8 and int4 caches (K1 with K2, K3, K4 on each rank's 16 heads),
@@ -170,7 +176,7 @@ Phases, in order; any failure exits non-zero:
    rank's cache lengths and head count, the ranks' ids and first-token
    logits equal, logits against the single-device engine and the fp32
    reference within phase 5's limits, streams equal up to a near-tie, K2
-   (K3, K4) on layers 0 and 31 of each rank's cache against the plain
+   (K3, K4) on the first and last layer of each rank's cache against the plain
    version with every rank on the card at once; prefill wall, decode
    ms/step wall and busy (rank 0, profiled), collectives and bytes and
    seconds staged per prefill and per step; K2 at one tp=2 rank's shape
@@ -205,7 +211,18 @@ Phases, in order; any failure exits non-zero:
    ``ContinuousBatchingEngine`` drain of four 4096-token requests with
    chunked admission (K1-chunk at 64); 16b: a 4-layer head_dim 256 model
    over the bf16, int8 and int4 caches (K1-K4 at 256), checked the same;
-17. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+17. Mistral-Large-Instruct-2407 at full width (8 of 88 layers, G 12;
+   random bf16 weights): phase 5's requests through ``InferenceEngine``
+   with fullkv over the bf16, int8 and int4 caches (K2 / K3 / K4 at G 12),
+   snapkv with the mean group reduction and snapkv with a 128-row window
+   (K1 at W 128), each checked as phase 16's runs; 18: one run on those
+   weights under ``utils.trace`` with ``annotate`` and a ``PhaseTimer``
+   (every K1 and K2 launch in the trace, inside its annotation),
+   ``utils.infer_attention`` against the CPU, and
+   ``examples/serving_torch.py`` with a one-chunk system prompt (prefix
+   resumes); 17b: Llama-3.1-405B-Instruct at full width (2 of 126 layers,
+   G 16) with fullkv over the three caches (K2 / K3 / K4 at G 16);
+19. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -218,6 +235,7 @@ import collections
 import contextlib
 import dataclasses
 import datetime
+import importlib.util
 import json
 import math
 import os
@@ -259,6 +277,7 @@ from kvcache_factory_tpu_torch.runtime.batching import ContinuousBatchingEngine
 from kvcache_factory_tpu_torch.runtime.checkpoint import (load_generation_state,
                                                           save_generation_state)
 from kvcache_factory_tpu_torch.runtime.engine import InferenceEngine
+from kvcache_factory_tpu_torch.utils import PhaseTimer, annotate, infer_attention, trace
 
 LOG_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke.log"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -1146,7 +1165,7 @@ def k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref):
     as the worst head rel L2 from the plain version's output."""
     H, G, D = q.shape
     C = kc.shape[1]
-    n_split = k2_splits(H, C, D)
+    n_split = k2_splits(H, C, D, G)
     L = lens.long().clamp(max=C - 1)
     start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
     heads = torch.arange(H, device=q.device)
@@ -1161,9 +1180,11 @@ def k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref):
     return rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0], n_split
 
 
-def k2_splits(H, C, D=128):
-    """K2's n_split at H heads, capacity C and head_dim D on this card."""
-    return decode_attn.split_count(H, C, decode_attn._sm_count(torch.device("cuda")),
+def k2_splits(H, C, D=128, G=1):
+    """K2's n_split at H heads of G query rows, capacity C and head_dim D on
+    this card (G above 8 runs a head's query blocks as CTAs of their own)."""
+    return decode_attn.split_count(H * decode_attn.query_blocks(G), C,
+                                   decode_attn._sm_count(torch.device("cuda")),
                                    decode_attn.CTAS_PER_SM_AT[D])
 
 
@@ -1521,7 +1542,8 @@ def kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref):
     the worst head rel L2 from the plain version's output."""
     H, G, D = q.shape
     C = kc.shape[1]
-    n_split = decode_attn.split_count(H, C, decode_attn._sm_count(q.device))
+    n_split = decode_attn.split_count(H * decode_attn.query_blocks(G), C,
+                                      decode_attn._sm_count(q.device))
     L = lens.long().clamp(max=C - 1)
     start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
     k = quant_cache.dequantize(kc, sc[..., 0], sc[..., 1], nbits)
@@ -1914,6 +1936,172 @@ def phase_kq_head_dims(rng, reports):
 
 
 # ---------------------------------------------------------------------------
+# Phases 3f and 4e: K1 at observation windows above 64, K2-K4 at G above 8
+# ---------------------------------------------------------------------------
+
+# Phase 3f's windows, and the edge cases beside them: (B, Hq, Hkv, S, W,
+# true_len) with a window whose rows cross a 128-row CTA edge (rows 928-1055
+# and 1872-1999), a true_len shorter than the window, and W 65 (one row past
+# the first 64-row block of the score pass).
+K1_WINDOWS = (96, 128)
+K1_WINDOW_EDGES = ((2, 8, 2, 2048, 128, [1056, 2000]), (2, 8, 2, 1024, 96, [1000, 100]),
+                   (2, 8, 2, 1024, 128, [60, 1000]), (1, 8, 2, 1024, 65, [1024]))
+
+
+def k1_cut_window_error(q, k, v, tl, W, tls, sc):
+    """What K1's score check sees from a window-score pass cut at 64 window
+    rows (the first 64 of W): its scores lack the last W - 64 rows, which
+    are the plain version's scores at window W - 64 on the columns scored."""
+    _, missing = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W - 64)
+    return max(missing[b, :, :t - W].abs().max().item() for b, t in enumerate(tls) if t > W)
+
+
+def phase_k1_windows(rng):
+    """Phase 3f: K1 at observation windows 96 and 128 (B 2, Hq 32 / Hkv 8,
+    S 4096, true_len 4096 / 3000) against its plain version, scores too,
+    with the edge cases of ``K1_WINDOW_EDGES``, two launches bitwise equal,
+    what a score pass cut at 64 window rows would show, and the score pass
+    timed alone beside the main pass and the bound."""
+    B, Hq, Hkv, S, D, tls = 2, 32, 8, 4096, 128, [4096, 3000]
+    edges = [k1_case(rng, *case)[6:9] for case in K1_WINDOW_EDGES]
+    out = {}
+    for W in K1_WINDOWS:
+        q, k, v, tl, sc, out_ref, err, absd, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls)
+        del out_ref
+        call = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W)  # noqa: E731
+        same = bitwise_repeat(call)
+        cut_err = k1_cut_window_error(q, k, v, tl, W, tls, sc)
+        log(f"K1 W={W}: two launches bitwise equal {same}; a score pass cut at 64 window rows "
+            f"would show scores max abs err {cut_err:.3e} ({cut_err / K1_SCORE_TOL:.0f} x tol)")
+        if not same or cut_err <= K1_SCORE_TOL:
+            raise SystemExit(f"K1 at W={W} is not deterministic, or its score tolerance would "
+                             "let a cut window pass")
+        t = time_k1(q, k, v, tl, W, tls, sc)
+        passes = k1_pass_ms(call)
+        # The score pass by CUDA events too (late in a long process the
+        # profiler can miss launches): K1 at window 0 runs the main pass
+        # alone.
+        main_ms = event_ms(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, 0))
+        # The score pass alone recomputes the window rows' logits: 2 D FLOP
+        # a visible (window row, column) pair, at the tensor cores' rate.
+        pairs = sum(sum(r + 1 for r in range(max(t_ - W, 0), t_)) for t_ in tls) * Hq
+        score_bound_ms = 2 * D * pairs / PEAK_BF16_FLOPS * 1e3
+        # K1 at a window runs both passes: its bound is the sum of theirs.
+        main_bound_ms = t["bound_ms"]
+        t["bound_ms"] = main_bound_ms + score_bound_ms
+        log(f"K1 W={W}: main pass {passes['flash_fwd_kernel']} ms, window-score pass "
+            f"{passes['window_scores_kernel']} ms (profiled); by events, K1 at window 0 (the "
+            f"main pass alone) {main_ms:.4f} ms, so the score pass {t['ms'] - main_ms:.4f} ms; "
+            f"the bound {t['bound_ms']:.4f} ms (operations): main pass {main_bound_ms:.4f}, "
+            f"score pass {score_bound_ms:.4f}")
+        del q, k, v, sc
+        out[W] = {"name": f"flash_prefill_w{W}", "route": "cuda", "source": flash_prefill.SOURCE,
+                  "replaces": flash_prefill.REPLACES,
+                  "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
+                  "max_abs_err": absd, "rel_l2": err, "tol": K1_OUT_TOL,
+                  "scores_max_abs_err": err_sc, "scores_tol": K1_SCORE_TOL,
+                  "cut_at_64_rows_scores_err": cut_err, "deterministic": same, **t,
+                  "main_pass_ms": passes["flash_fwd_kernel"],
+                  "score_pass_ms": passes["window_scores_kernel"],
+                  "window_0_ms": main_ms, "score_pass_by_events_ms": t["ms"] - main_ms,
+                  "main_pass_bound_ms": main_bound_ms, "score_pass_bound_ms": score_bound_ms,
+                  "edge_cases": [{"case": f"B={c[0]} Hq={c[1]} S={c[3]} w={c[4]} true_len={c[5]}",
+                                  "rel_l2": e, "max_abs_err": a, "scores_max_abs_err": s_}
+                                 for c, (e, a, s_) in zip(K1_WINDOW_EDGES, edges)]}
+        torch.cuda.empty_cache()
+    return out
+
+
+# Phase 4e's group sizes: G 12 is Mistral-Large-Instruct-2407's (96 / 8
+# heads), G 16 Llama-3.1-405B-Instruct's (128 / 8), G 9 a short second
+# block.  Each at a fullkv decode of phase 5's requests over 8 KV heads:
+# B 2 x 8 heads at 4159 / 1563 keys, C 4161.
+BIG_GROUPS = (9, 12, 16)
+BIG_G_C = 4096 + 64 + 1
+BIG_G_LENS = [4096 + 63] * 8 + [1500 + 63] * 8
+
+
+def big_group_edges(case, n8, C):
+    """8 heads around their split count (shorter than, equal to and one
+    past it), a full head and a window lower bound mid-tile."""
+    return case([n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000], [0, 0, 0, 0, 1, 0, 0, 993])
+
+
+def phase_big_groups(rng, reports):
+    """Phase 4e: K2, K3 and K4 at G 9, 12 and 16 (D 128) against their plain
+    versions: off-by-one and dropped-split sensitivity, split edges, two
+    launches bitwise equal and 20 CUDA-graph replays with every counter back
+    at 0; K3 / K4 also the range case and appends byte for byte; each timed
+    beside its plain version, its bound and SDPA with a boolean cache mask
+    (K2) or the dequantize + SDPA composite (K3 / K4); the ptxas registers
+    and spills of every instantiation."""
+    D, H, C = 128, 16, BIG_G_C
+    zeros = np.zeros(H, np.int64)
+    found = {"K2": registers_by_head_dim(reports, "decode_attn", "decode_attn_kernel")}
+    for kid, name in QUANT_KERNELS.items():
+        found[kid] = registers_by_head_dim(reports, "decode_attn_quant", name)
+    # Each head_dim's registers over its GB 1-8 instantiations (GB 8 serves
+    # every G above 8), and whether none spills.
+    ptxas = {kid: {D: {"registers": sorted({r for r, _ in rows}),
+                       "spill_free": all("0 bytes spill stores, 0 bytes spill loads" in (line or "")
+                                         for _, line in rows)}
+                   for D, rows in by_d.items()} for kid, by_d in found.items()}
+    log(f"4e ptxas by head_dim (empty where the libraries were cached): {ptxas}")
+    out = {"K2": {}, "K3": {}, "K4": {}}
+    for G in BIG_GROUPS:
+        q, kc, vc, kn, vn, lens, _, ref, err, absd = k2_case(rng, H, G, C, BIG_G_LENS, zeros)
+        off_err = k2_one_key_off_error(q, kc, vc, kn, vn, lens, ref)
+        drop_err, n_split = k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref)
+        n8 = k2_splits(8, C, D, G)
+        edge = big_group_edges(lambda ln, lo: k2_case(rng, 8, G, C, ln, lo)[8], n8, C)
+        log(f"K2 G={G}: off by one {off_err:.3e}, dropped split (1 of {n_split}) "
+            f"{drop_err:.3e}, split edges {edge:.3e} (tol {K2_OUT_TOL})")
+        if min(off_err, drop_err) <= K2_OUT_TOL:
+            raise SystemExit(f"K2's tolerance at G={G} would let an off-by-one or dropped split "
+                             "pass")
+        checks = k2_repeat_and_replay(q, kc, vc, kn, vn, lens)
+        out["K2"][G] = {"name": f"decode_attn_append_g{G}", "route": "cuda",
+                        "source": decode_attn.SOURCE, "replaces": decode_attn.REPLACES,
+                        "shape": f"H={H} (B=2 x 8) G={G} C={C} D={D}, lengths 4159 and 1563",
+                        "max_abs_err": absd, "rel_l2": max(err, edge), "tol": K2_OUT_TOL,
+                        "off_by_one_rel_l2": off_err, "dropped_split_rel_l2": drop_err,
+                        "n_split": n_split, "query_blocks": decode_attn.query_blocks(G),
+                        **checks, **time_k2(q, kc, vc, kn, vn, lens)}
+        del q, kc, vc, ref
+        for nbits in (8, 4):
+            kid = QUANT[nbits][0]
+            q, kc, vc, sc, kn, vn, lens, ref, err, absd = kq_case(rng, nbits, H, G, C, BIG_G_LENS,
+                                                                  zeros)
+            off_err = kq_one_key_off_error(nbits, q, kc, vc, sc, kn, vn, lens, ref)
+            drop_err, n_split = kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref)
+            n8 = decode_attn.split_count(8 * decode_attn.query_blocks(G), C,
+                                         decode_attn._sm_count(q.device))
+            edge = big_group_edges(lambda ln, lo: kq_case(rng, nbits, 8, G, C, ln, lo)[8], n8, C)
+            rng_err = kq_case(rng, nbits, H, G, C, BIG_G_LENS, zeros, KQ_RANGE)[8]
+            log(f"{kid} G={G}: off by one {off_err:.3e}, dropped split (1 of {n_split}) "
+                f"{drop_err:.3e}, split edges {edge:.3e}, range case {rng_err:.3e} (tol "
+                f"{KQ_OUT_TOL})")
+            if min(off_err, drop_err) <= KQ_OUT_TOL:
+                raise SystemExit(f"{kid}'s tolerance at G={G} would let an off-by-one or dropped "
+                                 "split pass")
+            checks = kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lens)
+            out[kid][G] = {"name": f"quant{nbits}_decode_attn_append_g{G}", "route": "cuda",
+                           "source": decode_attn_quant.SOURCE,
+                           "replaces": decode_attn_quant.REPLACES[nbits],
+                           "shape": f"H={H} (B=2 x 8) G={G} C={C} D={D} int{nbits}, lengths "
+                                    "4159 and 1563",
+                           "max_abs_err": absd, "rel_l2": max(err, edge), "tol": KQ_OUT_TOL,
+                           "off_by_one_rel_l2": off_err, "dropped_split_rel_l2": drop_err,
+                           "range_rel_l2": rng_err, "n_split": n_split,
+                           "append_bit_identical": True, **checks,
+                           **time_kq(nbits, q, kc, vc, sc, kn, vn, lens)}
+            del q, kc, vc, sc, ref
+        torch.cuda.empty_cache()
+    out["ptxas"] = ptxas
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: end to end
 # ---------------------------------------------------------------------------
 
@@ -1946,11 +2134,13 @@ def phase_e2e(rng, log_file):
 
 def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=SNAPKV,
                model="Mistral-7B-Instruct-v0.2 widths, random weights (seed 0)",
-               direct_rng=None):
+               direct_rng=None, capacity=None):
     """One ``generate_batch`` of the two requests with the bf16 cache
-    (``quant`` None) or a per-token quantized one, checked and timed; with
-    ``direct_rng``, K2 (K3, K4) is also called directly on the finished
-    cache's first and last layer against its plain version."""
+    (``quant`` None) or a per-token quantized one (of ``capacity`` slots,
+    phase 5's by default), checked and timed; with ``direct_rng``, K2 (K3,
+    K4) is also called directly on the finished cache's first and last
+    layer against its plain version, with as many query rows a cache head
+    as the cache's heads give (G 1 for a cache per query head)."""
     dev = "cuda"
     L = cfg.num_hidden_layers
     label = "bf16" if quant is None else f"int{quant.nbits}"
@@ -1974,7 +2164,7 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
         raise SystemExit("the main path did not run each kernel the expected number of times")
     if quant is not None:
         cls = quant_cache.Int8KVCache if quant.nbits == 8 else quant_cache.Int4KVCache
-        C = QUANT[quant.nbits][3]
+        C = capacity or QUANT[quant.nbits][3]
         log(f"cache: {type(res.cache).__name__}, capacity {res.cache.capacity} "
             f"(expect {cls.__name__}, {C})")
         if not isinstance(res.cache, cls) or res.cache.capacity != C:
@@ -2016,8 +2206,9 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
     if max(rel_b0, rel_a or 0.0) > E2E_REL_L2_TOL or rel_bd > decode_tol:
         raise SystemExit("logits disagree with the fp32 reference")
     del ref_a, ref_b
+    G = cfg.num_attention_heads // lens.shape[-1]  # query rows a cache head
     direct = None if direct_rng is None else \
-        direct_decode_check(direct_rng, res.cache, quant, f"{comp.method} {label}")
+        direct_decode_check(direct_rng, res.cache, quant, f"{comp.method} {label}", G)
 
     # Timings: prefill alone (max_new_tokens=1), then the full request.
     t0 = time.perf_counter()
@@ -2056,7 +2247,9 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
             lambda rows: one_kernel_a_layer(rows, L, *ONE_LAUNCH_DECODE[label]))
     return {"model": model,
             "compression": "snapkv 2048/8/7 maxpool, group_reduce none" if comp is SNAPKV
-                           else comp.method,
+                           else f"{comp.method} {comp.max_capacity_prompt}/{comp.window_size}, "
+                                f"group_reduce {comp.group_reduce}",
+            "decode_g": G,
             "cache": label if quant is None else f"{label} per token, capacity "
                                                  f"{res.cache.capacity}",
             "requests": "B=2: 4096 and 1500 prompt tokens, 64 new tokens, bucket 4096",
@@ -2168,11 +2361,12 @@ def score_window_hook():
         llama.flash_prefill_attention = real
 
 
-def direct_decode_check(rng, cache, quant, label):
-    """K2 (K4 on the int4 cache) and its plain version, called directly on a
-    copy of layers 0 and 31 of a finished cache with a random query: the
-    ragged per-head lengths of a real policy.  Returns the worst head's rel
-    L2 and max abs difference."""
+def direct_decode_check(rng, cache, quant, label, G=1):
+    """K2 (K3, K4 on the int8, int4 cache) and its plain version, called
+    directly on a copy of the first and last layers of a finished cache with
+    a random query of ``G`` rows a cache head: the ragged per-head lengths
+    of a real policy.  Returns the worst head's rel L2 and max abs
+    difference."""
     dev = cache.lengths.device
     D = cache.k.shape[-1] if quant is None else cache.k_codes.shape[-1] * 8 // quant.nbits
     dtype = cache.k.dtype if quant is None else torch.bfloat16
@@ -2181,7 +2375,7 @@ def direct_decode_check(rng, cache, quant, label):
         B, H = cache.lengths.shape[1:]
         lens = cache.lengths[li].reshape(B * H).contiguous()
         q, kn, vn = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, dtype)
-                     for shape in ((B * H, 1, D), (B * H, D), (B * H, D)))
+                     for shape in ((B * H, G, D), (B * H, D), (B * H, D)))
         C = cache.capacity
         if quant is None:
             kid, tol = "K2", K2_OUT_TOL
@@ -2199,7 +2393,7 @@ def direct_decode_check(rng, cache, quant, label):
             ref = plain(q, *(t.clone() for t in layer), lens, kn, vn)
         sync()
         err = rel_l2(out.reshape(B * H, -1), ref.reshape(B * H, -1))
-        log(f"  {label}: {kid} called directly on layer {li}'s cache (lengths "
+        log(f"  {label}: {kid} (G {G}) called directly on layer {li}'s cache (lengths "
             f"{int(lens.min())}-{int(lens.max())}): worst head rel L2 {err[0]:.3e}, max abs "
             f"{err[1]:.3e}; tol {tol}")
         if err[0] > tol or not torch.isfinite(out.float()).all():
@@ -3114,6 +3308,13 @@ def phase_sp(rng, params):
 
 GRID_DIR = LOG_PATH.parent / "grid"
 GRID_TIMEOUT_S = 900
+# Phases 12 and 13 run Mistral-7B-Instruct-v0.2's widths at 16 of its 32
+# layers since phases 17 and 18 joined the script (PERF.md §6: the
+# script at 1305 s through phase 17 on a card whose common phases ran 25%
+# slower than P17-4's), to keep it inside its time limit: the ranks' checks
+# count launches per layer and hold the logits to the fp32 reference and
+# the single-device engine at any depth.
+GRID_MODEL = dataclasses.replace(MISTRAL_7B, num_hidden_layers=16)
 GRID_NEW = 64
 GRID_SP_PROMPT = GRID_SP_BUCKET = 8192
 GRID_SP_NEW = 32
@@ -3150,17 +3351,19 @@ GRID_SPAWNS = (("12a", 2, ("tp2_bf16", "tp2_int8", "tp2_int4", "dp2_bf16", "dcn2
 GRID_TIMED = ("tp2_bf16", "dp2_tp2_bf16")
 
 
-def grid_references(rng, params, prompts):
-    """Phase 12's references, on the parent's weights before they are freed:
-    the single-device engine on phase 5's two requests with each cache the
-    ranks run (ids and every step's logits), the fp32 reference forward of
+def grid_references(rng, prompts):
+    """Phase 12's references, on ``GRID_MODEL``'s weights (``init_params``
+    seed 0, as the ranks draw them), freed after: the single-device engine
+    on phase 5's two requests with each cache the ranks run (ids and every
+    step's logits), the fp32 reference forward of
     request (a)'s prompt and of request (b) along each single-device
     stream, the single-device engine on one 8192-token request (sp) and a
     single-device drain of four 4096-token requests (chunked admission);
     and K2 at one tp=2 rank's shape against its plain version, timed.  All
     kept on the host."""
-    cfg, dev = MISTRAL_7B, "cuda"
-    log(f"== phase 12 references: single-device runs on the parent's weights")
+    cfg, dev = GRID_MODEL, "cuda"
+    params = init_params(cfg, seed=0, device=dev)
+    log(f"== phase 12 references: single-device runs at {cfg.num_hidden_layers} of 32 layers")
     refs = {"checksum": weight_checksum(params), "prompts": prompts}
     for label, comp, quant in (("bf16", SNAPKV, None), ("int8", SNAPKV, QuantConfig(nbits=8)),
                                ("int4", SNAPKV, QuantConfig(nbits=4)),
@@ -3204,7 +3407,7 @@ def grid_references(rng, params, prompts):
     out = eng.run()
     refs["drain"] = {"prompts": drain_prompts, "ids": [out[r] for r in rids],
                      "logits": torch.stack([torch.stack(eng.logits[r]) for r in rids])}
-    del eng
+    del eng, params
     torch.cuda.empty_cache()
     # K2 at one tp=2 rank's decode shape: B=2 x 16 query heads of the
     # per-query-head cache, half-way through decode.
@@ -3241,7 +3444,7 @@ def grid_rank(rank, n, directory):
     job = rank_setup(rank, n, directory)
     t0 = time.perf_counter()
     try:
-        cfg = MISTRAL_7B
+        cfg = GRID_MODEL
         whole = shard = checksum = None
         keep_whole = any(GRID_RUNS[label][0][2] == 1 for label in job["runs"])
         for r in range(n):
@@ -3270,7 +3473,7 @@ def grid_run(rank, label, job, whole, shard):
     """One run of a spawn, every launch count and collective count set to 0
     just before it and read just after: ids and every step's logits (the
     whole batch's), this rank's cache lengths and head count, K2 (K3, K4)
-    on layers 0 and 31 of the rank's finished cache against the plain
+    on the first and last layer of the rank's finished cache against the plain
     version while the other ranks do the same on the card; for
     ``GRID_TIMED`` runs also a prefill alone (wall, collectives) and
     profiled decode steps."""
@@ -3282,7 +3485,7 @@ def grid_run(rank, label, job, whole, shard):
         return grid_drain(rank, params, sharding, job["drain_prompts"])
     prompts = [job["sp_prompt"]] if sp > 1 else job["prompts"]
     bucket = GRID_SP_BUCKET if sp > 1 else 4096
-    engine = InferenceEngine(params, EngineConfig(model=MISTRAL_7B, compression=comp, quant=quant,
+    engine = InferenceEngine(params, EngineConfig(model=GRID_MODEL, compression=comp, quant=quant,
                                                   sharding=sharding, prefill_buckets=(bucket,)),
                              device="cuda")
     groups = engine.groups
@@ -3350,7 +3553,7 @@ def grid_drain(rank, params, sharding, prompts):
     ``sharding``, chunked admission; every count set to 0 just before
     ``run`` and read just after."""
     eng = ContinuousBatchingEngine(
-        params, EngineConfig(model=MISTRAL_7B, compression=SNAPKV, sharding=sharding,
+        params, EngineConfig(model=GRID_MODEL, compression=SNAPKV, sharding=sharding,
                              prefill_buckets=(GRID_DRAIN_PROMPT,)),
         n_slots=4, max_new_cap=GRID_DRAIN_NEW, prefill_chunk_tokens=GRID_DRAIN_CHUNK,
         device="cuda", instrument=True)
@@ -3422,7 +3625,7 @@ def grid_check(label, ranks, refs):
     streams identical up to a near-tie.  Returns the run's summary."""
     grid, comp, quant, ref_label, new = GRID_RUNS[label]
     dp, sp, tp = grid
-    L = MISTRAL_7B.num_hidden_layers
+    L = GRID_MODEL.num_hidden_layers
     runs = [rk["runs"][label] for rk in ranks]
     ref = refs[ref_label]
     tol = E2E_REL_L2_TOL if quant is None else E2E_QUANT_REL_L2_TOL[quant.nbits]
@@ -3440,8 +3643,8 @@ def grid_check(label, ranks, refs):
             want["K1"], want[decode_id] = L, L * (new - 1)
         if run["launches"] != want:
             raise SystemExit(f"{label} rank {r}: launches {run['launches']}, expect {want}")
-        heads = MISTRAL_7B.num_attention_heads // tp if comp.method != "fullkv" else \
-            MISTRAL_7B.num_key_value_heads // tp
+        heads = GRID_MODEL.num_attention_heads // tp if comp.method != "fullkv" else \
+            GRID_MODEL.num_key_value_heads // tp
         if comp.method in GRID_SP_METHODS:
             ok, note = sp_method_lengths(comp, run["lengths_array"] - (new - 1),
                                          ref["lengths"] - (new - 1))
@@ -3642,7 +3845,7 @@ def pp_rank(rank, n, directory):
     job = rank_setup(rank, n, directory)
     t0 = time.perf_counter()
     try:
-        cfg = MISTRAL_7B
+        cfg = GRID_MODEL
         for r in range(n):
             if r == rank:
                 whole = init_params(cfg, seed=0, device="cuda")
@@ -3703,8 +3906,9 @@ def phase_pp(refs):
     engine on two stages sharing this card over gloo (hidden states and
     tokens staged through pinned host memory), checked against the
     single-device references of phase 12 (``grid_references``)."""
-    cfg, L = MISTRAL_7B, MISTRAL_7B.num_hidden_layers
-    log(f"== phase 13: pp={PP} ({PP_MICRO} microbatches) at Mistral-7B-Instruct-v0.2 widths, "
+    cfg, L = GRID_MODEL, GRID_MODEL.num_hidden_layers
+    log(f"== phase 13: pp={PP} ({PP_MICRO} microbatches) at Mistral-7B-Instruct-v0.2 widths "
+        f"({L} of 32 layers), "
         f"stages sharing this card over gloo")
     ranks, spawn_s, load_s = spawn_grid("13", PP, {"prompts": refs["prompts"]}, fn=pp_rank)
     ref, steps, Lp = refs["bf16"], GRID_NEW - 1, L // PP
@@ -3936,7 +4140,8 @@ def phase_loader(rng):
     """9a: a checkpoint at Qwen2-7B-Instruct's widths, 4 layers, written in
     the HF layout and read back by ``load_params``: every leaf bitwise equal
     to the fused tensors built in memory, read by the native reader, and a
-    SnapKV prefill bitwise equal on the two."""
+    SnapKV prefill bitwise equal on the two.  It is left in ``QWEN_DIR``
+    for phase 18."""
     hf_cfg = {**QWEN2_7B_HF_CONFIG, "num_hidden_layers": LOADER_LAYERS}
     cfg = ModelConfig.from_hf_config(hf_cfg)
     log(f"== 9a loader: Qwen2-7B-Instruct widths, {LOADER_LAYERS} of 28 layers, bf16, 2 shards")
@@ -3977,8 +4182,9 @@ def phase_loader(rng):
         f"logits and cache bitwise equal {same}")
     if not same:
         raise SystemExit("prefill on the loaded weights differs from the in-memory ones")
+    # The checkpoint stays for phase 18 (infer_attention and the serving
+    # example read it), which deletes it.
     del state, want, loaded, pre
-    shutil.rmtree(QWEN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"layers": LOADER_LAYERS, "bytes_on_disk": nbytes, "tensor_bytes": tensor_bytes,
             "write_s": write_s, "load_s": load_s, "load_gb_s": tensor_bytes / load_s / 1e9,
@@ -5110,7 +5316,12 @@ MIXTRAL_HF_CONFIG = {
     "max_position_embeddings": 32768, "rope_theta": 1000000.0,
     "rms_norm_eps": 1e-05, "sliding_window": None, "tie_word_embeddings": False,
     "num_local_experts": 8, "num_experts_per_tok": 2, "torch_dtype": "bfloat16"}
-MIXTRAL = ModelConfig.from_hf_config(MIXTRAL_HF_CONFIG)
+# Depth cut to 8 of the 32 layers since phases 17 and 18 joined the script
+# (PERF.md §6), for its time limit: every check of phases 11 and 14
+# counts launches and router calls per layer, replays the run's own routing
+# into the fp32 reference and reads its middle layer, at any depth.
+MIXTRAL = dataclasses.replace(ModelConfig.from_hf_config(MIXTRAL_HF_CONFIG),
+                              num_hidden_layers=8)
 MIXTRAL_DIR = LOG_PATH.parent / "mixtral_ckpt"
 MIXTRAL_NEW = 32
 # A routing decision (the set of a token's top-2 experts in a layer) may
@@ -5352,7 +5563,7 @@ def phase_mixtral_loader():
 
 def phase_mixtral_engine(rng, params, prompts, log_file, ep_refs):
     """11b: phase 5's two requests through ``InferenceEngine`` (SnapKV, bf16
-    cache, 32 new tokens) on the full-depth W8A16 model, checked and timed;
+    cache, 32 new tokens) on the W8A16 model (8 of 32 layers), checked and timed;
     its ids and first-token logits kept in ``ep_refs``."""
     cfg, L, dev = MIXTRAL, MIXTRAL.num_hidden_layers, "cuda"
     engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV), device=dev)
@@ -5746,7 +5957,8 @@ def phase_mixtral(rng, prompts, log_file, ep_refs):
     build_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     n_bytes = tree_bytes(params)
-    log(f"== 11b full depth: {n_bytes / 1e9:.3f} GB of W8A16 weights built layer by layer in "
+    log(f"== 11b {MIXTRAL.num_hidden_layers} of 32 layers: {n_bytes / 1e9:.3f} GB of W8A16 "
+        f"weights built layer by layer in "
         f"{build_s:.1f} s; allocated before {before / 1e9:.2f} GB, peak during the build "
         f"{peak / 1e9:.2f} GB")
     out.update(weight_bytes=n_bytes, build_s=build_s, build_peak_bytes=peak)
@@ -5777,7 +5989,7 @@ def ep_rank(rank, n, directory):
     count set to 0 just before it and read just after, the routing
     recorded; request (b) against the fp32 reference with that routing
     replayed (the reference's MoE block summed over the ranks, so no rank
-    holds the whole model); K2 on layers 0 and 31 of the rank's cache
+    holds the whole model); K2 on the first and last layer of the rank's cache
     against its plain version; a prefill alone, the whole request, and
     the device busy time of decode steps that every rank runs together
     (rank 0 profiled)."""
@@ -6062,6 +6274,336 @@ def phase_d256(rng, prompts, log_file):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: Mistral-Large-Instruct-2407 widths (G 12)
+# ---------------------------------------------------------------------------
+
+# The fields the forward reads from the published config.json of
+# mistralai/Mistral-Large-Instruct-2407 (MistralForCausalLM; bf16 weights,
+# untied lm_head, no sliding window).
+MISTRAL_LARGE_HF_CONFIG = {
+    "model_type": "mistral", "vocab_size": 32768, "hidden_size": 12288,
+    "intermediate_size": 28672, "num_hidden_layers": 88, "num_attention_heads": 96,
+    "num_key_value_heads": 8, "head_dim": 128, "max_position_embeddings": 131072,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-05, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+# Depth cut to 8 of the 88 layers: 1.384 G parameters a layer and 0.805 G of
+# embedding and lm_head make 23.8 GB in bf16 at 8 layers, 245 GB at 88 (over
+# the card's 80 GB even as W8A16, ~123 GB).  Every check counts launches per
+# layer and holds the logits to the fp32 reference at any depth.
+MISTRAL_LARGE = dataclasses.replace(ModelConfig.from_hf_config(MISTRAL_LARGE_HF_CONFIG),
+                                    num_hidden_layers=8)
+MISTRAL_LARGE_MODEL = "Mistral-Large-Instruct-2407 widths (8 of 88 layers), random weights (seed 7)"
+# Each run: (label, compression, cache, the quantized cache's capacity).  The
+# fullkv runs decode over the 8 KV heads (K2 / K3 / K4 at G 12), the mean
+# group reduction keeps one entry set per KV head (K2 at G 12 over a
+# compressed cache), and the 128-row observation window puts K1's score
+# pass at W 128 on every layer (K2 at G 1).  A fullkv cache holds bucket +
+# 64 new + 1 slots, rounded up to 128 (int8) or 256 (int4) as the engine
+# rounds them.
+MISTRAL_LARGE_RUNS = (
+    ("fullkv_bf16", FULLKV, None, None),
+    ("fullkv_int8", FULLKV, QuantConfig(nbits=8), 4224),
+    ("fullkv_int4", FULLKV, QuantConfig(nbits=4), 4352),
+    ("snapkv_mean", dataclasses.replace(SNAPKV, group_reduce="mean"), None, None),
+    ("snapkv_w128", dataclasses.replace(SNAPKV, window_size=128), None, None))
+
+
+def phase_mistral_large(rng, prompts, log_file):
+    """Phase 17: Mistral-Large-Instruct-2407 at full width (8 of its 88
+    layers; random bf16 weights, seed 7), phase 5's requests through
+    ``InferenceEngine`` for each of ``MISTRAL_LARGE_RUNS``, each checked as
+    phase 5's paths are (launches K1 8 a prefill and 8 x 63 of the decode
+    kernel, lengths, logits against the fp32 reference at 0.10 / 0.10 /
+    0.40, the decode kernel called directly on layers 0 and 7, times, a
+    profiled decode step, the decode bound).  Returns the results and the
+    weights (phase 18 traces a run on them)."""
+    cfg = MISTRAL_LARGE
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=7, device="cuda")
+    sync()
+    n_params = count_params(params)
+    log(f"== 17 Mistral-Large-Instruct-2407 (8 of 88 layers, hidden 12288, ffn 28672, 96 / 8 "
+        f"heads of 128, vocab 32768): {n_params / 1e9:.3f} B parameters, random bf16 (seed 7), "
+        f"in {time.perf_counter() - t0:.1f} s")
+    out = {"model": MISTRAL_LARGE_MODEL, "parameters": n_params}
+    for label, comp, quant, capacity in MISTRAL_LARGE_RUNS:
+        out[label] = drive_path(params, n_params, prompts, quant, log_file, cfg=cfg, comp=comp,
+                                model=MISTRAL_LARGE_MODEL, direct_rng=rng, capacity=capacity)
+        torch.cuda.empty_cache()
+    if [out[label]["decode_g"] for label, *_ in MISTRAL_LARGE_RUNS] != [12, 12, 12, 12, 1]:
+        raise SystemExit("phase 17 did not decode at the group sizes it is for")
+    return out, params
+
+
+# ---------------------------------------------------------------------------
+# Phase 17b: Llama-3.1-405B-Instruct widths (G 16)
+# ---------------------------------------------------------------------------
+
+# The fields the forward reads from the published config.json of
+# meta-llama/Llama-3.1-405B-Instruct (LlamaForCausalLM; bf16 weights, untied
+# lm_head, llama3 rope scaling).
+LLAMA31_405B_HF_CONFIG = {
+    "model_type": "llama", "vocab_size": 128256, "hidden_size": 16384,
+    "intermediate_size": 53248, "num_hidden_layers": 126, "num_attention_heads": 128,
+    "num_key_value_heads": 8, "head_dim": 128, "max_position_embeddings": 131072,
+    "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 8.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+# Depth cut to 2 of the 126 layers: 3.188 G parameters a layer and 4.203 G
+# of embedding and lm_head make 21.2 GB in bf16 at 2 layers, 812 GB at 126.
+# The phase is here for G 16 on the main path (K2 / K3 / K4 at 128 / 8
+# heads): two layers give per-layer launch counts and the fp32 reference
+# check as every depth does, and keep the phase near 30 s.
+LLAMA31_405B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA31_405B_HF_CONFIG),
+                                   num_hidden_layers=2)
+LLAMA31_405B_MODEL = "Llama-3.1-405B-Instruct widths (2 of 126 layers), random weights (seed 8)"
+
+
+def phase_llama31_405b(rng, prompts, log_file):
+    """Phase 17b: Llama-3.1-405B-Instruct at full width (2 of its 126
+    layers; random bf16 weights, seed 8), phase 5's requests through
+    ``InferenceEngine`` with fullkv over the bf16, int8 and int4 caches
+    (K2 / K3 / K4 at G 16), each checked as phase 17's runs are (launches
+    K1 2 a prefill and 2 x 63 of the decode kernel, lengths, logits against
+    the fp32 reference at 0.10 / 0.10 / 0.40, the decode kernel called
+    directly on layers 0 and 1, times, a profiled decode step)."""
+    cfg = LLAMA31_405B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=8, device="cuda")
+    sync()
+    n_params = count_params(params)
+    log(f"== 17b Llama-3.1-405B-Instruct (2 of 126 layers, hidden 16384, ffn 53248, 128 / 8 "
+        f"heads of 128, vocab 128256, llama3 rope scaling): {n_params / 1e9:.3f} B parameters, "
+        f"random bf16 (seed 8), in {time.perf_counter() - t0:.1f} s")
+    out = {"model": LLAMA31_405B_MODEL, "parameters": n_params}
+    for label, comp, quant, capacity in MISTRAL_LARGE_RUNS[:3]:
+        out[label] = drive_path(params, n_params, prompts, quant, log_file, cfg=cfg, comp=comp,
+                                model=LLAMA31_405B_MODEL, direct_rng=rng, capacity=capacity)
+        torch.cuda.empty_cache()
+    if [out[label]["decode_g"] for label, *_ in MISTRAL_LARGE_RUNS[:3]] != [16, 16, 16]:
+        raise SystemExit("phase 17b did not decode at G 16")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the profiling and viz utilities and the serving example
+# ---------------------------------------------------------------------------
+
+TRACE_DIR = LOG_PATH.parent / "trace_p18"
+TRACE_STEPS = 16  # new tokens of the traced run: a prefill and 15 decode steps
+# infer_attention on the card against the same function on the CPU: the
+# same bf16 weights upcast to fp32 on both (TF32 off), so only the order of
+# fp32 sums differs (~1e-6 relative per map).
+VIZ_REL_L2_TOL = 1e-4
+# A map's rows sum to the scale (1e4) up to fp32 rounding of 256 terms.
+VIZ_ROW_SUM_REL_TOL = 1e-5
+VIZ_PROMPT = 256
+# A system prompt of one whole chunk: its snapshot is taken at the chunk's
+# end, and later admissions in the same bucket resume from it.
+SERVING_ARGS = ["--wq8", "--prefill_chunk", "128", "--system_prompt_tokens", "128"]
+
+
+def annotated(fn, name, timer):
+    """``fn`` run inside ``annotate(name)`` and ``timer.phase(name)``, the
+    phase's clock stopped after its outputs are on the card."""
+    def call(*args, **kwargs):
+        held = []
+        with annotate(name), timer.phase(name, outputs=held):
+            result = fn(*args, **kwargs)
+            held.append(result)
+        return result
+    return call
+
+
+def trace_spans(path, names, kernels):
+    """From a Chrome trace: each annotation span's device kernels by name
+    part and busy ms (kernels, copies, sets), how many device events were
+    placed by launch record and by device start, and each kernel's count
+    over the whole trace.  A kernel belongs to the span that holds its
+    launch on the host (matched by correlation id), or, where the trace
+    holds no launch record for it, its own start."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    spans = {n: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("name") == n and e.get("cat") == "user_annotation"] for n in names}
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = {n: {"spans": len(spans[n]), "busy_ms": 0.0, **dict.fromkeys(kernels, 0)}
+           for n in names}
+    matched, totals = [0, 0], dict.fromkeys(kernels, 0)
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        for k in kernels:
+            totals[k] += e.get("cat") == "kernel" and k in e["name"]
+        ts = launches.get(e.get("args", {}).get("correlation"))
+        matched[ts is None] += 1
+        ts = e["ts"] if ts is None else ts
+        for n in names:
+            if any(a <= ts <= b for a, b in spans[n]):
+                out[n]["busy_ms"] += e["dur"] / 1e3
+                for k in kernels:
+                    out[n][k] += e.get("cat") == "kernel" and k in e["name"]
+    return out, {"by_launch": matched[0], "by_device_start": matched[1]}, totals
+
+
+def phase_trace(params, prompts):
+    """18a: one ``generate_batch`` of phase 5's requests on phase 17's
+    weights (fullkv, bf16 cache: K1 and K2 at G 12) under ``utils.trace``,
+    with ``llama.prefill`` and ``llama.decode_step`` wrapped in
+    ``utils.annotate`` and a ``PhaseTimer``: the trace file must hold both
+    annotations with K1 kernels inside the prefill and K2 inside the decode
+    steps, and none outside them; the timer's summary beside the trace's
+    busy time."""
+    cfg = MISTRAL_LARGE
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=FULLKV), device="cuda")
+    engine.generate_batch(prompts, 2)  # warm-up outside the trace
+    sync()
+    L, steps = cfg.num_hidden_layers, TRACE_STEPS - 1
+    want_totals = {"flash_fwd_kernel": L, "decode_attn_kernel": L * steps}
+    timer = PhaseTimer()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    prefill, decode_step = llama.prefill, llama.decode_step
+    llama.prefill = annotated(prefill, "prefill", timer)
+    llama.decode_step = annotated(decode_step, "decode", timer)
+    try:
+        with trace(str(TRACE_DIR)):
+            ids = engine.generate_batch(prompts, TRACE_STEPS)
+    finally:
+        llama.prefill, llama.decode_step = prefill, decode_step
+    files = sorted(TRACE_DIR.glob("*.json"))
+    if len(files) != 1 or [len(x) for x in ids] != [TRACE_STEPS] * 2:
+        raise SystemExit(f"utils.trace wrote {files} (one Chrome trace expected), or the "
+                         "traced run lost tokens")
+    spans, matched, totals = trace_spans(files[0], ("prefill", "decode"),
+                                         ("flash_fwd_kernel", "decode_attn_kernel"))
+    summary = timer.summary()
+    trace_bytes = files[0].stat().st_size
+    log(f"18a trace {files[0].name} ({trace_bytes / 1e6:.1f} MB): spans {spans}; "
+        f"kernels placed by launch record / by device start {matched}; kernels in the trace "
+        f"{totals} (expect {want_totals}); PhaseTimer {summary}")
+    # Every K1 and K2 launch in the trace, each inside its annotation where
+    # it was placed by its launch record (one placed by its device start
+    # may sit off its span by the clocks' skew; then at least one of each).
+    k1_in, k2_in = spans["prefill"]["flash_fwd_kernel"], spans["decode"]["decode_attn_kernel"]
+    exact = matched["by_device_start"] == 0
+    inside = k1_in >= 1 and k2_in >= 1 and (not exact or (
+        k1_in == L and k2_in == L * steps))
+    want = (totals == want_totals and spans["prefill"]["spans"] == 1
+            and spans["decode"]["spans"] == steps and inside
+            and summary["prefill"]["count"] == 1 and summary["decode"]["count"] == steps)
+    if not want:
+        raise SystemExit(f"the trace does not hold every K1 in the prefill annotation and every "
+                         f"K2 in the decode annotations ({L} and {L} x {steps} launched)")
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    for name in ("prefill", "decode"):
+        log(f"18a {name}: PhaseTimer {summary[name]['total_s'] * 1e3:.3f} ms wall in "
+            f"{summary[name]['count']} call(s), the trace's device busy "
+            f"{spans[name]['busy_ms']:.3f} ms")
+    return {"phase_timer": summary, "trace_spans": spans, "kernels_placed": matched,
+            "kernels_in_trace": totals, "trace_bytes": trace_bytes}
+
+
+def qwen_checkpoint():
+    """Phase 9a's 4-layer Qwen2-7B checkpoint (written again if absent)."""
+    if not (QWEN_DIR / "config.json").exists():
+        hf_cfg = {**QWEN2_7B_HF_CONFIG, "num_hidden_layers": LOADER_LAYERS}
+        write_checkpoint(QWEN_DIR, hf_cfg, random_hf_state(ModelConfig.from_hf_config(hf_cfg),
+                                                           seed=2))
+        torch.cuda.empty_cache()
+    return QWEN_DIR
+
+
+def phase_viz(rng):
+    """18b: ``utils.infer_attention`` on the card on phase 9a's checkpoint
+    with a 256-token prompt: every row of every map sums to 1e4, nothing
+    above the diagonal, and the maps held to the same function on the same
+    weights upcast on the CPU."""
+    params, cfg = load_params(str(qwen_checkpoint()), device="cuda")
+    toks = rng.integers(0, cfg.vocab_size, size=VIZ_PROMPT)
+    t0 = time.perf_counter()
+    maps = infer_attention(params, cfg, toks)
+    card_s = time.perf_counter() - t0
+    cpu = {"embed": params["embed"].float().cpu(),
+           "layers": {k: v.float().cpu() for k, v in params["layers"].items()}}
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = infer_attention(cpu, cfg, toks)
+    cpu_s = time.perf_counter() - t0
+    upper = np.triu(np.ones((VIZ_PROMPT, VIZ_PROMPT), bool), 1)
+    sums = max(float(np.abs(m.astype(np.float64).sum(-1) / 1e4 - 1).max()) for m in maps)
+    above = max(float(np.abs(m[:, upper]).max()) for m in maps)
+    rel = max(float(np.linalg.norm(m - r) / np.linalg.norm(r)) for m, r in zip(maps, ref))
+    absd = max(float(np.abs(m - r).max()) for m, r in zip(maps, ref))
+    log(f"18b infer_attention at Qwen2-7B widths ({cfg.num_hidden_layers} layers, "
+        f"{cfg.num_attention_heads} heads, prompt {VIZ_PROMPT}): {len(maps)} maps of "
+        f"{maps[0].shape}, {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; rows sum to 1e4 "
+        f"within {sums:.2e} relative (tol {VIZ_ROW_SUM_REL_TOL}), largest entry above the "
+        f"diagonal {above}; against the CPU: worst map rel L2 {rel:.3e} (tol {VIZ_REL_L2_TOL}), "
+        f"max abs {absd:.3e} (on the 1e4 scale)")
+    if (len(maps) != cfg.num_hidden_layers or maps[0].shape != (cfg.num_attention_heads,
+                                                                 VIZ_PROMPT, VIZ_PROMPT)
+            or sums > VIZ_ROW_SUM_REL_TOL or above != 0 or rel > VIZ_REL_L2_TOL):
+        raise SystemExit("infer_attention's maps are wrong on the card")
+    return {"maps": len(maps), "row_sum_rel_err": sums, "above_diagonal_max": above,
+            "cpu_rel_l2": rel, "cpu_max_abs": absd, "rel_l2_tol": VIZ_REL_L2_TOL,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def phase_serving_example():
+    """18c: ``examples/serving_torch.py``'s ``main`` on phase 9a's checkpoint
+    with W8A16 weights, 128-token chunked admission and a 128-token system
+    prompt registered as a prefix: every request finishes with its tokens,
+    K1-chunk and K2 launched (counts set to 0 just before), and some
+    admission resumed from the prefix's snapshot."""
+    spec = importlib.util.spec_from_file_location(
+        "serving_torch", Path(__file__).resolve().parent / "examples" / "serving_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    argv = ["--model_path", str(qwen_checkpoint()), *SERVING_ARGS]
+    reset_counts()
+    t0 = time.perf_counter()
+    engine, outputs = example.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    _, args = example.parse_args(argv)
+    counts = sorted({len(v) for v in outputs.values()})
+    log(f"18c examples/serving_torch.py {' '.join(SERVING_ARGS)}: {len(outputs)} requests, "
+        f"tokens each {counts} (expect {args.max_new}), {wall:.2f} s with the load; launches "
+        f"{launches}; {engine.prefill_chunks_executed} row-chunks, prefix resumes "
+        f"{engine.prefix_resumes}")
+    if len(outputs) != args.n_requests or counts != [args.max_new] or \
+            launches["K1-chunk"] == 0 or launches["K2"] == 0 or engine.prefix_resumes == 0:
+        raise SystemExit("the serving example did not finish every request through K1-chunk "
+                         "and K2, or no admission resumed from the system prompt's snapshot")
+    out = {"requests": len(outputs), "tokens_each": args.max_new, "wall_s": wall,
+           "launches": launches, "row_chunks": engine.prefill_chunks_executed,
+           "prefix_resumes": engine.prefix_resumes}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_utils(rng, params, prompts):
+    """Phase 18: the trace on phase 17's weights (freed after it), then
+    infer_attention and the serving example on phase 9a's checkpoint
+    (deleted after them).  Plotting is not run on the card (no
+    matplotlib there): the CPU tests cover it."""
+    out = {"trace": phase_trace(params, prompts)}
+    params.clear()
+    torch.cuda.empty_cache()
+    out["viz"] = phase_viz(rng)
+    out["serving_example"] = phase_serving_example()
+    shutil.rmtree(QWEN_DIR, ignore_errors=True)
+    return out
+
+
 # K3's and K4's kernels in csrc/decode_attn_quant.cu, by a part of their names.
 QUANT_KERNELS = {"K3": "quant8_decode_kernel", "K4": "quant4_decode_kernel"}
 
@@ -6208,13 +6750,14 @@ def main():
     log(f"K1 ptxas: {len(k1_entries)} entries (head_dims "
         f"{sorted(head_dim_of(fn) for fn, _, _ in k1_entries)}), 0 spill bytes" if k1_entries
         else "K1 ptxas: library cached, no ptxas report in this run")
-    # K2's ptxas lines: each instantiation (D 64/128/256, G 1-8) must spill nothing.
+    # K2's ptxas lines: each instantiation (D 64/128/256, GB 1-8 query rows a
+    # CTA; G above 8 runs GB 8) must spill nothing.
     k2_spills = [line for line in reports.get("decode_attn", "").splitlines() if "spill" in line]
     if any("0 bytes spill stores, 0 bytes spill loads" not in line for line in k2_spills):
         raise SystemExit("K2 spills registers (ptxas lines above)")
     log(f"K2 ptxas: {len(k2_spills)} entries, 0 spill bytes" if k2_spills else
         "K2 ptxas: library cached, no ptxas report in this run")
-    # K3's and K4's ptxas lines (G 1-8 each): no spill; and no int-to-float
+    # K3's and K4's ptxas lines (GB 1-8 each): no spill; and no int-to-float
     # conversion in their SASS, where the toolkit has cuobjdump.
     for kid, name in QUANT_KERNELS.items():
         entries = ptxas_entries(reports.get("decode_attn_quant", ""), name)
@@ -6249,6 +6792,10 @@ def main():
     k1_hd = timed("3e K1 head dims", phase_k1_head_dims, rng_hd, reports)
     k2_hd = timed("4c K2 head dims", phase_k2_head_dims, rng_hd, reports)
     kq_hd = timed("4d K3/K4 head dim 256", phase_kq_head_dims, rng_hd, reports)
+    # Phases 3f, 4e, 17 and 18 draw from a generator of their own, as 3e-4d.
+    rng18 = np.random.default_rng(18)
+    k1_w = timed("3f K1 windows", phase_k1_windows, rng18)
+    big_g = timed("4e K2-K4 G above 8", phase_big_groups, rng18, reports)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
         params, prompts, e2e = timed("5 main path", phase_e2e, rng, log_file)
@@ -6260,8 +6807,7 @@ def main():
         # Phase 12 draws from a generator of its own, so that phases 9-11
         # keep the inputs they had before it joined (ROADMAP queue 3 item 3:
         # phase 11c's resumed-vs-cold limit fails on other prompts).
-        grid_refs = timed("12 references", grid_references, np.random.default_rng(12), params,
-                          prompts)
+        grid_refs = timed("12 references", grid_references, np.random.default_rng(12), prompts)
         # The ranks draw their own weights: the parent's go first.
         del params
         torch.cuda.empty_cache()
@@ -6279,6 +6825,11 @@ def main():
         torch.cuda.empty_cache()
         llama32 = timed("16 Llama-3.2-1B", phase_llama32, rng_hd, prompts, log_file)
         d256 = timed("16b head_dim 256", phase_d256, rng_hd, prompts, log_file)
+        large, large_params = timed("17 Mistral-Large", phase_mistral_large, rng18, prompts,
+                                    log_file)
+        utils = timed("18 utils", phase_utils, rng18, large_params, prompts)
+        del large_params
+        llama405 = timed("17b Llama-3.1-405B", phase_llama31_405b, rng18, prompts, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -6357,14 +6908,26 @@ def main():
     k2_hd[256]["launches"] = d256["bf16"]["launches"]["K2"]
     kq_hd[8]["launches"] = d256["int8"]["launches"]["K3"]
     kq_hd[4]["launches"] = d256["int4"]["launches"]["K4"]
+    # Phase 17: K1 at W 128 on the snapkv_w128 run; K2, K3 and K4 at G 12 on
+    # its fullkv runs (K2 also on snapkv_mean); at G 16 on phase 17b's.
+    k1_w[128]["launches"] = large["snapkv_w128"]["launches"]["K1"]
+    for kid, run in (("K2", "fullkv_bf16"), ("K3", "fullkv_int8"), ("K4", "fullkv_int4")):
+        for G, phase in ((12, large), (16, llama405)):
+            big_g[kid][G]["launches"] = phase[run]["launches"][kid]
+            big_g[kid][G]["launches_from"] = f"{phase['model']}, {run}"
+    big_g["K2"][12]["launches_snapkv_mean"] = large["snapkv_mean"]["launches"]["K2"]
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5,
                                   k1_hd[64], k1_hd["chunk"], k1_hd[256], k2_hd[64], k2_hd[256],
-                                  kq_hd[8], kq_hd[4]]}))
+                                  kq_hd[8], kq_hd[4], k1_w[128],
+                                  *(big_g[kid][G] for kid in ("K2", "K3", "K4")
+                                    for G in (12, 16))]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
                       "sp": {**sp, "fold_emulated": sp_fold}, "grid": grid, "pp": pp,
                       "qwen2": qwen, "llama3": llama3, "mixtral": mixtral, "ep": ep,
-                      "llama32": llama32, "d256": d256,
+                      "llama32": llama32, "d256": d256, "k1_windows": k1_w,
+                      "big_groups": big_g, "mistral_large": large,
+                      "llama31_405b": llama405, "utils": utils,
                       "phase_s": PHASE_S,
                       "script_s": time.perf_counter() - T_START, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

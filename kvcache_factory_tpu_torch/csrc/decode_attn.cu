@@ -11,7 +11,7 @@
 //         whose K/V are folded in from registers; fp32 probabilities.
 //   k_cache[h, L] = k_new[h]; v_cache[h, L] = v_new[h]
 // The caller advances lengths to min(lengths + 1, C).  Any capacity C > 0,
-// G from 1 to 8, head_dim D in {64, 128, 256} (a template parameter; the
+// any G >= 1, head_dim D in {64, 128, 256} (a template parameter; the
 // library exports kvcf_decode_attn_append_d<D> for each).  The numbers
 // below are at D 128; shared memory is 768 D bytes a CTA, so 4, 2 or 1 CTAs
 // fit an SM at D 64, 128 or 256 and the bytes in flight an SM stay the same.
@@ -24,16 +24,22 @@
 // byte can keep it from the bound.
 //
 // Design.
-//  1. One launch per call, grid (H, n_split).  The host picks n_split from
-//     H, C and the SM count only (never from lengths: reading them would
+//  1. One launch per call, grid (H, n_split, QB).  A CTA computes GB =
+//     min(G, 8) query rows, the mma's N (point 3): CTA (h, sp, qb) takes
+//     rows [8 qb, min(8 qb + 8, G)), so G above 8 runs QB = ceil(G / 8)
+//     query blocks, each reading its keys once (K/V QB times in all, from
+//     L2 or memory; the rows of a block past G are zero queries whose
+//     partials the merge skips).  The host picks n_split from H QB, C and
+//     the SM count only (never from lengths: reading them would
 //     synchronise the decode step), for about two CTAs per SM in one wave.
 //     CTA (h, sp) takes the sp-th of n_split near-equal parts of its head's
 //     valid keys [lower, L), so no CTA idles on slots past the length; a
 //     head with fewer keys than n_split leaves some CTAs empty, and they
 //     still write a partial (m = NEG_INF, l = 0, acc = 0) and arrive.  Each
-//     CTA writes its partial (m, l, acc[G][D]) to fp32 scratch, then raises
+//     CTA writes its partial (m, l, acc[GB][D]) to fp32 scratch, then raises
 //     the head's arrival counter after __threadfence.  The CTA that arrives
-//     last merges the head's partials in split-index order, so the result
+//     last (of n_split QB) merges every row's partials in split-index order,
+//     so the result
 //     does not depend on which CTA came last and two launches are bitwise
 //     equal; it folds in the new token, writes out, writes k_new/v_new into
 //     slot L and resets the counter to 0.  Every launch leaves the counters
@@ -53,8 +59,8 @@
 //     rows an ldmatrix phase reads fall in 8 distinct chunks of 4 banks:
 //     no bank conflict.
 //  3. Both products on the tensor cores, mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate), with the 16 keys as M and the G query rows as N = 8, so
-//     G up to 8 needs no padding to 16 rows:
+//     accumulate), with the 16 keys as M and the GB query rows as N = 8, so
+//     a block needs no padding to 16 rows:
 //       S^T [16 keys, 8] = K [16, D] . q^T   (K by ldmatrix, q in registers)
 //       O^T [D, 8]      += V^T [D, 16] . P^T  (V by ldmatrix.trans)
 //     P^T comes from the S^T accumulator by movmatrix.trans, which puts
@@ -116,10 +122,11 @@ struct Params {
   const bf16* k_new;    // [H, D]
   const bf16* v_new;    // [H, D]
   bf16* out;            // [H, G, D]
-  float* part_acc;      // [H, n_split, G, D]
-  float* part_ml;       // [H, n_split, G, 2]: m (natural log), l
+  float* part_acc;      // [H, QB, n_split, GB, D]
+  float* part_ml;       // [H, QB, n_split, GB, 2]: m (natural log), l
   int* counters;        // [>= H], 0 between launches
   int C, n_split;
+  int G, QB;            // query rows a head; query blocks of GB rows
   float scale;          // 1 / sqrt(D)
 };
 
@@ -211,18 +218,20 @@ __device__ __forceinline__ void store_bf16(bf16* dst, const float (&x)[N]) {
     *reinterpret_cast<uint32_t*>(dst) = w[0];
 }
 
-// The last CTA of head h to arrive: merge the n_split partials in split
-// order, fold in the new token, write out, append, reset the counter.  Warp
-// w takes query rows w and w + 4, lane l channels CPL l .. CPL l + CPL - 1
-// (CPL = D / 32).  The splits are merged in batches of MERGE_BATCH: all of
-// a batch's loads are issued together, then one rescale of the running
+// The last CTA of head h to arrive: merge the n_split partials of each
+// query row in split order, fold in the new token, write out, append, reset
+// the counter.  Warp w takes query rows w, w + 4, ..., lane l channels CPL
+// l .. CPL l + CPL - 1 (CPL = D / 32); row g's partials are row g % GB of
+// query block g / GB.  The splits are merged in batches of MERGE_BATCH: all
+// of a batch's loads are issued together, then one rescale of the running
 // sums and one exp per split.
-template <int D, int G>
+template <int D, int GB>
 __device__ void merge_head(const Params& p, int h, int L) {
   constexpr int CPL = Ring<D>::CPL;
   const int tid = threadIdx.x, lane = tid & 31, d = lane * CPL;
-  const int ns = p.n_split;
+  const int ns = p.n_split, G = p.G;
   for (int g = tid >> 5; g < G; g += WARPS) {
+    const int qb = g / GB, gb = g - qb * GB;
     const bf16* qg = p.q + ((size_t)h * G + g) * D + d;
     float s_new = 0.f;  // the new token's logit
 #pragma unroll
@@ -232,8 +241,9 @@ __device__ void merge_head(const Params& p, int h, int L) {
     for (int off = 16; off > 0; off >>= 1) s_new += __shfl_xor_sync(0xffffffffu, s_new, off);
     s_new *= p.scale;
 
-    const float* ml = p.part_ml + ((size_t)h * ns * G + g) * 2;
-    const float* acc = p.part_acc + ((size_t)h * ns * G + g) * D + d;
+    const size_t row = ((size_t)h * p.QB + qb) * ns * GB + gb;  // split 0's
+    const float* ml = p.part_ml + row * 2;
+    const float* acc = p.part_acc + row * D + d;
     float M = NEG_INF, Ls = 0.f, a[CPL];
 #pragma unroll
     for (int i = 0; i < CPL; ++i) a[i] = 0.f;
@@ -243,8 +253,8 @@ __device__ void merge_head(const Params& p, int h, int L) {
 #pragma unroll
       for (int j = 0; j < MERGE_BATCH; ++j) {
         const size_t s = min(s0 + j, ns - 1);  // past ns: a real split, weighed 0
-        mls[j] = __ldcg(reinterpret_cast<const float2*>(ml + s * G * 2));
-        ldcg<CPL>(acc + s * G * D, x[j]);
+        mls[j] = __ldcg(reinterpret_cast<const float2*>(ml + s * GB * 2));
+        ldcg<CPL>(acc + s * GB * D, x[j]);
       }
       bool live[MERGE_BATCH];  // an empty split (l = 0) adds nothing
       float Mb = M;
@@ -284,7 +294,7 @@ __device__ void merge_head(const Params& p, int h, int L) {
   if (tid == 0) p.counters[h] = 0;
 }
 
-template <int D, int G>
+template <int D, int GB>
 __global__ void __launch_bounds__(THREADS, Ring<D>::CTAS_PER_SM)
 decode_attn_kernel(const Params p) {
   using R = Ring<D>;
@@ -292,7 +302,8 @@ decode_attn_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int sm_last;
 
-  const int h = blockIdx.x, sp = blockIdx.y;
+  const int h = blockIdx.x, sp = blockIdx.y, qb = blockIdx.z;
+  const int g0 = qb * GB;  // this CTA's first query row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int C = p.C;
@@ -304,15 +315,17 @@ decode_attn_kernel(const Params p) {
   const int end = lo + (int)(n * (sp + 1) / p.n_split);
   const int n_stages = (end - start + STAGE_KEYS - 1) / STAGE_KEYS;
 
-  // q^T as the B operand (k = channel, n = query row gid; rows >= G zero).
+  // q^T as the B operand (k = channel, n = query row g0 + gid; rows past
+  // the block or past G zero).
+  const bool q_row = gid < GB && g0 + gid < p.G;
   uint32_t qf[D / 16][2];
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      qf[kc][j] = gid < G ? *reinterpret_cast<const uint32_t*>(
-                                p.q + ((size_t)h * G + gid) * D + kc * 16 + j * 8 + 2 * tig)
-                          : 0u;
+      qf[kc][j] = q_row ? *reinterpret_cast<const uint32_t*>(
+                              p.q + ((size_t)h * p.G + g0 + gid) * D + kc * 16 + j * 8 + 2 * tig)
+                        : 0u;
 
   // This warp's ring; lane l copies 16-byte chunk l % CHUNKS of rows
   // RPP j + l / CHUNKS, j = 0 .. KEYS / RPP - 1 (RPP = 32 / CHUNKS rows a
@@ -437,10 +450,10 @@ decode_attn_kernel(const Params p) {
     sm_l[warp * 8 + 2 * tig + 1] = l1;
   }
   __syncthreads();
-  const size_t pbase = ((size_t)h * p.n_split + sp) * G;
+  const size_t pbase = (((size_t)h * p.QB + qb) * p.n_split + sp) * GB;
   for (int d = tid; d < D; d += THREADS) {  // channel d (D 64: threads 0-63)
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       float M = NEG_INF;
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w * 8 + g]);
@@ -459,18 +472,18 @@ decode_attn_kernel(const Params p) {
     }
   }
 
-  // Arrive; the last CTA of the head merges.
+  // Arrive; the last CTA of the head (of its n_split QB) merges.
   __threadfence();
   __syncthreads();
-  if (tid == 0)
-    sm_last = p.n_split == 1 || atomicAdd(p.counters + h, 1) == p.n_split - 1;
+  const int arrivals = p.n_split * p.QB;
+  if (tid == 0) sm_last = arrivals == 1 || atomicAdd(p.counters + h, 1) == arrivals - 1;
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
-  merge_head<D, G>(p, h, L);
+  merge_head<D, GB>(p, h, L);
 }
 
-template <int D, int G>
+template <int D, int GB>
 int launch(const Params& p, int H, cudaStream_t st) {
   constexpr int SMEM = Ring<D>::SMEM_BYTES;
   static bool configured[64] = {false};  // once per instantiation and device
@@ -478,16 +491,16 @@ int launch(const Params& p, int H, cudaStream_t st) {
   cudaGetDevice(&dev);
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D, G>,
+    cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D, GB>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(decode_attn_kernel<D, G>,
+      err = cudaFuncSetAttribute(decode_attn_kernel<D, GB>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
-  decode_attn_kernel<D, G><<<dim3(H, p.n_split), THREADS, SMEM, st>>>(p);
+  decode_attn_kernel<D, GB><<<dim3(H, p.n_split, p.QB), THREADS, SMEM, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -496,7 +509,8 @@ int decode_attn_append(const void* q, void* k_cache, void* v_cache, const void* 
                        const void* lower, const void* k_new, const void* v_new, void* out,
                        void* part, void* counters, int H, int G, int C, int n_split,
                        float scale, void* stream) {
-  if (n_split < 1) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  const int GB = G < 8 ? G : 8, QB = (G + 7) / 8;
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.kc = static_cast<bf16*>(k_cache);
@@ -507,13 +521,15 @@ int decode_attn_append(const void* q, void* k_cache, void* v_cache, const void* 
   p.v_new = static_cast<const bf16*>(v_new);
   p.out = static_cast<bf16*>(out);
   p.part_acc = static_cast<float*>(part);
-  p.part_ml = p.part_acc + (size_t)H * n_split * G * D;
+  p.part_ml = p.part_acc + (size_t)H * QB * n_split * GB * D;
   p.counters = static_cast<int*>(counters);
   p.C = C;
   p.n_split = n_split;
+  p.G = G;
+  p.QB = QB;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (G) {
+  switch (GB) {  // G above 8 runs blocks of 8
     case 1: return launch<D, 1>(p, H, st);
     case 2: return launch<D, 2>(p, H, st);
     case 3: return launch<D, 3>(p, H, st);

@@ -25,7 +25,7 @@
 //   IEEE division, codes rintf((x - min) / scale) clamped to [0, 255] (or
 //   [0, 15]); its codes and four bf16 scalars are written into slot L.
 // The caller advances lengths to min(lengths + 1, C).  Any capacity C > 0,
-// G from 1 to 8, head_dim D in {128, 256} (a template parameter; the
+// any G >= 1, head_dim D in {128, 256} (a template parameter; the
 // per-token cache exists only at D % 128 == 0, as in the JAX package; the
 // library exports kvcf_quant8_decode_attn_append_d<D> and _quant4_ for
 // each).  At D 256 each lane's channels are two segments of 128, each laid
@@ -41,24 +41,28 @@
 // (in K4 45% of the key loop's instructions; an int8 byte holds half as many
 // codes, so K3 spends about half as many per byte).
 //
-// One kernel template, decode_body<NBITS, G>, is both K3 (quant8_decode_kernel)
+// One kernel template, decode_body<NBITS, D, GB>, is both K3 (quant8_decode_kernel)
 // and K4 (quant4_decode_kernel); K2's scheme (decode_attn.cu):
-//  1. One launch per call, grid (H, n_split); n_split comes from the shapes
-//     and the SM count only (decode_attn.split_count: two CTAs an SM in one
-//     wave, as K2).  K4 fits three (51 KB of shared memory, at most 170
+//  1. One launch per call, grid (H, n_split, QB): as in K2, a CTA computes
+//     GB = min(G, 8) query rows (the mma's N), so G above 8 runs QB =
+//     ceil(G / 8) query blocks of CTAs, each reading its keys; no thread
+//     holds more accumulators than at G 8.  n_split comes from the shapes
+//     and the SM count only (decode_attn.split_count over H QB CTAs a
+//     split: two CTAs an SM in one wave, as K2).  K4 fits three (51 KB of shared memory, at most 170
 //     registers), so the wave never waits on a slot; filling all three with
 //     more splits was slower (more merge work).  K3 fits two by its launch
 //     bounds (49.5 KB, at most 255 registers).  CTA
-//     (h, sp) takes the sp-th of n_split near-equal parts of its head's valid
-//     keys [lower, L) (decode_attn.split_bounds), writes its partial
-//     (acc[G][D], m, l) in fp32 and raises the head's arrival counter (K2's
-//     per-device workspace) by a device-scope release after a CTA barrier;
-//     an empty part still writes a partial and arrives.  The CTA that
-//     arrives last copies every partial into shared memory at once
+//     (h, sp, qb) takes the sp-th of n_split near-equal parts of its head's
+//     valid keys [lower, L) (decode_attn.split_bounds), writes its partial
+//     (acc[GB][D], m, l, and each row's new-token logit) in fp32 and raises
+//     the head's arrival counter (K2's per-device workspace) by a
+//     device-scope release after a CTA barrier; an empty part still writes
+//     a partial and arrives.  The CTA that arrives last (of n_split QB)
+//     copies each query block's partials into shared memory at once
 //     (cp.async, one round trip) and merges them in split order, so two
 //     launches are bitwise equal; it folds in the new token, writes out and
 //     resets the counter to 0, so a replayed CUDA graph finds the counters
-//     at 0.  CTA 0 of each head quantizes the new token into slot L at its
+//     at 0.  CTA (h, 0, 0) quantizes the new token into slot L at its
 //     start: no CTA reads slot L, so the append needs no ordering.  The
 //     small reads (q, k_new, v_new) go out before the lengths, and the new
 //     token's logit is taken then, so the merge's only loads are the
@@ -78,8 +82,8 @@
 //     stage at two CTAs an SM, four stages, or four CTAs an SM were no
 //     faster (PERF.md, K4's findings).
 //  3. No conversion instruction per code; both products on the tensor
-//     cores with mma.sync m16n8k16, keys as M and the G query rows as N = 8
-//     (so G 1-8 need no padding):
+//     cores with mma.sync m16n8k16, keys as M and the GB query rows as N = 8
+//     (so a block needs no padding):
 //       S^T [16 keys, 8] = K [16, D] . q^T
 //       O^T [D, 8] += V^T [D, 16 keys] . W^T,  W = p * v_scale
 //     The zero points add kz_j sum(q) to each logit and sum_j p_j vz_j to
@@ -182,7 +186,7 @@ struct Ring {
   static constexpr int CTAS_PER_SM = NBITS == 4 && D == 128 ? 3 : 2;
   static constexpr float QMAX = NBITS == 8 ? 255.f : 15.f;
   static constexpr int O_STRIDE = D + 4;  // padded row of the warp merge
-  static constexpr int PART = D + 4;      // floats of one split's partial a query row: acc[D], m, l, 2 unused
+  static constexpr int PART = D + 4;      // floats of one split's partial a query row: acc[D], m, l, s_new, 1 unused
   static constexpr int CPL = D / 32;      // channels a lane in the head merge
   // K4 at D 128 reads K rows whole in 16-byte pieces (no swizzle) and 8-byte
   // pieces of V at chunk c ^ 2 ((r >> 2) & 1).  At D 256 (128-byte rows, as
@@ -213,9 +217,10 @@ struct Params {
   const bf16* k_new;    // [H, D]
   const bf16* v_new;    // [H, D]
   bf16* out;            // [H, G, D]
-  float* part;          // [H, n_split, G, D + 4]: acc[D], m (natural log), l
+  float* part;          // [H, QB, n_split, GB, D + 4]: acc[D], m (natural log), l, s_new
   int* counters;        // [>= H], 0 between launches
   int C, n_split;
+  int G, QB;            // query rows a head; query blocks of GB rows
   float scale;          // 1 / sqrt(D)
 };
 
@@ -364,109 +369,114 @@ __device__ __forceinline__ void v_pairs8(uint4 a, uint4 b, uint32_t (&r)[16]) {
   }
 }
 
-// The last CTA of head h to arrive: merge the n_split partials in split
-// order, fold in the new token, write out and reset the counter.  The
-// partials come into shared memory (`buf`, the ring's BUF bytes) by
-// cp.async, as many splits at a time as fit, all in flight together: one
-// round trip a chunk.  Warp w then folds query rows w and w + 4, lane l
-// channels CPL l .. CPL l + CPL - 1 (CPL = D / 32): the chunk's max, one
-// rescale, one exp per split, the exps of 32 splits at a time on the 32
-// lanes.  The new token's logits come in `s_new` (query row g's on lane 4g
-// of every warp) and its value in `vn`, both read at the start of the
-// launch.
-template <int D, int G, int BUF>
-__device__ void merge_head(const Params& p, int h, float s_new_lanes,
-                           const float (&vn)[D / 32], uint8_t* buf) {
+// The last CTA of head h to arrive: merge the n_split partials of each
+// query row in split order, fold in the new token, write out and reset the
+// counter.  One query block of GB rows at a time: its partials come into
+// shared memory (`buf`, the ring's BUF bytes) by cp.async, as many splits
+// at a time as fit, all in flight together: one round trip a chunk.  Warp
+// w then folds the block's rows w and w + 4, lane l channels CPL l .. CPL l
+// + CPL - 1 (CPL = D / 32): the chunk's max, one rescale, one exp per
+// split, the exps of 32 splits at a time on the 32 lanes.  The new token's
+// logit of each row comes with its partials (every split of a block holds
+// the same; split 0's is read) and its value in `vn`, read at the start of
+// the launch.
+template <int D, int GB, int BUF>
+__device__ void merge_head(const Params& p, int h, const float (&vn)[D / 32], uint8_t* buf) {
   constexpr int PART = D + 4, CPL = D / 32;
-  constexpr int ROWS = (G + WARPS - 1) / WARPS;          // query rows a warp folds
-  constexpr int CHUNK = BUF / (G * PART * 4);            // splits a round trip
+  constexpr int ROWS = (GB + WARPS - 1) / WARPS;         // query rows a warp folds
+  constexpr int CHUNK = BUF / (GB * PART * 4);           // splits a round trip
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, d = lane * CPL;
   const int ns = p.n_split;
-  const float* part = p.part + (size_t)h * ns * G * PART;
   const float* sp_buf = reinterpret_cast<const float*>(buf);
-  float M[ROWS], Ls[ROWS], a[ROWS][CPL];
+  for (int qb = 0; qb < p.QB; ++qb) {
+    const int g0 = qb * GB;
+    const float* part = p.part + ((size_t)h * p.QB + qb) * ns * GB * PART;
+    float M[ROWS], Ls[ROWS], a[ROWS][CPL], sn[ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    M[r] = NEG_INF;
-    Ls[r] = 0.f;
+    for (int r = 0; r < ROWS; ++r) {
+      M[r] = NEG_INF;
+      Ls[r] = 0.f;
+      sn[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) a[r][i] = 0.f;
-  }
-  for (int s0 = 0; s0 < ns; s0 += CHUNK) {
-    const int pieces = min(CHUNK, ns - s0) * G * PART / 4;  // 16-byte pieces
-    __syncthreads();  // the ring, or the last chunk, is no longer read
-    for (int i = tid; i < pieces; i += THREADS)
-      cp_async16(smem_u32(buf) + i * 16, part + (size_t)s0 * G * PART + i * 4, 16);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    const int n = min(CHUNK, ns - s0);
+      for (int i = 0; i < CPL; ++i) a[r][i] = 0.f;
+    }
+    for (int s0 = 0; s0 < ns; s0 += CHUNK) {
+      const int pieces = min(CHUNK, ns - s0) * GB * PART / 4;  // 16-byte pieces
+      __syncthreads();  // the ring, or the last chunk, is no longer read
+      for (int i = tid; i < pieces; i += THREADS)
+        cp_async16(smem_u32(buf) + i * 16, part + (size_t)s0 * GB * PART + i * 4, 16);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      const int n = min(CHUNK, ns - s0);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int g = warp + r * WARPS;
+        if (g >= GB) break;
+        if (s0 == 0) sn[r] = sp_buf[g * PART + D + 2];
+        auto ml_of = [&](int s) {  // (m, l) of split s0 + s, query row g
+          return *reinterpret_cast<const float2*>(sp_buf + (s * GB + g) * PART + D);
+        };
+        // The chunk's max over live splits (an empty one, l = 0, adds
+        // nothing), the lanes taking the splits in turn.
+        float mx = NEG_INF;
+        for (int s = lane; s < n; s += 32) {
+          const float2 ml = ml_of(s);
+          if (ml.y > 0.f) mx = fmaxf(mx, ml.x);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        const float Mb = fmaxf(M[r], mx), alpha = expf(M[r] - Mb);
+        Ls[r] *= alpha;
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) a[r][i] *= alpha;
+        // Each lane weighs one split of every 32; the weights go round by
+        // shuffles while each lane adds its CPL channels, in split order.
+        float lsum = 0.f;
+        for (int b = 0; b < n; b += 32) {
+          float w = 0.f;
+          if (b + lane < n) {
+            const float2 ml = ml_of(b + lane);
+            w = ml.y > 0.f ? expf(ml.x - Mb) : 0.f;
+            lsum += w * ml.y;
+          }
+          const int cnt = min(32, n - b);
+#pragma unroll 8
+          for (int j = 0; j < cnt; ++j) {
+            const float wj = __shfl_sync(FULL, w, j);
+#pragma unroll
+            for (int i = 0; i < CPL; i += 4) {
+              const float4 x =
+                  *reinterpret_cast<const float4*>(sp_buf + ((b + j) * GB + g) * PART + d + i);
+              a[r][i] += wj * x.x;
+              a[r][i + 1] += wj * x.y;
+              a[r][i + 2] += wj * x.z;
+              a[r][i + 3] += wj * x.w;
+            }
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) lsum += __shfl_xor_sync(FULL, lsum, off);
+        Ls[r] += lsum;
+        M[r] = Mb;
+      }
+    }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int g = warp + r * WARPS;
-      if (g >= G) break;
-      auto ml_of = [&](int s) {  // (m, l) of split s0 + s, query row g
-        return *reinterpret_cast<const float2*>(sp_buf + (s * G + g) * PART + D);
-      };
-      // The chunk's max over live splits (an empty one, l = 0, adds
-      // nothing), the lanes taking the splits in turn.
-      float mx = NEG_INF;
-      for (int s = lane; s < n; s += 32) {
-        const float2 ml = ml_of(s);
-        if (ml.y > 0.f) mx = fmaxf(mx, ml.x);
-      }
+      if (g >= GB || g0 + g >= p.G) break;  // a short last block's rows past G
+      const float s_new = sn[r];
+      const float m_f = fmaxf(M[r], s_new);
+      const float alpha = expf(M[r] - m_f), p_new = expf(s_new - m_f);
+      const float inv = 1.f / (Ls[r] * alpha + p_new);
+      __align__(16) bf16 o[CPL];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      const float Mb = fmaxf(M[r], mx), alpha = expf(M[r] - Mb);
-      Ls[r] *= alpha;
+      for (int i = 0; i < CPL; ++i) o[i] = __float2bfloat16((a[r][i] * alpha + p_new * vn[i]) * inv);
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) a[r][i] *= alpha;
-      // Each lane weighs one split of every 32; the weights go round by
-      // shuffles while each lane adds its CPL channels, in split order.
-      float lsum = 0.f;
-      for (int b = 0; b < n; b += 32) {
-        float w = 0.f;
-        if (b + lane < n) {
-          const float2 ml = ml_of(b + lane);
-          w = ml.y > 0.f ? expf(ml.x - Mb) : 0.f;
-          lsum += w * ml.y;
-        }
-        const int cnt = min(32, n - b);
-#pragma unroll 8
-        for (int j = 0; j < cnt; ++j) {
-          const float wj = __shfl_sync(FULL, w, j);
-#pragma unroll
-          for (int i = 0; i < CPL; i += 4) {
-            const float4 x =
-                *reinterpret_cast<const float4*>(sp_buf + ((b + j) * G + g) * PART + d + i);
-            a[r][i] += wj * x.x;
-            a[r][i + 1] += wj * x.y;
-            a[r][i + 2] += wj * x.z;
-            a[r][i + 3] += wj * x.w;
-          }
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) lsum += __shfl_xor_sync(FULL, lsum, off);
-      Ls[r] += lsum;
-      M[r] = Mb;
+      for (int i = 0; i < CPL; i += 4)
+        *reinterpret_cast<uint2*>(p.out + ((size_t)h * p.G + g0 + g) * D + d + i) =
+            *reinterpret_cast<const uint2*>(o + i);
     }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int g = warp + r * WARPS;
-    if (g >= G) break;
-    const float s_new = __shfl_sync(FULL, s_new_lanes, 4 * g);
-    const float m_f = fmaxf(M[r], s_new);
-    const float alpha = expf(M[r] - m_f), p_new = expf(s_new - m_f);
-    const float inv = 1.f / (Ls[r] * alpha + p_new);
-    __align__(16) bf16 o[CPL];
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) o[i] = __float2bfloat16((a[r][i] * alpha + p_new * vn[i]) * inv);
-#pragma unroll
-    for (int i = 0; i < CPL; i += 4)
-      *reinterpret_cast<uint2*>(p.out + ((size_t)h * G + g) * D + d + i) =
-          *reinterpret_cast<const uint2*>(o + i);
   }
   if (tid == 0) p.counters[h] = 0;
 }
@@ -536,35 +546,37 @@ __device__ void append_token(const Params& p, int h, int L, const float (&kn)[D 
   }
 }
 
-// One CTA (h, sp) of K3 (NBITS 8) or K4 (NBITS 4) at head_dim D: its share
-// of the head's keys, its partial, the arrival, and the merge if it arrives
-// last.
-template <int NBITS, int D, int G>
+// One CTA (h, sp, qb) of K3 (NBITS 8) or K4 (NBITS 4) at head_dim D: its
+// share of the head's keys for query rows [GB qb, GB qb + GB), its partial,
+// the arrival, and the merge if it arrives last.
+template <int NBITS, int D, int GB>
 __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int* sm_last) {
   using R = Ring<NBITS, D>;
   constexpr int ROW = R::ROW, CHUNKS = R::CHUNKS, NSEG = R::NSEG, CPL = R::CPL;
   constexpr int O_STRIDE = R::O_STRIDE, PART = R::PART;
   constexpr bool F16 = NBITS == 8;
-  const int h = blockIdx.x, sp = blockIdx.y;
+  const int h = blockIdx.x, sp = blockIdx.y, qb = blockIdx.z;
+  const int g0 = qb * GB;  // this CTA's first query row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int C = p.C;
   // The small reads go out before the lengths, so that they neither wait
   // for them nor queue behind the codes: this lane's 32 channels of each
-  // segment of q row gid and of k_new (the new token's logit), the CPL
+  // segment of q row g0 + gid and of k_new (the new token's logit), the CPL
   // channels of v_new the merge writes, and channels tid + 128 i of k_new
   // and v_new for the append.  Then the first stage's copies; the rest of
   // the ring is issued once q is in registers, so each SM's first stages
   // are served first.
+  const bool q_row = gid < GB && g0 + gid < p.G;  // else a zero query
   uint4 q_raw[4 * NSEG], kn_raw[4 * NSEG];
 #pragma unroll
   for (int sg = 0; sg < NSEG; ++sg)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = SEG * sg + 32 * tig + 8 * i;
-      q_raw[4 * sg + i] = gid < G ? *reinterpret_cast<const uint4*>(
-                                        p.q + ((size_t)h * G + gid) * D + c)
-                                  : make_uint4(0, 0, 0, 0);
+      q_raw[4 * sg + i] = q_row ? *reinterpret_cast<const uint4*>(
+                                      p.q + ((size_t)h * p.G + g0 + gid) * D + c)
+                                : make_uint4(0, 0, 0, 0);
       kn_raw[4 * sg + i] = *reinterpret_cast<const uint4*>(p.k_new + (size_t)h * D + c);
     }
   uint2 vn_raw[CPL / 4];
@@ -622,7 +634,7 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   cp_async_commit();
 
   // q^T as the B operand of S^T = K q^T.  Lane (gid, tig) holds query row
-  // gid (zero past G) at channels 128 s + 32 tig .. 128 s + 32 tig + 31 of
+  // g0 + gid (zero past the block or G) at channels 128 s + 32 tig .. 128 s + 32 tig + 31 of
   // each segment s, the channels whose codes it reads from each key; the
   // k-chunks of segment s are 8 s .. 8 s + 7.  K4: the channels of the
   // contraction are permuted to match the A fragments the nibble unpacking
@@ -680,7 +692,7 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     if (i < n_stages) load_stage(i);
     cp_async_commit();
   }
-  if (sp == 0) append_token<NBITS, D>(p, h, L, kn_own, vn_own);  // CTA-uniform
+  if (sp == 0 && qb == 0) append_token<NBITS, D>(p, h, L, kn_own, vn_own);  // CTA-uniform
   // This lane's accumulator columns are query rows 2 tig and 2 tig + 1.
   // A score is ks kf (dot - qo) + kz ql: kf turns the product's units into
   // log2 units of (q . k) / sqrt(D), qo is what K4's code offset adds to the
@@ -976,9 +988,10 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     sm_l[warp * 8 + 2 * tig + 1] = l1;
   }
   __syncthreads();
-  const size_t pbase = ((size_t)h * p.n_split + sp) * G;
+  const size_t pbase = (((size_t)h * p.QB + qb) * p.n_split + sp) * GB;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
+    const float sn = __shfl_sync(FULL, s_new, 4 * g);  // row g's new logit
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w * 8 + g]);
@@ -996,7 +1009,7 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
 #pragma unroll
     for (int i = 0; i < NSEG; ++i) out[tid + SEG * i] = A[i];
     if (tid == 0)
-      *reinterpret_cast<float2*>(out + D) = make_float2(Ls > 0.f ? M * LN2 : NEG_INF, Ls);
+      *reinterpret_cast<float4*>(out + D) = make_float4(Ls > 0.f ? M * LN2 : NEG_INF, Ls, sn, 0.f);
   }
 
   // Arrive; the last CTA of the head merges.  The barrier orders every
@@ -1004,12 +1017,13 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   // and the barrier after it order the last CTA's reads after every
   // partial (as CUTLASS's grid barriers do).
   __syncthreads();
+  const int arrivals = p.n_split * p.QB;
   if (tid == 0) {
     int before = 0;
-    if (p.n_split > 1)
+    if (arrivals > 1)
       asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
                    : "=r"(before) : "l"(p.counters + h) : "memory");
-    *sm_last = before == p.n_split - 1;
+    *sm_last = before == arrivals - 1;
   }
   __syncthreads();
   if (!*sm_last) return;
@@ -1022,29 +1036,29 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     vn[4 * i + 2] = vhi.x;
     vn[4 * i + 3] = vhi.y;
   }
-  merge_head<D, G, R::SMEM_BYTES>(p, h, s_new, vn, smem);
+  merge_head<D, GB, R::SMEM_BYTES>(p, h, vn, smem);
 }
 
-template <int D, int G>
+template <int D, int GB>
 __global__ void __launch_bounds__(THREADS, Ring<8, D>::CTAS_PER_SM)
 quant8_decode_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int sm_last;
-  decode_body<8, D, G>(p, smem, &sm_last);
+  decode_body<8, D, GB>(p, smem, &sm_last);
 }
 
-template <int D, int G>
+template <int D, int GB>
 __global__ void __launch_bounds__(THREADS, Ring<4, D>::CTAS_PER_SM)
 quant4_decode_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int sm_last;
-  decode_body<4, D, G>(p, smem, &sm_last);
+  decode_body<4, D, GB>(p, smem, &sm_last);
 }
 
-template <int NBITS, int D, int G>
+template <int NBITS, int D, int GB>
 int launch(const Params& p, int H, cudaStream_t st) {
   constexpr int SMEM = Ring<NBITS, D>::SMEM_BYTES;
-  const auto kernel = NBITS == 8 ? quant8_decode_kernel<D, G> : quant4_decode_kernel<D, G>;
+  const auto kernel = NBITS == 8 ? quant8_decode_kernel<D, GB> : quant4_decode_kernel<D, GB>;
   static bool configured[64] = {false};  // once per instantiation and device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -1058,7 +1072,7 @@ int launch(const Params& p, int H, cudaStream_t st) {
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
-  kernel<<<dim3(H, p.n_split), THREADS, SMEM, st>>>(p);
+  kernel<<<dim3(H, p.n_split, p.QB), THREADS, SMEM, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1066,7 +1080,8 @@ template <int NBITS, int D>
 int entry(const void* q, void* k_codes, void* v_codes, void* scales, const void* lengths,
           const void* lower, const void* k_new, const void* v_new, void* out, void* part,
           void* counters, int H, int G, int C, int n_split, float scale, void* stream) {
-  if (n_split < 1) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  const int GB = G < 8 ? G : 8;
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.kc = static_cast<uint8_t*>(k_codes);
@@ -1081,9 +1096,11 @@ int entry(const void* q, void* k_codes, void* v_codes, void* scales, const void*
   p.counters = static_cast<int*>(counters);
   p.C = C;
   p.n_split = n_split;
+  p.G = G;
+  p.QB = (G + 7) / 8;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (G) {
+  switch (GB) {  // G above 8 runs blocks of 8
     case 1: return launch<NBITS, D, 1>(p, H, st);
     case 2: return launch<NBITS, D, 2>(p, H, st);
     case 3: return launch<NBITS, D, 3>(p, H, st);

@@ -96,8 +96,10 @@
 // small kernel, one CTA per (64-column tile, hq, b), recomputes the W x 64
 // window logits, normalizes them with the stored (m, l) and sums over rows
 // (with a block mask, only rows whose own q block selects the column's
-// block): about W/S of the main work.  No atomics anywhere: two launches on
-// the same inputs give bitwise-equal outputs.
+// block): about W/S of the main work.  Any W: it holds WBLOCK window rows at
+// a time in shared memory and walks the window in such blocks, each thread
+// adding its rows in the same order whatever the block size.  No atomics
+// anywhere: two launches on the same inputs give bitwise-equal outputs.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -114,7 +116,7 @@ constexpr int STAGES = 2;       // K/V ring depth
 constexpr int THREADS = 384;    // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int SMEM_MAX = 232448;                     // the opt-in limit of a block
 constexpr int EMPTY_ARRIVALS = 8;                    // the consumers' warps
-constexpr int WMAX = 64;        // largest observation window
+constexpr int WBLOCK = 64;      // window rows the window-score pass holds at a time
 constexpr int SBN = 64;         // columns per CTA of the window-score pass
 constexpr float NEG_INF = -3.4028234663852886e38f;  // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
@@ -140,9 +142,10 @@ struct Plan {
   static constexpr int SMEM_LIST = SMEM_BAR + 128;     // the compacted key-tile list
   static constexpr uint32_t ALL_SELECTED = (1u << (2 * NH)) - 1;  // (warpgroup, half) bits
   static constexpr int LDS = D + 8;  // the window-score pass's padded row stride
-  // The window-score pass's dynamic shared memory: K rows, window q rows,
-  // (m, 1/l, selected) of each window row and the two halves' sums.
-  static constexpr int WS_SMEM = 2 * (SBN * LDS + WMAX * D) + 4 * (3 * WMAX + 128);
+  // The window-score pass's dynamic shared memory: K rows, a block of
+  // window q rows, (m, 1/l, selected) of each of its rows and the two
+  // halves' sums.
+  static constexpr int WS_SMEM = 2 * (SBN * LDS + WBLOCK * D) + 4 * (3 * WBLOCK + 128);
 };
 
 // --- shared memory, mbarriers and TMA --------------------------------------
@@ -625,7 +628,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
 // One CTA per (64-column tile, hq, b): scores[c] = sum over window rows r
 // with c <= r (and, with a block mask, whose q block selects c's block) of
 // exp(q[r].k[c] * scale - m_r) / l_r, with (m, l) in natural-log units.
-// Its shared memory is dynamic (Plan<D>::WS_SMEM: 67 KB at D 256).
+// The window's rows come in blocks of WBLOCK; thread (col, half) adds rows
+// half, half + 2, ... of the window in order across the blocks (WBLOCK is
+// even), so the sum's order does not depend on the block size.  Its shared
+// memory is dynamic (Plan<D>::WS_SMEM: 67 KB at D 256).
 template <int D>
 __global__ void __launch_bounds__(128)
 window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -637,10 +643,10 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LDS = Plan<D>::LDS;
   extern __shared__ __align__(16) unsigned char ws_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(ws_raw);                    // [SBN][LDS]
-  bf16* Qw = Ks + SBN * LDS;                                     // [WMAX][D]
-  float* m_w = reinterpret_cast<float*>(Qw + WMAX * D);
-  float* il_w = m_w + WMAX;
-  float* part = il_w + WMAX;                                     // [128]
+  bf16* Qw = Ks + SBN * LDS;                                     // [WBLOCK][D]
+  float* m_w = reinterpret_cast<float*>(Qw + WBLOCK * D);
+  float* il_w = m_w + WBLOCK;
+  float* part = il_w + WBLOCK;                                   // [128]
   int* sel_w = reinterpret_cast<int*>(part + 128);
 
   const int tid = threadIdx.x;
@@ -659,42 +665,47 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_rows<D>(Ks, k + ((size_t)b * Hkv + hkv) * S * D, col0, S, tid);
   const bf16* qh = q + ((size_t)b * Hq + hq) * S * D;
-  for (int i = tid; i < W * (D / 8); i += 128) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    const int row = ws + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row >= 0) val = *reinterpret_cast<const uint4*>(qh + (size_t)row * D + c * 8);
-    *reinterpret_cast<uint4*>(Qw + r * D + c * 8) = val;
-  }
   const float* ml = win_ml + ((size_t)b * Hq + hq) * W * 2;
   const int* mh = block_mask ? block_mask + ((size_t)b * Hq + hq) * n_blk * n_blk : nullptr;
-  for (int r = tid; r < W; r += 128) {
-    if (ws + r >= 0) {
-      const float l = ml[r * 2 + 1];
-      m_w[r] = ml[r * 2];
-      il_w[r] = 1.f / (l == 0.f ? 1.f : l);
-      sel_w[r] = mh ? mh[((ws + r) / P) * n_blk + col0 / P] : 1;
-    }
-  }
-  __syncthreads();
-
   const int c = col0 + col;
   float acc = 0.f;
-  for (int r = half; r < W; r += 2) {
-    const int row = ws + r;
-    if (row < 0 || c > row || !sel_w[r]) continue;
-    float dot = 0.f;
-#pragma unroll
-    for (int d8 = 0; d8 < D / 8; ++d8) {
-      const uint4 kr = *reinterpret_cast<const uint4*>(Ks + col * LDS + d8 * 8);
-      const uint4 qr = *reinterpret_cast<const uint4*>(Qw + r * D + d8 * 8);
-      const bf16* kv8 = reinterpret_cast<const bf16*>(&kr);
-      const bf16* qv8 = reinterpret_cast<const bf16*>(&qr);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        dot = fmaf(__bfloat162float(qv8[i]), __bfloat162float(kv8[i]), dot);
+  for (int wb = 0; wb < W; wb += WBLOCK) {  // window rows [wb, wb + nw)
+    const int nw = min(WBLOCK, W - wb);
+    if (wb > 0) __syncthreads();  // the last block's rows are no longer read
+    for (int i = tid; i < nw * (D / 8); i += 128) {
+      const int r = i / (D / 8), cc = i % (D / 8);
+      const int row = ws + wb + r;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (row >= 0) val = *reinterpret_cast<const uint4*>(qh + (size_t)row * D + cc * 8);
+      *reinterpret_cast<uint4*>(Qw + r * D + cc * 8) = val;
     }
-    acc += expf(dot * scale - m_w[r]) * il_w[r];
+    for (int r = tid; r < nw; r += 128) {
+      const int row = ws + wb + r;
+      if (row >= 0) {
+        const float l = ml[(wb + r) * 2 + 1];
+        m_w[r] = ml[(wb + r) * 2];
+        il_w[r] = 1.f / (l == 0.f ? 1.f : l);
+        sel_w[r] = mh ? mh[(row / P) * n_blk + col0 / P] : 1;
+      }
+    }
+    __syncthreads();
+
+    for (int r = half; r < nw; r += 2) {
+      const int row = ws + wb + r;
+      if (row < 0 || c > row || !sel_w[r]) continue;
+      float dot = 0.f;
+#pragma unroll
+      for (int d8 = 0; d8 < D / 8; ++d8) {
+        const uint4 kr = *reinterpret_cast<const uint4*>(Ks + col * LDS + d8 * 8);
+        const uint4 qr = *reinterpret_cast<const uint4*>(Qw + r * D + d8 * 8);
+        const bf16* kv8 = reinterpret_cast<const bf16*>(&kr);
+        const bf16* qv8 = reinterpret_cast<const bf16*>(&qr);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          dot = fmaf(__bfloat162float(qv8[i]), __bfloat162float(kv8[i]), dot);
+      }
+      acc += expf(dot * scale - m_w[r]) * il_w[r];
+    }
   }
   part[tid] = acc;
   __syncthreads();
@@ -754,7 +765,7 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
                   void* scores, void* row_ml, int B, int Hq, int Hkv, int S_q, int S_k,
                   int W, int SW, int P, int n_blk, float scale, void* stream) {
   using T = Plan<D>;
-  if (W < 0 || W > WMAX || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
+  if (W < 0 || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
       (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1 ||
       (row_ml && (W > 0 || block_mask)))
     return (int)cudaErrorInvalidValue;

@@ -12,14 +12,17 @@ launches.
 
 The kernel takes head_dim 64, 128 and 256 (``HEAD_DIMS``), one
 instantiation and entry point each; its shared memory is 768 D bytes a CTA,
-so ``CTAS_PER_SM_AT[D]`` CTAs fit an SM.
+so ``CTAS_PER_SM_AT[D]`` CTAs fit an SM.  It takes any group size G: a CTA
+computes ``QUERY_BLOCK`` query rows at most, so G above 8 runs
+:func:`query_blocks` blocks of rows, each reading the head's keys.
 
 One launch per call: each head's keys are split over ``n_split`` CTAs
-(:func:`split_count`, from the shapes and the SM count only), and the CTA
-of a head that finishes last merges the head's partials.  It finds out
-through a per-head arrival counter in a workspace kept per device
-(:func:`_counters`), which every launch leaves at 0.  So launches on one
-device must run in stream order, as the decode step issues them.
+(:func:`split_count`, from the shapes and the SM count only) for each query
+block, and the CTA of a head that finishes last merges the head's
+partials.  It finds out through a per-head arrival counter in a workspace
+kept per device (:func:`_counters`), which every launch leaves at 0.  So
+launches on one device must run in stream order, as the decode step issues
+them.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from .flash_prefill import REFUSED
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn.cu"
 REPLACES = "kvcache_factory_tpu/ops/kernels/decode_attn.py:71"
 HEAD_DIMS = (64, 128, 256)
-GROUPS = range(1, 9)
+QUERY_BLOCK = 8    # query rows a CTA computes: the mma's N
 MIN_KEYS_PER_SPLIT = 64
 CTAS_PER_SM = 2    # resident CTAs an SM holds at head_dim 128 (and K3 / K4's split rule)
 CTAS_PER_SM_AT = {64: 4, 128: 2, 256: 1}  # by head_dim (the source header's shared memory)
@@ -66,10 +69,10 @@ def decode_attention_append(
     H, G, D = q.shape
     C = k_layer.shape[1]
     dev = q.device
-    n_split = split_count(H, C, _sm_count(dev), CTAS_PER_SM_AT[D])
+    n_split = split_count(H * query_blocks(G), C, _sm_count(dev), CTAS_PER_SM_AT[D])
     counters = _counters(dev, H)
     out = torch.empty_like(q)
-    part = torch.empty(H * n_split * G * (D + 2), dtype=torch.float32, device=dev)
+    part = torch.empty(partial_floats(H, G, D + 2, n_split), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = getattr(lib, f"kvcf_decode_attn_append_d{D}")(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
@@ -91,6 +94,18 @@ def split_count(H: int, C: int, sm_count: int, ctas_per_sm: int = CTAS_PER_SM) -
     capacity; at least 1.  It reads no lengths: each CTA finds its own share
     of its head's valid keys on the device (:func:`split_bounds`)."""
     return max(1, min(ctas_per_sm * sm_count // H, -(-C // MIN_KEYS_PER_SPLIT)))
+
+
+def query_blocks(G: int) -> int:
+    """Blocks of ``QUERY_BLOCK`` query rows a head's G rows take: the CTAs
+    of one split."""
+    return -(-G // QUERY_BLOCK)
+
+
+def partial_floats(H: int, G: int, row_floats: int, n_split: int) -> int:
+    """fp32 scratch of the partials: ``row_floats`` a query row of each
+    block (a short last block is padded to the block's rows) and split."""
+    return H * query_blocks(G) * n_split * min(G, QUERY_BLOCK) * row_floats
 
 
 def split_bounds(lo: int, L: int, sp: int, n_split: int) -> Tuple[int, int]:
@@ -141,9 +156,10 @@ def _check(q, k_layer, v_layer, lengths, k_new, v_new, lower):
     if q.dim() != 3:
         raise ValueError(f"decode_attn: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
-    if D not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"decode_attn: needs head_dim in {HEAD_DIMS} and G from "
-                         f"{GROUPS[0]} to {GROUPS[-1]}, got D={D}, G={G}; {REFUSED}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attn: needs head_dim in {HEAD_DIMS}, got D={D}; {REFUSED}")
+    if G < 1:
+        raise ValueError(f"decode_attn: needs G >= 1, got G={G}")
     for name, t in (("q", q), ("k_layer", k_layer), ("v_layer", v_layer),
                     ("k_new", k_new), ("v_new", v_new)):
         if t.dtype != torch.bfloat16:

@@ -17,7 +17,8 @@ Dispatch is K2's rule: a CPU tensor goes to the plain version
 
 They take head_dim 128 and 256 (``HEAD_DIMS``; the per-token cache exists
 only at ``D % 128 == 0``, ``config.py::QuantConfig.per_token``), one
-instantiation and entry point each.
+instantiation and entry point each, and any group size G, in blocks of
+``decode_attn.QUERY_BLOCK`` query rows as K2.
 
 K3 and K4 are one launch per call each, as K2 is: ``decode_attn.split_count``
 picks the CTAs per head, each finds its share of the head's valid keys on
@@ -36,7 +37,7 @@ import torch
 from ...cache.quant_cache import dequantize, encode_per_token
 from ..attention import NEG_INF
 from . import _build
-from .decode_attn import GROUPS, _counters, _sm_count, split_count
+from .decode_attn import _counters, _sm_count, partial_floats, query_blocks, split_count
 from .flash_prefill import REFUSED
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant.cu"
@@ -101,10 +102,10 @@ def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     H, G, D = q.shape
     C = k_codes.shape[1]
     dev = q.device
-    n_split = split_count(H, C, _sm_count(dev))
+    n_split = split_count(H * query_blocks(G), C, _sm_count(dev))
     counters = _counters(dev, H)
     out = torch.empty_like(q)
-    part = torch.empty(H * n_split * G * (D + 4), dtype=torch.float32, device=dev)
+    part = torch.empty(partial_floats(H, G, D + 4, n_split), dtype=torch.float32, device=dev)
     entry = getattr(lib, f"kvcf_quant{nbits}_decode_attn_append_d{D}")
     with torch.cuda.device(dev):
         code = entry(q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), scales.data_ptr(),
@@ -136,9 +137,10 @@ def _check(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     if q.dim() != 3:
         raise ValueError(f"{what}: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
-    if D not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"{what}: needs head_dim in {HEAD_DIMS} and G in {tuple(GROUPS)}, "
-                         f"got D={D}, G={G}; {REFUSED}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: needs head_dim in {HEAD_DIMS}, got D={D}; {REFUSED}")
+    if G < 1:
+        raise ValueError(f"{what}: needs G >= 1, got G={G}")
     for name, t in (("q", q), ("scales", scales), ("k_new", k_new), ("v_new", v_new)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{what}: {name} must be bfloat16, got {t.dtype}")

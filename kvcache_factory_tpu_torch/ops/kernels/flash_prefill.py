@@ -12,9 +12,10 @@ of three warpgroups per 128 q rows of one head, a producer that loads Q
 once and 128-key K/V tiles (64-key at head_dim 256) through a 2-stage TMA
 ring, and two consumers of 64 rows each that run both products with
 ``wgmma`` and mask only the tiles on an edge.  It takes head_dim 64, 128
-and 256 (``HEAD_DIMS``), one instantiation and entry point each.  Its source header says what bounds it on the card and how the
-design answers that.  The vertical-slash block mask is
-estimated in plain torch (:func:`vertical_slash_block_mask`), as the JAX
+and 256 (``HEAD_DIMS``), one instantiation and entry point each, and any
+observation window.  Its source header says what bounds it on the card and
+how the design answers that.  The vertical-slash block mask is estimated in
+plain torch (:func:`vertical_slash_block_mask`), as the JAX
 package estimates it in XLA; both patterns reach the kernel as one
 ``[B, Hq, n_blk, n_blk]`` block mask.
 
@@ -50,11 +51,9 @@ REPLACES_VARIANT = {
     "ring": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:288-297",
 }
 HEAD_DIMS = (64, 128, 256)
-MAX_WINDOW = 64
 # What the card refuses, and where it is queued.
-REFUSED = ("head_dims outside (64, 128, 256), groups above 8 and observation windows "
-           "above 64 are ROADMAP.md queue 2, \"Shapes the TPU kernels take and the "
-           "port's kernels refuse on CUDA\"")
+REFUSED = ("head_dims outside (64, 128, 256) are ROADMAP.md queue 2, \"Shapes the TPU "
+           "kernels take and the port's kernels refuse on CUDA\"")
 # A pattern block is a multiple of 64 (or the whole sequence): a CTA's 128 q
 # rows are two consumer warpgroups of 64 and a key tile (128 keys, 64 at
 # head_dim 256) one or two halves of 64, so each warpgroup's rows and each
@@ -248,8 +247,8 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
     for name, t in (("true_len", true_len), ("row_offset", row_offset)):
         if t is not None and (t.dtype != torch.int32 or t.shape != (B,)):
             raise ValueError(f"flash_prefill: {name} must be int32 of shape [B]")
-    if not 0 <= window <= MAX_WINDOW:
-        raise ValueError(f"flash_prefill: window must be in [0, {MAX_WINDOW}]; {REFUSED}")
+    if window < 0:
+        raise ValueError(f"flash_prefill: window must be >= 0, got {window}")
     if block_mask is not None:
         n = -(-S_q // block)
         if block_mask.dtype != torch.int32 or block_mask.shape != (B, Hq, n, n):

@@ -219,6 +219,7 @@ class ContinuousBatchingEngine:
         self._chunk_groups: Dict[int, dict] = {}
         self.prefill_chunks_executed = 0   # row-chunks advanced
         self.prefill_chunk_dispatches = 0  # chunk_step calls issued
+        self.prefix_resumes = 0            # admissions resumed from a prefix snapshot
         self.steps_executed = 0            # decode steps this rank ran (EOS- and budget-aware)
         self.eos = tuple(eos_token_ids)
         self.scheduler = make_scheduler(n_slots, self.buckets)
@@ -359,6 +360,7 @@ class ContinuousBatchingEngine:
                 for buf, one in zip(_pool_row(g["state"], r), hit):
                     buf.copy_(one)
                 c0, snap_at = snap_at, 0  # resumed: nothing left to record
+                self.prefix_resumes += 1
         g["c0"][r] = c0
         g["rows"][r] = {"rid": rid, "slot": slot, "n": len(prompt), "snap_at": snap_at,
                         "prompt": prompt}

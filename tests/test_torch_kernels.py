@@ -207,8 +207,17 @@ def test_decode_check_takes_each_head_dim(G, D_):
         tdecode._check(*_decode_check_args(G, D_))
 
 
-@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 96)), (1, (2, 1, 384))])
-def test_decode_check_refuses_g_above_8_or_other_head_dims(G, shape):
+@pytest.mark.parametrize("D_", [64, 128, 256])
+@pytest.mark.parametrize("G", [9, 12, 16])
+def test_decode_check_takes_groups_above_8(G, D_):
+    """K2 takes G above 8 (blocks of 8 query rows) at every head_dim it
+    takes: every shape check passes; only the device stops a CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdecode._check(*_decode_check_args(G, D_))
+
+
+@pytest.mark.parametrize("G,shape", [(1, (2, 1, 96)), (1, (2, 1, 384))])
+def test_decode_check_refuses_other_head_dims(G, shape):
     args = _decode_check_args(G, shape[-1])
     args[0] = torch.zeros(shape, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
@@ -269,10 +278,19 @@ def test_quant_check_takes_each_head_dim(nbits, D_):
         tquant._check(*_quant_check_args(nbits, 4, d=D_))
 
 
-@pytest.mark.parametrize("G,shape", [(9, (2, 9, D)), (1, (2, 1, 64)), (1, (2, 1, 96)),
-                                     (1, (2, 1, 384))])
+@pytest.mark.parametrize("D_", [128, 256])
+@pytest.mark.parametrize("G", [9, 12, 16])
 @pytest.mark.parametrize("nbits", [8, 4])
-def test_quant_check_refuses_g_above_8_or_other_head_dims(nbits, G, shape):
+def test_quant_check_takes_groups_above_8(nbits, G, D_):
+    """K3 and K4 take G above 8 (blocks of 8 query rows) at head_dim 128
+    and 256: every shape check passes; only the device stops a CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tquant._check(*_quant_check_args(nbits, G, d=D_))
+
+
+@pytest.mark.parametrize("G,shape", [(1, (2, 1, 64)), (1, (2, 1, 96)), (1, (2, 1, 384))])
+@pytest.mark.parametrize("nbits", [8, 4])
+def test_quant_check_refuses_other_head_dims(nbits, G, shape):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
         tquant._check(*_quant_check_args(nbits, G, shape, d=shape[-1]))
 
@@ -292,8 +310,18 @@ def test_flash_check_takes_each_head_dim(D_):
         tflash._check(*_flash_check_args(D_))
 
 
-@pytest.mark.parametrize("D_,window", [(96, 8), (384, 8), (128, 65)])
-def test_flash_check_refuses_other_head_dims_or_windows_above_64(D_, window):
+@pytest.mark.parametrize("D_", [64, 128, 256])
+@pytest.mark.parametrize("window", [65, 128])
+def test_flash_check_takes_windows_above_64(window, D_):
+    """K1 takes any observation window (its score pass walks the window in
+    64-row blocks): every shape check passes; only the device stops a CPU
+    tensor."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash._check(*_flash_check_args(D_, window))
+
+
+@pytest.mark.parametrize("D_,window", [(96, 8), (384, 8)])
+def test_flash_check_refuses_other_head_dims(D_, window):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
         tflash._check(*_flash_check_args(D_, window))
 
