@@ -106,7 +106,7 @@ Phases, in order; any failure exits non-zero:
    and ``model.safetensors.index.json``, by a minimal safetensors writer
    here) and read back by ``load_params``: every leaf bitwise equal to the
    fused, transposed tensors built in memory, the native reader serving,
-   and a SnapKV prefill on the two bitwise equal; (9b) at 7 of the 28 layers,
+   and a SnapKV prefill on the two bitwise equal; (9b) at 4 of the 28 layers,
    random bf16 weights and ``quantize_weights`` (W8A16) through
    ``InferenceEngine`` with phase 5's SnapKV and requests, once with the
    bf16 cache (K2) and once with the int8 cache (K3), then one fullkv
@@ -202,16 +202,16 @@ Phases, in order; any failure exits non-zero:
    reference with the run's routing replayed (its MoE block summed over
    the ranks), flips only at near-ties, the distance from 11b's run, the
    decode step's wall and busy time beside 11b's;
-16. Llama-3.2-1B-Instruct at full width and depth (16 layers, head_dim 64,
+16. Llama-3.2-1B-Instruct at full width (8 of its 16 layers, head_dim 64,
    G 4, llama3 rope scaling, tied embeddings; random bf16 weights), phase
-   5's requests through ``InferenceEngine`` with snapkv (K1 16 a prefill,
-   K2 1008 at G 1) and fullkv (K2 at G 4), each checked as phase 5's paths
+   5's requests through ``InferenceEngine`` with snapkv (K1 8 a prefill,
+   K2 504 at G 1) and fullkv (K2 at G 4), each checked as phase 5's paths
    (launches, lengths, logits against the fp32 reference, K2 directly on
-   layers 0 and 15, times and a profiled decode step), then a
+   layers 0 and 7, times and a profiled decode step), then a
    ``ContinuousBatchingEngine`` drain of four 4096-token requests with
    chunked admission (K1-chunk at 64); 16b: a 4-layer head_dim 256 model
    over the bf16, int8 and int4 caches (K1-K4 at 256), checked the same;
-17. Mistral-Large-Instruct-2407 at full width (8 of 88 layers, G 12;
+17. Mistral-Large-Instruct-2407 at full width (4 of 88 layers, G 12;
    random bf16 weights): phase 5's requests through ``InferenceEngine``
    with fullkv over the bf16, int8 and int4 caches (K2 / K3 / K4 at G 12),
    snapkv with the mean group reduction and snapkv with a 128-row window
@@ -222,7 +222,24 @@ Phases, in order; any failure exits non-zero:
    ``examples/serving_torch.py`` with a one-chunk system prompt (prefix
    resumes); 17b: Llama-3.1-405B-Instruct at full width (2 of 126 layers,
    G 16) with fullkv over the three caches (K2 / K3 / K4 at G 16);
-19. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+19. (3g-4g, after phase 4e, on a generator of their own) K1 and K2
+   at every head_dim of ``NEW_HEAD_DIMS`` (16 ... 512, each on the
+   narrowest instantiation at least as wide, with its own 1/sqrt(D)) and
+   K3 / K4 at 384 and 512, against their plain versions on inputs whose
+   buffers end in NaN (K1 dense with scores, the CTA's edges and, at 80,
+   384 and 512, its sliding-window, chunk, a-shape, vertical-slash and
+   ring-hop variants; K2 at G 1, 4 and 12 and the edge shapes; K3 / K4 at
+   G 1, 4 and 12, the range case and the edge shapes, appends byte for
+   byte), with what a skipped tile, an off-by-one key range, a dropped
+   split and the instantiation's 1/sqrt(width) in place of 1/sqrt(D) would
+   show, each beside its plain version, its library yardstick and its
+   bound; then, last, h2o-danube2-1.8b at full width and depth (24 layers,
+   head_dim 80, G 4; random bf16 weights) through ``InferenceEngine`` with
+   snapkv and fullkv (K1 24 a prefill, K2 24 x 63 a run) and a chunked
+   drain (K1-chunk at 80), checked as phase 16; 19b: two 4-layer models at
+   head_dim 384 and 512 over the bf16, int8 and int4 caches (K1-K4 at 384
+   and 512, the quantized caches per token);
+20. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -446,10 +463,26 @@ def bf16_normal(rng, shape):
     return torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", torch.bfloat16)
 
 
-def k1_case(rng, B, Hq, Hkv, S, W, tls, D=128):
+NAN_TAIL = 4096  # elements after an input's last row that nan_tailed fills
+
+
+def nan_tailed(x):
+    """``x`` copied to the front of a buffer whose ``NAN_TAIL`` elements
+    after its last row are NaN (0xFF bytes for an integer type), so that a
+    kernel that reads past the end shows it."""
+    buf = torch.empty(x.numel() + NAN_TAIL, dtype=x.dtype, device=x.device)
+    buf[x.numel():] = float("nan") if x.dtype.is_floating_point else 255
+    buf[:x.numel()] = x.reshape(-1)
+    return buf[:x.numel()].view(x.shape)
+
+
+def k1_case(rng, B, Hq, Hkv, S, W, tls, D=128, tail=False):
     """K1 against its plain version on random inputs: ``out`` over each
-    example's valid rows, ``scores`` over its scored columns."""
+    example's valid rows, ``scores`` over its scored columns; with ``tail``
+    the inputs lie in ``nan_tailed`` buffers."""
     q, k, v = (bf16_normal(rng, (B, h, S, D)) for h in (Hq, Hkv, Hkv))
+    if tail:
+        q, k, v = (nan_tailed(x) for x in (q, k, v))
     tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
     out, sc = flash_prefill.flash_prefill_attention(q, k, v, tl, W)
     sync()
@@ -593,12 +626,15 @@ def k1v_worst(got, ref, valid):
     return worst, absd
 
 
-def k1v_case(rng, B, Hq, Hkv, S_q, S_k, tls, sw, offsets, D=128):
+def k1v_case(rng, B, Hq, Hkv, S_q, S_k, tls, sw, offsets, D=128, tail=False):
     """K1 with a sliding window and/or a row offset against its plain
     version on random inputs: ``out`` over each example's valid rows (global
-    id < true_len); every row, inert ones (true_len 0) included, finite."""
+    id < true_len); every row, inert ones (true_len 0) included, finite.
+    With ``tail`` the inputs lie in ``nan_tailed`` buffers."""
     q = bf16_normal(rng, (B, Hq, S_q, D))
     k, v = (bf16_normal(rng, (B, Hkv, S_k, D)) for _ in range(2))
+    if tail:
+        q, k, v = (nan_tailed(x) for x in (q, k, v))
     tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
     off = None if offsets is None else torch.tensor(offsets, dtype=torch.int32,
                                                      device="cuda")
@@ -1124,14 +1160,18 @@ def phase_k5(rng):
 # ---------------------------------------------------------------------------
 
 
-def k2_case(rng, H, G, C, lengths, lower, D=128):
+def k2_case(rng, H, G, C, lengths, lower, D=128, tail=False):
     """K2 against its plain version: ``out``, and the whole cache after the
-    in-place append, which must be identical."""
+    in-place append, which must be identical; with ``tail`` the kernel's
+    inputs lie in ``nan_tailed`` buffers."""
     q, kc, vc, kn, vn = (bf16_normal(rng, s) for s in ((H, G, D), (H, C, D), (H, C, D),
                                                        (H, D), (H, D)))
+    if tail:
+        q, kn, vn = (nan_tailed(x) for x in (q, kn, vn))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     lo = torch.tensor(lower, dtype=torch.int32, device="cuda")
-    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    copy = nan_tailed if tail else torch.clone
+    k1, v1, k2, v2 = copy(kc), copy(vc), kc.clone(), vc.clone()
     out = decode_attn.decode_attention_append(q, k1, v1, lens, kn, vn, lo)
     ref = decode_attn.decode_attention_append_reference(q, k2, v2, lens, kn, vn, lo)
     sync()
@@ -1185,7 +1225,7 @@ def k2_splits(H, C, D=128, G=1):
     this card (G above 8 runs a head's query blocks as CTAs of their own)."""
     return decode_attn.split_count(H * decode_attn.query_blocks(G), C,
                                    decode_attn._sm_count(torch.device("cuda")),
-                                   decode_attn.CTAS_PER_SM_AT[D])
+                                   decode_attn.CTAS_PER_SM_AT[flash_prefill.instance(D)])
 
 
 def k2_split_edges(rng, D=128):
@@ -1404,15 +1444,19 @@ def kq_inputs(rng, nbits, H, G, C, amp=(1.0, 1.0, 1.0), D=128):
     return q, kc, vc, torch.stack([ks, kz, vs, vz], dim=-1).contiguous(), kn, vn
 
 
-def kq_case(rng, nbits, H, G, C, lengths, lower, amp=(1.0, 1.0, 1.0), D=128):
+def kq_case(rng, nbits, H, G, C, lengths, lower, amp=(1.0, 1.0, 1.0), D=128, tail=False):
     """K3 or K4 against its plain version: ``out``, and the whole cache after
     the in-place quantized append, which must be identical byte for byte
-    (both sides quantize the new token with the same IEEE operations)."""
+    (both sides quantize the new token with the same IEEE operations); with
+    ``tail`` the kernel's inputs lie in ``nan_tailed`` buffers."""
     kid, kernel, plain, _ = QUANT[nbits]
     q, kc, vc, sc, kn, vn = kq_inputs(rng, nbits, H, G, C, amp, D)
+    if tail:
+        q, kn, vn = (nan_tailed(x) for x in (q, kn, vn))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     lo = torch.tensor(lower, dtype=torch.int32, device="cuda")
-    mine = [kc.clone(), vc.clone(), sc.clone()]
+    copy = nan_tailed if tail else torch.clone
+    mine = [copy(kc), copy(vc), copy(sc)]
     theirs = [kc.clone(), vc.clone(), sc.clone()]
     out = kernel(q, *mine, lens, kn, vn, lo)
     ref = plain(q, *theirs, lens, kn, vn, lo)
@@ -1543,7 +1587,8 @@ def kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref):
     H, G, D = q.shape
     C = kc.shape[1]
     n_split = decode_attn.split_count(H * decode_attn.query_blocks(G), C,
-                                      decode_attn._sm_count(q.device))
+                                      decode_attn._sm_count(q.device),
+                                      decode_attn_quant.CTAS_PER_SM_AT[D])
     L = lens.long().clamp(max=C - 1)
     start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
     k = quant_cache.dequantize(kc, sc[..., 0], sc[..., 1], nbits)
@@ -1568,7 +1613,8 @@ def kq_split_edges(rng, nbits, C, D=128):
     ranges at the edges of a 16-key tile, a warp's stage and a CTA's stage;
     then G 3, 5, 6 and 7 (1, 2, 4 and 8 are in phase 4b's other cases)."""
     H, sm = 64, decode_attn._sm_count(torch.device("cuda"))
-    n_split = decode_attn.split_count(H, C, sm)
+    ctas = decode_attn_quant.CTAS_PER_SM_AT[D]
+    n_split = decode_attn.split_count(H, C, sm, ctas)
     lengths = rng.integers(1, C, size=H)
     lower = np.zeros(H, np.int64)
     lengths[0], lower[0] = 500, 500 - (n_split - 1)     # fewer keys than splits
@@ -1581,10 +1627,10 @@ def kq_split_edges(rng, nbits, C, D=128):
     errs.append(kq_case(rng, nbits, H, 1, C, [0] * H, np.zeros(H, np.int64), **kw)[8])
     errs.append(kq_case(rng, nbits, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64),
                         **kw)[8])
-    n8 = decode_attn.split_count(8, C, sm)
+    n8 = decode_attn.split_count(8, C, sm, ctas)
     errs.append(kq_case(rng, nbits, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
                         [0, 0, 0, 0, 1, 0, 0, 993], **kw)[8])
-    Hs = decode_attn.CTAS_PER_SM * sm  # one CTA a head: the whole range is one CTA's
+    Hs = ctas * sm  # one CTA a head: the whole range is one CTA's
     edges = [1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 511, 512, 513, 767, 768, 769]
     lens = np.asarray((edges * (Hs // len(edges) + 1))[:Hs])
     low = np.zeros(Hs, np.int64)
@@ -1932,6 +1978,329 @@ def phase_kq_head_dims(rng, reports):
                       "dropped_split_rel_l2": drop_err, "n_split": n_split,
                       "append_bit_identical": True, **checks, **main, "ptxas": regs.get(D)}
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 3g, 4f and 4g: K1-K4 at every head_dim up to 512
+# ---------------------------------------------------------------------------
+
+# The head_dims K1 and K2 are held at, each running on the narrowest
+# instantiation at least as wide (flash_prefill.instance: 64, 128, 256, 384,
+# 512) with its own 1/sqrt(D); the heads (Hq, Hkv) of the models that run
+# 80 (phase 19, h2o-danube2-1.8b) and 384 / 512 (phase 19b); 16 / 4 heads at
+# the others, whose checks attach to their instantiation's entry.
+NEW_HEAD_DIMS = (16, 32, 80, 96, 120, 160, 192, 384, 512)
+MODEL_HEAD_DIM_HEADS = {80: (32, 8), 384: (8, 2), 512: (8, 2)}
+WIDE_HEAD_DIMS = (384, 512)  # K3 / K4's new head_dims (the per-token cache's)
+VS_NARROW = ("vertical_slash", 64, 16, 64)  # 64 columns, 16 diagonals, 64 estimation rows
+
+
+@contextlib.contextmanager
+def instantiation_scale(lib_name):
+    """The kernels of ``lib_name`` handed 1/sqrt(instantiation width) in
+    place of the 1/sqrt(D) its wrapper passes: what a wrapper that took the
+    scale from the instantiation it runs would compute."""
+    real_load = _build.load
+    real = real_load(lib_name)
+
+    class Lib:
+        def __getattr__(self, entry):
+            fn, width = getattr(real, entry), int(entry.rsplit("_d", 1)[1])
+            return lambda *args: fn(*args[:-2], width ** -0.5, args[-1])
+
+    _build.load = lambda name: Lib() if name == lib_name else real_load(name)
+    try:
+        yield
+    finally:
+        _build.load = real_load
+
+
+def sdpa_backend(call):
+    """Which backend ``scaled_dot_product_attention`` ran in ``call``, read
+    from the kernel names of one profiled call: "flash" (``flash_fwd``),
+    "memory-efficient" (``fmha``), "cuDNN" or, with none of those, "math"
+    (plain products and a softmax)."""
+    call()
+    sync()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        sync()
+    names = " ".join(evt.key for evt in prof.key_averages()
+                     if evt.device_type == DeviceType.CUDA).lower()
+    for tag, backend in (("flash_fwd", "flash"), ("fmha", "memory-efficient"),
+                         ("cudnn", "cuDNN")):
+        if tag in names:
+            return backend
+    return "math"
+
+
+def k1_head_dim_variants(rng, D, Hq, Hkv):
+    """K1's sliding-window, chunk, a-shape, vertical-slash and ring-hop
+    variants at head_dim D against their plain versions, on inputs whose
+    buffers end in NaN, with what an off-by-one window or row offset, an
+    ignored or shifted block mask and a dropped key tile would show; the
+    chunk pool timed (phase 19's drain runs it at 80)."""
+    sw = k1v_case(rng, 1, Hq, Hkv, 4096, 4096, [4096], 1000, None, D, tail=True)
+    sw_off, sw_err = k1v_off_by_one(sw, 1000, None, "window"), sw["err"]
+    del sw
+    offsets = [0, 2048, 2048, 0]
+    ch = k1v_case(rng, 4, Hq, Hkv, 2048, 4096, [4096, 4096, 3000, 0], None, offsets, D,
+                  tail=True)
+    ch_off = k1v_off_by_one(ch, None, offsets, "offset")
+    ch_sw = k1v_case(rng, 2, Hq, Hkv, 1024, 4096, [4096, 2500], 700, [3072, 1000], D,
+                     tail=True)
+    del ch_sw["ref"]
+    q, k, v = k1s_inputs(rng, 2, 8, 2, 1000, D=D)
+    a64 = k1s_case(*(nan_tailed(x) for x in (q, k, v)), [1000, 777], ("ashape", 1, 3, 4),
+                   window=8, q_block=64)
+    a_dense, a_shift = k1s_mask_errors(a64)
+    del q, k, v, a64["ref"]
+    # At 4096 rows the default pattern (1024 columns, 1024-row blocks) keeps
+    # every block: a narrow one on 64-row blocks is sparse on planted inputs.
+    q, k, v = k1s_inputs(rng, 1, Hq, Hkv, 4096, heavy=(1000, 1100), D=D)
+    vs = k1s_case(*(nan_tailed(x) for x in (q, k, v)), [4000], VS_NARROW, q_block=64)
+    vs_dense, _ = k1s_mask_errors(vs)
+    del q, k, v, vs["ref"]
+    qh, kh, vh = (nan_tailed(bf16_normal(rng, (1, h, 2000, D))) for h in (Hq, Hkv, Hkv))
+    hop = k1ml_case(qh, kh, vh, 4000, 2000)
+    hop_sw = k1ml_case(qh, kh, vh, 4000, 2000, sw=700)
+    hop_drop = max(k1ml_dropped_tile(hop))
+    del qh, kh, vh
+    worst = min(sw_off, ch_off, a_dense, a_shift, vs_dense, hop_drop)
+    log(f"K1 variants D={D}: an off-by-one window would show {sw_off:.3e}, an off-by-one row "
+        f"offset {ch_off:.3e}, an ignored a-shape mask {a_dense:.3e} (shifted {a_shift:.3e}), an "
+        f"ignored vertical-slash mask {vs_dense:.3e}, a dropped K1-ml key tile {hop_drop:.3e} "
+        f"(tol {K1_OUT_TOL})")
+    if worst <= K1_OUT_TOL:
+        raise SystemExit(f"K1's tolerance at D={D} would let a variant's fault pass")
+    timed_chunk = time_k1v(ch, None, offsets)
+    ch_err, ch_abs = ch["err"], ch["absd"]
+    del ch
+    return {"sliding_window_rel_l2": sw_err, "chunk": {
+                "shape": f"P=4 Hq={Hq} Hkv={Hkv} S_q=2048 S_k=4096 D={D} row_offset={offsets} "
+                         "true_len=[4096, 4096, 3000, 0]", "rel_l2": ch_err,
+                "max_abs_err": ch_abs, **timed_chunk},
+            "chunk_sw_rel_l2": ch_sw["err"], "ashape_block64_rel_l2": a64["err"],
+            "vertical_slash_rel_l2": vs["err"], "vertical_slash_density": vs["density"],
+            "ring_hop_rel_l2": max(hop["err"], hop_sw["err"]),
+            "ring_hop_m_err": max(hop["m_err"], hop_sw["m_err"]),
+            "sensitivity_rel_l2": {"window_off_by_one": sw_off, "offset_off_by_one": ch_off,
+                                   "ashape_ignored": a_dense, "ashape_shifted": a_shift,
+                                   "vertical_slash_ignored": vs_dense,
+                                   "ring_dropped_tile": hop_drop}}
+
+
+def phase_k1_new_head_dims(rng, reports):
+    """Phase 3g: K1 at each of ``NEW_HEAD_DIMS`` against its plain version
+    on inputs whose buffers end in NaN: dense with window scores (B 2, S
+    4096 at the models' heads for 80, 384 and 512; S 2048, 16 / 4 heads
+    elsewhere), the CTA's length edges (true_len 1, 63, 129 and 1000 under
+    a 64-row window), two launches bitwise equal, what a skipped key tile
+    and, where D runs on a wider instantiation, that instantiation's
+    1/sqrt(width) in place of 1/sqrt(D) would show (both must fail the
+    limit); timed beside its plain version, SDPA and its bound.  At 80, 384
+    and 512 also the variants (``k1_head_dim_variants``)."""
+    regs = registers_by_head_dim(reports, "flash_prefill", "flash_fwd_kernel")
+    out = {}
+    for D in NEW_HEAD_DIMS:
+        width = flash_prefill.instance(D)
+        Hq, Hkv = MODEL_HEAD_DIM_HEADS.get(D, (16, 4))
+        B, W = 2, 8
+        S = 4096 if D in MODEL_HEAD_DIM_HEADS else 2048
+        tls = [S, S * 3 // 4]
+        q, k, v, tl, sc, out_ref, err, absd, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls, D,
+                                                              tail=True)
+        edge = k1_case(rng, 4, 8, 2, 1024, 64, [1, 63, 129, 1000], D, tail=True)[6:9]
+        call = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W)  # noqa: E731
+        same = bitwise_repeat(call)
+        skip_err = k1_skipped_tile_error(q, k, v, tls, out_ref, r0=S // 2)
+        scale_err = None
+        if width != D:
+            with instantiation_scale("flash_prefill"):
+                wrong = call()[0]
+            sync()
+            scale_err = max(rel_l2(wrong[b, :, :t], out_ref[b, :, :t])[0]
+                            for b, t in enumerate(tls))
+            del wrong
+        log(f"K1 D={D} (instantiation {width}): two launches bitwise equal {same}; a skipped key "
+            f"tile [64, 128) would show {skip_err:.3e}, the instantiation's scale "
+            f"{width}^-0.5 {scale_err if scale_err is None else f'{scale_err:.3e}'} (tol "
+            f"{K1_OUT_TOL}); ptxas (registers, spill) {regs.get(width, 'cached: no report')}")
+        if not same or skip_err <= K1_OUT_TOL or (scale_err is not None
+                                                  and scale_err <= K1_OUT_TOL):
+            raise SystemExit(f"K1 at D={D} is not deterministic, or its tolerance would let a "
+                             "skipped tile or the instantiation's scale pass")
+        del out_ref
+        t = time_k1(q, k, v, tl, W, tls, sc)
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        log(f"K1 D={D}: the library yardstick ran SDPA's {backend} backend")
+        del q, k, v, sc
+        entry = {"name": f"flash_prefill_d{D}", "route": "cuda", "source": flash_prefill.SOURCE,
+                 "replaces": flash_prefill.REPLACES, "instantiation": width,
+                 "library": f"scaled_dot_product_attention, causal GQA ({backend} backend)",
+                 "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
+                 "max_abs_err": absd, "rel_l2": err, "tol": K1_OUT_TOL,
+                 "scores_max_abs_err": err_sc, "skipped_tile_rel_l2": skip_err,
+                 "instantiation_scale_rel_l2": scale_err, **t,
+                 "bound_fraction": t["bound_ms"] / t["ms"], "deterministic": same,
+                 "edge_case": {"rel_l2": edge[0], "max_abs_err": edge[1],
+                               "scores_max_abs_err": edge[2]},
+                 "nan_tailed_inputs": True, "ptxas": regs.get(width)}
+        if D in MODEL_HEAD_DIM_HEADS:
+            entry["variants"] = k1_head_dim_variants(rng, D, Hq, Hkv)
+        out[D] = entry
+        torch.cuda.empty_cache()
+    return out
+
+
+def k2_edge_cases(rng, D, G):
+    """K2 on the edge shapes at head_dim D and G query rows a head, inputs
+    in NaN-tailed buffers: a one-slot cache, 17 slots (a full one, an empty
+    one, a lower bound past the length), a full 2113-slot cache; the worst
+    head rel L2."""
+    return max(k2_case(rng, 3, G, 1, [0, 1, 0], [0, 0, 0], D, tail=True)[8],
+               k2_case(rng, 4, G, 17, [17, 0, 9, 5], [0, 0, 3, 9], D, tail=True)[8],
+               k2_case(rng, 4, G, 2113, [2113, 2112, 1, 2000], [0, 5, 0, 2001], D, tail=True)[8])
+
+
+def phase_k2_new_head_dims(rng, reports):
+    """Phase 4f: K2 at each of ``NEW_HEAD_DIMS``, G 1, 4 and 12, against its
+    plain version (inputs in NaN-tailed buffers; the cache after the append
+    identical) on a decode layer (B 2 at 2079 / 1531 keys, C 2113: the
+    models' query heads at 80, 384 and 512, 16 elsewhere; G 4 and 12 over
+    4159 / 1563 keys, C 4161) and the edge shapes (``k2_edge_cases``), with
+    what an off-by-one key range, a dropped split and, on a wider
+    instantiation, its 1/sqrt(width) would show; at 80, 384 and 512 also
+    bitwise repeats and graph replays, at 384 and 512 the split-rule edges;
+    the G 1 decode (and at 80 the G 4 one) timed beside its plain version,
+    SDPA and its bound."""
+    regs = registers_by_head_dim(reports, "decode_attn", "decode_attn_kernel")
+    out = {}
+    for D in NEW_HEAD_DIMS:
+        width = flash_prefill.instance(D)
+        model = D in MODEL_HEAD_DIM_HEADS
+        Hq, Hkv = MODEL_HEAD_DIM_HEADS.get(D, (16, 4))
+        C, H = 2113, 2 * Hq
+        lens = [2048 + 31] * Hq + [1500 + 31] * Hq
+        q, kc, vc, kn, vn, lt, _, ref, err, absd = k2_case(rng, H, 1, C, lens,
+                                                            np.zeros(H, np.int64), D, tail=True)
+        off_err = k2_one_key_off_error(q, kc, vc, kn, vn, lt, ref)
+        drop_err, n_split = k2_dropped_split_error(q, kc, vc, kn, vn, lt, ref)
+        scale_err = None
+        if width != D:
+            with instantiation_scale("decode_attn"):
+                wrong = decode_attn.decode_attention_append(q, kc.clone(), vc.clone(), lt, kn, vn)
+            sync()
+            scale_err = rel_l2(wrong.reshape(H, -1), ref.reshape(H, -1))[0]
+        C4 = 4096 + 64 + 1
+        by_g = {}
+        for G in (4, 12):
+            Hg = 2 * Hkv if G == Hq // Hkv else 16
+            by_g[G] = k2_case(rng, Hg, G, C4, [4096 + 63] * (Hg // 2) + [1500 + 63] * (Hg // 2),
+                              np.zeros(Hg, np.int64), D, tail=True)[8]
+        edges = {G: k2_edge_cases(rng, D, G) for G in (1, 4, 12)}
+        log(f"K2 D={D} (instantiation {width}): G 4 / 12 head rel L2 {by_g[4]:.3e} / "
+            f"{by_g[12]:.3e}, edge shapes {max(edges.values()):.3e}; a key range off by one would "
+            f"show {off_err:.3e}, a dropped split (1 of {n_split}) {drop_err:.3e}, the "
+            f"instantiation's scale {scale_err if scale_err is None else f'{scale_err:.3e}'} "
+            f"(tol {K2_OUT_TOL}); ptxas (registers, spill) {sorted(set(regs.get(width, [])))}")
+        if min(off_err, drop_err, scale_err or 1.0) <= K2_OUT_TOL:
+            raise SystemExit(f"K2's tolerance at D={D} would let an off-by-one, a dropped split or "
+                             "the instantiation's scale pass")
+        entry = {"name": f"decode_attn_append_d{D}", "route": "cuda",
+                 "source": decode_attn.SOURCE, "replaces": decode_attn.REPLACES,
+                 "instantiation": width,
+                 "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D}, lengths 2079 and 1531",
+                 "max_abs_err": absd, "rel_l2": err, "tol": K2_OUT_TOL,
+                 "g4_rel_l2": by_g[4], "g12_rel_l2": by_g[12], "edges_rel_l2": edges,
+                 "off_by_one_rel_l2": off_err, "dropped_split_rel_l2": drop_err,
+                 "instantiation_scale_rel_l2": scale_err, "n_split": n_split,
+                 "nan_tailed_inputs": True, "ptxas": regs.get(width)}
+        if model:
+            entry.update(k2_repeat_and_replay(q, kc, vc, kn, vn, lt))
+        if D in WIDE_HEAD_DIMS:  # the 2-warp CTAs' split rule (80 runs phase 4's 128)
+            entry.update(k2_split_edges(rng, D))
+        entry.update(time_k2(q, kc, vc, kn, vn, lt))
+        mask = (torch.arange(C, device="cuda")[None] <= lt[:, None].long())[None, :, None]
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+            q[None], kc[None], vc[None], attn_mask=mask))
+        log(f"K2 D={D}: the library yardstick ran SDPA's {backend} backend")
+        entry["library"] = f"scaled_dot_product_attention with a boolean cache mask ({backend} backend)"
+        del q, kc, vc, ref
+        if D == 80:  # phase 19's fullkv decode: G 4 over the 8 KV heads
+            H4 = 2 * Hkv
+            q, kc, vc, kn, vn, lt, _, ref, err4, abs4 = k2_case(
+                rng, H4, Hq // Hkv, C4, [4096 + 63] * Hkv + [1500 + 63] * Hkv,
+                np.zeros(H4, np.int64), D, tail=True)
+            entry["g4"] = {"shape": f"H={H4} (B=2 x {Hkv}) G={Hq // Hkv} C={C4} D={D}, lengths "
+                                    "4159 and 1563", "rel_l2": err4, "max_abs_err": abs4,
+                           **time_k2(q, kc, vc, kn, vn, lt)}
+            del q, kc, vc, ref
+        out[D] = entry
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kq_wide_head_dims(rng, reports):
+    """Phase 4g: K3 and K4 at head_dim 384 and 512, G 1, 4 and 12, against
+    their plain versions with the append byte for byte (inputs in NaN-tailed
+    buffers) on phase 19b's decode layer (B 2 x 8 heads at 2079 / 1531
+    keys), the range case ``KQ_RANGE`` at each G and the edge shapes (C 1,
+    17, a full cache, a lower bound past the length), with what an
+    off-by-one key range and a dropped split would show, bitwise repeats
+    and graph replays; timed beside the plain version and the dequantize +
+    SDPA composite."""
+    out = {}
+    for nbits in (8, 4):
+        kid, _, _, C = QUANT[nbits]
+        for D in WIDE_HEAD_DIMS:
+            regs = registers_by_head_dim(reports, decode_attn_quant.library(D),
+                                         QUANT_KERNELS[kid])
+            Hq, Hkv = MODEL_HEAD_DIM_HEADS[D]
+            H = 2 * Hq
+            lens = [2048 + 31] * Hq + [1500 + 31] * Hq
+            q, kc, vc, sc, kn, vn, lt, ref, err, absd = kq_case(
+                rng, nbits, H, 1, C, lens, np.zeros(H, np.int64), D=D, tail=True)
+            off_err = kq_one_key_off_error(nbits, q, kc, vc, sc, kn, vn, lt, ref)
+            drop_err, n_split = kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lt, ref)
+            if min(off_err, drop_err) <= KQ_OUT_TOL:
+                raise SystemExit(f"{kid}'s tolerance at D={D} would let an off-by-one or dropped "
+                                 "split pass")
+            by_g, ranges, edges = {}, {}, {}
+            for G in (1, 4, 12):
+                Hg = H if G == 1 else 2 * Hkv if G == Hq // Hkv else 16
+                lg = [2048 + 31] * (Hg // 2) + [1500 + 31] * (Hg // 2)
+                if G > 1:
+                    by_g[G] = kq_case(rng, nbits, Hg, G, C, lg, np.zeros(Hg, np.int64), D=D,
+                                      tail=True)[8]
+                ranges[G] = kq_case(rng, nbits, Hg, G, C, lg, np.zeros(Hg, np.int64), KQ_RANGE,
+                                    D=D, tail=True)[8]
+                edges[G] = max(
+                    kq_case(rng, nbits, 3, G, 1, [0, 1, 0], [0, 0, 0], D=D, tail=True)[8],
+                    kq_case(rng, nbits, 4, G, 17, [17, 0, 9, 5], [0, 0, 3, 9], D=D,
+                            tail=True)[8],
+                    kq_case(rng, nbits, 4, G, C, [C, C - 1, 1, 2000], [0, 5, 0, 2001], D=D,
+                            tail=True)[8])
+            checks = kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lt)
+            log(f"{kid} D={D}: G 4 / 12 head rel L2 {by_g[4]:.3e} / {by_g[12]:.3e}, range case "
+                f"{max(ranges.values()):.3e}, edge shapes {max(edges.values()):.3e}; a key range "
+                f"off by one would show {off_err:.3e}, a dropped split (1 of {n_split}) "
+                f"{drop_err:.3e} (tol {KQ_OUT_TOL}); ptxas (registers, spill) "
+                f"{sorted(set(regs.get(D, [])))}")
+            main = time_kq(nbits, q, kc, vc, sc, kn, vn, lt)
+            del q, kc, vc, sc, ref
+            out[(nbits, D)] = {
+                "name": f"quant{nbits}_decode_attn_append_d{D}", "route": "cuda",
+                "source": decode_attn_quant.SOURCE, "replaces": decode_attn_quant.REPLACES[nbits],
+                "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D} int{nbits}, lengths 2079 and 1531",
+                "max_abs_err": absd, "rel_l2": err, "tol": KQ_OUT_TOL, "g4_rel_l2": by_g[4],
+                "g12_rel_l2": by_g[12], "range_rel_l2": ranges, "edges_rel_l2": edges,
+                "off_by_one_rel_l2": off_err, "dropped_split_rel_l2": drop_err,
+                "n_split": n_split, "append_bit_identical": True, "nan_tailed_inputs": True,
+                **checks, **main, "ptxas": regs.get(D)}
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3313,7 +3682,9 @@ GRID_TIMEOUT_S = 900
 # script at 1305 s through phase 17 on a card whose common phases ran 25%
 # slower than P17-4's), to keep it inside its time limit: the ranks' checks
 # count launches per layer and hold the logits to the fp32 reference and
-# the single-device engine at any depth.
+# the single-device engine at any depth.  (At 8 layers dp=2's stream parted
+# from the single device's at a near-tie, which the dp check, whose
+# first-token logits are bitwise, takes as a fault: PERF.md §6.)
 GRID_MODEL = dataclasses.replace(MISTRAL_7B, num_hidden_layers=16)
 GRID_NEW = 64
 GRID_SP_PROMPT = GRID_SP_BUCKET = 8192
@@ -3978,11 +4349,11 @@ QWEN2_7B_HF_CONFIG = {
     "torch_dtype": "bfloat16"}
 # Depth cut to 7 of the 28 layers since phases 16 and 16b joined the
 # script, to keep it well inside its time limit (PERF.md §6: 1140.4
-# s at 28 layers here and 16 in phase 10, 1100.9 s at 14 and 8): the checks
-# count launches per layer and the logits hold to the fp32 reference at any
-# depth.
+# s at 28 layers here and 16 in phase 10, 1100.9 s at 14 and 8), and to 4
+# since phases 3g-4g and 19 did: the checks count launches per layer and
+# the logits hold to the fp32 reference at any depth.
 QWEN2_7B = dataclasses.replace(ModelConfig.from_hf_config(QWEN2_7B_HF_CONFIG),
-                               num_hidden_layers=7)
+                               num_hidden_layers=4)
 # The checkpoint written and read back in 9a has the published widths and 4
 # of the 28 layers (about 4 GB on disk): depth is cut for disk space and time.
 LOADER_LAYERS = 4
@@ -4985,33 +5356,26 @@ def phase_evict(params, prompts, refs):
 def h2d_profile(fn, path):
     """Host-to-device copies of one call of ``fn`` from the profiler's chrome
     trace: (pinned bytes, their copy ms, other host-to-device bytes, copy
-    records, ``cudaMemcpy*`` calls).  As in ``profile_device``, the card
-    idles ``PROFILE_MARGIN_S`` at each edge of the window, and a trace in
-    which some call has no device record (by correlation id) is taken
-    again, up to ``PROFILE_ATTEMPTS`` times; the last trace is returned,
-    whole or not (after the earlier phases the profiler has dropped the
-    same few copy records on every try)."""
+    records, ``cudaMemcpy*`` calls).  As in ``profile_device``, one warm-up
+    call runs first and the window opens with ``PROFILE_BURST`` spin
+    kernels, which take the profiler's loss of first records; a call that
+    still has no device record (by correlation id) is logged."""
     fn()
     sync()
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_MARGIN_S)
-            fn()
-            sync()
-            time.sleep(PROFILE_MARGIN_S)
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())
-        path.unlink()
-        events = events["traceEvents"] if isinstance(events, dict) else events
-        copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
-        calls = {e["args"].get("correlation") for e in events if e.get("cat") == "cuda_runtime"
-                 and e.get("name", "").startswith("cudaMemcpy")}
-        missing = calls - {e["args"].get("correlation") for e in copies}
-        if not missing:
-            break
-        log(f"h2d profile, attempt {attempt}: incomplete device trace, {len(missing)} of "
-            f"{len(calls)} copies have no record")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profile_burst()
+        fn()
+        sync()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    path.unlink()
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    calls = {e["args"].get("correlation") for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("name", "").startswith("cudaMemcpy")}
+    missing = calls - {e["args"].get("correlation") for e in copies}
+    log(f"h2d profile: {len(calls)} copies, {len(missing)} without a device record")
     pinned = ms = other = 0
     for e in copies:
         if "HtoD" in e.get("name", ""):
@@ -5317,11 +5681,12 @@ MIXTRAL_HF_CONFIG = {
     "rms_norm_eps": 1e-05, "sliding_window": None, "tie_word_embeddings": False,
     "num_local_experts": 8, "num_experts_per_tok": 2, "torch_dtype": "bfloat16"}
 # Depth cut to 8 of the 32 layers since phases 17 and 18 joined the script
-# (PERF.md §6), for its time limit: every check of phases 11 and 14
-# counts launches and router calls per layer, replays the run's own routing
-# into the fp32 reference and reads its middle layer, at any depth.
+# (PERF.md §6) and to 4 since phases 3g-4g and 19 did, for its time limit:
+# every check of phases 11 and 14 counts launches and router calls per
+# layer, replays the run's own routing into the fp32 reference and reads
+# its middle layer, at any depth.
 MIXTRAL = dataclasses.replace(ModelConfig.from_hf_config(MIXTRAL_HF_CONFIG),
-                              num_hidden_layers=8)
+                              num_hidden_layers=4)
 MIXTRAL_DIR = LOG_PATH.parent / "mixtral_ckpt"
 MIXTRAL_NEW = 32
 # A routing decision (the set of a token's top-2 experts in a layer) may
@@ -5563,7 +5928,7 @@ def phase_mixtral_loader():
 
 def phase_mixtral_engine(rng, params, prompts, log_file, ep_refs):
     """11b: phase 5's two requests through ``InferenceEngine`` (SnapKV, bf16
-    cache, 32 new tokens) on the W8A16 model (8 of 32 layers), checked and timed;
+    cache, 32 new tokens) on the W8A16 model (4 of 32 layers), checked and timed;
     its ids and first-token logits kept in ``ep_refs``."""
     cfg, L, dev = MIXTRAL, MIXTRAL.num_hidden_layers, "cuda"
     engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV), device=dev)
@@ -6149,7 +6514,12 @@ LLAMA32_1B_HF_CONFIG = {
     "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
                      "original_max_position_embeddings": 8192, "rope_type": "llama3"},
     "rms_norm_eps": 1e-05, "tie_word_embeddings": True, "torch_dtype": "bfloat16"}
-LLAMA32_1B = ModelConfig.from_hf_config(LLAMA32_1B_HF_CONFIG)
+# Depth cut to 8 of its 16 layers since phases 3g-4g and 19 joined the
+# script (phase 19 runs h2o-danube2-1.8b at full depth), for its time limit:
+# the checks count launches per layer and hold the logits to the fp32
+# reference at any depth.
+LLAMA32_1B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA32_1B_HF_CONFIG),
+                                 num_hidden_layers=8)
 # A 4-layer model at head_dim 256 (hidden 4096 = 16 x 256, 4 KV heads, G 4):
 # no public Llama / Mistral / Qwen2 / Mixtral model has this head_dim; it
 # runs K1-K4 at 256 in the model.
@@ -6169,12 +6539,13 @@ def count_params(params):
                + list(params["layers"].values()))
 
 
-def llama32_drain(params, rng):
+def chunked_drain(params, rng, cfg, label):
     """Four 4096-token requests through ``ContinuousBatchingEngine`` with
-    2048-token chunked admission (K1-chunk at head_dim 64), every launch
-    count set to 0 just before ``run``: launches, lengths, each request's
+    2048-token chunked admission (K1-chunk at the model's head_dim: 64 for
+    Llama-3.2-1B, 80 for phase 19's h2o-danube2-1.8b), every launch count
+    set to 0 just before ``run``: launches, lengths, each request's
     first-token logits against the fp32 reference."""
-    cfg, L = LLAMA32_1B, LLAMA32_1B.num_hidden_layers
+    L = cfg.num_hidden_layers
     prompts = [rng.integers(0, cfg.vocab_size, size=4096).tolist()
                for _ in range(LLAMA32_DRAIN_PROMPTS)]
     eng = ContinuousBatchingEngine(
@@ -6191,15 +6562,15 @@ def llama32_drain(params, rng):
     expect = dict.fromkeys(launches, 0)
     expect["K1-chunk"] = L * eng.prefill_chunk_dispatches
     expect["K2"] = L * eng.steps_executed
-    log(f"16 drain: {len(prompts)} x 4096 tokens, {LLAMA32_DRAIN_NEW} new, chunks of "
+    log(f"{label} drain: {len(prompts)} x 4096 tokens, {LLAMA32_DRAIN_NEW} new, chunks of "
         f"{LLAMA32_DRAIN_CHUNK}: {wall:.3f} s, {eng.steps_executed} decode steps, "
         f"{eng.prefill_chunk_dispatches} chunk dispatches; launches {launches}, expect {expect}")
     if launches != expect or expect["K1-chunk"] == 0:
-        raise SystemExit("the Llama-3.2 drain did not run each kernel the expected number of times")
+        raise SystemExit(f"the {label} drain did not run each kernel the expected number of times")
     got = sorted(sorted(set(eng.cache.lengths[:, b].flatten().tolist())) for b in range(4))
     want = [[SNAPKV.max_capacity_prompt + LLAMA32_DRAIN_NEW - 1]] * 4
     if got != want or any(len(outs[r]) != LLAMA32_DRAIN_NEW for r in rids):
-        raise SystemExit(f"the Llama-3.2 drain left lengths {got} (expect {want}) or wrong "
+        raise SystemExit(f"the {label} drain left lengths {got} (expect {want}) or wrong "
                          "token counts")
     worst = 0.0
     with torch.no_grad():
@@ -6207,10 +6578,10 @@ def llama32_drain(params, rng):
             ref = forward_logits(params, cfg, torch.tensor([p], device="cuda"))[0, -1]
             worst = max(worst, rel_l2(eng.logits[r][0][None].cuda().float(), ref[None])[0])
             del ref
-    log(f"16 drain: cache lengths {got}; first-token logits against the fp32 reference: worst "
+    log(f"{label} drain: cache lengths {got}; first-token logits against the fp32 reference: worst "
         f"rel L2 {worst:.4f} (tol {E2E_REL_L2_TOL})")
     if worst > E2E_REL_L2_TOL:
-        raise SystemExit("the Llama-3.2 drain's first tokens disagree with the fp32 reference")
+        raise SystemExit(f"the {label} drain's first tokens disagree with the fp32 reference")
     out = {"launches": launches, "drain_s": wall, "decode_steps": eng.steps_executed,
            "chunk_dispatches": eng.prefill_chunk_dispatches, "first_token_rel_l2": worst,
            "longest_stall_s": max(eng.admission_stalls_s), "lengths": got}
@@ -6220,23 +6591,24 @@ def llama32_drain(params, rng):
 
 
 def phase_llama32(rng, prompts, log_file):
-    """Phase 16: Llama-3.2-1B-Instruct at full width and depth (random bf16
-    weights, seed 4, lm_head tied to the embedding), phase 5's requests
-    through ``InferenceEngine`` with snapkv (K1 16 a prefill, K2 at G 1) and
-    fullkv (K2 at G 4 on 8 KV heads), each checked as phase 5's paths are
-    (launches, lengths, logits against the fp32 reference, K2 called
-    directly on layers 0 and 15, times, a profiled decode step); then a
-    chunked drain (K1-chunk at head_dim 64)."""
+    """Phase 16: Llama-3.2-1B-Instruct at full width (8 of its 16 layers;
+    random bf16 weights, seed 4, lm_head tied to the embedding), phase 5's
+    requests through ``InferenceEngine`` with snapkv (K1 8 a prefill, K2 at
+    G 1) and fullkv (K2 at G 4 on 8 KV heads), each checked as phase 5's
+    paths are (launches, lengths, logits against the fp32 reference, K2
+    called directly on its first and last layer, times, a profiled decode
+    step); then a chunked drain (K1-chunk at head_dim 64)."""
     cfg = LLAMA32_1B
     t0 = time.perf_counter()
     params = init_params(cfg, seed=4, device="cuda")
     params["lm_head"] = params["embed"].T.contiguous()  # tie_word_embeddings
     sync()
     n_params = count_params(params) - params["lm_head"].numel()  # tied: one matrix
-    log(f"== 16 Llama-3.2-1B-Instruct (16 layers, hidden 2048, 32 / 8 heads of 64, vocab "
+    log(f"== 16 Llama-3.2-1B-Instruct ({cfg.num_hidden_layers} of 16 layers, hidden 2048, 32 / 8 heads of 64, vocab "
         f"128256, llama3 rope scaling, tied embeddings): {n_params / 1e9:.3f} B parameters, "
         f"random bf16 (seed 4), in {time.perf_counter() - t0:.1f} s")
-    model = "Llama-3.2-1B-Instruct widths, random weights (seed 4), tied embeddings"
+    model = (f"Llama-3.2-1B-Instruct widths ({cfg.num_hidden_layers} of 16 layers), random "
+             "weights (seed 4), tied embeddings")
     out = {"model": model, "parameters": n_params}
     for name, comp in (("snapkv", SNAPKV), ("fullkv", CompressionConfig(method="fullkv"))):
         # drive_path counts the weight bytes a step reads: the layers' and
@@ -6245,7 +6617,7 @@ def phase_llama32(rng, prompts, log_file):
                                comp=comp, model=model, direct_rng=rng)
         log(f"16 {name}: greedy streams (a) {out[name]['tokens'][0][:16]} ..., (b) "
             f"{out[name]['tokens'][1][:16]} ...")
-    out["drain"] = llama32_drain(params, np.random.default_rng(16))
+    out["drain"] = chunked_drain(params, np.random.default_rng(16), LLAMA32_1B, "16")
     del params
     torch.cuda.empty_cache()
     return out
@@ -6275,6 +6647,105 @@ def phase_d256(rng, prompts, log_file):
 
 
 # ---------------------------------------------------------------------------
+# Phases 19 and 19b: head_dim 80 (h2o-danube2-1.8b), 384 and 512
+# ---------------------------------------------------------------------------
+
+# The fields the forward reads from the published config.json of
+# h2oai/h2o-danube2-1.8b-chat (MistralForCausalLM; bf16 weights, untied
+# lm_head, no sliding window): head_dim 2560 / 32 = 80, which the JAX
+# package serves on its XLA path and K1 / K2 run on their 128 instantiation.
+# Full depth: 1.832 G parameters, 3.66 GB in bf16.
+DANUBE2_HF_CONFIG = {
+    "model_type": "mistral", "vocab_size": 32000, "hidden_size": 2560,
+    "intermediate_size": 6912, "num_hidden_layers": 24, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-05, "sliding_window": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16"}
+DANUBE2 = ModelConfig.from_hf_config(DANUBE2_HF_CONFIG)
+DANUBE2_MODEL = "h2o-danube2-1.8b-chat widths (24 layers), random weights (seed 9)"
+# No public Llama / Mistral / Qwen2 / Mixtral model has head_dim 384 or 512:
+# two 4-layer models at published widths with 8 / 2 heads (G 4), K1-K4 at
+# the new widths on the main path.  384: Llama-3.2-3B-Instruct's hidden 3072
+# and ffn 8192 (its config.json; vocab 128256, rope_theta 5e5, llama3 rope
+# scaling, tied embeddings) with 8 heads of 384 in place of its 24 of 128.
+# 512: Mistral-7B-Instruct-v0.2's hidden 4096 and ffn 14336 with 8 heads of
+# 512 in place of its 32 of 128.
+D384_MODEL = ModelConfig.from_hf_config({
+    **LLAMA32_1B_HF_CONFIG, "hidden_size": 3072, "intermediate_size": 8192,
+    "num_hidden_layers": 4, "num_attention_heads": 8, "num_key_value_heads": 2,
+    "head_dim": 384})
+D512_MODEL = ModelConfig.from_hf_config({
+    **MISTRAL_7B_HF_CONFIG, "num_hidden_layers": 4, "num_attention_heads": 8,
+    "num_key_value_heads": 2, "head_dim": 512})
+WIDE_MODELS = {
+    384: (D384_MODEL, 10, "head_dim 384 model (Llama-3.2-3B-Instruct's hidden and ffn, 4 layers, "
+                          "8 / 2 heads), random weights (seed 10), tied embeddings"),
+    512: (D512_MODEL, 11, "head_dim 512 model (Mistral-7B-Instruct-v0.2's hidden and ffn, 4 "
+                          "layers, 8 / 2 heads), random weights (seed 11)")}
+
+
+def phase_danube2(rng, prompts, log_file):
+    """Phase 19: h2o-danube2-1.8b at full width and depth (random bf16
+    weights, seed 9), phase 5's requests through ``InferenceEngine`` with
+    snapkv (K1 24 a prefill, K2 at G 1, 24 x 63 a run) and fullkv (K2 at G
+    4 on the 8 KV heads), each checked as phase 5's paths are (launches,
+    lengths, logits against the fp32 reference within 0.10, K2 called
+    directly on layers 0 and 23, times, a profiled prefill and decode
+    step); then a chunked drain (K1-chunk at head_dim 80)."""
+    cfg = DANUBE2
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=9, device="cuda")
+    sync()
+    n_params = count_params(params)
+    log(f"== 19 h2o-danube2-1.8b (24 layers, hidden 2560, ffn 6912, 32 / 8 heads of 80, vocab "
+        f"32000): {n_params / 1e9:.3f} B parameters, random bf16 (seed 9), in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"model": DANUBE2_MODEL, "parameters": n_params}
+    for name, comp in (("snapkv", SNAPKV), ("fullkv", FULLKV)):
+        out[name] = drive_path(params, n_params, prompts, None, log_file, cfg=cfg, comp=comp,
+                               model=DANUBE2_MODEL, direct_rng=rng)
+        log(f"19 {name}: greedy streams (a) {out[name]['tokens'][0][:16]} ..., (b) "
+            f"{out[name]['tokens'][1][:16]} ...")
+    if [out[name]["decode_g"] for name in ("snapkv", "fullkv")] != [1, 4]:
+        raise SystemExit("phase 19 did not decode at G 1 (snapkv) and G 4 (fullkv)")
+    out["drain"] = chunked_drain(params, np.random.default_rng(19), cfg, "19")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_head_dims(rng, prompts, log_file):
+    """Phase 19b: the head_dim 384 and 512 models of ``WIDE_MODELS``, phase
+    5's requests through ``InferenceEngine`` with snapkv over the bf16, int8
+    and int4 caches (K1 and K2, K3, K4 at 384 / 512, the quantized caches
+    per token as the JAX rule builds them at D % 128 == 0), each checked as
+    phase 5's paths are: limits 0.10 (bf16, int8) and 0.40 (int4)."""
+    out = {}
+    for D, (cfg, seed, model) in WIDE_MODELS.items():
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=seed, device="cuda")
+        if cfg.tie_word_embeddings:
+            params["lm_head"] = params["embed"].T.contiguous()
+        sync()
+        n_params = count_params(params) - (params["lm_head"].numel()
+                                           if cfg.tie_word_embeddings else 0)
+        log(f"== 19b {model}: hidden {cfg.hidden_size}, ffn {cfg.intermediate_size}, "
+            f"{cfg.num_attention_heads} / {cfg.num_key_value_heads} heads of {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}: {n_params / 1e9:.3f} B parameters in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[D] = {"model": model, "parameters": n_params}
+        for label, quant in PATHS:
+            # drive_path counts the weight bytes a step reads: the layers'
+            # and the lm_head's (the embedding is gathered by row).
+            out[D][label] = drive_path(params, count_params(params), prompts, quant, log_file,
+                                       cfg=cfg, model=model, direct_rng=rng)
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 17: Mistral-Large-Instruct-2407 widths (G 12)
 # ---------------------------------------------------------------------------
 
@@ -6287,13 +6758,14 @@ MISTRAL_LARGE_HF_CONFIG = {
     "num_key_value_heads": 8, "head_dim": 128, "max_position_embeddings": 131072,
     "rope_theta": 1000000.0, "rms_norm_eps": 1e-05, "sliding_window": None,
     "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
-# Depth cut to 8 of the 88 layers: 1.384 G parameters a layer and 0.805 G of
-# embedding and lm_head make 23.8 GB in bf16 at 8 layers, 245 GB at 88 (over
-# the card's 80 GB even as W8A16, ~123 GB).  Every check counts launches per
+# Depth cut to 4 of the 88 layers: 1.384 G parameters a layer and 0.805 G of
+# embedding and lm_head make 12.7 GB in bf16 at 4 layers, 245 GB at 88 (over
+# the card's 80 GB even as W8A16, ~123 GB); 8 layers until phases 3g-4g and
+# 19 joined the script, for its time limit.  Every check counts launches per
 # layer and holds the logits to the fp32 reference at any depth.
 MISTRAL_LARGE = dataclasses.replace(ModelConfig.from_hf_config(MISTRAL_LARGE_HF_CONFIG),
-                                    num_hidden_layers=8)
-MISTRAL_LARGE_MODEL = "Mistral-Large-Instruct-2407 widths (8 of 88 layers), random weights (seed 7)"
+                                    num_hidden_layers=4)
+MISTRAL_LARGE_MODEL = "Mistral-Large-Instruct-2407 widths (4 of 88 layers), random weights (seed 7)"
 # Each run: (label, compression, cache, the quantized cache's capacity).  The
 # fullkv runs decode over the 8 KV heads (K2 / K3 / K4 at G 12), the mean
 # group reduction keeps one entry set per KV head (K2 at G 12 over a
@@ -6323,7 +6795,7 @@ def phase_mistral_large(rng, prompts, log_file):
     params = init_params(cfg, seed=7, device="cuda")
     sync()
     n_params = count_params(params)
-    log(f"== 17 Mistral-Large-Instruct-2407 (8 of 88 layers, hidden 12288, ffn 28672, 96 / 8 "
+    log(f"== 17 Mistral-Large-Instruct-2407 (4 of 88 layers, hidden 12288, ffn 28672, 96 / 8 "
         f"heads of 128, vocab 32768): {n_params / 1e9:.3f} B parameters, random bf16 (seed 7), "
         f"in {time.perf_counter() - t0:.1f} s")
     out = {"model": MISTRAL_LARGE_MODEL, "parameters": n_params}
@@ -6648,10 +7120,33 @@ def sass_i2f(lib, name):
     return {fn: tuple(c) for fn, c in counts.items()}
 
 
-# Idle time on each side of a profiled window's edges, and the profiles
-# taken before an incomplete device trace fails the run (profile_device).
-PROFILE_MARGIN_S = 0.1
-PROFILE_ATTEMPTS = 3
+# Kernels run at the start of every profiled window.  torch.profiler drops
+# the first device records of each profile, more as the process ages (62 at
+# phase 18, PERF.md §6; tools/trace_record_loss.py measures it), whether
+# the card idles at the window's edges or not; a burst of small kernels
+# first takes that loss, as utils.trace's does.  The burst is spin kernels
+# (torch.cuda._sleep), which nothing else launches, so its records are
+# told apart by name.
+PROFILE_BURST = 1024
+BURST_KERNEL = "spin_kernel"
+PROFILE_LOSSES = []  # (what, device records the burst lost, launches traced) of each profile
+
+
+def profile_burst():
+    for _ in range(PROFILE_BURST):
+        torch.cuda._sleep(1)
+    sync()
+
+
+def lost_records(prof):
+    """(kernel launches the host traced, launches without a device record)
+    of a finished profile, from its key averages."""
+    launches = sum(evt.count for evt in prof.key_averages()
+                   if evt.device_type != DeviceType.CUDA and "LaunchKernel" in evt.key)
+    kernels = sum(evt.count for evt in prof.key_averages()
+                  if evt.device_type == DeviceType.CUDA and not evt.key.startswith("ProfilerStep")
+                  and not evt.key.startswith(("Memcpy", "Memset")))
+    return launches, max(launches - kernels, 0)
 
 
 def profile_device(fn, reps, wall_ms, what, log_file, check=None):
@@ -6659,38 +7154,29 @@ def profile_device(fn, reps, wall_ms, what, log_file, check=None):
     kernel and copy events only), printed with the top kernels beside the
     unprofiled wall time ``wall_ms``; None when the profiler sees no device
     time.  ``check``, if given, gets the rows (ms, launches per call, kernel
-    name) of every device kernel.  One warm-up call runs under the profiler
-    first and is not counted.  The device's timestamps can sit off the host
-    clock that bounds the recorded window, so kernels near its edges fall
-    out (a decode profile lost its first two layers' kernels): the card
-    idles ``PROFILE_MARGIN_S`` on each side of every edge.  Every call of
-    ``fn`` launches the same kernels, so a kernel counted a number of times
-    that ``reps`` does not divide marks an incomplete trace: it is taken
-    again, up to ``PROFILE_ATTEMPTS`` times, before the run fails."""
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=reps, repeat=1)
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA],
-                                    schedule=schedule) as prof:
-            for i in range(reps + 1):
-                fn()
-                sync()
-                if i in (0, reps):
-                    time.sleep(PROFILE_MARGIN_S)
-                prof.step()
-                if i == 0:
-                    time.sleep(PROFILE_MARGIN_S)
-        # The schedule's ProfilerStep* spans show on the device too: not kernels.
-        events = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
-                  and not evt.key.startswith("ProfilerStep")]
-        partial = [(evt.count, evt.key[:60]) for evt in events if evt.count % reps]
-        if not partial:
-            break
-        log(f"profile ({what}), attempt {attempt}: incomplete device trace, counts over "
-            f"{reps} calls {partial[:4]}")
-    else:
-        raise SystemExit(f"profile ({what}): the device trace was incomplete "
-                         f"{PROFILE_ATTEMPTS} times")
+    name) of every device kernel.  One warm-up call runs before the
+    profiler starts; inside it, ``PROFILE_BURST`` spin kernels run first
+    and are not counted.  Every call of ``fn`` launches the same kernels, so
+    a kernel counted a number of times that ``reps`` does not divide marks
+    an incomplete trace, and the run fails."""
+    fn()
+    sync()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profile_burst()
+        for _ in range(reps):
+            fn()
+        sync()
+    launches, lost = lost_records(prof)
+    PROFILE_LOSSES.append((what, lost, launches))
+    events = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
+              and BURST_KERNEL not in evt.key]
+    partial = [(evt.count, evt.key[:60]) for evt in events if evt.count % reps]
+    log(f"profile ({what}): {launches} launches traced, {lost} without a device record "
+        f"(the {PROFILE_BURST}-kernel burst first takes the profiler's loss)")
+    if partial:
+        raise SystemExit(f"profile ({what}): incomplete device trace, counts over {reps} "
+                         f"calls {partial[:4]}")
     rows = sorted(((evt.self_device_time_total / reps / 1e3, evt.count / reps, evt.key)
                    for evt in events), reverse=True)
     busy_ms = sum(r[0] for r in rows)
@@ -6736,38 +7222,45 @@ def main():
 
     t0 = time.perf_counter()
     reports = _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
+    log(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}; nvcc seconds by "
+        f"library {({k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()})}")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if any(key in line for key in ("registers", "spill", "Compiling entry",
                                            "Performance Loss")):
                 log(f"  {name}: {line.strip()}")
-    # K1's ptxas lines: each head_dim's main kernel must spill nothing.
-    k1_entries = ptxas_entries(reports.get("flash_prefill", ""), "flash_fwd_kernel")
-    if any("0 bytes spill stores, 0 bytes spill loads" not in (line or "")
-           for _, _, line in k1_entries):
-        raise SystemExit("K1 spills registers (ptxas lines above)")
-    log(f"K1 ptxas: {len(k1_entries)} entries (head_dims "
-        f"{sorted(head_dim_of(fn) for fn, _, _ in k1_entries)}), 0 spill bytes" if k1_entries
-        else "K1 ptxas: library cached, no ptxas report in this run")
-    # K2's ptxas lines: each instantiation (D 64/128/256, GB 1-8 query rows a
-    # CTA; G above 8 runs GB 8) must spill nothing.
-    k2_spills = [line for line in reports.get("decode_attn", "").splitlines() if "spill" in line]
-    if any("0 bytes spill stores, 0 bytes spill loads" not in line for line in k2_spills):
-        raise SystemExit("K2 spills registers (ptxas lines above)")
-    log(f"K2 ptxas: {len(k2_spills)} entries, 0 spill bytes" if k2_spills else
-        "K2 ptxas: library cached, no ptxas report in this run")
+    # Each kernel's ptxas lines by instantiation width: registers and spill
+    # bytes.  The widths of earlier slices must spill nothing; a spill at
+    # 384 or 512 is reported here and in its kernel's entry, beside its time.
+    for lib, name, clean in (("flash_prefill", "flash_fwd_kernel", (64, 128, 256)),
+                             ("decode_attn", "decode_attn_kernel", (64, 128, 256))):
+        by_width = registers_by_head_dim(reports, lib, name)
+        for width, rows in sorted(by_width.items()):
+            log(f"{name}<{width}>: registers {sorted({r for r, _ in rows})}, spill lines "
+                f"{sorted({line or 'none' for _, line in rows})}")
+        if any(w in clean and "0 bytes spill stores, 0 bytes spill loads" not in (line or "")
+               for w, rows in by_width.items() for _, line in rows):
+            raise SystemExit(f"{name} spills registers at a width of an earlier slice")
+        if not by_width:
+            log(f"{name} ptxas: library cached, no ptxas report in this run")
     # K3's and K4's ptxas lines (GB 1-8 each): no spill; and no int-to-float
     # conversion in their SASS, where the toolkit has cuobjdump.
     for kid, name in QUANT_KERNELS.items():
-        entries = ptxas_entries(reports.get("decode_attn_quant", ""), name)
-        if any("0 bytes spill stores, 0 bytes spill loads" not in (line or "")
-               for _, _, line in entries):
-            raise SystemExit(f"{kid} spills registers (ptxas lines above)")
-        log(f"{kid} ptxas: {len(entries)} entries, registers "
-            f"{sorted(regs for _, regs, _ in entries)}, 0 spill bytes" if entries else
-            f"{kid} ptxas: library cached, no ptxas report in this run")
-        i2f = sass_i2f(_build._lib_path("decode_attn_quant"), name)
+        by_width = {}
+        for D in (128, 384, 512):  # the 128 library holds 256 too
+            by_width.update(registers_by_head_dim(reports, decode_attn_quant.library(D), name))
+        for width, rows in sorted(by_width.items()):
+            log(f"{kid} {name}<{width}>: registers {sorted({r for r, _ in rows})}, spill lines "
+                f"{sorted({line or 'none' for _, line in rows})}")
+        if any(w in (128, 256) and "0 bytes spill stores, 0 bytes spill loads" not in (line or "")
+               for w, rows in by_width.items() for _, line in rows):
+            raise SystemExit(f"{kid} spills registers at a head_dim of an earlier slice")
+        if not by_width:
+            log(f"{kid} ptxas: library cached, no ptxas report in this run")
+        i2f = {}
+        for D in (128, 384, 512):
+            i2f.update(sass_i2f(_build._lib_path(decode_attn_quant.library(D)), name) or {})
+        i2f = i2f or None
         log(f"{kid} SASS: no cuobjdump in this toolkit (not measured)" if i2f is None else
             f"{kid} SASS (cuobjdump -sass), per instantiation: I2F/I2FP conversions "
             f"{sorted(c for c, _ in i2f.values())}, integer-division reciprocals (I2F.*.RP) "
@@ -6796,6 +7289,11 @@ def main():
     rng18 = np.random.default_rng(18)
     k1_w = timed("3f K1 windows", phase_k1_windows, rng18)
     big_g = timed("4e K2-K4 G above 8", phase_big_groups, rng18, reports)
+    # Phases 3g-4g and 19-19b draw from a generator of their own, as 3e-4d.
+    rng19 = np.random.default_rng(19)
+    k1_nd = timed("3g K1 head dims to 512", phase_k1_new_head_dims, rng19, reports)
+    k2_nd = timed("4f K2 head dims to 512", phase_k2_new_head_dims, rng19, reports)
+    kq_nd = timed("4g K3/K4 head dims 384, 512", phase_kq_wide_head_dims, rng19, reports)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
         params, prompts, e2e = timed("5 main path", phase_e2e, rng, log_file)
@@ -6830,6 +7328,8 @@ def main():
         utils = timed("18 utils", phase_utils, rng18, large_params, prompts)
         del large_params
         llama405 = timed("17b Llama-3.1-405B", phase_llama31_405b, rng18, prompts, log_file)
+        danube2 = timed("19 h2o-danube2-1.8b", phase_danube2, rng19, prompts, log_file)
+        wide = timed("19b head_dim 384 / 512", phase_wide_head_dims, rng19, prompts, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -6916,19 +7416,48 @@ def main():
             big_g[kid][G]["launches"] = phase[run]["launches"][kid]
             big_g[kid][G]["launches_from"] = f"{phase['model']}, {run}"
     big_g["K2"][12]["launches_snapkv_mean"] = large["snapkv_mean"]["launches"]["K2"]
+    # Phases 19 and 19b: K1 and K2 at 80 on the danube2 runs (K2 at G 4 on
+    # fullkv), K1-chunk at 80 on its drain, K1-K4 at 384 and 512 on 19b's
+    # runs.  The other head_dims of 3g / 4f run on the 64, 128 and 256
+    # instantiations: their checks and times ride on those entries.
+    k1_nd[80].update(launches=danube2["snapkv"]["launches"]["K1"],
+                     launches_fullkv=danube2["fullkv"]["launches"]["K1"])
+    k2_nd[80].update(launches=danube2["snapkv"]["launches"]["K2"])
+    k2_nd[80]["g4"]["launches"] = danube2["fullkv"]["launches"]["K2"]
+    k1_chunk80 = {"name": "flash_prefill_chunk_d80", "route": "cuda",
+                  "source": flash_prefill.SOURCE,
+                  "replaces": flash_prefill.REPLACES_VARIANT["chunk"], "instantiation": 128,
+                  "launches": danube2["drain"]["launches"]["K1-chunk"],
+                  **k1_nd[80]["variants"]["chunk"]}
+    for D in WIDE_HEAD_DIMS:
+        k1_nd[D]["launches"] = wide[D]["bf16"]["launches"]["K1"]
+        k2_nd[D]["launches"] = wide[D]["bf16"]["launches"]["K2"]
+        kq_nd[(8, D)]["launches"] = wide[D]["int8"]["launches"]["K3"]
+        kq_nd[(4, D)]["launches"] = wide[D]["int4"]["launches"]["K4"]
+    for D in NEW_HEAD_DIMS:
+        if D not in MODEL_HEAD_DIM_HEADS:
+            width = flash_prefill.instance(D)
+            for host, held in (({64: k1_hd[64], 128: k1, 256: k1_hd[256]}[width], k1_nd[D]),
+                               ({64: k2_hd[64], 128: k2, 256: k2_hd[256]}[width], k2_nd[D])):
+                host.setdefault("head_dims_held", {})[D] = held
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5,
                                   k1_hd[64], k1_hd["chunk"], k1_hd[256], k2_hd[64], k2_hd[256],
                                   kq_hd[8], kq_hd[4], k1_w[128],
                                   *(big_g[kid][G] for kid in ("K2", "K3", "K4")
-                                    for G in (12, 16))]}))
+                                    for G in (12, 16)),
+                                  k1_nd[80], k1_chunk80, k1_nd[384], k1_nd[512], k2_nd[80],
+                                  k2_nd[384], k2_nd[512],
+                                  *(kq_nd[(nbits, D)] for nbits in (8, 4)
+                                    for D in WIDE_HEAD_DIMS)]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
                       "sp": {**sp, "fold_emulated": sp_fold}, "grid": grid, "pp": pp,
                       "qwen2": qwen, "llama3": llama3, "mixtral": mixtral, "ep": ep,
                       "llama32": llama32, "d256": d256, "k1_windows": k1_w,
                       "big_groups": big_g, "mistral_large": large,
-                      "llama31_405b": llama405, "utils": utils,
-                      "phase_s": PHASE_S,
+                      "llama31_405b": llama405, "utils": utils, "danube2": danube2,
+                      "wide_head_dims": wide, "profile_losses": PROFILE_LOSSES,
+                      "phase_s": PHASE_S, "nvcc_s": _build.BUILD_SECONDS,
                       "script_s": time.perf_counter() - T_START, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -239,12 +239,12 @@ class QuantConfig:
         ``q_group_size`` and ``outlier_extract`` say.  The JAX package's
         rule (``models/llama.py::_quant_tpu_layout``: ``head_dim % 128 ==
         0``) without its backend and capacity tests, at the head_dims K3 and
-        K4 take (128 and 256): the port chooses from the configuration
-        alone, and its kernels take any capacity.  Every other configuration
-        (head_dim 64 included) builds the grouped cache, as JAX's XLA path
-        does."""
+        K4 take (128, 256, 384 and 512): the port chooses from the
+        configuration alone, and its kernels take any capacity.  Every other
+        configuration (head_dim 64 and 80 included) builds the grouped
+        cache, as JAX's XLA path does."""
         return (self.nbits in (8, 4) and self.residual_length == 0
-                and head_dim in (128, 256))
+                and head_dim in (128, 256, 384, 512))
 
 
 @dataclass(frozen=True)

@@ -11,10 +11,20 @@
 //         whose K/V are folded in from registers; fp32 probabilities.
 //   k_cache[h, L] = k_new[h]; v_cache[h, L] = v_new[h]
 // The caller advances lengths to min(lengths + 1, C).  Any capacity C > 0,
-// any G >= 1, head_dim D in {64, 128, 256} (a template parameter; the
-// library exports kvcf_decode_attn_append_d<D> for each).  The numbers
-// below are at D 128; shared memory is 768 D bytes a CTA, so 4, 2 or 1 CTAs
-// fit an SM at D 64, 128 or 256 and the bytes in flight an SM stay the same.
+// any G >= 1.  The instantiation width D is a template parameter, D in {64,
+// 128, 256, 384, 512} (the library exports kvcf_decode_attn_append_d<D> for
+// each); a tensor's head_dim hd (any multiple of 8 up to 512) runs on the
+// narrowest instantiation at least as wide: a row is hd elements in memory
+// and D in shared memory, its 16-byte chunks past hd are zero-filled by the
+// copies (never read from the next row), q's channels past hd are zero,
+// nothing past hd is written, and the caller passes hd's 1/sqrt(hd).  The
+// numbers below are at D 128; shared memory is 768 D bytes a CTA up to D
+// 256, so 4, 2 or 1 CTAs fit an SM at D 64, 128 or 256 and the bytes in
+// flight an SM stay the same.  At D 384 and 512 a 16-key stage of K and V
+// is 24 or 32 KB a warp: the CTA has 2 warps (3 stages each, 144 or 192 KB,
+// one CTA an SM), and q's fragments (64 registers a lane at D 512) come
+// from shared memory at each k-step, so that the registers hold O (D / 4
+// floats a lane).
 //
 // What bounds it: reading the valid K/V rows once, 2 * len * D * 2 bytes
 // per head (59.3 MB per layer at the main path's 64 heads of 2079 and 1531
@@ -88,46 +98,55 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
 constexpr int KEYS = 16;      // keys a warp a stage: the mma's M
-constexpr int STAGE_KEYS = WARPS * KEYS;
 constexpr int STAGES = 3;
 constexpr int MERGE_BATCH = 8;                     // splits whose loads the merge issues together
 constexpr float NEG_INF = -3.4028234663852886e38f; // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// The ring of head_dim D (bytes at D 128).
+// The ring of instantiation width D (bytes at D 128).
 template <int D>
 struct Ring {
-  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  static_assert(D == 64 || D == 128 || D == 256 || D == 384 || D == 512,
+                "instantiation width 64, 128, 256, 384 or 512");
+  static constexpr bool WIDE = D > 256;                // 2 warps, q from shared memory
+  static constexpr int WARPS = WIDE ? 2 : 4;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int STAGE_KEYS = WARPS * KEYS;
   static constexpr int ROW_BYTES = D * 2;
   static constexpr int CHUNKS = D / 8;                 // 16-byte chunks a row
   static constexpr int SLOT_BYTES = 2 * KEYS * ROW_BYTES;  // K, then V: 8 KB
   static constexpr int WARP_RING = STAGES * SLOT_BYTES;    // 24 KB
-  static constexpr int SMEM_BYTES = WARPS * WARP_RING;     // 96 KB
-  static constexpr int CTAS_PER_SM = 256 / D;          // resident CTAs an SM: 4, 2, 1
+  static constexpr int RING_BYTES = WARPS * WARP_RING;     // 96 KB
+  static constexpr int QS = D + 8;                     // q's padded row in shared memory (WIDE)
+  static constexpr int SMEM_BYTES = RING_BYTES + (WIDE ? 8 * QS * 2 : 0);
+  static constexpr int CTAS_PER_SM = WIDE ? 1 : 256 / D;  // resident CTAs an SM: 4, 2, 1, 1, 1
   static constexpr int O_STRIDE = D + 4;               // padded row of the warp merge
   static constexpr int CPL = D / 32;                   // channels a lane in the head merge
-  static_assert(WARPS * 8 * O_STRIDE * 4 + 2 * WARPS * 8 * 4 <= SMEM_BYTES, "warp merge");
+  // The head merge stores a lane's CPL channels in pieces of OUT_VEC: a
+  // piece lies at a multiple of itself, and hd % 8 == 0, so it is wholly
+  // inside or past hd.
+  static constexpr int OUT_VEC = CPL % 8 == 0 ? 8 : CPL % 4 == 0 ? 4 : 2;
+  static_assert(WARPS * 8 * O_STRIDE * 4 + 2 * WARPS * 8 * 4 <= RING_BYTES, "warp merge");
 };
 
 struct Params {
-  const bf16* q;        // [H, G, D]
-  bf16* kc;             // [H, C, D]
-  bf16* vc;             // [H, C, D]
+  const bf16* q;        // [H, G, hd]
+  bf16* kc;             // [H, C, hd]
+  bf16* vc;             // [H, C, hd]
   const int* lengths;   // [H]
   const int* lower;     // [H] or null
-  const bf16* k_new;    // [H, D]
-  const bf16* v_new;    // [H, D]
-  bf16* out;            // [H, G, D]
+  const bf16* k_new;    // [H, hd]
+  const bf16* v_new;    // [H, hd]
+  bf16* out;            // [H, G, hd]
   float* part_acc;      // [H, QB, n_split, GB, D]
   float* part_ml;       // [H, QB, n_split, GB, 2]: m (natural log), l
   int* counters;        // [>= H], 0 between launches
   int C, n_split;
   int G, QB;            // query rows a head; query blocks of GB rows
-  float scale;          // 1 / sqrt(D)
+  int hd;               // the tensors' head_dim (a multiple of 8, at most D)
+  float scale;          // 1 / sqrt(hd)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -185,7 +204,7 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(v);
 }
 
-// N consecutive fp32 values from global memory, past L1 (N = 2, 4 or 8).
+// N consecutive fp32 values from global memory, past L1 (N = 2, 4, 8, 12 or 16).
 template <int N>
 __device__ __forceinline__ void ldcg(const float* src, float (&x)[N]) {
   if constexpr (N % 4 == 0) {
@@ -220,23 +239,26 @@ __device__ __forceinline__ void store_bf16(bf16* dst, const float (&x)[N]) {
 
 // The last CTA of head h to arrive: merge the n_split partials of each
 // query row in split order, fold in the new token, write out, append, reset
-// the counter.  Warp w takes query rows w, w + 4, ..., lane l channels CPL
-// l .. CPL l + CPL - 1 (CPL = D / 32); row g's partials are row g % GB of
+// the counter.  Warp w takes query rows w, w + WARPS, ..., lane l channels
+// CPL l .. CPL l + CPL - 1 (CPL = D / 32; those at or past hd are zero in
+// the partials and never written); row g's partials are row g % GB of
 // query block g / GB.  The splits are merged in batches of MERGE_BATCH: all
 // of a batch's loads are issued together, then one rescale of the running
 // sums and one exp per split.
 template <int D, int GB>
 __device__ void merge_head(const Params& p, int h, int L) {
-  constexpr int CPL = Ring<D>::CPL;
+  using R = Ring<D>;
+  constexpr int CPL = R::CPL, VEC = R::OUT_VEC;
   const int tid = threadIdx.x, lane = tid & 31, d = lane * CPL;
-  const int ns = p.n_split, G = p.G;
-  for (int g = tid >> 5; g < G; g += WARPS) {
+  const int ns = p.n_split, G = p.G, hd = p.hd;
+  for (int g = tid >> 5; g < G; g += R::WARPS) {
     const int qb = g / GB, gb = g - qb * GB;
-    const bf16* qg = p.q + ((size_t)h * G + g) * D + d;
+    const bf16* qg = p.q + ((size_t)h * G + g) * hd + d;
     float s_new = 0.f;  // the new token's logit
 #pragma unroll
     for (int i = 0; i < CPL; ++i)
-      s_new += __bfloat162float(qg[i]) * __bfloat162float(p.k_new[(size_t)h * D + d + i]);
+      if (d + i < hd)
+        s_new += __bfloat162float(qg[i]) * __bfloat162float(p.k_new[(size_t)h * hd + d + i]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s_new += __shfl_xor_sync(0xffffffffu, s_new, off);
     s_new *= p.scale;
@@ -279,26 +301,31 @@ __device__ void merge_head(const Params& p, int h, int L) {
     const float m_f = fmaxf(M, s_new);
     const float alpha = expf(M - m_f), p_new = expf(s_new - m_f);
     const float inv = 1.f / (Ls * alpha + p_new);
-    float o[CPL];
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const float vn = __bfloat162float(p.v_new[(size_t)h * D + d + i]);
-      o[i] = (a[i] * alpha + p_new * vn) * inv;
+    for (int u = 0; u < CPL; u += VEC) {
+      if (d + u >= hd) break;
+      float o[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float vn = __bfloat162float(p.v_new[(size_t)h * hd + d + u + i]);
+        o[i] = (a[u + i] * alpha + p_new * vn) * inv;
+      }
+      store_bf16<VEC>(p.out + ((size_t)h * G + g) * hd + d + u, o);
     }
-    store_bf16<CPL>(p.out + ((size_t)h * G + g) * D + d, o);
   }
-  for (int c = tid; c < D; c += THREADS) {
-    p.kc[((size_t)h * p.C + L) * D + c] = p.k_new[(size_t)h * D + c];
-    p.vc[((size_t)h * p.C + L) * D + c] = p.v_new[(size_t)h * D + c];
+  for (int c = tid; c < hd; c += R::THREADS) {
+    p.kc[((size_t)h * p.C + L) * hd + c] = p.k_new[(size_t)h * hd + c];
+    p.vc[((size_t)h * p.C + L) * hd + c] = p.v_new[(size_t)h * hd + c];
   }
   if (tid == 0) p.counters[h] = 0;
 }
 
 template <int D, int GB>
-__global__ void __launch_bounds__(THREADS, Ring<D>::CTAS_PER_SM)
+__global__ void __launch_bounds__(Ring<D>::THREADS, Ring<D>::CTAS_PER_SM)
 decode_attn_kernel(const Params p) {
   using R = Ring<D>;
   constexpr int ROW_BYTES = R::ROW_BYTES, CHUNKS = R::CHUNKS, O_STRIDE = R::O_STRIDE;
+  constexpr int WARPS = R::WARPS, THREADS = R::THREADS, STAGE_KEYS = R::STAGE_KEYS;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int sm_last;
 
@@ -306,7 +333,7 @@ decode_attn_kernel(const Params p) {
   const int g0 = qb * GB;  // this CTA's first query row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int C = p.C;
+  const int C = p.C, hd = p.hd;
   const int L = min(p.lengths[h], C - 1);
   const int lo = p.lower ? min(max(p.lower[h], 0), L) : 0;
   // This CTA's share of [lo, L): the sp-th of n_split near-equal parts.
@@ -316,35 +343,53 @@ decode_attn_kernel(const Params p) {
   const int n_stages = (end - start + STAGE_KEYS - 1) / STAGE_KEYS;
 
   // q^T as the B operand (k = channel, n = query row g0 + gid; rows past
-  // the block or past G zero).
+  // the block or past G, and channels past hd, zero): in registers, or
+  // (WIDE) rows of QS in shared memory after the rings, read at each k-step.
   const bool q_row = gid < GB && g0 + gid < p.G;
-  uint32_t qf[D / 16][2];
+  const bf16* q_src = p.q + ((size_t)h * p.G + g0 + gid) * hd;
+  uint32_t qf[R::WIDE ? 1 : D / 16][2];
+  bf16* qs = reinterpret_cast<bf16*>(smem + R::RING_BYTES);
+  if constexpr (R::WIDE) {
+    for (int i = tid; i < 8 * (D / 8); i += THREADS) {  // 16-byte pieces of 8 rows
+      const int g = i / (D / 8), c = (i % (D / 8)) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (g < GB && g0 + g < p.G && c < hd)
+        val = *reinterpret_cast<const uint4*>(p.q + ((size_t)h * p.G + g0 + g) * hd + c);
+      *reinterpret_cast<uint4*>(qs + g * R::QS + c) = val;
+    }
+    __syncthreads();
+  } else {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
+    for (int kc = 0; kc < D / 16; ++kc)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      qf[kc][j] = q_row ? *reinterpret_cast<const uint32_t*>(
-                              p.q + ((size_t)h * p.G + g0 + gid) * D + kc * 16 + j * 8 + 2 * tig)
+      for (int j = 0; j < 2; ++j)
+        qf[kc][j] = q_row && kc * 16 + j * 8 < hd
+                        ? *reinterpret_cast<const uint32_t*>(q_src + kc * 16 + j * 8 + 2 * tig)
                         : 0u;
+  }
+  auto q_frag = [&](int kc, int j) {
+    if constexpr (R::WIDE)
+      return *reinterpret_cast<const uint32_t*>(qs + gid * R::QS + kc * 16 + j * 8 + 2 * tig);
+    else
+      return qf[kc][j];
+  };
 
-  // This warp's ring; lane l copies 16-byte chunk l % CHUNKS of rows
-  // RPP j + l / CHUNKS, j = 0 .. KEYS / RPP - 1 (RPP = 32 / CHUNKS rows a
-  // pass: 2 at D 128), of K and of V each stage.
-  constexpr int RPP = 32 / CHUNKS;
+  // This warp's ring; lane l copies 16-byte piece 32 j + l of the stage's
+  // KEYS rows of CHUNKS pieces (row (32 j + l) / CHUNKS), of K and of V;
+  // pieces past the range or past hd are zero-filled.
   const uint32_t ring = smem_u32(smem) + warp * R::WARP_RING;
-  const bf16* kh = p.kc + (size_t)h * C * D;
-  const bf16* vh = p.vc + (size_t)h * C * D;
-  const int cp_chunk = lane % CHUNKS, cp_row = lane / CHUNKS;
+  const bf16* kh = p.kc + (size_t)h * C * hd;
+  const bf16* vh = p.vc + (size_t)h * C * hd;
   auto load_stage = [&](int i) {
     const int row0 = start + i * STAGE_KEYS + warp * KEYS;
     if (row0 >= end) return;
     const uint32_t slot = ring + (i % STAGES) * R::SLOT_BYTES;
 #pragma unroll
-    for (int j = 0; j < KEYS / RPP; ++j) {
-      const int r = RPP * j + cp_row;
-      const bool valid = row0 + r < end;
-      const size_t off = (size_t)(valid ? row0 + r : start) * D + cp_chunk * 8;
-      const uint32_t dst = slot + r * ROW_BYTES + ((cp_chunk ^ (r & 7)) << 4);
+    for (int j = 0; j < KEYS * CHUNKS / 32; ++j) {
+      const int r = (32 * j + lane) / CHUNKS, c = (32 * j + lane) % CHUNKS;
+      const bool valid = row0 + r < end && c * 8 < hd;
+      const size_t off = valid ? (size_t)(row0 + r) * hd + c * 8 : (size_t)start * hd;
+      const uint32_t dst = slot + r * ROW_BYTES + ((c ^ (r & 7)) << 4);
       cp_async16(dst, kh + off, valid ? 16 : 0);
       cp_async16(dst + KEYS * ROW_BYTES, vh + off, valid ? 16 : 0);
     }
@@ -385,7 +430,7 @@ decode_attn_kernel(const Params p) {
     for (int kc = 0; kc < D / 16; ++kc) {
       uint32_t a[4];
       ldsm_x4(slot + k_row + (((2 * kc + k_chunk) ^ ri) << 4), a);
-      mma16816(s, a, qf[kc][0], qf[kc][1]);
+      mma16816(s, a, q_frag(kc, 0), q_frag(kc, 1));
     }
     // s: keys row0 + gid (0, 1) and row0 + gid + 8 (2, 3); queries 2 tig, 2 tig + 1.
     const bool in0 = row0 + gid < end, in1 = row0 + gid + 8 < end;
@@ -485,7 +530,7 @@ decode_attn_kernel(const Params p) {
 
 template <int D, int GB>
 int launch(const Params& p, int H, cudaStream_t st) {
-  constexpr int SMEM = Ring<D>::SMEM_BYTES;
+  constexpr int SMEM = Ring<D>::SMEM_BYTES, THREADS = Ring<D>::THREADS;
   static bool configured[64] = {false};  // once per instantiation and device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -508,8 +553,8 @@ template <int D>
 int decode_attn_append(const void* q, void* k_cache, void* v_cache, const void* lengths,
                        const void* lower, const void* k_new, const void* v_new, void* out,
                        void* part, void* counters, int H, int G, int C, int n_split,
-                       float scale, void* stream) {
-  if (n_split < 1 || G < 1) return (int)cudaErrorInvalidValue;
+                       int hd, float scale, void* stream) {
+  if (n_split < 1 || G < 1 || hd < 8 || hd > D || hd % 8 != 0) return (int)cudaErrorInvalidValue;
   const int GB = G < 8 ? G : 8, QB = (G + 7) / 8;
   Params p;
   p.q = static_cast<const bf16*>(q);
@@ -527,6 +572,7 @@ int decode_attn_append(const void* q, void* k_cache, void* v_cache, const void* 
   p.n_split = n_split;
   p.G = G;
   p.QB = QB;
+  p.hd = hd;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (GB) {  // G above 8 runs blocks of 8
@@ -544,16 +590,20 @@ int decode_attn_append(const void* q, void* k_cache, void* v_cache, const void* 
 
 }  // namespace
 
-// One entry point per head_dim: kvcf_decode_attn_append_d64, _d128, _d256.
+// One entry point per instantiation width: kvcf_decode_attn_append_d64,
+// _d128, _d256, _d384, _d512.
 #define KVCF_DECODE_ATTN(DIM)                                                          \
   extern "C" int kvcf_decode_attn_append_d##DIM(                                       \
       const void* q, void* k_cache, void* v_cache, const void* lengths,                \
       const void* lower, const void* k_new, const void* v_new, void* out, void* part,  \
-      void* counters, int H, int G, int C, int n_split, float scale, void* stream) {   \
+      void* counters, int H, int G, int C, int n_split, int hd, float scale,           \
+      void* stream) {                                                                  \
     return decode_attn_append<DIM>(q, k_cache, v_cache, lengths, lower, k_new, v_new,  \
-                                   out, part, counters, H, G, C, n_split, scale,       \
+                                   out, part, counters, H, G, C, n_split, hd, scale,   \
                                    stream);                                            \
   }
 KVCF_DECODE_ATTN(64)
 KVCF_DECODE_ATTN(128)
 KVCF_DECODE_ATTN(256)
+KVCF_DECODE_ATTN(384)
+KVCF_DECODE_ATTN(512)

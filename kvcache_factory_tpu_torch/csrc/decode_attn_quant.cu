@@ -25,11 +25,16 @@
 //   IEEE division, codes rintf((x - min) / scale) clamped to [0, 255] (or
 //   [0, 15]); its codes and four bf16 scalars are written into slot L.
 // The caller advances lengths to min(lengths + 1, C).  Any capacity C > 0,
-// any G >= 1, head_dim D in {128, 256} (a template parameter; the
+// any G >= 1, head_dim D in {128, 256, 384, 512} (a template parameter; the
 // per-token cache exists only at D % 128 == 0, as in the JAX package; the
 // library exports kvcf_quant8_decode_attn_append_d<D> and _quant4_ for
-// each).  At D 256 each lane's channels are two segments of 128, each laid
-// out as at D 128; the numbers below are at D 128.
+// each).  Above 128 each lane's channels are NSEG = D / 128 segments of
+// 128, each laid out as at D 128; the numbers below are at D 128.  At D 384
+// and 512 (Ring::WIDE) the lane's q fragments (64 registers at D 512) would
+// not fit beside its O (D / 4 floats): the CTA's warp 0 writes them to
+// shared memory once and every warp reads them at each k-step, and a key
+// tile's K words are read one segment at a time.  A warp's 3-stage ring is
+// then 37-50 KB, one CTA an SM.
 //
 // What bounds it: reading the valid codes and scalars, per valid token-head
 // 2 * D bytes of codes (int8) or D (int4) plus 8 bytes of scalars.  At the
@@ -169,8 +174,9 @@ constexpr float CODE_UNIT = 1.f / 16777216.f;  // the value of code 1
 // at k_chunk / v_chunk.
 template <int NBITS, int D>
 struct Ring {
-  static_assert(D == 128 || D == 256, "head_dim 128 or 256");
+  static_assert(D == 128 || D == 256 || D == 384 || D == 512, "head_dim 128, 256, 384 or 512");
   static constexpr int NSEG = D / SEG;                      // 128-channel segments
+  static constexpr bool WIDE = NSEG > 2;                    // q's fragments in shared memory
   static constexpr int TILES = NBITS == 4 ? 2 : 1;          // tiles a warp a stage
   static constexpr int WARP_KEYS = TILES * TILE;            // 32 or 16
   static constexpr int STAGE_KEYS = WARPS * WARP_KEYS;      // keys a CTA a stage
@@ -181,26 +187,31 @@ struct Ring {
   static constexpr int SLOT_BYTES = S_OFF + WARP_KEYS * 8;  // 4.25 or 4.125 KB
   static constexpr int WARP_RING = STAGES * SLOT_BYTES;
   static constexpr int SMEM_BYTES = WARPS * WARP_RING;      // 51 or 49.5 KB (D 256: 99, 97.5)
+  // WIDE: q's fragments after the rings, D / 16 k-chunks x 32 lanes x 8 bytes.
+  static constexpr int Q_BYTES = WIDE ? D * 16 : 0;
   // CTAs an SM can hold (launch bounds: at most 170 or 255 registers); at
-  // D 256 the ring is twice as large and two fit.
-  static constexpr int CTAS_PER_SM = NBITS == 4 && D == 128 ? 3 : 2;
+  // D 256 the ring is twice as large and two fit, at D 384 and 512 one.
+  static constexpr int CTAS_PER_SM = WIDE ? 1 : NBITS == 4 && D == 128 ? 3 : 2;
   static constexpr float QMAX = NBITS == 8 ? 255.f : 15.f;
   static constexpr int O_STRIDE = D + 4;  // padded row of the warp merge
   static constexpr int PART = D + 4;      // floats of one split's partial a query row: acc[D], m, l, s_new, 1 unused
   static constexpr int CPL = D / 32;      // channels a lane in the head merge
   // K4 at D 128 reads K rows whole in 16-byte pieces (no swizzle) and 8-byte
-  // pieces of V at chunk c ^ 2 ((r >> 2) & 1).  At D 256 (128-byte rows, as
-  // K3's at D 128) it reads chunks tig and 4 + tig of K rows gid and gid + 8
-  // at chunk c ^ 4 (r & 1), and V at chunk c ^ 2 ((r >> 1) & 3).  K3 reads
-  // chunks 8 s + 2 tig and 8 s + 2 tig + 1 of K rows gid and gid + 8 (rows
-  // of one phase alternate) and chunk 8 s + gid of V rows 2 tig (+1, +8,
-  // +9), segment s.
+  // pieces of V at chunk c ^ 2 ((r >> 2) & 1).  At D 256 and 512 (rows of a
+  // multiple of 128 bytes, as K3's at D 128) it reads chunks 4 s + tig of K
+  // rows gid and gid + 8 at chunk c ^ 4 (r & 1), and V at chunk c ^ 2 ((r >>
+  // 1) & 3).  At D 384 a row is 12 chunks, which an XOR of 4 would leave:
+  // no swizzle (the 192-byte row stride already puts rows gid and gid + 1
+  // half a bank sweep apart).  K3 reads chunks 8 s + 2 tig and 8 s + 2 tig +
+  // 1 of K rows gid and gid + 8 (rows of one phase alternate) and chunk 8 s
+  // + gid of V rows 2 tig (+1, +8, +9), segment s.
   static __device__ __forceinline__ int k_chunk(int c, int r) {
-    if constexpr (NBITS == 4) return ROW == 64 ? c : c ^ ((r & 1) << 2);
+    if constexpr (NBITS == 4) return ROW == 64 || ROW == 192 ? c : c ^ ((r & 1) << 2);
     return c ^ (r & 1);
   }
   static __device__ __forceinline__ int v_chunk(int c, int r) {
     if constexpr (NBITS == 4 && ROW == 64) return c ^ (2 * ((r >> 2) & 1));
+    if constexpr (NBITS == 4 && ROW == 192) return c;
     return c ^ (((r >> 1) & 3) << 1);
   }
   static_assert(WARPS * 8 * O_STRIDE * 4 + 3 * WARPS * 8 * 4 <= SMEM_BYTES, "warp merge");
@@ -568,17 +579,23 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   // the ring is issued once q is in registers, so each SM's first stages
   // are served first.
   const bool q_row = gid < GB && g0 + gid < p.G;  // else a zero query
-  uint4 q_raw[4 * NSEG], kn_raw[4 * NSEG];
-#pragma unroll
-  for (int sg = 0; sg < NSEG; ++sg)
+  // WIDE: one segment of q and k_new at a time (QSEG of NSEG held at once).
+  constexpr int QSEG = R::WIDE ? 1 : NSEG;
+  uint4 q_raw[4 * QSEG], kn_raw[4 * QSEG];
+  auto load_q_seg = [&](int sg, int at) {  // segment sg into slots [4 at, 4 at + 4)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = SEG * sg + 32 * tig + 8 * i;
-      q_raw[4 * sg + i] = q_row ? *reinterpret_cast<const uint4*>(
+      q_raw[4 * at + i] = q_row ? *reinterpret_cast<const uint4*>(
                                       p.q + ((size_t)h * p.G + g0 + gid) * D + c)
                                 : make_uint4(0, 0, 0, 0);
-      kn_raw[4 * sg + i] = *reinterpret_cast<const uint4*>(p.k_new + (size_t)h * D + c);
+      kn_raw[4 * at + i] = *reinterpret_cast<const uint4*>(p.k_new + (size_t)h * D + c);
     }
+  };
+  if constexpr (!R::WIDE) {
+#pragma unroll
+    for (int sg = 0; sg < NSEG; ++sg) load_q_seg(sg, sg);
+  }
   uint2 vn_raw[CPL / 4];
 #pragma unroll
   for (int i = 0; i < CPL / 4; ++i)
@@ -598,14 +615,15 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   const int n_stages = (end - start + R::STAGE_KEYS - 1) / R::STAGE_KEYS;
 
   // Stage i holds keys start + STAGE_KEYS i + 64 t + 16 warp + r of tile t,
-  // row r.  Each lane copies 16-byte chunk lane % CHUNKS of K and V rows
-  // lane / CHUNKS + (32 / CHUNKS) j, and the scalars of rows lane + 32 j;
-  // rows past the range are zero-filled.
+  // row r.  Each lane copies piece 32 j + lane of the stage's K and V rows
+  // of CHUNKS 16-byte pieces (row (32 j + lane) / CHUNKS: at D 128 chunk
+  // lane % CHUNKS of rows lane / CHUNKS + (32 / CHUNKS) j; a row of 24 or 12
+  // pieces at D 384 spans lanes), and the scalars of rows lane + 32 j; rows
+  // past the range are zero-filled.
   const uint32_t ring = smem_u32(smem) + warp * R::WARP_RING;
   const uint8_t* kh = p.kc + (size_t)h * C * ROW;
   const uint8_t* vh = p.vc + (size_t)h * C * ROW;
   const bf16* sh = p.sc + (size_t)h * C * 4;
-  const int cp_chunk = lane % CHUNKS, cp_row = lane / CHUNKS;
   auto key_of = [&](int base, int rr) {
     return base + TILE_STRIDE * (rr / TILE) + TILE * warp + rr % TILE;
   };
@@ -615,7 +633,8 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     const uint32_t slot = ring + (i % STAGES) * R::SLOT_BYTES;
 #pragma unroll
     for (int j = 0; j < R::WARP_KEYS * CHUNKS / 32; ++j) {
-      const int rr = cp_row + (32 / CHUNKS) * j, key = key_of(base, rr);
+      const int rr = (32 * j + lane) / CHUNKS, cp_chunk = (32 * j + lane) % CHUNKS;
+      const int key = key_of(base, rr);
       const bool valid = key < end;
       const size_t off = (size_t)(valid ? key : start) * ROW + cp_chunk * 16;
       cp_async16(slot + rr * ROW + R::k_chunk(cp_chunk, rr) * 16, kh + off, valid ? 16 : 0);
@@ -643,10 +662,61 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
   // 32 tig + 8 j.  K3: k-chunk 8 s + j, the same positions hold channels c,
   // c + 1, c + 2, c + 3 with c = 128 s + 32 tig + 4 j, as fp16 times the
   // row's power of two qsc.
-  uint32_t qf[D / 16][2];
+  uint32_t qf[R::WIDE ? 1 : D / 16][2];
   float qs = 0.f, s_new = 0.f;  // sum of q over the channels; q . k_new
   float qsc = 1.f;              // K3: q's power of two
-  {
+  uint2* qsm = reinterpret_cast<uint2*>(smem + R::SMEM_BYTES);  // WIDE: [D / 16][32] fragments
+  if constexpr (R::WIDE) {
+    // The same fragments as below, a segment at a time: K3's power of two
+    // needs the row's largest entry first (a pass over q), then each
+    // segment's k-chunks go to shared memory (warp 0 writes, every warp
+    // holds the same), and qs and s_new add the channels in the same order.
+    const uint16_t* qv = reinterpret_cast<const uint16_t*>(q_raw);
+    const uint16_t* kv = reinterpret_cast<const uint16_t*>(kn_raw);
+    auto qx = [&](int k) { return __bfloat162float(__ushort_as_bfloat16(qv[k])); };
+    if constexpr (NBITS == 8) {
+      float amax = 0.f;
+#pragma unroll
+      for (int sg = 0; sg < NSEG; ++sg) {
+        load_q_seg(sg, 0);
+#pragma unroll
+        for (int k = 0; k < 32; ++k) amax = fmaxf(amax, fabsf(qx(k)));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
+      qsc = pow2_to_2e14(amax);
+    }
+#pragma unroll
+    for (int sg = 0; sg < NSEG; ++sg) {
+      load_q_seg(sg, 0);
+      uint32_t f[8][2];
+      if constexpr (NBITS == 4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * e;
+            f[2 * j + e][0] = qv[c] | ((uint32_t)qv[c + 4] << 16);
+            f[2 * j + e][1] = qv[c + 1] | ((uint32_t)qv[c + 5] << 16);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          f[j][0] = pack_f16(qx(4 * j) * qsc, qx(4 * j + 1) * qsc);
+          f[j][1] = pack_f16(qx(4 * j + 2) * qsc, qx(4 * j + 3) * qsc);
+        }
+      }
+      if (warp == 0)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) qsm[(8 * sg + j) * 32 + lane] = make_uint2(f[j][0], f[j][1]);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const float x = qx(k);
+        qs += x;
+        s_new = fmaf(x, __bfloat162float(__ushort_as_bfloat16(kv[k])), s_new);
+      }
+    }
+  } else {
     const uint16_t* qv = reinterpret_cast<const uint16_t*>(q_raw);
     const uint16_t* kv = reinterpret_cast<const uint16_t*>(kn_raw);
     auto qx = [&](int k) { return __bfloat162float(__ushort_as_bfloat16(qv[k])); };
@@ -693,6 +763,14 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
     cp_async_commit();
   }
   if (sp == 0 && qb == 0) append_token<NBITS, D>(p, h, L, kn_own, vn_own);  // CTA-uniform
+  if constexpr (R::WIDE) __syncthreads();  // q's fragments are in shared memory
+  // k-chunk kc's B fragment of this lane.
+  auto q_frag = [&](int kc) {
+    if constexpr (R::WIDE)
+      return qsm[kc * 32 + lane];
+    else
+      return make_uint2(qf[kc][0], qf[kc][1]);
+  };
   // This lane's accumulator columns are query rows 2 tig and 2 tig + 1.
   // A score is ks kf (dot - qo) + kz ql: kf turns the product's units into
   // log2 units of (q . k) / sqrt(D), qo is what K4's code offset adds to the
@@ -779,57 +857,67 @@ __device__ __forceinline__ void decode_body(const Params& p, uint8_t* smem, int*
       // word shifted by 0, 4, 8 and 12 bits, masked and ORed under the magic
       // exponent, gives the bf16 pairs 128 + n of channels (c, c + 4),
       // (c + 1, c + 5), (c + 2, c + 6), (c + 3, c + 7): the A operand.
-      uint4 ra[R::TILES][NSEG], rb[R::TILES][NSEG];
+      // The words of KSEG segments at a time (all of them below WIDE).
+      constexpr int KSEG = R::WIDE ? 1 : NSEG;
 #pragma unroll
-      for (int ti = 0; ti < R::TILES; ++ti)
+      for (int s0 = 0; s0 < NSEG; s0 += KSEG) {
+        uint4 ra[R::TILES][KSEG], rb[R::TILES][KSEG];
 #pragma unroll
-        for (int sg = 0; sg < NSEG; ++sg) {
-          const uint8_t* kt = slot + ti * TILE * ROW;
-          ra[ti][sg] = *reinterpret_cast<const uint4*>(kt + ko0[sg]);
-          rb[ti][sg] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0[sg]);
-        }
+        for (int ti = 0; ti < R::TILES; ++ti)
 #pragma unroll
-      for (int sg = 0; sg < NSEG; ++sg)
+          for (int u = 0; u < KSEG; ++u) {
+            const uint8_t* kt = slot + ti * TILE * ROW;
+            ra[ti][u] = *reinterpret_cast<const uint4*>(kt + ko0[s0 + u]);
+            rb[ti][u] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0[s0 + u]);
+          }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int u = 0; u < KSEG; ++u)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
+          for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int ti = 0; ti < R::TILES; ++ti) {
-              const uint32_t wa = (&ra[ti][sg].x)[j], wb = (&rb[ti][sg].x)[j];
+            for (int e = 0; e < 2; ++e) {
               const int sh = 8 * e;  // k-chunk 8 s + 2j + e: nibbles at bits sh and sh + 4
-              const int kc = 8 * sg + 2 * j + e;
-              mma16816<F16>(s[ti], nib_bf16(wa >> sh), nib_bf16(wb >> sh),
-                            nib_bf16(wa >> (sh + 4)), nib_bf16(wb >> (sh + 4)), qf[kc][0],
-                            qf[kc][1]);
+              const uint2 qb = q_frag(8 * (s0 + u) + 2 * j + e);
+#pragma unroll
+              for (int ti = 0; ti < R::TILES; ++ti) {
+                const uint32_t wa = (&ra[ti][u].x)[j], wb = (&rb[ti][u].x)[j];
+                mma16816<F16>(s[ti], nib_bf16(wa >> sh), nib_bf16(wb >> sh),
+                              nib_bf16(wa >> (sh + 4)), nib_bf16(wb >> (sh + 4)), qb.x, qb.y);
+              }
             }
+      }
     } else {
       // Word j of a lane's 32 bytes of a key (a segment's) holds channels c
       // .. c + 3; one PRMT gives the fp16 pair of channels (c, c + 1),
       // another (c + 2, c + 3): the A operand of k-chunk 8 s + j.
-      uint4 ka[R::TILES][NSEG][2], kb[R::TILES][NSEG][2];
+      constexpr int KSEG = R::WIDE ? 1 : NSEG;  // segments whose words are held at once
 #pragma unroll
-      for (int ti = 0; ti < R::TILES; ++ti)
+      for (int s0 = 0; s0 < NSEG; s0 += KSEG) {
+        uint4 ka[R::TILES][KSEG][2], kb[R::TILES][KSEG][2];
 #pragma unroll
-        for (int sg = 0; sg < NSEG; ++sg) {
-          const uint8_t* kt = slot + ti * TILE * ROW;
-          ka[ti][sg][0] = *reinterpret_cast<const uint4*>(kt + ko0[sg]);
-          ka[ti][sg][1] = *reinterpret_cast<const uint4*>(kt + ko1[sg]);
-          kb[ti][sg][0] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0[sg]);
-          kb[ti][sg][1] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko1[sg]);
-        }
+        for (int ti = 0; ti < R::TILES; ++ti)
 #pragma unroll
-      for (int sg = 0; sg < NSEG; ++sg)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int ti = 0; ti < R::TILES; ++ti) {
-            const uint32_t wa = (&ka[ti][sg][j >> 2].x)[j & 3];
-            const uint32_t wb = (&kb[ti][sg][j >> 2].x)[j & 3];
-            mma16816<F16>(s[ti], byte_f16(wa, 0x4140), byte_f16(wb, 0x4140),
-                          byte_f16(wa, 0x4342), byte_f16(wb, 0x4342), qf[8 * sg + j][0],
-                          qf[8 * sg + j][1]);
+          for (int u = 0; u < KSEG; ++u) {
+            const uint8_t* kt = slot + ti * TILE * ROW;
+            ka[ti][u][0] = *reinterpret_cast<const uint4*>(kt + ko0[s0 + u]);
+            ka[ti][u][1] = *reinterpret_cast<const uint4*>(kt + ko1[s0 + u]);
+            kb[ti][u][0] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko0[s0 + u]);
+            kb[ti][u][1] = *reinterpret_cast<const uint4*>(kt + 8 * ROW + ko1[s0 + u]);
           }
+#pragma unroll
+        for (int u = 0; u < KSEG; ++u)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const uint2 qb = q_frag(8 * (s0 + u) + j);
+#pragma unroll
+            for (int ti = 0; ti < R::TILES; ++ti) {
+              const uint32_t wa = (&ka[ti][u][j >> 2].x)[j & 3];
+              const uint32_t wb = (&kb[ti][u][j >> 2].x)[j & 3];
+              mma16816<F16>(s[ti], byte_f16(wa, 0x4140), byte_f16(wb, 0x4140),
+                            byte_f16(wa, 0x4342), byte_f16(wb, 0x4342), qb.x, qb.y);
+            }
+          }
+      }
     }
     // Keys gid (s 0, 1) and gid + 8 (s 2, 3) of each tile: logit = kf (ks
     // (dot - qo) + kz qs), here in log2 units, NEG_INF past the range.
@@ -1057,7 +1145,7 @@ quant4_decode_kernel(const Params p) {
 
 template <int NBITS, int D, int GB>
 int launch(const Params& p, int H, cudaStream_t st) {
-  constexpr int SMEM = Ring<NBITS, D>::SMEM_BYTES;
+  constexpr int SMEM = Ring<NBITS, D>::SMEM_BYTES + Ring<NBITS, D>::Q_BYTES;
   const auto kernel = NBITS == 8 ? quant8_decode_kernel<D, GB> : quant4_decode_kernel<D, GB>;
   static bool configured[64] = {false};  // once per instantiation and device
   int dev = 0;
@@ -1117,7 +1205,10 @@ int entry(const void* q, void* k_codes, void* v_codes, void* scales, const void*
 }  // namespace
 
 // One entry point per code width and head_dim:
-// kvcf_quant8_decode_attn_append_d128, _d256 (K3) and kvcf_quant4_... (K4).
+// kvcf_quant8_decode_attn_append_d128, _d256, _d384, _d512 (K3) and
+// kvcf_quant4_... (K4).  Head_dims 384 and 512 each compile in a library of
+// their own (-DKVCF_QUANT_D=384 or 512, ops/kernels/_build.py::VARIANTS), so
+// that their nvcc runs beside the one of 128 and 256.
 #define KVCF_QUANT_DECODE(NB, DIM)                                                     \
   extern "C" int kvcf_quant##NB##_decode_attn_append_d##DIM(                           \
       const void* q, void* k_codes, void* v_codes, void* scales, const void* lengths,  \
@@ -1127,7 +1218,13 @@ int entry(const void* q, void* k_codes, void* v_codes, void* scales, const void*
                               v_new, out, part, counters, H, G, C, n_split, scale,     \
                               stream);                                                 \
   }
+#ifndef KVCF_QUANT_D
 KVCF_QUANT_DECODE(8, 128)
 KVCF_QUANT_DECODE(8, 256)
 KVCF_QUANT_DECODE(4, 128)
 KVCF_QUANT_DECODE(4, 256)
+#else
+#define KVCF_QUANT_DECODE_AT(NB, DIM) KVCF_QUANT_DECODE(NB, DIM)  // expands DIM first
+KVCF_QUANT_DECODE_AT(8, KVCF_QUANT_D)
+KVCF_QUANT_DECODE_AT(4, KVCF_QUANT_D)
+#endif

@@ -42,13 +42,25 @@
 // and only wgmma reaches their full rate.  A window or a block mask cuts the
 // pairs, not the kind of bound.
 //
-// head_dim D is a template parameter, D in {64, 128, 256}; the library
-// exports kvcf_flash_prefill_d<D> for each.  Key tiles are BN = 128 keys at D
-// 64 and 128 and BN = 64 at D 256, where Q (64 KB) and a 2-stage ring of
-// 128-key tiles (4 x 64 KB) would pass the 227 KB a block may hold: 64-key
-// tiles make it 64 + 2 x (32 + 32) = 192 KB.  QK^T is then wgmma m64nBNk16
-// over D / 16 k-steps and PV m64nDk16 (D / 2 fp32 accumulators a consumer
-// thread: 32, 64 or 128); the numbers below are at D 128.
+// The instantiation width D is a template parameter, D in {64, 128, 256,
+// 384, 512}; the library exports kvcf_flash_prefill_d<D> for each.  A
+// tensor's head_dim hd (any multiple of 8 up to 512) runs on the narrowest
+// instantiation at least as wide: the tensor maps span hd columns, so TMA
+// fills the columns past hd with zeros (never the next row's), boxes that
+// start at or past hd are not loaded and their k-steps not run, columns
+// past hd are never written, and the caller passes hd's 1/sqrt(hd).  Key
+// tiles are BN = 128 keys at D 64 and 128 and BN = 64 at D 256, where Q (64
+// KB) and a 2-stage ring of 128-key tiles (4 x 64 KB) would pass the 227 KB
+// a block may hold: 64-key tiles make it 64 + 2 x (32 + 32) = 192 KB.  QK^T
+// is then wgmma m64nBNk16 over D / 16 k-steps and PV m64nDk16 (D / 2 fp32
+// accumulators a consumer thread: 32, 64 or 128).
+// Above 256 a consumer's O would take D / 2 = 192 or 256 of its 232
+// registers, so the CTA splits O's columns instead (Plan::SPLIT): it takes
+// 64 q rows, both consumer warpgroups compute the same S = QK^T and the same
+// softmax for them (QK^T twice: the work grows by a half), and each owns
+// D / 2 columns of O (PV m64n(D/2)k16, 96 or 128 accumulators).  Q (48 or
+// 64 KB for 64 rows) and a 2-stage ring of 32-key tiles (24 or 32 KB a K or
+// V tile) make 144 or 192 KB.  The numbers below are at D 128.
 //
 // Design.  One CTA of three warpgroups per (128 q rows, hq, b): warpgroup 2
 // is the producer, warpgroups 0 and 1 are consumers of 64 q rows each
@@ -110,7 +122,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 128;         // q rows per CTA: two consumer warpgroups of 64
 constexpr int HALF = 64;        // columns per TMA box: 128 bytes, the swizzle span
 constexpr int STAGES = 2;       // K/V ring depth
 constexpr int THREADS = 384;    // consumer warpgroups 0 and 1, producer warpgroup 2
@@ -122,22 +133,27 @@ constexpr float NEG_INF = -3.4028234663852886e38f;  // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// The tile plan of head_dim D.  Shared memory: Q (NB boxes of 128 rows x
-// 64 columns), then STAGES x (K tile, V tile), each NB boxes of BN rows x 64
-// columns; then the mbarriers, the list build's per-warp counts and the
-// compacted key-tile list.
+// The tile plan of instantiation width D.  Shared memory: Q (NB boxes of
+// BM rows x 64 columns), then STAGES x (K tile, V tile), each NB boxes of BN
+// rows x 64 columns; then the mbarriers, the list build's per-warp counts
+// and the compacted key-tile list.
 template <int D>
 struct Plan {
-  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
-  static constexpr int BN = D == 256 ? 64 : 128;       // keys per K/V tile
+  static_assert(D == 64 || D == 128 || D == 256 || D == 384 || D == 512,
+                "instantiation width 64, 128, 256, 384 or 512");
+  static constexpr bool SPLIT = D > 256;               // consumers split O's columns
+  static constexpr int BM = SPLIT ? 64 : 128;          // q rows per CTA
+  static constexpr int WG_ROWS = SPLIT ? 0 : HALF;     // first row of warpgroup 1
+  static constexpr int DO = SPLIT ? D / 2 : D;         // O columns a consumer owns
+  static constexpr int BN = D > 256 ? 32 : D == 256 ? 64 : 128;  // keys per K/V tile
   static constexpr int NB = D / HALF;                  // 64-column boxes a row
-  static constexpr int NH = BN / HALF;                 // 64-key halves a tile
-  static constexpr int Q_BOX = BM * 128;               // 16 KB
-  static constexpr int KV_BOX = BN * 128;              // 16 or 8 KB
-  static constexpr int Q_BYTES = NB * Q_BOX;           // 16, 32 or 64 KB
-  static constexpr int TILE_BYTES = NB * KV_BOX;       // one K or V tile: 16, 32 or 32 KB
+  static constexpr int NH = BN > HALF ? BN / HALF : 1; // 64-key halves a tile (or the tile)
+  static constexpr int Q_BOX = BM * 128;               // 16 KB (8 KB split)
+  static constexpr int KV_BOX = BN * 128;              // 16, 8 or 4 KB
+  static constexpr int Q_BYTES = NB * Q_BOX;           // 16, 32, 64, 48 or 64 KB
+  static constexpr int TILE_BYTES = NB * KV_BOX;       // one K or V tile: 16, 32, 32, 24 or 32 KB
   static constexpr int SMEM_K = Q_BYTES;               // stage s at + 2 s TILE_BYTES
-  static constexpr int SMEM_BAR = Q_BYTES + 2 * STAGES * TILE_BYTES;  // 80, 160 or 192 KB
+  static constexpr int SMEM_BAR = Q_BYTES + 2 * STAGES * TILE_BYTES;  // 80-192 KB
   static constexpr int SMEM_CNT = SMEM_BAR + 64;       // per-warp counts of the list build
   static constexpr int SMEM_LIST = SMEM_BAR + 128;     // the compacted key-tile list
   static constexpr uint32_t ALL_SELECTED = (1u << (2 * NH)) - 1;  // (warpgroup, half) bits
@@ -227,6 +243,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+#define KVCF_D16                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define KVCF_D32                                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -235,6 +253,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
   "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define KVCF_D96                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "   \
+  "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "   \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 #define KVCF_D128                                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
@@ -249,14 +274,26 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define KVCF_F32(d, i) KVCF_F8(d, i), KVCF_F8(d, i + 8), KVCF_F8(d, i + 16), KVCF_F8(d, i + 24)
+#define KVCF_F16(d) KVCF_F8(d, 0), KVCF_F8(d, 8)
 #define KVCF_F64(d) KVCF_F32(d, 0), KVCF_F32(d, 32)
+#define KVCF_F96(d) KVCF_F32(d, 0), KVCF_F32(d, 32), KVCF_F32(d, 64)
 #define KVCF_F128(d) KVCF_F32(d, 0), KVCF_F32(d, 32), KVCF_F32(d, 64), KVCF_F32(d, 96)
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory, K-major;
-// N = 64 or 128 (the keys of a tile).
+// N = 32, 64 or 128 (the keys of a tile).
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " KVCF_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : KVCF_F16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
@@ -279,7 +316,8 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint6
 }
 
 // d[64 x N] += A[64 x 16] B[16 x N], A from registers (the m16n8k16 A
-// fragment per warp), B from shared memory, MN-major (transposed); N = D.
+// fragment per warp), B from shared memory, MN-major (transposed); N = the
+// O columns a consumer owns.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint64_t db);
@@ -301,6 +339,16 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0, uint3
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " KVCF_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : KVCF_F64(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " KVCF_D96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : KVCF_F96(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 template <>
@@ -329,10 +377,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const int* __restrict__ true_len, const int* __restrict__ row_offset,
                  const int* __restrict__ block_mask, bf16* __restrict__ out,
                  float* __restrict__ win_ml, float* __restrict__ row_ml, int Hq,
-                 int Hkv, int S_q, int S_k, int W, int SW, int P, int n_blk,
+                 int Hkv, int S_q, int S_k, int W, int SW, int P, int n_blk, int hd,
                  float scale_log2) {
   using T = Plan<D>;
-  constexpr int BN = T::BN, NH = T::NH, NB = T::NB;
+  constexpr int BN = T::BN, NH = T::NH, NB = T::NB, BM = T::BM;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzling repeats every 1024 bytes: align the tiles to that.
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -353,16 +401,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lrow0 = qt * BM;                                // first local q row
   const int row0 = lrow0 + (row_offset ? row_offset[b] : 0);  // its global id
   const size_t bh = (size_t)b * Hq + hq;
-  bf16* oh = out + bh * S_q * D;
+  bf16* oh = out + bh * S_q * hd;
+  // The 64-column boxes that hold a column below hd: the others are
+  // neither loaded nor multiplied.
+  const int nbox = (hd + HALF - 1) / HALF;
   // (m, l) planes of this (b, hq): m at [0, S_q), l one plane further on.
   const size_t plane = (size_t)gridDim.z * Hq * S_q;
   float* mh = row_ml ? row_ml + bh * S_q : nullptr;
 
   if (row0 >= tl) {  // no valid row in this CTA (uniform)
-    for (int i = tid; i < BM * (D / 8); i += THREADS) {
-      const int r = lrow0 + i / (D / 8);
+    for (int i = tid; i < BM * (hd / 8); i += THREADS) {
+      const int r = lrow0 + i / (hd / 8);
       if (r < S_q)
-        *reinterpret_cast<uint4*>(oh + (size_t)r * D + (i % (D / 8)) * 8) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(oh + (size_t)r * hd + (i % (hd / 8)) * 8) =
+            make_uint4(0, 0, 0, 0);
     }
     if (mh)
       for (int r = lrow0 + tid; r < min(lrow0 + BM, S_q); r += THREADS) {
@@ -399,7 +451,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // halves a tile); a block index past the last (one block over the whole
     // sequence) is the last, whose columns or rows are masked anyway.
     const int* mb = block_mask + bh * n_blk * n_blk;
-    const int qb0 = min(row0 / P, n_blk - 1), qb1 = min((row0 + HALF) / P, n_blk - 1);
+    const int qb0 = min(row0 / P, n_blk - 1), qb1 = min((row0 + T::WG_ROWS) / P, n_blk - 1);
     int base = 0;
     for (int start = kt_begin; start < kt_end; start += THREADS) {
       const int kt = start + tid;
@@ -433,33 +485,33 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer warpgroup: one thread issues every copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 256 && n_list > 0) {
-      mbar_expect_tx(bar_q, T::Q_BYTES);
+      mbar_expect_tx(bar_q, nbox * T::Q_BOX);
 #pragma unroll
       for (int x = 0; x < NB; ++x)
-        tma_load(sbase + x * T::Q_BOX, &tm_q, bar_q, x * HALF, lrow0, (int)bh);
+        if (x < nbox) tma_load(sbase + x * T::Q_BOX, &tm_q, bar_q, x * HALF, lrow0, (int)bh);
       const int plane_kv = b * Hkv + hkv;
       for (int i = 0; i < n_list; ++i) {
         const int s = i % STAGES;
         mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // the first pass finds it free
         const int kt = block_mask ? (list[i] & 0xFFFFFF) : kt_begin + i;
         const uint32_t kd = sbase + T::SMEM_K + s * 2 * T::TILE_BYTES, vd = kd + T::TILE_BYTES;
-        mbar_expect_tx(k_full(s), T::TILE_BYTES);
+        mbar_expect_tx(k_full(s), nbox * T::KV_BOX);
 #pragma unroll
         for (int x = 0; x < NB; ++x)
-          tma_load(kd + x * T::KV_BOX, &tm_k, k_full(s), x * HALF, kt * BN, plane_kv);
-        mbar_expect_tx(v_full(s), T::TILE_BYTES);
+          if (x < nbox) tma_load(kd + x * T::KV_BOX, &tm_k, k_full(s), x * HALF, kt * BN, plane_kv);
+        mbar_expect_tx(v_full(s), nbox * T::KV_BOX);
 #pragma unroll
         for (int x = 0; x < NB; ++x)
-          tma_load(vd + x * T::KV_BOX, &tm_v, v_full(s), x * HALF, kt * BN, plane_kv);
+          if (x < nbox) tma_load(vd + x * T::KV_BOX, &tm_v, v_full(s), x * HALF, kt * BN, plane_kv);
       }
     }
   } else {
-    // ---- consumer warpgroups: 64 q rows each ----
+    // ---- consumer warpgroups: 64 q rows each (split: the same 64) ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wg = warp >> 2;
     const int g = lane >> 2, t = lane & 3;
-    const int Rw0 = row0 + wg * HALF, Rw1 = Rw0 + HALF - 1;  // this warpgroup's rows
-    const int ra = wg * HALF + (warp & 3) * 16 + g;          // this thread's first tile row
+    const int Rw0 = row0 + wg * T::WG_ROWS, Rw1 = Rw0 + HALF - 1;  // this warpgroup's rows
+    const int ra = wg * T::WG_ROWS + (warp & 3) * 16 + g;          // this thread's first tile row
     const int o_lo = lrow0 + ra, o_hi = o_lo + 8;            // local rows (output)
     const int r_lo = row0 + ra, r_hi = r_lo + 8;             // global ids (masks)
     const int lim_lo = min(r_lo, col_max), lim_hi = min(r_hi, col_max);
@@ -468,10 +520,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int diag = min(Rw0, col_max), reach = min(Rw1, col_max);
     // Running max (base-2 logits) and this thread's share of the row sums.
     float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
-    float o[D / 2];
+    float o[T::DO / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    const uint32_t qa = sbase + wg * (HALF * 128);  // this warpgroup's 64 rows of Q
+    for (int i = 0; i < T::DO / 2; ++i) o[i] = 0.f;
+    const uint32_t qa = sbase + wg * (T::WG_ROWS * 128);  // this warpgroup's 64 rows of Q
+    const int ocol = T::SPLIT ? wg * T::DO : 0;           // its first O column
+    // In a split CTA warpgroup 0 alone writes the rows' (m, l): both hold them.
+    const bool ml_writer = !T::SPLIT || wg == 0;
 
     if (n_list > 0) mbar_wait(bar_q, 0);
     for (int i = 0; i < n_list; ++i) {
@@ -492,6 +547,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
+          if ((kk >> 2) >= nbox) break;          // a box past hd (uniform)
           const uint32_t in_row = (kk & 3) * 32;  // k-step kk: box kk / 4, 32 bytes each
           wgmma_ss<BN>(sc, desc_kmajor(qa + (kk >> 2) * T::Q_BOX + in_row),
                        desc_kmajor(kd + (kk >> 2) * T::KV_BOX + in_row), kk);
@@ -543,14 +599,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int j = 0; j < BN / 4; ++j) pa[j] = pack_f32(sc[2 * j], sc[2 * j + 1]);
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) o[j] *= (j & 3) < 2 ? a_lo : a_hi;
+        for (int j = 0; j < T::DO / 2; ++j) o[j] *= (j & 3) < 2 ? a_lo : a_hi;
 
         mbar_wait(v_full(s), ph);
         wgmma_fence();
+        // This warpgroup's O columns start at box ocol / 64 of the V tile.
+        // Its boxes past hd were not loaded: the columns they feed are never
+        // written, and one O column reads only its own V column.
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<D>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                      desc_v(vd + kk * 16 * 128, T::KV_BOX));
+          wgmma_rs<T::DO>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                          desc_v(vd + (ocol / HALF) * T::KV_BOX + kk * 16 * 128, T::KV_BOX));
         wgmma_commit();
         wgmma_wait_all();
         fence_acc(o);
@@ -574,14 +633,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (m_lo == NEG_INF) {
         l_lo = 0.f;
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) if ((j & 3) < 2) o[j] = 0.f;
+        for (int j = 0; j < T::DO / 2; ++j) if ((j & 3) < 2) o[j] = 0.f;
       }
       if (m_hi == NEG_INF) {
         l_hi = 0.f;
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) if ((j & 3) >= 2) o[j] = 0.f;
+        for (int j = 0; j < T::DO / 2; ++j) if ((j & 3) >= 2) o[j] = 0.f;
       }
-      if (t == 0) {
+      if (t == 0 && ml_writer) {
         if (o_lo < S_q) { mh[o_lo] = mn_lo; mh[plane + o_lo] = l_lo; }
         if (o_hi < S_q) { mh[o_hi] = mn_hi; mh[plane + o_hi] = l_hi; }
       }
@@ -589,17 +648,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float il_lo = 1.f / (l_lo == 0.f ? 1.f : l_lo);
     const float il_hi = 1.f / (l_hi == 0.f ? 1.f : l_hi);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < T::DO / 8; ++n) {
+      const int col = ocol + n * 8;  // hd % 8 == 0: a group of 8 columns is in or out
+      if (col >= hd) break;
       if (o_lo < S_q)
-        *reinterpret_cast<uint32_t*>(oh + (size_t)o_lo * D + n * 8 + t * 2) =
+        *reinterpret_cast<uint32_t*>(oh + (size_t)o_lo * hd + col + t * 2) =
             pack_f32(o[4 * n] * il_lo, o[4 * n + 1] * il_lo);
       if (o_hi < S_q)
-        *reinterpret_cast<uint32_t*>(oh + (size_t)o_hi * D + n * 8 + t * 2) =
+        *reinterpret_cast<uint32_t*>(oh + (size_t)o_hi * hd + col + t * 2) =
             pack_f32(o[4 * n + 2] * il_hi, o[4 * n + 3] * il_hi);
     }
 
     // W > 0 only for whole-sequence queries (no offset): r == global id.
-    if (W > 0 && t == 0) {  // final (m, l) of the observation-window rows
+    if (W > 0 && t == 0 && ml_writer) {  // final (m, l) of the observation-window rows
       const int ws = tl - W;
       float* ml = win_ml + bh * W * 2;
       if (r_lo >= ws && r_lo < tl) { ml[(r_lo - ws) * 2] = mn_lo; ml[(r_lo - ws) * 2 + 1] = l_lo; }
@@ -610,17 +671,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // --- the window-score pass ----------------------------------------------------
 
-// Copy rows [row0, row0 + 64) of a [*, D] bf16 matrix into shared memory,
-// zero-filling rows at or past `limit`.
+// Copy rows [row0, row0 + 64) of a [*, hd] bf16 matrix into shared memory
+// rows of D columns, zero-filling rows at or past `limit` and columns past hd.
 template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int limit,
-                                          int tid) {
+                                          int hd, int tid) {
 #pragma unroll
   for (int i = tid; i < SBN * (D / 8); i += 128) {
     const int r = i / (D / 8), c = i % (D / 8);
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
+    if (row0 + r < limit && c * 8 < hd)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * hd + c * 8);
     *reinterpret_cast<uint4*>(dst + r * Plan<D>::LDS + c * 8) = val;
   }
 }
@@ -631,7 +692,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
 // The window's rows come in blocks of WBLOCK; thread (col, half) adds rows
 // half, half + 2, ... of the window in order across the blocks (WBLOCK is
 // even), so the sum's order does not depend on the block size.  Its shared
-// memory is dynamic (Plan<D>::WS_SMEM: 67 KB at D 256).
+// memory is dynamic (Plan<D>::WS_SMEM: 67 KB at D 256, 133 KB at D 512).
 template <int D>
 __global__ void __launch_bounds__(128)
 window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -639,7 +700,7 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const int* __restrict__ block_mask,
                      const float* __restrict__ win_ml,
                      float* __restrict__ scores,
-                     int Hq, int Hkv, int S, int W, int P, int n_blk, float scale) {
+                     int Hq, int Hkv, int S, int W, int P, int n_blk, int hd, float scale) {
   constexpr int LDS = Plan<D>::LDS;
   extern __shared__ __align__(16) unsigned char ws_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(ws_raw);                    // [SBN][LDS]
@@ -663,8 +724,8 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return;
   }
 
-  load_rows<D>(Ks, k + ((size_t)b * Hkv + hkv) * S * D, col0, S, tid);
-  const bf16* qh = q + ((size_t)b * Hq + hq) * S * D;
+  load_rows<D>(Ks, k + ((size_t)b * Hkv + hkv) * S * hd, col0, S, hd, tid);
+  const bf16* qh = q + ((size_t)b * Hq + hq) * S * hd;
   const float* ml = win_ml + ((size_t)b * Hq + hq) * W * 2;
   const int* mh = block_mask ? block_mask + ((size_t)b * Hq + hq) * n_blk * n_blk : nullptr;
   const int c = col0 + col;
@@ -676,7 +737,8 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int r = i / (D / 8), cc = i % (D / 8);
       const int row = ws + wb + r;
       uint4 val = make_uint4(0, 0, 0, 0);
-      if (row >= 0) val = *reinterpret_cast<const uint4*>(qh + (size_t)row * D + cc * 8);
+      if (row >= 0 && cc * 8 < hd)
+        val = *reinterpret_cast<const uint4*>(qh + (size_t)row * hd + cc * 8);
       *reinterpret_cast<uint4*>(Qw + r * D + cc * 8) = val;
     }
     for (int r = tid; r < nw; r += 128) {
@@ -739,12 +801,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A [planes, rows, D] bf16 tensor as a 3-D map read in boxes of `box_rows`
-// rows x 64 columns, 128-byte swizzled; rows past `rows` read as zeros.
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D, int rows,
+// A [planes, rows, hd] bf16 tensor as a 3-D map read in boxes of
+// `box_rows` rows x 64 columns, 128-byte swizzled; rows past `rows` and
+// columns past hd read as zeros (hd % 8 == 0: 16-byte row strides).
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int rows,
               int planes, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2};
   const cuuint32_t box[3] = {(cuuint32_t)HALF, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
@@ -753,7 +816,9 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int D, int ro
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The host function of head_dim D.  The wrapper's contract: scores only
+// The host function of instantiation width D, for tensors of head_dim hd
+// (hd % 8 == 0, D - 128 < hd <= D, or hd <= 64 at D 64).  The wrapper's
+// contract: scores only
 // for whole-sequence queries without a window; q and k lengths differ only
 // in chunk mode; a block mask only for whole-sequence queries, with n_blk
 // blocks of P rows covering S_q and P a multiple of 64 (a warpgroup's rows,
@@ -763,8 +828,9 @@ template <int D>
 int flash_prefill(const void* q, const void* k, const void* v, const void* true_len,
                   const void* row_offset, const void* block_mask, void* out, void* win_ml,
                   void* scores, void* row_ml, int B, int Hq, int Hkv, int S_q, int S_k,
-                  int W, int SW, int P, int n_blk, float scale, void* stream) {
+                  int W, int SW, int P, int n_blk, int hd, float scale, void* stream) {
   using T = Plan<D>;
+  if (hd < 8 || hd > D || hd % 8 != 0) return (int)cudaErrorInvalidValue;
   if (W < 0 || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
       (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1 ||
       (row_ml && (W > 0 || block_mask)))
@@ -777,9 +843,9 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, D, S_q, B * Hq, BM) ||
-      !make_map(enc, &tk, k, D, S_k, B * Hkv, T::BN) ||
-      !make_map(enc, &tv, v, D, S_k, B * Hkv, T::BN))
+  if (!make_map(enc, &tq, q, hd, S_q, B * Hq, T::BM) ||
+      !make_map(enc, &tk, k, hd, S_k, B * Hkv, T::BN) ||
+      !make_map(enc, &tv, v, hd, S_k, B * Hkv, T::BN))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // Above 48 KB of dynamic shared memory needs an opt-in, once per
@@ -798,36 +864,39 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
     if (err != cudaSuccess) return (int)err;
     smem_set[dev] = true;
   }
-  dim3 grid(Hq, (S_q + BM - 1) / BM, B);
+  dim3 grid(Hq, (S_q + T::BM - 1) / T::BM, B);
   flash_fwd_kernel<D><<<grid, THREADS, smem, st>>>(
       tq, tk, tv, static_cast<const int*>(true_len), static_cast<const int*>(row_offset),
       static_cast<const int*>(block_mask), static_cast<bf16*>(out),
       static_cast<float*>(win_ml), static_cast<float*>(row_ml), Hq, Hkv, S_q, S_k, W, SW, P,
-      n_blk, scale * LOG2E);
+      n_blk, hd, scale * LOG2E);
   if (W > 0) {
     dim3 g2((S_k + SBN - 1) / SBN, Hq, B);
     window_scores_kernel<D><<<g2, 128, T::WS_SMEM, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const int*>(true_len), static_cast<const int*>(block_mask),
         static_cast<const float*>(win_ml), static_cast<float*>(scores), Hq, Hkv, S_k,
-        W, P, n_blk, scale);
+        W, P, n_blk, hd, scale);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One entry point per head_dim: kvcf_flash_prefill_d64, _d128, _d256.
+// One entry point per instantiation width: kvcf_flash_prefill_d64, _d128,
+// _d256, _d384, _d512.
 #define KVCF_FLASH_PREFILL(DIM)                                                        \
   extern "C" int kvcf_flash_prefill_d##DIM(                                            \
       const void* q, const void* k, const void* v, const void* true_len,               \
       const void* row_offset, const void* block_mask, void* out, void* win_ml,         \
       void* scores, void* row_ml, int B, int Hq, int Hkv, int S_q, int S_k, int W,     \
-      int SW, int P, int n_blk, float scale, void* stream) {                           \
+      int SW, int P, int n_blk, int hd, float scale, void* stream) {                   \
     return flash_prefill<DIM>(q, k, v, true_len, row_offset, block_mask, out, win_ml,  \
                               scores, row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk,   \
-                              scale, stream);                                          \
+                              hd, scale, stream);                                      \
   }
 KVCF_FLASH_PREFILL(64)
 KVCF_FLASH_PREFILL(128)
 KVCF_FLASH_PREFILL(256)
+KVCF_FLASH_PREFILL(384)
+KVCF_FLASH_PREFILL(512)

@@ -3,7 +3,8 @@
 Each ``kvcache_factory_tpu_torch/csrc/<name>.cu`` is compiled on first use
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
 interface, placed in ``build/kernels/`` at the repository root, and loaded
-with ``ctypes``.  The library's file name carries a hash of the source and
+with ``ctypes``; a library of ``VARIANTS`` compiles another library's source
+with extra flags.  The library's file name carries a hash of the source and
 the flags, so an edited source is rebuilt and a stale library is never
 loaded.  Nothing here includes PyTorch's headers: a file builds in seconds.
 
@@ -19,6 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
@@ -29,29 +32,44 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # ctypes signatures of every C entry point, by library.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# K1 and K2 export one entry point per head_dim they take, K3 and K4 one
-# per code width and head_dim (``..._d64``, ``_d128``, ``_d256``).
-_K1 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
-_K2 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)
+# K1 and K2 export one entry point per instantiation width (``..._d64``,
+# ``_d128``, ``_d256``, ``_d384``, ``_d512``), K3 and K4 one per code width
+# and head_dim (``_d128`` ... ``_d512``).
+_K1 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
+_K2 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
+_WIDTHS = (64, 128, 256, 384, 512)
 _KQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
-    # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, scale, stream
-    "flash_prefill": {f"kvcf_flash_prefill_d{d}": _K1 for d in (64, 128, 256)},
+    # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, head_dim, scale, stream
+    "flash_prefill": {f"kvcf_flash_prefill_d{d}": _K1 for d in _WIDTHS},
     # q, k_cache, v_cache, lengths, lower, k_new, v_new, out,
-    # part, counters, H, G, C, n_split, scale, stream
-    "decode_attn": {f"kvcf_decode_attn_append_d{d}": _K2 for d in (64, 128, 256)},
+    # part, counters, H, G, C, n_split, head_dim, scale, stream
+    "decode_attn": {f"kvcf_decode_attn_append_d{d}": _K2 for d in _WIDTHS},
     # K3 and K4: q, k_codes, v_codes, scales, lengths, lower, k_new, v_new,
     # out, part, counters, H, G, C, n_split, scale, stream
     "decode_attn_quant": {f"kvcf_quant{nbits}_decode_attn_append_d{d}": _KQ
                           for nbits in (8, 4) for d in (128, 256)},
+    **{f"decode_attn_quant_d{d}": {f"kvcf_quant{nbits}_decode_attn_append_d{d}": _KQ
+                                   for nbits in (8, 4)} for d in (384, 512)},
     "pack": {
         # kv, idx, out, H, S, C, vecs, stream
         "kvcf_pack_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 
+# Libraries built from another library's source, with the flags that pick
+# their entry points.  K3 / K4 at head_dim 384 and at 512 each compile apart
+# from 128 and 256, so the three nvcc processes run side by side: 384 and
+# 512 in one process took 61 s on an H100's host, the build's longest.
+VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    f"decode_attn_quant_d{d}": ("decode_attn_quant", (f"-DKVCF_QUANT_D={d}",))
+    for d in (384, 512)
+}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Wall seconds of each library's nvcc in the last build_all that compiled it.
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -70,9 +88,16 @@ def nvcc_path() -> str:
     return path
 
 
+def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """The source file and the extra flags of library ``name``."""
+    source, defines = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{source}.cu", defines
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, defines = _source(name)
+    flags = " ".join(NVCC_FLAGS + defines).encode()
+    digest = hashlib.sha256(source.read_bytes() + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -81,23 +106,31 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     process per source, all started together.  Returns each library's
     ptxas report (registers, shared memory, spills); empty when cached."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, defines = _source(name)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+    def finish(name):
+        log, _ = procs[name][0].communicate()
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        done = dict(zip(procs, pool.map(finish, procs)))
     reports = {}
     failures = []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        log, BUILD_SECONDS[name] = done[name]
         reports[name] = log
         if proc.returncode != 0:
-            failures.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            failures.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failures:

@@ -10,9 +10,11 @@ Dispatch is one rule: a CPU tensor goes to the plain version
 kernel, or raises.  ``decode_attention_append.launches`` counts kernel
 launches.
 
-The kernel takes head_dim 64, 128 and 256 (``HEAD_DIMS``), one
-instantiation and entry point each; its shared memory is 768 D bytes a CTA,
-so ``CTAS_PER_SM_AT[D]`` CTAs fit an SM.  It takes any group size G: a CTA
+The kernel takes K1's head_dims (any multiple of 8 up to 512,
+``flash_prefill.takes_head_dim``), each on the narrowest instantiation at
+least as wide (``flash_prefill.instance``: 64, 128, 256, 384 or 512), with
+the true head_dim's ``1/sqrt(D)``; ``CTAS_PER_SM_AT`` says how many CTAs of
+each instantiation fit an SM.  It takes any group size G: a CTA
 computes ``QUERY_BLOCK`` query rows at most, so G above 8 runs
 :func:`query_blocks` blocks of rows, each reading the head's keys.
 
@@ -34,15 +36,16 @@ import torch
 
 from ..attention import NEG_INF
 from . import _build
-from .flash_prefill import REFUSED
+from .flash_prefill import HEAD_DIM_QUANTUM, INSTANCES, REFUSED, instance, takes_head_dim
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn.cu"
 REPLACES = "kvcache_factory_tpu/ops/kernels/decode_attn.py:71"
-HEAD_DIMS = (64, 128, 256)
 QUERY_BLOCK = 8    # query rows a CTA computes: the mma's N
 MIN_KEYS_PER_SPLIT = 64
-CTAS_PER_SM = 2    # resident CTAs an SM holds at head_dim 128 (and K3 / K4's split rule)
-CTAS_PER_SM_AT = {64: 4, 128: 2, 256: 1}  # by head_dim (the source header's shared memory)
+CTAS_PER_SM = 2    # resident CTAs an SM holds at head_dim 128: the split rule's default
+# By instantiation (the source header's shared memory: 768 D bytes a CTA up
+# to 256, one CTA of 2 warps above).
+CTAS_PER_SM_AT = {64: 4, 128: 2, 256: 1, 384: 1, 512: 1}
 MIN_COUNTERS = 4096  # counters allocated at once, so a graph capture rarely needs more
 
 
@@ -69,16 +72,18 @@ def decode_attention_append(
     H, G, D = q.shape
     C = k_layer.shape[1]
     dev = q.device
-    n_split = split_count(H * query_blocks(G), C, _sm_count(dev), CTAS_PER_SM_AT[D])
+    width = instance(D)
+    n_split = split_count(H * query_blocks(G), C, _sm_count(dev), CTAS_PER_SM_AT[width])
     counters = _counters(dev, H)
     out = torch.empty_like(q)
-    part = torch.empty(partial_floats(H, G, D + 2, n_split), dtype=torch.float32, device=dev)
+    part = torch.empty(partial_floats(H, G, width + 2, n_split), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
-        code = getattr(lib, f"kvcf_decode_attn_append_d{D}")(
+        code = getattr(lib, f"kvcf_decode_attn_append_d{width}")(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
             lengths.data_ptr(), None if lower is None else lower.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part.data_ptr(),
-            counters.data_ptr(), H, G, C, n_split, D ** -0.5,
+            counters.data_ptr(), H, G, C, n_split, D, D ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "decode_attn")
     decode_attention_append.launches += 1
@@ -156,8 +161,9 @@ def _check(q, k_layer, v_layer, lengths, k_new, v_new, lower):
     if q.dim() != 3:
         raise ValueError(f"decode_attn: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attn: needs head_dim in {HEAD_DIMS}, got D={D}; {REFUSED}")
+    if not takes_head_dim(D):
+        raise ValueError(f"decode_attn: needs a head_dim that is a multiple of "
+                         f"{HEAD_DIM_QUANTUM} up to {INSTANCES[-1]}, got D={D}; {REFUSED}")
     if G < 1:
         raise ValueError(f"decode_attn: needs G >= 1, got G={G}")
     for name, t in (("q", q), ("k_layer", k_layer), ("v_layer", v_layer),

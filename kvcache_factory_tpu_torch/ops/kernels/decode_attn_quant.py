@@ -15,9 +15,9 @@ Dispatch is K2's rule: a CPU tensor goes to the plain version
 ``quant_decode_attention_append.launches`` and
 ``quant4_decode_attention_append.launches`` count kernel launches.
 
-They take head_dim 128 and 256 (``HEAD_DIMS``; the per-token cache exists
-only at ``D % 128 == 0``, ``config.py::QuantConfig.per_token``), one
-instantiation and entry point each, and any group size G, in blocks of
+They take head_dim 128, 256, 384 and 512 (``HEAD_DIMS``; the per-token
+cache exists only at ``D % 128 == 0``, ``config.py::QuantConfig.per_token``),
+one instantiation and entry point each, and any group size G, in blocks of
 ``decode_attn.QUERY_BLOCK`` query rows as K2.
 
 K3 and K4 are one launch per call each, as K2 is: ``decode_attn.split_count``
@@ -43,7 +43,10 @@ from .flash_prefill import REFUSED
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant.cu"
 REPLACES = {8: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:76",
             4: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:479"}
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (128, 256, 384, 512)
+# CTAs an SM the split rule counts on, by head_dim (the source header: two
+# up to 256, one at 384 and 512, where a CTA's ring is 145-195 KB).
+CTAS_PER_SM_AT = {128: 2, 256: 2, 384: 1, 512: 1}
 
 
 def quant_decode_attention_append(
@@ -93,8 +96,14 @@ quant_decode_attention_append.launches = 0
 quant4_decode_attention_append.launches = 0
 
 
+def library(D: int) -> str:
+    """The library that holds K3 / K4 at head_dim D: 384 and 512 each build
+    apart (``_build.VARIANTS``)."""
+    return f"decode_attn_quant_d{D}" if D > 256 else "decode_attn_quant"
+
+
 def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
-    lib = _build.load("decode_attn_quant")
+    lib = _build.load(library(q.shape[-1]))
     # K3 and K4 read k_new and v_new with vector loads: a view that starts
     # off a 16-byte boundary is copied into a fresh (aligned) tensor first.
     k_new, v_new = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (k_new, v_new))
@@ -102,7 +111,7 @@ def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     H, G, D = q.shape
     C = k_codes.shape[1]
     dev = q.device
-    n_split = split_count(H * query_blocks(G), C, _sm_count(dev))
+    n_split = split_count(H * query_blocks(G), C, _sm_count(dev), CTAS_PER_SM_AT[D])
     counters = _counters(dev, H)
     out = torch.empty_like(q)
     part = torch.empty(partial_floats(H, G, D + 4, n_split), dtype=torch.float32, device=dev)

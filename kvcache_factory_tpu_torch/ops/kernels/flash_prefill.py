@@ -11,8 +11,11 @@ sparse block patterns and ``return_ml``).  It is a Hopper kernel: one CTA
 of three warpgroups per 128 q rows of one head, a producer that loads Q
 once and 128-key K/V tiles (64-key at head_dim 256) through a 2-stage TMA
 ring, and two consumers of 64 rows each that run both products with
-``wgmma`` and mask only the tiles on an edge.  It takes head_dim 64, 128
-and 256 (``HEAD_DIMS``), one instantiation and entry point each, and any
+``wgmma`` and mask only the tiles on an edge (above head_dim 256, 64 q rows a
+CTA whose two consumers split the output's columns).  It takes any head_dim
+that is a multiple of 8 up to 512 (:func:`takes_head_dim`), each on the
+narrowest of the instantiations ``INSTANCES`` at least as wide
+(:func:`instance`), with the true head_dim's ``1/sqrt(D)``, and any
 observation window.  Its source header says what bounds it on the card and
 how the design answers that.  The vertical-slash block mask is estimated in
 plain torch (:func:`vertical_slash_block_mask`), as the JAX
@@ -50,14 +53,18 @@ REPLACES_VARIANT = {
     "vertical_slash": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:228-252",
     "ring": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:288-297",
 }
-HEAD_DIMS = (64, 128, 256)
+# The kernels' instantiation widths: a head_dim runs on the narrowest at
+# least as wide (K1 and K2; K3 and K4 take exactly 128, 256, 384 and 512).
+INSTANCES = (64, 128, 256, 384, 512)
+HEAD_DIM_QUANTUM = 8  # 16-byte rows: TMA's row strides and the 16-byte copies
 # What the card refuses, and where it is queued.
-REFUSED = ("head_dims outside (64, 128, 256) are ROADMAP.md queue 2, \"Shapes the TPU "
-           "kernels take and the port's kernels refuse on CUDA\"")
+REFUSED = ("head_dims that are not a multiple of 8 or exceed 512 are ROADMAP.md queue 2, "
+           "\"Shapes the TPU kernels take and the port's kernels refuse on CUDA\"")
 # A pattern block is a multiple of 64 (or the whole sequence): a CTA's 128 q
-# rows are two consumer warpgroups of 64 and a key tile (128 keys, 64 at
-# head_dim 256) one or two halves of 64, so each warpgroup's rows and each
-# half of a tile lie in one block.
+# rows are two consumer warpgroups of 64 (one set of 64 above head_dim 256)
+# and a key tile (128 keys, 64 at head_dim 256, 32 above) one or two halves
+# of 64 or part of one, so each warpgroup's rows and each half of a tile lie
+# in one block.
 PATTERN_QUANTUM = 64
 DEFAULT_PATTERN_BLOCK = 1024  # JAX's q_block whenever a pattern is given
 
@@ -141,14 +148,14 @@ def flash_prefill_attention(
     row_ml = torch.empty((2, B, Hq, S_q), dtype=torch.float32, device=dev) \
         if return_ml else None
     with torch.cuda.device(dev):
-        code = getattr(lib, f"kvcf_flash_prefill_d{D}")(
+        code = getattr(lib, f"kvcf_flash_prefill_d{instance(D)}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), true_len.data_ptr(),
             None if row_offset is None else row_offset.data_ptr(),
             None if block_mask is None else block_mask.data_ptr(),
             out.data_ptr(), win_ml.data_ptr(), scores.data_ptr(),
             None if row_ml is None else row_ml.data_ptr(),
             B, Hq, k.shape[1], S_q, S_k, window, sliding_window or 0,
-            block, 0 if block_mask is None else block_mask.shape[-1], D ** -0.5,
+            block, 0 if block_mask is None else block_mask.shape[-1], D, D ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "flash_prefill")
     flash_prefill_attention.launches += 1
@@ -163,6 +170,19 @@ flash_prefill_attention.launches = 0
 flash_prefill_attention.variant_launches = {
     "dense": 0, "sliding_window": 0, "chunk": 0, "ashape": 0, "vertical_slash": 0,
     "ring": 0}
+
+
+def takes_head_dim(D: int) -> bool:
+    """Whether K1 and K2 take head_dim ``D`` on the card: a multiple of 8
+    (a row of 16-byte pieces) up to 512."""
+    return D % HEAD_DIM_QUANTUM == 0 and HEAD_DIM_QUANTUM <= D <= INSTANCES[-1]
+
+
+def instance(D: int) -> int:
+    """The instantiation a head_dim runs on: the narrowest at least as
+    wide.  Its columns past ``D`` are zero and never written; the logits
+    keep ``D``'s own ``1/sqrt(D)``."""
+    return next(w for w in INSTANCES if w >= D)
 
 
 def pattern_kind(sparse_pattern: tuple) -> str:
@@ -238,8 +258,9 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
             raise ValueError(f"flash_prefill: {name} must be a 4-d bfloat16 "
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
     B, Hq, S_q, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_prefill: needs head_dim in {HEAD_DIMS}, got D={D}; {REFUSED}")
+    if not takes_head_dim(D):
+        raise ValueError(f"flash_prefill: needs a head_dim that is a multiple of "
+                         f"{HEAD_DIM_QUANTUM} up to {INSTANCES[-1]}, got D={D}; {REFUSED}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or k.shape[2] < 1 \
             or Hq % k.shape[1]:
         raise ValueError(f"flash_prefill: k/v shape {tuple(k.shape)} does not "

@@ -1,15 +1,19 @@
-"""K1-K4 at head_dim 64 and 256 (K3 / K4 at 256), and the models that run
-them, against the JAX package on the CPU.
+"""K1-K4 at head_dim 64, 80, 256, 384 and 512 (K3 / K4 at 256, 384 and
+512), and the models that run them, against the JAX package on the CPU.
 
-At head_dim 64 the JAX package runs its XLA attention (its Pallas kernels
-take ``D % 128 == 0``): K1's plain version is held to
+At head_dim 64 and 80 the JAX package runs its XLA attention (its Pallas
+kernels take ``D % 128 == 0``): K1's plain version is held to
 ``ops/attention.py::blocked_causal_attention`` and
 ``policies/scoring.py::window_attention_scores``, K1-ml to the XLA fold of
 ``make_ring_attention``, K2's to ``models/llama.py::grouped_attention`` over
-the appended cache.  At head_dim 256 the Pallas kernels run in interpret
-mode, as ``tests/test_torch_kernels.py`` and
-``tests/test_torch_quant_decode.py`` run them.  Inputs are fp32 numpy
-arrays from ``np.random.default_rng``.
+the appended cache.  At head_dim 256, 384 and 512 the Pallas kernels run in
+interpret mode, as ``tests/test_torch_kernels.py`` and
+``tests/test_torch_quant_decode.py`` run them (at 384 and 512 on the cases
+of at most 256 rows).  The cases at the head_dims added after 64 and 256
+carry ``-d<D>`` in their ids.  Inputs are fp32 numpy arrays from
+``np.random.default_rng``.  On a CUDA tensor a head_dim that no kernel
+instantiation has runs on the narrowest wider one with its own
+``1/sqrt(D)``: a stubbed library checks the entry point and the scale.
 
 Tolerances, each with its reason:
 
@@ -98,14 +102,28 @@ def _k1_inputs(case, D, seed):
     return q, k, v, tl, off, sw, W, out.numpy(), scores.numpy()
 
 
-@pytest.mark.parametrize("case", sorted(K1_CASES))
-def test_k1_head_dim_64_plain_matches_jax_xla(case):
-    """K1's plain version at head_dim 64 (dense with window scores, sliding
-    window, chunk) against the JAX package's XLA attention, which it runs
-    at this head_dim: the output on every valid row, the window scores on
-    the scored columns (``window_attention_scores`` over K repeated to the
-    query heads; it marks the rest NEG_INF, K1 leaves them to the caller)."""
-    q, k, v, tl, off, sw, W, out, scores = _k1_inputs(case, 64, seed=31)
+def _at(cases, first, more, small=()):
+    """``(case, D)`` parameters: the cases at head_dim ``first`` under their
+    own ids, then at each of ``more`` as ``<case>-d<D>`` (only the cases
+    in ``small`` where that is given)."""
+    return ([pytest.param(c, first, id=c) for c in cases]
+            + [pytest.param(c, d, id=f"{c}-d{d}") for d in more for c in cases
+               if not small or c in small])
+
+
+# K1's cases of at most 256 rows, run at head_dim 384 and 512.
+K1_SMALL = ("chunk", "chunk_dense", "dense")
+
+
+@pytest.mark.parametrize("case,D", _at(sorted(K1_CASES), 64, (80,)))
+def test_k1_head_dim_64_plain_matches_jax_xla(case, D):
+    """K1's plain version at head_dim 64 and 80 (dense with window scores,
+    sliding window, chunk) against the JAX package's XLA attention, which
+    it runs at these head_dims: the output on every valid row, the window
+    scores on the scored columns (``window_attention_scores`` over K
+    repeated to the query heads; it marks the rest NEG_INF, K1 leaves them
+    to the caller)."""
+    q, k, v, tl, off, sw, W, out, scores = _k1_inputs(case, D, seed=31)
     G = q.shape[1] // k.shape[1]
     j_out = np.asarray(blocked_causal_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tl), sliding_window=sw,
@@ -120,14 +138,16 @@ def test_k1_head_dim_64_plain_matches_jax_xla(case):
             np.testing.assert_allclose(scores[b, :, :tl[b] - W], j_sc[:, :tl[b] - W], **TOL)
 
 
-def test_k1_ml_head_dim_64_fold_matches_jax_xla_ring():
-    """K1-ml's plain version at head_dim 64, every hop of the ring folded in
-    one process, against JAX ``make_ring_attention``'s XLA fold on 4 virtual
-    CPU devices under a window (its kernel fold needs D % 128 == 0)."""
+@pytest.mark.parametrize("D", [pytest.param(64, id="d64"), pytest.param(80, id="d80")])
+def test_k1_ml_head_dim_64_fold_matches_jax_xla_ring(D):
+    """K1-ml's plain version at head_dim 64 and 80, every hop of the ring
+    folded in one process, against JAX ``make_ring_attention``'s XLA fold
+    on 4 virtual CPU devices under a window (its kernel fold needs D % 128
+    == 0)."""
     n, true_len, sw = 4, 230, 70
     rng = np.random.default_rng(37)
-    q = normal(rng, 2, 4, 256, 64)
-    k, v = normal(rng, 2, 2, 256, 64), normal(rng, 2, 2, 256, 64)
+    q = normal(rng, 2, 4, 256, D)
+    k, v = normal(rng, 2, 2, 256, D), normal(rng, 2, 2, 256, D)
     tl = np.asarray([true_len, true_len - 37], np.int32)
     mesh = Mesh(np.array(jax.devices()[:n]), ("sp",))
     ring = make_ring_attention(mesh, "sp", sliding_window=sw, backend="xla")
@@ -138,13 +158,14 @@ def test_k1_ml_head_dim_64_fold_matches_jax_xla_ring():
         np.testing.assert_allclose(got[b, :, :length], want[b, :, :length], **FOLD_TOL)
 
 
-@pytest.mark.parametrize("case", sorted(K1_CASES))
-def test_k1_head_dim_256_plain_matches_pallas(case):
-    """K1's plain version at head_dim 256 against the Pallas kernel in
-    interpret mode (64-row blocks where a case needs them, as
+@pytest.mark.parametrize("case,D", _at(sorted(K1_CASES), 256, (384, 512), K1_SMALL))
+def test_k1_head_dim_256_plain_matches_pallas(case, D):
+    """K1's plain version at head_dim 256 (and at 384 and 512 on the cases
+    of at most 256 rows) against the Pallas kernel in interpret mode
+    (64-row blocks where a case needs them, as
     ``tests/test_torch_kernels.py``): output on every valid row, window
     scores on the scored columns."""
-    q, k, v, tl, off, sw, W, out, scores = _k1_inputs(case, 256, seed=41)
+    q, k, v, tl, off, sw, W, out, scores = _k1_inputs(case, D, seed=41)
     blk = 128 if case == "dense" else 64
     j_out, j_sc = jflash.flash_prefill_attention_batched(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tl), W, q_block=blk,
@@ -159,16 +180,17 @@ def test_k1_head_dim_256_plain_matches_pallas(case):
             np.testing.assert_allclose(scores[b, :, :tl[b] - W], j_sc[b, :, :tl[b] - W], **TOL)
 
 
-def test_k1_ml_head_dim_256_plain_matches_pallas():
-    """K1-ml's plain version at head_dim 256 against the Pallas kernel's
-    ``return_ml`` in interpret mode, on a hop whose upper rows see no
-    column (rank 1 of a 512-row ring over shard 0 at SW 80): ``out``, ``m``
-    and ``l`` where a row sees a column, ``m = NEG_INF`` on both sides where
-    it sees none."""
+@pytest.mark.parametrize("D", [pytest.param(256, id="d256"), pytest.param(512, id="d512")])
+def test_k1_ml_head_dim_256_plain_matches_pallas(D):
+    """K1-ml's plain version at head_dim 256 and 512 against the Pallas
+    kernel's ``return_ml`` in interpret mode, on a hop whose upper rows see
+    no column (rank 1 of a 512-row ring over shard 0 at SW 80): ``out``,
+    ``m`` and ``l`` where a row sees a column, ``m = NEG_INF`` on both sides
+    where it sees none."""
     from kvcache_factory_tpu_torch.ops.attention import NEG_INF
     rng = np.random.default_rng(43)
-    q = normal(rng, 2, 4, 256, 256)
-    k, v = normal(rng, 2, 2, 256, 256), normal(rng, 2, 2, 256, 256)
+    q = normal(rng, 2, 4, 256, D)
+    k, v = normal(rng, 2, 2, 256, D), normal(rng, 2, 2, 256, D)
     tl, off = np.asarray([512, 470], np.int32), np.asarray([256, 256], np.int32)
     out, _, m, l = (x.numpy() for x in tflash.flash_prefill_attention(
         t(q), t(k), t(v), t(tl), 0, sliding_window=80, row_offset=t(off), return_ml=True))
@@ -187,13 +209,18 @@ def test_k1_ml_head_dim_256_plain_matches_pallas():
 
 # --- K2 ------------------------------------------------------------------------
 
-K2_CASES = [
-    # C, G, lengths, lower
-    pytest.param(96, 1, [0, 1, 50, 95], None, id="ragged"),
-    pytest.param(96, 4, [3, 40, 77, 12], [0, 0, 20, 5], id="g4-lower"),
-    pytest.param(64, 1, [64, 10, 63, 64], None, id="full"),
-    pytest.param(50, 7, [0, 10, 49, 30], [0, 4, 0, 31], id="g7-lower-past-L"),
-]
+# C, G, lengths, lower
+K2_SHAPES = {
+    "ragged": (96, 1, [0, 1, 50, 95], None),
+    "g4-lower": (96, 4, [3, 40, 77, 12], [0, 0, 20, 5]),
+    "full": (64, 1, [64, 10, 63, 64], None),
+    "g7-lower-past-L": (50, 7, [0, 10, 49, 30], [0, 4, 0, 31]),
+}
+
+
+def _k2_cases(first, more):
+    return [pytest.param(*K2_SHAPES[p.values[0]], p.values[1], id=p.id)
+            for p in _at(list(K2_SHAPES), first, more)]
 
 
 def _k2_inputs(D, C, G, lengths, lower, seed):
@@ -209,13 +236,13 @@ def _k2_inputs(D, C, G, lengths, lower, seed):
     return q, kc, vc, kn, vn, lens, lo, out.numpy(), k_port.numpy(), v_port.numpy()
 
 
-@pytest.mark.parametrize("C,G,lengths,lower", K2_CASES)
-def test_k2_head_dim_64_plain_matches_jax_xla(C, G, lengths, lower):
-    """K2's plain version at head_dim 64 against the JAX package's XLA
-    decode attention (``grouped_attention``, what its decode step runs at
-    this head_dim) over the cache with the new token in slot
+@pytest.mark.parametrize("C,G,lengths,lower,D", _k2_cases(64, (80,)))
+def test_k2_head_dim_64_plain_matches_jax_xla(C, G, lengths, lower, D):
+    """K2's plain version at head_dim 64 and 80 against the JAX package's
+    XLA decode attention (``grouped_attention``, what its decode step runs
+    at these head_dims) over the cache with the new token in slot
     ``min(len, C - 1)``: the output, and the appended cache."""
-    q, kc, vc, kn, vn, lens, lo, out, k_port, v_port = _k2_inputs(64, C, G, lengths, lower, 47)
+    q, kc, vc, kn, vn, lens, lo, out, k_port, v_port = _k2_inputs(D, C, G, lengths, lower, 47)
     H = q.shape[0]
     L = np.minimum(lens, C - 1)
     k_app, v_app = kc.copy(), vc.copy()
@@ -226,17 +253,17 @@ def test_k2_head_dim_64_plain_matches_jax_xla(C, G, lengths, lower):
     low = np.zeros(H, np.int64) if lo is None else lo.astype(np.int64)
     keep = ((idx >= low[:, None]) & (idx < L[:, None])) | (idx == L[:, None])
     j_out = jllama.grouped_attention(
-        jnp.asarray(q.reshape(1, H * G, 1, 64)), jnp.asarray(k_app[None]),
+        jnp.asarray(q.reshape(1, H * G, 1, D)), jnp.asarray(k_app[None]),
         jnp.asarray(v_app[None]), jnp.asarray(keep[None, :, None]))
-    np.testing.assert_allclose(out, np.asarray(j_out).reshape(H, G, 64), **TOL)
+    np.testing.assert_allclose(out, np.asarray(j_out).reshape(H, G, D), **TOL)
 
 
-@pytest.mark.parametrize("C,G,lengths,lower", K2_CASES)
-def test_k2_head_dim_256_plain_matches_pallas(C, G, lengths, lower):
-    """K2's plain version at head_dim 256 against the Pallas
+@pytest.mark.parametrize("C,G,lengths,lower,D", _k2_cases(256, (384, 512)))
+def test_k2_head_dim_256_plain_matches_pallas(C, G, lengths, lower, D):
+    """K2's plain version at head_dim 256, 384 and 512 against the Pallas
     ``_decode_kernel`` in interpret mode: the output, the appended cache and
     the lengths."""
-    q, kc, vc, kn, vn, lens, lo, out, k_port, v_port = _k2_inputs(256, C, G, lengths, lower, 53)
+    q, kc, vc, kn, vn, lens, lo, out, k_port, v_port = _k2_inputs(D, C, G, lengths, lower, 53)
     j_out, j_k, j_v, j_lens = jdecode.decode_attention_append(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
         jnp.asarray(kn), jnp.asarray(vn), interpret=True,
@@ -265,20 +292,26 @@ def _carried(arrays, nbits):
     return c.k_codes[0, 0], c.v_codes[0, 0], c.scales[0, 0]
 
 
-@pytest.mark.parametrize("nbits,G,lengths,lower,amp", [
-    pytest.param(8, 1, [0, 5, 131, 254], None, UNIT, id="8-ragged"),
-    pytest.param(8, 4, [3, 100, 256, 130], [0, 20, 150, 0], UNIT, id="8-g4-lower-full"),
-    pytest.param(8, 2, [200, 37, 256, 1], [0, 5, 0, 0], RANGE, id="8-range"),
-    pytest.param(4, 1, [0, 5, 131, 254], None, UNIT, id="4-ragged"),
-    pytest.param(4, 4, [3, 100, 256, 130], [0, 20, 150, 0], UNIT, id="4-g4-lower-full"),
-])
-def test_kq_head_dim_256_plain_matches_pallas(nbits, G, lengths, lower, amp):
-    """K3's and K4's plain versions at head_dim 256 against the JAX kernels
-    in interpret mode over one cache carried across
+KQ_SHAPES = {
+    # nbits, G, lengths, lower, amp
+    "8-ragged": (8, 1, [0, 5, 131, 254], None, UNIT),
+    "8-g4-lower-full": (8, 4, [3, 100, 256, 130], [0, 20, 150, 0], UNIT),
+    "8-range": (8, 2, [200, 37, 256, 1], [0, 5, 0, 0], RANGE),
+    "4-ragged": (4, 1, [0, 5, 131, 254], None, UNIT),
+    "4-g4-lower-full": (4, 4, [3, 100, 256, 130], [0, 20, 150, 0], UNIT),
+}
+
+
+@pytest.mark.parametrize("nbits,G,lengths,lower,amp,D", [
+    pytest.param(*KQ_SHAPES[p.values[0]], p.values[1], id=p.id)
+    for p in _at(list(KQ_SHAPES), 256, (384, 512))])
+def test_kq_head_dim_256_plain_matches_pallas(nbits, G, lengths, lower, amp, D):
+    """K3's and K4's plain versions at head_dim 256, 384 and 512 against the
+    JAX kernels in interpret mode over one cache carried across
     (``quant_cache_from_jax``): the output, and the appended codes and
     scalars byte for byte; the range case (q past fp16's range, tiny
     v_scale) for K3, whose card kernel runs fp16 products."""
-    H, C, D = 4, 256, 256
+    H, C = 4, 256
     rng = np.random.default_rng(59)
     q = torch.from_numpy((amp[0] * rng.standard_normal((H, G, D))).astype(np.float32)).to(
         torch.bfloat16).float().numpy()
@@ -320,7 +353,13 @@ LLAMA32 = dict(model_type="llama", vocab_size=512, hidden_size=256, intermediate
                num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2, head_dim=64,
                rope_theta=500000.0, rope_scaling=("llama3", 32.0, 1.0, 4.0, 8192),
                tie_word_embeddings=True, dtype="float32")
-# A head_dim 256 model for the per-token int8 cache (K1 and K3 at 256).
+# h2o-danube2-1.8b's shape (MistralForCausalLM), cut to size: head_dim 80,
+# G 4, rope_theta 1e4, no sliding window, untied lm_head.
+DANUBE2 = dict(model_type="mistral", vocab_size=512, hidden_size=320, intermediate_size=576,
+               num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2, head_dim=80,
+               rope_theta=10000.0, tie_word_embeddings=False, dtype="float32")
+# A head_dim 256 model for the per-token int8 cache (K1 and K3 at 256); the
+# same at head_dim 384.
 D256 = dict(model_type="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=256,
             rope_theta=10000.0, dtype="float32")
@@ -350,7 +389,15 @@ def llama32():
     return _model(LLAMA32)
 
 
-@pytest.mark.parametrize("comp,nbits", [("snapkv", None), ("fullkv", None), ("snapkv", 8)])
+@pytest.fixture(scope="module")
+def danube2():
+    return _model(DANUBE2)
+
+
+ENGINE_RUNS = [("snapkv", None), ("fullkv", None), ("snapkv", 8)]
+
+
+@pytest.mark.parametrize("comp,nbits", ENGINE_RUNS)
 def test_llama32_shaped_engine_matches_jax(llama32, comp, nbits):
     """A tiny Llama-3.2-shaped model (head_dim 64, G 4, llama3 rope
     scaling, tied embeddings) through the port's ``InferenceEngine`` against
@@ -358,9 +405,23 @@ def test_llama32_shaped_engine_matches_jax(llama32, comp, nbits):
     which builds the grouped cache in both packages at this head_dim.
     Streams identical, cache lengths equal, first-token logits within
     1e-4."""
-    m = llama32
+    _engine_matches_jax(llama32, comp, nbits)
+
+
+@pytest.mark.parametrize("comp,nbits", ENGINE_RUNS)
+def test_danube2_shaped_engine_matches_jax(danube2, comp, nbits):
+    """A tiny h2o-danube2-shaped model (head_dim 80, G 4) as
+    :func:`test_llama32_shaped_engine_matches_jax`: K1 and K2 at 80 on the
+    card; nbits 8 builds the grouped cache in both packages (80 % 128 !=
+    0), in groups of 16 channels (both packages need groups that divide
+    head_dim)."""
+    assert not tcfg.QuantConfig(nbits=8).per_token(80)
+    _engine_matches_jax(danube2, comp, nbits, q_group_size=16)
+
+
+def _engine_matches_jax(m, comp, nbits, q_group_size=64):
     comp_kw = SNAPKV if comp == "snapkv" else dict(method="fullkv")
-    quant = None if nbits is None else tcfg.QuantConfig(nbits=nbits)
+    quant = None if nbits is None else tcfg.QuantConfig(nbits=nbits, q_group_size=q_group_size)
     eng = tengine.InferenceEngine(m["tp"], tcfg.EngineConfig(
         model=m["tc"], compression=tcfg.CompressionConfig(**comp_kw), quant=quant,
         prefill_buckets=(BUCKET,)), device="cpu")
@@ -370,7 +431,8 @@ def test_llama32_shaped_engine_matches_jax(llama32, comp, nbits):
     cap = eng._cache_capacity(BUCKET, MAX_NEW)
     jres = jax_generate(m["jp"], m["jc"], jcomp, jcfg.GenerationConfig(max_new_tokens=MAX_NEW),
                         jnp.asarray(m["toks"]), jnp.asarray(m["lens"]), cap,
-                        quant_cfg=None if nbits is None else jcfg.QuantConfig(nbits=nbits))
+                        quant_cfg=None if nbits is None else jcfg.QuantConfig(
+                            nbits=nbits, q_group_size=q_group_size))
     nums, toks = np.asarray(jres.num_tokens), np.asarray(jres.tokens)
     assert ids == [toks[i, :nums[i]].tolist() for i in range(len(ids))]
     np.testing.assert_array_equal(res.cache.lengths.numpy(), np.asarray(jres.cache.lengths))
@@ -399,16 +461,18 @@ def jax_prefill_on_kernel_path():
         yield
 
 
-def test_head_dim_256_int8_per_token_matches_jax():
-    """A tiny head_dim 256 model over the per-token int8 cache (K1 and K3 at
-    256) against JAX's per-token path: its prefill on the Pallas kernel in
-    interpret mode, the cache quantized whole (``from_packed_prefill_tpu``),
-    and its decode step with the Pallas K3 in interpret mode; the port's
-    ``generate`` builds ``Int8KVCache``.  Streams identical, lengths equal,
-    first-token logits within 1e-4."""
-    m = _model(D256)
+@pytest.mark.parametrize("D", [pytest.param(256, id="d256"), pytest.param(384, id="d384")])
+def test_head_dim_256_int8_per_token_matches_jax(D):
+    """A tiny head_dim 256 (and 384) model over the per-token int8 cache (K1
+    and K3 at that head_dim) against JAX's per-token path: its prefill on
+    the Pallas kernel in interpret mode, the cache quantized whole
+    (``from_packed_prefill_tpu``), and its decode step with the Pallas K3
+    in interpret mode; the port's ``generate`` builds ``Int8KVCache``, as
+    the JAX rule (``head_dim % 128 == 0``) does.  Streams identical, lengths
+    equal, first-token logits within 1e-4."""
+    m = _model(dict(D256, head_dim=D))
     qcfg = tcfg.QuantConfig(nbits=8)
-    assert qcfg.per_token(256)
+    assert qcfg.per_token(D)
     jcomp, tcomp = jcfg.CompressionConfig(**SNAPKV), tcfg.CompressionConfig(**SNAPKV)
     cap, max_new = 128, 5
     step = jax.jit(lambda p, tok, c: jllama.decode_step(
@@ -432,3 +496,69 @@ def test_head_dim_256_int8_per_token_matches_jax():
     np.testing.assert_array_equal(tres.tokens.numpy(), want)
     np.testing.assert_array_equal(tres.cache.lengths.numpy(), np.asarray(cache.lengths))
     np.testing.assert_allclose(tres.logits[:, 0].numpy(), logits[0], **LOGITS_TOL)
+
+
+# --- the entry point and scale a head_dim takes on the card ---------------------
+
+
+class _StubLib:
+    """A kernel library whose entry points record their arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("kvcf_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _stub_device(monkeypatch, mod):
+    """Let a meta tensor through ``mod``'s kernel path to a stubbed library:
+    no device check, no CUDA stream or device, 132 SMs.  Returns the stub."""
+    lib = _StubLib()
+    monkeypatch.setattr(tflash._build, "load", lambda name: lib)
+    monkeypatch.setattr(mod, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: mock.Mock(cuda_stream=0))
+    return lib
+
+
+@pytest.mark.parametrize("D,width", [(80, 128), (16, 64), (160, 256), (392, 512)])
+def test_k1_stub_takes_the_instantiation_and_the_true_scale(D, width, monkeypatch):
+    """On a tensor off the CPU, K1 at head_dim ``D`` calls the entry point of
+    the narrowest instantiation at least as wide, with ``D`` and ``D **
+    -0.5`` (not the instantiation's scale) as its last two numbers."""
+    lib = _stub_device(monkeypatch, tflash)
+    monkeypatch.setattr(tflash.flash_prefill_attention, "launches", 0)
+    monkeypatch.setattr(tflash.flash_prefill_attention, "variant_launches",
+                        dict.fromkeys(tflash.flash_prefill_attention.variant_launches, 0))
+    q = torch.empty(1, 2, 64, D, dtype=torch.bfloat16, device="meta")
+    tflash.flash_prefill_attention(q, q, q, torch.empty(1, dtype=torch.int32, device="meta"), 8)
+    (name, args), = lib.calls
+    assert name == f"kvcf_flash_prefill_d{width}" and tflash.instance(D) == width
+    assert args[-3] == D and args[-2] == D ** -0.5 and args[-2] != width ** -0.5
+
+
+@pytest.mark.parametrize("D,width", [(80, 128), (16, 64), (160, 256), (392, 512)])
+def test_k2_stub_takes_the_instantiation_and_the_true_scale(D, width, monkeypatch):
+    """As K1's: K2 at head_dim ``D`` calls the narrowest wider instantiation
+    with ``D`` and ``D ** -0.5``, and sizes its partials at the
+    instantiation's width."""
+    lib = _stub_device(monkeypatch, tdecode)
+    monkeypatch.setattr(tdecode.decode_attention_append, "launches", 0)
+    monkeypatch.setattr(tdecode, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tdecode, "_counters",
+                        lambda dev, H: torch.zeros(H, dtype=torch.int32, device="meta"))
+    m = dict(dtype=torch.bfloat16, device="meta")
+    H, G, C = 2, 4, 16
+    tdecode.decode_attention_append(
+        torch.empty(H, G, D, **m), torch.empty(H, C, D, **m), torch.empty(H, C, D, **m),
+        torch.empty(H, dtype=torch.int32, device="meta"), torch.empty(H, D, **m),
+        torch.empty(H, D, **m))
+    (name, args), = lib.calls
+    assert name == f"kvcf_decode_attn_append_d{width}"
+    assert args[-3] == D and args[-2] == D ** -0.5
+    n_split = args[-4]
+    assert n_split == tdecode.split_count(H, C, 132, tdecode.CTAS_PER_SM_AT[width])

@@ -198,11 +198,11 @@ def test_decode_check_takes_every_group_up_to_8(G):
         tdecode._check(*_decode_check_args(G))
 
 
-@pytest.mark.parametrize("D_", [64, 128, 256])
+@pytest.mark.parametrize("D_", [16, 64, 80, 128, 256, 384, 512])
 @pytest.mark.parametrize("G", [1, 4])
 def test_decode_check_takes_each_head_dim(G, D_):
-    """K2 takes head_dim 64, 128 and 256: every shape check passes; only the
-    device stops a CPU tensor."""
+    """K2 takes every head_dim that is a multiple of 8 up to 512: every
+    shape check passes; only the device stops a CPU tensor."""
     with pytest.raises(ValueError, match="unsupported device"):
         tdecode._check(*_decode_check_args(G, D_))
 
@@ -216,7 +216,7 @@ def test_decode_check_takes_groups_above_8(G, D_):
         tdecode._check(*_decode_check_args(G, D_))
 
 
-@pytest.mark.parametrize("G,shape", [(1, (2, 1, 96)), (1, (2, 1, 384))])
+@pytest.mark.parametrize("G,shape", [(1, (2, 1, 100)), (1, (2, 1, 640))])
 def test_decode_check_refuses_other_head_dims(G, shape):
     args = _decode_check_args(G, shape[-1])
     args[0] = torch.zeros(shape, dtype=torch.bfloat16)
@@ -269,11 +269,11 @@ def test_quant_check_takes_every_group_up_to_8(nbits, G):
         tquant._check(*_quant_check_args(nbits, G))
 
 
-@pytest.mark.parametrize("D_", [128, 256])
+@pytest.mark.parametrize("D_", [128, 256, 384, 512])
 @pytest.mark.parametrize("nbits", [8, 4])
 def test_quant_check_takes_each_head_dim(nbits, D_):
-    """K3 and K4 take head_dim 128 and 256 (the per-token cache's): every
-    shape check passes; only the device stops a CPU tensor."""
+    """K3 and K4 take head_dim 128, 256, 384 and 512 (the per-token
+    cache's): every shape check passes; only the device stops a CPU tensor."""
     with pytest.raises(ValueError, match="unsupported device"):
         tquant._check(*_quant_check_args(nbits, 4, d=D_))
 
@@ -288,7 +288,7 @@ def test_quant_check_takes_groups_above_8(nbits, G, D_):
         tquant._check(*_quant_check_args(nbits, G, d=D_))
 
 
-@pytest.mark.parametrize("G,shape", [(1, (2, 1, 64)), (1, (2, 1, 96)), (1, (2, 1, 384))])
+@pytest.mark.parametrize("G,shape", [(1, (2, 1, 64)), (1, (2, 1, 96)), (1, (2, 1, 640))])
 @pytest.mark.parametrize("nbits", [8, 4])
 def test_quant_check_refuses_other_head_dims(nbits, G, shape):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
@@ -302,10 +302,11 @@ def _flash_check_args(d, window=8):
             torch.zeros(1, 2, 64, d, dtype=bf), torch.zeros(1, dtype=torch.int32), window]
 
 
-@pytest.mark.parametrize("D_", [64, 128, 256])
+@pytest.mark.parametrize("D_", [16, 64, 80, 128, 256, 384, 512])
 def test_flash_check_takes_each_head_dim(D_):
-    """K1 takes head_dim 64, 128 and 256: every shape check passes; the
-    device check comes last (as K2's), so only it stops a CPU tensor."""
+    """K1 takes every head_dim that is a multiple of 8 up to 512: every
+    shape check passes; the device check comes last (as K2's), so only it
+    stops a CPU tensor."""
     with pytest.raises(ValueError, match="unsupported device"):
         tflash._check(*_flash_check_args(D_))
 
@@ -320,7 +321,7 @@ def test_flash_check_takes_windows_above_64(window, D_):
         tflash._check(*_flash_check_args(D_, window))
 
 
-@pytest.mark.parametrize("D_,window", [(96, 8), (384, 8)])
+@pytest.mark.parametrize("D_,window", [(100, 8), (640, 8)])
 def test_flash_check_refuses_other_head_dims(D_, window):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
         tflash._check(*_flash_check_args(D_, window))
@@ -389,7 +390,8 @@ WRAPPERS = {
 # are the wrapper's name alone).
 BUILD_CASES = [pytest.param(which, d, id=which if d == D else f"{which}-d{d}")
                for which in sorted(WRAPPERS)
-               for d in ((128, 256) if which.startswith("quant") else (64, 128, 256))]
+               for d in ((128, 256, 384, 512) if which.startswith("quant")
+                         else (64, 80, 128, 256, 384, 512))]
 
 
 @pytest.mark.parametrize("which,d", BUILD_CASES)
@@ -494,6 +496,31 @@ def test_build_names_library_by_source_hash_and_replaces_atomically(tmp_path, mo
     assert second != first
     _build.build_all(["flash_prefill"])
     assert second.exists()
+
+
+def test_variant_library_builds_its_source_with_its_flags(tmp_path, monkeypatch):
+    """K3 / K4 at head_dim 384 live in ``decode_attn_quant_d384``:
+    ``decode_attn_quant.cu`` compiled with ``-DKVCF_QUANT_D=384`` into a
+    library hashed apart from the one of 128 and 256 (and of 512), and the
+    wrapper picks it by head_dim."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "decode_attn_quant.cu").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    args_file = tmp_path / "args"
+    nvcc = _fake_nvcc(tmp_path, f'echo "$@" > "{args_file}"\n'
+                                'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n')
+    monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
+    _build.build_all(["decode_attn_quant_d384"])
+    args = args_file.read_text().split()
+    assert "-DKVCF_QUANT_D=384" in args and args[-1] == str(src / "decode_attn_quant.cu")
+    assert _build._lib_path("decode_attn_quant_d384").exists()
+    paths = {_build._lib_path(n) for n in ("decode_attn_quant", "decode_attn_quant_d384",
+                                           "decode_attn_quant_d512")}
+    assert len(paths) == 3
+    assert [tquant.library(d) for d in (128, 256, 384, 512)] == \
+        ["decode_attn_quant"] * 2 + ["decode_attn_quant_d384", "decode_attn_quant_d512"]
 
 
 def test_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch):
