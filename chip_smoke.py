@@ -52,7 +52,8 @@ Phases, in order; any failure exits non-zero:
    the score pass timed beside the main pass) and K2-K4 at G 9, 12 and 16
    (4e: Mistral-Large-2's and Llama-3.1-405B's 8 KV heads, with K2's
    checks, K3 / K4's range case and appends, times and ptxas lines);
-5. the main path end to end at Mistral-7B-Instruct-v0.2 widths with random
+5. the main path end to end at Mistral-7B-Instruct-v0.2 widths (16 of its
+   32 layers since phases 3h-4h and 20 joined the script) with random
    weights, three times: with the bf16 cache, with ``QuantConfig(nbits=8)``
    and with ``QuantConfig(nbits=4)``.  Each is one
    ``InferenceEngine.generate_batch`` on two requests, with every kernel's
@@ -68,8 +69,8 @@ Phases, in order; any failure exits non-zero:
    window K1 is handed (window scores for snapkv, pyramidkv, think, adakv
    and headkv only), every (layer, head, request) length against the
    method's budget rule, think's zeroed key channels, request (b)'s logits
-   against the fp32 reference forward, K2 (K4) called directly on layers 0
-   and 31 of the finished adakv and pyramidkv caches against the plain
+   against the fp32 reference forward, K2 (K4) called directly on the first
+   and last layer of the finished adakv and pyramidkv caches against the plain
    version, prefill and decode times, a profiled decode step of snapkv and
    adakv;
 6. the serving path: ``ContinuousBatchingEngine`` at Mistral-7B-v0.1 widths
@@ -106,7 +107,7 @@ Phases, in order; any failure exits non-zero:
    and ``model.safetensors.index.json``, by a minimal safetensors writer
    here) and read back by ``load_params``: every leaf bitwise equal to the
    fused, transposed tensors built in memory, the native reader serving,
-   and a SnapKV prefill on the two bitwise equal; (9b) at 4 of the 28 layers,
+   and a SnapKV prefill on the two bitwise equal; (9b) at 2 of the 28 layers,
    random bf16 weights and ``quantize_weights`` (W8A16) through
    ``InferenceEngine`` with phase 5's SnapKV and requests, once with the
    bf16 cache (K2) and once with the int8 cache (K3), then one fullkv
@@ -202,16 +203,16 @@ Phases, in order; any failure exits non-zero:
    reference with the run's routing replayed (its MoE block summed over
    the ranks), flips only at near-ties, the distance from 11b's run, the
    decode step's wall and busy time beside 11b's;
-16. Llama-3.2-1B-Instruct at full width (8 of its 16 layers, head_dim 64,
+16. Llama-3.2-1B-Instruct at full width (4 of its 16 layers, head_dim 64,
    G 4, llama3 rope scaling, tied embeddings; random bf16 weights), phase
    5's requests through ``InferenceEngine`` with snapkv (K1 8 a prefill,
-   K2 504 at G 1) and fullkv (K2 at G 4), each checked as phase 5's paths
+   K2 252 at G 1) and fullkv (K2 at G 4), each checked as phase 5's paths
    (launches, lengths, logits against the fp32 reference, K2 directly on
-   layers 0 and 7, times and a profiled decode step), then a
+   layers 0 and 3, times and a profiled decode step), then a
    ``ContinuousBatchingEngine`` drain of four 4096-token requests with
-   chunked admission (K1-chunk at 64); 16b: a 4-layer head_dim 256 model
+   chunked admission (K1-chunk at 64); 16b: a 2-layer head_dim 256 model
    over the bf16, int8 and int4 caches (K1-K4 at 256), checked the same;
-17. Mistral-Large-Instruct-2407 at full width (4 of 88 layers, G 12;
+17. Mistral-Large-Instruct-2407 at full width (2 of 88 layers, G 12;
    random bf16 weights): phase 5's requests through ``InferenceEngine``
    with fullkv over the bf16, int8 and int4 caches (K2 / K3 / K4 at G 12),
    snapkv with the mean group reduction and snapkv with a 128-row window
@@ -220,7 +221,7 @@ Phases, in order; any failure exits non-zero:
    (every K1 and K2 launch in the trace, inside its annotation),
    ``utils.infer_attention`` against the CPU, and
    ``examples/serving_torch.py`` with a one-chunk system prompt (prefix
-   resumes); 17b: Llama-3.1-405B-Instruct at full width (2 of 126 layers,
+   resumes); 17b: Llama-3.1-405B-Instruct at full width (1 of 126 layers,
    G 16) with fullkv over the three caches (K2 / K3 / K4 at G 16);
 19. (3g-4g, after phase 4e, on a generator of their own) K1 and K2
    at every head_dim of ``NEW_HEAD_DIMS`` (16 ... 512, each on the
@@ -233,13 +234,26 @@ Phases, in order; any failure exits non-zero:
    byte), with what a skipped tile, an off-by-one key range, a dropped
    split and the instantiation's 1/sqrt(width) in place of 1/sqrt(D) would
    show, each beside its plain version, its library yardstick and its
-   bound; then, last, h2o-danube2-1.8b at full width and depth (24 layers,
+   bound; then h2o-danube2-1.8b at full width (8 of its 24 layers,
    head_dim 80, G 4; random bf16 weights) through ``InferenceEngine`` with
-   snapkv and fullkv (K1 24 a prefill, K2 24 x 63 a run) and a chunked
-   drain (K1-chunk at 80), checked as phase 16; 19b: two 4-layer models at
+   snapkv and fullkv (K1 8 a prefill, K2 8 x 63 a run) and a chunked
+   drain (K1-chunk at 80), checked as phase 16; 19b: two 2-layer models at
    head_dim 384 and 512 over the bf16, int8 and int4 caches (K1-K4 at 384
    and 512, the quantized caches per token);
-20. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
+20. (3h-4h, after phase 4g, on a generator of their own) K1 and K2 at
+   every head_dim of ``RAGGED_HEAD_DIMS`` (20 ... 510: no multiple of 8,
+   the libraries that copy rows in 8- or 4-byte pieces, every
+   instantiation) against their plain versions on inputs whose buffers end
+   in NaN (K1 dense with scores, the CTA's edges and, at 100, its
+   variants; K2 at G 1, 4 and 12, the edge shapes, the append byte for
+   byte), with what a skipped tile (a dropped split, an off-by-one key
+   range), 1/sqrt(width), a row's tail piece dropped and a row read at the
+   instantiation's width would show; then, last, OpenLLaMA-3B v2 at full
+   width and depth (26 layers, head_dim 100, MHA; random bf16 weights),
+   two requests of 1984 and 1500 tokens through ``InferenceEngine`` with
+   snapkv at 1024 and fullkv (K1 26 a prefill, K2 26 x 63 a run) and a
+   chunked drain (K1-chunk at 100), checked as phase 16;
+21. summary lines: one ``{"kernels": [...]}`` object, one end-to-end object,
    and last ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and the port.  The full profiler tables go to
@@ -252,6 +266,7 @@ import collections
 import contextlib
 import dataclasses
 import datetime
+import functools
 import importlib.util
 import json
 import math
@@ -260,6 +275,7 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -316,6 +332,15 @@ MISTRAL_7B = ModelConfig.from_hf_config(MISTRAL_7B_HF_CONFIG)
 # sliding window, so the v0.2 weights fit it.
 MISTRAL_7B_V01 = ModelConfig.from_hf_config({**MISTRAL_7B_HF_CONFIG, "rope_theta": 10000.0,
                                             "sliding_window": 4096})
+# Phases 5, 5b, 6, 7 and 8c run Mistral-7B at 16 of its 32 layers (the first
+# 16 of the seed-0 draw, ``first_layers``; 8c's ranks cut their own draw the
+# same way) since phases 3h-4h and 20 joined the script, for its time limit:
+# their checks count launches per layer and hold logits to the fp32
+# reference at any depth.
+SHARED_LAYERS = 16
+MISTRAL_7B_16 = dataclasses.replace(MISTRAL_7B, num_hidden_layers=SHARED_LAYERS)
+MISTRAL_7B_V01_16 = dataclasses.replace(MISTRAL_7B_V01, num_hidden_layers=SHARED_LAYERS)
+MAIN_MODEL = "Mistral-7B-Instruct-v0.2 widths (16 of 32 layers), random weights (seed 0)"
 # The JAX bench's compression (bench.py:68-73), one entry set per query head.
 SNAPKV = CompressionConfig(method="snapkv", max_capacity_prompt=2048,
                            window_size=8, kernel_size=7, pooling="maxpool",
@@ -457,6 +482,11 @@ def rel_l2(got, ref):
 # ---------------------------------------------------------------------------
 # Phase 3: K1
 # ---------------------------------------------------------------------------
+
+
+def first_layers(params, n):
+    """``params`` with only its first ``n`` layers (views, no copy)."""
+    return {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}}
 
 
 def bf16_normal(rng, shape):
@@ -2020,14 +2050,22 @@ def sdpa_backend(call):
     """Which backend ``scaled_dot_product_attention`` ran in ``call``, read
     from the kernel names of one profiled call: "flash" (``flash_fwd``),
     "memory-efficient" (``fmha``), "cuDNN" or, with none of those, "math"
-    (plain products and a softmax)."""
+    (plain products and a softmax).  The window opens with the
+    ``PROFILE_BURST`` spin kernels, which take the profiler's loss of a
+    session's first device records (without them, late in the script the
+    call's few records were lost and every call read as "math"); a window
+    with no record of the call is "not measured"."""
     call()
     sync()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profile_burst()
         call()
         sync()
-    names = " ".join(evt.key for evt in prof.key_averages()
-                     if evt.device_type == DeviceType.CUDA).lower()
+    keys = [evt.key for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA and BURST_KERNEL not in evt.key]
+    if not keys:
+        return "not measured"
+    names = " ".join(keys).lower()
     for tag, backend in (("flash_fwd", "flash"), ("fmha", "memory-efficient"),
                          ("cudnn", "cuDNN")):
         if tag in names:
@@ -2305,6 +2343,284 @@ def phase_kq_wide_head_dims(rng, reports):
 
 
 # ---------------------------------------------------------------------------
+# Phases 3h and 4h: K1 and K2 at head_dims that are no multiple of 8
+# ---------------------------------------------------------------------------
+
+# Every instantiation (64: 20, 42; 128: 100, 110; 256: 150; 384: 300; 512:
+# 510) and D % 8 of 4 (20, 100, 300) and of 2 and 6 (42, 110, 150, 510).
+# 100 is OpenLLaMA-3B v2's (phase 20), at its 32 / 32 heads.
+RAGGED_HEAD_DIMS = (20, 42, 100, 110, 150, 300, 510)
+OPENLLAMA_HEADS = (32, 32)
+OPENLLAMA_PROMPTS = (1984, 1500)  # phase 20's requests, bucket 2048
+# 1/sqrt(width) in place of 1/sqrt(D) changes every logit by the factor
+# sqrt(D / width): by 0.2% at D 510 on the 512 instantiation, which moves an
+# output row by less than K1's or K2's limit (measured beside them).  K1's
+# check then holds the scale through K1-ml's row max m (limit K1ML_M_TOL);
+# K2 returns no such statistic, so at a scale off by less than this its
+# scale fault is reported and not required to fail (the wrapper's D ** -0.5
+# is held by tests/test_torch_ragged_head_dims.py).
+SCALE_VISIBLE = 0.01
+
+
+def plain_attention_rows(q, k, v, rows, t, scale):
+    """Plain fp32 causal attention of q's ``rows`` (global ids) over k / v's
+    first ``t`` keys: [len(rows), v's width]."""
+    s = q[rows].float() @ k.float().T * scale
+    cols = torch.arange(k.shape[0], device=q.device)[None]
+    keep = (cols <= rows[:, None]) & (cols < t)
+    return torch.softmax(torch.where(keep, s, float("-inf")), dim=-1) @ v.float()
+
+
+def wide_rows(x, width):
+    """The rows of a contiguous [S, D] plane read at ``width`` > D columns
+    with the row stride D: each row's channels past D are the next row's
+    first ones (zeros past the plane's end)."""
+    S, D = x.shape
+    flat = torch.cat([x.reshape(-1), x.new_zeros(width)])
+    return flat.as_strided((S, width), (D, 1))
+
+
+def k1_ragged_fault_errors(q, k, v, tls, out_ref, r0):
+    """What K1's check sees (example 0, head 0, rows r0 .. true_len) from a
+    kernel that drops each row's last copy piece of q, k and v (zeros in
+    its place) and from one that reads every row at its instantiation's
+    width (the next row's first channels past D, its output's first D
+    columns kept): each worst row rel L2 against the plain version."""
+    t, D = tls[0], q.shape[-1]
+    pc = flash_prefill.copy_bytes(D) // 2
+    rows = torch.arange(r0, t, device=q.device)
+    qh, kh, vh = q[0, 0], k[0, 0], v[0, 0]
+    cut = [x.clone() for x in (qh, kh, vh)]
+    for x in cut:
+        x[:, D - pc:] = 0
+    dropped = plain_attention_rows(*cut, rows, t, D ** -0.5)
+    width = flash_prefill.instance(D)
+    wide = plain_attention_rows(*(wide_rows(x, width) for x in (qh, kh, vh)), rows, t,
+                                D ** -0.5)[:, :D]
+    ref = out_ref[0, 0, r0:t]
+    return rel_l2(dropped, ref)[0], rel_l2(wide, ref)[0]
+
+
+def phase_k1_ragged(rng, reports):
+    """Phase 3h: K1 at each of ``RAGGED_HEAD_DIMS`` (the libraries whose
+    producer copies 8- or 4-byte pieces) against its plain version on
+    inputs whose buffers end in NaN: dense with window scores (at 100
+    OpenLLaMA-3B's 32 / 32 heads at phase 20's 2048 rows, true_len 1984 /
+    1500; elsewhere 16 / 4 heads, S 2048), the CTA's length edges of 3g,
+    two launches bitwise equal, and what a skipped key tile, 1/sqrt(width)
+    in place of 1/sqrt(D), a row's tail piece dropped and a row read at the
+    instantiation's width would show (each must fail the limit); timed
+    beside its plain version, SDPA (with the backend it ran) and its bound.
+    At 100 also the variants (``k1_head_dim_variants``: SW, chunk, a-shape,
+    vertical-slash, a ring hop)."""
+    out = {}
+    for D in RAGGED_HEAD_DIMS:
+        width, lib = flash_prefill.instance(D), flash_prefill.library(D)
+        regs = registers_by_head_dim(reports, lib, "flash_fwd_kernel")
+        Hq, Hkv = OPENLLAMA_HEADS if D == 100 else (16, 4)
+        B, W, S = 2, 8, 2048
+        tls = list(OPENLLAMA_PROMPTS) if D == 100 else [S, S * 3 // 4]
+        q, k, v, tl, sc, out_ref, err, absd, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls, D,
+                                                              tail=True)
+        edge = k1_case(rng, 4, 8, 2, 1024, 64, [1, 63, 129, 1000], D, tail=True)[6:9]
+        call = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W)  # noqa: E731
+        same = bitwise_repeat(call)
+        r0 = tls[0] // 2
+        skip_err = k1_skipped_tile_error(q, k, v, tls, out_ref, r0=r0)
+        with instantiation_scale(lib):
+            wrong = call()[0]
+        sync()
+        scale_err = max(rel_l2(wrong[b, :, :t], out_ref[b, :, :t])[0] for b, t in enumerate(tls))
+        del wrong
+        tail_err, wide_err = k1_ragged_fault_errors(q, k, v, tls, out_ref, r0)
+        # The scale again through a ring hop's row max m (K1-ml at this D).
+        qh, kh, vh = (nan_tailed(bf16_normal(rng, (1, h, 1024, D))) for h in (Hq, Hkv, Hkv))
+        hop = k1ml_case(qh, kh, vh, 2048, 1024)
+        with instantiation_scale(lib):
+            m_wrong = flash_prefill.flash_prefill_attention(
+                qh, kh, vh, hop["tl"], 0, row_offset=hop["off"], return_ml=True)[2]
+        sync()
+        scale_m_err = (m_wrong - hop["m_ref"]).abs().max().item()
+        del qh, kh, vh, hop, m_wrong
+        faults = {"skipped_tile": skip_err, "instantiation_scale": scale_err,
+                  "tail_piece_dropped": tail_err, "row_read_at_width": wide_err}
+        log(f"K1 D={D} ({lib}, instantiation {width}, {flash_prefill.copy_bytes(D)}-byte "
+            f"pieces): two launches bitwise equal {same}; a fault would show "
+            f"{({n: f'{e:.3e}' for n, e in faults.items()})} (tol {K1_OUT_TOL}), the "
+            f"instantiation's scale in K1-ml's m {scale_m_err:.3e} (tol {K1ML_M_TOL}); ptxas "
+            f"(registers, spill) {regs.get(width, 'cached: no report')}")
+        if not same or min(e for n, e in faults.items() if n != "instantiation_scale") \
+                <= K1_OUT_TOL or (scale_err <= K1_OUT_TOL and scale_m_err <= K1ML_M_TOL):
+            raise SystemExit(f"K1 at D={D} is not deterministic, or its tolerance would let a "
+                             "fault pass")
+        faults["instantiation_scale_ml_m_abs"] = scale_m_err
+        del out_ref
+        t = time_k1(q, k, v, tl, W, tls, sc)
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        log(f"K1 D={D}: the library yardstick ran SDPA's {backend} backend")
+        del q, k, v, sc
+        entry = {"name": f"flash_prefill_d{D}", "route": "cuda", "source": flash_prefill.SOURCE,
+                 "replaces": flash_prefill.REPLACES, "built_as": lib, "instantiation": width,
+                 "copy_bytes": flash_prefill.copy_bytes(D),
+                 "library": f"scaled_dot_product_attention, causal GQA ({backend} backend)",
+                 "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
+                 "max_abs_err": absd, "rel_l2": err, "tol": K1_OUT_TOL,
+                 "scores_max_abs_err": err_sc, "fault_rel_l2": faults, **t,
+                 "bound_fraction": t["bound_ms"] / t["ms"], "deterministic": same,
+                 "edge_case": {"rel_l2": edge[0], "max_abs_err": edge[1],
+                               "scores_max_abs_err": edge[2]},
+                 "nan_tailed_inputs": True, "ptxas": regs.get(width)}
+        if D == 100:
+            entry["variants"] = k1_head_dim_variants(rng, D, Hq, Hkv)
+        out[D] = entry
+        torch.cuda.empty_cache()
+    return out
+
+
+def k2_fault_errors(q, kc, vc, kn, vn, lens, ref):
+    """What K2's check sees from a kernel that drops each row's last copy
+    piece (of q, the cache, k_new and v_new: zeros in its place) and from
+    one that reads every row of q and the cache at its instantiation's
+    width (the next row's first channels past D, the output's first D
+    channels kept): each worst head rel L2 against the plain version."""
+    H, G, D = q.shape
+    C = kc.shape[1]
+    pc = flash_prefill.copy_bytes(D) // 2
+    cut = [x.clone() for x in (q, kc, vc, kn, vn)]
+    for x in cut:
+        x[..., D - pc:] = 0
+    dropped = decode_attn.decode_attention_append_reference(*cut[:3], lens, *cut[3:])
+    width = flash_prefill.instance(D)
+    k_app, v_app = kc.clone(), vc.clone()
+    L = lens.long().clamp(max=C - 1)
+    heads = torch.arange(H, device=q.device)
+    k_app[heads, L], v_app[heads, L] = kn, vn
+    kw, vw, qw = (wide_rows(x.reshape(-1, D), width).reshape(x.shape[0], -1, width)
+                  for x in (k_app, v_app, q))
+    keep = torch.arange(C, device=q.device)[None] <= L[:, None]
+    logits = torch.einsum("hgd,hcd->hgc", qw.float(), kw.float()) * D ** -0.5
+    probs = torch.softmax(torch.where(keep[:, None], logits, NEG_INF), dim=-1)
+    wide = torch.einsum("hgc,hcd->hgd", probs, vw.float())[..., :D]
+    return (rel_l2(dropped.reshape(H, -1), ref.reshape(H, -1))[0],
+            rel_l2(wide.reshape(H, -1), ref.reshape(H, -1))[0])
+
+
+def nan_tail_bytes(x):
+    """The ``NAN_TAIL`` elements after ``x``'s last one in its
+    ``nan_tailed`` buffer, as 16-bit words."""
+    tail = torch.empty(0, dtype=x.dtype, device=x.device)
+    tail.set_(x.untyped_storage(), x.storage_offset() + x.numel(), (NAN_TAIL,))
+    return tail.view(torch.int16)
+
+
+def k2_append_bytes(rng, D):
+    """The in-place append at head_dim D touches only the new row's 2 D
+    bytes: 4 heads of C 17 whose new slots are 16 (a full cache and one a
+    slot short; the last head's is the buffer's last row, with NaN after
+    it), 5 and 0; every cache byte against the plain version's append, and
+    the NaN words after the buffer unchanged."""
+    H, C = 4, 17
+    q, kc, vc, kn, vn = (bf16_normal(rng, s) for s in ((H, 1, D), (H, C, D), (H, C, D),
+                                                       (H, D), (H, D)))
+    lens = torch.tensor([17, 5, 0, 16], dtype=torch.int32, device="cuda")
+    k1, v1 = nan_tailed(kc), nan_tailed(vc)
+    tails = [nan_tail_bytes(x).clone() for x in (k1, v1)]
+    k2, v2 = kc.clone(), vc.clone()
+    decode_attn.decode_attention_append(q, k1, v1, lens, kn, vn)
+    decode_attn.decode_attention_append_reference(q, k2, v2, lens, kn, vn)
+    sync()
+    same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in ((k1, k2), (v1, v2)))
+    tail_same = all(torch.equal(nan_tail_bytes(x), t) for x, t in zip((k1, v1), tails))
+    return same and tail_same
+
+
+def phase_k2_ragged(rng, reports):
+    """Phase 4h: K2 at each of ``RAGGED_HEAD_DIMS``, G 1, 4 and 12, against
+    its plain version (inputs in NaN-tailed buffers; the cache after the
+    append identical) on a decode layer (at 100 phase 20's fullkv decode: B
+    2 x 32 heads at G 1, C 2113, 2015 / 1531 keys; elsewhere B 2 x 16 heads
+    at 2079 / 1531; G 4 and 12 over 16 heads at 4159 / 1563, C 4161) and
+    the edge shapes (``k2_edge_cases``), with what an off-by-one key range,
+    a dropped split, 1/sqrt(width), a row's tail piece dropped and a row
+    read at the instantiation's width would show (each must fail the
+    limit); the append's neighbour rows and the bytes after the buffer byte
+    for byte; at 100 bitwise repeats, graph replays and the split-rule
+    edges; the G 1 decode timed beside its plain version, SDPA and its
+    bound (at 100 also phase 20's snapkv decode, 1055 keys a head in C
+    1089)."""
+    out = {}
+    for D in RAGGED_HEAD_DIMS:
+        width, lib = flash_prefill.instance(D), decode_attn.library(D)
+        regs = registers_by_head_dim(reports, lib, "decode_attn_kernel")
+        Hq = OPENLLAMA_HEADS[0] if D == 100 else 16
+        C, H = 2113, 2 * Hq
+        first = OPENLLAMA_PROMPTS[0] + 31 if D == 100 else 2048 + 31
+        lens = [first] * Hq + [1500 + 31] * Hq
+        q, kc, vc, kn, vn, lt, _, ref, err, absd = k2_case(rng, H, 1, C, lens,
+                                                            np.zeros(H, np.int64), D, tail=True)
+        off_err = k2_one_key_off_error(q, kc, vc, kn, vn, lt, ref)
+        drop_err, n_split = k2_dropped_split_error(q, kc, vc, kn, vn, lt, ref)
+        with instantiation_scale(lib):
+            wrong = decode_attn.decode_attention_append(q, kc.clone(), vc.clone(), lt, kn, vn)
+        sync()
+        scale_err = rel_l2(wrong.reshape(H, -1), ref.reshape(H, -1))[0]
+        tail_err, wide_err = k2_fault_errors(q, kc, vc, kn, vn, lt, ref)
+        faults = {"off_by_one": off_err, "dropped_split": drop_err,
+                  "instantiation_scale": scale_err, "tail_piece_dropped": tail_err,
+                  "row_read_at_width": wide_err}
+        C4 = 4096 + 64 + 1
+        by_g = {G: k2_case(rng, 16, G, C4, [4096 + 63] * 8 + [1500 + 63] * 8,
+                           np.zeros(16, np.int64), D, tail=True)[8] for G in (4, 12)}
+        edges = {G: k2_edge_cases(rng, D, G) for G in (1, 4, 12)}
+        append_ok = k2_append_bytes(rng, D)
+        required = dict(faults)
+        if abs(1 - (D / width) ** 0.5) < SCALE_VISIBLE:
+            del required["instantiation_scale"]  # below what the limit can see
+        log(f"K2 D={D} ({lib}, instantiation {width}): G 4 / 12 head rel L2 {by_g[4]:.3e} / "
+            f"{by_g[12]:.3e}, edge shapes {max(edges.values()):.3e}; append byte for byte "
+            f"(neighbour rows, the bytes after the buffer) {append_ok}; a fault would show "
+            f"{({n: f'{e:.3e}' for n, e in faults.items()})} (tol {K2_OUT_TOL}; required to "
+            f"fail it: {sorted(required)}); ptxas (registers, spill) "
+            f"{sorted(set(regs.get(width, [])))}")
+        if min(required.values()) <= K2_OUT_TOL or not append_ok:
+            raise SystemExit(f"K2 at D={D} touched bytes past its row, or its tolerance would "
+                             "let a fault pass")
+        entry = {"name": f"decode_attn_append_d{D}", "route": "cuda",
+                 "source": decode_attn.SOURCE, "replaces": decode_attn.REPLACES,
+                 "built_as": lib, "instantiation": width,
+                 "copy_bytes": flash_prefill.copy_bytes(D),
+                 "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D}, lengths {first} and 1531",
+                 "max_abs_err": absd, "rel_l2": err, "tol": K2_OUT_TOL,
+                 "g4_rel_l2": by_g[4], "g12_rel_l2": by_g[12], "edges_rel_l2": edges,
+                 "fault_rel_l2": faults, "n_split": n_split, "append_bytes_identical": append_ok,
+                 "nan_tailed_inputs": True, "ptxas": regs.get(width)}
+        if D == 100:
+            entry.update(k2_repeat_and_replay(q, kc, vc, kn, vn, lt))
+            entry.update(k2_split_edges(rng, D))
+        entry.update(time_k2(q, kc, vc, kn, vn, lt))
+        mask = (torch.arange(C, device="cuda")[None] <= lt[:, None].long())[None, :, None]
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+            q[None], kc[None], vc[None], attn_mask=mask))
+        log(f"K2 D={D}: the library yardstick ran SDPA's {backend} backend")
+        entry["library"] = (f"scaled_dot_product_attention with a boolean cache mask "
+                            f"({backend} backend)")
+        del q, kc, vc, ref
+        if D == 100:  # phase 20's snapkv decode: 1024 kept + 31 new keys a head, C 1089
+            Cs = 1024 + 64 + 1
+            q, kc, vc, kn, vn, lt, _, ref, err_s, abs_s = k2_case(
+                rng, H, 1, Cs, [1024 + 31] * H, np.zeros(H, np.int64), D, tail=True)
+            entry["snapkv"] = {"shape": f"H={H} (B=2 x {Hq}) G=1 C={Cs} D={D}, lengths 1055",
+                               "rel_l2": err_s, "max_abs_err": abs_s,
+                               **time_k2(q, kc, vc, kn, vn, lt)}
+            del q, kc, vc, ref
+        out[D] = entry
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 3f and 4e: K1 at observation windows above 64, K2-K4 at G above 8
 # ---------------------------------------------------------------------------
 
@@ -2488,16 +2804,17 @@ def phase_e2e(rng, log_file):
     """The main path with each cache, over one set of weights and prompts;
     returns the weights and prompts too, which the policy runs reuse, and
     the serving path the weights (Mistral-7B-v0.1 has the same shapes)."""
-    cfg, dev = MISTRAL_7B, "cuda"
+    cfg, dev = MISTRAL_7B_16, "cuda"
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev)
+    params = first_layers(init_params(MISTRAL_7B, seed=0, device=dev), SHARED_LAYERS)
     sync()
     n_params = sum(t.numel() for t in [params["embed"], params["final_norm"], params["lm_head"]]
                    + list(params["layers"].values()))
-    log(f"init_params: {n_params / 1e9:.3f} B parameters in "
+    log(f"init_params: {n_params / 1e9:.3f} B parameters ({SHARED_LAYERS} of 32 layers) in "
         f"{time.perf_counter() - t0:.1f} s")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (4096, 1500)]
-    return params, prompts, {label: drive_path(params, n_params, prompts, quant, log_file)
+    return params, prompts, {label: drive_path(params, n_params, prompts, quant, log_file,
+                                               cfg=cfg, model=MAIN_MODEL)
                              for label, quant in PATHS}
 
 
@@ -2551,13 +2868,20 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
 
     # Hold the path to the fp32 reference forward.  Quantization leaves
     # prefill alone, so the quantized paths check request (a)'s prefill
-    # logits no further.
+    # logits no further.  A policy that compresses request (b) changes what
+    # its decode attends, which the reference forward does not: its decode
+    # logits are held to the same steps over the same compressed cache with
+    # K2's plain version in K2's place (``compressed_decode_logits``).
     decode_tol = E2E_REL_L2_TOL if quant is None else E2E_QUANT_REL_L2_TOL[quant.nbits]
+    compressed_b = comp.method != "fullkv" and len(prompts[1]) > comp.max_capacity_prompt
     with torch.no_grad():
         ref_a = None if quant is not None else \
             forward_logits(params, cfg, torch.tensor([prompts[0]], device=dev))[0, -1]
         seq_b = prompts[1] + ids[1][:steps]
         ref_b = forward_logits(params, cfg, torch.tensor([seq_b], device=dev))[0, len(prompts[1]) - 1:]
+        if compressed_b:
+            ref_b[1:] = compressed_decode_logits(engine, params, cfg, comp, prompts, ids,
+                                                 steps, max_new)[1]
     rel_b0, abs_b0 = rel_l2(res.logits[1, :1], ref_b[:1])
     rel_bd, abs_bd = rel_l2(res.logits[1, 1:], ref_b[1:])
     top1 = (res.logits[1].argmax(-1) == ref_b.argmax(-1)).float().mean().item()
@@ -2569,7 +2893,8 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
         rel_a, abs_a = rel_l2(res.logits[0, :1], ref_a[None])
         log(f"prefill logits vs fp32 reference: (a) rel L2 {rel_a:.4f} max abs {abs_a:.4f}; "
             f"(b) rel L2 {rel_b0:.4f} max abs {abs_b0:.4f}; tol rel L2 {E2E_REL_L2_TOL}")
-    log(f"(b) decode logits vs fp32 reference, {steps} teacher-forced steps: worst rel L2 "
+    log(f"(b) decode logits vs {'its compressed cache with plain K2' if compressed_b else 'fp32 reference'}, "
+        f"{steps} teacher-forced steps: worst rel L2 "
         f"{rel_bd:.4f}, max abs {abs_bd:.4f}, tol {decode_tol}; greedy top-1 agreement "
         f"{top1:.3f}")
     if max(rel_b0, rel_a or 0.0) > E2E_REL_L2_TOL or rel_bd > decode_tol:
@@ -2621,7 +2946,8 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
             "decode_g": G,
             "cache": label if quant is None else f"{label} per token, capacity "
                                                  f"{res.cache.capacity}",
-            "requests": "B=2: 4096 and 1500 prompt tokens, 64 new tokens, bucket 4096",
+            "requests": f"B=2: {len(prompts[0])} and {len(prompts[1])} prompt tokens, "
+                        f"{max_new} new tokens, bucket {engine_bucket(engine, prompts)}",
             "launches": launches, "lengths": got, "tokens": ids,
             "prefill_s": prefill_s, "prefill_device_busy_ms": pre_busy,
             "decode_ms_per_step": step_ms,
@@ -2629,9 +2955,43 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
             "device_busy_ms_per_step": busy_ms,
             "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms,
             "prefill_rel_l2": [rel_a, rel_b0], "decode_rel_l2": rel_bd,
+            "decode_reference": ("the compressed cache, K2's plain version" if compressed_b
+                                 else "fp32 forward"),
             "rel_l2_tol": E2E_REL_L2_TOL, "decode_rel_l2_tol": decode_tol,
             "decode_top1_agreement": top1, "direct_rel_l2": direct,
             "weight_bytes": weight_bytes, "cache_bytes": cache_bytes}
+
+
+def compressed_decode_logits(engine, params, cfg, comp, prompts, ids, steps, max_new):
+    """The decode logits [B, steps, V] of the bf16 path over the cache that
+    ``comp`` compressed, teacher-forced with the run's tokens ``ids``, with
+    K2's plain version in place of K2: the same prefill (K1, the policy)
+    and capacity as the engine's run, then ``steps`` decode steps."""
+    dev = params["embed"].device
+    S = engine_bucket(engine, prompts)
+    toks = torch.zeros((len(prompts), S), dtype=torch.long, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, device=dev)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    cache = llama.prefill(params, cfg, engine._comp_for_bucket(S), toks, lens,
+                          engine._cache_capacity(S, max_new)).cache
+    real = llama.decode_attention_append
+    llama.decode_attention_append = decode_attn.decode_attention_append_reference
+    out = []
+    try:
+        for i in range(steps):
+            tok = torch.tensor([x[i] for x in ids], device=dev)
+            logits, cache = llama.decode_step(params, cfg, tok, cache)
+            out.append(logits.float())
+    finally:
+        llama.decode_attention_append = real
+    del cache
+    return torch.stack(out, dim=1)
+
+
+def engine_bucket(engine, prompts):
+    """The prefill bucket ``engine`` pads ``prompts`` to."""
+    return next(b for b in engine.buckets if b >= max(len(p) for p in prompts))
 
 
 # The one-launch decode kernels, by cache: (id, a part of the kernel's name).
@@ -2777,7 +3137,7 @@ def policy_run(rng, params, prompts, label, comp, quant, head_cap, refs, log_fil
     counts, K1's score emission, each (layer, head, request) length against
     the method's budget rule, think's zeroed channels, request (b)'s logits
     against the fp32 reference forward; then times."""
-    cfg, dev = MISTRAL_7B, params["embed"].device
+    cfg, dev = MISTRAL_7B_16, params["embed"].device
     L, H = cfg.num_hidden_layers, cfg.num_attention_heads
     method, steps = comp.method, POLICY_NEW - 1
     engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant),
@@ -2926,9 +3286,9 @@ def cam_merge_check(rng, S=4096):
 def phase_policies(rng, params, prompts, log_file):
     """Every compression method through ``InferenceEngine`` on phase 5's
     weights and two prompts (16 new tokens), and adakv over the int4 cache."""
-    head_cap = headkv_file(LOG_PATH.parent / "policies" / "heads.json", MISTRAL_7B)
+    head_cap = headkv_file(LOG_PATH.parent / "policies" / "heads.json", MISTRAL_7B_16)
     bound = dataclasses.replace(SNAPKV, method="headkv").layer_capacity(
-        MISTRAL_7B.num_hidden_layers, len(prompts[0])) - SNAPKV.window_size
+        MISTRAL_7B_16.num_hidden_layers, len(prompts[0])) - SNAPKV.window_size
     log(f"headkv capacities from a seeded head-score file: min {int(head_cap.min())}, max "
         f"{int(head_cap.max())}, {int((head_cap > bound).sum())} of {head_cap.size} past the "
         f"per-head bound {bound}")
@@ -2954,7 +3314,7 @@ SERVE_DRAINS = (("one-shot", 0), ("chunked", 2048))
 def serve_drain(params, prompts, chunk_tokens):
     """One drain of the six requests; every launch count set to 0 just
     before ``run`` and read just after."""
-    cfg, L = MISTRAL_7B_V01, MISTRAL_7B_V01.num_hidden_layers
+    cfg, L = MISTRAL_7B_V01_16, MISTRAL_7B_V01_16.num_hidden_layers
     eng = ContinuousBatchingEngine(
         params, EngineConfig(model=cfg, compression=SNAPKV, prefill_buckets=SERVE_BUCKETS),
         n_slots=4, max_new_cap=SERVE_NEW, chunk_size=16, prefill_chunk_tokens=chunk_tokens,
@@ -3010,7 +3370,7 @@ def serve_drain(params, prompts, chunk_tokens):
 def phase_serving(rng, params, log_file):
     """Both drains, checked against the fp32 reference and each other, then
     decode timed and profiled on the last drain's batched cache."""
-    cfg = MISTRAL_7B_V01
+    cfg = MISTRAL_7B_V01_16
     log("== serving path: Mistral-7B-v0.1 widths (sliding window 4096), "
         f"prompts {SERVE_PROMPTS}, {SERVE_NEW} new tokens each, 4 slots, buckets "
         f"{SERVE_BUCKETS}")
@@ -3130,7 +3490,7 @@ def minference_run(params, prompt, label, comp, bucket=MINF_BUCKET):
     to 0 just before it and read just after, checked (launches, cache
     lengths, finite logits).  Returns the engine, the summary, the token
     ids, the ``GenerateResult`` and the block masks built (one per layer)."""
-    cfg, L = MISTRAL_7B, MISTRAL_7B.num_hidden_layers
+    cfg, L = MISTRAL_7B_16, MISTRAL_7B_16.num_hidden_layers
     engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp,
                                                   prefill_buckets=(bucket,)), device="cuda")
     reset_counts()
@@ -3171,7 +3531,7 @@ def minference_run(params, prompt, label, comp, bucket=MINF_BUCKET):
 def minference_times(engine, params, prompt, label, ids, cache, mask_ms, log_file):
     """Decode ms/step (wall and profiled) on the run's finished cache, then
     prefill wall time and a profiled prefill."""
-    cfg = MISTRAL_7B
+    cfg = MISTRAL_7B_16
     # The decode steps write slots past the end, which nothing reads again.
     cur = torch.tensor([ids[0][-1]], device="cuda")
     with torch.no_grad():
@@ -3488,8 +3848,8 @@ def sp_rank(rank, n, directory):
     dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
                             world_size=n, timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
     try:
-        cfg = MISTRAL_7B
-        params = init_params(cfg, seed=0, device="cuda")
+        cfg = MISTRAL_7B_16
+        params = first_layers(init_params(MISTRAL_7B, seed=0, device="cuda"), SHARED_LAYERS)
         checksum = weight_checksum(params)
         engine = InferenceEngine(params, EngineConfig(
             model=cfg, compression=SNAPKV, sharding=ShardingConfig(sp=n),
@@ -3557,7 +3917,7 @@ def phase_sp(rng, params):
     file rendezvous, K/V staged through pinned host memory) on the same
     prompt and weights; launches, cache lengths, equal ranks, and
     first-token logits and streams against the single-device run."""
-    cfg, L = MISTRAL_7B, MISTRAL_7B.num_hidden_layers
+    cfg, L = MISTRAL_7B_16, MISTRAL_7B_16.num_hidden_layers
     log(f"== sp path: Mistral-7B-Instruct-v0.2 widths, one request of {SP_PROMPT} prompt "
         f"tokens, bucket {SP_BUCKET}, {SP_NEW} new tokens, snapkv; single device, then "
         f"sp={SP} ranks on this card over gloo")
@@ -4349,11 +4709,12 @@ QWEN2_7B_HF_CONFIG = {
     "torch_dtype": "bfloat16"}
 # Depth cut to 7 of the 28 layers since phases 16 and 16b joined the
 # script, to keep it well inside its time limit (PERF.md §6: 1140.4
-# s at 28 layers here and 16 in phase 10, 1100.9 s at 14 and 8), and to 4
-# since phases 3g-4g and 19 did: the checks count launches per layer and
-# the logits hold to the fp32 reference at any depth.
+# s at 28 layers here and 16 in phase 10, 1100.9 s at 14 and 8), to 4
+# since phases 3g-4g and 19 did, and to 2 since phases 3h-4h and 20 did:
+# the checks count launches per layer and the logits hold to the fp32
+# reference at any depth.
 QWEN2_7B = dataclasses.replace(ModelConfig.from_hf_config(QWEN2_7B_HF_CONFIG),
-                               num_hidden_layers=4)
+                               num_hidden_layers=2)
 # The checkpoint written and read back in 9a has the published widths and 4
 # of the 28 layers (about 4 GB on disk): depth is cut for disk space and time.
 LOADER_LAYERS = 4
@@ -5018,11 +5379,11 @@ LLAMA3_8B_HF_CONFIG = {
     "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
 # Depth cut to 16 of the 32 layers since phases 13 and 14 joined the script
 # (PERF.md §6: 1131.8 s at 32 layers), and to 4 since phases 16 and 16b did
-# (1140.4 s at 16, 1100.9 s at 8), to keep the whole script well inside its
-# time limit: every check of phase 10 reads layers 0 and L - 1 and counts
-# launches per layer.
+# (1140.4 s at 16, 1100.9 s at 8), and to 2 since phases 3h-4h and 20 did,
+# to keep the whole script inside its time limit: every check of phase 10
+# reads layers 0 and L - 1 and counts launches per layer.
 LLAMA3_8B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA3_8B_HF_CONFIG),
-                                num_hidden_layers=4)
+                                num_hidden_layers=2)
 # 10a: the grouped caches, each with its new tokens (limits: GROUPED_REL_L2_TOL).
 GROUPED_RUNS = (
     ("nbits2_outliers_ring128", QuantConfig(nbits=2, q_group_size=64, outlier_extract=True,
@@ -6515,17 +6876,18 @@ LLAMA32_1B_HF_CONFIG = {
                      "original_max_position_embeddings": 8192, "rope_type": "llama3"},
     "rms_norm_eps": 1e-05, "tie_word_embeddings": True, "torch_dtype": "bfloat16"}
 # Depth cut to 8 of its 16 layers since phases 3g-4g and 19 joined the
-# script (phase 19 runs h2o-danube2-1.8b at full depth), for its time limit:
-# the checks count launches per layer and hold the logits to the fp32
-# reference at any depth.
+# script, to 4 since phases 3h-4h and 20 did (phase 20 runs OpenLLaMA-3B at
+# full depth), for its time limit: the checks count launches per layer and
+# hold the logits to the fp32 reference at any depth.
 LLAMA32_1B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA32_1B_HF_CONFIG),
-                                 num_hidden_layers=8)
-# A 4-layer model at head_dim 256 (hidden 4096 = 16 x 256, 4 KV heads, G 4):
+                                 num_hidden_layers=4)
+# A 2-layer model (4 until phases 3h-4h and 20 joined the script) at
+# head_dim 256 (hidden 4096 = 16 x 256, 4 KV heads, G 4):
 # no public Llama / Mistral / Qwen2 / Mixtral model has this head_dim; it
 # runs K1-K4 at 256 in the model.
 D256_MODEL = ModelConfig.from_hf_config({
     "model_type": "llama", "vocab_size": 32000, "hidden_size": 4096,
-    "intermediate_size": 14336, "num_hidden_layers": 4, "num_attention_heads": 16,
+    "intermediate_size": 14336, "num_hidden_layers": 2, "num_attention_heads": 16,
     "num_key_value_heads": 4, "head_dim": 256, "max_position_embeddings": 32768,
     "rope_theta": 10000.0, "rms_norm_eps": 1e-05, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16"})
@@ -6539,19 +6901,22 @@ def count_params(params):
                + list(params["layers"].values()))
 
 
-def chunked_drain(params, rng, cfg, label):
-    """Four 4096-token requests through ``ContinuousBatchingEngine`` with
-    2048-token chunked admission (K1-chunk at the model's head_dim: 64 for
-    Llama-3.2-1B, 80 for phase 19's h2o-danube2-1.8b), every launch count
-    set to 0 just before ``run``: launches, lengths, each request's
-    first-token logits against the fp32 reference."""
+def chunked_drain(params, rng, cfg, label, prompt_len=4096, comp=SNAPKV,
+                  chunk=LLAMA32_DRAIN_CHUNK):
+    """Four requests of ``prompt_len`` tokens (4096 by default) through
+    ``ContinuousBatchingEngine`` with chunked admission (2048-token chunks
+    by default; K1-chunk at the model's head_dim: 64 for Llama-3.2-1B, 80
+    for phase 19's h2o-danube2-1.8b, 100 for phase 20's OpenLLaMA-3B),
+    every launch count set to 0 just before ``run``: launches, lengths,
+    each request's first-token logits against the fp32 reference."""
     L = cfg.num_hidden_layers
-    prompts = [rng.integers(0, cfg.vocab_size, size=4096).tolist()
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()
                for _ in range(LLAMA32_DRAIN_PROMPTS)]
+    bucket = next(b for b in EngineConfig.prefill_buckets if b >= prompt_len)
     eng = ContinuousBatchingEngine(
-        params, EngineConfig(model=cfg, compression=SNAPKV, prefill_buckets=(4096,)),
+        params, EngineConfig(model=cfg, compression=comp, prefill_buckets=(bucket,)),
         n_slots=4, max_new_cap=LLAMA32_DRAIN_NEW, chunk_size=16,
-        prefill_chunk_tokens=LLAMA32_DRAIN_CHUNK, device="cuda", instrument=True)
+        prefill_chunk_tokens=chunk, device="cuda", instrument=True)
     rids = [eng.submit(p, LLAMA32_DRAIN_NEW) for p in prompts]
     reset_counts()
     t0 = time.perf_counter()
@@ -6562,13 +6927,13 @@ def chunked_drain(params, rng, cfg, label):
     expect = dict.fromkeys(launches, 0)
     expect["K1-chunk"] = L * eng.prefill_chunk_dispatches
     expect["K2"] = L * eng.steps_executed
-    log(f"{label} drain: {len(prompts)} x 4096 tokens, {LLAMA32_DRAIN_NEW} new, chunks of "
-        f"{LLAMA32_DRAIN_CHUNK}: {wall:.3f} s, {eng.steps_executed} decode steps, "
+    log(f"{label} drain: {len(prompts)} x {prompt_len} tokens, {LLAMA32_DRAIN_NEW} new, chunks "
+        f"of {chunk}: {wall:.3f} s, {eng.steps_executed} decode steps, "
         f"{eng.prefill_chunk_dispatches} chunk dispatches; launches {launches}, expect {expect}")
     if launches != expect or expect["K1-chunk"] == 0:
         raise SystemExit(f"the {label} drain did not run each kernel the expected number of times")
     got = sorted(sorted(set(eng.cache.lengths[:, b].flatten().tolist())) for b in range(4))
-    want = [[SNAPKV.max_capacity_prompt + LLAMA32_DRAIN_NEW - 1]] * 4
+    want = [[min(prompt_len, comp.max_capacity_prompt) + LLAMA32_DRAIN_NEW - 1]] * 4
     if got != want or any(len(outs[r]) != LLAMA32_DRAIN_NEW for r in rids):
         raise SystemExit(f"the {label} drain left lengths {got} (expect {want}) or wrong "
                          "token counts")
@@ -6591,7 +6956,7 @@ def chunked_drain(params, rng, cfg, label):
 
 
 def phase_llama32(rng, prompts, log_file):
-    """Phase 16: Llama-3.2-1B-Instruct at full width (8 of its 16 layers;
+    """Phase 16: Llama-3.2-1B-Instruct at full width (4 of its 16 layers;
     random bf16 weights, seed 4, lm_head tied to the embedding), phase 5's
     requests through ``InferenceEngine`` with snapkv (K1 8 a prefill, K2 at
     G 1) and fullkv (K2 at G 4 on 8 KV heads), each checked as phase 5's
@@ -6624,7 +6989,7 @@ def phase_llama32(rng, prompts, log_file):
 
 
 def phase_d256(rng, prompts, log_file):
-    """Phase 16b: the 4-layer head_dim 256 model (random bf16 weights, seed
+    """Phase 16b: the 2-layer head_dim 256 model (random bf16 weights, seed
     6), phase 5's requests through ``InferenceEngine`` with snapkv over the
     bf16, int8 and int4 caches (K1 and K2, K3, K4 at head_dim 256), each
     checked as phase 5's paths are: limits 0.10 (bf16, int8) and 0.40
@@ -6634,10 +6999,10 @@ def phase_d256(rng, prompts, log_file):
     params = init_params(cfg, seed=6, device="cuda")
     sync()
     n_params = count_params(params)
-    log(f"== 16b head_dim 256 model (4 layers, hidden 4096, 16 / 4 heads of 256, ffn 14336, "
+    log(f"== 16b head_dim 256 model (2 layers, hidden 4096, 16 / 4 heads of 256, ffn 14336, "
         f"vocab 32000): {n_params / 1e9:.3f} B parameters, random bf16 (seed 6), in "
         f"{time.perf_counter() - t0:.1f} s")
-    model = "head_dim 256 model (4 layers, 16 / 4 heads), random weights (seed 6)"
+    model = "head_dim 256 model (2 layers, 16 / 4 heads), random weights (seed 6)"
     out = {label: drive_path(params, n_params, prompts, quant, log_file, cfg=cfg, model=model,
                              direct_rng=rng)
            for label, quant in PATHS}
@@ -6661,10 +7026,16 @@ DANUBE2_HF_CONFIG = {
     "num_key_value_heads": 8, "max_position_embeddings": 8192, "rope_theta": 10000.0,
     "rms_norm_eps": 1e-05, "sliding_window": None, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16"}
-DANUBE2 = ModelConfig.from_hf_config(DANUBE2_HF_CONFIG)
-DANUBE2_MODEL = "h2o-danube2-1.8b-chat widths (24 layers), random weights (seed 9)"
+# Depth cut to 8 of its 24 layers since phases 3h-4h and 20 joined the
+# script (phase 20 runs OpenLLaMA-3B at full depth), for its time limit: the
+# checks count launches per layer and hold the logits to the fp32 reference
+# at any depth.
+DANUBE2 = dataclasses.replace(ModelConfig.from_hf_config(DANUBE2_HF_CONFIG),
+                              num_hidden_layers=8)
+DANUBE2_MODEL = "h2o-danube2-1.8b-chat widths (8 of 24 layers), random weights (seed 9)"
 # No public Llama / Mistral / Qwen2 / Mixtral model has head_dim 384 or 512:
-# two 4-layer models at published widths with 8 / 2 heads (G 4), K1-K4 at
+# two 2-layer models (4 until phases 3h-4h and 20 joined the script, for its
+# time limit) at published widths with 8 / 2 heads (G 4), K1-K4 at
 # the new widths on the main path.  384: Llama-3.2-3B-Instruct's hidden 3072
 # and ffn 8192 (its config.json; vocab 128256, rope_theta 5e5, llama3 rope
 # scaling, tied embeddings) with 8 heads of 384 in place of its 24 of 128.
@@ -6672,32 +7043,33 @@ DANUBE2_MODEL = "h2o-danube2-1.8b-chat widths (24 layers), random weights (seed 
 # 512 in place of its 32 of 128.
 D384_MODEL = ModelConfig.from_hf_config({
     **LLAMA32_1B_HF_CONFIG, "hidden_size": 3072, "intermediate_size": 8192,
-    "num_hidden_layers": 4, "num_attention_heads": 8, "num_key_value_heads": 2,
+    "num_hidden_layers": 2, "num_attention_heads": 8, "num_key_value_heads": 2,
     "head_dim": 384})
 D512_MODEL = ModelConfig.from_hf_config({
-    **MISTRAL_7B_HF_CONFIG, "num_hidden_layers": 4, "num_attention_heads": 8,
+    **MISTRAL_7B_HF_CONFIG, "num_hidden_layers": 2, "num_attention_heads": 8,
     "num_key_value_heads": 2, "head_dim": 512})
 WIDE_MODELS = {
-    384: (D384_MODEL, 10, "head_dim 384 model (Llama-3.2-3B-Instruct's hidden and ffn, 4 layers, "
+    384: (D384_MODEL, 10, "head_dim 384 model (Llama-3.2-3B-Instruct's hidden and ffn, 2 layers, "
                           "8 / 2 heads), random weights (seed 10), tied embeddings"),
-    512: (D512_MODEL, 11, "head_dim 512 model (Mistral-7B-Instruct-v0.2's hidden and ffn, 4 "
+    512: (D512_MODEL, 11, "head_dim 512 model (Mistral-7B-Instruct-v0.2's hidden and ffn, 2 "
                           "layers, 8 / 2 heads), random weights (seed 11)")}
 
 
 def phase_danube2(rng, prompts, log_file):
-    """Phase 19: h2o-danube2-1.8b at full width and depth (random bf16
-    weights, seed 9), phase 5's requests through ``InferenceEngine`` with
-    snapkv (K1 24 a prefill, K2 at G 1, 24 x 63 a run) and fullkv (K2 at G
-    4 on the 8 KV heads), each checked as phase 5's paths are (launches,
+    """Phase 19: h2o-danube2-1.8b at full width (8 of its 24 layers; random
+    bf16 weights, seed 9), phase 5's requests through ``InferenceEngine``
+    with snapkv (K1 8 a prefill, K2 at G 1, 8 x 63 a run) and fullkv (K2 at
+    G 4 on the 8 KV heads), each checked as phase 5's paths are (launches,
     lengths, logits against the fp32 reference within 0.10, K2 called
-    directly on layers 0 and 23, times, a profiled prefill and decode
-    step); then a chunked drain (K1-chunk at head_dim 80)."""
+    directly on its first and last layer, times, a profiled prefill and
+    decode step); then a chunked drain (K1-chunk at head_dim 80)."""
     cfg = DANUBE2
     t0 = time.perf_counter()
     params = init_params(cfg, seed=9, device="cuda")
     sync()
     n_params = count_params(params)
-    log(f"== 19 h2o-danube2-1.8b (24 layers, hidden 2560, ffn 6912, 32 / 8 heads of 80, vocab "
+    log(f"== 19 h2o-danube2-1.8b ({cfg.num_hidden_layers} of 24 layers, hidden 2560, ffn 6912, "
+        f"32 / 8 heads of 80, vocab "
         f"32000): {n_params / 1e9:.3f} B parameters, random bf16 (seed 9), in "
         f"{time.perf_counter() - t0:.1f} s")
     out = {"model": DANUBE2_MODEL, "parameters": n_params}
@@ -6746,6 +7118,63 @@ def phase_wide_head_dims(rng, prompts, log_file):
 
 
 # ---------------------------------------------------------------------------
+# Phase 20: OpenLLaMA-3B v2 widths (head_dim 100)
+# ---------------------------------------------------------------------------
+
+# The fields the forward reads from the published config.json of
+# openlm-research/open_llama_3b_v2 (LlamaForCausalLM, untied lm_head; it
+# names neither num_key_value_heads nor rope_theta: 32 KV heads, MHA, and
+# 10000 by default): head_dim 3200 / 32 = 100, a bf16 row of 200 bytes, no
+# whole number of 16-byte pieces.  The JAX package serves it on its XLA
+# path; K1 and K2 run it on their 128 instantiation with 8-byte row pieces.
+# Full depth: 3.426 G parameters, 6.85 GB in bf16.
+OPENLLAMA_3B_HF_CONFIG = {
+    "model_type": "llama", "vocab_size": 32000, "hidden_size": 3200,
+    "intermediate_size": 8640, "num_hidden_layers": 26, "num_attention_heads": 32,
+    "max_position_embeddings": 2048, "rms_norm_eps": 1e-06, "tie_word_embeddings": False}
+OPENLLAMA_3B = ModelConfig.from_hf_config(OPENLLAMA_3B_HF_CONFIG)
+OPENLLAMA_MODEL = "OpenLLaMA-3B v2 widths (26 layers), random weights (seed 12)"
+# SnapKV at half the 2048-token bucket: 1024 kept, window 8, maxpool 7.
+OPENLLAMA_SNAPKV = dataclasses.replace(SNAPKV, max_capacity_prompt=1024)
+OPENLLAMA_DRAIN_CHUNK = 1024
+
+
+def phase_openllama(rng, log_file):
+    """Phase 20: OpenLLaMA-3B v2 at full width and depth (random bf16
+    weights, seed 12), two requests of 1984 and 1500 tokens (bucket 2048,
+    inside the model's 2048 positions) through ``InferenceEngine`` with
+    snapkv at 1024 (K1 26 a prefill with window scores, K2 at G 1, 26 x 63
+    a run) and fullkv (K2 at G 1 over all 32 KV heads), each checked as
+    phase 5's paths are (launches, lengths, logits against the fp32
+    reference within 0.10, K2 called directly on layers 0 and 25, times, a
+    profiled prefill and decode step); then a chunked drain (four requests
+    of 1984 tokens in 1024-token chunks: K1-chunk at head_dim 100)."""
+    cfg = OPENLLAMA_3B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=12, device="cuda")
+    sync()
+    n_params = count_params(params)
+    log(f"== 20 OpenLLaMA-3B v2 (26 layers, hidden 3200, ffn 8640, 32 / 32 heads of 100, vocab "
+        f"32000): {n_params / 1e9:.3f} B parameters, random bf16 (seed 12), in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in OPENLLAMA_PROMPTS]
+    out = {"model": OPENLLAMA_MODEL, "parameters": n_params}
+    for name, comp in (("snapkv", OPENLLAMA_SNAPKV), ("fullkv", FULLKV)):
+        out[name] = drive_path(params, n_params, prompts, None, log_file, cfg=cfg, comp=comp,
+                               model=OPENLLAMA_MODEL, direct_rng=rng)
+        log(f"20 {name}: greedy streams (a) {out[name]['tokens'][0][:16]} ..., (b) "
+            f"{out[name]['tokens'][1][:16]} ...")
+    if [out[name]["decode_g"] for name in ("snapkv", "fullkv")] != [1, 1]:
+        raise SystemExit("phase 20 did not decode at G 1")
+    out["drain"] = chunked_drain(params, np.random.default_rng(20), cfg, "20",
+                                 prompt_len=OPENLLAMA_PROMPTS[0], comp=OPENLLAMA_SNAPKV,
+                                 chunk=OPENLLAMA_DRAIN_CHUNK)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 17: Mistral-Large-Instruct-2407 widths (G 12)
 # ---------------------------------------------------------------------------
 
@@ -6758,14 +7187,15 @@ MISTRAL_LARGE_HF_CONFIG = {
     "num_key_value_heads": 8, "head_dim": 128, "max_position_embeddings": 131072,
     "rope_theta": 1000000.0, "rms_norm_eps": 1e-05, "sliding_window": None,
     "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
-# Depth cut to 4 of the 88 layers: 1.384 G parameters a layer and 0.805 G of
-# embedding and lm_head make 12.7 GB in bf16 at 4 layers, 245 GB at 88 (over
+# Depth cut to 2 of the 88 layers: 1.384 G parameters a layer and 0.805 G of
+# embedding and lm_head make 7.1 GB in bf16 at 2 layers, 245 GB at 88 (over
 # the card's 80 GB even as W8A16, ~123 GB); 8 layers until phases 3g-4g and
-# 19 joined the script, for its time limit.  Every check counts launches per
-# layer and holds the logits to the fp32 reference at any depth.
+# 19 joined the script, 4 until phases 3h-4h and 20 did, for its time limit.
+# Every check counts launches per layer and holds the logits to the fp32
+# reference at any depth.
 MISTRAL_LARGE = dataclasses.replace(ModelConfig.from_hf_config(MISTRAL_LARGE_HF_CONFIG),
-                                    num_hidden_layers=4)
-MISTRAL_LARGE_MODEL = "Mistral-Large-Instruct-2407 widths (4 of 88 layers), random weights (seed 7)"
+                                    num_hidden_layers=2)
+MISTRAL_LARGE_MODEL = "Mistral-Large-Instruct-2407 widths (2 of 88 layers), random weights (seed 7)"
 # Each run: (label, compression, cache, the quantized cache's capacity).  The
 # fullkv runs decode over the 8 KV heads (K2 / K3 / K4 at G 12), the mean
 # group reduction keeps one entry set per KV head (K2 at G 12 over a
@@ -6782,12 +7212,12 @@ MISTRAL_LARGE_RUNS = (
 
 
 def phase_mistral_large(rng, prompts, log_file):
-    """Phase 17: Mistral-Large-Instruct-2407 at full width (8 of its 88
+    """Phase 17: Mistral-Large-Instruct-2407 at full width (2 of its 88
     layers; random bf16 weights, seed 7), phase 5's requests through
     ``InferenceEngine`` for each of ``MISTRAL_LARGE_RUNS``, each checked as
-    phase 5's paths are (launches K1 8 a prefill and 8 x 63 of the decode
+    phase 5's paths are (launches K1 2 a prefill and 2 x 63 of the decode
     kernel, lengths, logits against the fp32 reference at 0.10 / 0.10 /
-    0.40, the decode kernel called directly on layers 0 and 7, times, a
+    0.40, the decode kernel called directly on its first and last layer, times, a
     profiled decode step, the decode bound).  Returns the results and the
     weights (phase 18 traces a run on them)."""
     cfg = MISTRAL_LARGE
@@ -6795,7 +7225,8 @@ def phase_mistral_large(rng, prompts, log_file):
     params = init_params(cfg, seed=7, device="cuda")
     sync()
     n_params = count_params(params)
-    log(f"== 17 Mistral-Large-Instruct-2407 (4 of 88 layers, hidden 12288, ffn 28672, 96 / 8 "
+    log(f"== 17 Mistral-Large-Instruct-2407 ({cfg.num_hidden_layers} of 88 layers, hidden "
+        f"12288, ffn 28672, 96 / 8 "
         f"heads of 128, vocab 32768): {n_params / 1e9:.3f} B parameters, random bf16 (seed 7), "
         f"in {time.perf_counter() - t0:.1f} s")
     out = {"model": MISTRAL_LARGE_MODEL, "parameters": n_params}
@@ -6823,30 +7254,31 @@ LLAMA31_405B_HF_CONFIG = {
     "rope_scaling": {"factor": 8.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
                      "original_max_position_embeddings": 8192, "rope_type": "llama3"},
     "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
-# Depth cut to 2 of the 126 layers: 3.188 G parameters a layer and 4.203 G
-# of embedding and lm_head make 21.2 GB in bf16 at 2 layers, 812 GB at 126.
-# The phase is here for G 16 on the main path (K2 / K3 / K4 at 128 / 8
-# heads): two layers give per-layer launch counts and the fp32 reference
-# check as every depth does, and keep the phase near 30 s.
+# Depth cut to 1 of the 126 layers (2 until phases 3h-4h and 20 joined the
+# script): 3.188 G parameters a layer and 4.203 G of embedding and lm_head
+# make 14.8 GB in bf16 at 1 layer, 812 GB at 126.  The phase is here for G
+# 16 on the main path (K2 / K3 / K4 at 128 / 8 heads): one layer gives the
+# per-layer launch counts and the fp32 reference check as every depth does.
 LLAMA31_405B = dataclasses.replace(ModelConfig.from_hf_config(LLAMA31_405B_HF_CONFIG),
-                                   num_hidden_layers=2)
-LLAMA31_405B_MODEL = "Llama-3.1-405B-Instruct widths (2 of 126 layers), random weights (seed 8)"
+                                   num_hidden_layers=1)
+LLAMA31_405B_MODEL = "Llama-3.1-405B-Instruct widths (1 of 126 layers), random weights (seed 8)"
 
 
 def phase_llama31_405b(rng, prompts, log_file):
-    """Phase 17b: Llama-3.1-405B-Instruct at full width (2 of its 126
+    """Phase 17b: Llama-3.1-405B-Instruct at full width (1 of its 126
     layers; random bf16 weights, seed 8), phase 5's requests through
     ``InferenceEngine`` with fullkv over the bf16, int8 and int4 caches
     (K2 / K3 / K4 at G 16), each checked as phase 17's runs are (launches
-    K1 2 a prefill and 2 x 63 of the decode kernel, lengths, logits against
+    K1 1 a prefill and 63 of the decode kernel, lengths, logits against
     the fp32 reference at 0.10 / 0.10 / 0.40, the decode kernel called
-    directly on layers 0 and 1, times, a profiled decode step)."""
+    directly on the layer, times, a profiled decode step)."""
     cfg = LLAMA31_405B
     t0 = time.perf_counter()
     params = init_params(cfg, seed=8, device="cuda")
     sync()
     n_params = count_params(params)
-    log(f"== 17b Llama-3.1-405B-Instruct (2 of 126 layers, hidden 16384, ffn 53248, 128 / 8 "
+    log(f"== 17b Llama-3.1-405B-Instruct ({cfg.num_hidden_layers} of 126 layers, hidden 16384, "
+        f"ffn 53248, 128 / 8 "
         f"heads of 128, vocab 128256, llama3 rope scaling): {n_params / 1e9:.3f} B parameters, "
         f"random bf16 (seed 8), in {time.perf_counter() - t0:.1f} s")
     out = {"model": LLAMA31_405B_MODEL, "parameters": n_params}
@@ -7097,17 +7529,26 @@ def ptxas_entries(report, name):
     return found
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(lib):
+    """``cuobjdump -sass`` of the library at path ``lib`` (each library is
+    disassembled once), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def sass_i2f(lib, name):
     """Int-to-float conversions (I2F, I2FP) in each function of ``lib`` whose
     name holds ``name``, from ``cuobjdump -sass``, as (conversions, integer
     divisions): an ``I2F.*.RP`` is the reciprocal step of an integer
     division by a value known only at run time (the split rule), not a
     conversion of data.  None where the toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    sass = sass_text(str(lib))
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -7232,11 +7673,16 @@ def main():
     # Each kernel's ptxas lines by instantiation width: registers and spill
     # bytes.  The widths of earlier slices must spill nothing; a spill at
     # 384 or 512 is reported here and in its kernel's entry, beside its time.
+    # The libraries of 8- and 4-byte row pieces (head_dims that are no
+    # multiple of 8) are reported, not held to it.
     for lib, name, clean in (("flash_prefill", "flash_fwd_kernel", (64, 128, 256)),
-                             ("decode_attn", "decode_attn_kernel", (64, 128, 256))):
+                             ("decode_attn", "decode_attn_kernel", (64, 128, 256)),
+                             *((f"{base}_p{w}", name, ()) for w in (8, 4) for base, name in
+                               (("flash_prefill", "flash_fwd_kernel"),
+                                ("decode_attn", "decode_attn_kernel")))):
         by_width = registers_by_head_dim(reports, lib, name)
         for width, rows in sorted(by_width.items()):
-            log(f"{name}<{width}>: registers {sorted({r for r, _ in rows})}, spill lines "
+            log(f"{lib} {name}<{width}>: registers {sorted({r for r, _ in rows})}, spill lines "
                 f"{sorted({line or 'none' for _, line in rows})}")
         if any(w in clean and "0 bytes spill stores, 0 bytes spill loads" not in (line or "")
                for w, rows in by_width.items() for _, line in rows):
@@ -7245,6 +7691,9 @@ def main():
             log(f"{name} ptxas: library cached, no ptxas report in this run")
     # K3's and K4's ptxas lines (GB 1-8 each): no spill; and no int-to-float
     # conversion in their SASS, where the toolkit has cuobjdump.
+    quant_libs = [str(_build._lib_path(decode_attn_quant.library(D))) for D in (128, 384, 512)]
+    with ThreadPoolExecutor(len(quant_libs)) as pool:  # disassemble the three at once
+        list(pool.map(sass_text, quant_libs))
     for kid, name in QUANT_KERNELS.items():
         by_width = {}
         for D in (128, 384, 512):  # the 128 library holds 256 too
@@ -7268,6 +7717,7 @@ def main():
         if i2f is not None and (not i2f or any(c for c, _ in i2f.values())):
             raise SystemExit(f"{kid}'s SASS holds int-to-float conversions (or no {kid} kernel)")
 
+    log(f"[{time.perf_counter() - T_START:.1f} s] build, ptxas and SASS checks done")
     rng = np.random.default_rng(0)
     k1 = timed("3 K1", phase_k1, rng)
     k1_sw, k1_chunk = timed("3b K1 variants", phase_k1_variants, rng)
@@ -7294,6 +7744,10 @@ def main():
     k1_nd = timed("3g K1 head dims to 512", phase_k1_new_head_dims, rng19, reports)
     k2_nd = timed("4f K2 head dims to 512", phase_k2_new_head_dims, rng19, reports)
     kq_nd = timed("4g K3/K4 head dims 384, 512", phase_kq_wide_head_dims, rng19, reports)
+    # Phases 3h-4h and 20 draw from a generator of their own, as 3e-4d.
+    rng20 = np.random.default_rng(20)
+    k1_rg = timed("3h K1 ragged head dims", phase_k1_ragged, rng20, reports)
+    k2_rg = timed("4h K2 ragged head dims", phase_k2_ragged, rng20, reports)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
         params, prompts, e2e = timed("5 main path", phase_e2e, rng, log_file)
@@ -7330,6 +7784,7 @@ def main():
         llama405 = timed("17b Llama-3.1-405B", phase_llama31_405b, rng18, prompts, log_file)
         danube2 = timed("19 h2o-danube2-1.8b", phase_danube2, rng19, prompts, log_file)
         wide = timed("19b head_dim 384 / 512", phase_wide_head_dims, rng19, prompts, log_file)
+        openllama = timed("20 OpenLLaMA-3B v2", phase_openllama, rng20, log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -7434,6 +7889,25 @@ def main():
         k2_nd[D]["launches"] = wide[D]["bf16"]["launches"]["K2"]
         kq_nd[(8, D)]["launches"] = wide[D]["int8"]["launches"]["K3"]
         kq_nd[(4, D)]["launches"] = wide[D]["int4"]["launches"]["K4"]
+    # Phase 20: K1 and K2 at 100 on the OpenLLaMA-3B runs (K2 at G 1 on
+    # both), K1-chunk at 100 on its drain.  The other head_dims of 3h / 4h
+    # run the same libraries at other instantiations: their checks and
+    # times ride on the entries at 100.
+    ol = openllama
+    k1_rg[100].update(launches=ol["snapkv"]["launches"]["K1"],
+                      launches_fullkv=ol["fullkv"]["launches"]["K1"])
+    k2_rg[100].update(launches=ol["snapkv"]["launches"]["K2"],
+                      launches_fullkv=ol["fullkv"]["launches"]["K2"])
+    k1_chunk100 = {"name": "flash_prefill_chunk_d100", "route": "cuda",
+                   "source": flash_prefill.SOURCE,
+                   "replaces": flash_prefill.REPLACES_VARIANT["chunk"], "instantiation": 128,
+                   "built_as": flash_prefill.library(100),
+                   "launches": ol["drain"]["launches"]["K1-chunk"],
+                   **k1_rg[100]["variants"]["chunk"]}
+    for D in RAGGED_HEAD_DIMS:
+        if D != 100:
+            k1_rg[100].setdefault("head_dims_held", {})[D] = k1_rg[D]
+            k2_rg[100].setdefault("head_dims_held", {})[D] = k2_rg[D]
     for D in NEW_HEAD_DIMS:
         if D not in MODEL_HEAD_DIM_HEADS:
             width = flash_prefill.instance(D)
@@ -7448,7 +7922,8 @@ def main():
                                   k1_nd[80], k1_chunk80, k1_nd[384], k1_nd[512], k2_nd[80],
                                   k2_nd[384], k2_nd[512],
                                   *(kq_nd[(nbits, D)] for nbits in (8, 4)
-                                    for D in WIDE_HEAD_DIMS)]}))
+                                    for D in WIDE_HEAD_DIMS),
+                                  k1_rg[100], k1_chunk100, k2_rg[100]]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
                       "sp": {**sp, "fold_emulated": sp_fold}, "grid": grid, "pp": pp,
@@ -7456,7 +7931,8 @@ def main():
                       "llama32": llama32, "d256": d256, "k1_windows": k1_w,
                       "big_groups": big_g, "mistral_large": large,
                       "llama31_405b": llama405, "utils": utils, "danube2": danube2,
-                      "wide_head_dims": wide, "profile_losses": PROFILE_LOSSES,
+                      "wide_head_dims": wide, "openllama_3b": openllama,
+                      "profile_losses": PROFILE_LOSSES,
                       "phase_s": PHASE_S, "nvcc_s": _build.BUILD_SECONDS,
                       "script_s": time.perf_counter() - T_START, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

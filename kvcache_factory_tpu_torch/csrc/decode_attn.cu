@@ -13,11 +13,20 @@
 // The caller advances lengths to min(lengths + 1, C).  Any capacity C > 0,
 // any G >= 1.  The instantiation width D is a template parameter, D in {64,
 // 128, 256, 384, 512} (the library exports kvcf_decode_attn_append_d<D> for
-// each); a tensor's head_dim hd (any multiple of 8 up to 512) runs on the
+// each); a tensor's head_dim hd (any even number up to 512) runs on the
 // narrowest instantiation at least as wide: a row is hd elements in memory
 // and D in shared memory, its 16-byte chunks past hd are zero-filled by the
 // copies (never read from the next row), q's channels past hd are zero,
-// nothing past hd is written, and the caller passes hd's 1/sqrt(hd).  The
+// nothing past hd is written, and the caller passes hd's 1/sqrt(hd).  A
+// row of hd bf16 is a whole number of 16-byte pieces only at hd % 8 == 0:
+// the source builds in three forms, by KVCF_PIECE, the bytes a row copy
+// moves, 16 (the default), 8 (hd % 4 == 0) or 4 (any even hd).  At 8 and 4
+// each 16-byte chunk of the ring is filled by 2 or 4 cp.async.ca pieces
+// (the only form that takes 4 and 8 bytes) at their places inside it, a
+// piece past hd zero-filled; q comes in 4-byte pairs of channels (those at
+// or past hd zero) or, at 384 / 512, in pieces; the head merge stores
+// pieces of at most PIECE bytes, so each lies wholly inside or past hd;
+// the append writes the new row's hd elements, one at a time.  The
 // numbers below are at D 128; shared memory is 768 D bytes a CTA up to D
 // 256, so 4, 2 or 1 CTAs fit an SM at D 64, 128 or 256 and the bytes in
 // flight an SM stay the same.  At D 384 and 512 a 16-key stage of K and V
@@ -105,6 +114,24 @@ constexpr float NEG_INF = -3.4028234663852886e38f; // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+#ifndef KVCF_PIECE
+#define KVCF_PIECE 16
+#endif
+// Bytes a row copy moves: 16, or 8 / 4 for rows that are no whole number
+// of 16-byte pieces.
+constexpr int PIECE = KVCF_PIECE;
+static_assert(PIECE == 16 || PIECE == 8 || PIECE == 4, "row copies of 16, 8 or 4 bytes");
+constexpr bool RAGGED = PIECE < 16;
+constexpr int PIECE_CH = PIECE / 2;    // bf16 channels a piece
+constexpr int SUB = 16 / PIECE;        // pieces a 16-byte chunk
+
+// The register type of one row piece.
+template <int BYTES> struct PieceOf;
+template <> struct PieceOf<16> { typedef uint4 T; };
+template <> struct PieceOf<8> { typedef uint2 T; };
+template <> struct PieceOf<4> { typedef uint32_t T; };
+typedef PieceOf<PIECE>::T Piece;
+
 // The ring of instantiation width D (bytes at D 128).
 template <int D>
 struct Ring {
@@ -125,9 +152,11 @@ struct Ring {
   static constexpr int O_STRIDE = D + 4;               // padded row of the warp merge
   static constexpr int CPL = D / 32;                   // channels a lane in the head merge
   // The head merge stores a lane's CPL channels in pieces of OUT_VEC: a
-  // piece lies at a multiple of itself, and hd % 8 == 0, so it is wholly
-  // inside or past hd.
-  static constexpr int OUT_VEC = CPL % 8 == 0 ? 8 : CPL % 4 == 0 ? 4 : 2;
+  // piece lies at a multiple of itself, and hd is a whole number of
+  // PIECE_CH-channel pieces, so a piece of at most PIECE_CH channels is
+  // wholly inside or past hd.
+  static constexpr int OUT_VEC_ = CPL % 8 == 0 ? 8 : CPL % 4 == 0 ? 4 : 2;
+  static constexpr int OUT_VEC = OUT_VEC_ < PIECE_CH ? OUT_VEC_ : PIECE_CH;
   static_assert(WARPS * 8 * O_STRIDE * 4 + 2 * WARPS * 8 * 4 <= RING_BYTES, "warp merge");
 };
 
@@ -145,7 +174,7 @@ struct Params {
   int* counters;        // [>= H], 0 between launches
   int C, n_split;
   int G, QB;            // query rows a head; query blocks of GB rows
-  int hd;               // the tensors' head_dim (a multiple of 8, at most D)
+  int hd;               // the tensors' head_dim (PIECE_CH | hd, at most D)
   float scale;          // 1 / sqrt(hd)
 };
 
@@ -156,6 +185,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// One PIECE-byte piece (RAGGED: 8 or 4 bytes), cache-all: .cg takes only 16.
+__device__ __forceinline__ void cp_async_piece(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(dst), "l"(src), "n"(PIECE), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -350,20 +385,22 @@ decode_attn_kernel(const Params p) {
   uint32_t qf[R::WIDE ? 1 : D / 16][2];
   bf16* qs = reinterpret_cast<bf16*>(smem + R::RING_BYTES);
   if constexpr (R::WIDE) {
-    for (int i = tid; i < 8 * (D / 8); i += THREADS) {  // 16-byte pieces of 8 rows
-      const int g = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
+    for (int i = tid; i < 8 * (D / PIECE_CH); i += THREADS) {  // PIECE-byte pieces of 8 rows
+      const int g = i / (D / PIECE_CH), c = (i % (D / PIECE_CH)) * PIECE_CH;
+      Piece val{};
       if (g < GB && g0 + g < p.G && c < hd)
-        val = *reinterpret_cast<const uint4*>(p.q + ((size_t)h * p.G + g0 + g) * hd + c);
-      *reinterpret_cast<uint4*>(qs + g * R::QS + c) = val;
+        val = *reinterpret_cast<const Piece*>(p.q + ((size_t)h * p.G + g0 + g) * hd + c);
+      *reinterpret_cast<Piece*>(qs + g * R::QS + c) = val;
     }
     __syncthreads();
   } else {
+    // This lane's pair of channels of a k-step lies inside or past hd: as
+    // a group of 8 (hd % 8 == 0), or alone (RAGGED: hd is even).
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        qf[kc][j] = q_row && kc * 16 + j * 8 < hd
+        qf[kc][j] = q_row && kc * 16 + j * 8 + (RAGGED ? 2 * tig : 0) < hd
                         ? *reinterpret_cast<const uint32_t*>(q_src + kc * 16 + j * 8 + 2 * tig)
                         : 0u;
   }
@@ -384,14 +421,33 @@ decode_attn_kernel(const Params p) {
     const int row0 = start + i * STAGE_KEYS + warp * KEYS;
     if (row0 >= end) return;
     const uint32_t slot = ring + (i % STAGES) * R::SLOT_BYTES;
+    if constexpr (RAGGED) {
+      // Lane l copies piece 32 j + l of the stage's KEYS rows of CHUNKS x
+      // SUB pieces: sub-piece u of chunk c lands u PIECE bytes into the
+      // chunk's swizzled slot.  A stage has 2 or 4 times the 16-byte
+      // build's copies: unrolled by 4 only, which keeps the code, and
+      // nvcc's time over the 40 instantiations, near that build's.
+#pragma unroll 4
+      for (int j = 0; j < KEYS * CHUNKS * SUB / 32; ++j) {
+        const int e = 32 * j + lane;
+        const int r = e / (CHUNKS * SUB), c = (e / SUB) % CHUNKS, u = e % SUB;
+        const int col = c * 8 + u * PIECE_CH;
+        const bool valid = row0 + r < end && col < hd;
+        const size_t off = valid ? (size_t)(row0 + r) * hd + col : (size_t)start * hd;
+        const uint32_t dst = slot + r * ROW_BYTES + ((c ^ (r & 7)) << 4) + u * PIECE;
+        cp_async_piece(dst, kh + off, valid ? PIECE : 0);
+        cp_async_piece(dst + KEYS * ROW_BYTES, vh + off, valid ? PIECE : 0);
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < KEYS * CHUNKS / 32; ++j) {
-      const int r = (32 * j + lane) / CHUNKS, c = (32 * j + lane) % CHUNKS;
-      const bool valid = row0 + r < end && c * 8 < hd;
-      const size_t off = valid ? (size_t)(row0 + r) * hd + c * 8 : (size_t)start * hd;
-      const uint32_t dst = slot + r * ROW_BYTES + ((c ^ (r & 7)) << 4);
-      cp_async16(dst, kh + off, valid ? 16 : 0);
-      cp_async16(dst + KEYS * ROW_BYTES, vh + off, valid ? 16 : 0);
+      for (int j = 0; j < KEYS * CHUNKS / 32; ++j) {
+        const int r = (32 * j + lane) / CHUNKS, c = (32 * j + lane) % CHUNKS;
+        const bool valid = row0 + r < end && c * 8 < hd;
+        const size_t off = valid ? (size_t)(row0 + r) * hd + c * 8 : (size_t)start * hd;
+        const uint32_t dst = slot + r * ROW_BYTES + ((c ^ (r & 7)) << 4);
+        cp_async16(dst, kh + off, valid ? 16 : 0);
+        cp_async16(dst + KEYS * ROW_BYTES, vh + off, valid ? 16 : 0);
+      }
     }
   };
 
@@ -554,7 +610,8 @@ int decode_attn_append(const void* q, void* k_cache, void* v_cache, const void* 
                        const void* lower, const void* k_new, const void* v_new, void* out,
                        void* part, void* counters, int H, int G, int C, int n_split,
                        int hd, float scale, void* stream) {
-  if (n_split < 1 || G < 1 || hd < 8 || hd > D || hd % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || G < 1 || hd < PIECE_CH || hd > D || hd % PIECE_CH != 0)
+    return (int)cudaErrorInvalidValue;
   const int GB = G < 8 ? G : 8, QB = (G + 7) / 8;
   Params p;
   p.q = static_cast<const bf16*>(q);

@@ -44,11 +44,27 @@
 //
 // The instantiation width D is a template parameter, D in {64, 128, 256,
 // 384, 512}; the library exports kvcf_flash_prefill_d<D> for each.  A
-// tensor's head_dim hd (any multiple of 8 up to 512) runs on the narrowest
-// instantiation at least as wide: the tensor maps span hd columns, so TMA
-// fills the columns past hd with zeros (never the next row's), boxes that
+// tensor's head_dim hd (any even number up to 512) runs on the narrowest
+// instantiation at least as wide: the copies span hd columns, so the
+// columns past hd come in as zeros (never the next row's), boxes that
 // start at or past hd are not loaded and their k-steps not run, columns
-// past hd are never written, and the caller passes hd's 1/sqrt(hd).  Key
+// past hd are never written, and the caller passes hd's 1/sqrt(hd).
+// A row of hd bf16 is a whole number of 16-byte pieces only at hd % 8 ==
+// 0, and TMA takes only 16-byte row strides.  So the source builds in
+// three forms, by KVCF_PIECE, the bytes a row copy moves: 16 (the default:
+// TMA, hd % 8 == 0), 8 (hd % 4 == 0) or 4 (any even hd).  At 8 and 4 the
+// producer warpgroup's 128 threads copy Q and the K/V tiles in pieces of
+// that size with cp.async.ca (the only form that takes 4 and 8 bytes)
+// into the same 128-byte-swizzled stages, each piece at its place inside
+// its 16-byte chunk; a piece past hd or a row past the tensor is filled
+// with zeros through cp.async's source size.  Each thread signals a stage
+// on its full mbarrier with cp.async.mbarrier.arrive.noinc, which arrives
+// once the thread's copies have landed, so those barriers expect 128
+// arrivals; the consumers fence the async proxy after each wait (wgmma
+// reads shared memory through it, cp.async writes through the generic
+// one).  Nothing else changes: the consumers' wgmma code, the setmaxnreg
+// split, the softmax, the sparse tile list and the epilogue, which stores
+// pairs of columns and none at or past hd.  Key
 // tiles are BN = 128 keys at D 64 and 128 and BN = 64 at D 256, where Q (64
 // KB) and a 2-stage ring of 128-key tiles (4 x 64 KB) would pass the 227 KB
 // a block may hold: 64-key tiles make it 64 + 2 x (32 + 32) = 192 KB.  QK^T
@@ -133,6 +149,27 @@ constexpr float NEG_INF = -3.4028234663852886e38f;  // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+#ifndef KVCF_PIECE
+#define KVCF_PIECE 16
+#endif
+// Bytes a row copy moves: 16 (TMA), or 8 / 4 (cp.async pieces, for rows
+// that are no whole number of 16-byte pieces).
+constexpr int PIECE = KVCF_PIECE;
+static_assert(PIECE == 16 || PIECE == 8 || PIECE == 4, "row copies of 16, 8 or 4 bytes");
+constexpr bool RAGGED = PIECE < 16;
+constexpr int PIECE_COLS = PIECE / 2;  // bf16 columns a piece
+constexpr int PRODUCERS = 128;         // the producer warpgroup's threads
+// Arrivals that complete a full barrier: the elected thread's expect_tx
+// (TMA), or one cp.async arrive of every producer thread.
+constexpr int FULL_ARRIVALS = RAGGED ? PRODUCERS : 1;
+
+// The register type of one row piece.
+template <int BYTES> struct PieceOf;
+template <> struct PieceOf<16> { typedef uint4 T; };
+template <> struct PieceOf<8> { typedef uint2 T; };
+template <> struct PieceOf<4> { typedef uint32_t T; };
+typedef PieceOf<PIECE>::T Piece;
+
 // The tile plan of instantiation width D.  Shared memory: Q (NB boxes of
 // BM rows x 64 columns), then STAGES x (K tile, V tile), each NB boxes of BN
 // rows x 64 columns; then the mbarriers, the list build's per-warp counts
@@ -203,6 +240,61 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
          "r"(plane) : "memory");
+}
+
+// One PIECE-byte piece from global to shared memory, cache-all (the only
+// cp.async form that takes 4 and 8 bytes); `src_bytes` 0 fills zeros.
+__device__ __forceinline__ void cp_async_piece(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(dst), "l"(src), "n"(PIECE), "r"(src_bytes) : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread issued has landed,
+// without raising the barrier's expected count (it counts the arrival).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Orders the generic-proxy writes this thread has observed (cp.async's)
+// before its wgmma reads, which go through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + ROWS) of one [nrows, hd] plane at `src` into the
+// 128-byte-swizzled boxes at `dst` (`box` bytes apart, those below nbox),
+// laid out as TMA lays them: 16-byte chunk c of box row r at chunk c ^ (r &
+// 7), a piece at its offset inside its chunk.  Producer thread pt takes
+// piece pt % PPR of every (128 / PPR)-th row, so neighbouring threads read
+// neighbouring pieces of a row.  Pieces at or past hd and rows at or past
+// nrows are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* src, int row0, int nrows,
+                                          int hd, int nbox, uint32_t box, int pt) {
+  constexpr int PPR = HALF / PIECE_COLS;   // pieces a box row: 16 or 32
+  constexpr int RSTEP = PRODUCERS / PPR;   // rows between a thread's pieces: 8 or 4
+  static_assert(ROWS % RSTEP == 0, "whole rounds of pieces");
+  // The producer keeps 40 registers (setmaxnreg): one row at a time, the
+  // source and destination stepped, not recomputed.
+  const int pc = (pt % PPR) * PIECE_COLS;  // the piece's first column inside its box
+  const int r0 = pt / PPR;
+  const uint32_t chunk = pc >> 3, in_chunk = (pc & 7) * 2;
+  const size_t step = (size_t)RSTEP * hd;
+  for (int x = 0; x < nbox; ++x) {
+    const int col = x * HALF + pc;
+    const bool col_ok = col < hd;
+    const bf16* from = src + (size_t)(row0 + r0) * hd + col;
+    uint32_t to = dst + x * box + r0 * 128 + in_chunk;
+    int left = nrows - row0 - r0;          // rows of the tensor from this thread's row on
+#pragma unroll 1
+    for (int r = r0; r < ROWS; r += RSTEP) {
+      const bool ok = col_ok && left > 0;
+      cp_async_piece(to + (((chunk ^ r) & 7) << 4), ok ? from : src, ok ? PIECE : 0);
+      from += step;
+      to += RSTEP * 128;
+      left -= RSTEP;
+    }
+  }
 }
 
 // --- wgmma --------------------------------------------------------------------
@@ -378,7 +470,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const int* __restrict__ block_mask, bf16* __restrict__ out,
                  float* __restrict__ win_ml, float* __restrict__ row_ml, int Hq,
                  int Hkv, int S_q, int S_k, int W, int SW, int P, int n_blk, int hd,
-                 float scale_log2) {
+                 float scale_log2, const bf16* __restrict__ qg,
+                 const bf16* __restrict__ kg, const bf16* __restrict__ vg) {
+  // qg, kg, vg: the tensors themselves, which the RAGGED producer copies
+  // from (last, so that the TMA build's parameters keep their offsets).
   using T = Plan<D>;
   constexpr int BN = T::BN, NH = T::NH, NB = T::NB, BM = T::BM;
   extern __shared__ unsigned char smem_raw[];
@@ -410,11 +505,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   float* mh = row_ml ? row_ml + bh * S_q : nullptr;
 
   if (row0 >= tl) {  // no valid row in this CTA (uniform)
-    for (int i = tid; i < BM * (hd / 8); i += THREADS) {
-      const int r = lrow0 + i / (hd / 8);
+    for (int i = tid; i < BM * (hd / PIECE_COLS); i += THREADS) {
+      const int r = lrow0 + i / (hd / PIECE_COLS);
       if (r < S_q)
-        *reinterpret_cast<uint4*>(oh + (size_t)r * hd + (i % (hd / 8)) * 8) =
-            make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<Piece*>(oh + (size_t)r * hd + (i % (hd / PIECE_COLS)) * PIECE_COLS) =
+            Piece{};
     }
     if (mh)
       for (int r = lrow0 + tid; r < min(lrow0 + BM, S_q); r += THREADS) {
@@ -436,10 +531,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   int n_list = max(kt_end - kt_begin, 0);
 
   if (tid == 0) {
-    mbar_init(bar_q, 1);
+    mbar_init(bar_q, FULL_ARRIVALS);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(k_full(s), 1);
-      mbar_init(v_full(s), 1);
+      mbar_init(k_full(s), FULL_ARRIVALS);
+      mbar_init(v_full(s), FULL_ARRIVALS);
       mbar_init(empty(s), EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -482,9 +577,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();  // barriers initialised, list complete
 
   if (warp >= 8) {
-    // ---- producer warpgroup: one thread issues every copy ----
+    // ---- producer warpgroup: one thread issues every copy (TMA), or all
+    // 128 copy pieces (RAGGED) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (tid == 256 && n_list > 0) {
+    if constexpr (RAGGED) {
+      if (n_list > 0) {
+        const int pt = tid - 2 * PRODUCERS;
+        copy_rows<BM>(sbase, qg + bh * S_q * hd, lrow0, S_q, hd, nbox, T::Q_BOX, pt);
+        cp_async_arrive(bar_q);
+        const size_t plane_kv = ((size_t)b * Hkv + hkv) * S_k * hd;
+        for (int i = 0; i < n_list; ++i) {
+          const int s = i % STAGES;
+          mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // the first pass finds it free
+          const int kt = block_mask ? (list[i] & 0xFFFFFF) : kt_begin + i;
+          const uint32_t kd = sbase + T::SMEM_K + s * 2 * T::TILE_BYTES, vd = kd + T::TILE_BYTES;
+          copy_rows<BN>(kd, kg + plane_kv, kt * BN, S_k, hd, nbox, T::KV_BOX, pt);
+          cp_async_arrive(k_full(s));
+          copy_rows<BN>(vd, vg + plane_kv, kt * BN, S_k, hd, nbox, T::KV_BOX, pt);
+          cp_async_arrive(v_full(s));
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+      }
+    } else if (tid == 256 && n_list > 0) {
       mbar_expect_tx(bar_q, nbox * T::Q_BOX);
 #pragma unroll
       for (int x = 0; x < NB; ++x)
@@ -528,7 +642,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // In a split CTA warpgroup 0 alone writes the rows' (m, l): both hold them.
     const bool ml_writer = !T::SPLIT || wg == 0;
 
-    if (n_list > 0) mbar_wait(bar_q, 0);
+    if (n_list > 0) {
+      mbar_wait(bar_q, 0);
+      if constexpr (RAGGED) fence_proxy_async();
+    }
     for (int i = 0; i < n_list; ++i) {
       const int s = i % STAGES;
       const uint32_t ph = (i / STAGES) & 1;
@@ -542,6 +659,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const bool full =
           sel == (1u << NH) - 1u && c0 + BN - 1 <= diag && (SW == 0 || c0 > Rw1 - SW);
       mbar_wait(k_full(s), ph);
+      if constexpr (RAGGED) fence_proxy_async();
       if (!skip) {
         float sc[BN / 2];
         wgmma_fence();
@@ -602,6 +720,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int j = 0; j < T::DO / 2; ++j) o[j] *= (j & 3) < 2 ? a_lo : a_hi;
 
         mbar_wait(v_full(s), ph);
+        if constexpr (RAGGED) fence_proxy_async();
         wgmma_fence();
         // This warpgroup's O columns start at box ocol / 64 of the V tile.
         // Its boxes past hd were not loaded: the columns they feed are never
@@ -651,6 +770,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int n = 0; n < T::DO / 8; ++n) {
       const int col = ocol + n * 8;  // hd % 8 == 0: a group of 8 columns is in or out
       if (col >= hd) break;
+      // RAGGED: hd is even, so each thread's pair of columns is in or out.
+      if (RAGGED && col + t * 2 >= hd) continue;
       if (o_lo < S_q)
         *reinterpret_cast<uint32_t*>(oh + (size_t)o_lo * hd + col + t * 2) =
             pack_f32(o[4 * n] * il_lo, o[4 * n + 1] * il_lo);
@@ -672,17 +793,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 // --- the window-score pass ----------------------------------------------------
 
 // Copy rows [row0, row0 + 64) of a [*, hd] bf16 matrix into shared memory
-// rows of D columns, zero-filling rows at or past `limit` and columns past hd.
+// rows of D columns in PIECE-byte pieces, zero-filling rows at or past
+// `limit` and pieces past hd (hd is a whole number of pieces).
 template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int limit,
                                           int hd, int tid) {
+  constexpr int NP = D / PIECE_COLS;  // pieces a row
 #pragma unroll
-  for (int i = tid; i < SBN * (D / 8); i += 128) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < limit && c * 8 < hd)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * hd + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Plan<D>::LDS + c * 8) = val;
+  for (int i = tid; i < SBN * NP; i += 128) {
+    const int r = i / NP, c = i % NP;
+    Piece val{};
+    if (row0 + r < limit && c * PIECE_COLS < hd)
+      val = *reinterpret_cast<const Piece*>(src + (size_t)(row0 + r) * hd + c * PIECE_COLS);
+    *reinterpret_cast<Piece*>(dst + r * Plan<D>::LDS + c * PIECE_COLS) = val;
   }
 }
 
@@ -733,13 +856,13 @@ window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int wb = 0; wb < W; wb += WBLOCK) {  // window rows [wb, wb + nw)
     const int nw = min(WBLOCK, W - wb);
     if (wb > 0) __syncthreads();  // the last block's rows are no longer read
-    for (int i = tid; i < nw * (D / 8); i += 128) {
-      const int r = i / (D / 8), cc = i % (D / 8);
+    for (int i = tid; i < nw * (D / PIECE_COLS); i += 128) {
+      const int r = i / (D / PIECE_COLS), cc = i % (D / PIECE_COLS);
       const int row = ws + wb + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row >= 0 && cc * 8 < hd)
-        val = *reinterpret_cast<const uint4*>(qh + (size_t)row * hd + cc * 8);
-      *reinterpret_cast<uint4*>(Qw + r * D + cc * 8) = val;
+      Piece val{};
+      if (row >= 0 && cc * PIECE_COLS < hd)
+        val = *reinterpret_cast<const Piece*>(qh + (size_t)row * hd + cc * PIECE_COLS);
+      *reinterpret_cast<Piece*>(Qw + r * D + cc * PIECE_COLS) = val;
     }
     for (int r = tid; r < nw; r += 128) {
       const int row = ws + wb + r;
@@ -803,7 +926,8 @@ EncodeTiled encode_tiled() {
 
 // A [planes, rows, hd] bf16 tensor as a 3-D map read in boxes of
 // `box_rows` rows x 64 columns, 128-byte swizzled; rows past `rows` and
-// columns past hd read as zeros (hd % 8 == 0: 16-byte row strides).
+// columns past hd read as zeros (hd % 8 == 0: 16-byte row strides; the
+// RAGGED builds make no map).
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int rows,
               int planes, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)planes};
@@ -817,7 +941,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int r
 }
 
 // The host function of instantiation width D, for tensors of head_dim hd
-// (hd % 8 == 0, D - 128 < hd <= D, or hd <= 64 at D 64).  The wrapper's
+// (a whole number of PIECE-byte pieces, D - 128 < hd <= D, or hd <= 64 at
+// D 64), q, k and v aligned to PIECE bytes.  The wrapper's
 // contract: scores only
 // for whole-sequence queries without a window; q and k lengths differ only
 // in chunk mode; a block mask only for whole-sequence queries, with n_blk
@@ -830,7 +955,7 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
                   void* scores, void* row_ml, int B, int Hq, int Hkv, int S_q, int S_k,
                   int W, int SW, int P, int n_blk, int hd, float scale, void* stream) {
   using T = Plan<D>;
-  if (hd < 8 || hd > D || hd % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (hd < PIECE_COLS || hd > D || hd % PIECE_COLS != 0) return (int)cudaErrorInvalidValue;
   if (W < 0 || SW < 0 || (W > 0 && (SW > 0 || row_offset)) ||
       (!row_offset && S_q != S_k) || S_q < 1 || S_k < 1 ||
       (row_ml && (W > 0 || block_mask)))
@@ -840,13 +965,15 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
     return (int)cudaErrorInvalidValue;
   const size_t smem = 1024 + T::SMEM_LIST + sizeof(int) * (size_t)((S_k + T::BN - 1) / T::BN);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
-  EncodeTiled enc = encode_tiled();
-  if (!enc) return (int)cudaErrorNotSupported;
-  CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, hd, S_q, B * Hq, T::BM) ||
-      !make_map(enc, &tk, k, hd, S_k, B * Hkv, T::BN) ||
-      !make_map(enc, &tv, v, hd, S_k, B * Hkv, T::BN))
-    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq{}, tk{}, tv{};  // RAGGED copies by cp.async: no maps
+  if constexpr (!RAGGED) {
+    EncodeTiled enc = encode_tiled();
+    if (!enc) return (int)cudaErrorNotSupported;
+    if (!make_map(enc, &tq, q, hd, S_q, B * Hq, T::BM) ||
+        !make_map(enc, &tk, k, hd, S_k, B * Hkv, T::BN) ||
+        !make_map(enc, &tv, v, hd, S_k, B * Hkv, T::BN))
+      return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // Above 48 KB of dynamic shared memory needs an opt-in, once per
   // instantiation and device (so that a launch under CUDA-graph capture
@@ -869,7 +996,8 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
       tq, tk, tv, static_cast<const int*>(true_len), static_cast<const int*>(row_offset),
       static_cast<const int*>(block_mask), static_cast<bf16*>(out),
       static_cast<float*>(win_ml), static_cast<float*>(row_ml), Hq, Hkv, S_q, S_k, W, SW, P,
-      n_blk, hd, scale * LOG2E);
+      n_blk, hd, scale * LOG2E, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v));
   if (W > 0) {
     dim3 g2((S_k + SBN - 1) / SBN, Hq, B);
     window_scores_kernel<D><<<g2, 128, T::WS_SMEM, st>>>(

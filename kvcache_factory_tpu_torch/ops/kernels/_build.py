@@ -33,8 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # ctypes signatures of every C entry point, by library.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K1 and K2 export one entry point per instantiation width (``..._d64``,
-# ``_d128``, ``_d256``, ``_d384``, ``_d512``), K3 and K4 one per code width
-# and head_dim (``_d128`` ... ``_d512``).
+# ``_d128``, ``_d256``, ``_d384``, ``_d512``), in each of their libraries
+# (``_p8`` and ``_p4`` copy rows in 8- and 4-byte pieces), K3 and K4 one per
+# code width and head_dim (``_d128`` ... ``_d512``).
 _K1 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
 _K2 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
 _WIDTHS = (64, 128, 256, 384, 512)
@@ -42,10 +43,12 @@ _KQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
     # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, head_dim, scale, stream
-    "flash_prefill": {f"kvcf_flash_prefill_d{d}": _K1 for d in _WIDTHS},
+    **{f"flash_prefill{p}": {f"kvcf_flash_prefill_d{d}": _K1 for d in _WIDTHS}
+       for p in ("", "_p8", "_p4")},
     # q, k_cache, v_cache, lengths, lower, k_new, v_new, out,
     # part, counters, H, G, C, n_split, head_dim, scale, stream
-    "decode_attn": {f"kvcf_decode_attn_append_d{d}": _K2 for d in _WIDTHS},
+    **{f"decode_attn{p}": {f"kvcf_decode_attn_append_d{d}": _K2 for d in _WIDTHS}
+       for p in ("", "_p8", "_p4")},
     # K3 and K4: q, k_codes, v_codes, scales, lengths, lower, k_new, v_new,
     # out, part, counters, H, G, C, n_split, scale, stream
     "decode_attn_quant": {f"kvcf_quant{nbits}_decode_attn_append_d{d}": _KQ
@@ -62,9 +65,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
 # their entry points.  K3 / K4 at head_dim 384 and at 512 each compile apart
 # from 128 and 256, so the three nvcc processes run side by side: 384 and
 # 512 in one process took 61 s on an H100's host, the build's longest.
+# K1 and K2 for head_dims that are no multiple of 8 build apart too, with
+# the width of their row copies (bytes) as a flag: a head_dim that is a
+# multiple of 8 runs the library built without it, whose code that flag
+# leaves as it was.
 VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
-    f"decode_attn_quant_d{d}": ("decode_attn_quant", (f"-DKVCF_QUANT_D={d}",))
-    for d in (384, 512)
+    **{f"decode_attn_quant_d{d}": ("decode_attn_quant", (f"-DKVCF_QUANT_D={d}",))
+       for d in (384, 512)},
+    **{f"{name}_p{w}": (name, (f"-DKVCF_PIECE={w}",))
+       for name in ("flash_prefill", "decode_attn") for w in (8, 4)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

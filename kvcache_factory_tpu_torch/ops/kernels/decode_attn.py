@@ -10,11 +10,13 @@ Dispatch is one rule: a CPU tensor goes to the plain version
 kernel, or raises.  ``decode_attention_append.launches`` counts kernel
 launches.
 
-The kernel takes K1's head_dims (any multiple of 8 up to 512,
+The kernel takes K1's head_dims (any even one up to 512,
 ``flash_prefill.takes_head_dim``), each on the narrowest instantiation at
 least as wide (``flash_prefill.instance``: 64, 128, 256, 384 or 512), with
 the true head_dim's ``1/sqrt(D)``; ``CTAS_PER_SM_AT`` says how many CTAs of
-each instantiation fit an SM.  It takes any group size G: a CTA
+each instantiation fit an SM.  A head_dim that is no multiple of 8 runs the
+library built to copy rows in 8- or 4-byte pieces
+(``flash_prefill.copy_bytes``, :func:`library`).  It takes any group size G: a CTA
 computes ``QUERY_BLOCK`` query rows at most, so G above 8 runs
 :func:`query_blocks` blocks of rows, each reading the head's keys.
 
@@ -36,7 +38,7 @@ import torch
 
 from ..attention import NEG_INF
 from . import _build
-from .flash_prefill import HEAD_DIM_QUANTUM, INSTANCES, REFUSED, instance, takes_head_dim
+from .flash_prefill import INSTANCES, REFUSED, copy_bytes, instance, takes_head_dim
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn.cu"
 REPLACES = "kvcache_factory_tpu/ops/kernels/decode_attn.py:71"
@@ -67,7 +69,7 @@ def decode_attention_append(
     if q.device.type == "cpu":
         return decode_attention_append_reference(q, k_layer, v_layer, lengths,
                                                  k_new, v_new, lower)
-    lib = _build.load("decode_attn")
+    lib = _build.load(library(q.shape[-1]))
     _check(q, k_layer, v_layer, lengths, k_new, v_new, lower)
     H, G, D = q.shape
     C = k_layer.shape[1]
@@ -91,6 +93,14 @@ def decode_attention_append(
 
 
 decode_attention_append.launches = 0
+
+
+def library(D: int) -> str:
+    """The kernel library K2 runs at head_dim ``D``: ``decode_attn`` for
+    rows of 16-byte pieces, else ``decode_attn_p8`` or ``_p4``, the same
+    source built to copy pieces of ``flash_prefill.copy_bytes(D)``."""
+    width = copy_bytes(D)
+    return "decode_attn" if width == 16 else f"decode_attn_p{width}"
 
 
 def split_count(H: int, C: int, sm_count: int, ctas_per_sm: int = CTAS_PER_SM) -> int:
@@ -145,9 +155,11 @@ def _counters(device: torch.device, H: int) -> torch.Tensor:
 
 
 def _check(q, k_layer, v_layer, lengths, k_new, v_new, lower):
-    # q and the cache are read with 16-byte vector loads; the int32 vectors
-    # one int at a time and k_new/v_new one element at a time.
-    named = [("q", q, 16), ("k_layer", k_layer, 16), ("v_layer", v_layer, 16),
+    # q and the cache are read in pieces of copy_bytes(D) (16, 8 or 4
+    # bytes); the int32 vectors one int at a time and k_new/v_new one
+    # element at a time.
+    piece = copy_bytes(q.shape[-1])
+    named = [("q", q, piece), ("k_layer", k_layer, piece), ("v_layer", v_layer, piece),
              ("lengths", lengths, 4), ("k_new", k_new, 2), ("v_new", v_new, 2)]
     if lower is not None:
         named.append(("lower", lower, 4))
@@ -162,8 +174,8 @@ def _check(q, k_layer, v_layer, lengths, k_new, v_new, lower):
         raise ValueError(f"decode_attn: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
     if not takes_head_dim(D):
-        raise ValueError(f"decode_attn: needs a head_dim that is a multiple of "
-                         f"{HEAD_DIM_QUANTUM} up to {INSTANCES[-1]}, got D={D}; {REFUSED}")
+        raise ValueError(f"decode_attn: needs an even head_dim up to {INSTANCES[-1]}, "
+                         f"got D={D}; {REFUSED}")
     if G < 1:
         raise ValueError(f"decode_attn: needs G >= 1, got G={G}")
     for name, t in (("q", q), ("k_layer", k_layer), ("v_layer", v_layer),

@@ -147,7 +147,8 @@ def _check(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
         raise ValueError(f"{what}: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
     if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: needs head_dim in {HEAD_DIMS}, got D={D}; {REFUSED}")
+        raise ValueError(f"{what}: needs head_dim in {HEAD_DIMS} (the per-token cache "
+                         f"exists only at head_dim % 128 == 0), got D={D}; {REFUSED}")
     if G < 1:
         raise ValueError(f"{what}: needs G >= 1, got G={G}")
     for name, t in (("q", q), ("scales", scales), ("k_new", k_new), ("v_new", v_new)):

@@ -12,11 +12,14 @@ of three warpgroups per 128 q rows of one head, a producer that loads Q
 once and 128-key K/V tiles (64-key at head_dim 256) through a 2-stage TMA
 ring, and two consumers of 64 rows each that run both products with
 ``wgmma`` and mask only the tiles on an edge (above head_dim 256, 64 q rows a
-CTA whose two consumers split the output's columns).  It takes any head_dim
-that is a multiple of 8 up to 512 (:func:`takes_head_dim`), each on the
-narrowest of the instantiations ``INSTANCES`` at least as wide
-(:func:`instance`), with the true head_dim's ``1/sqrt(D)``, and any
-observation window.  Its source header says what bounds it on the card and
+CTA whose two consumers split the output's columns).  It takes any even
+head_dim up to 512 (:func:`takes_head_dim`), each on the narrowest of the
+instantiations ``INSTANCES`` at least as wide (:func:`instance`), with the
+true head_dim's ``1/sqrt(D)``, and any observation window.  A bf16 row of
+a head_dim that is no multiple of 8 is no whole number of 16-byte pieces,
+and TMA takes no such row stride: those head_dims run the library built
+with the producer warpgroup copying 8- or 4-byte pieces by ``cp.async``
+into the same swizzled stages (:func:`copy_bytes`, :func:`library`).  Its source header says what bounds it on the card and
 how the design answers that.  The vertical-slash block mask is estimated in
 plain torch (:func:`vertical_slash_block_mask`), as the JAX
 package estimates it in XLA; both patterns reach the kernel as one
@@ -56,10 +59,10 @@ REPLACES_VARIANT = {
 # The kernels' instantiation widths: a head_dim runs on the narrowest at
 # least as wide (K1 and K2; K3 and K4 take exactly 128, 256, 384 and 512).
 INSTANCES = (64, 128, 256, 384, 512)
-HEAD_DIM_QUANTUM = 8  # 16-byte rows: TMA's row strides and the 16-byte copies
 # What the card refuses, and where it is queued.
-REFUSED = ("head_dims that are not a multiple of 8 or exceed 512 are ROADMAP.md queue 2, "
-           "\"Shapes the TPU kernels take and the port's kernels refuse on CUDA\"")
+REFUSED = ("odd head_dims (RoPE splits a head in halves, in both packages) and head_dims "
+           "above 512 are ROADMAP.md queue 2, \"Shapes the TPU kernels take and the port's "
+           "kernels refuse on CUDA\"")
 # A pattern block is a multiple of 64 (or the whole sequence): a CTA's 128 q
 # rows are two consumer warpgroups of 64 (one set of 64 above head_dim 256)
 # and a key tile (128 keys, 64 at head_dim 256, 32 above) one or two halves
@@ -131,8 +134,8 @@ def flash_prefill_attention(
             q, k, v, true_len, window, sliding_window=sliding_window,
             row_offset=row_offset, block_mask=block_mask, block=block,
             return_ml=return_ml)
-    lib = _build.load("flash_prefill")
     B, Hq, S_q, D = q.shape
+    lib = _build.load(library(D))
     S_k = k.shape[2]
     dev = q.device
     if row_offset is not None and not (torch.is_tensor(row_offset)
@@ -173,9 +176,27 @@ flash_prefill_attention.variant_launches = {
 
 
 def takes_head_dim(D: int) -> bool:
-    """Whether K1 and K2 take head_dim ``D`` on the card: a multiple of 8
-    (a row of 16-byte pieces) up to 512."""
-    return D % HEAD_DIM_QUANTUM == 0 and HEAD_DIM_QUANTUM <= D <= INSTANCES[-1]
+    """Whether K1 and K2 take head_dim ``D`` on the card: even and up to
+    512 (RoPE splits a head in halves, so every head_dim either package
+    runs is even)."""
+    return D % 2 == 0 and 2 <= D <= INSTANCES[-1]
+
+
+def copy_bytes(D: int) -> int:
+    """The widest copy a bf16 row of ``D`` elements is a whole number of:
+    16 bytes at ``D % 8 == 0``, 8 at ``D % 4 == 0``, 4 otherwise.  K1's and
+    K2's kernels read a row in pieces of this size, and their inputs must
+    be aligned to it."""
+    return 16 if D % 8 == 0 else 8 if D % 4 == 0 else 4
+
+
+def library(D: int) -> str:
+    """The kernel library K1 runs at head_dim ``D``: ``flash_prefill``
+    (TMA loads) for rows of 16-byte pieces, else ``flash_prefill_p8`` or
+    ``_p4``, the same source built with the producer copying pieces of
+    :func:`copy_bytes` by ``cp.async``."""
+    width = copy_bytes(D)
+    return "flash_prefill" if width == 16 else f"flash_prefill_p{width}"
 
 
 def instance(D: int) -> int:
@@ -239,9 +260,11 @@ def _check_contract(q, k, window, sliding_window, row_offset, sparse_pattern=Non
 
 def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
            block_mask=None, block=0):
-    # q, k and v are read with 16-byte vector loads; the int32 vectors and
-    # the block mask one int at a time.
-    named = [("q", q, 16), ("k", k, 16), ("v", v, 16), ("true_len", true_len, 4)]
+    # q, k and v are read in pieces of copy_bytes(D) (16 bytes by TMA, or
+    # 8 / 4 by cp.async); the int32 vectors and the block mask one int at
+    # a time.
+    piece = copy_bytes(q.shape[-1])
+    named = [("q", q, piece), ("k", k, piece), ("v", v, piece), ("true_len", true_len, 4)]
     if row_offset is not None:
         named.append(("row_offset", row_offset, 4))
     if block_mask is not None:
@@ -259,8 +282,8 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
     B, Hq, S_q, D = q.shape
     if not takes_head_dim(D):
-        raise ValueError(f"flash_prefill: needs a head_dim that is a multiple of "
-                         f"{HEAD_DIM_QUANTUM} up to {INSTANCES[-1]}, got D={D}; {REFUSED}")
+        raise ValueError(f"flash_prefill: needs an even head_dim up to {INSTANCES[-1]}, "
+                         f"got D={D}; {REFUSED}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or k.shape[2] < 1 \
             or Hq % k.shape[1]:
         raise ValueError(f"flash_prefill: k/v shape {tuple(k.shape)} does not "

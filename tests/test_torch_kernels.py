@@ -201,7 +201,8 @@ def test_decode_check_takes_every_group_up_to_8(G):
 @pytest.mark.parametrize("D_", [16, 64, 80, 128, 256, 384, 512])
 @pytest.mark.parametrize("G", [1, 4])
 def test_decode_check_takes_each_head_dim(G, D_):
-    """K2 takes every head_dim that is a multiple of 8 up to 512: every
+    """K2 takes every even head_dim up to 512 (these multiples of 8; the
+    others in tests/test_torch_ragged_head_dims.py): every
     shape check passes; only the device stops a CPU tensor."""
     with pytest.raises(ValueError, match="unsupported device"):
         tdecode._check(*_decode_check_args(G, D_))
@@ -216,8 +217,10 @@ def test_decode_check_takes_groups_above_8(G, D_):
         tdecode._check(*_decode_check_args(G, D_))
 
 
-@pytest.mark.parametrize("G,shape", [(1, (2, 1, 100)), (1, (2, 1, 640))])
+@pytest.mark.parametrize("G,shape", [(1, (2, 1, 101)), (1, (2, 1, 640))])
 def test_decode_check_refuses_other_head_dims(G, shape):
+    """What K2 refuses on the card: an odd head_dim (RoPE needs even ones;
+    100 is taken since the rows of 8-byte pieces) and one above 512."""
     args = _decode_check_args(G, shape[-1])
     args[0] = torch.zeros(shape, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
@@ -304,7 +307,8 @@ def _flash_check_args(d, window=8):
 
 @pytest.mark.parametrize("D_", [16, 64, 80, 128, 256, 384, 512])
 def test_flash_check_takes_each_head_dim(D_):
-    """K1 takes every head_dim that is a multiple of 8 up to 512: every
+    """K1 takes every even head_dim up to 512 (these multiples of 8; the
+    others in tests/test_torch_ragged_head_dims.py): every
     shape check passes; the device check comes last (as K2's), so only it
     stops a CPU tensor."""
     with pytest.raises(ValueError, match="unsupported device"):
@@ -321,8 +325,9 @@ def test_flash_check_takes_windows_above_64(window, D_):
         tflash._check(*_flash_check_args(D_, window))
 
 
-@pytest.mark.parametrize("D_,window", [(100, 8), (640, 8)])
+@pytest.mark.parametrize("D_,window", [(101, 8), (640, 8)])
 def test_flash_check_refuses_other_head_dims(D_, window):
+    """What K1 refuses on the card: an odd head_dim and one above 512."""
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
         tflash._check(*_flash_check_args(D_, window))
 
