@@ -489,7 +489,26 @@ def first_layers(params, n):
     return {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}}
 
 
+class DeviceDraws:
+    """A numpy generator whose bf16 normal tensors (``bf16_normal``) are
+    drawn on the card by a CUDA ``torch.Generator`` of the same seed; every
+    other draw (lengths, offsets, prompts) is the numpy generator's own.
+    numpy's draws take about 20 ns an element on the H100 machine's host
+    CPU, minutes over the wide head_dims' caches; the card's draws take
+    almost none of the script's time."""
+
+    def __init__(self, seed):
+        self.numpy = np.random.default_rng(seed)
+        self.torch = torch.Generator(device="cuda")
+        self.torch.manual_seed(seed)
+
+    def __getattr__(self, name):
+        return getattr(self.numpy, name)
+
+
 def bf16_normal(rng, shape):
+    if isinstance(rng, DeviceDraws):
+        return torch.randn(shape, generator=rng.torch, device="cuda", dtype=torch.bfloat16)
     return torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", torch.bfloat16)
 
 
@@ -1253,9 +1272,7 @@ def k2_dropped_split_error(q, kc, vc, kn, vn, lens, ref):
 def k2_splits(H, C, D=128, G=1):
     """K2's n_split at H heads of G query rows, capacity C and head_dim D on
     this card (G above 8 runs a head's query blocks as CTAs of their own)."""
-    return decode_attn.split_count(H * decode_attn.query_blocks(G), C,
-                                   decode_attn._sm_count(torch.device("cuda")),
-                                   decode_attn.CTAS_PER_SM_AT[flash_prefill.instance(D)])
+    return decode_attn.splits(H, G, C, D, decode_attn._sm_count(torch.device("cuda")))
 
 
 def k2_split_edges(rng, D=128):
@@ -1280,7 +1297,7 @@ def k2_split_edges(rng, D=128):
     # G 4 at 8 heads (33 splits a head at D 128): heads shorter than, equal
     # to and one past the split count.
     n8 = k2_splits(8, C, D)
-    errs.append(k2_case(rng, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
+    errs.append(k2_case(rng, 8, 4, C, [max(n8 - 13, 1), 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
                         [0, 0, 0, 0, 1, 0, 0, 993], D)[8])
     groups = {}
     for G, Hg in ((3, 16), (5, 8), (6, 8), (7, 8)):
@@ -1616,9 +1633,7 @@ def kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lens, ref):
     the worst head rel L2 from the plain version's output."""
     H, G, D = q.shape
     C = kc.shape[1]
-    n_split = decode_attn.split_count(H * decode_attn.query_blocks(G), C,
-                                      decode_attn._sm_count(q.device),
-                                      decode_attn_quant.CTAS_PER_SM_AT[D])
+    n_split = decode_attn_quant.splits(H, G, C, D, decode_attn._sm_count(q.device))
     L = lens.long().clamp(max=C - 1)
     start, end = decode_attn.split_bounds(0, L, n_split // 2, n_split)
     k = quant_cache.dequantize(kc, sc[..., 0], sc[..., 1], nbits)
@@ -1643,8 +1658,7 @@ def kq_split_edges(rng, nbits, C, D=128):
     ranges at the edges of a 16-key tile, a warp's stage and a CTA's stage;
     then G 3, 5, 6 and 7 (1, 2, 4 and 8 are in phase 4b's other cases)."""
     H, sm = 64, decode_attn._sm_count(torch.device("cuda"))
-    ctas = decode_attn_quant.CTAS_PER_SM_AT[D]
-    n_split = decode_attn.split_count(H, C, sm, ctas)
+    n_split = decode_attn_quant.splits(H, 1, C, D, sm)
     lengths = rng.integers(1, C, size=H)
     lower = np.zeros(H, np.int64)
     lengths[0], lower[0] = 500, 500 - (n_split - 1)     # fewer keys than splits
@@ -1657,10 +1671,13 @@ def kq_split_edges(rng, nbits, C, D=128):
     errs.append(kq_case(rng, nbits, H, 1, C, [0] * H, np.zeros(H, np.int64), **kw)[8])
     errs.append(kq_case(rng, nbits, H, 1, C, [C - 1] + [0] * (H - 1), np.zeros(H, np.int64),
                         **kw)[8])
-    n8 = decode_attn.split_count(8, C, sm, ctas)
-    errs.append(kq_case(rng, nbits, 8, 4, C, [n8 - 13, 0, n8 - 1, n8, n8 + 1, C, C - 1, 1000],
+    n8 = decode_attn_quant.splits(8, 4, C, D, sm)
+    errs.append(kq_case(rng, nbits, 8, 4, C, [max(n8 - 13, 1), 0, n8 - 1, n8, n8 + 1, C, C - 1,
+                                              1000],
                         [0, 0, 0, 0, 1, 0, 0, 993], **kw)[8])
-    Hs = ctas * sm  # one CTA a head: the whole range is one CTA's
+    # One CTA a head and column slice: the whole range is one CTA's.
+    ctas = decode_attn_quant.CTAS_PER_SM_AT[decode_attn.WIDE if D > 512 else D]
+    Hs = ctas * sm // flash_prefill.slices(D)
     edges = [1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 511, 512, 513, 767, 768, 769]
     lens = np.asarray((edges * (Hs // len(edges) + 1))[:Hs])
     low = np.zeros(Hs, np.int64)
@@ -2027,17 +2044,19 @@ VS_NARROW = ("vertical_slash", 64, 16, 64)  # 64 columns, 16 diagonals, 64 estim
 
 
 @contextlib.contextmanager
-def instantiation_scale(lib_name):
-    """The kernels of ``lib_name`` handed 1/sqrt(instantiation width) in
-    place of the 1/sqrt(D) its wrapper passes: what a wrapper that took the
-    scale from the instantiation it runs would compute."""
+def instantiation_scale(lib_name, scale=None):
+    """The kernels of ``lib_name`` handed 1/sqrt(instantiation width), or
+    ``scale``, in place of the 1/sqrt(D) its wrapper passes: what a wrapper
+    that took the scale from the instantiation it runs (or from another
+    width) would compute."""
     real_load = _build.load
     real = real_load(lib_name)
 
     class Lib:
         def __getattr__(self, entry):
-            fn, width = getattr(real, entry), int(entry.rsplit("_d", 1)[1])
-            return lambda *args: fn(*args[:-2], width ** -0.5, args[-1])
+            fn = getattr(real, entry)
+            s = int(entry.rsplit("_d", 1)[1]) ** -0.5 if scale is None else scale
+            return lambda *args: fn(*args[:-2], s, args[-1])
 
     _build.load = lambda name: Lib() if name == lib_name else real_load(name)
     try:
@@ -2281,8 +2300,10 @@ def phase_k2_new_head_dims(rng, reports):
     return out
 
 
-def phase_kq_wide_head_dims(rng, reports):
-    """Phase 4g: K3 and K4 at head_dim 384 and 512, G 1, 4 and 12, against
+def phase_kq_wide_head_dims(rng, reports, dims=WIDE_HEAD_DIMS):
+    """Phase 4g: K3 and K4 at head_dim 384 and 512 (phase 4j: at
+    ``WIDE_KQ_DIMS``, on the wide kernel at phase 21's heads, with the
+    split-rule edges at 1024), G 1, 4 and 12, against
     their plain versions with the append byte for byte (inputs in NaN-tailed
     buffers) on phase 19b's decode layer (B 2 x 8 heads at 2079 / 1531
     keys), the range case ``KQ_RANGE`` at each G and the edge shapes (C 1,
@@ -2293,10 +2314,15 @@ def phase_kq_wide_head_dims(rng, reports):
     out = {}
     for nbits in (8, 4):
         kid, _, _, C = QUANT[nbits]
-        for D in WIDE_HEAD_DIMS:
-            regs = registers_by_head_dim(reports, decode_attn_quant.library(D),
-                                         QUANT_KERNELS[kid])
-            Hq, Hkv = MODEL_HEAD_DIM_HEADS[D]
+        for D in dims:
+            if D > 512:  # the wide kernel's instantiations at these bits (GB 1-8)
+                regs = {D: [(r, sp) for _, r, sp in ptxas_entries(
+                    reports.get(decode_attn_quant.library(D), ""),
+                    f"decode_wide_kernelILi{nbits}E")]}
+            else:
+                regs = registers_by_head_dim(reports, decode_attn_quant.library(D),
+                                             QUANT_KERNELS[kid])
+            Hq, Hkv = MODEL_HEAD_DIM_HEADS.get(D, LLAMA3_WIDE_HEADS)
             H = 2 * Hq
             lens = [2048 + 31] * Hq + [1500 + 31] * Hq
             q, kc, vc, sc, kn, vn, lt, ref, err, absd = kq_case(
@@ -2307,7 +2333,9 @@ def phase_kq_wide_head_dims(rng, reports):
                 raise SystemExit(f"{kid}'s tolerance at D={D} would let an off-by-one or dropped "
                                  "split pass")
             by_g, ranges, edges = {}, {}, {}
-            for G in (1, 4, 12):
+            # Above 512 one kernel serves every width: G 12, the range case
+            # and the edge shapes at 1024 (and G 1 / 4 everywhere).
+            for G in (1, 4, 12) if D <= 512 or D == 1024 else (1, 4):
                 Hg = H if G == 1 else 2 * Hkv if G == Hq // Hkv else 16
                 lg = [2048 + 31] * (Hg // 2) + [1500 + 31] * (Hg // 2)
                 if G > 1:
@@ -2315,26 +2343,36 @@ def phase_kq_wide_head_dims(rng, reports):
                                       tail=True)[8]
                 ranges[G] = kq_case(rng, nbits, Hg, G, C, lg, np.zeros(Hg, np.int64), KQ_RANGE,
                                     D=D, tail=True)[8]
+                if D > 512 and D != 1024:
+                    continue
                 edges[G] = max(
                     kq_case(rng, nbits, 3, G, 1, [0, 1, 0], [0, 0, 0], D=D, tail=True)[8],
                     kq_case(rng, nbits, 4, G, 17, [17, 0, 9, 5], [0, 0, 3, 9], D=D,
                             tail=True)[8],
                     kq_case(rng, nbits, 4, G, C, [C, C - 1, 1, 2000], [0, 5, 0, 2001], D=D,
                             tail=True)[8])
-            checks = kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lt)
-            log(f"{kid} D={D}: G 4 / 12 head rel L2 {by_g[4]:.3e} / {by_g[12]:.3e}, range case "
-                f"{max(ranges.values()):.3e}, edge shapes {max(edges.values()):.3e}; a key range "
+            checks = {}
+            if D <= 512 or D == 1024:
+                checks = kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lt)
+            if D == 1024:
+                checks["split_edges"] = kq_split_edges(rng, nbits, C, D)
+            log(f"{kid} D={D}: G 4 / 12 head rel L2 {by_g[4]:.3e} / {by_g.get(12, 0.0):.3e}, range "
+                f"case {max(ranges.values()):.3e}, edge shapes {max(edges.values(), default=0.0):.3e}"
+                f" (G {sorted(edges)}); a key range "
                 f"off by one would show {off_err:.3e}, a dropped split (1 of {n_split}) "
                 f"{drop_err:.3e} (tol {KQ_OUT_TOL}); ptxas (registers, spill) "
                 f"{sorted(set(regs.get(D, [])))}")
-            main = time_kq(nbits, q, kc, vc, sc, kn, vn, lt)
+            main = time_kq(nbits, q, kc, vc, sc, kn, vn, lt) if D <= 512 or D in WIDE_FULL \
+                else {}
             del q, kc, vc, sc, ref
             out[(nbits, D)] = {
                 "name": f"quant{nbits}_decode_attn_append_d{D}", "route": "cuda",
-                "source": decode_attn_quant.SOURCE, "replaces": decode_attn_quant.REPLACES[nbits],
+                "source": decode_attn_quant.WIDE_SOURCE if D > 512 else decode_attn_quant.SOURCE,
+                "replaces": decode_attn_quant.REPLACES[nbits],
+                "built_as": decode_attn_quant.library(D),
                 "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D} int{nbits}, lengths 2079 and 1531",
                 "max_abs_err": absd, "rel_l2": err, "tol": KQ_OUT_TOL, "g4_rel_l2": by_g[4],
-                "g12_rel_l2": by_g[12], "range_rel_l2": ranges, "edges_rel_l2": edges,
+                "g12_rel_l2": by_g.get(12), "range_rel_l2": ranges, "edges_rel_l2": edges,
                 "off_by_one_rel_l2": off_err, "dropped_split_rel_l2": drop_err,
                 "n_split": n_split, "append_bit_identical": True, "nan_tailed_inputs": True,
                 **checks, **main, "ptxas": regs.get(D)}
@@ -2380,12 +2418,13 @@ def wide_rows(x, width):
     return flat.as_strided((S, width), (D, 1))
 
 
-def k1_ragged_fault_errors(q, k, v, tls, out_ref, r0):
+def k1_ragged_fault_errors(q, k, v, tls, out_ref, r0, width=None):
     """What K1's check sees (example 0, head 0, rows r0 .. true_len) from a
     kernel that drops each row's last copy piece of q, k and v (zeros in
     its place) and from one that reads every row at its instantiation's
-    width (the next row's first channels past D, its output's first D
-    columns kept): each worst row rel L2 against the plain version."""
+    width (or ``width``: the next row's first channels past D, its output's
+    first D columns kept): each worst row rel L2 against the plain
+    version."""
     t, D = tls[0], q.shape[-1]
     pc = flash_prefill.copy_bytes(D) // 2
     rows = torch.arange(r0, t, device=q.device)
@@ -2394,7 +2433,7 @@ def k1_ragged_fault_errors(q, k, v, tls, out_ref, r0):
     for x in cut:
         x[:, D - pc:] = 0
     dropped = plain_attention_rows(*cut, rows, t, D ** -0.5)
-    width = flash_prefill.instance(D)
+    width = width or flash_prefill.instance(D)
     wide = plain_attention_rows(*(wide_rows(x, width) for x in (qh, kh, vh)), rows, t,
                                 D ** -0.5)[:, :D]
     ref = out_ref[0, 0, r0:t]
@@ -2478,12 +2517,13 @@ def phase_k1_ragged(rng, reports):
     return out
 
 
-def k2_fault_errors(q, kc, vc, kn, vn, lens, ref):
+def k2_fault_errors(q, kc, vc, kn, vn, lens, ref, width=None):
     """What K2's check sees from a kernel that drops each row's last copy
     piece (of q, the cache, k_new and v_new: zeros in its place) and from
     one that reads every row of q and the cache at its instantiation's
-    width (the next row's first channels past D, the output's first D
-    channels kept): each worst head rel L2 against the plain version."""
+    width (or ``width``: the next row's first channels past D, the output's
+    first D channels kept): each worst head rel L2 against the plain
+    version."""
     H, G, D = q.shape
     C = kc.shape[1]
     pc = flash_prefill.copy_bytes(D) // 2
@@ -2491,7 +2531,7 @@ def k2_fault_errors(q, kc, vc, kn, vn, lens, ref):
     for x in cut:
         x[..., D - pc:] = 0
     dropped = decode_attn.decode_attention_append_reference(*cut[:3], lens, *cut[3:])
-    width = flash_prefill.instance(D)
+    width = width or flash_prefill.instance(D)
     k_app, v_app = kc.clone(), vc.clone()
     L = lens.long().clamp(max=C - 1)
     heads = torch.arange(H, device=q.device)
@@ -2938,7 +2978,8 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
             lambda: llama.decode_step(params, cfg, cur, res.cache, quant=quant), 8,
             step_ms, f"decode step, {label}", log_file,
             check=None if label not in ONE_LAUNCH_DECODE else
-            lambda rows: one_kernel_a_layer(rows, L, *ONE_LAUNCH_DECODE[label]))
+            lambda rows: one_kernel_a_layer(rows, L, *(
+                ONE_LAUNCH_DECODE_WIDE if cfg.head_dim > 512 else ONE_LAUNCH_DECODE)[label]))
     return {"model": model,
             "compression": "snapkv 2048/8/7 maxpool, group_reduce none" if comp is SNAPKV
                            else f"{comp.method} {comp.max_capacity_prompt}/{comp.window_size}, "
@@ -2997,6 +3038,11 @@ def engine_bucket(engine, prompts):
 # The one-launch decode kernels, by cache: (id, a part of the kernel's name).
 ONE_LAUNCH_DECODE = {"bf16": ("K2", "decode_attn_kernel"), "int8": ("K3", "quant8_decode_kernel"),
                      "int4": ("K4", "quant4_decode_kernel")}
+# Above head_dim 512 all three run the wide kernel, told apart by its first
+# template argument (the cache's bits).
+ONE_LAUNCH_DECODE_WIDE = {"bf16": ("K2", "decode_wide_kernel<16,"),
+                          "int8": ("K3", "decode_wide_kernel<8,"),
+                          "int4": ("K4", "decode_wide_kernel<4,")}
 
 
 def one_kernel_a_layer(rows, layers, kid, name):
@@ -7127,34 +7173,39 @@ def phase_wide_head_dims(rng, prompts, log_file):
 # 10000 by default): head_dim 3200 / 32 = 100, a bf16 row of 200 bytes, no
 # whole number of 16-byte pieces.  The JAX package serves it on its XLA
 # path; K1 and K2 run it on their 128 instantiation with 8-byte row pieces.
-# Full depth: 3.426 G parameters, 6.85 GB in bf16.
+# Full depth: 3.426 G parameters, 6.85 GB in bf16; 13 of the 26 layers since
+# phases 3i-4j and 21 joined the script, for its time limit (every check
+# counts launches per layer and reads the first and last layer).
 OPENLLAMA_3B_HF_CONFIG = {
     "model_type": "llama", "vocab_size": 32000, "hidden_size": 3200,
     "intermediate_size": 8640, "num_hidden_layers": 26, "num_attention_heads": 32,
     "max_position_embeddings": 2048, "rms_norm_eps": 1e-06, "tie_word_embeddings": False}
-OPENLLAMA_3B = ModelConfig.from_hf_config(OPENLLAMA_3B_HF_CONFIG)
-OPENLLAMA_MODEL = "OpenLLaMA-3B v2 widths (26 layers), random weights (seed 12)"
+OPENLLAMA_3B = dataclasses.replace(ModelConfig.from_hf_config(OPENLLAMA_3B_HF_CONFIG),
+                                   num_hidden_layers=13)
+OPENLLAMA_MODEL = "OpenLLaMA-3B v2 widths (13 of 26 layers), random weights (seed 12)"
 # SnapKV at half the 2048-token bucket: 1024 kept, window 8, maxpool 7.
 OPENLLAMA_SNAPKV = dataclasses.replace(SNAPKV, max_capacity_prompt=1024)
 OPENLLAMA_DRAIN_CHUNK = 1024
 
 
 def phase_openllama(rng, log_file):
-    """Phase 20: OpenLLaMA-3B v2 at full width and depth (random bf16
-    weights, seed 12), two requests of 1984 and 1500 tokens (bucket 2048,
-    inside the model's 2048 positions) through ``InferenceEngine`` with
-    snapkv at 1024 (K1 26 a prefill with window scores, K2 at G 1, 26 x 63
-    a run) and fullkv (K2 at G 1 over all 32 KV heads), each checked as
-    phase 5's paths are (launches, lengths, logits against the fp32
-    reference within 0.10, K2 called directly on layers 0 and 25, times, a
-    profiled prefill and decode step); then a chunked drain (four requests
-    of 1984 tokens in 1024-token chunks: K1-chunk at head_dim 100)."""
+    """Phase 20: OpenLLaMA-3B v2 at full width (13 of its 26 layers; random
+    bf16 weights, seed 12), two requests of 1984 and 1500 tokens (bucket
+    2048, inside the model's 2048 positions) through ``InferenceEngine``
+    with snapkv at 1024 (K1 13 a prefill with window scores, K2 at G 1,
+    13 x 63 a run) and fullkv (K2 at G 1 over all 32 KV heads), each
+    checked as phase 5's paths are (launches, lengths, logits against the
+    fp32 reference within 0.10, K2 called directly on its first and last
+    layer, times, a profiled prefill and decode step); then a chunked drain
+    (four requests of 1984 tokens in 1024-token chunks: K1-chunk at
+    head_dim 100)."""
     cfg = OPENLLAMA_3B
     t0 = time.perf_counter()
     params = init_params(cfg, seed=12, device="cuda")
     sync()
     n_params = count_params(params)
-    log(f"== 20 OpenLLaMA-3B v2 (26 layers, hidden 3200, ffn 8640, 32 / 32 heads of 100, vocab "
+    log(f"== 20 OpenLLaMA-3B v2 ({cfg.num_hidden_layers} of 26 layers, hidden 3200, ffn 8640, "
+        f"32 / 32 heads of 100, vocab "
         f"32000): {n_params / 1e9:.3f} B parameters, random bf16 (seed 12), in "
         f"{time.perf_counter() - t0:.1f} s")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in OPENLLAMA_PROMPTS]
@@ -7169,6 +7220,282 @@ def phase_openllama(rng, log_file):
     out["drain"] = chunked_drain(params, np.random.default_rng(20), cfg, "20",
                                  prompt_len=OPENLLAMA_PROMPTS[0], comp=OPENLLAMA_SNAPKV,
                                  chunk=OPENLLAMA_DRAIN_CHUNK)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 3i, 4i, 4j and 21: head_dims above 512 (the wide kernels)
+# ---------------------------------------------------------------------------
+
+# K1 and K2 at every even head_dim above 512 run the kernels of
+# csrc/flash_prefill_wide.cu and csrc/decode_attn_wide.cu (O's columns in
+# slices of flash_prefill.SLICE), K3 and K4 at every multiple of 128 above
+# 512 the latter's quantized build.  Phase 3i / 4i's widths: 514 (4-byte
+# pieces), 576, 640, 768, 1004 (8-byte pieces), 1024 and 2048; phase 4j's
+# the per-token cache's 640, 768, 1024 and 2048.
+WIDE_K12_DIMS = (514, 576, 640, 768, 1004, 1024, 2048)
+WIDE_KQ_DIMS = (640, 768, 1024, 2048)
+# One kernel serves every width: K1's variants and K2's and K3 / K4's times
+# are taken at each piece width's representative (514: 4 bytes, 1004: 8),
+# the model's width and the widest, for the script's time limit.
+WIDE_FULL = (514, 1004, 1024, 2048)
+# Phase 21's attention: Meta-Llama-3-8B-Instruct's q (4096 wide) and k / v
+# (1024 wide) regrouped as 4 query heads and 1 KV head of 1024.
+LLAMA3_WIDE_HEADS = (4, 1)
+
+
+def fault_scales(D):
+    """The wrong logit scales a wrapper of the wide kernels could pass at
+    head_dim D: 1/sqrt of one column slice's width, and of the slices'
+    whole width (where it is not D)."""
+    out = {"slice_width": flash_prefill.SLICE ** -0.5}
+    whole = flash_prefill.slices(D) * flash_prefill.SLICE
+    if whole != D:
+        out["slices_width"] = whole ** -0.5
+    return out
+
+
+def wide_ptxas(reports, lib, name):
+    """(registers, spill line) of each kernel of ``lib`` whose name holds
+    ``name``, from this run's ptxas report (empty when cached)."""
+    return sorted({(r, sp) for _, r, sp in ptxas_entries(reports.get(lib, ""), name)})
+
+
+def phase_k1_wide(rng, reports):
+    """Phase 3i: K1 at each of ``WIDE_K12_DIMS`` (the wide kernel) against its
+    plain version on inputs whose buffers end in NaN: dense with window
+    scores at phase 21's heads (B 2, 4 / 1 heads, S 4096, true_len 4096 /
+    3000, W 8), the CTA's length edges, two launches bitwise equal, and what
+    a skipped key tile, a row's last copy piece dropped, a row read at the
+    slices' width and a wrong 1/sqrt (a slice's width, the slices' width:
+    through the output and through K1-ml's m) would show (each must fail
+    the limit); the variants (``k1_head_dim_variants``: SW, chunk, a-shape,
+    vertical-slash, ring hops, with their off-by-one sensitivities); at 514
+    and 1024 the window scores at W 128 with a cut window pass; timed beside
+    its plain version, SDPA (with its backend) and its bound."""
+    lib = "flash_prefill_wide"
+    regs = {"flash_wide_kernel": wide_ptxas(reports, lib, "flash_wide_kernel"),
+            "window_scores_wide_kernel": wide_ptxas(reports, lib, "window_scores_wide_kernel")}
+    log(f"K1 wide ptxas (registers, spill) by kernel: {regs}")
+    Hq, Hkv = LLAMA3_WIDE_HEADS
+    out = {}
+    for D in WIDE_K12_DIMS:
+        B, W, S = 2, 8, 4096
+        tls = [S, 3000]
+        q, k, v, tl, sc, out_ref, err, absd, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls, D,
+                                                              tail=True)
+        edge = k1_case(rng, 4, 8, 2, 1024, 64, [1, 63, 129, 1000], D, tail=True)[6:9]
+        call = lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W)  # noqa: E731
+        same = bitwise_repeat(call)
+        r0 = tls[0] // 2
+        whole = flash_prefill.slices(D) * flash_prefill.SLICE
+        tail_err, wide_err = k1_ragged_fault_errors(q, k, v, tls, out_ref, r0, width=whole)
+        faults = {"skipped_tile": k1_skipped_tile_error(q, k, v, tls, out_ref, r0=r0),
+                  "tail_piece_dropped": tail_err}
+        if whole != D:
+            faults["row_read_at_slices_width"] = wide_err
+        qh, kh, vh = (nan_tailed(bf16_normal(rng, (1, h, 1024, D))) for h in (Hq, Hkv, Hkv))
+        hop = k1ml_case(qh, kh, vh, 2048, 1024)
+        scale_faults = {}
+        for name, scale in fault_scales(D).items():
+            with instantiation_scale(lib, scale):
+                wrong = call()[0]
+                m_wrong = flash_prefill.flash_prefill_attention(
+                    qh, kh, vh, hop["tl"], 0, row_offset=hop["off"], return_ml=True)[2]
+            sync()
+            scale_faults[name] = {
+                "scale": scale,
+                "out_rel_l2": max(rel_l2(wrong[b, :, :t], out_ref[b, :, :t])[0]
+                                  for b, t in enumerate(tls)),
+                "ml_m_abs": (m_wrong - hop["m_ref"]).abs().max().item()}
+            del wrong, m_wrong
+        del qh, kh, vh, hop
+        log(f"K1 D={D} ({lib}, {flash_prefill.slices(D)} column slices, "
+            f"{flash_prefill.copy_bytes(D)}-byte pieces, scale 1/sqrt({D}) = {D ** -0.5:.6f}): "
+            f"two launches bitwise equal {same}; a fault would show "
+            f"{({n: f'{e:.3e}' for n, e in faults.items()})} (tol {K1_OUT_TOL}); a wrong scale "
+            f"{scale_faults} (tol {K1_OUT_TOL}, K1-ml's m {K1ML_M_TOL})")
+        if not same or min(faults.values()) <= K1_OUT_TOL or any(
+                f["out_rel_l2"] <= K1_OUT_TOL and f["ml_m_abs"] <= K1ML_M_TOL
+                for f in scale_faults.values()):
+            raise SystemExit(f"K1 at D={D} is not deterministic, or its tolerance would let a "
+                             "fault pass")
+        del out_ref
+        t = time_k1(q, k, v, tl, W, tls, sc)
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        log(f"K1 D={D}: the library yardstick ran SDPA's {backend} backend")
+        del q, k, v, sc
+        entry = {"name": f"flash_prefill_d{D}", "route": "cuda",
+                 "source": flash_prefill.WIDE_SOURCE, "replaces": flash_prefill.REPLACES,
+                 "built_as": lib, "column_slices": flash_prefill.slices(D),
+                 "copy_bytes": flash_prefill.copy_bytes(D), "scale": D ** -0.5,
+                 "library": f"scaled_dot_product_attention, causal GQA ({backend} backend)",
+                 "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
+                 "max_abs_err": absd, "rel_l2": err, "tol": K1_OUT_TOL,
+                 "scores_max_abs_err": err_sc, "fault_rel_l2": faults,
+                 "scale_faults": scale_faults, **t, "bound_fraction": t["bound_ms"] / t["ms"],
+                 "deterministic": same,
+                 "edge_case": {"rel_l2": edge[0], "max_abs_err": edge[1],
+                               "scores_max_abs_err": edge[2]},
+                 "nan_tailed_inputs": True, "ptxas": regs}
+        if D in WIDE_FULL:
+            entry["variants"] = k1_head_dim_variants(rng, D, Hq, Hkv)
+        if D in (514, 1024):  # window scores at W 128, and a pass cut at 64 rows
+            qw, kw, vw, tlw, scw, _, errw, _, sc_errw = k1_case(rng, B, Hq, Hkv, S, 128, tls,
+                                                                D, tail=True)
+            cut = k1_cut_window_error(qw, kw, vw, tlw, 128, tls, scw)
+            log(f"K1 D={D} W 128: a window pass cut at 64 rows would show {cut:.3e} "
+                f"(tol {K1_SCORE_TOL})")
+            if cut <= K1_SCORE_TOL:
+                raise SystemExit(f"K1's score tolerance at D={D} would let a cut window pass")
+            entry["w128"] = {"rel_l2": errw, "scores_max_abs_err": sc_errw,
+                             "cut_window_max_abs": cut,
+                             **time_k1(qw, kw, vw, tlw, 128, tls, scw)}
+            del qw, kw, vw, scw
+        out[D] = entry
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_k2_wide(rng, reports):
+    """Phase 4i: K2 at each of ``WIDE_K12_DIMS`` (the wide kernel) against
+    its plain version (inputs in NaN-tailed buffers; the cache after the
+    append identical) on phase 21's decode layers: snapkv's cache per query
+    head (G 1, B 2 x 4 heads at 2079 / 1531 keys, C 2113) and fullkv's (G 4,
+    B 2 x 1 head at 4159 / 1563, C 4161), G 12 over 16 heads, the edge
+    shapes (``k2_edge_cases``), the append's neighbour rows and the bytes
+    after the buffer byte for byte, with what an off-by-one key range, a
+    dropped split, a row's last piece dropped, a row read at the slices'
+    width and a wrong 1/sqrt (a slice's width, the slices' width) would
+    show: each must fail the limit wherever its factor on the logits is at
+    least ``SCALE_VISIBLE`` from 1; at 1024 also bitwise repeats, graph
+    replays and the split-rule edges; both decodes timed beside the plain
+    version, SDPA and the bound."""
+    lib = "decode_attn_wide"
+    regs = wide_ptxas(reports, lib, "decode_wide_kernelILi16E")
+    log(f"K2 wide ptxas (registers, spill), every (piece, GB): {regs}")
+    Hq, Hkv = LLAMA3_WIDE_HEADS
+    out = {}
+    for D in WIDE_K12_DIMS:
+        C, H = 2113, 2 * Hq
+        lens = [2048 + 31] * Hq + [1500 + 31] * Hq
+        q, kc, vc, kn, vn, lt, _, ref, err, absd = k2_case(rng, H, 1, C, lens,
+                                                            np.zeros(H, np.int64), D, tail=True)
+        off_err = k2_one_key_off_error(q, kc, vc, kn, vn, lt, ref)
+        drop_err, n_split = k2_dropped_split_error(q, kc, vc, kn, vn, lt, ref)
+        whole = flash_prefill.slices(D) * flash_prefill.SLICE
+        tail_err, wide_err = k2_fault_errors(q, kc, vc, kn, vn, lt, ref, width=whole)
+        faults = {"off_by_one": off_err, "dropped_split": drop_err,
+                  "tail_piece_dropped": tail_err}
+        if whole != D:
+            faults["row_read_at_slices_width"] = wide_err
+        required = dict(faults)
+        for name, scale in fault_scales(D).items():
+            with instantiation_scale(lib, scale):
+                wrong = decode_attn.decode_attention_append(q, kc.clone(), vc.clone(), lt, kn, vn)
+            sync()
+            faults[f"scale_{name}"] = rel_l2(wrong.reshape(H, -1), ref.reshape(H, -1))[0]
+            if abs(1 - scale * D ** 0.5) >= SCALE_VISIBLE:  # visible: required to fail
+                required[f"scale_{name}"] = faults[f"scale_{name}"]
+        C4 = 4096 + 64 + 1
+        by_g = {12: k2_case(rng, 16, 12, C4, [4096 + 63] * 8 + [1500 + 63] * 8,
+                            np.zeros(16, np.int64), D, tail=True)[8]}
+        # The edge shapes at phase 21's G 4 everywhere, at G 1 and 12 too
+        # on both piece widths' representatives (the kernel is one for all).
+        edges = {G: k2_edge_cases(rng, D, G) for G in ((1, 4, 12) if D in (514, 1024) else (4,))}
+        append_ok = k2_append_bytes(rng, D)
+        log(f"K2 D={D} ({lib}, {flash_prefill.slices(D)} column slices, "
+            f"{flash_prefill.copy_bytes(D)}-byte pieces, scale 1/sqrt({D}) = {D ** -0.5:.6f}): "
+            f"G 12 head rel L2 {by_g[12]:.3e}, edge shapes {max(edges.values()):.3e}; append "
+            f"byte for byte {append_ok}; a fault would show "
+            f"{({n: f'{e:.3e}' for n, e in faults.items()})} (tol {K2_OUT_TOL}; required to "
+            f"fail it: {sorted(required)})")
+        if min(required.values()) <= K2_OUT_TOL or not append_ok:
+            raise SystemExit(f"K2 at D={D} touched bytes past its row, or its tolerance would "
+                             "let a fault pass")
+        entry = {"name": f"decode_attn_append_d{D}", "route": "cuda",
+                 "source": decode_attn.WIDE_SOURCE, "replaces": decode_attn.REPLACES,
+                 "built_as": lib, "column_slices": flash_prefill.slices(D),
+                 "copy_bytes": flash_prefill.copy_bytes(D), "scale": D ** -0.5,
+                 "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D}, lengths 2079 and 1531",
+                 "max_abs_err": absd, "rel_l2": err, "tol": K2_OUT_TOL,
+                 "g12_rel_l2": by_g[12], "edges_rel_l2": edges, "fault_rel_l2": faults,
+                 "required_to_fail": sorted(required), "n_split": n_split,
+                 "append_bytes_identical": append_ok, "nan_tailed_inputs": True,
+                 "ptxas": regs}
+        if D == 1024:
+            entry.update(k2_repeat_and_replay(q, kc, vc, kn, vn, lt))
+            entry.update(k2_split_edges(rng, D))
+        if D in WIDE_FULL:
+            entry.update(time_k2(q, kc, vc, kn, vn, lt))
+            mask = (torch.arange(C, device="cuda")[None] <= lt[:, None].long())[None, :, None]
+            backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+                q[None], kc[None], vc[None], attn_mask=mask))
+            log(f"K2 D={D}: the library yardstick ran SDPA's {backend} backend")
+            entry["library"] = (f"scaled_dot_product_attention with a boolean cache mask "
+                                f"({backend} backend)")
+        del q, kc, vc, ref
+        # Phase 21's fullkv decode: G 4 over the 2 KV heads.
+        H4 = 2 * Hkv
+        q, kc, vc, kn, vn, lt, _, ref, err4, abs4 = k2_case(
+            rng, H4, Hq // Hkv, C4, [4096 + 63] * Hkv + [1500 + 63] * Hkv,
+            np.zeros(H4, np.int64), D, tail=True)
+        entry["g4"] = {"shape": f"H={H4} (B=2 x {Hkv}) G={Hq // Hkv} C={C4} D={D}, lengths "
+                                "4159 and 1563", "rel_l2": err4, "max_abs_err": abs4,
+                       **(time_k2(q, kc, vc, kn, vn, lt) if D == 1024 else {})}
+        del q, kc, vc, ref
+        out[D] = entry
+        torch.cuda.empty_cache()
+    return out
+
+
+# Phase 21's model: Meta-Llama-3-8B-Instruct's published widths (hidden
+# 4096, ffn 14336, vocab 128256, rope_theta 5e5, untied lm_head) with its
+# attention regrouped as 4 query heads and 1 KV head of 1024 (q 4096 and
+# k / v 1024 wide, as its 32 / 8 heads of 128: every weight keeps its shape,
+# the KV bytes a token are its own).  No public Llama / Mistral / Qwen2 /
+# Mixtral checkpoint has a head_dim above 512.  8 of its 32 layers: the
+# script's 1200 s limit (PERF.md §4).
+LLAMA3_WIDE = dataclasses.replace(ModelConfig.from_hf_config({
+    **LLAMA3_8B_HF_CONFIG, "num_attention_heads": LLAMA3_WIDE_HEADS[0],
+    "num_key_value_heads": LLAMA3_WIDE_HEADS[1], "head_dim": 1024}), num_hidden_layers=8)
+LLAMA3_WIDE_MODEL = ("Meta-Llama-3-8B-Instruct widths with 4 / 1 heads of 1024 (8 of 32 layers), "
+                     "random weights (seed 21)")
+
+
+def phase_llama3_wide(rng, prompts, log_file):
+    """Phase 21: ``LLAMA3_WIDE`` at full width (random bf16 weights, seed
+    21), phase 5's requests through ``InferenceEngine`` with snapkv over the
+    bf16, int8 and int4 caches (K1 with window scores, then K2 / K3 / K4 at
+    G 1 on the cache per query head, all at head_dim 1024) and fullkv (K2 at
+    G 4), each checked as phase 5's paths are (launches, lengths, logits
+    against the fp32 reference within 0.10 / 0.10 / 0.40, the decode kernel
+    called directly on its first and last layer, times, a profiled prefill
+    and decode step); then a chunked drain (K1-chunk at 1024)."""
+    cfg = LLAMA3_WIDE
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=21, device="cuda")
+    sync()
+    n_params = count_params(params)
+    log(f"== 21 {LLAMA3_WIDE_MODEL}: hidden {cfg.hidden_size}, ffn {cfg.intermediate_size}, "
+        f"{cfg.num_attention_heads} / {cfg.num_key_value_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}: {n_params / 1e9:.3f} B parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"model": LLAMA3_WIDE_MODEL, "parameters": n_params}
+    for label, quant in PATHS:
+        out[label] = drive_path(params, n_params, prompts, quant, log_file, cfg=cfg,
+                                model=LLAMA3_WIDE_MODEL, direct_rng=rng)
+        torch.cuda.empty_cache()
+    out["fullkv"] = drive_path(params, n_params, prompts, None, log_file, cfg=cfg, comp=FULLKV,
+                               model=LLAMA3_WIDE_MODEL, direct_rng=rng)
+    log(f"21 fullkv: greedy streams (a) {out['fullkv']['tokens'][0][:16]} ..., (b) "
+        f"{out['fullkv']['tokens'][1][:16]} ...")
+    if [out[name]["decode_g"] for name in ("bf16", "fullkv")] != [1, 4]:
+        raise SystemExit("phase 21 did not decode at G 1 (snapkv) and G 4 (fullkv)")
+    out["drain"] = chunked_drain(params, np.random.default_rng(21), cfg, "21")
     del params
     torch.cuda.empty_cache()
     return out
@@ -7579,12 +7906,12 @@ def profile_burst():
     sync()
 
 
-def lost_records(prof):
+def lost_records(averages):
     """(kernel launches the host traced, launches without a device record)
     of a finished profile, from its key averages."""
-    launches = sum(evt.count for evt in prof.key_averages()
+    launches = sum(evt.count for evt in averages
                    if evt.device_type != DeviceType.CUDA and "LaunchKernel" in evt.key)
-    kernels = sum(evt.count for evt in prof.key_averages()
+    kernels = sum(evt.count for evt in averages
                   if evt.device_type == DeviceType.CUDA and not evt.key.startswith("ProfilerStep")
                   and not evt.key.startswith(("Memcpy", "Memset")))
     return launches, max(launches - kernels, 0)
@@ -7608,9 +7935,12 @@ def profile_device(fn, reps, wall_ms, what, log_file, check=None):
         for _ in range(reps):
             fn()
         sync()
-    launches, lost = lost_records(prof)
+    # One pass over the trace's events: each key_averages() call walks
+    # every record again, seconds a decode step's profile.
+    averages = prof.key_averages()
+    launches, lost = lost_records(averages)
     PROFILE_LOSSES.append((what, lost, launches))
-    events = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
+    events = [evt for evt in averages if evt.device_type == DeviceType.CUDA
               and BURST_KERNEL not in evt.key]
     partial = [(evt.count, evt.key[:60]) for evt in events if evt.count % reps]
     log(f"profile ({what}): {launches} launches traced, {lost} without a device record "
@@ -7631,7 +7961,7 @@ def profile_device(fn, reps, wall_ms, what, log_file, check=None):
     if check is not None:
         check(rows)
     log_file.write(f"== {what}: {reps} call(s) profiled\n")
-    log_file.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    log_file.write(averages.table(sort_by="self_device_time_total", row_limit=40))
     return busy_ms
 
 
@@ -7717,6 +8047,17 @@ def main():
         if i2f is not None and (not i2f or any(c for c, _ in i2f.values())):
             raise SystemExit(f"{kid}'s SASS holds int-to-float conversions (or no {kid} kernel)")
 
+    # The wide kernels (head_dims above 512): one build serves every width,
+    # so no kernel of theirs may spill.
+    for lib in ("flash_prefill_wide", "decode_attn_wide", "decode_attn_quant_wide"):
+        rows = ptxas_entries(reports.get(lib, ""), "")
+        if not rows:
+            log(f"{lib} ptxas: library cached, no ptxas report in this run")
+            continue
+        log(f"{lib}: {len(rows)} kernels, registers {sorted({r for _, r, _ in rows})}, spill lines "
+            f"{sorted({sp or 'none' for _, _, sp in rows})}")
+        if any("0 bytes spill stores, 0 bytes spill loads" not in (sp or "") for _, _, sp in rows):
+            raise SystemExit(f"a kernel of {lib} spills registers")
     log(f"[{time.perf_counter() - T_START:.1f} s] build, ptxas and SASS checks done")
     rng = np.random.default_rng(0)
     k1 = timed("3 K1", phase_k1, rng)
@@ -7730,24 +8071,31 @@ def main():
     k4 = timed("4b K4", phase_kq, rng, 4)
     timed("4 edges", phase_edges, rng)
     # The head_dim 64 and 256 cases draw from a generator of their own, so
-    # that every other phase keeps its inputs.
-    rng_hd = np.random.default_rng(17)
+    # that every other phase keeps its inputs.  This generator and the four
+    # below draw their bf16 tensors on the card (``DeviceDraws``).
+    rng_hd = DeviceDraws(17)
     k1_hd = timed("3e K1 head dims", phase_k1_head_dims, rng_hd, reports)
     k2_hd = timed("4c K2 head dims", phase_k2_head_dims, rng_hd, reports)
     kq_hd = timed("4d K3/K4 head dim 256", phase_kq_head_dims, rng_hd, reports)
     # Phases 3f, 4e, 17 and 18 draw from a generator of their own, as 3e-4d.
-    rng18 = np.random.default_rng(18)
+    rng18 = DeviceDraws(18)
     k1_w = timed("3f K1 windows", phase_k1_windows, rng18)
     big_g = timed("4e K2-K4 G above 8", phase_big_groups, rng18, reports)
     # Phases 3g-4g and 19-19b draw from a generator of their own, as 3e-4d.
-    rng19 = np.random.default_rng(19)
+    rng19 = DeviceDraws(19)
     k1_nd = timed("3g K1 head dims to 512", phase_k1_new_head_dims, rng19, reports)
     k2_nd = timed("4f K2 head dims to 512", phase_k2_new_head_dims, rng19, reports)
     kq_nd = timed("4g K3/K4 head dims 384, 512", phase_kq_wide_head_dims, rng19, reports)
     # Phases 3h-4h and 20 draw from a generator of their own, as 3e-4d.
-    rng20 = np.random.default_rng(20)
+    rng20 = DeviceDraws(20)
     k1_rg = timed("3h K1 ragged head dims", phase_k1_ragged, rng20, reports)
     k2_rg = timed("4h K2 ragged head dims", phase_k2_ragged, rng20, reports)
+    # Phases 3i-4j and 21 draw from a generator of their own, as 3e-4d.
+    rng21 = DeviceDraws(21)
+    k1_wd = timed("3i K1 head dims above 512", phase_k1_wide, rng21, reports)
+    k2_wd = timed("4i K2 head dims above 512", phase_k2_wide, rng21, reports)
+    kq_wd = timed("4j K3/K4 head dims above 512", phase_kq_wide_head_dims, rng21, reports,
+                  WIDE_KQ_DIMS)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
         params, prompts, e2e = timed("5 main path", phase_e2e, rng, log_file)
@@ -7785,6 +8133,8 @@ def main():
         danube2 = timed("19 h2o-danube2-1.8b", phase_danube2, rng19, prompts, log_file)
         wide = timed("19b head_dim 384 / 512", phase_wide_head_dims, rng19, prompts, log_file)
         openllama = timed("20 OpenLLaMA-3B v2", phase_openllama, rng20, log_file)
+        llama3_wide = timed("21 Llama-3-8B, head_dim 1024", phase_llama3_wide, rng21, prompts,
+                            log_file)
     # Each kernel's launches on the path that runs it: K1 and K2 on the bf16
     # path, K3 on the int8 path, K4 on the int4 path, K1-SW on the one-shot
     # drain, K1-chunk on the chunked drain (K2's count on each drain and each
@@ -7908,6 +8258,30 @@ def main():
         if D != 100:
             k1_rg[100].setdefault("head_dims_held", {})[D] = k1_rg[D]
             k2_rg[100].setdefault("head_dims_held", {})[D] = k2_rg[D]
+    # Phase 21: K1, K2, K3 and K4 at 1024 on the Llama-3-8B regrouping (K2
+    # at G 1 on snapkv, G 4 on fullkv), K1-chunk at 1024 on its drain.  The
+    # other widths of 3i-4j run the same kernels: their checks and times
+    # ride on the entries at 1024.
+    lw = llama3_wide
+    k1_wd[1024].update(launches=lw["bf16"]["launches"]["K1"],
+                       launches_fullkv=lw["fullkv"]["launches"]["K1"])
+    k2_wd[1024].update(launches=lw["bf16"]["launches"]["K2"])
+    k2_wd[1024]["g4"]["launches"] = lw["fullkv"]["launches"]["K2"]
+    for nbits, kid in ((8, "K3"), (4, "K4")):
+        kq_wd[(nbits, 1024)]["launches"] = lw[f"int{nbits}"]["launches"][kid]
+        for D in WIDE_KQ_DIMS:
+            if D != 1024:
+                kq_wd[(nbits, 1024)].setdefault("head_dims_held", {})[D] = kq_wd[(nbits, D)]
+    k1_chunk1024 = {"name": "flash_prefill_chunk_d1024", "route": "cuda",
+                    "source": flash_prefill.WIDE_SOURCE,
+                    "replaces": flash_prefill.REPLACES_VARIANT["chunk"],
+                    "built_as": flash_prefill.library(1024),
+                    "launches": lw["drain"]["launches"]["K1-chunk"],
+                    **k1_wd[1024]["variants"]["chunk"]}
+    for D in WIDE_K12_DIMS:
+        if D != 1024:
+            k1_wd[1024].setdefault("head_dims_held", {})[D] = k1_wd[D]
+            k2_wd[1024].setdefault("head_dims_held", {})[D] = k2_wd[D]
     for D in NEW_HEAD_DIMS:
         if D not in MODEL_HEAD_DIM_HEADS:
             width = flash_prefill.instance(D)
@@ -7923,7 +8297,9 @@ def main():
                                   k2_nd[384], k2_nd[512],
                                   *(kq_nd[(nbits, D)] for nbits in (8, 4)
                                     for D in WIDE_HEAD_DIMS),
-                                  k1_rg[100], k1_chunk100, k2_rg[100]]}))
+                                  k1_rg[100], k1_chunk100, k2_rg[100],
+                                  k1_wd[1024], k1_chunk1024, k2_wd[1024], kq_wd[(8, 1024)],
+                                  kq_wd[(4, 1024)]]}))
     print(json.dumps({"e2e": e2e["bf16"], "e2e_int8": e2e["int8"], "e2e_int4": e2e["int4"],
                       "policies": policies, "serving": serving, "minference": minf,
                       "sp": {**sp, "fold_emulated": sp_fold}, "grid": grid, "pp": pp,
@@ -7932,6 +8308,7 @@ def main():
                       "big_groups": big_g, "mistral_large": large,
                       "llama31_405b": llama405, "utils": utils, "danube2": danube2,
                       "wide_head_dims": wide, "openllama_3b": openllama,
+                      "llama3_8b_head_dim_1024": llama3_wide,
                       "profile_losses": PROFILE_LOSSES,
                       "phase_s": PHASE_S, "nvcc_s": _build.BUILD_SECONDS,
                       "script_s": time.perf_counter() - T_START, "card": smi}))

@@ -238,13 +238,13 @@ class QuantConfig:
         and one zero per token and head over the full head_dim, whatever
         ``q_group_size`` and ``outlier_extract`` say.  The JAX package's
         rule (``models/llama.py::_quant_tpu_layout``: ``head_dim % 128 ==
-        0``) without its backend and capacity tests, at the head_dims K3 and
-        K4 take (128, 256, 384 and 512): the port chooses from the
-        configuration alone, and its kernels take any capacity.  Every other
-        configuration (head_dim 64 and 80 included) builds the grouped
-        cache, as JAX's XLA path does."""
+        0``) without its backend and capacity tests: the port chooses from
+        the configuration alone, and its kernels (K3 and K4) take any
+        capacity and every such head_dim.  Every other configuration
+        (head_dim 64 and 80 included) builds the grouped cache, as JAX's XLA
+        path does."""
         return (self.nbits in (8, 4) and self.residual_length == 0
-                and head_dim in (128, 256, 384, 512))
+                and head_dim % 128 == 0)
 
 
 @dataclass(frozen=True)

@@ -35,11 +35,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K1 and K2 export one entry point per instantiation width (``..._d64``,
 # ``_d128``, ``_d256``, ``_d384``, ``_d512``), in each of their libraries
 # (``_p8`` and ``_p4`` copy rows in 8- and 4-byte pieces), K3 and K4 one per
-# code width and head_dim (``_d128`` ... ``_d512``).
+# code width and head_dim (``_d128`` ... ``_d512``); above 512 the ``_wide``
+# libraries one per kernel, for every width.
 _K1 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
 _K2 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
 _WIDTHS = (64, 128, 256, 384, 512)
 _KQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)
+# Above head_dim 512 one entry point each takes any width: the column-slice
+# count comes before the head_dim (K3 / K4 take the head_dim too).
+_K1W = _K1[:19] + (_I,) + _K1[19:]
+_K2W = _K2[:14] + (_I,) + _K2[14:]
+_KQW = _KQ[:15] + (_I, _I) + _KQ[15:]
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
     # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, head_dim, scale, stream
@@ -55,6 +61,17 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                           for nbits in (8, 4) for d in (128, 256)},
     **{f"decode_attn_quant_d{d}": {f"kvcf_quant{nbits}_decode_attn_append_d{d}": _KQ
                                    for nbits in (8, 4)} for d in (384, 512)},
+    # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
+    # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, n_slice, head_dim,
+    # scale, stream
+    "flash_prefill_wide": {"kvcf_flash_prefill_wide": _K1W},
+    # q, k_cache, v_cache, lengths, lower, k_new, v_new, out, part,
+    # counters, H, G, C, n_split, n_slice, head_dim, scale, stream
+    "decode_attn_wide": {"kvcf_decode_attn_append_wide": _K2W},
+    # q, k_codes, v_codes, scales, lengths, lower, k_new, v_new, out, part,
+    # counters, H, G, C, n_split, n_slice, head_dim, scale, stream
+    "decode_attn_quant_wide": {f"kvcf_quant{nbits}_decode_attn_append_wide": _KQW
+                               for nbits in (8, 4)},
     "pack": {
         # kv, idx, out, H, S, C, vecs, stream
         "kvcf_pack_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -74,6 +91,9 @@ VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
        for d in (384, 512)},
     **{f"{name}_p{w}": (name, (f"-DKVCF_PIECE={w}",))
        for name in ("flash_prefill", "decode_attn") for w in (8, 4)},
+    # K3 / K4 above 512 share K2's wide source, built apart so that the
+    # two compile side by side.
+    "decode_attn_quant_wide": ("decode_attn_wide", ("-DKVCF_WIDE_QUANT",)),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

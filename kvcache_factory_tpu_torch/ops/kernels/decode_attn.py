@@ -10,12 +10,17 @@ Dispatch is one rule: a CPU tensor goes to the plain version
 kernel, or raises.  ``decode_attention_append.launches`` counts kernel
 launches.
 
-The kernel takes K1's head_dims (any even one up to 512,
-``flash_prefill.takes_head_dim``), each on the narrowest instantiation at
-least as wide (``flash_prefill.instance``: 64, 128, 256, 384 or 512), with
-the true head_dim's ``1/sqrt(D)``; ``CTAS_PER_SM_AT`` says how many CTAs of
-each instantiation fit an SM.  A head_dim that is no multiple of 8 runs the
-library built to copy rows in 8- or 4-byte pieces
+The kernel takes K1's head_dims (any even one,
+``flash_prefill.takes_head_dim``): up to 512 each on the narrowest
+instantiation at least as wide (``flash_prefill.instance``: 64, 128, 256,
+384 or 512), above 512 on the kernel of ``csrc/decode_attn_wide.cu``, which
+splits O's columns over ``flash_prefill.slices(D)`` CTAs of
+``flash_prefill.SLICE`` and computes each logit over all of D, so that its
+shared memory and registers do not grow with D; each with the true
+head_dim's ``1/sqrt(D)``.  ``CTAS_PER_SM_AT`` says how many CTAs of each
+instantiation fit an SM (``WIDE`` for the wide kernel).  A head_dim up to
+512 that is no multiple of 8 runs the library built to copy rows in 8- or
+4-byte pieces
 (``flash_prefill.copy_bytes``, :func:`library`).  It takes any group size G: a CTA
 computes ``QUERY_BLOCK`` query rows at most, so G above 8 runs
 :func:`query_blocks` blocks of rows, each reading the head's keys.
@@ -38,16 +43,18 @@ import torch
 
 from ..attention import NEG_INF
 from . import _build
-from .flash_prefill import INSTANCES, REFUSED, copy_bytes, instance, takes_head_dim
+from .flash_prefill import INSTANCES, REFUSED, SLICE, copy_bytes, instance, slices, takes_head_dim
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn.cu"
+WIDE_SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_wide.cu"
 REPLACES = "kvcache_factory_tpu/ops/kernels/decode_attn.py:71"
 QUERY_BLOCK = 8    # query rows a CTA computes: the mma's N
 MIN_KEYS_PER_SPLIT = 64
 CTAS_PER_SM = 2    # resident CTAs an SM holds at head_dim 128: the split rule's default
+WIDE = "wide"  # the wide kernel's key (head_dims above 512)
 # By instantiation (the source header's shared memory: 768 D bytes a CTA up
-# to 256, one CTA of 2 warps above).
-CTAS_PER_SM_AT = {64: 4, 128: 2, 256: 1, 384: 1, 512: 1}
+# to 256, one CTA of 2 warps above; two of the wide kernel's 70 KB).
+CTAS_PER_SM_AT = {64: 4, 128: 2, 256: 1, 384: 1, 512: 1, WIDE: 2}
 MIN_COUNTERS = 4096  # counters allocated at once, so a graph capture rarely needs more
 
 
@@ -74,18 +81,22 @@ def decode_attention_append(
     H, G, D = q.shape
     C = k_layer.shape[1]
     dev = q.device
-    width = instance(D)
-    n_split = split_count(H * query_blocks(G), C, _sm_count(dev), CTAS_PER_SM_AT[width])
-    counters = _counters(dev, H)
+    n_split = splits(H, G, C, D, _sm_count(dev))
+    # The wide kernel counts arrivals and keeps partials per (head, query
+    # block, column slice), and takes the slice count before the head_dim.
+    wide = D > INSTANCES[-1]
+    n_slice = slices(D)
+    counters = _counters(dev, H * query_blocks(G) * n_slice if wide else H)
     out = torch.empty_like(q)
-    part = torch.empty(partial_floats(H, G, width + 2, n_split), dtype=torch.float32,
-                       device=dev)
+    part = torch.empty(partial_floats(H, G, (SLICE if wide else instance(D)) + 2, n_split)
+                       * n_slice, dtype=torch.float32, device=dev)
+    shape = ((n_slice,) if wide else ()) + (D,)
     with torch.cuda.device(dev):
-        code = getattr(lib, f"kvcf_decode_attn_append_d{width}")(
+        code = getattr(lib, entry(D))(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
             lengths.data_ptr(), None if lower is None else lower.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part.data_ptr(),
-            counters.data_ptr(), H, G, C, n_split, D, D ** -0.5,
+            counters.data_ptr(), H, G, C, n_split, *shape, D ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "decode_attn")
     decode_attention_append.launches += 1
@@ -96,11 +107,31 @@ decode_attention_append.launches = 0
 
 
 def library(D: int) -> str:
-    """The kernel library K2 runs at head_dim ``D``: ``decode_attn`` for
-    rows of 16-byte pieces, else ``decode_attn_p8`` or ``_p4``, the same
-    source built to copy pieces of ``flash_prefill.copy_bytes(D)``."""
+    """The kernel library K2 runs at head_dim ``D``: up to 512
+    ``decode_attn`` for rows of 16-byte pieces, else ``decode_attn_p8`` or
+    ``_p4``, the same source built to copy pieces of
+    ``flash_prefill.copy_bytes(D)``; above 512 ``decode_attn_wide``, which
+    picks its piece width from ``D`` itself."""
+    if D > INSTANCES[-1]:
+        return "decode_attn_wide"
     width = copy_bytes(D)
     return "decode_attn" if width == 16 else f"decode_attn_p{width}"
+
+
+def entry(D: int) -> str:
+    """K2's entry point at head_dim ``D``: its instantiation's up to 512,
+    the wide kernel's above."""
+    return ("kvcf_decode_attn_append_wide" if D > INSTANCES[-1]
+            else f"kvcf_decode_attn_append_d{instance(D)}")
+
+
+def splits(H: int, G: int, C: int, D: int, sm_count: int) -> int:
+    """K2's ``n_split`` at H heads of G query rows, capacity C and head_dim
+    D on ``sm_count`` SMs: :func:`split_count` over every CTA of a split
+    (the query blocks, and above 512 the column slices)."""
+    wide = D > INSTANCES[-1]
+    return split_count(H * query_blocks(G) * slices(D), C, sm_count,
+                       CTAS_PER_SM_AT[WIDE if wide else instance(D)])
 
 
 def split_count(H: int, C: int, sm_count: int, ctas_per_sm: int = CTAS_PER_SM) -> int:
@@ -174,8 +205,7 @@ def _check(q, k_layer, v_layer, lengths, k_new, v_new, lower):
         raise ValueError(f"decode_attn: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
     if not takes_head_dim(D):
-        raise ValueError(f"decode_attn: needs an even head_dim up to {INSTANCES[-1]}, "
-                         f"got D={D}; {REFUSED}")
+        raise ValueError(f"decode_attn: needs an even head_dim, got D={D}; {REFUSED}")
     if G < 1:
         raise ValueError(f"decode_attn: needs G >= 1, got G={G}")
     for name, t in (("q", q), ("k_layer", k_layer), ("v_layer", v_layer),

@@ -15,9 +15,11 @@ Dispatch is K2's rule: a CPU tensor goes to the plain version
 ``quant_decode_attention_append.launches`` and
 ``quant4_decode_attention_append.launches`` count kernel launches.
 
-They take head_dim 128, 256, 384 and 512 (``HEAD_DIMS``; the per-token
-cache exists only at ``D % 128 == 0``, ``config.py::QuantConfig.per_token``),
-one instantiation and entry point each, and any group size G, in blocks of
+They take every head_dim ``D % 128 == 0`` (:func:`takes_head_dim`; the
+per-token cache exists only there, ``config.py::QuantConfig.per_token``):
+128, 256, 384 and 512 (``HEAD_DIMS``) one instantiation and entry point
+each, every wider one on the kernel of ``csrc/decode_attn_wide.cu`` (K2's
+column slices, :func:`library`), and any group size G, in blocks of
 ``decode_attn.QUERY_BLOCK`` query rows as K2.
 
 K3 and K4 are one launch per call each, as K2 is: ``decode_attn.split_count``
@@ -37,16 +39,19 @@ import torch
 from ...cache.quant_cache import dequantize, encode_per_token
 from ..attention import NEG_INF
 from . import _build
-from .decode_attn import _counters, _sm_count, partial_floats, query_blocks, split_count
-from .flash_prefill import REFUSED
+from .decode_attn import (WIDE, _counters, _sm_count, partial_floats, query_blocks,
+                          split_count)
+from .flash_prefill import SLICE, slices
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant.cu"
+WIDE_SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_wide.cu"
 REPLACES = {8: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:76",
             4: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:479"}
-HEAD_DIMS = (128, 256, 384, 512)
+HEAD_DIMS = (128, 256, 384, 512)  # the instantiations; wider ones run the wide kernel
 # CTAs an SM the split rule counts on, by head_dim (the source header: two
-# up to 256, one at 384 and 512, where a CTA's ring is 145-195 KB).
-CTAS_PER_SM_AT = {128: 2, 256: 2, 384: 1, 512: 1}
+# up to 256, one at 384 and 512, where a CTA's ring is 145-195 KB; two of
+# the wide kernel).
+CTAS_PER_SM_AT = {128: 2, 256: 2, 384: 1, 512: 1, WIDE: 2}
 
 
 def quant_decode_attention_append(
@@ -96,10 +101,32 @@ quant_decode_attention_append.launches = 0
 quant4_decode_attention_append.launches = 0
 
 
+def takes_head_dim(D: int) -> bool:
+    """Whether K3 and K4 take head_dim ``D`` on the card: every multiple of
+    128, the head_dims at which the per-token cache exists."""
+    return D % 128 == 0 and D >= 128
+
+
 def library(D: int) -> str:
     """The library that holds K3 / K4 at head_dim D: 384 and 512 each build
-    apart (``_build.VARIANTS``)."""
+    apart (``_build.VARIANTS``), and every wider one runs
+    ``decode_attn_quant_wide``."""
+    if D > HEAD_DIMS[-1]:
+        return "decode_attn_quant_wide"
     return f"decode_attn_quant_d{D}" if D > 256 else "decode_attn_quant"
+
+
+def entry(nbits: int, D: int) -> str:
+    """K3's (nbits 8) or K4's (nbits 4) entry point at head_dim ``D``."""
+    return f"kvcf_quant{nbits}_decode_attn_append_" + ("wide" if D > HEAD_DIMS[-1] else f"d{D}")
+
+
+def splits(H: int, G: int, C: int, D: int, sm_count: int) -> int:
+    """K3's and K4's ``n_split``: ``decode_attn.split_count`` over every
+    CTA of a split (the query blocks, and above 512 the column slices)."""
+    wide = D > HEAD_DIMS[-1]
+    return split_count(H * query_blocks(G) * slices(D), C, sm_count,
+                       CTAS_PER_SM_AT[WIDE if wide else D])
 
 
 def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
@@ -111,17 +138,23 @@ def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     H, G, D = q.shape
     C = k_codes.shape[1]
     dev = q.device
-    n_split = split_count(H * query_blocks(G), C, _sm_count(dev), CTAS_PER_SM_AT[D])
-    counters = _counters(dev, H)
+    n_split = splits(H, G, C, D, _sm_count(dev))
+    # The wide kernel counts arrivals and keeps partials per (head, query
+    # block, column slice), and takes the slice count and the head_dim.
+    wide = D > HEAD_DIMS[-1]
+    n_slice = slices(D)
+    counters = _counters(dev, H * query_blocks(G) * n_slice if wide else H)
     out = torch.empty_like(q)
-    part = torch.empty(partial_floats(H, G, D + 4, n_split), dtype=torch.float32, device=dev)
-    entry = getattr(lib, f"kvcf_quant{nbits}_decode_attn_append_d{D}")
+    part = torch.empty(partial_floats(H, G, SLICE + 2 if wide else D + 4, n_split) * n_slice,
+                       dtype=torch.float32, device=dev)
+    shape = (n_slice, D) if wide else ()
     with torch.cuda.device(dev):
-        code = entry(q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), scales.data_ptr(),
-                     lengths.data_ptr(), None if lower is None else lower.data_ptr(),
-                     k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part.data_ptr(),
-                     counters.data_ptr(), H, G, C, n_split, D ** -0.5,
-                     torch.cuda.current_stream(dev).cuda_stream)
+        code = getattr(lib, entry(nbits, D))(
+            q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), scales.data_ptr(),
+            lengths.data_ptr(), None if lower is None else lower.data_ptr(),
+            k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), H, G, C, n_split, *shape, D ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, f"decode_attn_quant (int{nbits})")
     return out
 
@@ -146,9 +179,9 @@ def _check(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
     if q.dim() != 3:
         raise ValueError(f"{what}: q must be [H, G, D], got {tuple(q.shape)}")
     H, G, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: needs head_dim in {HEAD_DIMS} (the per-token cache "
-                         f"exists only at head_dim % 128 == 0), got D={D}; {REFUSED}")
+    if not takes_head_dim(D):
+        raise ValueError(f"{what}: needs a head_dim % 128 == 0 (the per-token cache "
+                         f"exists only there), got D={D}")
     if G < 1:
         raise ValueError(f"{what}: needs G >= 1, got G={G}")
     for name, t in (("q", q), ("scales", scales), ("k_new", k_new), ("v_new", v_new)):

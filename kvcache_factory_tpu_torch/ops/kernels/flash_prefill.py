@@ -13,11 +13,14 @@ once and 128-key K/V tiles (64-key at head_dim 256) through a 2-stage TMA
 ring, and two consumers of 64 rows each that run both products with
 ``wgmma`` and mask only the tiles on an edge (above head_dim 256, 64 q rows a
 CTA whose two consumers split the output's columns).  It takes any even
-head_dim up to 512 (:func:`takes_head_dim`), each on the narrowest of the
-instantiations ``INSTANCES`` at least as wide (:func:`instance`), with the
-true head_dim's ``1/sqrt(D)``, and any observation window.  A bf16 row of
-a head_dim that is no multiple of 8 is no whole number of 16-byte pieces,
-and TMA takes no such row stride: those head_dims run the library built
+head_dim (:func:`takes_head_dim`): up to 512 each on the narrowest of the
+instantiations ``INSTANCES`` at least as wide (:func:`instance`), above 512
+on the kernel of ``csrc/flash_prefill_wide.cu``, whose shared memory does
+not grow with D (O's columns split over :func:`slices` CTAs of ``SLICE``
+columns, QK^T streamed over D in 64-channel chunks; :func:`entry`), each
+with the true head_dim's ``1/sqrt(D)``, and any observation window.  A bf16
+row of a head_dim that is no multiple of 8 is no whole number of 16-byte
+pieces, and TMA takes no such row stride: those head_dims run the library built
 with the producer warpgroup copying 8- or 4-byte pieces by ``cp.async``
 into the same swizzled stages (:func:`copy_bytes`, :func:`library`).  Its source header says what bounds it on the card and
 how the design answers that.  The vertical-slash block mask is estimated in
@@ -47,6 +50,7 @@ from ..attention import NEG_INF
 from . import _build
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/flash_prefill.cu"
+WIDE_SOURCE = "kvcache_factory_tpu_torch/csrc/flash_prefill_wide.cu"
 REPLACES = "kvcache_factory_tpu/ops/kernels/flash_prefill.py:66"
 # The TPU kernel's lines for each variant (its mask, tile bounds and entry).
 REPLACES_VARIANT = {
@@ -56,13 +60,14 @@ REPLACES_VARIANT = {
     "vertical_slash": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:228-252",
     "ring": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:288-297",
 }
-# The kernels' instantiation widths: a head_dim runs on the narrowest at
-# least as wide (K1 and K2; K3 and K4 take exactly 128, 256, 384 and 512).
+# The kernels' instantiation widths: a head_dim up to 512 runs on the
+# narrowest at least as wide (K1 and K2; K3 and K4 take exactly 128, 256, 384
+# and 512); a wider one on the wide kernels, in column slices of SLICE.
 INSTANCES = (64, 128, 256, 384, 512)
-# What the card refuses, and where it is queued.
-REFUSED = ("odd head_dims (RoPE splits a head in halves, in both packages) and head_dims "
-           "above 512 are ROADMAP.md queue 2, \"Shapes the TPU kernels take and the port's "
-           "kernels refuse on CUDA\"")
+SLICE = 256
+# What the card refuses, and why.
+REFUSED = ("odd head_dims are not served: RoPE splits a head in halves, in both packages, "
+           "so neither runs one")
 # A pattern block is a multiple of 64 (or the whole sequence): a CTA's 128 q
 # rows are two consumer warpgroups of 64 (one set of 64 above head_dim 256)
 # and a key tile (128 keys, 64 at head_dim 256, 32 above) one or two halves
@@ -150,15 +155,17 @@ def flash_prefill_attention(
                          device=dev)
     row_ml = torch.empty((2, B, Hq, S_q), dtype=torch.float32, device=dev) \
         if return_ml else None
+    # The wide kernel takes its slice count before the head_dim.
+    shape = (() if D <= INSTANCES[-1] else (slices(D),)) + (D,)
     with torch.cuda.device(dev):
-        code = getattr(lib, f"kvcf_flash_prefill_d{instance(D)}")(
+        code = getattr(lib, entry(D))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), true_len.data_ptr(),
             None if row_offset is None else row_offset.data_ptr(),
             None if block_mask is None else block_mask.data_ptr(),
             out.data_ptr(), win_ml.data_ptr(), scores.data_ptr(),
             None if row_ml is None else row_ml.data_ptr(),
             B, Hq, k.shape[1], S_q, S_k, window, sliding_window or 0,
-            block, 0 if block_mask is None else block_mask.shape[-1], D, D ** -0.5,
+            block, 0 if block_mask is None else block_mask.shape[-1], *shape, D ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "flash_prefill")
     flash_prefill_attention.launches += 1
@@ -176,10 +183,23 @@ flash_prefill_attention.variant_launches = {
 
 
 def takes_head_dim(D: int) -> bool:
-    """Whether K1 and K2 take head_dim ``D`` on the card: even and up to
-    512 (RoPE splits a head in halves, so every head_dim either package
-    runs is even)."""
-    return D % 2 == 0 and 2 <= D <= INSTANCES[-1]
+    """Whether K1 and K2 take head_dim ``D`` on the card: any even one
+    (RoPE splits a head in halves, so every head_dim either package runs is
+    even)."""
+    return D % 2 == 0 and D >= 2
+
+
+def slices(D: int) -> int:
+    """The column slices of ``SLICE`` columns that the wide kernels split
+    O's ``D`` columns into, one CTA each (1 up to 512: the instantiations
+    keep a whole row)."""
+    return 1 if D <= INSTANCES[-1] else -(-D // SLICE)
+
+
+def entry(D: int) -> str:
+    """K1's entry point at head_dim ``D``: its instantiation's up to 512,
+    the wide kernel's above."""
+    return "kvcf_flash_prefill_wide" if D > INSTANCES[-1] else f"kvcf_flash_prefill_d{instance(D)}"
 
 
 def copy_bytes(D: int) -> int:
@@ -191,19 +211,23 @@ def copy_bytes(D: int) -> int:
 
 
 def library(D: int) -> str:
-    """The kernel library K1 runs at head_dim ``D``: ``flash_prefill``
-    (TMA loads) for rows of 16-byte pieces, else ``flash_prefill_p8`` or
-    ``_p4``, the same source built with the producer copying pieces of
-    :func:`copy_bytes` by ``cp.async``."""
+    """The kernel library K1 runs at head_dim ``D``: up to 512
+    ``flash_prefill`` (TMA loads) for rows of 16-byte pieces, else
+    ``flash_prefill_p8`` or ``_p4``, the same source built with the producer
+    copying pieces of :func:`copy_bytes` by ``cp.async``; above 512
+    ``flash_prefill_wide``, which picks its piece width from ``D`` itself."""
+    if D > INSTANCES[-1]:
+        return "flash_prefill_wide"
     width = copy_bytes(D)
     return "flash_prefill" if width == 16 else f"flash_prefill_p{width}"
 
 
 def instance(D: int) -> int:
-    """The instantiation a head_dim runs on: the narrowest at least as
-    wide.  Its columns past ``D`` are zero and never written; the logits
-    keep ``D``'s own ``1/sqrt(D)``."""
-    return next(w for w in INSTANCES if w >= D)
+    """The instantiation a head_dim runs on: up to 512 the narrowest at
+    least as wide (its columns past ``D`` are zero and never written), above
+    512 ``D`` itself (the wide kernels' slices span D).  The logits keep
+    ``D``'s own ``1/sqrt(D)``."""
+    return next((w for w in INSTANCES if w >= D), D)
 
 
 def pattern_kind(sparse_pattern: tuple) -> str:
@@ -282,8 +306,7 @@ def _check(q, k, v, true_len, window, sliding_window=None, row_offset=None,
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
     B, Hq, S_q, D = q.shape
     if not takes_head_dim(D):
-        raise ValueError(f"flash_prefill: needs an even head_dim up to {INSTANCES[-1]}, "
-                         f"got D={D}; {REFUSED}")
+        raise ValueError(f"flash_prefill: needs an even head_dim, got D={D}; {REFUSED}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or k.shape[2] < 1 \
             or Hq % k.shape[1]:
         raise ValueError(f"flash_prefill: k/v shape {tuple(k.shape)} does not "

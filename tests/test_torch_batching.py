@@ -10,6 +10,7 @@ one-shot and chunked admission, and through pool growth and shrink.  The
 drain's counters (row-chunks, dispatches, decode steps) are exact.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

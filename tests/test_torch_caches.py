@@ -13,6 +13,7 @@ decode must equal an uninterrupted one bit for bit (the same code on the
 same inputs).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import dataclasses
 
 import jax

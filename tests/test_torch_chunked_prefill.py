@@ -16,6 +16,7 @@ bf16 ulp: the dequantized caches agree within one code step (the token's
 scale) plus one bf16 ulp of its zero.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ tiny saved checkpoint end to end (``python -m ...evals.longbench``'s
 ``main``) with a word-level tokenizer saved beside it.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import argparse
 import json
 import os

@@ -4,6 +4,7 @@
 wrappers call only the port's modules with flags their parsers take, and
 neither the examples nor ``kvcache_factory_tpu_torch.utils`` load JAX."""
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import argparse
 import contextlib
 import importlib

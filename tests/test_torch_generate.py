@@ -9,6 +9,7 @@ to fp32 summation-order error, ~1e-6 on values of order 1, checked at
 token streams must be identical.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import os
 import subprocess
 import sys

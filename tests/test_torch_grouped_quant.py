@@ -19,6 +19,7 @@ rows are held to one step where they differ, and at most one code in a
 hundred may differ; every prefill row stays bitwise equal.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

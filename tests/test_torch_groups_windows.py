@@ -19,6 +19,7 @@ Tolerances, each with its reason:
   ``tests/test_torch_generate.py``).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

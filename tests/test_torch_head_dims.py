@@ -28,6 +28,7 @@ Tolerances, each with its reason:
   ``tests/test_torch_generate.py``).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import contextlib
 from unittest import mock
 

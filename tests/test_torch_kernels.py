@@ -8,6 +8,7 @@ agrees to ~1e-6, so the tolerance is 2e-5 (the JAX kernel tests' own).
 The CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import os
 import stat
 
@@ -217,13 +218,14 @@ def test_decode_check_takes_groups_above_8(G, D_):
         tdecode._check(*_decode_check_args(G, D_))
 
 
-@pytest.mark.parametrize("G,shape", [(1, (2, 1, 101)), (1, (2, 1, 640))])
+@pytest.mark.parametrize("G,shape", [(1, (2, 1, 101)), (1, (2, 1, 641))])
 def test_decode_check_refuses_other_head_dims(G, shape):
-    """What K2 refuses on the card: an odd head_dim (RoPE needs even ones;
-    100 is taken since the rows of 8-byte pieces) and one above 512."""
+    """What K2 refuses on the card: odd head_dims (RoPE needs even ones;
+    100 is taken since the rows of 8-byte pieces, every even head_dim above
+    512 since the wide kernel)."""
     args = _decode_check_args(G, shape[-1])
     args[0] = torch.zeros(shape, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+    with pytest.raises(ValueError, match="odd head_dims"):
         tdecode._check(*args)
 
 
@@ -291,10 +293,12 @@ def test_quant_check_takes_groups_above_8(nbits, G, D_):
         tquant._check(*_quant_check_args(nbits, G, d=D_))
 
 
-@pytest.mark.parametrize("G,shape", [(1, (2, 1, 64)), (1, (2, 1, 96)), (1, (2, 1, 640))])
+@pytest.mark.parametrize("G,shape", [(1, (2, 1, 64)), (1, (2, 1, 96)), (1, (2, 1, 576))])
 @pytest.mark.parametrize("nbits", [8, 4])
 def test_quant_check_refuses_other_head_dims(nbits, G, shape):
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+    """K3 and K4 refuse every head_dim that is no multiple of 128 (the
+    per-token cache exists only there; 640 is taken since the wide kernel)."""
+    with pytest.raises(ValueError, match="head_dim % 128 == 0"):
         tquant._check(*_quant_check_args(nbits, G, shape, d=shape[-1]))
 
 
@@ -325,10 +329,11 @@ def test_flash_check_takes_windows_above_64(window, D_):
         tflash._check(*_flash_check_args(D_, window))
 
 
-@pytest.mark.parametrize("D_,window", [(101, 8), (640, 8)])
+@pytest.mark.parametrize("D_,window", [(101, 8), (641, 8)])
 def test_flash_check_refuses_other_head_dims(D_, window):
-    """What K1 refuses on the card: an odd head_dim and one above 512."""
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+    """What K1 refuses on the card: odd head_dims (every even one is taken,
+    above 512 by the wide kernel)."""
+    with pytest.raises(ValueError, match="odd head_dims"):
         tflash._check(*_flash_check_args(D_, window))
 
 

@@ -6,6 +6,7 @@ order agrees to ~1e-6 relative on these O(1) values; 1e-5 leaves room for
 the reductions over 128-512 terms.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import dataclasses
 
 import jax.numpy as jnp

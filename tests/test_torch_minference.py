@@ -17,6 +17,7 @@ heavy key columns, so the ranks that decide a block stand far apart; random
 inputs alone make every block dense at these sizes.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import contextlib
 import json
 from unittest import mock

@@ -24,6 +24,7 @@ JAX's ``init_params`` carried across with ``params_from_jax``; inputs from
   HF's forward.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ for bit, out-of-range ids (a zero row) included.  The CUDA kernel runs only
 on the card (``chip_smoke.py``).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import importlib.util
 import os
 

@@ -9,6 +9,7 @@ same selected indices in the same order.  Merged values (cam, LOOK-M) agree
 within rtol/atol 1e-5; cam and random get JAX's own uniform draws.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import json
 
 import jax

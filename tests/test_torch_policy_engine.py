@@ -12,6 +12,7 @@ what JAX's prefill draws for the same layer and example.  headkv reads
 capacities from a head-score file written under ``tmp_path``.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import json
 
 import jax

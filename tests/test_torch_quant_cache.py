@@ -9,6 +9,7 @@ and must agree exactly, and so must every dequantized value built from
 equal codes.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

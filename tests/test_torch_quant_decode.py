@@ -48,6 +48,7 @@ Tolerances, each with its reason:
   compared.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ Tolerances, each with its reason:
   ``tests/test_torch_head_dims.py``).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import contextlib
 import json
 from unittest import mock
@@ -49,7 +50,7 @@ from kvcache_factory_tpu_torch.runtime import engine as tengine
 TOL = dict(rtol=1e-5, atol=1e-5)
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
 RAGGED = (2, 20, 42, 100, 110, 150, 300, 510)   # every instantiation, D % 8 of 2, 4, 6
-REFUSED = (1, 99, 101, 511, 513, 514, 520, 640)  # odd, and above 512
+REFUSED = (1, 99, 101, 511, 513, 515, 521, 641)  # odd: every even head_dim is taken
 
 
 def t(x):
@@ -63,19 +64,24 @@ def normal(rng, *shape):
 # --- the rule -------------------------------------------------------------------
 
 def test_head_dim_rule_instance_and_copy_width_from_1_to_520():
-    """K1 and K2 take every even head_dim up to 512, each on the narrowest
+    """K1 and K2 take every even head_dim: up to 512 each on the narrowest
     instantiation at least as wide, copied in the widest pieces a row is a
-    whole number of (16, 8 or 4 bytes), from the library built for them."""
+    whole number of (16, 8 or 4 bytes), from the library built for them;
+    above 512 on the wide libraries, at the head_dim's own width."""
     for D in range(1, 521):
-        assert tflash.takes_head_dim(D) == (D % 2 == 0 and D <= 512), D
+        assert tflash.takes_head_dim(D) == (D % 2 == 0), D
         width = 16 if D % 8 == 0 else 8 if D % 4 == 0 else 4
         assert tflash.copy_bytes(D) == width
         assert D % 2 or (2 * D) % width == 0  # an even row is a whole number of pieces
         if D <= 512:
             assert tflash.instance(D) == min(w for w in tflash.INSTANCES if w >= D)
-        suffix = "" if width == 16 else f"_p{width}"
-        assert tflash.library(D) == "flash_prefill" + suffix
-        assert tdecode.library(D) == "decode_attn" + suffix
+            suffix = "" if width == 16 else f"_p{width}"
+            assert tflash.library(D) == "flash_prefill" + suffix
+            assert tdecode.library(D) == "decode_attn" + suffix
+        else:
+            assert tflash.instance(D) == D
+            assert tflash.library(D) == "flash_prefill_wide"
+            assert tdecode.library(D) == "decode_attn_wide"
 
 
 def _k1_check_args(D, offset=0):
@@ -101,11 +107,12 @@ def _k2_check_args(D, offset=0, G=1):
 @pytest.mark.parametrize("D", REFUSED)
 def test_checks_refuse_odd_head_dims_and_above_512(D):
     """What stays refused on the card: odd head_dims (RoPE needs even ones,
-    in both packages) and head_dims above 512, naming ROADMAP.md queue 2."""
+    in both packages), with the reason.  Head_dims above 512 are taken since
+    the wide kernels (``tests/test_torch_wide_head_dims.py``)."""
     for mod, args in ((tflash, _k1_check_args(D)), (tdecode, _k2_check_args(D))):
-        with pytest.raises(ValueError, match="ROADMAP.md queue 2") as err:
+        with pytest.raises(ValueError, match="odd head_dims") as err:
             mod._check(*args)
-        assert "odd head_dims" in str(err.value) and "above 512" in str(err.value)
+        assert "RoPE" in str(err.value)
 
 
 @pytest.mark.parametrize("D", RAGGED)

@@ -12,6 +12,7 @@ single-process fold's arithmetic rank by rank; only the ranks' BLAS
 threading may reorder a sum, so it is held to 1e-6.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

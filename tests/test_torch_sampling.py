@@ -13,6 +13,7 @@ on the CPU.
   1e-6 gives the greedy stream.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -38,6 +38,7 @@ bitwise; and its cache shard (its rows and heads, its stage's layers)
 against the single-device cache over each head's valid prefix.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ streams and cache lengths exact; int8 decode logits 1e-4 and int4 within
 probability weights to bf16).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import dataclasses
 
 import jax

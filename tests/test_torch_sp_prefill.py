@@ -14,6 +14,7 @@ single-device engine's within 1e-4 (fp32 in another summation order, as
 ``tests/test_torch_generate.py`` holds the port to JAX).
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ probabilities, which fp32 summation order moves by about 1e-6 relative
 within 1e-5 relative: 64 fp32 terms, 1.5e-3 absolute at most here.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import json
 
 import jax

@@ -20,6 +20,7 @@ within 1e-5 of the fp forward; prefill and decode logits within 1e-5 of
 JAX's on the same quantized tree; engine streams equal JAX's.
 """
 
+import torch_threads  # noqa: F401  (torch's thread share, first)
 import dataclasses
 import json
 import os
