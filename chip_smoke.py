@@ -264,6 +264,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import datetime
 import functools
@@ -573,18 +574,20 @@ def bitwise_repeat(call):
     return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def k1_pass_ms(call, reps=5):
+def k1_pass_ms(call, reps=5, names=("flash_fwd_kernel", "window_scores_kernel")):
     """Device time per launch of K1's two kernels, the main pass and the
-    window-score pass, from profiler rows; None where the profiler saw no
-    device time.  Each row's time is divided by the launches the trace
-    holds, not by ``reps``: a trace can miss launches at its edges."""
+    window-score pass (their kernel ``names``), from profiler rows; None
+    where the profiler saw no device time.  Each row's time is divided by
+    the launches the trace holds, not by ``reps``: a trace can miss launches
+    at its edges."""
     call()
     sync()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profile_burst()  # takes the profiler's loss of a session's first records
         for _ in range(reps):
             call()
         sync()
-    times = dict.fromkeys(("flash_fwd_kernel", "window_scores_kernel"))
+    times = dict.fromkeys(names)
     for evt in prof.key_averages():
         for name in times:
             if evt.device_type == DeviceType.CUDA and name in evt.key and evt.count:
@@ -1696,6 +1699,42 @@ def kq_split_edges(rng, nbits, C, D=128):
     return {"n_split": n_split, "edges_rel_l2": max(errs), "groups_rel_l2": groups}
 
 
+def kq_bitwise_repeat(nbits, q, kc, vc, sc, kn, vn, lens):
+    """Whether two launches of K3 or K4 give bitwise-equal outputs and
+    appended caches."""
+    kernel = QUANT[nbits][1]
+
+    def call():
+        c = [kc.clone(), vc.clone(), sc.clone()]
+        return (kernel(q, *c, lens, kn, vn), *c)
+
+    same = bitwise_repeat(call)
+    if not same:
+        raise SystemExit(f"{QUANT[nbits][0]} at D={q.shape[-1]} is not deterministic")
+    return same
+
+
+def kq_dropped_slice_error(nbits, q, kc, vc, sc, kn, vn, lens, ref):
+    """What K3's check sees from a cluster whose logit sum drops one slice's
+    partial: the plain math with slice 0's channels (the first ``SLICE``)
+    left out of each cached key's logit (the new token's logit, taken over
+    all of D apart, kept), as the worst head rel L2."""
+    H, G, D = q.shape
+    C = kc.shape[1]
+    L = lens.long().clamp(max=C - 1)
+    k = quant_cache.dequantize(kc, sc[..., 0], sc[..., 1], nbits)
+    v = quant_cache.dequantize(vc, sc[..., 2], sc[..., 3], nbits)
+    k[..., :flash_prefill.SLICE] = 0
+    keep = torch.arange(C, device=q.device)[None] < L[:, None]
+    qs = q.float() * D ** -0.5
+    logits = torch.where(keep[:, None], torch.einsum("hgd,hcd->hgc", qs, k), NEG_INF)
+    s_new = torch.einsum("hgd,hd->hg", qs, kn.float())[..., None]
+    probs = torch.softmax(torch.cat([logits, s_new], dim=-1), dim=-1)
+    out = (torch.einsum("hgc,hcd->hgd", probs[..., :C], v)
+           + probs[..., C:] * vn.float()[:, None]).to(q.dtype)
+    return rel_l2(out.reshape(H, -1), ref.reshape(H, -1))[0]
+
+
 def kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lens):
     """Two launches bitwise equal (out and the appended cache); 20 CUDA-graph
     replays of a launch in a row, then one eager call that must match the
@@ -2300,27 +2339,33 @@ def phase_k2_new_head_dims(rng, reports):
     return out
 
 
-def phase_kq_wide_head_dims(rng, reports, dims=WIDE_HEAD_DIMS):
+def phase_kq_wide_head_dims(rng, reports, dims=WIDE_HEAD_DIMS, bits=(8, 4)):
     """Phase 4g: K3 and K4 at head_dim 384 and 512 (phase 4j: at
-    ``WIDE_KQ_DIMS``, on the wide kernel at phase 21's heads, with the
-    split-rule edges at 1024), G 1, 4 and 12, against
-    their plain versions with the append byte for byte (inputs in NaN-tailed
-    buffers) on phase 19b's decode layer (B 2 x 8 heads at 2079 / 1531
-    keys), the range case ``KQ_RANGE`` at each G and the edge shapes (C 1,
-    17, a full cache, a lower bound past the length), with what an
-    off-by-one key range and a dropped split would show, bitwise repeats
-    and graph replays; timed beside the plain version and the dequantize +
-    SDPA composite."""
+    ``WIDE_KQ_DIMS``, on the wide kernels at phase 21's heads; phase 4k: K3
+    at ``WIDE_MORE_DIMS``), G 1, 4 and 12, against their plain versions
+    with the append byte for byte (inputs in NaN-tailed buffers) on phase
+    19b's decode layer (B 2 x 8 heads at 2079 / 1531 keys), the range case
+    ``KQ_RANGE`` at each G and the edge shapes (C 1, 17, a full cache, a
+    lower bound past the length), with what an off-by-one key range, a
+    dropped split and (K3's cluster) a dropped slice partial would show,
+    bitwise repeats and graph replays.  Above 512 K4's kernel (the
+    slice-recomputing one, the same at every width) takes G 12, the edge
+    shapes and the replays at 1024 only; K3 takes G 12 and the edge shapes
+    at every width (each cluster size lays out its shared memory and its
+    fan-out apart), and the replays and the split-rule edges at 1024 and
+    past the cluster limit.  Timed at 384, 512 and ``WIDE_FULL``'s widths
+    beside the plain version and the dequantize + SDPA composite."""
     out = {}
-    for nbits in (8, 4):
+    for nbits in bits:
         kid, _, _, C = QUANT[nbits]
         for D in dims:
-            if D > 512:  # the wide kernel's instantiations at these bits (GB 1-8)
+            if D > 512:  # the wide kernels' instantiations at these bits (GB 1-8)
                 regs = {D: [(r, sp) for _, r, sp in ptxas_entries(
-                    reports.get(decode_attn_quant.library(D), ""),
-                    f"decode_wide_kernelILi{nbits}E")]}
+                    reports.get(decode_attn_quant.library(D, nbits), ""),
+                    "quant8_cluster_kernel" if decode_attn_quant.library(D, nbits)
+                    == "decode_attn_quant_cluster" else f"decode_wide_kernelILi{nbits}E")]}
             else:
-                regs = registers_by_head_dim(reports, decode_attn_quant.library(D),
+                regs = registers_by_head_dim(reports, decode_attn_quant.library(D, nbits),
                                              QUANT_KERNELS[kid])
             Hq, Hkv = MODEL_HEAD_DIM_HEADS.get(D, LLAMA3_WIDE_HEADS)
             H = 2 * Hq
@@ -2329,13 +2374,17 @@ def phase_kq_wide_head_dims(rng, reports, dims=WIDE_HEAD_DIMS):
                 rng, nbits, H, 1, C, lens, np.zeros(H, np.int64), D=D, tail=True)
             off_err = kq_one_key_off_error(nbits, q, kc, vc, sc, kn, vn, lt, ref)
             drop_err, n_split = kq_dropped_split_error(nbits, q, kc, vc, sc, kn, vn, lt, ref)
-            if min(off_err, drop_err) <= KQ_OUT_TOL:
-                raise SystemExit(f"{kid}'s tolerance at D={D} would let an off-by-one or dropped "
-                                 "split pass")
+            cluster = decode_attn_quant.library(D, nbits) == "decode_attn_quant_cluster"
+            # K3 past the cluster limit: the slice-recomputing build, held as at 1024.
+            past = nbits == 8 and D > 512 and not cluster
+            every_g = D <= 512 or D == 1024 or nbits == 8
+            slice_err = kq_dropped_slice_error(nbits, q, kc, vc, sc, kn, vn, lt, ref) \
+                if cluster else None
+            if min(off_err, drop_err, *([slice_err] if cluster else [])) <= KQ_OUT_TOL:
+                raise SystemExit(f"{kid}'s tolerance at D={D} would let an off-by-one, a dropped "
+                                 "split or a dropped slice partial pass")
             by_g, ranges, edges = {}, {}, {}
-            # Above 512 one kernel serves every width: G 12, the range case
-            # and the edge shapes at 1024 (and G 1 / 4 everywhere).
-            for G in (1, 4, 12) if D <= 512 or D == 1024 else (1, 4):
+            for G in (1, 4, 12) if every_g else (1, 4):
                 Hg = H if G == 1 else 2 * Hkv if G == Hq // Hkv else 16
                 lg = [2048 + 31] * (Hg // 2) + [1500 + 31] * (Hg // 2)
                 if G > 1:
@@ -2343,7 +2392,7 @@ def phase_kq_wide_head_dims(rng, reports, dims=WIDE_HEAD_DIMS):
                                       tail=True)[8]
                 ranges[G] = kq_case(rng, nbits, Hg, G, C, lg, np.zeros(Hg, np.int64), KQ_RANGE,
                                     D=D, tail=True)[8]
-                if D > 512 and D != 1024:
+                if not every_g:
                     continue
                 edges[G] = max(
                     kq_case(rng, nbits, 3, G, 1, [0, 1, 0], [0, 0, 0], D=D, tail=True)[8],
@@ -2351,11 +2400,21 @@ def phase_kq_wide_head_dims(rng, reports, dims=WIDE_HEAD_DIMS):
                             tail=True)[8],
                     kq_case(rng, nbits, 4, G, C, [C, C - 1, 1, 2000], [0, 5, 0, 2001], D=D,
                             tail=True)[8])
-            checks = {}
-            if D <= 512 or D == 1024:
+            if D <= 512 or D == 1024 or past:
                 checks = kq_repeat_and_replay(nbits, q, kc, vc, sc, kn, vn, lt)
-            if D == 1024:
+            else:  # two launches bitwise equal at every wide width
+                checks = {"bitwise_repeat": kq_bitwise_repeat(nbits, q, kc, vc, sc, kn, vn, lt)}
+            if D == 1024 or past:
                 checks["split_edges"] = kq_split_edges(rng, nbits, C, D)
+            if cluster:
+                n = flash_prefill.cluster_size(D)
+                smem, clusters = cluster_info("decode_attn_quant_cluster",
+                                              "kvcf_quant8_decode_cluster_info", n)
+                checks.update(cluster_size=n, cluster_smem_bytes=smem, clusters_at_once=clusters,
+                              dropped_slice_rel_l2=slice_err)
+                log(f"{kid} D={D}: a cluster of {n} CTAs, {smem} B of shared memory a CTA, "
+                    f"{clusters} clusters at once; a dropped slice partial would show "
+                    f"{slice_err:.3e} (tol {KQ_OUT_TOL})")
             log(f"{kid} D={D}: G 4 / 12 head rel L2 {by_g[4]:.3e} / {by_g.get(12, 0.0):.3e}, range "
                 f"case {max(ranges.values()):.3e}, edge shapes {max(edges.values(), default=0.0):.3e}"
                 f" (G {sorted(edges)}); a key range "
@@ -2367,9 +2426,10 @@ def phase_kq_wide_head_dims(rng, reports, dims=WIDE_HEAD_DIMS):
             del q, kc, vc, sc, ref
             out[(nbits, D)] = {
                 "name": f"quant{nbits}_decode_attn_append_d{D}", "route": "cuda",
-                "source": decode_attn_quant.WIDE_SOURCE if D > 512 else decode_attn_quant.SOURCE,
+                "source": (decode_attn_quant.CLUSTER_SOURCE if cluster else
+                           decode_attn_quant.WIDE_SOURCE if D > 512 else decode_attn_quant.SOURCE),
                 "replaces": decode_attn_quant.REPLACES[nbits],
-                "built_as": decode_attn_quant.library(D),
+                "built_as": decode_attn_quant.library(D, nbits),
                 "shape": f"H={H} (B=2 x {Hq}) G=1 C={C} D={D} int{nbits}, lengths 2079 and 1531",
                 "max_abs_err": absd, "rel_l2": err, "tol": KQ_OUT_TOL, "g4_rel_l2": by_g[4],
                 "g12_rel_l2": by_g.get(12), "range_rel_l2": ranges, "edges_rel_l2": edges,
@@ -3038,10 +3098,11 @@ def engine_bucket(engine, prompts):
 # The one-launch decode kernels, by cache: (id, a part of the kernel's name).
 ONE_LAUNCH_DECODE = {"bf16": ("K2", "decode_attn_kernel"), "int8": ("K3", "quant8_decode_kernel"),
                      "int4": ("K4", "quant4_decode_kernel")}
-# Above head_dim 512 all three run the wide kernel, told apart by its first
-# template argument (the cache's bits).
+# Above head_dim 512 K2 and K4 run the wide kernel, told apart by its first
+# template argument (the cache's bits); K3 up to 2048 its cluster kernel
+# (phase 21's 1024).
 ONE_LAUNCH_DECODE_WIDE = {"bf16": ("K2", "decode_wide_kernel<16,"),
-                          "int8": ("K3", "decode_wide_kernel<8,"),
+                          "int8": ("K3", "quant8_cluster_kernel<"),
                           "int4": ("K4", "decode_wide_kernel<4,")}
 
 
@@ -7226,24 +7287,33 @@ def phase_openllama(rng, log_file):
 
 
 # ---------------------------------------------------------------------------
-# Phases 3i, 4i, 4j and 21: head_dims above 512 (the wide kernels)
+# Phases 3i, 4i, 4j, 4k and 21: head_dims above 512 (the wide kernels)
 # ---------------------------------------------------------------------------
 
 # K1 and K2 at every even head_dim above 512 run the kernels of
 # csrc/flash_prefill_wide.cu and csrc/decode_attn_wide.cu (O's columns in
 # slices of flash_prefill.SLICE), K3 and K4 at every multiple of 128 above
-# 512 the latter's quantized build.  Phase 3i / 4i's widths: 514 (4-byte
+# 512 the latter's quantized build; up to 2048 K1 and K3 run as one
+# thread-block cluster of a CTA per slice (K3: csrc/decode_attn_quant_cluster.cu,
+# flash_prefill.cluster_size).  Phase 3i / 4i's widths: 514 (4-byte
 # pieces), 576, 640, 768, 1004 (8-byte pieces), 1024 and 2048; phase 4j's
 # the per-token cache's 640, 768, 1024 and 2048.
 WIDE_K12_DIMS = (514, 576, 640, 768, 1004, 1024, 2048)
 WIDE_KQ_DIMS = (640, 768, 1024, 2048)
-# One kernel serves every width: K1's variants and K2's and K3 / K4's times
-# are taken at each piece width's representative (514: 4 bytes, 1004: 8),
-# the model's width and the widest, for the script's time limit.
+# K1's variants and K2's and K3 / K4's times are taken at each piece width's
+# representative (514: 4 bytes, 1004: 8), the model's width and the widest
+# (clusters of 3, 4 and 8 CTAs), for the script's time limit.  K3's G 12,
+# range case and edge shapes run at every width: each cluster size lays out
+# its shared memory and its fan-out apart.
 WIDE_FULL = (514, 1004, 1024, 2048)
 # Phase 21's attention: Meta-Llama-3-8B-Instruct's q (4096 wide) and k / v
 # (1024 wide) regrouped as 4 query heads and 1 KV head of 1024.
 LLAMA3_WIDE_HEADS = (4, 1)
+# Cluster sizes the widths above leave out (5, 6 and 7 CTAs: owners of 13,
+# 11 and 10 score rows, the last fewer), and one width past the cluster
+# limit, where K1 and K3 run the slice-recomputing kernels, held there with
+# every variant and fault case of phases 3i and 4j: held, not timed.
+WIDE_MORE_DIMS = (1280, 1536, 1792, 2176)
 
 
 def fault_scales(D):
@@ -7257,31 +7327,55 @@ def fault_scales(D):
     return out
 
 
+def cluster_info(lib, entry, n):
+    """(dynamic shared memory in bytes, clusters the card holds at once) of
+    a cluster kernel at ``n`` CTAs a cluster, from its library's info entry
+    point (``cudaOccupancyMaxActiveClusters``)."""
+    info = (ctypes.c_int * 2)()
+    _build.check(getattr(_build.load(lib), entry)(n, info), entry)
+    return info[0], info[1]
+
+
+def k1_dropped_slice_error(q, k, v, tls, out_ref, r0):
+    """What K1's check sees (example 0, head 0, rows r0 .. true_len) from a
+    cluster whose score sum drops one slice's partial S: the plain math with
+    slice 0's channels (the first ``SLICE``) left out of QK^T, V whole."""
+    t, D = tls[0], q.shape[-1]
+    rows = torch.arange(r0, t, device=q.device)
+    qh = q[0, 0].clone()
+    qh[:, :flash_prefill.SLICE] = 0
+    dropped = plain_attention_rows(qh, k[0, 0], v[0, 0], rows, t, D ** -0.5)
+    return rel_l2(dropped, out_ref[0, 0, r0:t])[0]
+
+
 def wide_ptxas(reports, lib, name):
     """(registers, spill line) of each kernel of ``lib`` whose name holds
     ``name``, from this run's ptxas report (empty when cached)."""
     return sorted({(r, sp) for _, r, sp in ptxas_entries(reports.get(lib, ""), name)})
 
 
-def phase_k1_wide(rng, reports):
-    """Phase 3i: K1 at each of ``WIDE_K12_DIMS`` (the wide kernel) against its
-    plain version on inputs whose buffers end in NaN: dense with window
-    scores at phase 21's heads (B 2, 4 / 1 heads, S 4096, true_len 4096 /
-    3000, W 8), the CTA's length edges, two launches bitwise equal, and what
-    a skipped key tile, a row's last copy piece dropped, a row read at the
-    slices' width and a wrong 1/sqrt (a slice's width, the slices' width:
-    through the output and through K1-ml's m) would show (each must fail
-    the limit); the variants (``k1_head_dim_variants``: SW, chunk, a-shape,
-    vertical-slash, ring hops, with their off-by-one sensitivities); at 514
-    and 1024 the window scores at W 128 with a cut window pass; timed beside
-    its plain version, SDPA (with its backend) and its bound."""
+def phase_k1_wide(rng, reports, dims=WIDE_K12_DIMS, variants=WIDE_FULL, timed=True):
+    """Phase 3i: K1 at each of ``dims`` (the wide kernels) against its plain
+    version on inputs whose buffers end in NaN: dense with window scores at
+    phase 21's heads (B 2, 4 / 1 heads, S 4096, true_len 4096 / 3000, W 8),
+    the CTA's length edges, two launches bitwise equal, and what a skipped
+    key tile, a row's last copy piece dropped, a row read at the slices'
+    width, a cluster sum without one slice's partial S and a wrong 1/sqrt (a
+    slice's width, the slices' width: through the output and through K1-ml's
+    m) would show (each must fail the limit); at each of ``variants`` the
+    variants (``k1_head_dim_variants``: SW, chunk, a-shape, vertical-slash,
+    ring hops, with their off-by-one sensitivities); with ``timed``, at 514
+    and 1024 the window scores at W 128 with a cut window pass, and each
+    width timed beside its plain version, SDPA (with its backend) and its
+    bound (phase 4k runs this untimed past the cluster limit)."""
     lib = "flash_prefill_wide"
-    regs = {"flash_wide_kernel": wide_ptxas(reports, lib, "flash_wide_kernel"),
+    regs = {"flash_cluster_kernel": wide_ptxas(reports, lib, "flash_cluster_kernel"),
+            "flash_wide_kernel": wide_ptxas(reports, lib, "flash_wide_kernel"),
             "window_scores_wide_kernel": wide_ptxas(reports, lib, "window_scores_wide_kernel")}
     log(f"K1 wide ptxas (registers, spill) by kernel: {regs}")
     Hq, Hkv = LLAMA3_WIDE_HEADS
     out = {}
-    for D in WIDE_K12_DIMS:
+    for D in dims:
         B, W, S = 2, 8, 4096
         tls = [S, 3000]
         q, k, v, tl, sc, out_ref, err, absd, err_sc = k1_case(rng, B, Hq, Hkv, S, W, tls, D,
@@ -7296,6 +7390,11 @@ def phase_k1_wide(rng, reports):
                   "tail_piece_dropped": tail_err}
         if whole != D:
             faults["row_read_at_slices_width"] = wide_err
+        n = flash_prefill.cluster_size(D)
+        smem = clusters = None
+        if n > 1:
+            faults["cluster_slice_dropped"] = k1_dropped_slice_error(q, k, v, tls, out_ref, r0)
+            smem, clusters = cluster_info(lib, "kvcf_flash_prefill_cluster_info", n)
         qh, kh, vh = (nan_tailed(bf16_normal(rng, (1, h, 1024, D))) for h in (Hq, Hkv, Hkv))
         hop = k1ml_case(qh, kh, vh, 2048, 1024)
         scale_faults = {}
@@ -7312,7 +7411,9 @@ def phase_k1_wide(rng, reports):
                 "ml_m_abs": (m_wrong - hop["m_ref"]).abs().max().item()}
             del wrong, m_wrong
         del qh, kh, vh, hop
-        log(f"K1 D={D} ({lib}, {flash_prefill.slices(D)} column slices, "
+        shape = (f"a cluster of {n} CTAs: {smem} B of shared memory a CTA, {clusters} clusters "
+                 "at once" if n > 1 else f"{flash_prefill.slices(D)} slice CTAs, no cluster")
+        log(f"K1 D={D} ({lib} {flash_prefill.entry(D)}, {shape}; "
             f"{flash_prefill.copy_bytes(D)}-byte pieces, scale 1/sqrt({D}) = {D ** -0.5:.6f}): "
             f"two launches bitwise equal {same}; a fault would show "
             f"{({n: f'{e:.3e}' for n, e in faults.items()})} (tol {K1_OUT_TOL}); a wrong scale "
@@ -7323,27 +7424,31 @@ def phase_k1_wide(rng, reports):
             raise SystemExit(f"K1 at D={D} is not deterministic, or its tolerance would let a "
                              "fault pass")
         del out_ref
-        t = time_k1(q, k, v, tl, W, tls, sc)
-        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
-        log(f"K1 D={D}: the library yardstick ran SDPA's {backend} backend")
+        t, backend = {}, "not timed"
+        if timed:
+            t = time_k1(q, k, v, tl, W, tls, sc)
+            t["bound_fraction"] = t["bound_ms"] / t["ms"]
+            backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            log(f"K1 D={D}: the library yardstick ran SDPA's {backend} backend")
         del q, k, v, sc
         entry = {"name": f"flash_prefill_d{D}", "route": "cuda",
                  "source": flash_prefill.WIDE_SOURCE, "replaces": flash_prefill.REPLACES,
-                 "built_as": lib, "column_slices": flash_prefill.slices(D),
+                 "built_as": lib, "entry": flash_prefill.entry(D),
+                 "column_slices": flash_prefill.slices(D), "cluster_size": n,
+                 "cluster_smem_bytes": smem, "clusters_at_once": clusters,
                  "copy_bytes": flash_prefill.copy_bytes(D), "scale": D ** -0.5,
                  "library": f"scaled_dot_product_attention, causal GQA ({backend} backend)",
                  "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
                  "max_abs_err": absd, "rel_l2": err, "tol": K1_OUT_TOL,
                  "scores_max_abs_err": err_sc, "fault_rel_l2": faults,
-                 "scale_faults": scale_faults, **t, "bound_fraction": t["bound_ms"] / t["ms"],
-                 "deterministic": same,
+                 "scale_faults": scale_faults, **t, "deterministic": same,
                  "edge_case": {"rel_l2": edge[0], "max_abs_err": edge[1],
                                "scores_max_abs_err": edge[2]},
                  "nan_tailed_inputs": True, "ptxas": regs}
-        if D in WIDE_FULL:
+        if D in variants:
             entry["variants"] = k1_head_dim_variants(rng, D, Hq, Hkv)
-        if D in (514, 1024):  # window scores at W 128, and a pass cut at 64 rows
+        if timed and D in (514, 1024):  # window scores at W 128, and a pass cut at 64 rows
             qw, kw, vw, tlw, scw, _, errw, _, sc_errw = k1_case(rng, B, Hq, Hkv, S, 128, tls,
                                                                 D, tail=True)
             cut = k1_cut_window_error(qw, kw, vw, tlw, 128, tls, scw)
@@ -7351,12 +7456,54 @@ def phase_k1_wide(rng, reports):
                 f"(tol {K1_SCORE_TOL})")
             if cut <= K1_SCORE_TOL:
                 raise SystemExit(f"K1's score tolerance at D={D} would let a cut window pass")
+            # The window-score pass (a scalar kernel of its own) timed beside the
+            # main pass from profiler rows.
+            passes = k1_pass_ms(lambda: flash_prefill.flash_prefill_attention(qw, kw, vw, tlw, 128),
+                                names=("flash_cluster_kernel", "window_scores_wide_kernel"))
+            log(f"K1 D={D} W 128 passes (profiler, ms a launch): {passes}")
             entry["w128"] = {"rel_l2": errw, "scores_max_abs_err": sc_errw,
-                             "cut_window_max_abs": cut,
+                             "cut_window_max_abs": cut, "passes_ms": passes,
                              **time_k1(qw, kw, vw, tlw, 128, tls, scw)}
             del qw, kw, vw, scw
         out[D] = entry
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_more(rng, reports):
+    """Phase 4k: the cluster sizes that phases 3i and 4j leave out, and the
+    slice-recomputing kernels past the cluster limit, each against its plain
+    version on NaN-tailed inputs.  K1 at the cluster widths of
+    ``WIDE_MORE_DIMS`` dense with window scores at phase 21's shape, the
+    CTA edges and two launches bitwise equal; past the limit everything
+    phase 3i holds, with the variants, untimed (``phase_k1_wide``).  K3 at
+    every one of ``WIDE_MORE_DIMS`` as phase 4j holds it
+    (``phase_kq_wide_head_dims``: G 1, 4 and 12, the range case, the edge
+    shapes and the fault cases; past the limit the replays and the
+    split-rule edges too), untimed."""
+    Hq, Hkv = LLAMA3_WIDE_HEADS
+    out = {}
+    past = tuple(D for D in WIDE_MORE_DIMS if flash_prefill.cluster_size(D) == 1)
+    for D in WIDE_MORE_DIMS:
+        if D in past:
+            continue
+        tls = [4096, 3000]
+        q, k, v, tl, _, _, err, _, err_sc = k1_case(rng, 2, Hq, Hkv, 4096, 8, tls, D, tail=True)
+        same = bitwise_repeat(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, 8))
+        del q, k, v
+        if not same:
+            raise SystemExit(f"K1 at D={D} is not deterministic")
+        edge = k1_case(rng, 4, 8, 2, 1024, 64, [1, 63, 129, 1000], D, tail=True)[6]
+        out[D] = {"k1": {"entry": flash_prefill.entry(D),
+                         "cluster_size": flash_prefill.cluster_size(D), "rel_l2": err,
+                         "scores_max_abs_err": err_sc, "edge_rel_l2": edge,
+                         "bitwise_repeat": same}}
+        log(f"4k K1 D={D}: {out[D]['k1']}")
+        torch.cuda.empty_cache()
+    for D, entry in phase_k1_wide(rng, reports, past, past, timed=False).items():
+        out[D] = {"k1": entry}
+    for (_, D), entry in phase_kq_wide_head_dims(rng, reports, WIDE_MORE_DIMS, (8,)).items():
+        out[D]["k3"] = entry
     return out
 
 
@@ -8021,13 +8168,13 @@ def main():
             log(f"{name} ptxas: library cached, no ptxas report in this run")
     # K3's and K4's ptxas lines (GB 1-8 each): no spill; and no int-to-float
     # conversion in their SASS, where the toolkit has cuobjdump.
-    quant_libs = [str(_build._lib_path(decode_attn_quant.library(D))) for D in (128, 384, 512)]
+    quant_libs = [str(_build._lib_path(decode_attn_quant.library(D, 8))) for D in (128, 384, 512)]
     with ThreadPoolExecutor(len(quant_libs)) as pool:  # disassemble the three at once
         list(pool.map(sass_text, quant_libs))
     for kid, name in QUANT_KERNELS.items():
         by_width = {}
         for D in (128, 384, 512):  # the 128 library holds 256 too
-            by_width.update(registers_by_head_dim(reports, decode_attn_quant.library(D), name))
+            by_width.update(registers_by_head_dim(reports, decode_attn_quant.library(D, 8), name))
         for width, rows in sorted(by_width.items()):
             log(f"{kid} {name}<{width}>: registers {sorted({r for r, _ in rows})}, spill lines "
                 f"{sorted({line or 'none' for _, line in rows})}")
@@ -8038,7 +8185,7 @@ def main():
             log(f"{kid} ptxas: library cached, no ptxas report in this run")
         i2f = {}
         for D in (128, 384, 512):
-            i2f.update(sass_i2f(_build._lib_path(decode_attn_quant.library(D)), name) or {})
+            i2f.update(sass_i2f(_build._lib_path(decode_attn_quant.library(D, 8)), name) or {})
         i2f = i2f or None
         log(f"{kid} SASS: no cuobjdump in this toolkit (not measured)" if i2f is None else
             f"{kid} SASS (cuobjdump -sass), per instantiation: I2F/I2FP conversions "
@@ -8049,7 +8196,8 @@ def main():
 
     # The wide kernels (head_dims above 512): one build serves every width,
     # so no kernel of theirs may spill.
-    for lib in ("flash_prefill_wide", "decode_attn_wide", "decode_attn_quant_wide"):
+    for lib in ("flash_prefill_wide", "decode_attn_wide", "decode_attn_quant_wide",
+                "decode_attn_quant_cluster"):
         rows = ptxas_entries(reports.get(lib, ""), "")
         if not rows:
             log(f"{lib} ptxas: library cached, no ptxas report in this run")
@@ -8058,6 +8206,14 @@ def main():
             f"{sorted({sp or 'none' for _, _, sp in rows})}")
         if any("0 bytes spill stores, 0 bytes spill loads" not in (sp or "") for _, _, sp in rows):
             raise SystemExit(f"a kernel of {lib} spills registers")
+    # K3's cluster kernel (640-2048) turns codes into fp16 by PRMT: no
+    # int-to-float conversion in its SASS either.
+    i2f = sass_i2f(_build._lib_path("decode_attn_quant_cluster"), "quant8_cluster_kernel")
+    log("K3 cluster SASS: no cuobjdump in this toolkit (not measured)" if i2f is None else
+        f"K3 cluster SASS, per GB: I2F/I2FP conversions {sorted(c for c, _ in i2f.values())}, "
+        f"integer-division reciprocals (I2F.*.RP) {sorted(r for _, r in i2f.values())}")
+    if i2f is not None and (not i2f or any(c for c, _ in i2f.values())):
+        raise SystemExit("K3's cluster kernel holds int-to-float conversions (or is missing)")
     log(f"[{time.perf_counter() - T_START:.1f} s] build, ptxas and SASS checks done")
     rng = np.random.default_rng(0)
     k1 = timed("3 K1", phase_k1, rng)
@@ -8096,6 +8252,10 @@ def main():
     k2_wd = timed("4i K2 head dims above 512", phase_k2_wide, rng21, reports)
     kq_wd = timed("4j K3/K4 head dims above 512", phase_kq_wide_head_dims, rng21, reports,
                   WIDE_KQ_DIMS)
+    # Phase 4k draws from a generator of its own, so that phase 21 keeps the
+    # inputs it continues rng21 with.
+    wide_more = timed("4k K1/K3 at the other cluster sizes", phase_wide_more, DeviceDraws(22),
+                      reports)
     LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LOG_PATH, "w") as log_file:
         params, prompts, e2e = timed("5 main path", phase_e2e, rng, log_file)
@@ -8282,6 +8442,8 @@ def main():
         if D != 1024:
             k1_wd[1024].setdefault("head_dims_held", {})[D] = k1_wd[D]
             k2_wd[1024].setdefault("head_dims_held", {})[D] = k2_wd[D]
+    k1_wd[1024]["head_dims_held"].update({D: held["k1"] for D, held in wide_more.items()})
+    kq_wd[(8, 1024)]["head_dims_held"].update({D: held["k3"] for D, held in wide_more.items()})
     for D in NEW_HEAD_DIMS:
         if D not in MODEL_HEAD_DIM_HEADS:
             width = flash_prefill.instance(D)

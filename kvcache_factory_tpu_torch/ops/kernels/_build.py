@@ -36,7 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ``_d128``, ``_d256``, ``_d384``, ``_d512``), in each of their libraries
 # (``_p8`` and ``_p4`` copy rows in 8- and 4-byte pieces), K3 and K4 one per
 # code width and head_dim (``_d128`` ... ``_d512``); above 512 the ``_wide``
-# libraries one per kernel, for every width.
+# libraries one per kernel, for every width (K1 two: the cluster kernel up
+# to 2048, the slice-recomputing one above), and K3 up to 2048 the
+# ``decode_attn_quant_cluster`` library.
 _K1 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
 _K2 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
 _WIDTHS = (64, 128, 256, 384, 512)
@@ -64,7 +66,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     # q, k, v, true_len, row_offset, block_mask, out, win_ml, scores,
     # row_ml, B, Hq, Hkv, S_q, S_k, W, SW, P, n_blk, n_slice, head_dim,
     # scale, stream
-    "flash_prefill_wide": {"kvcf_flash_prefill_wide": _K1W},
+    # ..._cluster_info(n_slice, int[2]): the cluster kernel's dynamic
+    # shared memory and the clusters the device holds at once.
+    "flash_prefill_wide": {"kvcf_flash_prefill_cluster": _K1W, "kvcf_flash_prefill_wide": _K1W,
+                           "kvcf_flash_prefill_cluster_info": (_I, _P)},
     # q, k_cache, v_cache, lengths, lower, k_new, v_new, out, part,
     # counters, H, G, C, n_split, n_slice, head_dim, scale, stream
     "decode_attn_wide": {"kvcf_decode_attn_append_wide": _K2W},
@@ -72,6 +77,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     # counters, H, G, C, n_split, n_slice, head_dim, scale, stream
     "decode_attn_quant_wide": {f"kvcf_quant{nbits}_decode_attn_append_wide": _KQW
                                for nbits in (8, 4)},
+    # K3 from 640 to 2048 (one cluster of CTAs a logit): the same arguments.
+    "decode_attn_quant_cluster": {"kvcf_quant8_decode_attn_append_cluster": _KQW,
+                                  "kvcf_quant8_decode_cluster_info": (_I, _P)},
     "pack": {
         # kv, idx, out, H, S, C, vecs, stream
         "kvcf_pack_rows": (_P, _P, _P, _I, _I, _I, _I, _P),

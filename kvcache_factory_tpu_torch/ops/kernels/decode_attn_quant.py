@@ -18,8 +18,11 @@ Dispatch is K2's rule: a CPU tensor goes to the plain version
 They take every head_dim ``D % 128 == 0`` (:func:`takes_head_dim`; the
 per-token cache exists only there, ``config.py::QuantConfig.per_token``):
 128, 256, 384 and 512 (``HEAD_DIMS``) one instantiation and entry point
-each, every wider one on the kernel of ``csrc/decode_attn_wide.cu`` (K2's
-column slices, :func:`library`), and any group size G, in blocks of
+each; above 512 K3 runs ``csrc/decode_attn_quant_cluster.cu`` up to 2048
+(one thread-block cluster of a CTA per 256-channel column slice, the
+slices' partial logits summed across the cluster, so each code is read
+once) and K4, like K3 above 2048, the kernel of ``csrc/decode_attn_wide.cu``
+(K2's column slices, :func:`library`); any group size G, in blocks of
 ``decode_attn.QUERY_BLOCK`` query rows as K2.
 
 K3 and K4 are one launch per call each, as K2 is: ``decode_attn.split_count``
@@ -41,10 +44,11 @@ from ..attention import NEG_INF
 from . import _build
 from .decode_attn import (WIDE, _counters, _sm_count, partial_floats, query_blocks,
                           split_count)
-from .flash_prefill import SLICE, slices
+from .flash_prefill import SLICE, cluster_size, slices
 
 SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant.cu"
 WIDE_SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_wide.cu"
+CLUSTER_SOURCE = "kvcache_factory_tpu_torch/csrc/decode_attn_quant_cluster.cu"
 REPLACES = {8: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:76",
             4: "kvcache_factory_tpu/ops/kernels/decode_attn_quant.py:479"}
 HEAD_DIMS = (128, 256, 384, 512)  # the instantiations; wider ones run the wide kernel
@@ -107,18 +111,24 @@ def takes_head_dim(D: int) -> bool:
     return D % 128 == 0 and D >= 128
 
 
-def library(D: int) -> str:
-    """The library that holds K3 / K4 at head_dim D: 384 and 512 each build
-    apart (``_build.VARIANTS``), and every wider one runs
-    ``decode_attn_quant_wide``."""
+def library(D: int, nbits: int) -> str:
+    """The library that holds K3 (nbits 8) / K4 (nbits 4) at head_dim D: 384
+    and 512 each build apart (``_build.VARIANTS``); above 512 K3 runs
+    ``decode_attn_quant_cluster`` up to 2048 (the wide kernels' cluster rule,
+    ``flash_prefill.cluster_size``)
+    and every wider one, like K4 at every width, ``decode_attn_quant_wide``."""
     if D > HEAD_DIMS[-1]:
-        return "decode_attn_quant_wide"
+        return ("decode_attn_quant_cluster" if nbits == 8 and cluster_size(D) > 1
+                else "decode_attn_quant_wide")
     return f"decode_attn_quant_d{D}" if D > 256 else "decode_attn_quant"
 
 
 def entry(nbits: int, D: int) -> str:
     """K3's (nbits 8) or K4's (nbits 4) entry point at head_dim ``D``."""
-    return f"kvcf_quant{nbits}_decode_attn_append_" + ("wide" if D > HEAD_DIMS[-1] else f"d{D}")
+    if D <= HEAD_DIMS[-1]:
+        return f"kvcf_quant{nbits}_decode_attn_append_d{D}"
+    return f"kvcf_quant{nbits}_decode_attn_append_" + (
+        "cluster" if library(D, nbits) == "decode_attn_quant_cluster" else "wide")
 
 
 def splits(H: int, G: int, C: int, D: int, sm_count: int) -> int:
@@ -130,7 +140,7 @@ def splits(H: int, G: int, C: int, D: int, sm_count: int) -> int:
 
 
 def _launch(nbits, q, k_codes, v_codes, scales, lengths, k_new, v_new, lower):
-    lib = _build.load(library(q.shape[-1]))
+    lib = _build.load(library(q.shape[-1], nbits))
     # K3 and K4 read k_new and v_new with vector loads: a view that starts
     # off a 16-byte boundary is copied into a fresh (aligned) tensor first.
     k_new, v_new = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (k_new, v_new))

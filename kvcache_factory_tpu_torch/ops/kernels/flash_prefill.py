@@ -15,10 +15,12 @@ ring, and two consumers of 64 rows each that run both products with
 CTA whose two consumers split the output's columns).  It takes any even
 head_dim (:func:`takes_head_dim`): up to 512 each on the narrowest of the
 instantiations ``INSTANCES`` at least as wide (:func:`instance`), above 512
-on the kernel of ``csrc/flash_prefill_wide.cu``, whose shared memory does
-not grow with D (O's columns split over :func:`slices` CTAs of ``SLICE``
-columns, QK^T streamed over D in 64-channel chunks; :func:`entry`), each
-with the true head_dim's ``1/sqrt(D)``, and any observation window.  A bf16
+on the kernels of ``csrc/flash_prefill_wide.cu``, whose shared memory does
+not grow with D: O's columns split over :func:`slices` CTAs of ``SLICE``
+columns, up to 2048 one thread-block cluster of them per 64 q rows that
+computes each score once (:func:`cluster_size`), above 2048 CTAs that each
+recompute the scores over D (:func:`entry`), each with the true head_dim's
+``1/sqrt(D)``, and any observation window.  A bf16
 row of a head_dim that is no multiple of 8 is no whole number of 16-byte
 pieces, and TMA takes no such row stride: those head_dims run the library built
 with the producer warpgroup copying 8- or 4-byte pieces by ``cp.async``
@@ -65,6 +67,14 @@ REPLACES_VARIANT = {
 # and 512); a wider one on the wide kernels, in column slices of SLICE.
 INSTANCES = (64, 128, 256, 384, 512)
 SLICE = 256
+# Above 512 the slices of a q tile (K1) or of a query block's split (K3) run
+# as one thread-block cluster of at most CLUSTER_MAX CTAs (the portable
+# cluster size): head_dims up to 2048.  Wider ones run kernels whose slice
+# CTAs share no work (:func:`cluster_size`).  The one rule for K1 and K3:
+# csrc/flash_prefill_wide.cu and csrc/decode_attn_quant_cluster.cu size
+# their shared memory by a CLUSTER_MAX equal to this one (a test holds them
+# to it) and refuse a wider cluster.
+CLUSTER_MAX = 8
 # What the card refuses, and why.
 REFUSED = ("odd head_dims are not served: RoPE splits a head in halves, in both packages, "
            "so neither runs one")
@@ -196,10 +206,24 @@ def slices(D: int) -> int:
     return 1 if D <= INSTANCES[-1] else -(-D // SLICE)
 
 
+def cluster_size(D: int) -> int:
+    """CTAs of one cluster of the wide kernels at head_dim ``D``, the rule
+    that picks K1's entry point (:func:`entry`) and K3's library
+    (``decode_attn_quant.library``): its :func:`slices` from 513 to 2048,
+    where one cluster computes each score (K3: each logit) once for all
+    slices; 1 (no cluster) up to 512 and above 2048, where each slice CTA
+    recomputes them."""
+    n = slices(D)
+    return n if D > INSTANCES[-1] and n <= CLUSTER_MAX else 1
+
+
 def entry(D: int) -> str:
     """K1's entry point at head_dim ``D``: its instantiation's up to 512,
-    the wide kernel's above."""
-    return "kvcf_flash_prefill_wide" if D > INSTANCES[-1] else f"kvcf_flash_prefill_d{instance(D)}"
+    the cluster kernel's up to 2048 and the slice-recomputing kernel's
+    above (both in ``flash_prefill_wide``)."""
+    if D <= INSTANCES[-1]:
+        return f"kvcf_flash_prefill_d{instance(D)}"
+    return "kvcf_flash_prefill_cluster" if cluster_size(D) > 1 else "kvcf_flash_prefill_wide"
 
 
 def copy_bytes(D: int) -> int:

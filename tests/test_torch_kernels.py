@@ -529,8 +529,9 @@ def test_variant_library_builds_its_source_with_its_flags(tmp_path, monkeypatch)
     paths = {_build._lib_path(n) for n in ("decode_attn_quant", "decode_attn_quant_d384",
                                            "decode_attn_quant_d512")}
     assert len(paths) == 3
-    assert [tquant.library(d) for d in (128, 256, 384, 512)] == \
-        ["decode_attn_quant"] * 2 + ["decode_attn_quant_d384", "decode_attn_quant_d512"]
+    for nbits in (8, 4):
+        assert [tquant.library(d, nbits) for d in (128, 256, 384, 512)] == \
+            ["decode_attn_quant"] * 2 + ["decode_attn_quant_d384", "decode_attn_quant_d512"]
 
 
 def test_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch):

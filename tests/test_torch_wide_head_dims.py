@@ -3,8 +3,9 @@
 the JAX package on the CPU.
 
 On the card these head_dims run the wide kernels (``csrc/flash_prefill_wide.cu``,
-``csrc/decode_attn_wide.cu``), whose CTAs each own one column slice of the
-output; here the wrappers run their plain versions.  At D % 128 == 0 (640,
+``csrc/decode_attn_wide.cu``, ``csrc/decode_attn_quant_cluster.cu``), whose
+CTAs each own one column slice of the output (K1 and K3 up to 2048 as one
+thread-block cluster of them); here the wrappers run their plain versions.  At D % 128 == 0 (640,
 1024) the Pallas kernels run in interpret mode, as
 ``tests/test_torch_head_dims.py`` runs them at 384 and 512; at 514 and 1004
 the JAX package serves on its XLA path, and the plain versions are held to
@@ -12,7 +13,7 @@ the JAX package serves on its XLA path, and the plain versions are held to
 ``policies/scoring.py::window_attention_scores`` and
 ``models/llama.py::grouped_attention``.  A stubbed library checks what the
 wrappers hand the wide kernels: the library, the entry point, the column
-slices, the head_dim and ``1/sqrt(D)``.  Inputs are fp32 numpy arrays from
+slices (and the cluster they form), the head_dim and ``1/sqrt(D)``.  Inputs are fp32 numpy arrays from
 ``np.random.default_rng``.
 
 Tolerances, each with its reason:
@@ -31,6 +32,8 @@ Tolerances, each with its reason:
 
 import torch_threads  # noqa: F401  (torch's thread share, first)
 import contextlib
+import re
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -423,13 +426,15 @@ I32 = dict(dtype=torch.int32, device="meta")
 
 
 @pytest.mark.parametrize("D,slices", [(514, 3), (576, 3), (640, 3), (768, 3), (1004, 4),
-                                      (1024, 4), (2048, 8)])
+                                      (1024, 4), (2048, 8), (2050, 9), (4096, 16)])
 def test_wide_stubs_take_the_wide_kernels_slices_and_true_scale(D, slices, monkeypatch):
     """On a tensor off the CPU, K1 and K2 at a head_dim above 512 load the
-    wide library (one for every piece width), call its one entry point with
-    the column-slice count, D and ``D ** -0.5`` as the last numbers before
-    the stream; K2 asks for a counter per (head, query block, slice) and
-    sizes its partials per slice of ``SLICE`` columns."""
+    wide library (one for every piece width), call its entry point with the
+    column-slice count, D and ``D ** -0.5`` as the last numbers before the
+    stream: K1's cluster kernel up to 2048 (a cluster of ``slices`` CTAs),
+    its slice-recomputing kernel above; K2 its one entry point, asking for
+    a counter per (head, query block, slice) and sizing its partials per
+    slice of ``SLICE`` columns."""
     assert tflash.takes_head_dim(D) and tflash.slices(D) == slices == -(-D // tflash.SLICE)
     assert tflash.instance(D) == D
     monkeypatch.setattr(tflash.flash_prefill_attention, "launches", 0)
@@ -439,7 +444,10 @@ def test_wide_stubs_take_the_wide_kernels_slices_and_true_scale(D, slices, monke
         q = torch.empty(1, 4, 64, D, **M)
         tflash.flash_prefill_attention(q, q[:, :1], q[:, :1], torch.empty(1, **I32), 8)
     (name, args), = lib.calls
-    assert loaded == ["flash_prefill_wide"] and name == "kvcf_flash_prefill_wide"
+    cluster = D <= 2048
+    assert tflash.cluster_size(D) == (slices if cluster else 1)
+    assert loaded == ["flash_prefill_wide"] and name == tflash.entry(D) == (
+        "kvcf_flash_prefill_cluster" if cluster else "kvcf_flash_prefill_wide")
     assert args[-4:-1] == (slices, D, D ** -0.5) and len(args) == 23
     assert tflash.flash_prefill_attention.launches == 1
     monkeypatch.setattr(tdecode.decode_attention_append, "launches", 0)
@@ -457,26 +465,71 @@ def test_wide_stubs_take_the_wide_kernels_slices_and_true_scale(D, slices, monke
     assert asked == [H * 2 * slices] and len(args) == 18
 
 
-@pytest.mark.parametrize("D", [640, 1024, 2048])
+@pytest.mark.parametrize("D", [640, 1024, 2048, 2176, 4096])
 @pytest.mark.parametrize("nbits", [8, 4])
 def test_quant_stubs_take_the_wide_kernel(nbits, D, monkeypatch):
-    """K3 and K4 above 512 load ``decode_attn_quant_wide`` and call its
-    entry point for their bits with the split count, the slices, D and
-    ``D ** -0.5``."""
+    """K3 above 512 loads ``decode_attn_quant_cluster`` up to 2048 (a
+    cluster of one CTA a slice) and ``decode_attn_quant_wide`` above; K4
+    ``decode_attn_quant_wide`` at every width.  Each calls its entry point
+    for its bits with the split count, the slices, D and ``D ** -0.5``,
+    asks for a counter per (head, query block, slice) and hands scratch of
+    ``SLICE + 2`` floats a (head, query block, slice, split, query row)."""
     H, G, C = 2, 4, 16
     width = D if nbits == 8 else D // 2
     fn = tdq.quant_decode_attention_append if nbits == 8 else tdq.quant4_decode_attention_append
     monkeypatch.setattr(fn, "launches", 0)
+    floats, real_empty = [], torch.empty
+
+    def empty(*size, **kw):
+        floats.append(size)
+        return real_empty(*size, **kw)
+
     with _stubbed(monkeypatch, tdq) as (loaded, lib, asked):
-        fn(torch.empty(H, G, D, **M), torch.empty(H, C, width, dtype=torch.uint8, device="meta"),
-           torch.empty(H, C, width, dtype=torch.uint8, device="meta"), torch.empty(H, C, 4, **M),
-           torch.empty(H, **I32), torch.empty(H, D, **M), torch.empty(H, D, **M))
+        monkeypatch.setattr(torch, "empty", empty)
+        fn(real_empty(H, G, D, **M), real_empty(H, C, width, dtype=torch.uint8, device="meta"),
+           real_empty(H, C, width, dtype=torch.uint8, device="meta"),
+           real_empty(H, C, 4, **M), real_empty(H, **I32), real_empty(H, D, **M),
+           real_empty(H, D, **M))
     (name, args), = lib.calls
     slices = tflash.slices(D)
-    assert loaded == ["decode_attn_quant_wide"]
-    assert name == f"kvcf_quant{nbits}_decode_attn_append_wide" == tdq.entry(nbits, D)
-    assert args[11:17] == (H, G, C, tdq.splits(H, G, C, D, 132), slices, D)
+    kind = "cluster" if nbits == 8 and D <= 2048 else "wide"
+    assert loaded == [f"decode_attn_quant_{kind}"] == [tdq.library(D, nbits)]
+    assert name == f"kvcf_quant{nbits}_decode_attn_append_{kind}" == tdq.entry(nbits, D)
+    n_split = tdq.splits(H, G, C, D, 132)
+    assert args[11:17] == (H, G, C, n_split, slices, D)
     assert args[-2] == D ** -0.5 and asked == [H * slices] and fn.launches == 1
+    assert (H * slices * n_split * G * (tflash.SLICE + 2),) in floats
+
+
+def test_cluster_rule_for_every_head_dim_the_wrappers_take():
+    """Above 512 a cluster holds one CTA per column slice, up to the
+    portable 8 (D <= 2048): K1's entry point and K3's library follow it;
+    above 2048 both run the slice-recomputing kernels, K2 and K4 run theirs at every
+    width.  Odd head_dims stay refused, and K3 / K4 take only multiples of
+    128."""
+    assert tflash.CLUSTER_MAX == 8
+    csrc = Path(tflash.__file__).resolve().parents[2] / "csrc"
+    for source in ("flash_prefill_wide.cu", "decode_attn_quant_cluster.cu"):
+        assert re.findall(r"constexpr int CLUSTER_MAX = (\d+);", (csrc / source).read_text()) \
+            == [str(tflash.CLUSTER_MAX)]
+    for D in range(2, 4100):
+        if D % 2:
+            assert not tflash.takes_head_dim(D)
+            continue
+        n = tflash.slices(D)
+        cluster = 512 < D <= 2048
+        assert tflash.cluster_size(D) == (n if cluster else 1) and n == (
+            1 if D <= 512 else -(-D // 256))
+        assert (tflash.entry(D) == "kvcf_flash_prefill_cluster") == cluster
+        assert tdecode.entry(D) == ("kvcf_decode_attn_append_wide" if D > 512
+                                    else f"kvcf_decode_attn_append_d{tflash.instance(D)}")
+        if D % 128 == 0:
+            assert tdq.takes_head_dim(D)
+            assert (tdq.library(D, 8) == "decode_attn_quant_cluster") == cluster
+            assert tdq.library(D, 4) == ("decode_attn_quant_wide" if D > 512
+                                         else tdq.library(D, 8))
+        else:
+            assert not tdq.takes_head_dim(D)
 
 
 @pytest.mark.parametrize("D", [513, 1025, 2047])
