@@ -49,7 +49,16 @@ Phases, in order; any failure exits non-zero:
    (4d); every instantiation's ptxas registers and spills; then K1 at
    observation windows 65, 96 and 128 (3f: its CTA edges, a true_len
    shorter than the window, what a pass cut at 64 window rows would show,
-   the score pass timed beside the main pass) and K2-K4 at G 9, 12 and 16
+   the score pass timed beside the main pass); K1's window-score pass
+   (``csrc/window_scores.cuh``, 3j): its ptxas lines in every K1 library,
+   windows of 1, 32 and 200 rows, G 12 and 16 at W 128, true_len 1, a
+   window across a 64-key tile, true_len below the window and an a-shape
+   mask, each on every column below true_len; what a pass that drops the
+   last window row or pairs each query head with the next KV head would
+   show; two launches bitwise equal at D 128 / W 128, D 100 / W 8 and
+   D 1024 / W 128; the pass timed alone at D 128 and W 8, 32, 128 and at
+   D 1024 and 514 with W 128, beside its plain version, the composite
+   matmul + exp + sum and its bound; and K2-K4 at G 9, 12 and 16
    (4e: Mistral-Large-2's and Llama-3.1-405B's 8 KV heads, with K2's
    checks, K3 / K4's range case and appends, times and ptxas lines);
 5. the main path end to end at Mistral-7B-Instruct-v0.2 widths (16 of its
@@ -526,29 +535,37 @@ def nan_tailed(x):
     return buf[:x.numel()].view(x.shape)
 
 
-def k1_case(rng, B, Hq, Hkv, S, W, tls, D=128, tail=False):
+def k1_case(rng, B, Hq, Hkv, S, W, tls, D=128, tail=False, pattern=None):
     """K1 against its plain version on random inputs: ``out`` over each
-    example's valid rows, ``scores`` over its scored columns; with ``tail``
-    the inputs lie in ``nan_tailed`` buffers."""
+    example's valid rows, ``scores`` over every column below its true_len
+    (the scored ones and the window's own) and zero past it; with ``tail``
+    the inputs lie in ``nan_tailed`` buffers, with ``pattern`` K1 runs that
+    sparse pattern in 64-row blocks."""
     q, k, v = (bf16_normal(rng, (B, h, S, D)) for h in (Hq, Hkv, Hkv))
     if tail:
         q, k, v = (nan_tailed(x) for x in (q, k, v))
     tl = torch.tensor(tls, dtype=torch.int32, device="cuda")
-    out, sc = flash_prefill.flash_prefill_attention(q, k, v, tl, W)
+    mask, block = (None, 0) if pattern is None else \
+        flash_prefill.sparse_block_mask(q, k, tl, pattern, None, 64)
+    out, sc = flash_prefill.flash_prefill_attention(
+        q, k, v, tl, W, sparse_pattern=pattern, q_block=64 if pattern else None)
     sync()
-    out_ref, sc_ref = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W)
+    out_ref, sc_ref = flash_prefill.flash_prefill_attention_reference(
+        q, k, v, tl, W, block_mask=mask, block=block)
     sync()
-    err_out = abs_out = err_sc = 0.0
+    err_out = abs_out = err_sc = past = 0.0
     for b, t in enumerate(tls):
         e, a = rel_l2(out[b, :, :t], out_ref[b, :, :t])
         err_out, abs_out = max(err_out, e), max(abs_out, a)
-        if t - W > 0:
-            err_sc = max(err_sc, (sc[b, :, :t - W] - sc_ref[b, :, :t - W]).abs().max().item())
+        err_sc = max(err_sc, (sc[b, :, :t] - sc_ref[b, :, :t]).abs().max().item())
+        if t < S:
+            past = max(past, sc[b, :, t:].abs().max().item())
     finite = all(torch.isfinite(x.float()).all() for x in (out, sc))
-    log(f"K1 B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}: out worst row rel L2 "
-        f"{err_out:.3e} (max abs {abs_out:.3e}) tol {K1_OUT_TOL}; scores max abs err "
-        f"{err_sc:.3e} tol {K1_SCORE_TOL}; finite {finite}")
-    if err_out > K1_OUT_TOL or err_sc > K1_SCORE_TOL or not finite:
+    log(f"K1 B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}"
+        f"{f' {pattern}' if pattern else ''}: out worst row rel L2 {err_out:.3e} (max abs "
+        f"{abs_out:.3e}) tol {K1_OUT_TOL}; scores max abs err {err_sc:.3e} tol {K1_SCORE_TOL}, "
+        f"{past} past true_len; finite {finite}")
+    if err_out > K1_OUT_TOL or err_sc > K1_SCORE_TOL or past != 0 or not finite:
         raise SystemExit("K1 disagrees with its plain version")
     return q, k, v, tl, sc, out_ref, err_out, abs_out, err_sc
 
@@ -574,10 +591,10 @@ def bitwise_repeat(call):
     return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def k1_pass_ms(call, reps=5, names=("flash_fwd_kernel", "window_scores_kernel")):
+def k1_pass_ms(call, reps=5, names=("flash_fwd_kernel", flash_prefill.SCORE_KERNEL)):
     """Device time per launch of K1's two kernels, the main pass and the
     window-score pass (their kernel ``names``), from profiler rows; None
-    where the profiler saw no device time.  Each row's time is divided by
+    where the profiler saw no device time (``score_pass_ms`` exits on that).  Each row's time is divided by
     the launches the trace holds, not by ``reps``: a trace can miss launches
     at its edges."""
     call()
@@ -595,6 +612,16 @@ def k1_pass_ms(call, reps=5, names=("flash_fwd_kernel", "window_scores_kernel"))
                 if evt.count != reps:
                     log(f"K1 profile: {evt.count} of {reps} {name} launches in the trace")
     return times
+
+
+def score_pass_ms(passes):
+    """The window-score pass's time in ``passes`` (``k1_pass_ms``); exits
+    when the profile holds no row of it, so that a renamed kernel cannot
+    blank the record."""
+    ms = passes.get(flash_prefill.SCORE_KERNEL)
+    if ms is None:
+        raise SystemExit(f"K1's profile holds no {flash_prefill.SCORE_KERNEL} row")
+    return ms
 
 
 def time_k1(q, k, v, tl, W, tls, sc):
@@ -642,8 +669,7 @@ def phase_k1(rng):
     passes = k1_pass_ms(call)
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
     log(f"K1 main pass {fmt(passes['flash_fwd_kernel'])}, window-score pass "
-        f"{fmt(passes['window_scores_kernel'])} (profiled); {t['bound_ms'] / ms:.3f} of the "
-        f"bound")
+        f"{score_pass_ms(passes):.4f} ms (profiled); {t['bound_ms'] / ms:.3f} of the bound")
     return {"name": "flash_prefill", "route": "cuda",
             "source": flash_prefill.SOURCE, "replaces": flash_prefill.REPLACES,
             "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} w={W} true_len={tls}",
@@ -651,7 +677,7 @@ def phase_k1(rng):
             "skipped_tile_rel_l2": skip_err,
             "scores_max_abs_err": err_sc, "scores_tol": K1_SCORE_TOL,
             **t, "bound_fraction": t["bound_ms"] / ms, "main_pass_ms": passes["flash_fwd_kernel"],
-            "score_pass_ms": passes["window_scores_kernel"], "deterministic": same,
+            "score_pass_ms": score_pass_ms(passes), "deterministic": same,
             "edge_cases": [{"rel_l2": e, "max_abs_err": a, "scores_max_abs_err": s}
                            for e, a, s in edge_errs]}
 
@@ -1899,7 +1925,7 @@ def phase_k1_head_dims(rng, reports):
         t = time_k1(q, k, v, tl, W, tls, sc)
         passes = k1_pass_ms(call)
         log(f"K1 D={D} main pass {passes['flash_fwd_kernel']} ms, window-score pass "
-            f"{passes['window_scores_kernel']} ms (profiled)")
+            f"{score_pass_ms(passes)} ms (profiled)")
         del q, k, v, sc
         entry = {"name": f"flash_prefill_d{D}", "route": "cuda", "source": flash_prefill.SOURCE,
                  "replaces": flash_prefill.REPLACES,
@@ -1908,7 +1934,7 @@ def phase_k1_head_dims(rng, reports):
                  "scores_max_abs_err": err_sc, "skipped_tile_rel_l2": skip_err, **t,
                  "bound_fraction": t["bound_ms"] / t["ms"],
                  "main_pass_ms": passes["flash_fwd_kernel"],
-                 "score_pass_ms": passes["window_scores_kernel"], "deterministic": same,
+                 "score_pass_ms": score_pass_ms(passes), "deterministic": same,
                  "edge_cases": [{"rel_l2": e, "max_abs_err": a, "scores_max_abs_err": s}
                                 for e, a, s in edges],
                  "ptxas": regs.get(D)}
@@ -2775,7 +2801,7 @@ def phase_k1_windows(rng):
         main_bound_ms = t["bound_ms"]
         t["bound_ms"] = main_bound_ms + score_bound_ms
         log(f"K1 W={W}: main pass {passes['flash_fwd_kernel']} ms, window-score pass "
-            f"{passes['window_scores_kernel']} ms (profiled); by events, K1 at window 0 (the "
+            f"{score_pass_ms(passes)} ms (profiled); by events, K1 at window 0 (the "
             f"main pass alone) {main_ms:.4f} ms, so the score pass {t['ms'] - main_ms:.4f} ms; "
             f"the bound {t['bound_ms']:.4f} ms (operations): main pass {main_bound_ms:.4f}, "
             f"score pass {score_bound_ms:.4f}")
@@ -2787,7 +2813,7 @@ def phase_k1_windows(rng):
                   "scores_max_abs_err": err_sc, "scores_tol": K1_SCORE_TOL,
                   "cut_at_64_rows_scores_err": cut_err, "deterministic": same, **t,
                   "main_pass_ms": passes["flash_fwd_kernel"],
-                  "score_pass_ms": passes["window_scores_kernel"],
+                  "score_pass_ms": score_pass_ms(passes),
                   "window_0_ms": main_ms, "score_pass_by_events_ms": t["ms"] - main_ms,
                   "main_pass_bound_ms": main_bound_ms, "score_pass_bound_ms": score_bound_ms,
                   "edge_cases": [{"case": f"B={c[0]} Hq={c[1]} S={c[3]} w={c[4]} true_len={c[5]}",
@@ -2795,6 +2821,145 @@ def phase_k1_windows(rng):
                                  for c, (e, a, s_) in zip(K1_WINDOW_EDGES, edges)]}
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3j: K1's window-score pass (csrc/window_scores.cuh)
+# ---------------------------------------------------------------------------
+
+# Cases held to the plain version at D 128 beside phases 3 and 3f's: (name,
+# B, Hq, Hkv, S, W, true_len, sparse pattern).  Windows of 1 (4 heads of one
+# row in a 32-row block), 32 (4 heads of 32 rows) and 200 rows (a chunk of
+# 200 rows, one head a CTA); G 12 and 16 at W 128 (one head a CTA: 12 and 16
+# CTAs a KV head and tile); true_len 1 beside a window across a 64-key tile
+# (rows 1020-1027); true_len below the window; an a-shape mask of 64-row
+# blocks.
+SCORE_CASES = (
+    ("w1", 2, 32, 8, 4096, 1, [4096, 3000], None),
+    ("w32", 2, 32, 8, 4096, 32, [4096, 3000], None),
+    ("w200", 2, 32, 8, 4096, 200, [4096, 3000], None),
+    ("g12_w128", 2, 96, 8, 2048, 128, [2048, 1500], None),
+    ("g16_w128", 2, 128, 8, 2048, 128, [2048, 1500], None),
+    ("tl1_and_tile_edge_w8", 2, 32, 8, 2048, 8, [1, 1028], None),
+    ("tl_below_w32", 2, 32, 8, 2048, 32, [20, 2048], None),
+    ("ashape_w8", 2, 32, 8, 4096, 8, [4096, 3000], ("ashape", 1, 2, 4)),
+)
+# The pass timed alone: (name, Hq, Hkv, D, W) at B 2, S 4096, true_len (4096,
+# 3000): the main path's heads at W 8, 32 (the JAX package's default window)
+# and 128, and phase 21's heads at D 1024 and at 514 (4-byte pieces).
+SCORE_TIMED = (("d128_w8", 32, 8, 128, 8), ("d128_w32", 32, 8, 128, 32),
+               ("d128_w128", 32, 8, 128, 128), ("d1024_w128", 4, 1, 1024, 128),
+               ("d514_w128", 4, 1, 514, 128))
+
+
+def score_fault_errors(q, k, v, tl, W, tls, sc_ref):
+    """What the score check sees from two faulty passes, from the plain
+    versions: one that drops the last window row (it lacks that row's
+    probabilities: the plain scores at window 1) and one that pairs each
+    query head with the next KV head (the right (m, l), the next head's
+    keys)."""
+    _, last = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 1)
+    _, _, m, l = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0, return_ml=True)
+    shifted = flash_prefill.window_scores_reference(q, k.roll(-1, dims=1), tl, W, m, l)
+    scored = [(b, t) for b, t in enumerate(tls) if t > W]
+    return {"last_row_dropped": max(last[b, :, :t - W].abs().max().item() for b, t in scored),
+            "next_kv_head": max((shifted[b, :, :t - W] - sc_ref[b, :, :t - W]).abs().max().item()
+                                for b, t in scored)}
+
+
+def time_score_pass(q, k, v, tl, W, tls):
+    """The window-score pass alone (profiler rows), its plain version and
+    the composite ``torch.matmul`` (bf16) + ``exp`` + ``sum`` (for
+    information: no single call emits these scores) on the same (m, l), and
+    its bound: 2 D FLOP a visible (window row, column) pair, or the bytes of
+    K's causal rows once per KV head, the window's q rows, (m, l) and the
+    fp32 scores, whichever takes longer."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    main = "flash_fwd_kernel" if D <= flash_prefill.INSTANCES[-1] else "flash_cluster_kernel"
+    ms = score_pass_ms(k1_pass_ms(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W),
+                                  names=(main, flash_prefill.SCORE_KERNEL)))
+    _, _, m, l = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, 0, return_ml=True)
+    plain_ms = event_ms(lambda: flash_prefill.window_scores_reference(q, k, tl, W, m, l),
+                        iters=3, warmup=1)
+    rows = tl.long()[:, None] - W + torch.arange(W, device="cuda")            # [B, W]
+    at = rows.clamp(min=0)
+    qw = torch.gather(q, 2, at[:, None, :, None].expand(B, Hq, W, D)).reshape(B, Hkv, -1, D)
+    mw, lw = (torch.gather(x, 2, at[:, None].expand(B, Hq, W)).reshape(B, Hkv, -1, 1)
+              for x in (m, l))
+    keep = ((torch.arange(S, device="cuda")[None, None] <= rows[:, :, None]) & (rows >= 0)[..., None])
+    keep = keep[:, None].expand(B, Hq, W, S).reshape(B, Hkv, -1, S)
+    scale = D ** -0.5
+
+    def composite():
+        p = torch.exp(torch.matmul(qw, k.transpose(-1, -2)).float() * scale - mw) / lw
+        return torch.where(keep, p, 0.0).reshape(B, Hq, W, S).sum(dim=2)
+    composite_ms = event_ms(composite, iters=5, warmup=1)
+    pairs = Hq * sum(sum(r + 1 for r in range(max(t - W, 0), t)) for t in tls)
+    nbytes = sum(2 * (t * Hkv + min(W, t) * Hq) * D + 8 * Hq * W for t in tls) + 4 * B * Hq * S
+    bound_ms, bound_by = max((2 * D * pairs / PEAK_BF16_FLOPS * 1e3, "operations"),
+                             (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"K1 window-score pass B={B} Hq={Hq} Hkv={Hkv} D={D} w={W}: {ms:.4f} ms (profiled), "
+        f"plain {plain_ms:.4f} ms, composite matmul + exp + sum {composite_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}): {bound_ms / ms:.3f} of it")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "composite_ms": composite_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_fraction": bound_ms / ms}
+
+
+def phase_k1_score_pass(rng, reports):
+    """Phase 3j: K1's window-score pass (``csrc/window_scores.cuh``), one
+    tensor-core kernel for every head_dim and copy width.  Its registers and
+    spills in each K1 library (none may spill); the cases of
+    ``SCORE_CASES`` against the plain version on every column below
+    true_len; what a pass that drops the last window row or pairs each query
+    head with the next KV head would show (each must fail
+    ``K1_SCORE_TOL``); two launches bitwise equal at D 128 / W 128, D 100 /
+    W 8 and D 1024 / W 128; the pass timed alone at ``SCORE_TIMED`` beside
+    its plain version, the composite and its bound."""
+    regs = {}
+    for lib in ("flash_prefill", "flash_prefill_p8", "flash_prefill_p4", "flash_prefill_wide"):
+        rows = ptxas_entries(reports.get(lib, ""), flash_prefill.SCORE_KERNEL)
+        regs[lib] = sorted({(r, sp or "no spill line") for _, r, sp in rows})
+        if any("0 bytes spill stores, 0 bytes spill loads" not in (sp or "") for _, _, sp in rows):
+            raise SystemExit(f"the window-score pass spills registers in {lib}")
+    log(f"K1 window-score pass ptxas (registers, spill) by library: {regs}")
+    cases = {}
+    for name, B, Hq, Hkv, S, W, tls, pattern in SCORE_CASES:
+        cases[name] = dict(zip(("rel_l2", "max_abs_err", "scores_max_abs_err"),
+                               k1_case(rng, B, Hq, Hkv, S, W, tls, pattern=pattern)[6:9]))
+    worst = max(c["scores_max_abs_err"] for c in cases.values())
+    timed_out, same, faults = {}, {}, None
+    tls = [4096, 3000]
+    for name, Hq, Hkv, D, W in SCORE_TIMED:
+        q, k, v, tl, sc, out_ref, _, _, err_sc = k1_case(rng, 2, Hq, Hkv, 4096, W, tls, D)
+        del out_ref
+        worst = max(worst, err_sc)
+        if name in ("d128_w128", "d1024_w128"):
+            same[name] = bitwise_repeat(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, W))
+        if name == "d128_w128":
+            _, sc_plain = flash_prefill.flash_prefill_attention_reference(q, k, v, tl, W)
+            faults = score_fault_errors(q, k, v, tl, W, tls, sc_plain)
+            del sc_plain
+        timed_out[name] = time_score_pass(q, k, v, tl, W, tls)
+        del q, k, v, sc
+        torch.cuda.empty_cache()
+    q, k, v, tl = k1_case(rng, 2, 32, 8, 2048, 8, [2048, 1500], 100)[:4]
+    same["d100_w8"] = bitwise_repeat(lambda: flash_prefill.flash_prefill_attention(q, k, v, tl, 8))
+    del q, k, v
+    log(f"K1 window-score pass: two launches bitwise equal {same}; a pass that drops the last "
+        f"window row / pairs each query head with the next KV head would show {faults} "
+        f"(tol {K1_SCORE_TOL})")
+    if not all(same.values()) or min(faults.values()) <= K1_SCORE_TOL:
+        raise SystemExit("K1's window-score pass is not deterministic, or its tolerance would "
+                         "let a fault pass")
+    main = timed_out["d128_w8"]
+    return {"name": "window_scores", "route": "cuda", "source": flash_prefill.SCORE_SOURCE,
+            "replaces": flash_prefill.REPLACES_SCORES, "kernel": flash_prefill.SCORE_KERNEL,
+            "shape": "B=2 Hq=32 Hkv=8 S=4096 D=128 w=8 true_len=[4096, 3000]",
+            "max_abs_err": worst, "tol": K1_SCORE_TOL,
+            "library": "none (no single call emits these scores)", **main,
+            "timed": timed_out, "cases": cases, "faults": faults, "deterministic": same,
+            "ptxas": regs}
 
 
 # Phase 4e's group sizes: G 12 is Mistral-Large-Instruct-2407's (96 / 8
@@ -2938,15 +3103,21 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
 
     for wrapper in COUNTED.values():
         wrapper.launches = 0
+    flash_prefill.flash_prefill_attention.score_launches = 0
     ids, res = engine.generate_batch(prompts, max_new, return_result=True)
     sync()
     launches = {kid: wrapper.launches for kid, wrapper in COUNTED.items()}
+    score_launches = flash_prefill.flash_prefill_attention.score_launches
     steps = max_new - 1  # the last token is emitted, never fed back
     expect = dict.fromkeys(COUNTED, 0)
     expect["K1"], expect[decode_id] = L, L * steps
-    log(f"launches on the main path ({label}): {launches}; expect K1 {L}, "
-        f"{decode_id} {L} x {steps} = {L * steps}, the others 0")
-    if launches != expect:
+    # K1's window-score pass runs with each K1 launch of a method that reuses
+    # its scores (none under a sliding window: models/llama.py::attend_prefill).
+    want_scores = L if comp.method in SCORE_EMITTERS and cfg.sliding_window is None else 0
+    log(f"launches on the main path ({label}): {launches}, window-score passes "
+        f"{score_launches}; expect K1 {L}, {decode_id} {L} x {steps} = {L * steps}, "
+        f"window-score passes {want_scores}, the others 0")
+    if launches != expect or score_launches != want_scores:
         raise SystemExit("the main path did not run each kernel the expected number of times")
     if quant is not None:
         cls = quant_cache.Int8KVCache if quant.nbits == 8 else quant_cache.Int4KVCache
@@ -3040,7 +3211,7 @@ def drive_path(params, n_params, prompts, quant, log_file, cfg=MISTRAL_7B, comp=
             check=None if label not in ONE_LAUNCH_DECODE else
             lambda rows: one_kernel_a_layer(rows, L, *(
                 ONE_LAUNCH_DECODE_WIDE if cfg.head_dim > 512 else ONE_LAUNCH_DECODE)[label]))
-    return {"model": model,
+    return {"model": model, "score_launches": score_launches,
             "compression": "snapkv 2048/8/7 maxpool, group_reduce none" if comp is SNAPKV
                            else f"{comp.method} {comp.max_capacity_prompt}/{comp.window_size}, "
                                 f"group_reduce {comp.group_reduce}",
@@ -3250,18 +3421,21 @@ def policy_run(rng, params, prompts, label, comp, quant, head_cap, refs, log_fil
     engine = InferenceEngine(params, EngineConfig(model=cfg, compression=comp, quant=quant),
                              device=dev, head_capacity=head_cap if method == "headkv" else None)
     reset_counts()
+    flash_prefill.flash_prefill_attention.score_launches = 0
     with score_window_hook() as windows:
         ids, res = engine.generate_batch(prompts, POLICY_NEW, return_result=True)
         sync()
     launches = path_launches()
+    score_launches = flash_prefill.flash_prefill_attention.score_launches
     decode_id = "K2" if quant is None else QUANT[quant.nbits][0]
     expect = dict.fromkeys(launches, 0)
     expect["K1"], expect[decode_id] = L, L * steps
     emitted = sorted(set(windows))
     want_window = comp.window_size if method in SCORE_EMITTERS else 0
     log(f"== policy {label}: launches {launches} (expect K1 {L}, {decode_id} {L * steps}); "
-        f"K1 score windows {emitted} (expect [{want_window}])")
-    if launches != expect:
+        f"K1 score windows {emitted} (expect [{want_window}]); window-score passes "
+        f"{score_launches} (expect {L if want_window else 0})")
+    if launches != expect or score_launches != (L if want_window else 0):
         raise SystemExit(f"the {label} run did not run each kernel the expected number of times")
     if emitted != [want_window]:
         raise SystemExit(f"K1 emitted window scores on the {label} run against JAX's gate")
@@ -4170,8 +4344,8 @@ GRID_RUNS = {
     "tp2_bf16": ((1, 1, 2), SNAPKV, None, "bf16", GRID_NEW),
     "tp2_int8": ((1, 1, 2), SNAPKV, QuantConfig(nbits=8), "int8", GRID_NEW),
     "tp2_int4": ((1, 1, 2), SNAPKV, QuantConfig(nbits=4), "int4", GRID_NEW),
-    "dp2_bf16": ((2, 1, 1), SNAPKV, None, "bf16", GRID_NEW),
-    "dcn2_dp2_bf16": ((2, 1, 1), SNAPKV, None, "bf16", GRID_NEW),
+    "dp2_bf16": ((2, 1, 1), SNAPKV, None, "bf16_alone", GRID_NEW),
+    "dcn2_dp2_bf16": ((2, 1, 1), SNAPKV, None, "bf16_alone", GRID_NEW),
     "tp2_fullkv": ((1, 1, 2), CompressionConfig(method="fullkv"), None, "fullkv", GRID_NEW),
     **{f"sp2_{m}": ((1, 2, 1), dataclasses.replace(SNAPKV, method=m), None, f"sp_{m}",
                     GRID_SP_METHOD_NEW) for m in GRID_SP_METHODS},
@@ -4193,7 +4367,8 @@ def grid_references(rng, prompts):
     """Phase 12's references, on ``GRID_MODEL``'s weights (``init_params``
     seed 0, as the ranks draw them), freed after: the single-device engine
     on phase 5's two requests with each cache the ranks run (ids and every
-    step's logits), the fp32 reference forward of
+    step's logits), and with the bf16 cache on each request alone (dp=2's
+    reference), the fp32 reference forward of
     request (a)'s prompt and of request (b) along each single-device
     stream, the single-device engine on one 8192-token request (sp) and a
     single-device drain of four 4096-token requests (chunked admission);
@@ -4214,6 +4389,21 @@ def grid_references(rng, prompts):
             0, len(prompts[1]) - 1:].cpu()
         refs[label] = {"ids": ids, "logits": res.logits.cpu(), "ref_b": ref_b}
         del engine, res
+    # dp=2's reference: each request alone on the single device, as its dp
+    # rank runs it.  K2's split count follows the heads of the batch (4
+    # splits at 64 heads, 8 at 32 on an H100), so the batch of two decodes in
+    # other bits than either request alone, and its stream may part from a
+    # dp rank's at a near-tie; alone, the same kernels run the same shapes.
+    engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV,
+                                                  prefill_buckets=(4096,)), device=dev)
+    alone = [engine.generate_batch([p], GRID_NEW, return_result=True) for p in prompts]
+    ids = [got[0][0] for got in alone]
+    seq_b = prompts[1] + ids[1][:GRID_NEW - 1]
+    refs["bf16_alone"] = {
+        "ids": ids, "logits": torch.cat([got[1].logits.cpu() for got in alone]),
+        "ref_b": forward_logits(params, cfg, torch.tensor([seq_b], device=dev))[
+            0, len(prompts[1]) - 1:].cpu()}
+    del engine, alone
     refs["ref_a"] = forward_logits(params, cfg, torch.tensor([prompts[0]], device=dev))[0, -1].cpu()
     sp_prompt = rng.integers(0, cfg.vocab_size, size=GRID_SP_PROMPT).tolist()
     engine = InferenceEngine(params, EngineConfig(model=cfg, compression=SNAPKV,
@@ -4743,13 +4933,16 @@ def phase_pp(refs):
     """Phase 13: phase 5's requests (snapkv, 64 new) through the GPipe
     engine on two stages sharing this card over gloo (hidden states and
     tokens staged through pinned host memory), checked against the
-    single-device references of phase 12 (``grid_references``)."""
+    single-device references of phase 12 (``grid_references``; the streams
+    against each request alone, as each microbatch runs it)."""
     cfg, L = GRID_MODEL, GRID_MODEL.num_hidden_layers
     log(f"== phase 13: pp={PP} ({PP_MICRO} microbatches) at Mistral-7B-Instruct-v0.2 widths "
         f"({L} of 32 layers), "
         f"stages sharing this card over gloo")
     ranks, spawn_s, load_s = spawn_grid("13", PP, {"prompts": refs["prompts"]}, fn=pp_rank)
-    ref, steps, Lp = refs["bf16"], GRID_NEW - 1, L // PP
+    # Each microbatch is one request: its reference is that request alone on
+    # the single device (K2 then runs the same heads, as for dp=2).
+    ref, steps, Lp = refs["bf16_alone"], GRID_NEW - 1, L // PP
     want_launches = {"K1": Lp * PP_MICRO, "K2": Lp * steps * PP_MICRO}
     plen = [len(p) for p in refs["prompts"]]
     want_lengths = [[min(n, SNAPKV.max_capacity_prompt) + steps] for n in plen]
@@ -7371,7 +7564,7 @@ def phase_k1_wide(rng, reports, dims=WIDE_K12_DIMS, variants=WIDE_FULL, timed=Tr
     lib = "flash_prefill_wide"
     regs = {"flash_cluster_kernel": wide_ptxas(reports, lib, "flash_cluster_kernel"),
             "flash_wide_kernel": wide_ptxas(reports, lib, "flash_wide_kernel"),
-            "window_scores_wide_kernel": wide_ptxas(reports, lib, "window_scores_wide_kernel")}
+            flash_prefill.SCORE_KERNEL: wide_ptxas(reports, lib, flash_prefill.SCORE_KERNEL)}
     log(f"K1 wide ptxas (registers, spill) by kernel: {regs}")
     Hq, Hkv = LLAMA3_WIDE_HEADS
     out = {}
@@ -7456,11 +7649,11 @@ def phase_k1_wide(rng, reports, dims=WIDE_K12_DIMS, variants=WIDE_FULL, timed=Tr
                 f"(tol {K1_SCORE_TOL})")
             if cut <= K1_SCORE_TOL:
                 raise SystemExit(f"K1's score tolerance at D={D} would let a cut window pass")
-            # The window-score pass (a scalar kernel of its own) timed beside the
-            # main pass from profiler rows.
+            # The window-score pass timed beside the main pass from profiler rows.
             passes = k1_pass_ms(lambda: flash_prefill.flash_prefill_attention(qw, kw, vw, tlw, 128),
-                                names=("flash_cluster_kernel", "window_scores_wide_kernel"))
-            log(f"K1 D={D} W 128 passes (profiler, ms a launch): {passes}")
+                                names=("flash_cluster_kernel", flash_prefill.SCORE_KERNEL))
+            log(f"K1 D={D} W 128 passes (profiler, ms a launch): {passes}; window-score pass "
+                f"{score_pass_ms(passes):.4f} ms")
             entry["w128"] = {"rel_l2": errw, "scores_max_abs_err": sc_errw,
                              "cut_window_max_abs": cut, "passes_ms": passes,
                              **time_k1(qw, kw, vw, tlw, 128, tls, scw)}
@@ -8236,6 +8429,9 @@ def main():
     # Phases 3f, 4e, 17 and 18 draw from a generator of their own, as 3e-4d.
     rng18 = DeviceDraws(18)
     k1_w = timed("3f K1 windows", phase_k1_windows, rng18)
+    # Phase 3j draws from a generator of its own, so that 4e, 17 and 18 keep
+    # the inputs they continue rng18 with.
+    k1_sp = timed("3j K1 window-score pass", phase_k1_score_pass, DeviceDraws(23), reports)
     big_g = timed("4e K2-K4 G above 8", phase_big_groups, rng18, reports)
     # Phases 3g-4g and 19-19b draw from a generator of their own, as 3e-4d.
     rng19 = DeviceDraws(19)
@@ -8376,6 +8572,14 @@ def main():
     # Phase 17: K1 at W 128 on the snapkv_w128 run; K2, K3 and K4 at G 12 on
     # its fullkv runs (K2 also on snapkv_mean); at G 16 on phase 17b's.
     k1_w[128]["launches"] = large["snapkv_w128"]["launches"]["K1"]
+    # The window-score pass: one launch with each K1 launch of a scoring
+    # method (snapkv here); its launches on the main path's bf16 run, and on
+    # the runs of W 128 (phase 17), head_dim 100 (20) and 1024 (21).
+    k1_sp["launches"] = e2e["bf16"]["score_launches"]
+    k1_sp["launches_by_run"] = {
+        "mistral_large_snapkv_w128": large["snapkv_w128"]["score_launches"],
+        "openllama_3b_snapkv_d100": openllama["snapkv"]["score_launches"],
+        "llama3_d1024_snapkv_bf16": llama3_wide["bf16"]["score_launches"]}
     for kid, run in (("K2", "fullkv_bf16"), ("K3", "fullkv_int8"), ("K4", "fullkv_int4")):
         for G, phase in ((12, large), (16, llama405)):
             big_g[kid][G]["launches"] = phase[run]["launches"][kid]
@@ -8452,7 +8656,7 @@ def main():
                 host.setdefault("head_dims_held", {})[D] = held
     print(json.dumps({"kernels": [k1, k1_sw, k1_chunk, k1_a, k1_vs, k1_ml, k2, k3, k4, k5,
                                   k1_hd[64], k1_hd["chunk"], k1_hd[256], k2_hd[64], k2_hd[256],
-                                  kq_hd[8], kq_hd[4], k1_w[128],
+                                  kq_hd[8], kq_hd[4], k1_w[128], k1_sp,
                                   *(big_g[kid][G] for kid in ("K2", "K3", "K4")
                                     for G in (12, 16)),
                                   k1_nd[80], k1_chunk80, k1_nd[384], k1_nd[512], k2_nd[80],

@@ -120,19 +120,20 @@
 // The window scores cannot accumulate across q tiles as the TPU's
 // sequential grid lets them (CTAs run concurrently here, and float atomics
 // would make the sums depend on the run).  Instead the main kernel stores
-// each window row's final (m, l) in a [B, Hq, W, 2] buffer and a second
-// small kernel, one CTA per (64-column tile, hq, b), recomputes the W x 64
-// window logits, normalizes them with the stored (m, l) and sums over rows
-// (with a block mask, only rows whose own q block selects the column's
-// block): about W/S of the main work.  Any W: it holds WBLOCK window rows at
-// a time in shared memory and walks the window in such blocks, each thread
-// adding its rows in the same order whatever the block size.  No atomics
-// anywhere: two launches on the same inputs give bitwise-equal outputs.
+// each window row's final (m, l) in a [B, Hq, W, 2] buffer and the
+// window-score pass of window_scores.cuh recomputes the window logits on
+// the tensor cores, one CTA per (64-key tile, KV head, b) for all the query
+// heads of the group, normalizes them with the stored (m, l) and sums over
+// rows in an order fixed by W, G and D: about W/S of the main work.  No
+// atomics anywhere: two launches on the same inputs give bitwise-equal
+// outputs.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "window_scores.cuh"
 
 namespace {
 
@@ -143,8 +144,6 @@ constexpr int STAGES = 2;       // K/V ring depth
 constexpr int THREADS = 384;    // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int SMEM_MAX = 232448;                     // the opt-in limit of a block
 constexpr int EMPTY_ARRIVALS = 8;                    // the consumers' warps
-constexpr int WBLOCK = 64;      // window rows the window-score pass holds at a time
-constexpr int SBN = 64;         // columns per CTA of the window-score pass
 constexpr float NEG_INF = -3.4028234663852886e38f;  // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -194,11 +193,6 @@ struct Plan {
   static constexpr int SMEM_CNT = SMEM_BAR + 64;       // per-warp counts of the list build
   static constexpr int SMEM_LIST = SMEM_BAR + 128;     // the compacted key-tile list
   static constexpr uint32_t ALL_SELECTED = (1u << (2 * NH)) - 1;  // (warpgroup, half) bits
-  static constexpr int LDS = D + 8;  // the window-score pass's padded row stride
-  // The window-score pass's dynamic shared memory: K rows, a block of
-  // window q rows, (m, 1/l, selected) of each of its rows and the two
-  // halves' sums.
-  static constexpr int WS_SMEM = 2 * (SBN * LDS + WBLOCK * D) + 4 * (3 * WBLOCK + 128);
 };
 
 // --- shared memory, mbarriers and TMA --------------------------------------
@@ -790,155 +784,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// --- the window-score pass ----------------------------------------------------
-
-// Copy rows [row0, row0 + 64) of a [*, hd] bf16 matrix into shared memory
-// rows of D columns in PIECE-byte pieces, zero-filling rows at or past
-// `limit` and pieces past hd (hd is a whole number of pieces).
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int limit,
-                                          int hd, int tid) {
-  constexpr int NP = D / PIECE_COLS;  // pieces a row
-#pragma unroll
-  for (int i = tid; i < SBN * NP; i += 128) {
-    const int r = i / NP, c = i % NP;
-    Piece val{};
-    if (row0 + r < limit && c * PIECE_COLS < hd)
-      val = *reinterpret_cast<const Piece*>(src + (size_t)(row0 + r) * hd + c * PIECE_COLS);
-    *reinterpret_cast<Piece*>(dst + r * Plan<D>::LDS + c * PIECE_COLS) = val;
-  }
-}
-
-// One CTA per (64-column tile, hq, b): scores[c] = sum over window rows r
-// with c <= r (and, with a block mask, whose q block selects c's block) of
-// exp(q[r].k[c] * scale - m_r) / l_r, with (m, l) in natural-log units.
-// The window's rows come in blocks of WBLOCK; thread (col, half) adds rows
-// half, half + 2, ... of the window in order across the blocks (WBLOCK is
-// even), so the sum's order does not depend on the block size.  Its shared
-// memory is dynamic (Plan<D>::WS_SMEM: 67 KB at D 256, 133 KB at D 512).
-template <int D>
-__global__ void __launch_bounds__(128)
-window_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const int* __restrict__ true_len,
-                     const int* __restrict__ block_mask,
-                     const float* __restrict__ win_ml,
-                     float* __restrict__ scores,
-                     int Hq, int Hkv, int S, int W, int P, int n_blk, int hd, float scale) {
-  constexpr int LDS = Plan<D>::LDS;
-  extern __shared__ __align__(16) unsigned char ws_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(ws_raw);                    // [SBN][LDS]
-  bf16* Qw = Ks + SBN * LDS;                                     // [WBLOCK][D]
-  float* m_w = reinterpret_cast<float*>(Qw + WBLOCK * D);
-  float* il_w = m_w + WBLOCK;
-  float* part = il_w + WBLOCK;                                   // [128]
-  int* sel_w = reinterpret_cast<int*>(part + 128);
-
-  const int tid = threadIdx.x;
-  const int hq = blockIdx.y, b = blockIdx.z;
-  const int hkv = hq / (Hq / Hkv);
-  const int col0 = blockIdx.x * SBN;
-  const int tl = true_len[b];
-  const int ws = tl - W;
-  float* sc = scores + ((size_t)b * Hq + hq) * S;
-  const int col = tid & (SBN - 1), half = tid >> 6;
-
-  if (col0 >= tl) {  // past every window row: no causal column (uniform)
-    if (half == 0 && col0 + col < S) sc[col0 + col] = 0.f;
-    return;
-  }
-
-  load_rows<D>(Ks, k + ((size_t)b * Hkv + hkv) * S * hd, col0, S, hd, tid);
-  const bf16* qh = q + ((size_t)b * Hq + hq) * S * hd;
-  const float* ml = win_ml + ((size_t)b * Hq + hq) * W * 2;
-  const int* mh = block_mask ? block_mask + ((size_t)b * Hq + hq) * n_blk * n_blk : nullptr;
-  const int c = col0 + col;
-  float acc = 0.f;
-  for (int wb = 0; wb < W; wb += WBLOCK) {  // window rows [wb, wb + nw)
-    const int nw = min(WBLOCK, W - wb);
-    if (wb > 0) __syncthreads();  // the last block's rows are no longer read
-    for (int i = tid; i < nw * (D / PIECE_COLS); i += 128) {
-      const int r = i / (D / PIECE_COLS), cc = i % (D / PIECE_COLS);
-      const int row = ws + wb + r;
-      Piece val{};
-      if (row >= 0 && cc * PIECE_COLS < hd)
-        val = *reinterpret_cast<const Piece*>(qh + (size_t)row * hd + cc * PIECE_COLS);
-      *reinterpret_cast<Piece*>(Qw + r * D + cc * PIECE_COLS) = val;
-    }
-    for (int r = tid; r < nw; r += 128) {
-      const int row = ws + wb + r;
-      if (row >= 0) {
-        const float l = ml[(wb + r) * 2 + 1];
-        m_w[r] = ml[(wb + r) * 2];
-        il_w[r] = 1.f / (l == 0.f ? 1.f : l);
-        sel_w[r] = mh ? mh[(row / P) * n_blk + col0 / P] : 1;
-      }
-    }
-    __syncthreads();
-
-    for (int r = half; r < nw; r += 2) {
-      const int row = ws + wb + r;
-      if (row < 0 || c > row || !sel_w[r]) continue;
-      float dot = 0.f;
-#pragma unroll
-      for (int d8 = 0; d8 < D / 8; ++d8) {
-        const uint4 kr = *reinterpret_cast<const uint4*>(Ks + col * LDS + d8 * 8);
-        const uint4 qr = *reinterpret_cast<const uint4*>(Qw + r * D + d8 * 8);
-        const bf16* kv8 = reinterpret_cast<const bf16*>(&kr);
-        const bf16* qv8 = reinterpret_cast<const bf16*>(&qr);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          dot = fmaf(__bfloat162float(qv8[i]), __bfloat162float(kv8[i]), dot);
-      }
-      acc += expf(dot * scale - m_w[r]) * il_w[r];
-    }
-  }
-  part[tid] = acc;
-  __syncthreads();
-  if (half == 0 && c < S) sc[c] = part[col] + part[col + SBN];
-}
-
 // --- host side ------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
-// library links no libcuda of its own.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [planes, rows, hd] bf16 tensor as a 3-D map read in boxes of
-// `box_rows` rows x 64 columns, 128-byte swizzled; rows past `rows` and
-// columns past hd read as zeros (hd % 8 == 0: 16-byte row strides; the
-// RAGGED builds make no map).
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int rows,
-              int planes, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)HALF, (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // The host function of instantiation width D, for tensors of head_dim hd
 // (a whole number of PIECE-byte pieces, D - 128 < hd <= D, or hd <= 64 at
@@ -967,11 +813,11 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap tq{}, tk{}, tv{};  // RAGGED copies by cp.async: no maps
   if constexpr (!RAGGED) {
-    EncodeTiled enc = encode_tiled();
+    ws::EncodeTiled enc = ws::encode_tiled();
     if (!enc) return (int)cudaErrorNotSupported;
-    if (!make_map(enc, &tq, q, hd, S_q, B * Hq, T::BM) ||
-        !make_map(enc, &tk, k, hd, S_k, B * Hkv, T::BN) ||
-        !make_map(enc, &tv, v, hd, S_k, B * Hkv, T::BN))
+    if (!ws::make_map(enc, &tq, q, hd, S_q, B * Hq, T::BM) ||
+        !ws::make_map(enc, &tk, k, hd, S_k, B * Hkv, T::BN) ||
+        !ws::make_map(enc, &tv, v, hd, S_k, B * Hkv, T::BN))
       return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -985,9 +831,6 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
   if (!smem_set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(window_scores_kernel<D>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, T::WS_SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set[dev] = true;
   }
@@ -998,14 +841,9 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* true_
       static_cast<float*>(win_ml), static_cast<float*>(row_ml), Hq, Hkv, S_q, S_k, W, SW, P,
       n_blk, hd, scale * LOG2E, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v));
-  if (W > 0) {
-    dim3 g2((S_k + SBN - 1) / SBN, Hq, B);
-    window_scores_kernel<D><<<g2, 128, T::WS_SMEM, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const int*>(true_len), static_cast<const int*>(block_mask),
-        static_cast<const float*>(win_ml), static_cast<float*>(scores), Hq, Hkv, S_k,
-        W, P, n_blk, hd, scale);
-  }
+  if (W > 0 && cudaPeekAtLastError() == cudaSuccess)  // the window-score pass
+    return ws::window_scores<PIECE>(q, k, true_len, block_mask, win_ml, scores, B, Hq, Hkv,
+                                    S_k, W, P, n_blk, hd, scale, st);
   return (int)cudaGetLastError();
 }
 

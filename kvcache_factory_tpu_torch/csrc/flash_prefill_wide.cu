@@ -77,17 +77,19 @@
 // same order (bitwise-equal softmaxes), then O += P V over its slice (71 KB
 // of shared memory at every hd).
 //
-// The window scores (W > 0) come from a second kernel, as at the narrower
-// widths: one CTA per (64 columns, hq, b) recomputes the W x 64 window
-// logits over hd in 64-channel chunks (thread (column, half) keeps the dots
-// of rows half, half + 2, ... of a 64-row window block in registers),
-// normalizes them with the stored (m, 1/l) and sums over rows in a fixed
-// order.  No atomics anywhere: two launches give bitwise-equal outputs.
+// The window scores (W > 0) come from the window-score pass of
+// window_scores.cuh, as at the narrower widths: one CTA per (64 keys, KV
+// head, b) recomputes the window logits of all the group's query heads on
+// the tensor cores over hd in 64-channel chunks, normalizes them with the
+// stored (m, l) and sums over rows in a fixed order.  No atomics anywhere:
+// two launches give bitwise-equal outputs.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "window_scores.cuh"
 
 namespace {
 
@@ -104,8 +106,6 @@ constexpr int LDC = DC + 8;     // a chunk row in shared memory: 144 bytes
 constexpr int LDV = DV + 8;     // a V slice row: 528 bytes
 constexpr int CHUNK = BM * LDC; // elements of one Q or K chunk buffer (BN == BM)
 constexpr int SMEM_BYTES = (4 * CHUNK + BN * LDV) * 2;  // 70,656
-constexpr int WBLOCK = 64;      // window rows the score pass holds at a time
-constexpr int SBN = 64;         // columns a CTA of the score pass
 constexpr float NEG_INF = -3.4028234663852886e38f;  // float32 finfo.min
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -405,115 +405,6 @@ flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r_lo >= ws && r_lo < tl) { ml[(r_lo - ws) * 2] = mn_lo; ml[(r_lo - ws) * 2 + 1] = l_lo; }
     if (r_hi >= ws && r_hi < tl) { ml[(r_hi - ws) * 2] = mn_hi; ml[(r_hi - ws) * 2 + 1] = l_hi; }
   }
-}
-
-// One CTA per (64-column tile, hq, b): scores[c] = sum over window rows r
-// with c <= r (and, with a block mask, whose q block selects c's block) of
-// exp(q[r].k[c] * scale - m_r) / l_r.  Thread (col, half) keeps the dots of
-// window rows half, half + 2, ... of the current 64-row block in registers
-// while the block's q rows and the tile's keys pass through shared memory
-// 64 channels at a time; it adds those rows in order across the blocks.
-template <int PIECE>
-__global__ void __launch_bounds__(128)
-window_scores_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const int* __restrict__ true_len, const int* __restrict__ block_mask,
-                          const float* __restrict__ win_ml, float* __restrict__ scores,
-                          int Hq, int Hkv, int S, int W, int P, int n_blk, int hd,
-                          float scale) {
-  __shared__ __align__(16) bf16 Ks[SBN * LDC];
-  __shared__ __align__(16) bf16 Qw[WBLOCK * LDC];
-  __shared__ float m_w[WBLOCK], il_w[WBLOCK], part[128];
-  __shared__ int sel_w[WBLOCK];
-
-  const int tid = threadIdx.x;
-  const int hq = blockIdx.y, b = blockIdx.z;
-  const int hkv = hq / (Hq / Hkv);
-  const int col0 = blockIdx.x * SBN;
-  const int tl = true_len[b];
-  const int ws = tl - W;
-  float* sc = scores + ((size_t)b * Hq + hq) * S;
-  const int col = tid & (SBN - 1), half = tid >> 6;  // half is uniform in a warp
-
-  if (col0 >= tl) {  // past every window row: no causal column (uniform)
-    if (half == 0 && col0 + col < S) sc[col0 + col] = 0.f;
-    return;
-  }
-
-  const bf16* kh = k + ((size_t)b * Hkv + hkv) * S * hd;
-  const bf16* qh = q + ((size_t)b * Hq + hq) * S * hd;
-  const float* ml = win_ml + ((size_t)b * Hq + hq) * W * 2;
-  const int* mh = block_mask ? block_mask + ((size_t)b * Hq + hq) * n_blk * n_blk : nullptr;
-  const int c = col0 + col;
-  float acc = 0.f;
-  for (int wb = 0; wb < W; wb += WBLOCK) {  // window rows [wb, wb + nw)
-    const int nw = min(WBLOCK, W - wb);
-    __syncthreads();  // the last block's rows and scalars are no longer read
-    for (int r = tid; r < nw; r += 128) {
-      const int row = ws + wb + r;
-      if (row >= 0) {
-        const float l = ml[(wb + r) * 2 + 1];
-        m_w[r] = ml[(wb + r) * 2];
-        il_w[r] = 1.f / (l == 0.f ? 1.f : l);
-        sel_w[r] = mh ? mh[min(row / P, n_blk - 1) * n_blk + min(col0 / P, n_blk - 1)] : 1;
-      }
-    }
-    float dot[WBLOCK / 2];
-#pragma unroll
-    for (int i = 0; i < WBLOCK / 2; ++i) dot[i] = 0.f;
-    for (int d0 = 0; d0 < hd; d0 += DC) {
-      __syncthreads();  // the last chunk is no longer read
-      copy_tile<PIECE, SBN, DC>(Ks, LDC, kh, col0, S, d0, hd, tid);
-      // Window rows ws + wb + r; rows before row 0 or past the block read
-      // nothing and hold zeros.
-      {
-        constexpr int PC = PIECE / 2, PPR = DC / PC;
-        const uint32_t base = smem_u32(Qw);
-        for (int i = tid; i < WBLOCK * PPR; i += 128) {
-          const int r = i / PPR, cc = (i % PPR) * PC;
-          const int row = ws + wb + r;
-          const bool ok = r < nw && row >= 0 && d0 + cc < hd;
-          cp_piece<PIECE>(base + (uint32_t)(r * LDC + cc) * 2,
-                          ok ? qh + (size_t)row * hd + d0 + cc : qh, ok);
-        }
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      float kf[DC];
-#pragma unroll
-      for (int d8 = 0; d8 < DC / 8; ++d8) {
-        const uint4 kr = *reinterpret_cast<const uint4*>(Ks + col * LDC + d8 * 8);
-        const bf16* k8 = reinterpret_cast<const bf16*>(&kr);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) kf[d8 * 8 + i] = __bfloat162float(k8[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < WBLOCK / 2; ++i) {
-        const int r = half + 2 * i;
-        if (r >= nw) break;  // uniform in a warp
-        float d = dot[i];
-#pragma unroll
-        for (int d8 = 0; d8 < DC / 8; ++d8) {
-          const uint4 qr = *reinterpret_cast<const uint4*>(Qw + r * LDC + d8 * 8);
-          const bf16* q8 = reinterpret_cast<const bf16*>(&qr);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) d = fmaf(__bfloat162float(q8[j]), kf[d8 * 8 + j], d);
-        }
-        dot[i] = d;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < WBLOCK / 2; ++i) {
-      const int r = half + 2 * i;
-      if (r >= nw) break;
-      const int row = ws + wb + r;
-      if (row < 0 || c > row || !sel_w[r]) continue;
-      acc += expf(dot[i] * scale - m_w[r]) * il_w[r];
-    }
-  }
-  part[tid] = acc;
-  __syncthreads();
-  if (half == 0 && c < S) sc[c] = part[col] + part[col + SBN];
 }
 
 // --- the cluster kernel (n_slice <= CLUSTER_MAX) ---------------------------------
@@ -1158,18 +1049,6 @@ int allow_smem(Kernel kernel, int bytes, bool (&set)[64]) {
   return 0;
 }
 
-template <int PIECE>
-void window_scores(const void* q, const void* k, const void* true_len, const void* block_mask,
-                   const void* win_ml, void* scores, int B, int Hq, int Hkv, int S_k, int W,
-                   int P, int n_blk, int hd, float scale, cudaStream_t st) {
-  dim3 g2((S_k + SBN - 1) / SBN, Hq, B);
-  window_scores_wide_kernel<PIECE><<<g2, 128, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const int*>(true_len), static_cast<const int*>(block_mask),
-      static_cast<const float*>(win_ml), static_cast<float*>(scores), Hq, Hkv, S_k, W, P,
-      n_blk, hd, scale);
-}
-
 // The host function of the slice-recomputing kernel (any n_slice), for
 // rows copied in PIECE-byte pieces (hd a whole number of them).
 template <int PIECE>
@@ -1189,50 +1068,10 @@ int flash_wide(const void* q, const void* k, const void* v, const void* true_len
       static_cast<const int*>(block_mask), static_cast<bf16*>(out),
       static_cast<float*>(win_ml), static_cast<float*>(row_ml), Hq, Hkv, S_q, S_k, W, SW, P,
       n_blk, hd, n_slice, scale * LOG2E);
-  if (W > 0)
-    window_scores<PIECE>(q, k, true_len, block_mask, win_ml, scores, B, Hq, Hkv, S_k, W, P,
-                         n_blk, hd, scale, st);
+  if (W > 0 && cudaPeekAtLastError() == cudaSuccess)  // the window-score pass
+    return ws::window_scores<PIECE>(q, k, true_len, block_mask, win_ml, scores, B, Hq, Hkv,
+                                    S_k, W, P, n_blk, hd, scale, st);
   return (int)cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
-// library links no libcuda of its own.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [planes, rows, hd] bf16 tensor as a 3-D map read in boxes of 64 rows x
-// 64 columns, 128-byte swizzled; rows past `rows` and columns past hd read
-// as zeros (hd % 8 == 0: 16-byte row strides).
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int rows,
-              int planes) {
-  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cl::HALF, 64, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The host function of the cluster kernel (n_slice <= CLUSTER_MAX): one
@@ -1248,10 +1087,11 @@ int flash_cluster(const void* q, const void* k, const void* v, const void* true_
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq{}, tk{}, tv{};  // 8- and 4-byte pieces copy by cp.async: no maps
   if constexpr (PIECE == 16) {
-    EncodeTiled enc = encode_tiled();
+    ws::EncodeTiled enc = ws::encode_tiled();
     if (!enc) return (int)cudaErrorNotSupported;
-    if (!make_map(enc, &tq, q, hd, S_q, B * Hq) || !make_map(enc, &tk, k, hd, S_k, B * Hkv) ||
-        !make_map(enc, &tv, v, hd, S_k, B * Hkv))
+    if (!ws::make_map(enc, &tq, q, hd, S_q, B * Hq, 64) ||
+        !ws::make_map(enc, &tk, k, hd, S_k, B * Hkv, 64) ||
+        !ws::make_map(enc, &tv, v, hd, S_k, B * Hkv, 64))
       return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1277,9 +1117,9 @@ int flash_cluster(const void* q, const void* k, const void* v, const void* true_
       static_cast<float*>(win_ml), static_cast<float*>(row_ml), Hq, Hkv, S_q, S_k, W, SW, P,
       n_blk, hd, n_slice, scale * LOG2E);
   if (err != cudaSuccess) return (int)err;
-  if (W > 0)
-    window_scores<PIECE>(q, k, true_len, block_mask, win_ml, scores, B, Hq, Hkv, S_k, W, P,
-                         n_blk, hd, scale, st);
+  if (W > 0 && cudaPeekAtLastError() == cudaSuccess)  // the window-score pass
+    return ws::window_scores<PIECE>(q, k, true_len, block_mask, win_ml, scores, B, Hq, Hkv,
+                                    S_k, W, P, n_blk, hd, scale, st);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,10 @@ Each ``kvcache_factory_tpu_torch/csrc/<name>.cu`` is compiled on first use
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
 interface, placed in ``build/kernels/`` at the repository root, and loaded
 with ``ctypes``; a library of ``VARIANTS`` compiles another library's source
-with extra flags.  The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here includes PyTorch's headers: a file builds in seconds.
+with extra flags.  The library's file name carries a hash of the source,
+the local headers it includes (``#include "..."``, under ``csrc/``) and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  Nothing here includes PyTorch's headers: a file builds in seconds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on a non-zero code.  A failed build raises
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -131,10 +133,22 @@ def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
     return CSRC / f"{source}.cu", defines
 
 
+def _local_includes(path: Path, seen: Tuple[Path, ...] = ()) -> Tuple[Path, ...]:
+    """``path`` and every file it includes by ``#include "..."`` from its own
+    directory, depth first, each once."""
+    if path in seen:
+        return seen
+    seen = seen + (path,)
+    for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"', path.read_text(), re.M):
+        seen = _local_includes(path.parent / name, seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
     source, defines = _source(name)
     flags = " ".join(NVCC_FLAGS + defines).encode()
-    digest = hashlib.sha256(source.read_bytes() + flags).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in _local_includes(source))
+    digest = hashlib.sha256(text + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -24,8 +24,14 @@ recompute the scores over D (:func:`entry`), each with the true head_dim's
 row of a head_dim that is no multiple of 8 is no whole number of 16-byte
 pieces, and TMA takes no such row stride: those head_dims run the library built
 with the producer warpgroup copying 8- or 4-byte pieces by ``cp.async``
-into the same swizzled stages (:func:`copy_bytes`, :func:`library`).  Its source header says what bounds it on the card and
-how the design answers that.  The vertical-slash block mask is estimated in
+into the same swizzled stages (:func:`copy_bytes`, :func:`library`).
+With a window, both builds then run the window-score pass of
+``csrc/window_scores.cuh`` (``SCORE_SOURCE``): one tensor-core kernel for
+every head_dim, a CTA per 64-key tile and KV head computing the scores of
+all the group's query heads from the main pass's ``(m, l)``, reading each
+K tile once.  Its plain version is :func:`window_scores_reference`.  The
+sources' headers say what bounds each kernel on the card and how the
+design answers that.  The vertical-slash block mask is estimated in
 plain torch (:func:`vertical_slash_block_mask`), as the JAX
 package estimates it in XLA; both patterns reach the kernel as one
 ``[B, Hq, n_blk, n_blk]`` block mask.
@@ -33,8 +39,9 @@ package estimates it in XLA; both patterns reach the kernel as one
 Dispatch is one rule: a CPU tensor goes to the plain version
 (:func:`flash_prefill_attention_reference`); a CUDA tensor goes to the
 kernel, or raises.  ``flash_prefill_attention.launches`` counts kernel
-launches, and ``flash_prefill_attention.variant_launches`` splits them by
-variant: ``"dense"``, ``"sliding_window"`` (whole-sequence queries under a
+launches (the main pass), ``flash_prefill_attention.score_launches`` the
+window-score pass's (one a launch with ``window > 0``), and
+``flash_prefill_attention.variant_launches`` splits the first by variant: ``"dense"``, ``"sliding_window"`` (whole-sequence queries under a
 window), ``"chunk"`` (``row_offset`` given, with or without a window),
 ``"ashape"`` and ``"vertical_slash"`` (a sparse pattern, with or without a
 window) and ``"ring"`` (``return_ml``, with or without an offset or a
@@ -54,6 +61,10 @@ from . import _build
 SOURCE = "kvcache_factory_tpu_torch/csrc/flash_prefill.cu"
 WIDE_SOURCE = "kvcache_factory_tpu_torch/csrc/flash_prefill_wide.cu"
 REPLACES = "kvcache_factory_tpu/ops/kernels/flash_prefill.py:66"
+# The window-score pass: its source, kernel name and the TPU kernel's lines.
+SCORE_SOURCE = "kvcache_factory_tpu_torch/csrc/window_scores.cuh"
+SCORE_KERNEL = "window_scores_tc_kernel"
+REPLACES_SCORES = "kvcache_factory_tpu/ops/kernels/flash_prefill.py:299-344"
 # The TPU kernel's lines for each variant (its mask, tile bounds and entry).
 REPLACES_VARIANT = {
     "sliding_window": "kvcache_factory_tpu/ops/kernels/flash_prefill.py:113-129",
@@ -179,6 +190,8 @@ def flash_prefill_attention(
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "flash_prefill")
     flash_prefill_attention.launches += 1
+    if window:
+        flash_prefill_attention.score_launches += 1
     flash_prefill_attention.variant_launches[
         variant(sliding_window, row_offset, sparse_pattern, return_ml)] += 1
     if return_ml:
@@ -187,6 +200,7 @@ def flash_prefill_attention(
 
 
 flash_prefill_attention.launches = 0
+flash_prefill_attention.score_launches = 0
 flash_prefill_attention.variant_launches = {
     "dense": 0, "sliding_window": 0, "chunk": 0, "ashape": 0, "vertical_slash": 0,
     "ring": 0}
@@ -279,6 +293,7 @@ def variant(sliding_window: Optional[int], row_offset: RowOffset,
 
 def reset_launches() -> None:
     flash_prefill_attention.launches = 0
+    flash_prefill_attention.score_launches = 0
     for key in flash_prefill_attention.variant_launches:
         flash_prefill_attention.variant_launches[key] = 0
 
@@ -543,3 +558,41 @@ def flash_prefill_attention_reference(
         return (out, scores.reshape(B, Hq, S_k), torch.cat(ms, dim=3).reshape(B, Hq, S_q),
                 torch.cat(ls, dim=3).reshape(B, Hq, S_q))
     return out, scores.reshape(B, Hq, S_k)
+
+
+def window_scores_reference(
+    q: torch.Tensor, k: torch.Tensor, true_len: torch.Tensor, window: int,
+    m: torch.Tensor, l: torch.Tensor, block_mask: Optional[torch.Tensor] = None,
+    block: int = 0,
+) -> torch.Tensor:
+    """Plain version of K1's window-score pass: ``scores [B, Hq, S]`` fp32,
+    ``scores[b, h, c]`` the sum over the window rows ``r`` in ``[true_len -
+    window, true_len)``, ``r >= 0``, ``c <= r`` (and, with ``block_mask``,
+    ``r``'s block selecting ``c``'s) of ``exp(q[r].k[c] / sqrt(D) - m[r]) /
+    l[r]``, where ``m``, ``l [B, Hq, S]`` are each row's final softmax max and
+    sum in natural-log units (what the main pass stores for the window rows,
+    and what :func:`flash_prefill_attention` returns with ``return_ml``).
+    Columns past every window row are 0."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    dev = q.device
+    tl = true_len.to(device=dev, dtype=torch.int64)
+    rows = tl[:, None] - window + torch.arange(window, device=dev)    # [B, W] global
+    valid = rows >= 0
+    at = rows.clamp(min=0)
+    pick = lambda x: torch.gather(x.float(), 2, at[:, None, :].expand(B, Hq, window))  # noqa: E731
+    qw = torch.gather(q.float(), 2, at[:, None, :, None].expand(B, Hq, window, D))
+    logits = torch.einsum("bhgwd,bhkd->bhgwk", qw.reshape(B, Hkv, Hq // Hkv, window, D),
+                          k.float()).reshape(B, Hq, window, S) * D ** -0.5
+    cols = torch.arange(S, device=dev)
+    keep = (cols[None, None] <= rows[:, :, None]) & valid[:, :, None]          # [B, W, S]
+    keep = keep[:, None]
+    if block_mask is not None:
+        sel = block_mask.to(device=dev, dtype=torch.bool)
+        keep = keep & sel[torch.arange(B, device=dev)[:, None, None],
+                          torch.arange(Hq, device=dev)[None, :, None],
+                          (at // block)[:, None, :]][..., cols // block]
+    l_w = pick(l)
+    p = torch.exp(logits - pick(m)[..., None]) / torch.where(l_w == 0, 1.0, l_w)[..., None]
+    return torch.where(keep, p, 0.0).sum(dim=2)
+

@@ -84,6 +84,55 @@ def test_k1_windows_above_64_plain_matches_pallas(k1_inputs, W):
         np.testing.assert_allclose(scores[b, :, :n - W].numpy(), j_sc[b, :, :n - W], **TOL)
 
 
+# The shapes the window-score pass's partition stresses (a CTA per 64-key
+# tile and KV head, the group's heads in chunks of round_up(W, 8) rows):
+# (Hq, S, W, true_len) at one KV head, so G = Hq.
+SCORE_PASS_CASES = {
+    "g12_w40": (12, 128, 40, [128, 97]),       # 3 heads of 40 rows a 128-row block
+    "g16_w1": (16, 128, 1, [128, 1]),          # 16 one-row chunks; true_len 1
+    "g4_w72_short": (4, 256, 72, [60, 200]),   # true_len below the window
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCORE_PASS_CASES))
+def test_k1_score_pass_shapes_plain_matches_pallas(case):
+    """K1's plain version, window scores included, against the Pallas kernel
+    in interpret mode at the shapes of ``SCORE_PASS_CASES`` (B 2, one KV
+    head): the output on every valid row and the scores on every column
+    below true_len (the scored ones and the window's own)."""
+    Hq, S, W, tls = SCORE_PASS_CASES[case]
+    rng = np.random.default_rng(71)
+    q, k, v = normal(rng, 2, Hq, S, D), normal(rng, 2, 1, S, D), normal(rng, 2, 1, S, D)
+    tl = np.asarray(tls, np.int32)
+    out, scores = tflash.flash_prefill_attention(t(q), t(k), t(v), t(tl), W)
+    j_out, j_sc = jflash.flash_prefill_attention_batched(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tl), W, q_block=128,
+        kv_block=128, interpret=True)
+    j_out, j_sc = np.asarray(j_out), np.asarray(j_sc)
+    for b, n in enumerate(tls):
+        np.testing.assert_allclose(out[b, :, :n].numpy(), j_out[b, :, :n], **TOL)
+        np.testing.assert_allclose(scores[b, :, :n].numpy(), j_sc[b, :, :n], **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(SCORE_PASS_CASES) + ["ashape_w8"])
+def test_window_scores_plain_version_matches_k1_plain_scores(case):
+    """The score pass's plain version (``window_scores_reference``), given
+    each row's (m, l) from K1's plain version with ``return_ml``, against
+    the scores K1's plain version emits: the same function (an a-shape
+    block mask of 64-row blocks too)."""
+    Hq, S, W, tls = SCORE_PASS_CASES.get(case, (4, 256, 8, [250, 131]))
+    rng = np.random.default_rng(73)
+    q, k, v = (t(normal(rng, 2, h, S, D)) for h in (Hq, 1, 1))
+    tl = torch.tensor(tls, dtype=torch.int32)
+    mask, block = (None, 0) if case != "ashape_w8" else \
+        tflash.sparse_block_mask(q, k, tl, ("ashape", 1, 1, 2), q_block=64)
+    kw = dict(block_mask=mask, block=block)
+    _, scores = tflash.flash_prefill_attention_reference(q, k, v, tl, W, **kw)
+    _, _, m, l = tflash.flash_prefill_attention_reference(q, k, v, tl, 0, return_ml=True, **kw)
+    got = tflash.window_scores_reference(q, k, tl, W, m, l, **kw)
+    np.testing.assert_allclose(got.numpy(), scores.numpy(), **TOL)
+
+
 # --- K2 at G above 8 ---------------------------------------------------------------
 
 

@@ -9,8 +9,11 @@ The CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
 
 import torch_threads  # noqa: F401  (torch's thread share, first)
+import contextlib
 import os
+import shutil
 import stat
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -545,3 +548,41 @@ def test_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch):
     with pytest.raises(_build.KernelBuildError, match="broken"):
         _build.build_all(["decode_attn"])
     assert not _build._lib_path("decode_attn").exists()
+
+
+def test_build_hash_covers_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """K1's sources include ``window_scores.cuh``: an edit of the header alone
+    names another library (so a stale one is never loaded), as an edit of
+    the source does; a header of another library changes nothing."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    monkeypatch.setattr(_build, "CSRC", src)
+    names = ("flash_prefill", "flash_prefill_p4", "flash_prefill_wide", "decode_attn")
+    before = {name: _build._lib_path(name) for name in names}
+    header = src / "window_scores.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {name: _build._lib_path(name) for name in names}
+    assert [after[n] != before[n] for n in names] == [True, True, True, False]
+    assert len(set(after.values())) == len(names)
+
+
+def test_score_pass_launches_count_only_calls_with_a_window(monkeypatch):
+    """On a tensor off the CPU (meta tensors, a stubbed library), each K1
+    call counts one launch and, with a window, one window-score pass (the
+    same C call launches both); ``reset_launches`` zeroes both counts."""
+    calls = []
+    stub = mock.Mock()
+    stub.kvcf_flash_prefill_d128 = lambda *args: calls.append(args) or 0
+    monkeypatch.setattr(tflash._build, "load", lambda name: stub)
+    monkeypatch.setattr(tflash, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: mock.Mock(cuda_stream=0))
+    tflash.reset_launches()
+    q, k, v, tl, _ = _meta_args("flash")
+    for window in (8, 0, 128):
+        tflash.flash_prefill_attention(q, k, v, tl, window)
+    assert len(calls) == 3 and [args[15] for args in calls] == [8, 0, 128]
+    assert tflash.flash_prefill_attention.launches == 3
+    assert tflash.flash_prefill_attention.score_launches == 2
+    tflash.reset_launches()
+    assert tflash.flash_prefill_attention.score_launches == 0
